@@ -7,12 +7,32 @@ for the TPU is a kernel written by hand for Hopper (``csrc/``, built by
 ``nvcc`` for ``sm_90a`` at first use into ``_build/``).  It imports
 torch, numpy and the standard library, never jax and nothing of
 ``paddle_tpu``.  Entry points run on the card unless the caller passes
-``device="cpu"``; with no card and no such request they raise.
+``device="cpu"`` / ``CPUPlace()``; with no card and no such request they
+raise.
 
 Ported so far: the serving path (``serving``, ``models.transformer``,
-``kernels.paged_attention``).
+``kernels.paged_attention``) and the training path — ``Program`` /
+``program_guard`` -> ``layers`` -> ``models.transformer.build`` ->
+``Executor(place).run`` with autograd and Adam, attention through
+``kernels.flash_attention`` — so a training script reads the same with
+``import paddle_tpu_torch as pt``.
 """
 
-from .core.place import resolve_device
+from . import ops as _ops  # noqa: F401  (registers the op lowerings)
+from . import initializer, layers, models, optimizer
+from .backward import append_backward
+from .core.executor import Executor
+from .core.place import CPUPlace, CUDAPlace, resolve_device
+from .core.program import (Block, OpDesc, Parameter, Program, Variable,
+                           default_main_program, default_startup_program,
+                           name_scope, program_guard)
+from .core.scope import Scope, global_scope, load_numpy_state, scope_guard
+from .param_attr import ParamAttr
 
-__all__ = ["resolve_device"]
+__all__ = [
+    "resolve_device", "Program", "Block", "Variable", "Parameter",
+    "OpDesc", "program_guard", "name_scope", "default_main_program",
+    "default_startup_program", "Executor", "CPUPlace", "CUDAPlace", "Scope",
+    "global_scope", "scope_guard", "load_numpy_state", "append_backward",
+    "ParamAttr", "initializer", "layers", "models", "optimizer",
+]

@@ -5,10 +5,13 @@ CPU tensors and launch the kernel for CUDA tensors, and count their
 launches (``<wrapper>.launches``)."""
 
 from . import _build
+from . import flash_attention as _fa
 from . import paged_attention as _pa
 
 # name -> wrapper, for callers that reset or read every launch count
-WRAPPERS = {"paged_attention": _pa.paged_attention}
+WRAPPERS = {"paged_attention": _pa.paged_attention,
+            "flash_attention_fwd": _fa.flash_fwd,
+            "flash_attention_bwd": _fa.flash_bwd}
 
 
 def reset_launches():
@@ -21,6 +24,7 @@ def build_all():
     libraries — set-up work that belongs outside any timed window."""
     _build.build()
     _pa.build()
+    _fa.build()
 
 
 __all__ = ["WRAPPERS", "reset_launches", "build_all"]

@@ -1,0 +1,366 @@
+"""Flash attention with a fused backward — the port's counterpart of
+``paddle_tpu/ops/pallas_attention.py`` (``flash_attention``,
+``flash_attention_with_lse``, ``flash_attention_packed``).
+
+Layouts are the JAX package's::
+
+    flash_attention(q, k, v, causal, sm_scale) -> o
+        q [b, t_q, h, d], k/v [b, t_k, h, d] -> o [b, t_q, h, d]
+    flash_attention_with_lse(...) -> (o, lse [b, h, t_q] f32)
+    flash_attention_packed(q, k, v, n_head, causal, sm_scale) -> o
+        q/k/v [b, t, h*d], the raw projection output -> o [b, t, h*d]
+
+The packed form is a view of the same memory: the kernels address
+``[b, t, h, d]`` through the strides they are given, so no pack/unpack
+transpose exists on either path.
+
+Two spellings of each function live here:
+
+* :func:`flash_attention_ref` and :func:`flash_attention_bwd_ref` — the
+  plain PyTorch versions, with the TPU kernels' conventions: scores and
+  softmax state in f32 (f64 for f64 inputs), masked scores ``NEG_INF``,
+  the ``l == 0 -> 1`` guard, ``p`` cast to the input dtype before
+  ``p @ v`` and ``p^T @ do``, ``ds = p * (dp - delta) * scale`` cast
+  before ``ds^T @ q`` and ``ds @ k``, ``delta = rowsum(do * o) - dlse``.
+  They materialise the ``[b, h, t_q, t_k]`` score matrix.  The CPU path
+  and the numerics reference the kernels are held against.
+* the CUDA kernels ``csrc/flash_attention.cu``, hand-written for Hopper
+  (``sm_90a``), which replace the TPU kernels ``_flash_fwd`` and
+  ``_flash_bwd_fused``.
+
+:func:`flash_fwd` and :func:`flash_bwd` are the wrappers.  They dispatch
+on the tensors' device: CPU tensors take the plain versions, CUDA
+tensors launch the kernels or raise — there is no fallback from one to
+the other.  Every successful launch adds one to ``flash_fwd.launches`` /
+``flash_bwd.launches``.
+
+The backward kernel adds each k-tile's share of ``dq`` with f32 atomics
+into a zeroed f32 buffer that the wrapper allocates and casts once at
+the end (the TPU kernel writes per-k-block partials and sums them; with
+64-key tiles that buffer would be ``t_k / 64`` copies of ``q``).  Atomics
+add in an order that changes from run to run, so ``dq`` is reproducible
+only to f32 rounding, not bit for bit; ``dk`` and ``dv`` are bit-exact.
+
+Gradients flow through :class:`FlashAttentionFunction`, whose forward
+saves exactly ``FLASH_BWD_RESIDUALS = (q, k, v, o, lse)`` and whose
+backward launches the backward kernel — the forward is never recomputed.
+
+Kernel limits (checked here, before the launch): bf16 or f32, one dtype
+and one device for all tensors, contiguous ``[b, t, h, d]``, ``d <= 128``,
+``b * h <= 65535``.
+"""
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["NEG_INF", "ORACLE_TOL", "FLASH_BWD_RESIDUALS", "oracle_tol",
+           "flash_attention_ref", "flash_attention_bwd_ref", "flash_fwd",
+           "flash_bwd", "FlashAttentionFunction", "flash_attention",
+           "flash_attention_with_lse", "flash_attention_packed",
+           "packed_sub_heads", "build"]
+
+NEG_INF = -1e30
+
+# what the backward is computed from, and all the forward saves
+FLASH_BWD_RESIDUALS = ("q", "k", "v", "o", "lse")
+
+# max |kernel - ref| / max |ref| (paddle_tpu/kernels/xla_ref.py
+# ORACLE_TOL, the flash_attention rows): tiling reassociation of the
+# online softmax (f32) plus input rounding (bf16)
+ORACLE_TOL = {
+    ("flash_attention", "float32"): {"fwd": 2e-4, "grad": 1e-3},
+    ("flash_attention", "bfloat16"): {"fwd": 2e-2, "grad": 5e-2},
+}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_D = 128
+_MAX_BH = 65535
+
+
+def oracle_tol(dtype, kind="fwd"):
+    """The documented tolerance for ``flash_attention`` in ``dtype``."""
+    name = str(dtype).replace("torch.", "")
+    return ORACLE_TOL[("flash_attention", name)][kind]
+
+
+def packed_sub_heads(n_head, d_head):
+    """The JAX package's packed-layout rule (how many heads one 128-lane
+    slice carries): 1, 2, or None when the layer must emit the 4-D
+    ``flash_attention`` op.  The port's kernels take any head width in
+    either layout; the rule is kept so both packages build the same
+    program."""
+    if n_head == 1:
+        return 1
+    if d_head % 128 == 0:
+        return 1
+    if d_head == 64 and n_head % 2 == 0:
+        return 2
+    return None
+
+
+def _acc_dtype(dtype):
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _scores(q, k, causal, sm_scale):
+    """Masked scaled scores ``[b, h, t_q, t_k]`` in the accumulation
+    dtype; the causal rule is ``q_pos >= k_pos``, positions from 0."""
+    acc = _acc_dtype(q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * sm_scale
+    if causal:
+        t_q, t_k = s.shape[-2:]
+        keep = (torch.arange(t_q, device=q.device)[:, None]
+                >= torch.arange(t_k, device=q.device)[None, :])
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def flash_attention_ref(q, k, v, causal=False, sm_scale=None):
+    """The plain PyTorch forward: ``(o [b, t_q, h, d] in q.dtype,
+    lse [b*h, t_q])``, ``lse = m + log(l)`` in the accumulation dtype."""
+    b, t_q, h, d = q.shape
+    sm_scale = d ** -0.5 if sm_scale is None else sm_scale
+    acc = _acc_dtype(q.dtype)
+    s = _scores(q, k, causal, sm_scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).to(acc), v.to(acc))
+    o = o / l_safe[..., 0].permute(0, 2, 1)[..., None]
+    lse = (m + torch.log(l_safe))[..., 0].reshape(b * h, t_q)
+    return o.to(q.dtype).contiguous(), lse.contiguous()
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, dlse=None, causal=False,
+                            sm_scale=None):
+    """The plain PyTorch backward from the saved ``(q, k, v, o, lse)``:
+    ``(dq, dk, dv)`` in the input dtype.  ``dlse [b*h, t_q]`` is the
+    cotangent of the returned ``lse`` (None when nothing consumed it)."""
+    b, t_q, h, d = q.shape
+    sm_scale = d ** -0.5 if sm_scale is None else sm_scale
+    acc = _acc_dtype(q.dtype)
+    dt = q.dtype
+    do_a = do.to(acc)
+    delta = (do_a * o.to(acc)).sum(dim=-1)                   # [b, t_q, h]
+    delta = delta.permute(0, 2, 1)                           # [b, h, t_q]
+    if dlse is not None:
+        delta = delta - dlse.reshape(b, h, t_q).to(acc)
+    s = _scores(q, k, causal, sm_scale)
+    p = torch.exp(s - lse.reshape(b, h, t_q, 1).to(acc))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).to(acc), do_a)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do_a, v.to(acc))
+    ds = (p * (dp - delta[..., None]) * sm_scale).to(dt).to(acc)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(acc))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(acc))
+    return (dq.to(dt).contiguous(), dk.to(dt).contiguous(),
+            dv.to(dt).contiguous())
+
+
+def _check(q, k, v, extra=()):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(
+            f"flash_attention: q, k, v must be [b, t, h, d]; got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, t_q, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
+        raise ValueError(
+            f"flash_attention: k {tuple(k.shape)} / v {tuple(v.shape)} do "
+            f"not match q {tuple(q.shape)}")
+    ts = (q, k, v) + tuple(extra)
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("flash_attention: all tensors must share a device")
+    if q.device.type == "cpu":
+        return
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(
+            f"flash_attention: dtype {q.dtype} not supported on the card "
+            f"(bfloat16 or float32)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash_attention: k, v ({k.dtype}, {v.dtype}) must match q "
+            f"({q.dtype})")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("flash_attention: all tensors must be contiguous")
+    if not (1 <= d <= _MAX_D):
+        raise ValueError(
+            f"flash_attention: d_head {d} must lie in [1, {_MAX_D}]")
+    if b * h > _MAX_BH or b * h < 1 or t_q < 1 or k.shape[1] < 1:
+        raise ValueError(
+            f"flash_attention: batch*heads {b * h} must lie in "
+            f"[1, {_MAX_BH}] and both sequence lengths be >= 1")
+
+
+_fns = None
+
+
+def _kernels():
+    global _fns
+    if _fns is None:
+        lib = _build.load("flash_attention")
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        geom = [i32] * 5 + [i64] * 6 + [ctypes.c_float, i32, i32, ptr]
+        fwd = lib.flash_attention_fwd
+        fwd.argtypes = [ptr] * 5 + geom
+        fwd.restype = i32
+        bwd = lib.flash_attention_bwd
+        bwd.argtypes = [ptr] * 10 + geom
+        bwd.restype = i32
+        lib.flash_attention_error_string.argtypes = [i32]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _fns = (fwd, bwd, lib.flash_attention_error_string)
+    return _fns
+
+
+def build():
+    """Build (if stale) and load the kernel library — set-up work that
+    belongs outside any timed window."""
+    _kernels()
+
+
+def _geom(q, k, sm_scale, causal):
+    b, t_q, h, d = q.shape
+    return (b, h, t_q, k.shape[1], d,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            float(sm_scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _raise(what, err, errstr):
+    raise RuntimeError(
+        f"flash_attention {what} kernel launch failed: cudaError {err} "
+        f"({errstr(err).decode()})")
+
+
+def flash_fwd(q, k, v, causal=False, sm_scale=None):
+    """``(o, lse [b*h, t_q] f32)`` of attention on ``[b, t, h, d]``.
+    CPU tensors take :func:`flash_attention_ref`; CUDA tensors launch the
+    forward kernel on the current stream, or raise."""
+    _check(q, k, v)
+    sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal, sm_scale)
+    fwd, _, errstr = _kernels()
+    b, t_q, h, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b * h, t_q), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  lse.data_ptr(), *_geom(q, k, sm_scale, causal))
+    if err:
+        _raise("forward", err, errstr)
+    flash_fwd.launches += 1
+    return o, lse
+
+
+flash_fwd.launches = 0
+
+
+def flash_bwd(q, k, v, o, lse, do, dlse=None, causal=False, sm_scale=None):
+    """``(dq, dk, dv)`` from the saved ``(q, k, v, o, lse)`` and the
+    cotangents ``do`` (and ``dlse [b*h, t_q]`` or None).  CPU tensors take
+    :func:`flash_attention_bwd_ref`; CUDA tensors launch the fused
+    backward kernel on the current stream, or raise."""
+    extra = (o, lse, do) + (() if dlse is None else (dlse,))
+    _check(q, k, v, extra)
+    b, t_q, h, d = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(
+            f"flash_attention: o {tuple(o.shape)} and do {tuple(do.shape)} "
+            f"must have q's shape {tuple(q.shape)}")
+    if tuple(lse.shape) != (b * h, t_q) or (
+            dlse is not None and tuple(dlse.shape) != (b * h, t_q)):
+        raise ValueError(
+            f"flash_attention: lse / dlse must be [b*h, t_q] = "
+            f"{(b * h, t_q)}")
+    sm_scale = d ** -0.5 if sm_scale is None else sm_scale
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal,
+                                       sm_scale)
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError(
+            f"flash_attention: o, do ({o.dtype}, {do.dtype}) must match q "
+            f"({q.dtype})")
+    if lse.dtype != torch.float32 or (
+            dlse is not None and dlse.dtype != torch.float32):
+        raise TypeError("flash_attention: lse and dlse must be float32")
+    _, bwd, errstr = _kernels()
+    dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(),
+                  None if dlse is None else dlse.data_ptr(),
+                  dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  *_geom(q, k, sm_scale, causal))
+    if err:
+        _raise("backward", err, errstr)
+    flash_bwd.launches += 1
+    return dq32.to(q.dtype), dk, dv
+
+
+flash_bwd.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``(o, lse [b*h, t_q])`` with gradients.  Saves exactly
+    ``FLASH_BWD_RESIDUALS``; the backward is one :func:`flash_bwd` call
+    and never re-runs the forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_fwd(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        if dlse is not None:
+            dlse = dlse.to(lse.dtype).contiguous()
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), dlse,
+                               ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None):
+    """``(o [b, t_q, h, d], lse [b, h, t_q])``, differentiable through
+    both outputs — the building block for merging partial attentions."""
+    b, t_q, h, d = q.shape
+    sm_scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    o, lse = FlashAttentionFunction.apply(q, k, v, bool(causal), sm_scale)
+    return o, lse.reshape(b, h, t_q)
+
+
+def flash_attention(q, k, v, causal=False, sm_scale=None):
+    """Fused attention: q ``[b, t_q, h, d]``, k/v ``[b, t_k, h, d]`` ->
+    ``[b, t_q, h, d]``.  Differentiable."""
+    return flash_attention_with_lse(q, k, v, causal, sm_scale)[0]
+
+
+def flash_attention_packed(q, k, v, n_head, causal=False, sm_scale=None):
+    """Fused attention on the raw projection layout: q/k/v ``[b, t, h*d]``
+    -> ``[b, t, h*d]``.  The 4-D view is free (heads are contiguous
+    slices of the feature dim), so this is :func:`flash_attention` on the
+    same memory."""
+    b, t_q, hd = q.shape
+    if hd % n_head:
+        raise ValueError(f"feature dim {hd} not divisible by n_head {n_head}")
+    d = hd // n_head
+    t_k = k.shape[1]
+    o = flash_attention(q.reshape(b, t_q, n_head, d),
+                        k.reshape(b, t_k, n_head, d),
+                        v.reshape(b, t_k, n_head, d), causal, sm_scale)
+    return o.reshape(b, t_q, hd)

@@ -1,7 +1,9 @@
-"""The GPT language model's serving-side math — the port's counterpart
-of ``paddle_tpu/models/transformer.py`` (``infer_compute_dtype``,
-``generate``) plus :func:`params_from_numpy`, which carries weights
-across from the JAX package.
+"""The GPT language model — the port's counterpart of
+``paddle_tpu/models/transformer.py``: the training program
+(``transformer_block``, ``gpt_trunk``, ``gpt``, ``build``,
+``extract_params``), the serving-side math (``infer_compute_dtype``,
+``generate``) and :func:`params_from_numpy`, which carries weights across
+from the JAX package.
 
 Parameters keep the JAX package's names and its ``[in, out]`` weight
 layout (``h @ W`` reads the same in both):
@@ -23,10 +25,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import layers, optimizer as opt
 from ..core.place import resolve_device
+from ..core.scope import tensor_from_numpy as _to_tensor
+from ..layers import tensor as ltensor
 
-__all__ = ["infer_compute_dtype", "generate", "params_from_numpy",
-           "as_torch_dtype", "layer_norm", "logits_f32"]
+__all__ = ["transformer_block", "gpt_trunk", "gpt", "build",
+           "extract_params", "infer_compute_dtype", "generate",
+           "params_from_numpy", "as_torch_dtype", "layer_norm",
+           "logits_f32"]
 
 _FLOAT_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
                  "float32": torch.float32, "float64": torch.float64}
@@ -41,19 +48,6 @@ def as_torch_dtype(dtype):
     if name not in _FLOAT_DTYPES:
         name = np.dtype(dtype).name
     return _FLOAT_DTYPES[name]
-
-
-def _to_tensor(v):
-    """A CPU tensor holding a copy of ``v`` (numpy array, JAX array via
-    ``np.asarray``, or tensor).  numpy has no bfloat16 of its own; arrays
-    of the ``bfloat16`` extension type cross as raw 16-bit words."""
-    if isinstance(v, torch.Tensor):
-        return v
-    a = np.asarray(v)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(
-            np.array(a.view(np.uint16), copy=True)).view(torch.bfloat16)
-    return torch.from_numpy(np.array(a, copy=True))
 
 
 def params_from_numpy(params, device=None, dtype=None):
@@ -202,3 +196,125 @@ def generate(params, prompt, max_len, n_layer, n_head, d_model,
             if p_len <= t + 1 < max_len:
                 tokens[:, t + 1] = torch.argmax(logits, dim=-1)
     return tokens.to(torch.int32), logits_all
+
+
+# -- the training program ------------------------------------------------------
+
+def transformer_block(x, d_model, n_head, d_ff, dropout_rate, is_test,
+                      name, attn_block_q=None, attn_block_k=None,
+                      attn_packed=None):
+    """Pre-LN block: x + MHA(LN(x)) then x + FFN(LN(x))."""
+    ln1 = layers.layer_norm(x, begin_norm_axis=2, name=name + "_ln1")
+    att = layers.multi_head_attention(
+        ln1, ln1, ln1, d_model=d_model, n_head=n_head,
+        dropout_rate=dropout_rate, causal=True, is_test=is_test,
+        block_q=attn_block_q, block_k=attn_block_k, packed=attn_packed,
+        name=name + "_att")
+    x = x + att
+    ln2 = layers.layer_norm(x, begin_norm_axis=2, name=name + "_ln2")
+    ff = layers.fc(ln2, d_ff, num_flatten_dims=2, act="gelu",
+                   name=name + "_ffn1")
+    ff = layers.fc(ff, d_model, num_flatten_dims=2, name=name + "_ffn2")
+    if dropout_rate:
+        ff = layers.dropout(ff, dropout_rate, is_test=is_test)
+    return x + ff
+
+
+def gpt_trunk(tokens, vocab_size, n_layer=4, n_head=8, d_model=256,
+              d_ff=None, max_len=128, dropout_rate=0.1, is_test=False,
+              dtype="bfloat16", attn_block_q=None, attn_block_k=None,
+              attn_packed=None):
+    """Causal LM trunk up to the final layer norm: [batch, time, d_model]
+    hidden states in ``dtype`` (the head is attached by the caller).  The
+    embedding tables stay float32 (master-precision rows, cast after the
+    gather)."""
+    d_ff = d_ff or 4 * d_model
+    t = tokens.shape[1]
+    emb = layers.embedding(tokens, size=[vocab_size, d_model],
+                           param_attr="tok_emb.w")
+    pos = ltensor.create_parameter([t, d_model], dtype="float32",
+                                   name="pos_emb.w")
+    x = emb + pos
+    x = ltensor.cast(x, dtype)
+    if dropout_rate:
+        x = layers.dropout(x, dropout_rate, is_test=is_test)
+    for i in range(n_layer):
+        x = transformer_block(x, d_model, n_head, d_ff, dropout_rate,
+                              is_test, name=f"block{i}",
+                              attn_block_q=attn_block_q,
+                              attn_block_k=attn_block_k,
+                              attn_packed=attn_packed)
+    return layers.layer_norm(x, begin_norm_axis=2, name="ln_f")
+
+
+def gpt(tokens, vocab_size, n_layer=4, n_head=8, d_model=256, d_ff=None,
+        max_len=128, dropout_rate=0.1, is_test=False, dtype="bfloat16",
+        attn_block_q=None, attn_block_k=None, attn_packed=None):
+    """Causal LM: returns [batch, time, vocab] logits (float32)."""
+    x = gpt_trunk(tokens, vocab_size, n_layer=n_layer, n_head=n_head,
+                  d_model=d_model, d_ff=d_ff, max_len=max_len,
+                  dropout_rate=dropout_rate, is_test=is_test, dtype=dtype,
+                  attn_block_q=attn_block_q, attn_block_k=attn_block_k,
+                  attn_packed=attn_packed)
+    logits = layers.fc(x, vocab_size, num_flatten_dims=2, bias_attr=False,
+                       name="lm_head")
+    return ltensor.cast(logits, "float32")
+
+
+def extract_params(scope=None, program=None):
+    """Pull the model weights (not optimizer state) out of a scope as the
+    name->array dict ``generate`` and the serving engine consume (numpy;
+    bfloat16 weights are widened to float32, which numpy can hold)."""
+    from ..core.program import default_main_program
+    from ..core.scope import global_scope
+
+    scope = scope or global_scope()
+    program = program or default_main_program()
+    # weights are Parameter instances; optimizer accumulators are plain
+    # persistable vars — all_parameters() is exactly the model weights.
+    return {
+        p.name: scope.numpy(p.name)
+        for p in program.all_parameters()
+        if scope.find_var(p.name) is not None
+    }
+
+
+def build(vocab_size=1000, n_layer=4, n_head=8, d_model=256, d_ff=None,
+          max_len=128, dropout_rate=0.1, is_test=False,
+          learning_rate=1e-3, dtype="bfloat16", fused_head=False,
+          attn_block_q=None, attn_block_k=None, attn_packed=None):
+    """Next-token-prediction training program.
+
+    Feeds: tokens [batch, max_len] int64, labels [batch, max_len] int64
+    (tokens shifted left by one, label -1 = padding, masked out of the
+    loss).  The head is ``fc`` + ``softmax_with_cross_entropy``; the fused
+    cross-entropy head (``fused_head=True``) arrives with the slice that
+    ports its kernels, and raises until then."""
+    if fused_head:
+        raise NotImplementedError(
+            "fused_head=True needs the fused cross-entropy kernels "
+            "(paddle_tpu/ops/pallas_ce.py), which the next slice of the "
+            "port brings; build with fused_head=False")
+    tokens = layers.data("tokens", shape=[max_len], dtype="int64")
+    labels = layers.data("labels", shape=[max_len], dtype="int64")
+    mask2d = ltensor.cast(
+        layers.greater_equal(labels, ltensor.fill_constant(
+            shape=[1], dtype="int64", value=0)), "float32")
+    safe2d = layers.elementwise_max(
+        labels, ltensor.fill_constant(shape=[1], dtype="int64", value=0))
+    logits = gpt(tokens, vocab_size, n_layer=n_layer, n_head=n_head,
+                 d_model=d_model, d_ff=d_ff, max_len=max_len,
+                 dropout_rate=dropout_rate, is_test=is_test,
+                 dtype=dtype, attn_block_q=attn_block_q,
+                 attn_block_k=attn_block_k, attn_packed=attn_packed)
+    flat_logits = ltensor.reshape(logits, [-1, vocab_size])
+    flat_labels = ltensor.reshape(safe2d, [-1, 1])
+    loss = layers.softmax_with_cross_entropy(flat_logits, flat_labels)
+    masked = loss * ltensor.reshape(mask2d, [-1, 1])
+    mask = ltensor.reshape(mask2d, [-1, 1])
+    avg_cost = layers.reduce_sum(masked) / (
+        layers.reduce_sum(mask) + 1e-8)
+    optimizer = opt.Adam(learning_rate=learning_rate)
+    optimizer.minimize(avg_cost)
+    return {"feed": [tokens, labels], "logits": logits,
+            "avg_cost": avg_cost}

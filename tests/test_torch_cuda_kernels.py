@@ -1,6 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch
-versions (paddle_tpu_torch only: no jax, so these run on a host without
-it).  Every test needs an NVIDIA GPU and skips without one; on the card:
+"""The port's CUDA kernels on the card (paged attention, flash attention
+forward and fused backward), against their plain PyTorch versions
+(paddle_tpu_torch only: no jax, so these run on a host without it).  Every test needs an NVIDIA GPU and skips without one; on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -136,3 +136,142 @@ def test_engine_on_the_card_matches_the_cpu():
     assert tpa.paged_attention.launches > before
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+# -- flash attention: forward and fused backward ------------------------------
+
+from paddle_tpu_torch.kernels import flash_attention as tfa  # noqa: E402
+
+
+def _flash_case(b, t_q, t_k, h, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.tensor(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32), device="cuda").to(dtype)
+    return (mk(b, t_q, h, d), mk(b, t_k, h, d), mk(b, t_k, h, d),
+            mk(b, t_q, h, d),
+            torch.tensor(rng.standard_normal((b * h, t_q)).astype(np.float32),
+                         device="cuda"))
+
+
+FLASH_GEOMS = {
+    # b, t_q, t_k, h, d
+    "tiny_d16": (2, 64, 64, 2, 16),
+    "ragged_d64": (1, 200, 200, 2, 64),
+    "d128": (1, 256, 256, 2, 128),
+    "ragged_d100": (1, 77, 77, 3, 100),
+    "tq_gt_tk": (1, 192, 128, 2, 64),
+    "three_rows": (1, 3, 3, 1, 128),
+}
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", list(FLASH_GEOMS))
+def test_flash_forward_matches_plain_version(dtype, geom, causal):
+    _need_card()
+    q, k, v, _, _ = _flash_case(*FLASH_GEOMS[geom], getattr(torch, dtype))
+    before = tfa.flash_fwd.launches
+    o, lse = tfa.flash_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_fwd.launches == before + 1
+    o_ref, lse_ref = tfa.flash_attention_ref(q, k, v, causal)
+    tol = tfa.oracle_tol(dtype, "fwd")
+    assert o.dtype == q.dtype and o.shape == q.shape
+    assert _rel(o, o_ref) <= tol
+    assert _rel(lse, lse_ref) <= tol
+
+
+@pytest.mark.parametrize("with_dlse", [False, True], ids=["do", "do_dlse"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", list(FLASH_GEOMS))
+def test_flash_backward_matches_plain_version(dtype, geom, causal, with_dlse):
+    _need_card()
+    q, k, v, do, dlse = _flash_case(*FLASH_GEOMS[geom], getattr(torch, dtype))
+    dlse = dlse if with_dlse else None
+    o, lse = tfa.flash_attention_ref(q, k, v, causal)
+    before = tfa.flash_bwd.launches
+    got = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_bwd.launches == before + 1
+    want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal)
+    tol = tfa.oracle_tol(dtype, "grad")
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == q.dtype and g.shape == w.shape
+        assert _rel(g, w) <= tol, name
+
+
+def test_flash_packed_autograd_goes_through_both_kernels():
+    """The packed entry point on the card: same values and gradients as
+    the plain versions, one forward and one backward launch."""
+    _need_card()
+    b, t, h, d = 2, 128, 2, 64
+    q, k, v, do, _ = _flash_case(b, t, t, h, d, torch.float32, seed=2)
+    flat = [x.reshape(b, t, h * d).clone().requires_grad_() for x in (q, k, v)]
+    f0, b0 = tfa.flash_fwd.launches, tfa.flash_bwd.launches
+    out = tfa.flash_attention_packed(*flat, n_head=h, causal=True)
+    out.backward(do.reshape(b, t, h * d))
+    torch.cuda.synchronize()
+    assert (tfa.flash_fwd.launches, tfa.flash_bwd.launches) == (f0 + 1, b0 + 1)
+    o_ref, lse_ref = tfa.flash_attention_ref(q, k, v, True)
+    want = tfa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, None, True)
+    assert _rel(out, o_ref.reshape(b, t, h * d)) <= 2e-4
+    for x, w in zip(flat, want):
+        assert _rel(x.grad, w.reshape(b, t, h * d)) <= 1e-3
+
+
+def test_flash_wrapper_checks_before_launching():
+    _need_card()
+    q, k, v, do, _ = _flash_case(1, 32, 32, 2, 16, torch.float32)
+    before = tfa.flash_fwd.launches
+    with pytest.raises(TypeError):
+        tfa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        tfa.flash_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        tfa.flash_fwd(q[..., ::2], k[..., ::2], v[..., ::2])
+    with pytest.raises(ValueError):
+        wide = torch.zeros(1, 8, 1, 256, device="cuda")
+        tfa.flash_fwd(wide, wide, wide)
+    assert tfa.flash_fwd.launches == before
+
+
+def test_executor_on_the_card_matches_the_cpu():
+    """Three Adam steps of a tiny f32 GPT on the card, from the state the
+    CPU run starts from: the same losses within 1e-4 relative, attention
+    through both kernels (one forward and one backward launch per layer
+    and step), parameters updated in place."""
+    _need_card()
+    import paddle_tpu_torch as pt
+
+    pt.core.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        model = pt.models.transformer.build(
+            vocab_size=61, n_layer=2, n_head=2, d_model=128, max_len=48,
+            dropout_rate=0.0, dtype="float32", learning_rate=2e-3)
+    cpu_scope = pt.Scope()
+    cpu = pt.Executor(pt.CPUPlace())
+    cpu.run(startup, scope=cpu_scope)
+    state = {v.name: cpu_scope.numpy(v.name)
+             for v in main.persistable_vars()}
+    card_scope = pt.load_numpy_state(pt.Scope(), state)
+    card = pt.Executor(pt.CUDAPlace(0))
+    rng = np.random.default_rng(0)
+    w = card_scope.get("lm_head.w")
+    ptr, before = w.data_ptr(), w.clone()
+    f0, b0 = tfa.flash_fwd.launches, tfa.flash_bwd.launches
+    for _ in range(3):
+        start = rng.integers(0, 61, (4, 1))
+        toks = (start + np.arange(48)[None, :]) % 61
+        labels = np.concatenate([toks[:, 1:], -np.ones((4, 1), int)], 1)
+        feed = {"tokens": toks, "labels": labels}
+        want, = cpu.run(main, feed=feed, fetch_list=[model["avg_cost"]],
+                        scope=cpu_scope)
+        got, = card.run(main, feed=feed, fetch_list=[model["avg_cost"]],
+                        scope=card_scope)
+        assert abs(got[0] - want[0]) <= 1e-4 * abs(want[0])
+    assert (tfa.flash_fwd.launches - f0, tfa.flash_bwd.launches - b0) == (6, 6)
+    assert card_scope.get("lm_head.w").data_ptr() == ptr
+    assert not torch.equal(card_scope.get("lm_head.w"), before)
+    assert card_scope.get("@GRAD_NORM@").item() > 0

@@ -1,8 +1,9 @@
 """The port stands on its own: nothing under paddle_tpu_torch/, and
 nothing in chip_smoke.py, imports jax or the JAX package; importing the
-port's serving stack leaves jax out of ``sys.modules``; and chip_smoke.py
-refuses to run (non-zero exit, no result line) without a card or
-without the rest of the repository."""
+port's serving and training stacks leaves jax out of ``sys.modules``;
+every entry point raises without a card unless the CPU is asked for; and
+chip_smoke.py refuses to run (non-zero exit, no result line) without a
+card or without the rest of the repository."""
 
 import ast
 import os
@@ -59,10 +60,85 @@ def test_serving_import_leaves_jax_out():
     assert r.stdout.strip() == "clean"
 
 
+TRAINING_MODULES = [
+    "paddle_tpu_torch", "paddle_tpu_torch.core.dtypes",
+    "paddle_tpu_torch.core.unique_name", "paddle_tpu_torch.core.registry",
+    "paddle_tpu_torch.core.scope", "paddle_tpu_torch.core.program",
+    "paddle_tpu_torch.core.executor", "paddle_tpu_torch.core.place",
+    "paddle_tpu_torch.param_attr", "paddle_tpu_torch.initializer",
+    "paddle_tpu_torch.backward", "paddle_tpu_torch.optimizer",
+    "paddle_tpu_torch.layers", "paddle_tpu_torch.layers.layer_helper",
+    "paddle_tpu_torch.layers.io", "paddle_tpu_torch.layers.tensor",
+    "paddle_tpu_torch.layers.ops", "paddle_tpu_torch.layers.nn",
+    "paddle_tpu_torch.ops", "paddle_tpu_torch.ops.math_ops",
+    "paddle_tpu_torch.ops.tensor_ops", "paddle_tpu_torch.ops.nn_ops",
+    "paddle_tpu_torch.ops.activation_ops", "paddle_tpu_torch.ops.loss_ops",
+    "paddle_tpu_torch.ops.random_ops", "paddle_tpu_torch.ops.optimizer_ops",
+    "paddle_tpu_torch.ops.control_flow_ops",
+    "paddle_tpu_torch.ops.attention_ops",
+    "paddle_tpu_torch.kernels.flash_attention",
+    "paddle_tpu_torch.models.transformer",
+]
+
+
+def test_every_training_module_is_a_file_the_import_scan_covers():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in TRAINING_MODULES:
+        rel = mod.replace(".", "/")
+        assert (rel + ".py" in scanned
+                or rel + "/__init__.py" in scanned), mod
+
+
+def test_training_import_leaves_jax_out():
+    r = _run("import sys\n"
+             + "".join(f"import {m}\n" for m in TRAINING_MODULES)
+             + "import paddle_tpu_torch as pt\n"
+             "main, startup = pt.Program(), pt.Program()\n"
+             "with pt.program_guard(main, startup):\n"
+             "    pt.models.transformer.build(vocab_size=11, n_layer=1, "
+             "n_head=1, d_model=8, max_len=4, dropout_rate=0.0, "
+             "dtype='float32')\n"
+             "exe = pt.Executor(pt.CPUPlace())\n"
+             "exe.run(startup, scope=pt.Scope())\n"
+             "bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')]\n"
+             "assert not bad, bad\nprint('clean')", cwd=ROOT)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "clean"
+
+
+def test_training_entry_points_raise_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import paddle_tpu_torch as pt
+
+    for call in (lambda: pt.Executor(), lambda: pt.Executor(pt.CUDAPlace()),
+                 lambda: pt.load_numpy_state(pt.Scope(), {}),
+                 lambda: pt.resolve_device(None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert pt.Executor(pt.CPUPlace()).device.type == "cpu"
+    assert pt.resolve_device(pt.CPUPlace()).type == "cpu"
+
+
+def test_kernel_wrappers_and_counters_are_registered():
+    from paddle_tpu_torch import kernels
+
+    assert set(kernels.WRAPPERS) == {
+        "paged_attention", "flash_attention_fwd", "flash_attention_bwd"}
+    for fn in kernels.WRAPPERS.values():
+        fn.launches += 3
+    kernels.reset_launches()
+    assert all(fn.launches == 0 for fn in kernels.WRAPPERS.values())
+
+
 def test_kernel_sources_and_build_flags():
     from paddle_tpu_torch.kernels import _build
 
     assert "paged_attention" in _build.sources()
+    assert "flash_attention" in _build.sources()
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert _build.lib_path("paged_attention").startswith(_build.BUILD_DIR)
