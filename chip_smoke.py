@@ -24,6 +24,15 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
       ``[b, h, t, t]`` scores, so it runs over the batch two rows at a
       time; timed at the path shape (library: SDPA forward, and forward
       plus backward; bound: causal flops over 989 TFLOP/s, or bytes);
+   c. the fused cross-entropy head's forward (``loss``, ``lse``), dx and
+      dW kernels at the training path's shape (N = 32768 rows, d=768,
+      V=32768, bf16), at phase 6's f32 shape (N=512) and at a ragged shape
+      (N=1000, d=200, V=5000, bf16 and f32), with labels -1 and V in some
+      rows and a loss cotangent with zeros; timed at the path shape
+      (library: ``torch.matmul`` + ``F.cross_entropy`` forward, and that
+      composition's backward by autograd for x alone and for w alone —
+      no single PyTorch call computes the head; bound: 2 N d V flops a
+      product over 989 TFLOP/s);
 4. serving correctness at full width in f32: the 12-layer d768 h6 v32768
    GPT with seeded random weights serves 8 shared-prefix requests through
    the engine's background thread, each compared with the port's
@@ -40,23 +49,28 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    with ``torch.profiler``;
 6. training correctness at full width in f32: the same 12-layer model
    (t=256, b=2) takes two Adam steps through ``Program`` -> ``Executor``
-   with attention in the CUDA kernels, and two from the same initial
-   state with attention routed to the plain versions (a switch that lives
-   in this script only); losses must agree within 1e-3 relative and every
-   parameter's step-1 gradient within the flash grad tolerance;
-7. training at full width in bf16 (a main path):
-   ``transformer.build(vocab 32768, 12 layers, 6 heads, d_model 768,
-   max_len 4096, dropout 0, bf16, fused_head=False)``, batch 8, synthetic
-   next = tok + 1 tokens on a 512-token cycle from ``--seed``, a few Adam
-   steps on the card:
-   the loss must be finite and fall from about ln(32768), the parameters
-   must change, and every attention call must have gone through the
-   kernels (12 forward and 12 backward launches a step, all counts zeroed
-   just before the steps); prints step wall, tokens/s and peak memory,
-   then where one more step's device time goes (``torch.profiler`` by
-   kernel, CUDA events by op type);
-8. one JSON line ``{"kernels": [...]}`` with each kernel's launches on
-   its main path (phase 5 or 7), error, times and bound;
+   three times from one startup state: unfused head with attention in the
+   CUDA kernels, the same with attention routed to the plain versions (a
+   switch that lives in this script only), and the fused head through the
+   CE kernels; losses must agree within 1e-3 relative and every
+   parameter's step-1 gradient within the flash (kernels vs plain) and
+   the fused_ce (fused vs unfused head) grad tolerance;
+7. training at full width in bf16 (the main path, ``bench.py``'s
+   flagship): ``transformer.build(vocab 32768, 12 layers, 6 heads,
+   d_model 768, max_len 4096, dropout 0, bf16, fused_head=True)``, batch
+   8, synthetic next = tok + 1 tokens on a 512-token cycle from
+   ``--seed``, five Adam steps on the card: the loss must be finite and
+   fall from about ln(32768), the parameters must change, and every
+   attention and head call must have gone through the kernels (12 flash
+   forward, 12 flash backward and one launch of each CE kernel a step,
+   all counts zeroed just before the steps); prints step wall, tokens/s
+   and peak memory, then where one more step's device time goes
+   (``torch.profiler`` by kernel family, CUDA events by op type);
+   b. the same five steps with ``fused_head=False`` (full depth), for the
+   unfused head's peak memory: the fused step's peak must lie at least
+   10 GB below it;
+8. one JSON line ``{"kernels": [...]}`` with each of the six kernels'
+   launches on its main path (phase 5 or 7), error, times and bound;
 9. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
@@ -418,6 +432,149 @@ def flash_phase(torch, fa):
     return rows
 
 
+# -- phase 3c: the fused cross-entropy kernels against their plain versions --
+
+def ce_inputs(torch, gen, n, d, v, dtype, out_of_range=True):
+    """Seeded inputs on the card: logits of unit scale; labels -1 and V in
+    some rows (out of range: loss = lse, no onehot term), or only -1 (the
+    training path's padding, which the library's ``ignore_index`` takes);
+    a loss cotangent with zeros, as masked rows give."""
+    x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((d, v), generator=gen, device="cuda")
+         * d ** -0.5).to(dtype)
+    y = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    y[1::7] = -1
+    if out_of_range:
+        y[3::11] = v
+    g = torch.randn((n,), generator=gen, device="cuda")
+    g[2::5] = 0.0
+    return x, w, y, g
+
+
+def ce_phase(torch, ce):
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5678)
+    bf16, f32 = torch.bfloat16, torch.float32
+    tokens = TRAIN_B * TRAIN_T
+    cases = [("path", tokens, D_MODEL, VOCAB, bf16),
+             ("f32", CHECK_B * CHECK_T, D_MODEL, VOCAB, f32),
+             ("ragged", 1000, 200, 5000, bf16),
+             ("ragged f32", 1000, 200, 5000, f32)]
+    errs = {}
+    for label, n, d, v, dtype in cases:
+        dname = str(dtype).replace("torch.", "")
+        x, w, y, g = ce_inputs(torch, gen, n, d, v, dtype)
+        loss, lse = ce.ce_fwd(x, w, y)
+        dx = ce.ce_dx(x, w, y, lse, g)
+        dw = ce.ce_dw(x, w, y, lse, g)
+        torch.cuda.synchronize()
+        rloss, rlse = ce.fused_ce_ref(x, w, y)
+        rdx, rdw = ce.fused_ce_bwd_ref(x, w, y, rlse, g)
+        worst = {"fwd": (0.0, 0.0), "grad": (0.0, 0.0)}
+        for name, got, ref, kind in (("loss", loss, rloss, "fwd"),
+                                     ("lse", lse, rlse, "fwd"),
+                                     ("dx", dx, rdx, "grad"),
+                                     ("dW", dw, rdw, "grad")):
+            tol = ce.oracle_tol(dtype, kind)
+            ab, rel = rel_err(torch, got, ref)
+            if not (bool(torch.isfinite(got.float()).all()) and rel <= tol):
+                raise AssertionError(
+                    f"fused CE {name} disagrees with its plain version at "
+                    f"{label} {dname}: rel {rel:.3e} > {tol}")
+            if rel >= worst[kind][1]:
+                worst[kind] = (ab, rel)
+        out = (y < 0) | (y >= v)
+        if not torch.equal(loss[out], lse[out]):
+            raise AssertionError("an out-of-range label changed the loss")
+        log(f"kernel fused_ce {label:10s} N={n} d={d} V={v} {dname:8s} "
+            f"fwd rel {worst['fwd'][1]:.3e} (tol {ce.oracle_tol(dtype):g}) "
+            f"grad rel {worst['grad'][1]:.3e} (tol "
+            f"{ce.oracle_tol(dtype, 'grad'):g}) ok")
+        errs[label] = (worst["fwd"][0], worst["grad"][0])
+        del x, w, y, g, loss, lse, dx, dw, rloss, rlse, rdx, rdw
+        torch.cuda.empty_cache()
+
+    # timing at the training path's shape, labels in range but for the
+    # -1 padding (the library call's ignore_index)
+    n, d, v = tokens, D_MODEL, VOCAB
+    x, w, y, g = ce_inputs(torch, gen, n, d, v, bf16, out_of_range=False)
+    loss, lse = ce.ce_fwd(x, w, y)
+    fwd_ms = device_ms(torch, lambda i: ce.ce_fwd(x, w, y), 4)
+    dx_ms = device_ms(torch, lambda i: ce.ce_dx(x, w, y, lse, g), 3)
+    dw_ms = device_ms(torch, lambda i: ce.ce_dw(x, w, y, lse, g), 3)
+    plain_fwd_ms = device_ms(torch, lambda i: ce.fused_ce_ref(x, w, y), 1)
+    plain_dx_ms = device_ms(
+        torch, lambda i: ce.fused_ce_dx_ref(x, w, y, lse, g), 1)
+    plain_dw_ms = device_ms(
+        torch, lambda i: ce.fused_ce_dw_ref(x, w, y, lse, g), 1)
+    torch.cuda.empty_cache()
+    # the yardstick: torch.matmul (bf16 logits) + F.cross_entropy on the
+    # f32 logits, reduction "none"; its backward by autograd, for x alone
+    # (dx) and for w alone (dW).  No single PyTorch call computes the head.
+    yl = y.long()
+
+    def lib_loss(a, b):
+        return F.cross_entropy(torch.matmul(a, b).float(), yl,
+                               reduction="none", ignore_index=-1)
+
+    with torch.no_grad():
+        lib_out = lib_loss(x, w)
+    keep = yl >= 0
+    _, lib_rel = rel_err(torch, lib_out[keep], loss[keep])
+    del lib_out
+
+    def lib_fwd(i):
+        with torch.no_grad():
+            lib_loss(x, w)
+
+    lib_fwd_ms = device_ms(torch, lib_fwd, 3)
+    lib_bwd = []
+    for which in (0, 1):
+        xr = x.detach().requires_grad_(which == 0)
+        wr = w.detach().requires_grad_(which == 1)
+        out = lib_loss(xr, wr)
+        wrt = xr if which == 0 else wr
+        lib_bwd.append(device_ms(torch, lambda i: torch.autograd.grad(
+            out, wrt, g, retain_graph=True), 3))
+        del out, xr, wr, wrt
+        torch.cuda.empty_cache()
+    # bounds: 2 N d V flops a product (one forward, two in dx and dW);
+    # each input read once, each output written once
+    prod = 2 * n * d * v
+    es = x.element_size()
+    io = x.numel() * es + w.numel() * es + 4 * n        # x, w, y
+    rows = []
+    for name, line, ms, plain, lib, flops, nbytes, err in (
+            ("fused_ce_fwd", 153, fwd_ms, plain_fwd_ms, lib_fwd_ms, prod,
+             io + 8 * n, errs["path"][0]),
+            ("fused_ce_dx", 198, dx_ms, plain_dx_ms, lib_bwd[0], 2 * prod,
+             io + 8 * n + x.numel() * es, errs["path"][1]),
+            ("fused_ce_dw", 211, dw_ms, plain_dw_ms, lib_bwd[1], 2 * prod,
+             io + 8 * n + w.numel() * es, errs["path"][1])):
+        ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        log(f"{name} bf16 (N={n} d={d} V={v}, {flops / 1e12:.4f} TFLOP, "
+            f"{nbytes} bytes): kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+            f"library (matmul + cross_entropy{'' if line == 153 else ' backward'}"
+            f", loss rel err {lib_rel:.2e}) {lib:.4f} ms, bound "
+            f"{bound_ms:.4f} ms "
+            f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/fused_ce.cu",
+                     "replaces": f"paddle_tpu/ops/pallas_ce.py:{line}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound_ms,
+                     "bound_by": ("operations" if ops_ms >= bytes_ms
+                                  else "bytes"),
+                     "library_ms": lib})
+    return rows
+
+
 # -- phase 4: full-width f32 served vs single-stream -------------------------
 
 def correctness_phase(torch, np, params, work):
@@ -586,9 +743,9 @@ def profile_decode(torch, eng, work, chunks=3):
 
 # -- phases 6 and 7: training through Program -> Executor --------------------
 
-def build_training(pt, seed, max_len, dtype):
+def build_training(pt, seed, max_len, dtype, fused_head):
     """The flagship training program at full width and its startup
-    program, seeded; names restart so both builds name alike."""
+    program, seeded; names restart so every build names alike."""
     pt.core.unique_name.reset()
     main, startup = pt.Program(), pt.Program()
     main.random_seed = startup.random_seed = seed
@@ -596,7 +753,7 @@ def build_training(pt, seed, max_len, dtype):
         model = pt.models.transformer.build(
             vocab_size=VOCAB, n_layer=N_LAYER, n_head=N_HEAD,
             d_model=D_MODEL, max_len=max_len, dropout_rate=0.0, dtype=dtype,
-            fused_head=False, learning_rate=TRAIN_LR)
+            fused_head=fused_head, learning_rate=TRAIN_LR)
     return main, startup, model
 
 
@@ -613,34 +770,74 @@ def make_batch(torch, rng, batch, t):
     return {"tokens": toks, "labels": labels}
 
 
-def training_check_phase(torch, np, pt, fa, seed):
-    """f32, full width, short sequence: two steps through the kernels
-    against two steps with attention routed to the plain versions."""
-    main, startup, model = build_training(pt, seed, CHECK_T, "float32")
+def launch_counts(kernels):
+    return {nm: fn.launches for nm, fn in kernels.WRAPPERS.items()}
+
+
+def grads_agree(params, got, want, tol, what):
+    """Every step-1 gradient of ``got`` within ``tol`` of ``want``, max
+    |a - b| / max |b|; the key biases' gradient is zero analytically
+    (softmax ignores a shift of every key) and roundoff on both sides, so
+    it is held to the largest gradient entry of the model, not to itself.
+    Returns the worst (name, rel)."""
+    biggest = max(g.abs().max().item() for g in want)
+    worst = ("", 0.0)
+    for name, ga, gb in zip(params, got, want):
+        scale = biggest if "_att_k.b" in name else gb.abs().max().item()
+        rel = (ga.float() - gb.float()).abs().max().item() / scale
+        if rel > worst[1]:
+            worst = (name, rel)
+        if not rel <= tol:
+            raise AssertionError(
+                f"f32 step-1 gradient of {name} ({what}): rel {rel:.3e} > "
+                f"{tol}")
+    return worst
+
+
+def training_check_phase(torch, np, pt, kernels, fa, ce, seed):
+    """f32, full width, short sequence, two Adam steps from one startup
+    state each: (a) unfused head, attention through the kernels, against
+    the same with attention routed to the plain versions; (b) the fused
+    head through the CE kernels against the unfused head (cuBLAS and
+    softmax), both with attention in the kernels."""
+    main, startup, model = build_training(pt, seed, CHECK_T, "float32",
+                                          False)
+    fmain, _, fmodel = build_training(pt, seed, CHECK_T, "float32", True)
     exe = pt.Executor()
     base = pt.Scope()
     exe.run(startup, scope=base)
+    names = {v.name for v in main.persistable_vars()}
+    if {v.name for v in fmain.persistable_vars()} != names:
+        raise AssertionError("the fused and unfused programs hold other state")
     params = [p.name for p in main.all_parameters()]
-    fetch = [model["avg_cost"].name] + [p + "@GRAD" for p in params]
+    if [p.name for p in fmain.all_parameters()] != params:
+        raise AssertionError("the fused and unfused programs order their "
+                             "parameters differently")
     rng = np.random.default_rng(seed)
     batches = [make_batch(torch, rng, CHECK_B, CHECK_T) for _ in range(2)]
 
-    def two_steps():
+    def two_steps(prog, loss_var):
+        fetch = [loss_var.name] + [p + "@GRAD" for p in params]
         scope = pt.Scope()
         for n in base.var_names():
             scope.set(n, base.get(n).clone())
         out = []
         for feed in batches:
-            out.append(exe.run(main, feed=feed, fetch_list=fetch,
+            out.append(exe.run(prog, feed=feed, fetch_list=fetch,
                                scope=scope, return_numpy=False))
         torch.cuda.synchronize()
         return out
 
-    f0, b0 = fa.flash_fwd.launches, fa.flash_bwd.launches
-    with_kernels = two_steps()
-    if (fa.flash_fwd.launches - f0, fa.flash_bwd.launches - b0) != (
-            2 * N_LAYER, 2 * N_LAYER):
-        raise AssertionError("the f32 training steps missed the kernels")
+    def delta(c0):
+        c1 = launch_counts(kernels)
+        return {k: c1[k] - c0[k] for k in c1}
+
+    c0 = launch_counts(kernels)
+    with_kernels = two_steps(main, model["avg_cost"])
+    d = delta(c0)
+    if (d["flash_attention_fwd"], d["flash_attention_bwd"]) != (
+            2 * N_LAYER, 2 * N_LAYER) or d["fused_ce_fwd"]:
+        raise AssertionError(f"the f32 unfused steps missed the kernels: {d}")
     # the test-only switch: the autograd Function finds its wrappers by
     # name in the module, so the plain versions stand in for both
     real = fa.flash_fwd, fa.flash_bwd
@@ -648,53 +845,60 @@ def training_check_phase(torch, np, pt, fa, seed):
         fa.flash_attention_ref(q, k, v, causal, sm_scale))
     fa.flash_bwd = fa.flash_attention_bwd_ref
     try:
-        with_plain = two_steps()
+        c0 = launch_counts(kernels)
+        with_plain = two_steps(main, model["avg_cost"])
     finally:
         fa.flash_fwd, fa.flash_bwd = real
-    if (fa.flash_fwd.launches - f0, fa.flash_bwd.launches - b0) != (
-            2 * N_LAYER, 2 * N_LAYER):
+    if any(delta(c0).values()):
         raise AssertionError("the plain-version steps launched a kernel")
-    losses = []
-    for a, b in zip(with_kernels, with_plain):
-        la, lb = a[0].item(), b[0].item()
-        losses.append((la, lb))
-        if not (np.isfinite(la) and abs(la - lb) <= 1e-3 * abs(lb)):
-            raise AssertionError(f"f32 training loss {la} vs plain {lb}")
-    tol = fa.oracle_tol(torch.float32, "grad")
-    biggest = max(g.abs().max().item() for g in with_plain[0][1:])
-    worst = ("", 0.0)
-    for name, ga, gb in zip(params, with_kernels[0][1:], with_plain[0][1:]):
-        # the key biases' gradient is zero analytically (softmax ignores
-        # a shift of every key) and roundoff on both sides: it is held to
-        # the largest gradient entry of the model, not to itself
-        scale = biggest if "_att_k.b" in name else gb.abs().max().item()
-        rel = (ga - gb).abs().max().item() / scale
-        if rel > worst[1]:
-            worst = (name, rel)
-        if not rel <= tol:
-            raise AssertionError(
-                f"f32 step-1 gradient of {name}: rel {rel:.3e} > {tol}")
-    log(f"f32 training, full width (t={CHECK_T}, b={CHECK_B}, 2 steps): loss "
-        + ", ".join(f"{a:.6f} vs plain {b:.6f}" for a, b in losses)
-        + f"; step-1 gradients of {len(params)} parameters within {tol:g} "
-        f"(worst {worst[0]} rel {worst[1]:.3e})")
+    c0 = launch_counts(kernels)
+    fused = two_steps(fmain, fmodel["avg_cost"])
+    d = delta(c0)
+    if (d["flash_attention_fwd"], d["flash_attention_bwd"], d["fused_ce_fwd"],
+            d["fused_ce_dx"], d["fused_ce_dw"]) != (
+            2 * N_LAYER, 2 * N_LAYER, 2, 2, 2):
+        raise AssertionError(f"the f32 fused-head steps missed a kernel: {d}")
+
+    for what, a_run, b_run, tol in (
+            ("flash kernels vs plain attention", with_kernels, with_plain,
+             fa.oracle_tol(torch.float32, "grad")),
+            ("fused CE head vs unfused head", fused, with_kernels,
+             ce.oracle_tol(torch.float32, "grad"))):
+        losses = []
+        for a, b in zip(a_run, b_run):
+            la, lb = a[0].item(), b[0].item()
+            losses.append((la, lb))
+            if not (np.isfinite(la) and abs(la - lb) <= 1e-3 * abs(lb)):
+                raise AssertionError(f"f32 training loss {la} vs {lb} ({what})")
+        worst = grads_agree(params, a_run[0][1:], b_run[0][1:], tol,
+                            what)
+        log(f"f32 training, full width (t={CHECK_T}, b={CHECK_B}, 2 steps), "
+            f"{what}: loss "
+            + ", ".join(f"{a:.6f} vs {b:.6f}" for a, b in losses)
+            + f"; step-1 gradients of {len(params)} parameters within "
+            f"{tol:g} (worst {worst[0]} rel {worst[1]:.3e})")
 
 
-def training_phase(torch, np, pt, kernels, seed):
-    """The main training path: bf16, full width, t=4096, batch 8."""
+def training_phase(torch, np, pt, kernels, seed, fused_head):
+    """A training path at full width: bf16, t=4096, batch 8, the fused
+    head (the main path) or the unfused one.  Returns the launch counts of
+    the counted steps and the peak device memory."""
     tokens = TRAIN_B * TRAIN_T
+    head = "fused" if fused_head else "unfused"
     n_params = (VOCAB * D_MODEL * 2 + TRAIN_T * D_MODEL
                 + N_LAYER * 12 * D_MODEL * D_MODEL)
     # reckoned before running: f32 master copies do not exist (weights are
-    # bf16, moments f32); the unfused head holds logits in bf16 and f32
-    # plus log-softmax, and transiently their gradients; each layer holds
-    # about 30 [tokens, d] bf16 tensors' worth of residuals, the f32
-    # LayerNorm inputs included
-    est = (n_params * (2 + 2 + 8) + tokens * VOCAB * (2 + 4 + 4 + 4 + 2)
-           + N_LAYER * 30 * tokens * D_MODEL * 2)
-    log(f"training: {n_params} parameters, {tokens} tokens a step; memory "
-        f"reckoned before the run: about {est / 2**30:.1f} GiB")
-    main, startup, model = build_training(pt, seed, TRAIN_T, "bfloat16")
+    # bf16, moments f32); each layer holds about 30 [tokens, d] bf16
+    # tensors' worth of residuals, the f32 LayerNorm inputs included; the
+    # unfused head adds logits in bf16 and f32 plus log-softmax, and
+    # transiently their gradients; the fused head adds only O(tokens)
+    est = (n_params * (2 + 2 + 8) + N_LAYER * 30 * tokens * D_MODEL * 2)
+    if not fused_head:
+        est += tokens * VOCAB * (2 + 4 + 4 + 4 + 2)
+    log(f"training, {head} head: {n_params} parameters, {tokens} tokens a "
+        f"step; memory reckoned before the run: about {est / 2**30:.1f} GiB")
+    main, startup, model = build_training(pt, seed, TRAIN_T, "bfloat16",
+                                          fused_head)
     exe = pt.Executor()
     scope = pt.Scope()
     exe.run(startup, scope=scope)
@@ -713,19 +917,19 @@ def training_phase(torch, np, pt, kernels, seed):
                         return_numpy=False)
         losses.append(loss.item())               # ends in a device sync
         walls.append(time.perf_counter() - t0)
-    launches = {nm: fn.launches for nm, fn in kernels.WRAPPERS.items()}
+    launches = launch_counts(kernels)
     peak = torch.cuda.max_memory_allocated()
     steady = sorted(walls[1:])[len(walls[1:]) // 2]
-    log(f"bf16 training, full width (t={TRAIN_T}, b={TRAIN_B}): loss "
-        + " -> ".join(f"{x:.4f}" for x in losses)
+    log(f"bf16 training, {head} head, full width (t={TRAIN_T}, "
+        f"b={TRAIN_B}): loss " + " -> ".join(f"{x:.4f}" for x in losses)
         + f"; step wall first {walls[0]:.3f} s, then median {steady:.3f} s = "
         f"{tokens / steady:.0f} tok/s; grad norm "
         f"{scope.get('@GRAD_NORM@').item():.4f}; max_memory_allocated "
         f"{peak} B")
-    log(f"flash launches during the {TRAIN_STEPS} steps: forward "
-        f"{launches['flash_attention_fwd']}, backward "
-        f"{launches['flash_attention_bwd']} (expected {N_LAYER} + {N_LAYER} "
-        f"a step)")
+    log(f"launches during the {TRAIN_STEPS} steps: "
+        + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f" (expected {N_LAYER} + {N_LAYER} flash a step"
+        + (", 1 of each CE kernel a step)" if fused_head else ", no CE)"))
     if not all(np.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     if abs(losses[0] - np.log(VOCAB)) > 0.5:
@@ -735,13 +939,14 @@ def training_phase(torch, np, pt, kernels, seed):
     if not losses[-1] < losses[0] - 0.05:
         raise AssertionError(f"the loss did not fall: {losses}")
     want = N_LAYER * TRAIN_STEPS
-    if (launches["flash_attention_fwd"], launches["flash_attention_bwd"]) != (
-            want, want):
+    ce_want = TRAIN_STEPS if fused_head else 0
+    expect = {"paged_attention": 0, "flash_attention_fwd": want,
+              "flash_attention_bwd": want, "fused_ce_fwd": ce_want,
+              "fused_ce_dx": ce_want, "fused_ce_dw": ce_want}
+    if launches != expect:
         raise AssertionError(
-            f"flash launches {launches}: expected {want} forward and {want} "
-            f"backward — some attention did not go through the kernels")
-    if launches["paged_attention"] != 0:
-        raise AssertionError("training launched the serving kernel")
+            f"launches {launches}, expected {expect}: some attention or "
+            f"head call did not go through its kernel")
     for n, old in before.items():
         if torch.equal(scope.get(n), old):
             raise AssertionError(f"parameter {n} did not change")
@@ -749,7 +954,8 @@ def training_phase(torch, np, pt, kernels, seed):
             raise AssertionError(f"parameter {n} is not finite")
     profile_training(torch, pt, exe, main, scope, fetch,
                      make_batch(torch, rng, TRAIN_B, TRAIN_T), steady)
-    return launches
+    del exe, scope, before
+    return launches, peak
 
 
 def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
@@ -776,6 +982,9 @@ def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
     else:
         families = (("flash forward", ("flash_fwd_kernel",)),
                     ("flash backward", ("flash_bwd_kernel",)),
+                    ("CE forward", ("ce_fwd_kernel",)),
+                    ("CE dx", ("ce_dx_kernel",)),
+                    ("CE dW", ("ce_dw_kernel",)),
                     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
                     ("softmax / log-softmax", ("softmax",)),
                     ("LayerNorm", ("layer_norm", "LayerNorm")),
@@ -851,6 +1060,7 @@ def main():
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_ce as ce
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     # 1. the card
@@ -882,6 +1092,8 @@ def main():
     row = kernel_phase(torch, pa)
     flash_rows = flash_phase(torch, fa)
     torch.cuda.empty_cache()
+    ce_rows = ce_phase(torch, ce)
+    torch.cuda.empty_cache()
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
@@ -900,18 +1112,30 @@ def main():
     del params, work
     torch.cuda.empty_cache()
 
-    # 6. training correctness at full width, f32, kernels vs plain
-    training_check_phase(torch, np, pt, fa, args.seed)
+    # 6. training correctness at full width, f32: kernels vs plain, fused
+    #    head vs unfused head
+    training_check_phase(torch, np, pt, kernels, fa, ce, args.seed)
     torch.cuda.empty_cache()
 
-    # 7. the other main path: training at full width, bf16
-    train_launches = training_phase(torch, np, pt, kernels, args.seed)
+    # 7. the other main path: training at full width, bf16, fused head;
+    #    7b. the unfused head, the same steps, for its peak memory
+    train_launches, fused_peak = training_phase(torch, np, pt, kernels,
+                                                args.seed, fused_head=True)
+    torch.cuda.empty_cache()
+    _, unfused_peak = training_phase(torch, np, pt, kernels, args.seed,
+                                     fused_head=False)
+    log(f"peak memory: fused head {fused_peak} B, unfused head "
+        f"{unfused_peak} B, {(unfused_peak - fused_peak) / 1e9:.3f} GB less")
+    if not fused_peak <= unfused_peak - 10e9:
+        raise AssertionError(
+            f"the fused head's peak {fused_peak} B is not 10 GB below the "
+            f"unfused head's {unfused_peak} B")
 
     # 8. the kernels line, 9. the result
     row["launches"] = launches["paged_attention"]
-    for r in flash_rows:
+    for r in flash_rows + ce_rows:
         r["launches"] = train_launches[r["name"]]
-    print(json.dumps({"kernels": [row] + flash_rows}), flush=True)
+    print(json.dumps({"kernels": [row] + flash_rows + ce_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

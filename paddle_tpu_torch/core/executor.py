@@ -138,8 +138,9 @@ def run_block_ops(ctx, block, ops, env, inside_grad_prefix=False, plan=None,
 class Executor:
     """``Executor(place)`` — ``place`` is ``CUDAPlace()``, ``CPUPlace()``, a
     device string, or None for the card.  With no place and no usable
-    card it raises; the CPU must be asked for.  On the card the flash-
-    attention kernels are built here, outside any timed step."""
+    card it raises; the CPU must be asked for.  On the card every kernel
+    library (flash attention, the fused CE head, ...) is built here,
+    outside any timed step."""
 
     def __init__(self, place=None):
         self.place = place
@@ -149,9 +150,9 @@ class Executor:
             if self.device.index is None:  # "cuda" -> the current card
                 self.device = torch.device(
                     "cuda", torch.cuda.current_device())
-            from ..kernels import flash_attention as _fa
+            from ..kernels import build_all
 
-            _fa.build()
+            build_all()
 
     # ------------------------------------------------------------------
     def _prepare(self, program, feed, fetch_list, scope):

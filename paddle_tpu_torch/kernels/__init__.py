@@ -6,12 +6,16 @@ launches (``<wrapper>.launches``)."""
 
 from . import _build
 from . import flash_attention as _fa
+from . import fused_ce as _ce
 from . import paged_attention as _pa
 
 # name -> wrapper, for callers that reset or read every launch count
 WRAPPERS = {"paged_attention": _pa.paged_attention,
             "flash_attention_fwd": _fa.flash_fwd,
-            "flash_attention_bwd": _fa.flash_bwd}
+            "flash_attention_bwd": _fa.flash_bwd,
+            "fused_ce_fwd": _ce.ce_fwd,
+            "fused_ce_dx": _ce.ce_dx,
+            "fused_ce_dw": _ce.ce_dw}
 
 
 def reset_launches():
@@ -25,6 +29,7 @@ def build_all():
     _build.build()
     _pa.build()
     _fa.build()
+    _ce.build()
 
 
 __all__ = ["WRAPPERS", "reset_launches", "build_all"]

@@ -1,7 +1,7 @@
 """Neural-net layers (``paddle_tpu/layers/nn.py``), the part
 ``models.transformer.build`` reaches: ``fc``, ``embedding``,
 ``layer_norm``, ``dropout``, ``softmax_with_cross_entropy``,
-``flash_attention`` / ``flash_attention_packed``, ``multi_head_attention``,
+``fused_softmax_ce_head``, ``flash_attention`` / ``flash_attention_packed``, ``multi_head_attention``,
 ``scale``, ``reduce_sum``.  Each layer creates parameters
 through LayerHelper and appends ops; names, shapes and attrs are the
 reference's, so both packages build the same program."""
@@ -18,6 +18,7 @@ __all__ = [
     "layer_norm",
     "dropout",
     "softmax_with_cross_entropy",
+    "fused_softmax_ce_head",
     "flash_attention",
     "flash_attention_packed",
     "multi_head_attention",
@@ -156,6 +157,36 @@ def softmax_with_cross_entropy(logits, label, soft_label=False):
         inputs={"Logits": [logits.name], "Label": [label.name]},
         outputs={"Softmax": [softmax_out.name], "Loss": [loss.name]},
         attrs={"soft_label": soft_label},
+    )
+    return loss
+
+
+def fused_softmax_ce_head(input, label, size, param_attr=None, name=None,
+                          block_n=512, block_v=1024, block_v_fwd=2048,
+                          backend=None):
+    """Fused LM-head loss: projection ``[d -> size]`` + softmax
+    cross-entropy in one pass that never materialises ``[..., size]``
+    logits in device memory (``kernels/fused_ce.py``).  Replaces the
+    composed ``fc(bias_attr=False) + softmax_with_cross_entropy`` head.
+    Returns the per-position loss ``[..., 1]`` float32; rows with
+    out-of-range labels must be masked by the caller, as on the composed
+    path.  The block sizes and ``backend`` are recorded as attrs, as the
+    reference records them; the CUDA kernels tile by their own sizes."""
+    helper = LayerHelper("fused_softmax_ce_head", name=name)
+    in_dim = int(input.shape[-1])
+    w = helper.create_parameter(
+        param_attr, shape=[in_dim, size], dtype=input.dtype, suffix="w")
+    loss = helper.create_tmp_variable(
+        "float32", list(input.shape[:-1]) + [1])
+    attrs = {"block_n": block_n, "block_v": block_v,
+             "block_v_fwd": block_v_fwd}
+    if backend:
+        attrs["backend"] = str(backend)
+    helper.append_op(
+        type="fused_softmax_ce_head",
+        inputs={"X": [input.name], "W": [w.name], "Label": [label.name]},
+        outputs={"Loss": [loss.name]},
+        attrs=attrs,
     )
     return loss
 

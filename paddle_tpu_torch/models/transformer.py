@@ -287,14 +287,15 @@ def build(vocab_size=1000, n_layer=4, n_head=8, d_model=256, d_ff=None,
 
     Feeds: tokens [batch, max_len] int64, labels [batch, max_len] int64
     (tokens shifted left by one, label -1 = padding, masked out of the
-    loss).  The head is ``fc`` + ``softmax_with_cross_entropy``; the fused
-    cross-entropy head (``fused_head=True``) arrives with the slice that
-    ports its kernels, and raises until then."""
-    if fused_head:
-        raise NotImplementedError(
-            "fused_head=True needs the fused cross-entropy kernels "
-            "(paddle_tpu/ops/pallas_ce.py), which the next slice of the "
-            "port brings; build with fused_head=False")
+    loss).
+
+    The head is ``fc`` + ``softmax_with_cross_entropy``, or with
+    ``fused_head=True`` the fused head (``layers.fused_softmax_ce_head``,
+    the CE kernels of ``kernels/fused_ce.py``): no ``[b, t, vocab]``
+    logits ever reach device memory.  The head weight keeps the name and
+    shape ``lm_head.w [d_model, vocab]`` either way, so ``generate`` and
+    the serving engine serve both.  With the fused head ``logits`` is None
+    (not materialising them is the point)."""
     tokens = layers.data("tokens", shape=[max_len], dtype="int64")
     labels = layers.data("labels", shape=[max_len], dtype="int64")
     mask2d = ltensor.cast(
@@ -302,15 +303,27 @@ def build(vocab_size=1000, n_layer=4, n_head=8, d_model=256, d_ff=None,
             shape=[1], dtype="int64", value=0)), "float32")
     safe2d = layers.elementwise_max(
         labels, ltensor.fill_constant(shape=[1], dtype="int64", value=0))
-    logits = gpt(tokens, vocab_size, n_layer=n_layer, n_head=n_head,
-                 d_model=d_model, d_ff=d_ff, max_len=max_len,
-                 dropout_rate=dropout_rate, is_test=is_test,
-                 dtype=dtype, attn_block_q=attn_block_q,
-                 attn_block_k=attn_block_k, attn_packed=attn_packed)
-    flat_logits = ltensor.reshape(logits, [-1, vocab_size])
-    flat_labels = ltensor.reshape(safe2d, [-1, 1])
-    loss = layers.softmax_with_cross_entropy(flat_logits, flat_labels)
-    masked = loss * ltensor.reshape(mask2d, [-1, 1])
+    logits = None
+    if fused_head:
+        x = gpt_trunk(tokens, vocab_size, n_layer=n_layer, n_head=n_head,
+                      d_model=d_model, d_ff=d_ff, max_len=max_len,
+                      dropout_rate=dropout_rate, is_test=is_test,
+                      dtype=dtype, attn_block_q=attn_block_q,
+                      attn_block_k=attn_block_k, attn_packed=attn_packed)
+        loss = layers.fused_softmax_ce_head(x, safe2d, vocab_size,
+                                            name="lm_head")
+        masked = ltensor.reshape(loss, [-1, 1]) * ltensor.reshape(
+            mask2d, [-1, 1])
+    else:
+        logits = gpt(tokens, vocab_size, n_layer=n_layer, n_head=n_head,
+                     d_model=d_model, d_ff=d_ff, max_len=max_len,
+                     dropout_rate=dropout_rate, is_test=is_test,
+                     dtype=dtype, attn_block_q=attn_block_q,
+                     attn_block_k=attn_block_k, attn_packed=attn_packed)
+        flat_logits = ltensor.reshape(logits, [-1, vocab_size])
+        flat_labels = ltensor.reshape(safe2d, [-1, 1])
+        loss = layers.softmax_with_cross_entropy(flat_logits, flat_labels)
+        masked = loss * ltensor.reshape(mask2d, [-1, 1])
     mask = ltensor.reshape(mask2d, [-1, 1])
     avg_cost = layers.reduce_sum(masked) / (
         layers.reduce_sum(mask) + 1e-8)

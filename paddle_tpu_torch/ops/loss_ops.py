@@ -1,9 +1,12 @@
 """Loss ops (``paddle_tpu/ops/loss_ops.py``):
-``softmax_with_cross_entropy`` (the unfused LM head's loss)."""
+``softmax_with_cross_entropy`` (the unfused LM head's loss) and
+``fused_softmax_ce_head`` (the fused head's, registered at the foot of
+``paddle_tpu/ops/pallas_ce.py``)."""
 
 import torch
 
 from ..core.registry import register_op
+from ..kernels import fused_ce as _ce
 
 
 def _squeeze_label(Label):
@@ -28,3 +31,19 @@ def softmax_with_cross_entropy(Logits, Label, soft_label=False, _live=None,
     if _live is None or "Softmax" in _live:
         out["Softmax"] = torch.exp(logp).to(Logits.dtype)
     return out
+
+
+@register_op("fused_softmax_ce_head")
+def fused_softmax_ce_head(X, W, Label, **_):
+    """Projection + softmax cross-entropy in one pass
+    (``kernels/fused_ce.py``: the CUDA kernels on the card, the plain
+    versions on the CPU): ``X [..., d]``, ``W [d, V]``, ``Label [...]`` or
+    ``[..., 1]`` -> ``Loss [..., 1]`` f32.  The single-device branch of the
+    reference; its attrs (``block_n``, ``block_v``, ``block_v_fwd``, the
+    kernel-registry ``backend``) are accepted and unused: the CUDA kernels
+    tile by their own sizes.  Its vocab-sharded ``tp`` branch waits for
+    the multi-GPU slice."""
+    lbl = Label
+    if lbl.dim() == X.dim() and lbl.shape[-1] == 1:
+        lbl = lbl.reshape(lbl.shape[:-1])
+    return {"Loss": _ce.fused_softmax_ce_head(X, W, lbl)[..., None]}

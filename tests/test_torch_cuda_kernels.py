@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card (paged attention, flash attention
-forward and fused backward), against their plain PyTorch versions
+forward and fused backward, the fused cross-entropy head's forward, dx and
+dW), against their plain PyTorch versions
 (paddle_tpu_torch only: no jax, so these run on a host without it).  Every test needs an NVIDIA GPU and skips without one; on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -275,3 +276,142 @@ def test_executor_on_the_card_matches_the_cpu():
     assert card_scope.get("lm_head.w").data_ptr() == ptr
     assert not torch.equal(card_scope.get("lm_head.w"), before)
     assert card_scope.get("@GRAD_NORM@").item() > 0
+
+
+# -- fused cross-entropy head: forward, dx, dW ---------------------------------
+
+from paddle_tpu_torch.kernels import fused_ce as tce  # noqa: E402
+
+CE_GEOMS = {
+    # N, d, V: tile-aligned, ragged everywhere, odd widths (the scalar
+    # copy path), the small-d template, and a wide head
+    "aligned": (256, 256, 1024),
+    "ragged": (1000, 200, 5000),
+    "odd": (77, 61, 333),
+    "d768": (130, 768, 2100),
+}
+
+
+def _ce_case(n, d, v, dtype, seed=0):
+    """Seeded inputs on the card; labels -1 and V in some rows, and a
+    cotangent with zeros (masked rows)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    w = (2 * rng.standard_normal((d, v)) / np.sqrt(d)).astype(np.float32)
+    y = rng.integers(0, v, n).astype(np.int32)
+    y[1::7] = -1
+    y[3::11] = v
+    g = rng.standard_normal(n).astype(np.float32)
+    g[2::5] = 0.0
+    dev = "cuda"
+    return (torch.tensor(x, device=dev).to(dtype),
+            torch.tensor(w, device=dev).to(dtype),
+            torch.tensor(y, device=dev), torch.tensor(g, device=dev))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", list(CE_GEOMS))
+def test_ce_kernels_match_plain_versions(dtype, geom):
+    _need_card()
+    x, w, y, g = _ce_case(*CE_GEOMS[geom], getattr(torch, dtype))
+    before = (tce.ce_fwd.launches, tce.ce_dx.launches, tce.ce_dw.launches)
+    loss, lse = tce.ce_fwd(x, w, y)
+    dx = tce.ce_dx(x, w, y, lse, g)
+    dw = tce.ce_dw(x, w, y, lse, g)
+    torch.cuda.synchronize()
+    assert (tce.ce_fwd.launches, tce.ce_dx.launches, tce.ce_dw.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    ref_loss, ref_lse = tce.fused_ce_ref(x, w, y)
+    tol = tce.oracle_tol(dtype, "fwd")
+    assert loss.dtype == torch.float32 and loss.shape == y.shape
+    assert _rel(loss, ref_loss) <= tol
+    assert _rel(lse, ref_lse) <= tol
+    out = (y < 0) | (y >= w.shape[1])
+    assert torch.equal(loss[out], lse[out])
+    # the backward from the plain lse, so only the backward is compared
+    ref_dx, ref_dw = tce.fused_ce_bwd_ref(x, w, y, ref_lse, g)
+    dx = tce.ce_dx(x, w, y, ref_lse.float(), g)
+    dw = tce.ce_dw(x, w, y, ref_lse.float(), g)
+    tol = tce.oracle_tol(dtype, "grad")
+    assert dx.dtype == x.dtype and dw.dtype == w.dtype
+    assert _rel(dx, ref_dx) <= tol
+    assert _rel(dw, ref_dw) <= tol
+    assert torch.equal(dx[g == 0], torch.zeros_like(dx[g == 0]))
+
+
+def test_ce_autograd_goes_through_the_three_kernels():
+    """The head's entry point on the card: leading dims, int64 labels cast
+    once, the same loss and gradients as the plain versions, one launch of
+    each kernel."""
+    _need_card()
+    x, w, y, g = _ce_case(300, 128, 700, torch.float32, seed=3)
+    x3 = x.reshape(3, 100, 128).clone().requires_grad_()
+    w = w.clone().requires_grad_()
+    y3 = y.long().reshape(3, 100)
+    before = (tce.ce_fwd.launches, tce.ce_dx.launches, tce.ce_dw.launches)
+    loss = tce.fused_softmax_ce_head(x3, w, y3)
+    loss.backward(g.reshape(3, 100))
+    torch.cuda.synchronize()
+    assert (tce.ce_fwd.launches, tce.ce_dx.launches, tce.ce_dw.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    ref_loss, ref_lse = tce.fused_ce_ref(x, w.detach(), y)
+    ref_dx, ref_dw = tce.fused_ce_bwd_ref(x, w.detach(), y, ref_lse, g)
+    assert loss.shape == (3, 100)
+    assert _rel(loss.reshape(-1), ref_loss) <= 2e-4
+    assert _rel(x3.grad.reshape(300, 128), ref_dx) <= 1e-3
+    assert _rel(w.grad, ref_dw) <= 1e-3
+
+
+def test_ce_wrapper_checks_before_launching():
+    _need_card()
+    x, w, y, g = _ce_case(64, 32, 100, torch.float32)
+    before = tce.ce_fwd.launches
+    with pytest.raises(TypeError):
+        tce.ce_fwd(x.half(), w.half(), y)               # dtype
+    with pytest.raises(TypeError):
+        tce.ce_fwd(x, w, y.long())                      # int64 labels
+    with pytest.raises(ValueError):
+        tce.ce_fwd(x, w.cpu(), y)                       # device
+    with pytest.raises(ValueError):
+        tce.ce_fwd(x, w.T.contiguous().T, y)            # contiguity
+    with pytest.raises(ValueError):
+        wide = torch.zeros(4, 800, device="cuda")
+        tce.ce_fwd(wide, torch.zeros(800, 8, device="cuda"), y[:4])
+    assert tce.ce_fwd.launches == before
+
+
+def test_fused_head_executor_on_the_card_matches_the_cpu():
+    """Three Adam steps of a tiny f32 fused-head GPT on the card, from the
+    state the CPU run starts from: the same losses within 1e-4 relative,
+    each CE kernel launched once a step."""
+    _need_card()
+    import paddle_tpu_torch as pt
+
+    pt.core.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        model = pt.models.transformer.build(
+            vocab_size=61, n_layer=2, n_head=2, d_model=128, max_len=48,
+            dropout_rate=0.0, dtype="float32", learning_rate=2e-3,
+            fused_head=True)
+    cpu_scope = pt.Scope()
+    cpu = pt.Executor(pt.CPUPlace())
+    cpu.run(startup, scope=cpu_scope)
+    state = {v.name: cpu_scope.numpy(v.name)
+             for v in main.persistable_vars()}
+    card_scope = pt.load_numpy_state(pt.Scope(), state)
+    card = pt.Executor(pt.CUDAPlace(0))
+    rng = np.random.default_rng(0)
+    before = (tce.ce_fwd.launches, tce.ce_dx.launches, tce.ce_dw.launches)
+    for _ in range(3):
+        start = rng.integers(0, 61, (4, 1))
+        toks = (start + np.arange(48)[None, :]) % 61
+        labels = np.concatenate([toks[:, 1:], -np.ones((4, 1), int)], 1)
+        feed = {"tokens": toks, "labels": labels}
+        want, = cpu.run(main, feed=feed, fetch_list=[model["avg_cost"]],
+                        scope=cpu_scope)
+        got, = card.run(main, feed=feed, fetch_list=[model["avg_cost"]],
+                        scope=card_scope)
+        assert abs(got[0] - want[0]) <= 1e-4 * abs(want[0])
+    assert (tce.ce_fwd.launches - before[0], tce.ce_dx.launches - before[1],
+            tce.ce_dw.launches - before[2]) == (3, 3, 3)

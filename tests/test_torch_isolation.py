@@ -77,6 +77,7 @@ TRAINING_MODULES = [
     "paddle_tpu_torch.ops.control_flow_ops",
     "paddle_tpu_torch.ops.attention_ops",
     "paddle_tpu_torch.kernels.flash_attention",
+    "paddle_tpu_torch.kernels.fused_ce",
     "paddle_tpu_torch.models.transformer",
 ]
 
@@ -127,7 +128,8 @@ def test_kernel_wrappers_and_counters_are_registered():
     from paddle_tpu_torch import kernels
 
     assert set(kernels.WRAPPERS) == {
-        "paged_attention", "flash_attention_fwd", "flash_attention_bwd"}
+        "paged_attention", "flash_attention_fwd", "flash_attention_bwd",
+        "fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"}
     for fn in kernels.WRAPPERS.values():
         fn.launches += 3
     kernels.reset_launches()
@@ -139,6 +141,7 @@ def test_kernel_sources_and_build_flags():
 
     assert "paged_attention" in _build.sources()
     assert "flash_attention" in _build.sources()
+    assert "fused_ce" in _build.sources()
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert _build.lib_path("paged_attention").startswith(_build.BUILD_DIR)

@@ -5,12 +5,13 @@ package's, on the CPU.
   gives the same programs: op types in order, op slots with variable
   names, attrs, and every variable's name, shape, dtype and role — for
   the 4-D attention op (d_head 16) and the packed one (d_head 64, paired
-  heads), main and startup program alike.
+  heads), with the unfused and the fused cross-entropy head, main and
+  startup program alike.
 * The reference's post-startup persistables go through
   ``load_numpy_state`` and come back bit for bit.
 * Each op lowering the training path reaches that does real arithmetic
   (``layer_norm``, ``gelu``, ``softmax_with_cross_entropy``,
-  ``lookup_table``, ``adam``, ``mul``, the elementwise broadcast rule)
+  ``fused_softmax_ce_head``, ``lookup_table``, ``adam``, ``mul``, the elementwise broadcast rule)
   matches the JAX op function on seeded inputs: f32 within 1e-5 of the
   output's largest magnitude (different summation order only), bf16
   within 2e-2.
@@ -39,6 +40,13 @@ CONFIGS = {
     "d32_bf16_dropout": dict(vocab_size=61, n_layer=1, n_head=2, d_model=32,
                              max_len=16, dropout_rate=0.1,
                              dtype="bfloat16"),
+    "d32_h2_4d_fused_head": dict(vocab_size=61, n_layer=2, n_head=2,
+                                 d_model=32, max_len=16, dropout_rate=0.0,
+                                 dtype="float32", fused_head=True),
+    "d128_packed_bf16_fused_head": dict(vocab_size=61, n_layer=1, n_head=1,
+                                        d_model=128, max_len=16,
+                                        dropout_rate=0.0, dtype="bfloat16",
+                                        fused_head=True),
 }
 
 
@@ -81,13 +89,16 @@ def test_build_gives_the_same_program(config, which):
     if which == "main":
         attn = {"d32_h2_4d": "flash_attention",
                 "d128_h2_packed": "flash_attention_packed",
-                "d32_bf16_dropout": "flash_attention"}[config]
-        assert attn in [o[0] for o in tops]
-
-
-def test_fused_head_names_the_next_slice():
-    with pytest.raises(NotImplementedError, match="fused cross-entropy"):
-        _build(tpt, ttr, dict(CONFIGS["d32_h2_4d"], fused_head=True))
+                "d32_bf16_dropout": "flash_attention",
+                "d32_h2_4d_fused_head": "flash_attention",
+                "d128_packed_bf16_fused_head": "flash_attention_packed",
+                }[config]
+        types = [o[0] for o in tops]
+        assert attn in types
+        fused = cfg.get("fused_head", False)
+        assert ("fused_softmax_ce_head" in types) == fused
+        assert ("softmax_with_cross_entropy" in types) == (not fused)
+        assert (tout["logits"] is None) == fused
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -210,6 +221,33 @@ def test_softmax_with_cross_entropy_op(dtype):
         Logits=_t(logits, dtype), Label=torch.from_numpy(label),
         _live={"Loss"})
     assert set(lean) == {"Loss"}
+
+
+@pytest.mark.parametrize("label_shape", ["flat", "trailing_1"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_softmax_ce_head_op(dtype, label_shape):
+    """The op on the JAX package's Pallas kernels (interpreted, small
+    blocks) and on the port's plain versions: Loss [..., 1] f32, the
+    label squeezed when it carries a trailing 1; labels -1 and V give
+    lse, as on the TPU."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 6, 16)).astype(np.float32)
+    w = (rng.standard_normal((16, 40)) / 4).astype(np.float32)
+    label = rng.integers(0, 40, (2, 6)).astype(np.int64)
+    label[0, 1], label[1, 5] = -1, 40
+    if label_shape == "trailing_1":
+        label = label[..., None]
+    jd = jnp.dtype(dtype)
+    attrs = dict(block_n=4, block_v=8, block_v_fwd=20)
+    want = jax_op("fused_softmax_ce_head").fn(
+        X=jnp.asarray(x, jd), W=jnp.asarray(w, jd), Label=jnp.asarray(label),
+        **attrs)
+    got = torch_op("fused_softmax_ce_head").fn(
+        X=_t(x, dtype), W=_t(w, dtype), Label=torch.from_numpy(label),
+        backend="", **attrs)
+    assert got["Loss"].shape == (2, 6, 1)
+    assert got["Loss"].dtype == torch.float32
+    _close(got["Loss"], want["Loss"], 2e-4 if dtype == "float32" else 2e-2)
 
 
 def test_lookup_table_op():

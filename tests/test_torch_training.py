@@ -2,14 +2,15 @@
 the same steps through the JAX package's, on the CPU.
 
 Both packages build ``transformer.build(n_layer=2, vocab 61, max_len=16,
-dropout_rate=0, fused_head=False)``; the reference's post-startup
+dropout_rate=0)``, with the unfused and (f32) the fused cross-entropy
+head; the reference's post-startup
 persistables (weights, Adam moments, beta powers, learning rate) are
 imported with ``load_numpy_state``, never redrawn; the same five seeded
 batches go through both.  Compared: the loss of every step, ``@GRAD`` of
 every parameter at step 1, and every parameter and moment after step 5.
 
-The reference's attention runs its Pallas kernels in interpret mode; the
-port's runs the plain versions (CPU tensors).  Tolerances met:
+The reference's attention and fused head run their Pallas kernels in
+interpret mode; the port's run the plain versions (CPU tensors).  Tolerances met:
 
 * f32 (d_model 32 with the 4-D attention op, d_model 128 with the packed
   op): loss within 1e-5 relative, gradients within 1e-4 of the largest
@@ -39,10 +40,10 @@ from paddle_tpu_torch.models import transformer as ttr
 VOCAB, T, BATCH, STEPS = 61, 16, 4, 5
 
 
-def _cfg(d_model, dtype):
+def _cfg(d_model, dtype, fused_head=False):
     return dict(vocab_size=VOCAB, n_layer=2, n_head=2, d_model=d_model,
-                max_len=T, dropout_rate=0.0, dtype=dtype, fused_head=False,
-                learning_rate=2e-3)
+                max_len=T, dropout_rate=0.0, dtype=dtype,
+                fused_head=fused_head, learning_rate=2e-3)
 
 
 def _batches(seed):
@@ -69,11 +70,11 @@ def _build(pkg, model, cfg):
     return main, startup, out
 
 
-def _run_both(d_model, dtype, seed):
+def _run_both(d_model, dtype, seed, fused_head=False):
     """(reference record, port record): losses, step-1 grads, final
     state.  One compiled reference program serves all five steps (the
     fetch list is the same every step)."""
-    cfg = _cfg(d_model, dtype)
+    cfg = _cfg(d_model, dtype, fused_head)
     batches = _batches(seed)
 
     jmain, jstart, jout = _build(pt, jtr, cfg)
@@ -122,9 +123,13 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
-@pytest.fixture(scope="module", params=[32, 128], ids=["d32_4d", "d128_packed"])
+@pytest.fixture(scope="module",
+                params=[(32, False), (128, False), (32, True), (128, True)],
+                ids=["d32_4d", "d128_packed", "d32_4d_fused_head",
+                     "d128_packed_fused_head"])
 def f32_run(request):
-    return _run_both(request.param, "float32", seed=request.param)
+    d_model, fused_head = request.param
+    return _run_both(d_model, "float32", seed=d_model, fused_head=fused_head)
 
 
 def test_f32_loss_every_step(f32_run):
