@@ -24,6 +24,13 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
       ``[b, h, t, t]`` scores, so it runs over the batch two rows at a
       time; timed at the path shape (library: SDPA forward, and forward
       plus backward; bound: causal flops over 989 TFLOP/s, or bytes);
+      b+. the split backward (dq kernel, dk/dv kernel) with the route
+      forced in this script: at b=8 t=4096 and the small cases against
+      the plain version, with and without ``dlse``, its dk and dv equal to
+      the fused kernel's bits and its dq within rounding; at phase 8's
+      shape (b=8, t=16384) against the fused kernel and, on batch row 0
+      one head at a time, the plain version; timed there (library: SDPA's
+      backward for the pair; bound: three and four causal products);
    c. the fused cross-entropy head's forward (``loss``, ``lse``), dx and
       dW kernels at the training path's shape (N = 32768 rows, d=768,
       V=32768, bf16), at phase 6's f32 shape (N=512) and at a ragged shape
@@ -32,7 +39,9 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
       (library: ``torch.matmul`` + ``F.cross_entropy`` forward, and that
       composition's backward by autograd for x alone and for w alone —
       no single PyTorch call computes the head; bound: 2 N d V flops a
-      product over 989 TFLOP/s);
+      product over 989 TFLOP/s); c+. the forward at phase 8's N = 131072
+      against its plain version over row chunks, and the three kernels'
+      times there;
 4. serving correctness at full width in f32: the 12-layer d768 h6 v32768
    GPT with seeded random weights serves 8 shared-prefix requests through
    the engine's background thread, each compared with the port's
@@ -49,29 +58,41 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    with ``torch.profiler``;
 6. training correctness at full width in f32: the same 12-layer model
    (t=256, b=2) takes two Adam steps through ``Program`` -> ``Executor``
-   three times from one startup state: unfused head with attention in the
+   four times from one startup state: unfused head with attention in the
    CUDA kernels, the same with attention routed to the plain versions (a
-   switch that lives in this script only), and the fused head through the
-   CE kernels; losses must agree within 1e-3 relative and every
-   parameter's step-1 gradient within the flash (kernels vs plain) and
-   the fused_ce (fused vs unfused head) grad tolerance;
-7. training at full width in bf16 (the main path, ``bench.py``'s
+   switch that lives in this script only), the fused head through the
+   CE kernels, and the unfused head with the backward forced onto the
+   split route; losses must agree within 1e-3 relative and every
+   parameter's step-1 gradient within the flash (kernels vs plain, split
+   vs fused route) and the fused_ce (fused vs unfused head) grad
+   tolerance;
+7. training at full width in bf16 (a main path, ``bench.py``'s
    flagship): ``transformer.build(vocab 32768, 12 layers, 6 heads,
    d_model 768, max_len 4096, dropout 0, bf16, fused_head=True)``, batch
    8, synthetic next = tok + 1 tokens on a 512-token cycle from
    ``--seed``, five Adam steps on the card: the loss must be finite and
    fall from about ln(32768), the parameters must change, and every
    attention and head call must have gone through the kernels (12 flash
-   forward, 12 flash backward and one launch of each CE kernel a step,
-   all counts zeroed just before the steps); prints step wall, tokens/s
-   and peak memory, then where one more step's device time goes
+   forward, 12 fused flash backward and one launch of each CE kernel a
+   step, all counts zeroed just before the steps); prints step wall,
+   tokens/s and peak memory, then where one more step's device time goes
    (``torch.profiler`` by kernel family, CUDA events by op type);
    b. the same five steps with ``fused_head=False`` (full depth), for the
    unfused head's peak memory: the fused step's peak must lie at least
    10 GB below it;
-8. one JSON line ``{"kernels": [...]}`` with each of the six kernels'
-   launches on its main path (phase 5 or 7), error, times and bound;
-9. the last line: ``{"ok": true, "device": {...}}``.
+8. training at long context (a main path, ``bench.py``'s
+   ``BENCH_GPT_TUNE=1`` sequence): the same model at max_len 16384, batch
+   8, with ``memory_optimize(policy="selective")``; the memory reckoned
+   before the run, then a warm step and three counted Adam steps: the
+   same loss and parameter checks, and 12 flash forward, 12 split dq, 12
+   split dk/dv, 0 fused backward and one launch of each CE kernel a step;
+   step wall, tokens/s, peak memory and the profiled step;
+   b. the same path for two steps with no remat and with ``compact``:
+   peak memory and step wall beside phase 8's, compact's peak below no
+   remat's, the three loss trajectories equal to bf16 rounding;
+9. one JSON line ``{"kernels": [...]}`` with each of the eight kernels'
+   launches on its main path (phase 5, 7 or 8), error, times and bound;
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
 file, it exits non-zero and prints no result.  The weights, the tokens
@@ -80,6 +101,7 @@ network.
 """
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -94,6 +116,11 @@ D_HEAD = D_MODEL // N_HEAD
 # the training path: tune/search.py flagship_dims at bench.py's sequence
 TRAIN_T, TRAIN_B, TRAIN_STEPS, TRAIN_LR = 4096, 8, 5, 1e-3
 CHECK_T, CHECK_B = 256, 2          # phase 6's short f32 comparison
+# the long-context path: bench.py's BENCH_GPT_TUNE=1 sequence (bench.py:249)
+LONG_T, LONG_STEPS = 16384, 3
+# phase 7's peak as measured on an NVIDIA H100 80GB HBM3 at 700 W (fused
+# head, t=4096, b=8), the base of phase 8's memory reckoning
+T4096_FUSED_PEAK = 13.86e9
 PATTERN = 512                      # the synthetic tokens cycle through 0..511
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense FLOP/s by type
@@ -303,22 +330,27 @@ def flash_inputs(torch, gen, b, t, h, d, dtype):
     return mk(b, t, h, d), mk(b, t, h, d), mk(b, t, h, d), mk(b, t, h, d)
 
 
+def plain_bwd(fa, q, k, v, o, lse, do, dlse, causal):
+    """The plain backward two batch rows at a time: dq, dk, dv."""
+    b, t, h, _ = q.shape
+    if dlse is None:
+        return _chunked(
+            lambda a, b_, c, o_, l_, d_: fa.flash_attention_bwd_ref(
+                a, b_, c, o_, l_.reshape(-1, t), d_, None, causal),
+            (q, k, v, o, lse.reshape(b, h, t), do))
+    return _chunked(
+        lambda a, b_, c, o_, l_, d_, dl: fa.flash_attention_bwd_ref(
+            a, b_, c, o_, l_.reshape(-1, t), d_, dl.reshape(-1, t), causal),
+        (q, k, v, o, lse.reshape(b, h, t), do, dlse.reshape(b, h, t)))
+
+
 def flash_plain(torch, fa, q, k, v, do, dlse, causal):
     """Plain forward and backward, two batch rows at a time: o, lse
     [b*h, t], dq, dk, dv (and the same with the lse cotangent)."""
-    b, t, h, _ = q.shape
     o, lse = _chunked(
         lambda a, b_, c: fa.flash_attention_ref(a, b_, c, causal), (q, k, v))
-    l3 = lse.reshape(b, h, t)
-    grads = _chunked(
-        lambda a, b_, c, o_, l_, d_: fa.flash_attention_bwd_ref(
-            a, b_, c, o_, l_.reshape(-1, t), d_, None, causal),
-        (q, k, v, o, l3, do))
-    grads_l = _chunked(
-        lambda a, b_, c, o_, l_, d_, dl: fa.flash_attention_bwd_ref(
-            a, b_, c, o_, l_.reshape(-1, t), d_, dl.reshape(-1, t), causal),
-        (q, k, v, o, l3, do, dlse.reshape(b, h, t)))
-    return o, lse, grads, grads_l
+    return (o, lse, plain_bwd(fa, q, k, v, o, lse, do, None, causal),
+            plain_bwd(fa, q, k, v, o, lse, do, dlse, causal))
 
 
 def flash_phase(torch, fa):
@@ -377,11 +409,8 @@ def flash_phase(torch, fa):
     plain_fwd_ms = device_ms(torch, lambda i: _chunked(
         lambda a, b_, c: fa.flash_attention_ref(a, b_, c, True),
         (q, k, v)), 1)
-    l3 = lse.reshape(b, h, t)
-    plain_bwd_ms = device_ms(torch, lambda i: _chunked(
-        lambda a, b_, c, o_, l_, d_: fa.flash_attention_bwd_ref(
-            a, b_, c, o_, l_.reshape(-1, t), d_, None, True),
-        (q, k, v, o, l3, do)), 1)
+    plain_bwd_ms = device_ms(torch, lambda i: plain_bwd(
+        fa, q, k, v, o, lse, do, None, True), 1)
     # the yardstick: SDPA on the [b, h, t, d] views of the same tensors
     q4, k4, v4 = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
@@ -429,6 +458,210 @@ def flash_phase(torch, fa):
                      "bound_by": ("operations" if ops_ms >= bytes_ms
                                   else "bytes"),
                      "library_ms": lib})
+    return rows
+
+
+# -- phase 3b+: the split backward kernels against their plain version -------
+
+@contextlib.contextmanager
+def forced_route(fa, route):
+    """The backward route forced for a comparison: the budget constant is
+    patched here, in this script only (the port reads it at call time)."""
+    old = fa.FUSED_BWD_PARTIAL_BYTES
+    fa.FUSED_BWD_PARTIAL_BYTES = 0 if route == "split" else 1 << 62
+    try:
+        yield
+    finally:
+        fa.FUSED_BWD_PARTIAL_BYTES = old
+
+
+def split_vs_fused(torch, fa, split, fused, dtype, what):
+    """dk and dv of the split route must be the fused route's bits (one
+    shared kernel body); dq, summed in another order, within rounding of
+    the input dtype (one bf16 ulp, or 1e-5 of max |dq| in f32)."""
+    for name, a, b_ in (("dk", split[1], fused[1]), ("dv", split[2], fused[2])):
+        if not torch.equal(a, b_):
+            raise AssertionError(f"split {name} differs from the fused "
+                                 f"kernel's at {what}")
+    _, rel = rel_err(torch, split[0], fused[0])
+    limit = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    if not rel <= limit:
+        raise AssertionError(f"split dq vs fused dq rel {rel:.3e} > {limit} "
+                             f"at {what}")
+    return rel
+
+
+def split_phase(torch, fa):
+    """The split route (dq kernel + dk/dv kernel): against the plain
+    version at the t=4096 path shape with the route forced, and at the
+    small cases; at the t=16384 path shape against the fused kernel (dk,
+    dv bit-equal) and, on batch row 0 one head at a time, the plain
+    version; then its times at t=16384.  Returns the two kernel rows."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2468)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("path t=4096", TRAIN_B, TRAIN_T, N_HEAD, D_HEAD, bf16, True),
+             ("f32", 1, 1024, N_HEAD, D_HEAD, f32, True),
+             ("d64", 2, 1024, 4, 64, bf16, True),
+             ("non-causal", 1, 1024, N_HEAD, D_HEAD, bf16, False),
+             ("ragged", 1, 1000, N_HEAD, D_HEAD, bf16, True),
+             ("ragged f32 d64", 1, 333, 2, 64, f32, False)]
+    names = ("dq", "dk", "dv")
+    for label, b, t, h, d, dtype, causal in cases:
+        dname = str(dtype).replace("torch.", "")
+        tol = fa.oracle_tol(dtype, "grad")
+        q, k, v, do = flash_inputs(torch, gen, b, t, h, d, dtype)
+        dlse = torch.randn((b * h, t), generator=gen, device="cuda")
+        o, lse = fa.flash_fwd(q, k, v, causal)
+        worst, dq_rel = 0.0, 0.0
+        for dl in (None, dlse):
+            c0 = (fa.flash_bwd.launches, fa.flash_bwd_dq.launches,
+                  fa.flash_bwd_dkv.launches)
+            with forced_route(fa, "split"):
+                split = fa.flash_bwd(q, k, v, o, lse, do, dl, causal)
+            c1 = (fa.flash_bwd.launches, fa.flash_bwd_dq.launches,
+                  fa.flash_bwd_dkv.launches)
+            if (c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2]) != (0, 1, 1):
+                raise AssertionError(f"the forced split route launched "
+                                     f"{c0} -> {c1}")
+            with forced_route(fa, "fused"):
+                fused = fa.flash_bwd(q, k, v, o, lse, do, dl, causal)
+            torch.cuda.synchronize()
+            ref = plain_bwd(fa, q, k, v, o, lse, do, dl, causal)
+            for name, got, want in zip(names, split, ref):
+                _, rel = rel_err(torch, got, want)
+                if not (bool(torch.isfinite(got.float()).all())
+                        and rel <= tol):
+                    raise AssertionError(
+                        f"split {name} disagrees with its plain version at "
+                        f"{label} {dname}{' +dlse' if dl is not None else ''}"
+                        f": rel {rel:.3e} > {tol}")
+                worst = max(worst, rel)
+            dq_rel = max(dq_rel, split_vs_fused(torch, fa, split, fused, dtype,
+                                                label))
+        log(f"kernel flash_attention split {label:14s} b={b} t={t} h={h} "
+            f"d={d} {dname:8s} {'causal' if causal else 'full  '} grad rel "
+            f"{worst:.3e} (tol {tol:g}), with and without dlse; dk, dv equal "
+            f"the fused kernel's bits, dq rel {dq_rel:.2e} ok")
+        del q, k, v, do, dlse, o, lse, split, fused, ref
+        torch.cuda.empty_cache()
+
+    # the t=16384 path shape: kernel against kernel, then the plain version
+    # on batch row 0, one head at a time ([t, t] f32 scores: 1 GiB a head)
+    b, t, h, d = TRAIN_B, LONG_T, N_HEAD, D_HEAD
+    if fa.bwd_route((b, t, h, d), t, 2) != "split":
+        raise AssertionError("the t=16384 path shape does not route split")
+    q, k, v, do = flash_inputs(torch, gen, b, t, h, d, bf16)
+    o, lse = fa.flash_fwd(q, k, v, True)
+    dq = fa.flash_bwd_dq(q, k, v, o, lse, do, None, True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, o, lse, do, None, True)
+    with forced_route(fa, "fused"):
+        fused = fa.flash_bwd(q, k, v, o, lse, do, None, True)
+    torch.cuda.synchronize()
+    dq_rel = split_vs_fused(torch, fa, (dq, dk, dv), fused, bf16,
+                            f"t={t} b={b}")
+    del fused
+    torch.cuda.empty_cache()
+    tol = fa.oracle_tol(bf16, "grad")
+    errs = {"dq": (0.0, 0.0), "dk": (0.0, 0.0), "dv": (0.0, 0.0)}
+
+    def head(x, bb, hh):
+        return x[bb:bb + 1, :, hh:hh + 1].contiguous()
+
+    def plain_head(bb, hh):
+        return fa.flash_attention_bwd_ref(
+            head(q, bb, hh), head(k, bb, hh), head(v, bb, hh),
+            head(o, bb, hh), lse[bb * h + hh:bb * h + hh + 1],
+            head(do, bb, hh), None, True)
+
+    for hh in range(h):
+        for name, got, want in zip(names, (dq, dk, dv), plain_head(0, hh)):
+            ab, rel = rel_err(torch, head(got, 0, hh), want)
+            if not (bool(torch.isfinite(got.float()).all()) and rel <= tol):
+                raise AssertionError(
+                    f"split {name} at t={t} head {hh} disagrees with its "
+                    f"plain version: rel {rel:.3e} > {tol}")
+            if rel >= errs[name][1]:
+                errs[name] = (ab, rel)
+    log(f"kernel flash_attention split path t={t} b={b} h={h} d={d} bf16 "
+        f"causal: dk, dv equal the fused kernel's bits, dq rel {dq_rel:.2e}; "
+        f"batch row 0, every head, against the plain version: "
+        + ", ".join(f"{n} rel {errs[n][1]:.3e}" for n in names)
+        + f" (tol {tol:g}) ok")
+
+    # times at the t=16384 path shape
+    dq_ms = device_ms(torch, lambda i: fa.flash_bwd_dq(
+        q, k, v, o, lse, do, None, True), 2)
+    dkv_ms = device_ms(torch, lambda i: fa.flash_bwd_dkv(
+        q, k, v, o, lse, do, None, True), 2)
+    with forced_route(fa, "fused"):
+        fused_ms = device_ms(torch, lambda i: fa.flash_bwd(
+            q, k, v, o, lse, do, None, True), 1)
+    fwd_ms = device_ms(torch, lambda i: fa.flash_fwd(q, k, v, True), 2)
+    # the plain backward, head-chunked: one sweep over every (row, head)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for bb in range(b):
+        for hh in range(h):
+            plain_head(bb, hh)
+    e1.record()
+    e1.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    torch.cuda.empty_cache()
+    # the yardstick for the pair: SDPA's backward (forward and backward,
+    # minus forward) on the [b, h, t, d] views of the same tensors
+    q4, k4, v4 = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    do4 = do.transpose(1, 2)
+
+    def lib_fwd(i):
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+    def lib_both(i):
+        out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        torch.autograd.grad(out, (q4, k4, v4), do4)
+
+    lib_fwd_ms = device_ms(torch, lib_fwd, 2)
+    lib_bwd_ms = device_ms(torch, lib_both, 2) - lib_fwd_ms
+    # bounds: t (t + 1) / 2 causal score entries a head, 2 d flops an
+    # entry a product; dq does three products (s, dp, ds.k), dk/dv four
+    # (s, dp, p^T.do, ds^T.q); each input read once, each output written
+    entries = b * h * t * (t + 1) // 2
+    n, es = q.numel(), q.element_size()
+    log(f"flash_attention t={t} b={b} bf16 causal: forward {fwd_ms:.3f} ms, "
+        f"fused backward {fused_ms:.3f} ms (the route not taken), split dq "
+        f"{dq_ms:.3f} + dk/dv {dkv_ms:.3f} = {dq_ms + dkv_ms:.3f} ms; plain "
+        f"backward (all heads, one at a time) {plain_ms:.3f} ms; library "
+        f"(sdpa) forward {lib_fwd_ms:.3f} ms, backward {lib_bwd_ms:.3f} ms")
+    rows = []
+    for name, line, ms, flops, nbytes, err in (
+            ("flash_attention_bwd_dq", 900, dq_ms, 6 * d * entries,
+             6 * n * es + 4 * b * h * t, errs["dq"][0]),
+            ("flash_attention_bwd_dkv", 921, dkv_ms, 8 * d * entries,
+             7 * n * es + 4 * b * h * t, max(errs["dk"][0], errs["dv"][0]))):
+        ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        log(f"{name} bf16 causal (b={b} t={t} h={h} d={d}, "
+            f"{flops / 1e12:.4f} TFLOP, {nbytes} bytes): kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain (the whole backward, "
+            f"head-chunked) {plain_ms:.4f} ms, library (sdpa backward, for "
+            f"the pair) {lib_bwd_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                     "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms,
+                     "bound_by": ("operations" if ops_ms >= bytes_ms
+                                  else "bytes"),
+                     "library_ms": lib_bwd_ms})
+    del q, k, v, do, o, lse, dq, dk, dv, q4, k4, v4, do4
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -575,6 +808,47 @@ def ce_phase(torch, ce):
     return rows
 
 
+def ce_long_phase(torch, ce):
+    """The CE kernels at phase 8's row count (N = b * 16384 = 131072, d=768,
+    V=32768, bf16), the first time they see that many rows: the forward
+    against its plain version run over 16384-row chunks, and the three
+    kernels' times."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8765)
+    n, d, v = TRAIN_B * LONG_T, D_MODEL, VOCAB
+    x, w, y, g = ce_inputs(torch, gen, n, d, v, torch.bfloat16,
+                           out_of_range=False)
+    loss, lse = ce.ce_fwd(x, w, y)
+    torch.cuda.synchronize()
+    chunk = 16384
+    parts = [ce.fused_ce_ref(x[i:i + chunk], w, y[i:i + chunk])
+             for i in range(0, n, chunk)]
+    rloss = torch.cat([p_[0] for p_ in parts])
+    rlse = torch.cat([p_[1] for p_ in parts])
+    del parts
+    tol = ce.oracle_tol(torch.bfloat16)
+    errs = []
+    for name, got, ref in (("loss", loss, rloss), ("lse", lse, rlse)):
+        _, rel = rel_err(torch, got, ref)
+        if not (bool(torch.isfinite(got).all()) and rel <= tol):
+            raise AssertionError(f"fused CE {name} at N={n} disagrees with "
+                                 f"its plain version: rel {rel:.3e} > {tol}")
+        errs.append(rel)
+    fwd_ms = device_ms(torch, lambda i: ce.ce_fwd(x, w, y), 2)
+    dx_ms = device_ms(torch, lambda i: ce.ce_dx(x, w, y, lse, g), 2)
+    dw_ms = device_ms(torch, lambda i: ce.ce_dw(x, w, y, lse, g), 2)
+    prod = 2 * n * d * v
+    log(f"kernel fused_ce path N={n} d={d} V={v} bfloat16: loss rel "
+        f"{errs[0]:.3e}, lse rel {errs[1]:.3e} (tol {tol:g}, plain over "
+        f"{chunk}-row chunks) ok; forward {fwd_ms:.4f} ms "
+        f"({prod / fwd_ms / 1e9:.1f} TFLOP/s), dx {dx_ms:.4f} ms, dW "
+        f"{dw_ms:.4f} ms ({2 * prod / dw_ms / 1e9:.1f} TFLOP/s); bounds "
+        f"{prod / PEAK_FLOPS['bfloat16'] * 1e3:.4f} / "
+        f"{2 * prod / PEAK_FLOPS['bfloat16'] * 1e3:.4f} ms (operations)")
+    del x, w, y, g, loss, lse, rloss, rlse
+    torch.cuda.empty_cache()
+
+
 # -- phase 4: full-width f32 served vs single-stream -------------------------
 
 def correctness_phase(torch, np, params, work):
@@ -659,7 +933,7 @@ def serving_phase(torch, np, params, work, kernels):
     eng.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {nm: fn.launches for nm, fn in kernels.WRAPPERS.items()}
+    launches = kernels.launch_counts()
     st = eng.stats()
     for r, (prompt, max_new) in zip(reqs, work):
         out = r.result(timeout=0)
@@ -770,10 +1044,6 @@ def make_batch(torch, rng, batch, t):
     return {"tokens": toks, "labels": labels}
 
 
-def launch_counts(kernels):
-    return {nm: fn.launches for nm, fn in kernels.WRAPPERS.items()}
-
-
 def grads_agree(params, got, want, tol, what):
     """Every step-1 gradient of ``got`` within ``tol`` of ``want``, max
     |a - b| / max |b|; the key biases' gradient is zero analytically
@@ -799,7 +1069,9 @@ def training_check_phase(torch, np, pt, kernels, fa, ce, seed):
     state each: (a) unfused head, attention through the kernels, against
     the same with attention routed to the plain versions; (b) the fused
     head through the CE kernels against the unfused head (cuBLAS and
-    softmax), both with attention in the kernels."""
+    softmax), both with attention in the kernels; (c) the unfused head with
+    the backward forced onto the split route, against (a)'s fused route
+    and its plain attention."""
     main, startup, model = build_training(pt, seed, CHECK_T, "float32",
                                           False)
     fmain, _, fmodel = build_training(pt, seed, CHECK_T, "float32", True)
@@ -829,10 +1101,10 @@ def training_check_phase(torch, np, pt, kernels, fa, ce, seed):
         return out
 
     def delta(c0):
-        c1 = launch_counts(kernels)
+        c1 = kernels.launch_counts()
         return {k: c1[k] - c0[k] for k in c1}
 
-    c0 = launch_counts(kernels)
+    c0 = kernels.launch_counts()
     with_kernels = two_steps(main, model["avg_cost"])
     d = delta(c0)
     if (d["flash_attention_fwd"], d["flash_attention_bwd"]) != (
@@ -843,27 +1115,44 @@ def training_check_phase(torch, np, pt, kernels, fa, ce, seed):
     real = fa.flash_fwd, fa.flash_bwd
     fa.flash_fwd = lambda q, k, v, causal=False, sm_scale=None: (
         fa.flash_attention_ref(q, k, v, causal, sm_scale))
-    fa.flash_bwd = fa.flash_attention_bwd_ref
+    fa.flash_bwd = (lambda q, k, v, o, lse, do, dlse=None, causal=False,
+                    sm_scale=None, block_q=None, block_k=None:
+                    fa.flash_attention_bwd_ref(q, k, v, o, lse, do, dlse,
+                                               causal, sm_scale))
     try:
-        c0 = launch_counts(kernels)
+        c0 = kernels.launch_counts()
         with_plain = two_steps(main, model["avg_cost"])
     finally:
         fa.flash_fwd, fa.flash_bwd = real
     if any(delta(c0).values()):
         raise AssertionError("the plain-version steps launched a kernel")
-    c0 = launch_counts(kernels)
+    c0 = kernels.launch_counts()
     fused = two_steps(fmain, fmodel["avg_cost"])
     d = delta(c0)
     if (d["flash_attention_fwd"], d["flash_attention_bwd"], d["fused_ce_fwd"],
             d["fused_ce_dx"], d["fused_ce_dw"]) != (
             2 * N_LAYER, 2 * N_LAYER, 2, 2, 2):
         raise AssertionError(f"the f32 fused-head steps missed a kernel: {d}")
+    # 6+: the same unfused steps through the split route (forced)
+    c0 = kernels.launch_counts()
+    with forced_route(fa, "split"):
+        split = two_steps(main, model["avg_cost"])
+    d = delta(c0)
+    if (d["flash_attention_fwd"], d["flash_attention_bwd"],
+            d["flash_attention_bwd_dq"], d["flash_attention_bwd_dkv"]) != (
+            2 * N_LAYER, 0, 2 * N_LAYER, 2 * N_LAYER):
+        raise AssertionError(f"the f32 split-route steps missed a kernel: {d}")
 
+    flash_tol = fa.oracle_tol(torch.float32, "grad")
     for what, a_run, b_run, tol in (
             ("flash kernels vs plain attention", with_kernels, with_plain,
-             fa.oracle_tol(torch.float32, "grad")),
+             flash_tol),
             ("fused CE head vs unfused head", fused, with_kernels,
-             ce.oracle_tol(torch.float32, "grad"))):
+             ce.oracle_tol(torch.float32, "grad")),
+            ("split backward route vs fused route", split, with_kernels,
+             flash_tol),
+            ("split backward route vs plain attention", split, with_plain,
+             flash_tol)):
         losses = []
         for a, b in zip(a_run, b_run):
             la, lb = a[0].item(), b[0].item()
@@ -879,26 +1168,38 @@ def training_check_phase(torch, np, pt, kernels, fa, ce, seed):
             f"{tol:g} (worst {worst[0]} rel {worst[1]:.3e})")
 
 
-def training_phase(torch, np, pt, kernels, seed, fused_head):
-    """A training path at full width: bf16, t=4096, batch 8, the fused
-    head (the main path) or the unfused one.  Returns the launch counts of
-    the counted steps and the peak device memory."""
-    tokens = TRAIN_B * TRAIN_T
-    head = "fused" if fused_head else "unfused"
-    n_params = (VOCAB * D_MODEL * 2 + TRAIN_T * D_MODEL
-                + N_LAYER * 12 * D_MODEL * D_MODEL)
-    # reckoned before running: f32 master copies do not exist (weights are
-    # bf16, moments f32); each layer holds about 30 [tokens, d] bf16
-    # tensors' worth of residuals, the f32 LayerNorm inputs included; the
-    # unfused head adds logits in bf16 and f32 plus log-softmax, and
-    # transiently their gradients; the fused head adds only O(tokens)
-    est = (n_params * (2 + 2 + 8) + N_LAYER * 30 * tokens * D_MODEL * 2)
-    if not fused_head:
-        est += tokens * VOCAB * (2 + 4 + 4 + 4 + 2)
-    log(f"training, {head} head: {n_params} parameters, {tokens} tokens a "
-        f"step; memory reckoned before the run: about {est / 2**30:.1f} GiB")
-    main, startup, model = build_training(pt, seed, TRAIN_T, "bfloat16",
+def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
+                   steps=TRAIN_STEPS, policy=None, warm=0, profile=True):
+    """A training path at full width: bf16, batch 8, sequence ``t``, the
+    fused head (the main paths) or the unfused one, ``policy`` remat or
+    none.  ``warm`` steps run before the counts are zeroed; ``steps`` are
+    counted.  Returns the launch counts of the counted steps, the peak
+    device memory, the losses (warm steps first) and the steady step
+    wall."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    tokens = TRAIN_B * t
+    head = ("fused" if fused_head else "unfused") + " head" + (
+        f", {policy} remat" if policy else "")
+    if t == TRAIN_T:
+        n_params = (VOCAB * D_MODEL * 2 + t * D_MODEL
+                    + N_LAYER * 12 * D_MODEL * D_MODEL)
+        # reckoned before running: f32 master copies do not exist (weights
+        # are bf16, moments f32); each layer holds about 30 [tokens, d]
+        # bf16 tensors' worth of residuals, the f32 LayerNorm inputs
+        # included; the unfused head adds logits in bf16 and f32 plus
+        # log-softmax, and transiently their gradients; the fused head
+        # adds only O(tokens)
+        est = (n_params * (2 + 2 + 8) + N_LAYER * 30 * tokens * D_MODEL * 2)
+        if not fused_head:
+            est += tokens * VOCAB * (2 + 4 + 4 + 4 + 2)
+        log(f"training, {head}: {n_params} parameters, {tokens} tokens a "
+            f"step; memory reckoned before the run: about "
+            f"{est / 2**30:.1f} GiB")
+    main, startup, model = build_training(pt, seed, t, "bfloat16",
                                           fused_head)
+    if policy:
+        pt.memory_optimize(main, policy=policy)
     exe = pt.Executor()
     scope = pt.Scope()
     exe.run(startup, scope=scope)
@@ -908,28 +1209,32 @@ def training_phase(torch, np, pt, kernels, seed, fused_head):
     fetch = [model["avg_cost"].name]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()                     # counts start at 0 here
     losses, walls = [], []
-    for _ in range(TRAIN_STEPS):
-        feed = make_batch(torch, rng, TRAIN_B, TRAIN_T)
+    for i in range(warm + steps):
+        if i == warm:
+            kernels.reset_launches()             # counts start at 0 here
+        feed = make_batch(torch, rng, TRAIN_B, t)
         t0 = time.perf_counter()
         loss, = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
                         return_numpy=False)
         losses.append(loss.item())               # ends in a device sync
         walls.append(time.perf_counter() - t0)
-    launches = launch_counts(kernels)
+    launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     steady = sorted(walls[1:])[len(walls[1:]) // 2]
-    log(f"bf16 training, {head} head, full width (t={TRAIN_T}, "
-        f"b={TRAIN_B}): loss " + " -> ".join(f"{x:.4f}" for x in losses)
+    route = fa.bwd_route((TRAIN_B, t, N_HEAD, D_HEAD), t, 2)
+    log(f"bf16 training, {head}, full width (t={t}, b={TRAIN_B}): loss "
+        + " -> ".join(f"{x:.4f}" for x in losses)
         + f"; step wall first {walls[0]:.3f} s, then median {steady:.3f} s = "
         f"{tokens / steady:.0f} tok/s; grad norm "
         f"{scope.get('@GRAD_NORM@').item():.4f}; max_memory_allocated "
         f"{peak} B")
-    log(f"launches during the {TRAIN_STEPS} steps: "
+    log(f"launches during the {steps} counted steps: "
         + ", ".join(f"{k} {v}" for k, v in launches.items())
-        + f" (expected {N_LAYER} + {N_LAYER} flash a step"
-        + (", 1 of each CE kernel a step)" if fused_head else ", no CE)"))
+        + f" (expected a step: {N_LAYER} flash forward, {N_LAYER} "
+        + ("fused backward" if route == "fused" else
+           f"split dq + {N_LAYER} split dk/dv, 0 fused backward")
+        + (", 1 of each CE kernel)" if fused_head else ", no CE)"))
     if not all(np.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     if abs(losses[0] - np.log(VOCAB)) > 0.5:
@@ -938,11 +1243,14 @@ def training_phase(torch, np, pt, kernels, seed, fused_head):
             f"{np.log(VOCAB):.3f}")
     if not losses[-1] < losses[0] - 0.05:
         raise AssertionError(f"the loss did not fall: {losses}")
-    want = N_LAYER * TRAIN_STEPS
-    ce_want = TRAIN_STEPS if fused_head else 0
+    want = N_LAYER * steps
+    ce_want = steps if fused_head else 0
     expect = {"paged_attention": 0, "flash_attention_fwd": want,
-              "flash_attention_bwd": want, "fused_ce_fwd": ce_want,
-              "fused_ce_dx": ce_want, "fused_ce_dw": ce_want}
+              "flash_attention_bwd": want if route == "fused" else 0,
+              "flash_attention_bwd_dq": want if route == "split" else 0,
+              "flash_attention_bwd_dkv": want if route == "split" else 0,
+              "fused_ce_fwd": ce_want, "fused_ce_dx": ce_want,
+              "fused_ce_dw": ce_want}
     if launches != expect:
         raise AssertionError(
             f"launches {launches}, expected {expect}: some attention or "
@@ -952,10 +1260,72 @@ def training_phase(torch, np, pt, kernels, seed, fused_head):
             raise AssertionError(f"parameter {n} did not change")
         if not torch.isfinite(scope.get(n).float()).all():
             raise AssertionError(f"parameter {n} is not finite")
-    profile_training(torch, pt, exe, main, scope, fetch,
-                     make_batch(torch, rng, TRAIN_B, TRAIN_T), steady)
+    if profile:
+        profile_training(torch, pt, exe, main, scope, fetch,
+                         make_batch(torch, rng, TRAIN_B, t), steady)
     del exe, scope, before
-    return launches, peak
+    return {"launches": launches, "peak": peak, "losses": losses,
+            "steady": steady}
+
+
+def long_phase(torch, np, pt, kernels, seed):
+    """Phase 8, the long-context path: ``bench.py``'s flagship at t=16384,
+    b=8, fused head, ``memory_optimize(policy="selective")`` (what its
+    BENCH_GPT_TUNE=1 path resolves to on a tune-cache miss), a warm step
+    and three counted Adam steps through the split backward; 8b, the same
+    path for two steps without remat and with ``compact``."""
+    tokens = TRAIN_B * LONG_T
+    unit = tokens * D_MODEL * 2                 # one [tokens, d] bf16 tensor
+    n_params = (VOCAB * D_MODEL * 2 + LONG_T * D_MODEL
+                + N_LAYER * 12 * D_MODEL * D_MODEL)
+    state = n_params * (2 + 2 + 8)
+    scaled = T4096_FUSED_PEAK * LONG_T / TRAIN_T
+    per_layer = state + N_LAYER * 30 * unit
+    # selective in eager PyTorch: a checkpointed segment keeps its inputs
+    # referenced, so a layer keeps ln1's output, q, k, v, o, ln2's output,
+    # the FFN hidden before and after gelu (4 units each), the attention
+    # projection's output and two residual-stream tensors: ~18 units
+    selective = state + N_LAYER * 18 * unit
+    log(f"phase 8, t={LONG_T} b={TRAIN_B}: {tokens} tokens a step; peak "
+        f"memory reckoned before the run: phase 7's measured "
+        f"{T4096_FUSED_PEAK / 1e9:.2f} GB x {LONG_T // TRAIN_T} = "
+        f"{scaled / 1e9:.1f} GB (no remat); phase 7's per-layer reckoning "
+        f"(30 [tokens, d] bf16 tensors a layer) {per_layer / 1e9:.1f} GB; "
+        f"selective in eager PyTorch (~18 a layer) {selective / 1e9:.1f} GB")
+    sel = training_phase(torch, np, pt, kernels, seed, True, t=LONG_T,
+                         steps=LONG_STEPS, policy="selective", warm=1)
+    torch.cuda.empty_cache()
+    runs = {"selective": sel}
+    for policy in (None, "compact"):
+        runs[policy or "none"] = training_phase(
+            torch, np, pt, kernels, seed, True, t=LONG_T, steps=2,
+            policy=policy, profile=False)
+        torch.cuda.empty_cache()
+    for name, r in runs.items():
+        log(f"phase 8b t={LONG_T}: {name:9s} peak {r['peak'] / 1e9:.3f} GB, "
+            f"step wall {r['steady']:.3f} s, losses "
+            + ", ".join(f"{x:.6f}" for x in r["losses"][:2]))
+    closest = min((("t=4096 peak x 4", scaled), ("per-layer", per_layer),
+                   ("selective", selective)),
+                  key=lambda kv: abs(kv[1] - sel["peak"]))
+    log(f"reckoning that held for selective ({sel['peak'] / 1e9:.2f} GB "
+        f"measured): {closest[0]} ({closest[1] / 1e9:.1f} GB); selective "
+        f"saves {(runs['none']['peak'] - sel['peak']) / 1e9:.3f} GB and "
+        f"compact {(runs['none']['peak'] - runs['compact']['peak']) / 1e9:.3f}"
+        f" GB against no remat")
+    if not runs["compact"]["peak"] < runs["none"]["peak"]:
+        raise AssertionError("compact remat's peak is not below no remat's")
+    base = runs["none"]["losses"][:2]
+    for name in ("selective", "compact"):
+        got = runs[name]["losses"][:2]
+        for a, b_ in zip(got, base):
+            if not abs(a - b_) <= 2.0 ** -8 * abs(b_):
+                raise AssertionError(
+                    f"{name} remat's losses {got} stray from no remat's "
+                    f"{base} beyond bf16 rounding")
+        log(f"{name} remat losses {'equal' if got == base else 'within bf16 rounding of'}"
+            f" no remat's")
+    return sel["launches"]
 
 
 def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
@@ -981,7 +1351,10 @@ def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
         log("profile: the profiler recorded no device time")
     else:
         families = (("flash forward", ("flash_fwd_kernel",)),
-                    ("flash backward", ("flash_bwd_kernel",)),
+                    ("flash backward (fused)", ("flash_bwd_kernel",)),
+                    ("flash backward dq (split)", ("flash_bwd_dq_kernel",)),
+                    ("flash backward dk/dv (split)",
+                     ("flash_bwd_dkv_kernel",)),
                     ("CE forward", ("ce_fwd_kernel",)),
                     ("CE dx", ("ce_dx_kernel",)),
                     ("CE dW", ("ce_dw_kernel",)),
@@ -1092,8 +1465,10 @@ def main():
     row = kernel_phase(torch, pa)
     flash_rows = flash_phase(torch, fa)
     torch.cuda.empty_cache()
+    split_rows = split_phase(torch, fa)
     ce_rows = ce_phase(torch, ce)
     torch.cuda.empty_cache()
+    ce_long_phase(torch, ce)
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
@@ -1119,23 +1494,32 @@ def main():
 
     # 7. the other main path: training at full width, bf16, fused head;
     #    7b. the unfused head, the same steps, for its peak memory
-    train_launches, fused_peak = training_phase(torch, np, pt, kernels,
-                                                args.seed, fused_head=True)
+    fused = training_phase(torch, np, pt, kernels, args.seed,
+                           fused_head=True)
     torch.cuda.empty_cache()
-    _, unfused_peak = training_phase(torch, np, pt, kernels, args.seed,
-                                     fused_head=False)
+    unfused = training_phase(torch, np, pt, kernels, args.seed,
+                             fused_head=False)
+    fused_peak, unfused_peak = fused["peak"], unfused["peak"]
     log(f"peak memory: fused head {fused_peak} B, unfused head "
         f"{unfused_peak} B, {(unfused_peak - fused_peak) / 1e9:.3f} GB less")
     if not fused_peak <= unfused_peak - 10e9:
         raise AssertionError(
             f"the fused head's peak {fused_peak} B is not 10 GB below the "
             f"unfused head's {unfused_peak} B")
+    torch.cuda.empty_cache()
 
-    # 8. the kernels line, 9. the result
+    # 8. the long-context path: t=16384, selective remat, the split
+    #    backward; 8b. no remat and compact beside it
+    long_launches = long_phase(torch, np, pt, kernels, args.seed)
+
+    # 9. the kernels line, 10. the result
     row["launches"] = launches["paged_attention"]
     for r in flash_rows + ce_rows:
-        r["launches"] = train_launches[r["name"]]
-    print(json.dumps({"kernels": [row] + flash_rows + ce_rows}), flush=True)
+        r["launches"] = fused["launches"][r["name"]]
+    for r in split_rows:
+        r["launches"] = long_launches[r["name"]]
+    print(json.dumps({"kernels": [row] + flash_rows + split_rows + ce_rows}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -15,7 +15,9 @@ Ported so far: the serving path (``serving``, ``models.transformer``,
 ``program_guard`` -> ``layers`` -> ``models.transformer.build`` ->
 ``Executor(place).run`` with autograd and Adam, attention through
 ``kernels.flash_attention`` — so a training script reads the same with
-``import paddle_tpu_torch as pt``.
+``import paddle_tpu_torch as pt``; the memory engine
+(``memory_optimize``, ``gradient_accumulation``, ``release_memory``) and
+``Program.prune`` (``core/ir.py``) as in the JAX package.
 """
 
 from . import ops as _ops  # noqa: F401  (registers the op lowerings)
@@ -27,6 +29,8 @@ from .core.program import (Block, OpDesc, Parameter, Program, Variable,
                            default_main_program, default_startup_program,
                            name_scope, program_guard)
 from .core.scope import Scope, global_scope, load_numpy_state, scope_guard
+from .memory_optimization_transpiler import (gradient_accumulation,
+                                             memory_optimize, release_memory)
 from .param_attr import ParamAttr
 
 __all__ = [
@@ -35,4 +39,5 @@ __all__ = [
     "default_startup_program", "Executor", "CPUPlace", "CUDAPlace", "Scope",
     "global_scope", "scope_guard", "load_numpy_state", "append_backward",
     "ParamAttr", "initializer", "layers", "models", "optimizer",
+    "memory_optimize", "gradient_accumulation", "release_memory",
 ]

@@ -1,6 +1,5 @@
 """Executor — runs a Program on torch tensors (the port's counterpart of
-``paddle_tpu/core/executor.py``, single device, no remat, no gradient
-accumulation).
+``paddle_tpu/core/executor.py``, single device).
 
 The JAX package traces a block once and jits the whole step.  PyTorch
 runs eagerly, so the port walks the block on every ``run``: each op's
@@ -19,16 +18,43 @@ name -> tensor environment.  For a program with a backward marker
    identity from step to step.
 
 Random ops draw from one ``torch.Generator`` per run, whose state is the
-scope's ``@RNG@`` entry: read before the step, written back after.
+scope's ``@RNG@`` entry: read before the step, written back after — the
+state at the end of the forward, whatever a recompute did to it since.
 
 Memory: the environment drops a value right after its last reader (the
 autograd graph keeps what the backward needs), and an op that takes
 ``_live`` skips outputs nothing reads — eager execution has no compiler
 to remove them.
+
+Remat (``memory_optimize``, ``program._remat_segments``, the reference's
+``executor.py:1132-1200``): each wrapped forward segment runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so autograd
+keeps only the segment's inputs and the backward recomputes the rest;
+unwrapped segments run plainly, so the kernels' residuals
+(``FLASH_BWD_RESIDUALS``, the CE head's ``lse``) stay saved and no kernel
+re-runs.  A wrapped segment returns only the names read after it: if it
+returned everything it writes, the next segment would keep every
+internal activation alive and the remat would save nothing.
+``torch.utils.checkpoint`` restores only the global RNG, and dropout
+draws from the step's generator, so each wrapped segment that draws
+snapshots the generator at entry and restores it before its recompute:
+the recomputed mask is the forward's mask.
+
+Gradient accumulation (``gradient_accumulation``,
+``program._grad_accum``, the reference's single-device ``_accum_grads``):
+every non-scalar feed is sliced along its leading axis into
+``micro_steps`` microbatches (a leading dim that does not divide
+raises); forward and backward run per microbatch, with the segments
+applied inside each; gradients sum in f32 and the optimizer ops see the
+mean once.  Forward-written persistables thread from one microbatch to
+the next; fetches are reassembled as the reference does (batch-leading
+values concatenate, batch sums add, other float values average);
+``@GRAD_NORM@`` is the mean gradient's norm.
 """
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from .dtypes import torch_dtype
 from .place import resolve_device
@@ -135,6 +161,229 @@ def run_block_ops(ctx, block, ops, env, inside_grad_prefix=False, plan=None,
                 env.pop(n, None)
 
 
+def _checkpointed(ctx, block, ops, first, env, plan, in_names, out_names,
+                  draws):
+    """Run ``ops`` (``block.ops[first:...]``) under
+    ``torch.utils.checkpoint``: autograd keeps the inputs, the backward
+    recomputes the rest.  ``draws``: the segment holds a random op, so the
+    generator's state at entry is restored before the recompute."""
+    rng0 = ctx.gen.get_state() if draws else None
+
+    def seg_fn(*vals):
+        if draws:
+            ctx.gen.set_state(rng0)
+        e = dict(zip(in_names, vals))
+        run_block_ops(ctx, block, ops, e, inside_grad_prefix=True,
+                      plan=plan, first=first)
+        return tuple(e[n] for n in out_names)
+
+    # early stop ends a recompute by raising from inside an op, which
+    # run_block_ops would report as that op's failure: recompute whole
+    with set_checkpoint_early_stop(False):
+        outs = checkpoint(seg_fn, *[env[n] for n in in_names],
+                          use_reentrant=False, preserve_rng_state=False)
+    env.update(zip(out_names, outs))
+
+
+class _Forward:
+    """The differentiated forward prefix ``block.ops[:bw]`` of a training
+    program, with its remat segments when ``memory_optimize`` marked
+    them."""
+
+    def __init__(self, program, plan, aux_names):
+        from .registry import get_op_impl
+
+        self.block = block = program.global_block()
+        self.bw = bw = block.backward_index
+        self.plan = plan
+        self.aux_names = aux_names
+        ops = block.ops
+        segments = getattr(program, "_remat_segments", None) or []
+        # needed[i]: names read by ops[i:bw], the optimizer ops, fetches,
+        # state or the loss
+        needed = [set() for _ in range(bw + 1)]
+        acc = set(aux_names)
+        needed[bw] = set(acc)
+        for i in range(bw - 1, -1, -1):
+            acc.update(ops[i].input_names())
+            needed[i] = set(acc)
+        self.segments = []
+        for s, t, wrap in segments:
+            if not wrap:
+                self.segments.append((s, t, None))
+                continue
+            seg_ops = ops[s:t]
+            reads = []
+            for op in seg_ops:
+                reads += [n for n in op.input_names() if n not in reads]
+            out_names = tuple(sorted(
+                {n for op in seg_ops for n in op.output_names()}
+                & needed[t]))
+            draws = any(get_op_impl(op.type).stateful_rng
+                        for op in seg_ops)
+            self.segments.append((s, t, (reads, out_names, draws)))
+
+    def run(self, ctx, env):
+        """Evaluate the forward prefix into ``env`` under autograd."""
+        ops, block, plan = self.block.ops, self.block, self.plan
+        if not self.segments:
+            run_block_ops(ctx, block, ops[:self.bw], env,
+                          inside_grad_prefix=True, plan=plan)
+            return
+        for s, t, wrapped in self.segments:
+            if wrapped is None:
+                run_block_ops(ctx, block, ops[s:t], env,
+                              inside_grad_prefix=True, plan=plan, first=s)
+                continue
+            reads, out_names, draws = wrapped
+            in_names = [n for n in reads if n in env]
+            _checkpointed(ctx, block, ops[s:t], s, env, plan, in_names,
+                          out_names, draws)
+            for i in range(s, t):
+                for n in plan.drop[i]:
+                    env.pop(n, None)
+
+    def grads(self, ctx, env, params, loss_name):
+        """Forward into ``env``, then the parameters' gradients (zeros for
+        an unused one).  ``env[loss_name]`` is left detached, and the
+        generator at its end-of-forward state."""
+        with torch.enable_grad():
+            self.run(ctx, env)
+            rng_after = ctx.gen.get_state()
+            loss = env[loss_name]
+            grads = torch.autograd.grad(loss.sum(), params,
+                                        allow_unused=True)
+        ctx.gen.set_state(rng_after)
+        env[loss_name] = loss.detach()
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(params, grads)]
+
+
+def _accum_grads(fwd, ctx, env, params, feeds, persist_out, accum,
+                 loss_name):
+    """The mean gradient over ``accum`` microbatches of the feed batch
+    (the reference's single-device ``_accum_grads``); writes the
+    forward-written persistables and the reassembled fetches into
+    ``env``."""
+    mbs = {}
+    for n, val in feeds.items():
+        if val.dim() == 0:
+            continue                    # 0-d feeds pass through unsplit
+        b0 = val.shape[0]
+        if b0 % accum:
+            raise ValueError(
+                f"gradient_accumulation(micro_steps={accum}): feed {n!r} "
+                f"leading dim {b0} is not divisible")
+        mbs[n] = b0 // accum
+    full_b = feeds[sorted(mbs)[0]].shape[0] if mbs else 0
+    block, bw = fwd.block, fwd.bw
+    fwd_written = {n for op in block.ops[:bw] for n in op.output_names()}
+    carry = sorted(n for n in persist_out if n in fwd_written and n in env)
+    # names the forward merely passes through (parameters, optimizer
+    # state): env already holds their exact values
+    passthrough = {v.name for v in block.program.persistable_vars()
+                   if v.name not in fwd_written}
+    gsum = None
+    ys = {}
+    for i in range(accum):
+        e = dict(env)
+        for n, mb in mbs.items():
+            e[n] = env[n][i * mb:(i + 1) * mb]
+        g = fwd.grads(ctx, e, params, loss_name)
+        with torch.no_grad():
+            if gsum is None:
+                gsum = [x.float() for x in g]
+            else:
+                for acc, x in zip(gsum, g):
+                    acc.add_(x.float())
+        del g
+        for n in carry:
+            env[n] = e[n]
+        for n in fwd.aux_names:
+            if n in e and n not in carry and n not in passthrough:
+                ys.setdefault(n, []).append(e[n].detach())
+        del e
+    env.update(_reassemble(block, bw, ys, full_b))
+    return [(x / accum).to(p.dtype) for x, p in zip(gsum, params)]
+
+
+# additive combiners through which batch-sum-ness propagates linearly
+_ADDITIVE = {"elementwise_add", "elementwise_sub", "sum", "scale"}
+
+
+def _reassemble(block, bw, ys, full_b):
+    """Per-microbatch values ``ys`` -> their big-batch values (the
+    reference's ``_reassemble_accum_aux``, single device): a value whose
+    variable's static leading dim is -1 or the feed batch concatenates; a
+    pure batch-reduction sum (a ``reduce_sum`` over batch data, or an
+    additive composite of such) adds; another float value is the mean of
+    equal-weight microbatch values; anything else keeps the last."""
+    producer = {}
+    for op in block.ops[:bw]:
+        for n in op.output_names():
+            producer[n] = op
+
+    def batch_leading(name):
+        var = block._find_var(name)
+        shape = tuple(var.shape) if var is not None else ()
+        return len(shape) >= 1 and (
+            shape[0] == -1 or (full_b and shape[0] == full_b))
+
+    memo, cap_hits = {}, [0]
+
+    def is_batch_sum(name, depth=0):
+        """Memoized per name, except where the depth cap cut the subtree:
+        that answer is conservative for this path only."""
+        if depth > 64:
+            cap_hits[0] += 1
+            return False
+        if name in memo:
+            return memo[name]
+        before = cap_hits[0]
+        r = _batch_sum_uncached(name, depth)
+        if cap_hits[0] == before:
+            memo[name] = r
+        return r
+
+    def _batch_sum_uncached(name, depth):
+        op = producer.get(name)
+        if op is None:
+            return False
+        ins = op.input_names()
+        if op.type == "reduce_sum":
+            return any(batch_leading(i) for i in ins) or all(
+                is_batch_sum(i, depth + 1) for i in ins)
+        if op.type in _ADDITIVE:
+            flags = [is_batch_sum(i, depth + 1) for i in ins]
+            if op.type == "scale" and any(flags) and (
+                    float(op.attrs.get("bias", 0.0)) != 0.0):
+                # summing microbatch values would inflate the bias
+                raise ValueError(
+                    f"gradient_accumulation cannot reassemble fetch "
+                    f"{name!r}: scale with a nonzero bias over a "
+                    f"batch-sum term; apply the bias on the host")
+            if any(flags) and not all(flags):
+                raise ValueError(
+                    f"gradient_accumulation cannot reassemble fetch "
+                    f"{name!r}: it mixes batch-sum terms with non-sum "
+                    f"terms (op {op.type!r}); fetch the parts separately "
+                    f"and combine on the host")
+            return all(flags) and bool(flags)
+        return False
+
+    out = {}
+    for n, vals in ys.items():
+        if vals[0].dim() >= 1 and batch_leading(n):
+            out[n] = torch.cat(vals, dim=0)
+        elif is_batch_sum(n):
+            out[n] = torch.stack(vals).sum(dim=0)
+        elif vals[0].is_floating_point():
+            out[n] = torch.stack(vals).mean(dim=0)
+        else:
+            out[n] = vals[-1]
+    return out
+
+
 class Executor:
     """``Executor(place)`` — ``place`` is ``CUDAPlace()``, ``CPUPlace()``, a
     device string, or None for the card.  With no place and no usable
@@ -189,8 +438,9 @@ class Executor:
     def lower(self, program, fetch_names, state_names):
         """Build ``step(state, feeds, gen) -> (new_state, fetches,
         grad_norm)`` for a program — the eager counterpart of the JAX
-        Executor's ``lower``.  The liveness plans are computed here, once
-        per (program version, fetches, state)."""
+        Executor's ``lower``.  The liveness plans and the remat segments'
+        outputs are computed here, once per (program version, fetches,
+        state)."""
         block = program.global_block()
         ops = block.ops
         bw = block.backward_index
@@ -204,46 +454,52 @@ class Executor:
             keep.add(info["loss"])
         plan = _Plan(ops, keep)
         device = self.device
+        if bw is None or info is None:
+            def step(state, feeds, gen):
+                ctx = LoweringCtx(device, gen)
+                env = dict(state)
+                env.update(feeds)
+                with torch.no_grad():
+                    run_block_ops(ctx, block, ops, env, plan=plan)
+                return ({n: env[n] for n in persist_out},
+                        [env[n].detach() for n in fetch_names], None)
+            return step
+
+        # what the forward hands the optimizer ops and the caller
+        aux_names = set(keep)
+        for op in ops[bw:]:
+            aux_names.update(op.input_names())
+        fwd = _Forward(program, plan, aux_names)
+        accum = int(getattr(program, "_grad_accum", 1) or 1)
 
         def step(state, feeds, gen):
             ctx = LoweringCtx(device, gen)
             env = dict(state)
             env.update(feeds)
-            grad_norm = None
-            if bw is None or info is None:
-                with torch.no_grad():
-                    run_block_ops(ctx, block, ops, env, plan=plan)
-            else:
-                param_names = [n for n in info["params"] if n in env]
-                params = [env[n] for n in param_names]
+            param_names = [n for n in info["params"] if n in env]
+            params = [env[n] for n in param_names]
+            for p in params:
+                p.requires_grad_(True)
+            try:
+                if accum <= 1:
+                    grads = fwd.grads(ctx, env, params, info["loss"])
+                else:
+                    grads = _accum_grads(fwd, ctx, env, params, feeds,
+                                         persist_out, accum, info["loss"])
+            finally:
                 for p in params:
-                    p.requires_grad_(True)
-                try:
-                    with torch.enable_grad():
-                        run_block_ops(ctx, block, ops[:bw], env,
-                                      inside_grad_prefix=True, plan=plan)
-                        loss = env[info["loss"]]
-                        grads = torch.autograd.grad(
-                            loss.sum(), params, allow_unused=True)
-                finally:
-                    for p in params:
-                        p.requires_grad_(False)
-                grads = [torch.zeros_like(p) if g is None else g
-                         for p, g in zip(params, grads)]
-                with torch.no_grad():
-                    # the step's global gradient norm: one f32 sum of
-                    # squares per parameter and one sqrt, a pure extra
-                    # output that nothing in the update reads
-                    grad_norm = (torch.linalg.vector_norm(torch.stack(
-                        [torch.linalg.vector_norm(g.float())
-                         for g in grads])) if grads else
-                        torch.zeros((), device=device))
-                    for n, g in zip(param_names, grads):
-                        env[n + GRAD_SUFFIX] = g
-                    env[info["loss"]] = loss.detach()
-                    del loss, grads
-                    run_block_ops(ctx, block, ops[bw:], env, plan=plan,
-                                  first=bw)
+                    p.requires_grad_(False)
+            with torch.no_grad():
+                # the step's global gradient norm: one f32 sum of squares
+                # per parameter and one sqrt, a pure extra output that
+                # nothing in the update reads
+                grad_norm = (torch.linalg.vector_norm(torch.stack(
+                    [torch.linalg.vector_norm(g.float()) for g in grads]))
+                    if grads else torch.zeros((), device=device))
+                for n, g in zip(param_names, grads):
+                    env[n + GRAD_SUFFIX] = g
+                del grads
+                run_block_ops(ctx, block, ops[bw:], env, plan=plan, first=bw)
             new_state = {n: env[n] for n in persist_out}
             fetches = [env[n].detach() for n in fetch_names]
             return new_state, fetches, grad_norm

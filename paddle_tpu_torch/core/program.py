@@ -372,8 +372,9 @@ class Program:
     def prune(self, targets):
         """Backward-slice the global block to ops needed for ``targets``
         (reference framework/prune.cc, pybind.cc:289)."""
-        raise NotImplementedError(
-            "Program.prune is not ported yet (core/ir.py)")
+        from .ir import prune_program
+
+        return prune_program(self, targets)
 
     def to_string(self, throw_on_error=False):
         lines = []

@@ -1,23 +1,38 @@
-// Flash attention, forward and fused backward: hand-written kernels for
-// Hopper (sm_90a), bound to PyTorch through a plain C interface (ctypes).
+// Flash attention: forward, fused backward and split backward (dq; dk/dv),
+// hand-written kernels for Hopper (sm_90a), bound to PyTorch through a plain
+// C interface (ctypes).
 //
-// Replaces paddle_tpu/ops/pallas_attention.py: _flash_fwd (forward) and
-// _flash_bwd_fused (single-pass backward).  The TPU kernels run a sequential
+// Replaces paddle_tpu/ops/pallas_attention.py: _flash_fwd (forward),
+// _flash_bwd_fused (single-pass backward) and _flash_bwd's two split kernels
+// (_bwd_dq_kernel, _bwd_dkv_kernel).  The TPU kernels run a sequential
 // (batch*head, q-block, k-block) grid and carry the online-softmax state, or
-// the dk/dv sums, in VMEM scratch from one grid step to the next.  Blocks of a
-// CUDA grid run in parallel and in no order, so the inner axis becomes a loop
-// INSIDE the block:
+// the dq / dk / dv sums, in VMEM scratch from one grid step to the next.
+// Blocks of a CUDA grid run in parallel and in no order, so the inner axis
+// becomes a loop INSIDE the block:
 //
 //   forward   grid (q-tiles, batch*head); the block loops over the k-tiles at
 //             or below its diagonal with (m, l, acc) in shared memory, and
 //             writes o (input dtype) and lse = m + log(l) as [b*h, t_q] f32;
 //   backward  grid (k-tiles, batch*head); the block loops over the q-tiles at
-//             or past its diagonal, keeps dk and dv in f32 in shared memory,
+//   (fused)   or past its diagonal, keeps dk and dv in f32 in shared memory,
 //             recomputes p = exp(s - lse) from the saved lse, computes
 //             delta = rowsum(do * o) - dlse itself, and adds its dq
 //             contribution with f32 atomics into a zeroed [b, t_q, h, d] f32
 //             buffer (the TPU kernel writes per-k-block partials instead: at
-//             64-key tiles that buffer would be t_k/64 copies of q).
+//             64-key tiles that buffer would be t_k/64 copies of q);
+//   dk/dv     the fused backward's block without the dq product and its
+//   (split)   atomics: one shared body (a template flag), so the split route's
+//             dk and dv equal the fused route's bit for bit;
+//   dq        grid (q-tiles, batch*head), heavy causal tiles first; the block
+//   (split)   loads its q, do rows once, computes delta for them, walks the
+//             k-tiles up to its diagonal recomputing s, p, dp and ds, keeps dq
+//             in f32 in shared memory and writes it once in the input dtype:
+//             no atomics and no zeroed f32 buffer, so dq is reproducible bit
+//             for bit.
+//
+// The wrapper picks the fused or the split route by the reference's rule
+// (the fused kernel's dq partials would pass 512 MiB: long t), so both
+// packages run the same kernel family for the same program.
 //
 // One interface for both layouts: tensors are addressed as [b, t, h, d] with
 // the (batch, time, head) strides passed in, so the packed [b, t, h*d]
@@ -28,7 +43,7 @@
 // cast before ds^T.q and ds.k, the l == 0 -> 1 guard, causal rule
 // q_pos >= k_pos (positions counted from 0 on both sides, so t_q > t_k is
 // allowed).  Ragged t is masked: rows and keys past the end load as zeros,
-// never count, and are never stored.
+// never count, and are never stored.  Element offsets are 64-bit.
 //
 // Matrix products: bf16 inputs go through the tensor cores (WMMA 16x16x16,
 // f32 accumulate) with every operand and accumulator tile staged in shared
@@ -37,11 +52,13 @@
 //
 // Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s): operations.  At the
 // training shape (b=8, h=6, t=4096, d=128, bf16, causal) the forward does
-// 4*b*h*t^2*d/2 = 0.21 TFLOP over 0.2 GB, the backward 2.5 times that.  This
-// first kernel is the simple correct design (accumulators round-trip through
-// shared memory, one or two blocks of 4 to 8 warps an SM with block-wide
-// syncs between the products, no cp.async / TMA pipeline, no wgmma), so it
-// sits far below that bound; making it fast is later work.
+// 4*b*h*t^2*d/2 = 0.21 TFLOP over 0.2 GB, the backward 2.5 times that; at
+// t=16384 the split dq kernel does three causal products (4.95 TFLOP) and the
+// dk/dv kernel four (6.60 TFLOP).  These first kernels are the simple correct
+// design (accumulators round-trip through shared memory, one or two blocks of
+// 4 to 8 warps an SM with block-wide syncs between the products, no cp.async
+// / TMA pipeline, no wgmma), so they sit far below that bound; making them
+// fast is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -235,6 +252,14 @@ constexpr size_t bwd_smem_bytes() {
          sizeof(float) * (size_t)(2 * BM * LDS + 2 * kBN * LDO + 2 * BM);
 }
 
+template <typename T, int DP, int BM>
+constexpr size_t dq_smem_bytes() {
+  constexpr int LD = DP + Pitch<T>::pad, LDP = kBN + Pitch<T>::pad;
+  constexpr int LDS = kBN + 4, LDO = DP + 4;
+  return sizeof(T) * (size_t)(2 * BM * LD + 2 * kBN * LD + BM * LDP) +
+         sizeof(float) * (size_t)(2 * BM * LDS + BM * LDO + 2 * BM);
+}
+
 template <typename T, int DP>
 __global__ void __launch_bounds__(kFwdThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -330,17 +355,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DP, int BM>
-__global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ o,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ dlse, float* __restrict__ dq,
-                 T* __restrict__ dk, T* __restrict__ dv, Geom g) {
+// The k-major backward block: dk and dv of one k-tile, and (DQ) its dq
+// share by atomics.  flash_bwd_kernel (fused route) and flash_bwd_dkv_kernel
+// (split route) are this body with DQ true and false.
+template <typename T, int DP, int BM, bool DQ>
+__device__ __forceinline__ void bwd_kv_block(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ o, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dlse,
+    float* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+    const Geom& g, unsigned char* smem_raw) {
   constexpr int BN = kBN, NW = kBwdThreads / 32;
   constexpr int LD = DP + Pitch<T>::pad, LDP = BN + Pitch<T>::pad;
   constexpr int LDS = BN + 4, LDO = DP + 4;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);             // [BN, LD]
   T* Vs = Ks + BN * LD;                               // [BN, LD]
   T* Qs = Vs + BN * LD;                               // [BM, LD]
@@ -422,19 +449,21 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                               DP, BM, warp, lane, NW);
     block_gemm<T, true, false, true, DP / 32>(dKs, LDO, dSs, LDP, Qs, LD, BN,
                                               DP, BM, warp, lane, NW);
-    // dq tile = ds . k, 64 columns at a time into the free score buffers
-    for (int ch = 0; ch < DP / 64; ++ch)
-      block_gemm<T, false, false, false, BM / 32>(
-          (ch & 1) ? dPs : Ss, LDS, dSs, LDP, Ks + ch * 64, LD, BM, 64, BN,
-          warp, lane, NW);
-    __syncthreads();
-    for (int i = tid; i < BM * DP; i += kBwdThreads) {
-      const int r = i / DP, d = i % DP;
-      const int qpos = q0 + r;
-      if (qpos < g.TQ && d < g.D) {
-        const float* src = ((d >> 6) & 1) ? dPs : Ss;
-        atomicAdd(dq + qoff + (long long)qpos * g.q_st + d,
-                  src[r * LDS + (d & 63)]);
+    if constexpr (DQ) {
+      // dq tile = ds . k, 64 columns at a time into the free score buffers
+      for (int ch = 0; ch < DP / 64; ++ch)
+        block_gemm<T, false, false, false, BM / 32>(
+            (ch & 1) ? dPs : Ss, LDS, dSs, LDP, Ks + ch * 64, LD, BM, 64, BN,
+            warp, lane, NW);
+      __syncthreads();
+      for (int i = tid; i < BM * DP; i += kBwdThreads) {
+        const int r = i / DP, d = i % DP;
+        const int qpos = q0 + r;
+        if (qpos < g.TQ && d < g.D) {
+          const float* src = ((d >> 6) & 1) ? dPs : Ss;
+          atomicAdd(dq + qoff + (long long)qpos * g.q_st + d,
+                    src[r * LDS + (d & 63)]);
+        }
       }
     }
   }
@@ -447,6 +476,135 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dk[at] = from_f32<T>(dKs[r * LDO + d]);
       dv[at] = from_f32<T>(dVs[r * LDO + d]);
     }
+  }
+}
+
+template <typename T, int DP, int BM>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ o,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ dlse, float* __restrict__ dq,
+                 T* __restrict__ dk, T* __restrict__ dv, Geom g) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bwd_kv_block<T, DP, BM, true>(q, k, v, o, dout, lse, dlse, dq, dk, dv, g,
+                                smem_raw);
+}
+
+template <typename T, int DP, int BM>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ o,
+                     const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ dlse, T* __restrict__ dk,
+                     T* __restrict__ dv, Geom g) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bwd_kv_block<T, DP, BM, false>(q, k, v, o, dout, lse, dlse, nullptr, dk, dv,
+                                 g, smem_raw);
+}
+
+// Split route, dq: one block owns a BM-row q-tile of one (batch, head) and
+// walks the k-tiles up to its diagonal; dq stays in f32 in shared memory and
+// is written once.  Heavy (late) causal q-tiles launch first.
+template <typename T, int DP, int BM>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ o,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ dlse, T* __restrict__ dq,
+                    Geom g) {
+  constexpr int BN = kBN, NW = kBwdThreads / 32;
+  constexpr int LD = DP + Pitch<T>::pad, LDP = BN + Pitch<T>::pad;
+  constexpr int LDS = BN + 4, LDO = DP + 4;
+  // dQ[BM, DP] += dS[BM, BN] . K[BN, DP]: one output unit a warp
+  constexpr int NACC_DQ = BM * DP / (256 * NW);
+  static_assert(NACC_DQ >= 1 && (BM / 16) * (DP / (16 * NACC_DQ)) == NW,
+                "one dq unit a warp");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);             // [BM, LD]
+  T* dOs = Qs + BM * LD;                              // [BM, LD]
+  T* Ks = dOs + BM * LD;                              // [BN, LD]
+  T* Vs = Ks + BN * LD;                               // [BN, LD]
+  T* dSs = Vs + BN * LD;                              // [BM, LDP] ds, cast
+  float* Ss = reinterpret_cast<float*>(dSs + BM * LDP);  // [BM, LDS]
+  float* dPs = Ss + BM * LDS;                         // [BM, LDS]
+  float* dQs = dPs + BM * LDS;                        // [BM, LDO]
+  float* lse_s = dQs + BM * LDO;                      // [BM]
+  float* delta_s = lse_s + BM;                        // [BM]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qt = (int)gridDim.x - 1 - (int)blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / g.H, h = bh % g.H;
+  const int q0 = qt * BM;
+  const long long qoff = (long long)b * g.q_sb + (long long)h * g.q_sh;
+  const long long koff = (long long)b * g.k_sb + (long long)h * g.k_sh;
+
+  load_tile<T>(Qs, LD, DP, q + qoff + (long long)q0 * g.q_st, g.q_st,
+               g.TQ - q0, BM, g.D, g.vec, tid, kBwdThreads);
+  load_tile<T>(dOs, LD, DP, dout + qoff + (long long)q0 * g.q_st, g.q_st,
+               g.TQ - q0, BM, g.D, g.vec, tid, kBwdThreads);
+  for (int i = tid; i < BM * LDO; i += kBwdThreads) dQs[i] = 0.f;
+  // delta = rowsum(do * o) - dlse, and the saved lse, one warp per row
+  for (int r = warp; r < BM; r += NW) {
+    const int qpos = q0 + r;
+    float part = 0.f;
+    if (qpos < g.TQ) {
+      const T* dor = dout + qoff + (long long)qpos * g.q_st;
+      const T* orow = o + qoff + (long long)qpos * g.q_st;
+      for (int d = lane; d < g.D; d += 32)
+        part += to_f32(dor[d]) * to_f32(orow[d]);
+    }
+    part = warp_sum(part);
+    if (lane == 0) {
+      float ls = 0.f, dl = 0.f;
+      if (qpos < g.TQ) {
+        ls = lse[(long long)bh * g.TQ + qpos];
+        if (dlse != nullptr) dl = dlse[(long long)bh * g.TQ + qpos];
+      }
+      lse_s[r] = ls;
+      delta_s[r] = part - dl;
+    }
+  }
+  int nkt = (g.TK + BN - 1) / BN;
+  // causal: k-tiles wholly past this q-tile's last row see none of it
+  if (g.causal) nkt = min(nkt, (q0 + BM - 1) / BN + 1);
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * BN;
+    __syncthreads();  // the last k-tile's dq product has read Ks, dSs
+    load_tile<T>(Ks, LD, DP, k + koff + (long long)k0 * g.k_st, g.k_st,
+                 g.TK - k0, BN, g.D, g.vec, tid, kBwdThreads);
+    load_tile<T>(Vs, LD, DP, v + koff + (long long)k0 * g.k_st, g.k_st,
+                 g.TK - k0, BN, g.D, g.vec, tid, kBwdThreads);
+    __syncthreads();
+    block_gemm<T, false, true, false, BM / 32>(Ss, LDS, Qs, LD, Ks, LD, BM,
+                                               BN, DP, warp, lane, NW);
+    block_gemm<T, false, true, false, BM / 32>(dPs, LDS, dOs, LD, Vs, LD, BM,
+                                               BN, DP, warp, lane, NW);
+    __syncthreads();
+    for (int i = tid; i < BM * BN; i += kBwdThreads) {
+      const int r = i / BN, c = i % BN;
+      const int qpos = q0 + r, kpos = k0 + c;
+      const bool live = qpos < g.TQ && kpos < g.TK &&
+                        !(g.causal && kpos > qpos);
+      const float p =
+          live ? expf(Ss[r * LDS + c] * g.scale - lse_s[r]) : 0.f;
+      dSs[r * LDP + c] =
+          from_f32<T>(p * (dPs[r * LDS + c] - delta_s[r]) * g.scale);
+    }
+    __syncthreads();
+    block_gemm<T, false, false, true, NACC_DQ>(dQs, LDO, dSs, LDP, Ks, LD, BM,
+                                               DP, BN, warp, lane, NW);
+  }
+  __syncthreads();
+  T* dqb = dq + qoff;
+  for (int i = tid; i < BM * DP; i += kBwdThreads) {
+    const int r = i / DP, d = i % DP;
+    const int qpos = q0 + r;
+    if (qpos < g.TQ && d < g.D)
+      dqb[(long long)qpos * g.q_st + d] = from_f32<T>(dQs[r * LDO + d]);
   }
 }
 
@@ -480,24 +638,54 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DP, int BM>
+// The three backward kernels: the fused one (dq by atomics, dk, dv), the
+// split route's dk/dv one and its dq one.
+enum BwdKind { kFused = 0, kDkv = 1, kDq = 2 };
+
+template <typename K>
+cudaError_t allow_smem(K kern, size_t smem) {
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int DP, int BM, int KIND>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const void* lse, const void* dlse, void* dq,
                void* dk, void* dv, Geom g, cudaStream_t st) {
   g.vec = vec_ok<T>(g) && aligned16(q) && aligned16(k) && aligned16(v) &&
           aligned16(dout);
-  const size_t smem = bwd_smem_bytes<T, DP, BM>();
-  auto kern = flash_bwd_kernel<T, DP, BM>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)((g.TK + kBN - 1) / kBN), (unsigned)(g.B * g.H));
-  kern<<<grid, kBwdThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(dlse), static_cast<float*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), g);
+  const T* q_ = static_cast<const T*>(q);
+  const T* k_ = static_cast<const T*>(k);
+  const T* v_ = static_cast<const T*>(v);
+  const T* o_ = static_cast<const T*>(o);
+  const T* do_ = static_cast<const T*>(dout);
+  const float* lse_ = static_cast<const float*>(lse);
+  const float* dlse_ = static_cast<const float*>(dlse);
+  const unsigned bh = (unsigned)(g.B * g.H);
+  const dim3 kgrid((unsigned)((g.TK + kBN - 1) / kBN), bh);
+  cudaError_t e;
+  if constexpr (KIND == kFused) {
+    const size_t smem = bwd_smem_bytes<T, DP, BM>();
+    auto kern = flash_bwd_kernel<T, DP, BM>;
+    if ((e = allow_smem(kern, smem)) != cudaSuccess) return (int)e;
+    kern<<<kgrid, kBwdThreads, smem, st>>>(
+        q_, k_, v_, o_, do_, lse_, dlse_, static_cast<float*>(dq),
+        static_cast<T*>(dk), static_cast<T*>(dv), g);
+  } else if constexpr (KIND == kDkv) {
+    const size_t smem = bwd_smem_bytes<T, DP, BM>();
+    auto kern = flash_bwd_dkv_kernel<T, DP, BM>;
+    if ((e = allow_smem(kern, smem)) != cudaSuccess) return (int)e;
+    kern<<<kgrid, kBwdThreads, smem, st>>>(q_, k_, v_, o_, do_, lse_, dlse_,
+                                           static_cast<T*>(dk),
+                                           static_cast<T*>(dv), g);
+  } else {
+    const size_t smem = dq_smem_bytes<T, DP, BM>();
+    auto kern = flash_bwd_dq_kernel<T, DP, BM>;
+    if ((e = allow_smem(kern, smem)) != cudaSuccess) return (int)e;
+    const dim3 qgrid((unsigned)((g.TQ + BM - 1) / BM), bh);
+    kern<<<qgrid, kBwdThreads, smem, st>>>(q_, k_, v_, o_, do_, lse_, dlse_,
+                                           static_cast<T*>(dq), g);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -508,11 +696,12 @@ bool geom_ok(const Geom& g) {
 
 }  // namespace
 
-// Both entry points launch on `stream`, allocate nothing and return the
+// Every entry point launches on `stream`, allocates nothing and returns the
 // cudaError_t of the launch (0 on success).  dtype: 0 = float32,
 // 1 = bfloat16.  Strides are in elements; the last (head-dim) stride is 1.
 // The wrapper (paddle_tpu_torch/kernels/flash_attention.py) checks shapes,
-// dtypes and contiguity, and allocates o, lse, the zeroed f32 dq, dk and dv.
+// dtypes and contiguity, and allocates o, lse, dq (the fused route's zeroed
+// f32 one), dk and dv.
 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int H, int TQ,
@@ -535,6 +724,29 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+template <int KIND>
+int bwd_entry(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const void* lse, const void* dlse, void* dq,
+              void* dk, void* dv, const Geom& g, int dtype, void* stream) {
+  if (!geom_ok(g)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (g.D <= 64)
+      return launch_bwd<float, 64, 32, KIND>(q, k, v, o, dout, lse, dlse, dq,
+                                             dk, dv, g, st);
+    return launch_bwd<float, 128, 32, KIND>(q, k, v, o, dout, lse, dlse, dq,
+                                            dk, dv, g, st);
+  }
+  if (dtype == 1) {
+    if (g.D <= 64)
+      return launch_bwd<__nv_bfloat16, 64, 64, KIND>(q, k, v, o, dout, lse,
+                                                     dlse, dq, dk, dv, g, st);
+    return launch_bwd<__nv_bfloat16, 128, 64, KIND>(q, k, v, o, dout, lse,
+                                                    dlse, dq, dk, dv, g, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // dlse may be null (no cotangent on lse).  dq must arrive zeroed: every
 // k-tile's block adds its share with atomics.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -547,23 +759,32 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    long long k_sh, float scale, int causal,
                                    int dtype, void* stream) {
   Geom g{B, H, TQ, TK, D, q_sb, q_st, q_sh, k_sb, k_st, k_sh, scale, causal, 0};
-  if (!geom_ok(g)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (D <= 64)
-      return launch_bwd<float, 64, 32>(q, k, v, o, dout, lse, dlse, dq, dk, dv,
-                                       g, st);
-    return launch_bwd<float, 128, 32>(q, k, v, o, dout, lse, dlse, dq, dk, dv,
-                                      g, st);
-  }
-  if (dtype == 1) {
-    if (D <= 64)
-      return launch_bwd<__nv_bfloat16, 64, 64>(q, k, v, o, dout, lse, dlse, dq,
-                                               dk, dv, g, st);
-    return launch_bwd<__nv_bfloat16, 128, 64>(q, k, v, o, dout, lse, dlse, dq,
-                                              dk, dv, g, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return bwd_entry<kFused>(q, k, v, o, dout, lse, dlse, dq, dk, dv, g, dtype,
+                           stream);
+}
+
+// Split route, dq in the input dtype (written once, no zeroing needed).
+extern "C" int flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, const void* dlse, void* dq, int B,
+    int H, int TQ, int TK, int D, long long q_sb, long long q_st,
+    long long q_sh, long long k_sb, long long k_st, long long k_sh,
+    float scale, int causal, int dtype, void* stream) {
+  Geom g{B, H, TQ, TK, D, q_sb, q_st, q_sh, k_sb, k_st, k_sh, scale, causal, 0};
+  return bwd_entry<kDq>(q, k, v, o, dout, lse, dlse, dq, nullptr, nullptr, g,
+                        dtype, stream);
+}
+
+// Split route, dk and dv.
+extern "C" int flash_attention_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, const void* dlse, void* dk, void* dv,
+    int B, int H, int TQ, int TK, int D, long long q_sb, long long q_st,
+    long long q_sh, long long k_sb, long long k_st, long long k_sh,
+    float scale, int causal, int dtype, void* stream) {
+  Geom g{B, H, TQ, TK, D, q_sb, q_st, q_sh, k_sb, k_st, k_sh, scale, causal, 0};
+  return bwd_entry<kDkv>(q, k, v, o, dout, lse, dlse, nullptr, dk, dv, g,
+                         dtype, stream);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

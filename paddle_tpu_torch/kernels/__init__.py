@@ -13,6 +13,8 @@ from . import paged_attention as _pa
 WRAPPERS = {"paged_attention": _pa.paged_attention,
             "flash_attention_fwd": _fa.flash_fwd,
             "flash_attention_bwd": _fa.flash_bwd,
+            "flash_attention_bwd_dq": _fa.flash_bwd_dq,
+            "flash_attention_bwd_dkv": _fa.flash_bwd_dkv,
             "fused_ce_fwd": _ce.ce_fwd,
             "fused_ce_dx": _ce.ce_dx,
             "fused_ce_dw": _ce.ce_dw}
@@ -21,6 +23,11 @@ WRAPPERS = {"paged_attention": _pa.paged_attention,
 def reset_launches():
     for fn in WRAPPERS.values():
         fn.launches = 0
+
+
+def launch_counts():
+    """``{name: launches}`` of every wrapper."""
+    return {nm: fn.launches for nm, fn in WRAPPERS.items()}
 
 
 def build_all():
@@ -32,4 +39,4 @@ def build_all():
     _ce.build()
 
 
-__all__ = ["WRAPPERS", "reset_launches", "build_all"]
+__all__ = ["WRAPPERS", "reset_launches", "launch_counts", "build_all"]

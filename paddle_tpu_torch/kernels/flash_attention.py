@@ -1,6 +1,7 @@
-"""Flash attention with a fused backward — the port's counterpart of
-``paddle_tpu/ops/pallas_attention.py`` (``flash_attention``,
-``flash_attention_with_lse``, ``flash_attention_packed``).
+"""Flash attention with a fused and a split backward — the port's
+counterpart of ``paddle_tpu/ops/pallas_attention.py``
+(``flash_attention``, ``flash_attention_with_lse``,
+``flash_attention_packed``).
 
 Layouts are the JAX package's::
 
@@ -25,25 +26,37 @@ Two spellings of each function live here:
   They materialise the ``[b, h, t_q, t_k]`` score matrix.  The CPU path
   and the numerics reference the kernels are held against.
 * the CUDA kernels ``csrc/flash_attention.cu``, hand-written for Hopper
-  (``sm_90a``), which replace the TPU kernels ``_flash_fwd`` and
-  ``_flash_bwd_fused``.
+  (``sm_90a``), which replace the TPU kernels ``_flash_fwd``,
+  ``_flash_bwd_fused`` and ``_flash_bwd``'s split dq and dk/dv kernels.
 
-:func:`flash_fwd` and :func:`flash_bwd` are the wrappers.  They dispatch
-on the tensors' device: CPU tensors take the plain versions, CUDA
-tensors launch the kernels or raise — there is no fallback from one to
-the other.  Every successful launch adds one to ``flash_fwd.launches`` /
-``flash_bwd.launches``.
+The backward takes one of two routes, chosen as the reference chooses
+(:func:`bwd_route`, ``pallas_attention.py: _flash_bwd``): the fused
+kernel while its dq partials ``nk * b * h * t_q * d`` (``nk = t_k //
+block_k``) fit in ``FUSED_BWD_PARTIAL_BYTES``, else the split pair — a
+q-major dq kernel and a k-major dk/dv kernel.  At the flagship's b=8,
+h=6, d=128 in bf16 the split route starts at t=8192.  The route is
+decided before any launch; each route launches its kernels or raises.
 
-The backward kernel adds each k-tile's share of ``dq`` with f32 atomics
+:func:`flash_fwd`, :func:`flash_bwd`, :func:`flash_bwd_dq` and
+:func:`flash_bwd_dkv` are the wrappers.  They dispatch on the tensors'
+device: CPU tensors take the plain versions, CUDA tensors launch the
+kernels or raise — there is no fallback from one to the other.  Every
+successful launch adds one to the launching wrapper's ``.launches``
+(``flash_bwd.launches`` counts the fused kernel); ``BWD_ROUTE_CALLS``
+counts the backward calls by route, on either device.
+
+The fused kernel adds each k-tile's share of ``dq`` with f32 atomics
 into a zeroed f32 buffer that the wrapper allocates and casts once at
 the end (the TPU kernel writes per-k-block partials and sums them; with
 64-key tiles that buffer would be ``t_k / 64`` copies of ``q``).  Atomics
-add in an order that changes from run to run, so ``dq`` is reproducible
-only to f32 rounding, not bit for bit; ``dk`` and ``dv`` are bit-exact.
+add in an order that changes from run to run, so the fused route's
+``dq`` is reproducible only to f32 rounding; its ``dk`` and ``dv``, and
+all three gradients of the split route, are bit-exact run to run, and
+the two routes' ``dk`` and ``dv`` are the same bits.
 
 Gradients flow through :class:`FlashAttentionFunction`, whose forward
 saves exactly ``FLASH_BWD_RESIDUALS = (q, k, v, o, lse)`` and whose
-backward launches the backward kernel — the forward is never recomputed.
+backward is one :func:`flash_bwd` call — the forward is never recomputed.
 
 Kernel limits (checked here, before the launch): bf16 or f32, one dtype
 and one device for all tensors, contiguous ``[b, t, h, d]``, ``d <= 128``,
@@ -56,13 +69,26 @@ import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "ORACLE_TOL", "FLASH_BWD_RESIDUALS", "oracle_tol",
+__all__ = ["NEG_INF", "ORACLE_TOL", "FLASH_BWD_RESIDUALS",
+           "FUSED_BWD_PARTIAL_BYTES", "BWD_ROUTE_CALLS", "oracle_tol",
+           "bwd_route",
            "flash_attention_ref", "flash_attention_bwd_ref", "flash_fwd",
-           "flash_bwd", "FlashAttentionFunction", "flash_attention",
+           "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
+           "FlashAttentionFunction", "flash_attention",
            "flash_attention_with_lse", "flash_attention_packed",
            "packed_sub_heads", "build"]
 
 NEG_INF = -1e30
+
+# the reference's budget for the fused backward's dq partials
+# [nk, b*h, t_q, d] (pallas_attention.py FUSED_BWD_PARTIAL_BYTES): past it
+# the split dq and dk/dv kernels take over.  Read at call time, so a test
+# may patch it.
+FUSED_BWD_PARTIAL_BYTES = 512 << 20
+
+# flash_bwd calls by route, on either device (launches are counted by
+# the wrappers that launch)
+BWD_ROUTE_CALLS = {"fused": 0, "split": 0}
 
 # what the backward is computed from, and all the forward saves
 FLASH_BWD_RESIDUALS = ("q", "k", "v", "o", "lse")
@@ -99,6 +125,25 @@ def packed_sub_heads(n_head, d_head):
     if d_head == 64 and n_head % 2 == 0:
         return 2
     return None
+
+
+def _pick_block(t, cap):
+    """Largest divisor of ``t`` that is ``<= cap`` (the reference's
+    ``_pick_block``: its blocks tile ``t`` exactly)."""
+    b = min(t, cap)
+    while t % b:
+        b -= 1
+    return b
+
+
+def bwd_route(q_shape, t_k, itemsize, block_k=1024):
+    """``"fused"`` or ``"split"``: the backward family the reference's
+    ``_flash_bwd`` takes for q ``[b, t_q, h, d]`` (any layout: ``b*h*d``
+    is the same product) with ``t_k`` keys of ``itemsize`` bytes."""
+    b, t_q, h, d = q_shape
+    nk = t_k // _pick_block(t_k, block_k)
+    part_bytes = nk * b * h * t_q * d * itemsize
+    return "fused" if part_bytes <= FUSED_BWD_PARTIAL_BYTES else "split"
 
 
 def _acc_dtype(dtype):
@@ -205,15 +250,17 @@ def _kernels():
         lib = _build.load("flash_attention")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         geom = [i32] * 5 + [i64] * 6 + [ctypes.c_float, i32, i32, ptr]
-        fwd = lib.flash_attention_fwd
-        fwd.argtypes = [ptr] * 5 + geom
-        fwd.restype = i32
-        bwd = lib.flash_attention_bwd
-        bwd.argtypes = [ptr] * 10 + geom
-        bwd.restype = i32
+        fns = {}
+        for name, n_ptr in (("fwd", 5), ("bwd", 10), ("bwd_dq", 8),
+                            ("bwd_dkv", 9)):
+            fn = getattr(lib, f"flash_attention_{name}")
+            fn.argtypes = [ptr] * n_ptr + geom
+            fn.restype = i32
+            fns[name] = fn
         lib.flash_attention_error_string.argtypes = [i32]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _fns = (fwd, bwd, lib.flash_attention_error_string)
+        fns["errstr"] = lib.flash_attention_error_string
+        _fns = fns
     return _fns
 
 
@@ -246,15 +293,16 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None):
     sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, sm_scale)
-    fwd, _, errstr = _kernels()
+    fns = _kernels()
     b, t_q, h, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b * h, t_q), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  lse.data_ptr(), *_geom(q, k, sm_scale, causal))
+        err = fns["fwd"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), lse.data_ptr(),
+                         *_geom(q, k, sm_scale, causal))
     if err:
-        _raise("forward", err, errstr)
+        _raise("forward", err, fns["errstr"])
     flash_fwd.launches += 1
     return o, lse
 
@@ -262,14 +310,11 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None):
 flash_fwd.launches = 0
 
 
-def flash_bwd(q, k, v, o, lse, do, dlse=None, causal=False, sm_scale=None):
-    """``(dq, dk, dv)`` from the saved ``(q, k, v, o, lse)`` and the
-    cotangents ``do`` (and ``dlse [b*h, t_q]`` or None).  CPU tensors take
-    :func:`flash_attention_bwd_ref`; CUDA tensors launch the fused
-    backward kernel on the current stream, or raise."""
+def _check_bwd(q, k, v, o, lse, do, dlse):
+    """Shape, device and (on the card) dtype checks of a backward call."""
     extra = (o, lse, do) + (() if dlse is None else (dlse,))
     _check(q, k, v, extra)
-    b, t_q, h, d = q.shape
+    b, t_q, h, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(
             f"flash_attention: o {tuple(o.shape)} and do {tuple(do.shape)} "
@@ -279,10 +324,8 @@ def flash_bwd(q, k, v, o, lse, do, dlse=None, causal=False, sm_scale=None):
         raise ValueError(
             f"flash_attention: lse / dlse must be [b*h, t_q] = "
             f"{(b * h, t_q)}")
-    sm_scale = d ** -0.5 if sm_scale is None else sm_scale
     if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal,
-                                       sm_scale)
+        return
     if o.dtype != q.dtype or do.dtype != q.dtype:
         raise TypeError(
             f"flash_attention: o, do ({o.dtype}, {do.dtype}) must match q "
@@ -290,18 +333,44 @@ def flash_bwd(q, k, v, o, lse, do, dlse=None, causal=False, sm_scale=None):
     if lse.dtype != torch.float32 or (
             dlse is not None and dlse.dtype != torch.float32):
         raise TypeError("flash_attention: lse and dlse must be float32")
-    _, bwd, errstr = _kernels()
+
+
+def _bwd_ptrs(q, k, v, o, do, lse, dlse):
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(),
+            None if dlse is None else dlse.data_ptr())
+
+
+def flash_bwd(q, k, v, o, lse, do, dlse=None, causal=False, sm_scale=None,
+              block_q=1024, block_k=1024):
+    """``(dq, dk, dv)`` from the saved ``(q, k, v, o, lse)`` and the
+    cotangents ``do`` (and ``dlse [b*h, t_q]`` or None).  The route
+    (:func:`bwd_route`, from ``block_k`` as the reference reads it;
+    ``block_q`` is accepted for the same signature) is decided first.
+    CPU tensors take :func:`flash_attention_bwd_ref` on either route;
+    CUDA tensors launch the fused kernel, or :func:`flash_bwd_dq` and
+    :func:`flash_bwd_dkv`, or raise."""
+    _check_bwd(q, k, v, o, lse, do, dlse)
+    route = bwd_route(q.shape, k.shape[1], q.element_size(), block_k)
+    BWD_ROUTE_CALLS[route] += 1
+    sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal,
+                                       sm_scale)
+    if route == "split":
+        dq = flash_bwd_dq(q, k, v, o, lse, do, dlse, causal, sm_scale)
+        dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, dlse, causal, sm_scale)
+        return dq, dk, dv
+    fns = _kernels()
     dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  do.data_ptr(), lse.data_ptr(),
-                  None if dlse is None else dlse.data_ptr(),
-                  dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  *_geom(q, k, sm_scale, causal))
+        err = fns["bwd"](*_bwd_ptrs(q, k, v, o, do, lse, dlse),
+                         dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                         *_geom(q, k, sm_scale, causal))
     if err:
-        _raise("backward", err, errstr)
+        _raise("backward", err, fns["errstr"])
     flash_bwd.launches += 1
     return dq32.to(q.dtype), dk, dv
 
@@ -309,17 +378,67 @@ def flash_bwd(q, k, v, o, lse, do, dlse=None, causal=False, sm_scale=None):
 flash_bwd.launches = 0
 
 
+def flash_bwd_dq(q, k, v, o, lse, do, dlse=None, causal=False,
+                 sm_scale=None):
+    """The split route's ``dq`` (input dtype, written once by the q-major
+    kernel).  CPU tensors take the plain backward's ``dq``."""
+    _check_bwd(q, k, v, o, lse, do, dlse)
+    sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal,
+                                       sm_scale)[0]
+    fns = _kernels()
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = fns["bwd_dq"](*_bwd_ptrs(q, k, v, o, do, lse, dlse),
+                            dq.data_ptr(), *_geom(q, k, sm_scale, causal))
+    if err:
+        _raise("backward dq", err, fns["errstr"])
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, o, lse, do, dlse=None, causal=False,
+                  sm_scale=None):
+    """The split route's ``(dk, dv)`` (the k-major kernel: the fused
+    kernel's arithmetic without its dq).  CPU tensors take the plain
+    backward's ``dk, dv``."""
+    _check_bwd(q, k, v, o, lse, do, dlse)
+    sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal,
+                                       sm_scale)[1:]
+    fns = _kernels()
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = fns["bwd_dkv"](*_bwd_ptrs(q, k, v, o, do, lse, dlse),
+                             dk.data_ptr(), dv.data_ptr(),
+                             *_geom(q, k, sm_scale, causal))
+    if err:
+        _raise("backward dk/dv", err, fns["errstr"])
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """``(o, lse [b*h, t_q])`` with gradients.  Saves exactly
     ``FLASH_BWD_RESIDUALS``; the backward is one :func:`flash_bwd` call
-    and never re-runs the forward."""
+    (on the route its block sizes give) and never re-runs the forward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
+    def forward(ctx, q, k, v, causal, sm_scale, block_q=1024, block_k=1024):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o, lse = flash_fwd(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.blocks = (block_q, block_k)
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -330,27 +449,36 @@ class FlashAttentionFunction(torch.autograd.Function):
             do = torch.zeros_like(o)
         if dlse is not None:
             dlse = dlse.to(lse.dtype).contiguous()
+        block_q, block_k = ctx.blocks
         dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), dlse,
-                               ctx.causal, ctx.sm_scale)
-        return dq, dk, dv, None, None
+                               ctx.causal, ctx.sm_scale, block_q=block_q,
+                               block_k=block_k)
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None):
+def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None,
+                             block_q=1024, block_k=1024):
     """``(o [b, t_q, h, d], lse [b, h, t_q])``, differentiable through
-    both outputs — the building block for merging partial attentions."""
+    both outputs — the building block for merging partial attentions.
+    ``block_q``/``block_k`` are the reference's tile attrs; the backward
+    route reads ``block_k`` as the reference does."""
     b, t_q, h, d = q.shape
     sm_scale = d ** -0.5 if sm_scale is None else float(sm_scale)
-    o, lse = FlashAttentionFunction.apply(q, k, v, bool(causal), sm_scale)
+    o, lse = FlashAttentionFunction.apply(q, k, v, bool(causal), sm_scale,
+                                          int(block_q), int(block_k))
     return o, lse.reshape(b, h, t_q)
 
 
-def flash_attention(q, k, v, causal=False, sm_scale=None):
+def flash_attention(q, k, v, causal=False, sm_scale=None, block_q=1024,
+                    block_k=1024):
     """Fused attention: q ``[b, t_q, h, d]``, k/v ``[b, t_k, h, d]`` ->
     ``[b, t_q, h, d]``.  Differentiable."""
-    return flash_attention_with_lse(q, k, v, causal, sm_scale)[0]
+    return flash_attention_with_lse(q, k, v, causal, sm_scale, block_q,
+                                    block_k)[0]
 
 
-def flash_attention_packed(q, k, v, n_head, causal=False, sm_scale=None):
+def flash_attention_packed(q, k, v, n_head, causal=False, sm_scale=None,
+                           block_q=1024, block_k=1024):
     """Fused attention on the raw projection layout: q/k/v ``[b, t, h*d]``
     -> ``[b, t, h*d]``.  The 4-D view is free (heads are contiguous
     slices of the feature dim), so this is :func:`flash_attention` on the
@@ -362,5 +490,6 @@ def flash_attention_packed(q, k, v, n_head, causal=False, sm_scale=None):
     t_k = k.shape[1]
     o = flash_attention(q.reshape(b, t_q, n_head, d),
                         k.reshape(b, t_k, n_head, d),
-                        v.reshape(b, t_k, n_head, d), causal, sm_scale)
+                        v.reshape(b, t_k, n_head, d), causal, sm_scale,
+                        block_q, block_k)
     return o.reshape(b, t_q, hd)

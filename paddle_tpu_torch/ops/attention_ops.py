@@ -2,29 +2,33 @@
 registrations at the foot of ``paddle_tpu/ops/pallas_attention.py``,
 single-device branch.  Both go to ``kernels/flash_attention.py``: the
 hand-written CUDA kernels on the card, the plain versions on the CPU.
-The TPU tile attrs (``block_q``, ``block_k``) and the kernel-registry
-``backend`` attr are accepted and unused: the CUDA kernels tile by their
-own fixed sizes.  The head-sharded ``tp`` branch waits for the multi-GPU
-slice."""
+The TPU tile attrs ``block_q`` and ``block_k`` (default 1024, as in the
+reference) pass through: the CUDA kernels tile by their own fixed sizes,
+but the backward's route — fused or split — is the reference's rule over
+``block_k``.  The kernel-registry ``backend`` attr is accepted and
+unused.  The head-sharded ``tp`` branch waits for the multi-GPU slice."""
 
 from ..core.registry import register_op
 from ..kernels import flash_attention as _fa
 
 
 @register_op("flash_attention")
-def flash_attention_op(Q, K, V, causal=False, sm_scale=0.0, **_):
+def flash_attention_op(Q, K, V, causal=False, sm_scale=0.0, block_q=1024,
+                       block_k=1024, **_):
     scale = None if not sm_scale else float(sm_scale)
     return {"Out": _fa.flash_attention(Q, K, V, causal=causal,
-                                       sm_scale=scale)}
+                                       sm_scale=scale, block_q=int(block_q),
+                                       block_k=int(block_k))}
 
 
 @register_op("flash_attention_packed")
 def flash_attention_packed_op(Q, K, V, n_head=None, causal=False,
-                              sm_scale=0.0, **_):
+                              sm_scale=0.0, block_q=1024, block_k=1024, **_):
     if n_head is None:
         # no safe default: 1 would silently softmax across the whole
         # concatenated h*d feature dim as a single head
         raise ValueError("flash_attention_packed op requires the n_head attr")
     scale = None if not sm_scale else float(sm_scale)
     return {"Out": _fa.flash_attention_packed(
-        Q, K, V, int(n_head), causal=causal, sm_scale=scale)}
+        Q, K, V, int(n_head), causal=causal, sm_scale=scale,
+        block_q=int(block_q), block_k=int(block_k))}

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (paged attention, flash attention
-forward and fused backward, the fused cross-entropy head's forward, dx and
-dW), against their plain PyTorch versions
+forward, fused backward and split backward (dq, dk/dv), the fused
+cross-entropy head's forward, dx and dW), against their plain PyTorch
+versions
 (paddle_tpu_torch only: no jax, so these run on a host without it).  Every test needs an NVIDIA GPU and skips without one; on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -200,6 +201,67 @@ def test_flash_backward_matches_plain_version(dtype, geom, causal, with_dlse):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == q.dtype and g.shape == w.shape
         assert _rel(g, w) <= tol, name
+
+
+@pytest.mark.parametrize("with_dlse", [False, True], ids=["do", "do_dlse"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", list(FLASH_GEOMS))
+def test_flash_split_backward_matches_plain_and_fused(dtype, geom, causal,
+                                                     with_dlse, monkeypatch):
+    """The split route (dq kernel + dk/dv kernel) within ORACLE_TOL of the
+    plain version; its dk and dv the fused kernel's bits; its dq the same
+    bits run to run."""
+    _need_card()
+    q, k, v, do, dlse = _flash_case(*FLASH_GEOMS[geom], getattr(torch, dtype),
+                                    seed=5)
+    dlse = dlse if with_dlse else None
+    o, lse = tfa.flash_attention_ref(q, k, v, causal)
+    fused = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
+    monkeypatch.setattr(tfa, "FUSED_BWD_PARTIAL_BYTES", 0)
+    before = (tfa.flash_bwd.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkv.launches)
+    got = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
+    again = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
+    torch.cuda.synchronize()
+    assert (tfa.flash_bwd.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches) == (before[0], before[1] + 2,
+                                            before[2] + 2)
+    want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal)
+    tol = tfa.oracle_tol(dtype, "grad")
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == q.dtype and g.shape == w.shape
+        assert _rel(g, w) <= tol, name
+    assert torch.equal(got[1], fused[1]) and torch.equal(got[2], fused[2])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _rel(got[0], fused[0]) <= tol
+
+
+def test_flash_autograd_route_follows_block_k(monkeypatch):
+    """Through ``flash_attention``: the block_k attr decides the route as
+    in the reference.  The partials are nk * b*h*t*d * 2 bytes: 64 KiB at
+    the default block_k (nk = 1), 256 KiB at block_k=64 (nk = 4); with a
+    128 KiB budget the first takes the fused kernel, the second the two
+    split kernels and no fused one."""
+    _need_card()
+    b, t, h, d = 1, 256, 2, 64
+    q, k, v, do, _ = _flash_case(b, t, t, h, d, torch.bfloat16, seed=6)
+    monkeypatch.setattr(tfa, "FUSED_BWD_PARTIAL_BYTES", 128 << 10)
+    o_ref, lse_ref = tfa.flash_attention_ref(q, k, v, True)
+    want = tfa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, None, True)
+    for blocks, launched in (({}, (1, 0, 0)),
+                             ({"block_q": 64, "block_k": 64}, (0, 1, 1))):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        c0 = (tfa.flash_bwd.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkv.launches)
+        out = tfa.flash_attention(*xs, causal=True, **blocks)
+        out.backward(do)
+        torch.cuda.synchronize()
+        c1 = (tfa.flash_bwd.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkv.launches)
+        assert tuple(a - b_ for a, b_ in zip(c1, c0)) == launched
+        for x, w in zip(xs, want):
+            assert _rel(x.grad, w) <= tfa.oracle_tol(torch.bfloat16, "grad")
 
 
 def test_flash_packed_autograd_goes_through_both_kernels():

@@ -129,7 +129,10 @@ def test_kernel_wrappers_and_counters_are_registered():
 
     assert set(kernels.WRAPPERS) == {
         "paged_attention", "flash_attention_fwd", "flash_attention_bwd",
+        "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
         "fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"}
+    assert kernels.launch_counts() == {nm: fn.launches
+                                       for nm, fn in kernels.WRAPPERS.items()}
     for fn in kernels.WRAPPERS.values():
         fn.launches += 3
     kernels.reset_launches()
