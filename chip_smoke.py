@@ -16,7 +16,8 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    a. paged attention at the serving path's shapes (decode S=32 W=1,
       prefill S=1 W=1, and W=4), bf16 and f32; timed at the decode shape
       in bf16 (library: ``scaled_dot_product_attention`` on the gathered
-      view; bound: bytes over 3.35 TB/s);
+      view; bound: bytes over 3.35 TB/s); a+. at phase 5c's verify shape
+      (S=32, W=6, h=8, dh=32), f32 and bf16, timed in f32;
    b. flash attention forward (``o``, ``lse``) and fused backward
       (``dq, dk, dv``, with and without ``dlse``) at the training path's
       shape (b=8, t=4096, h=6, d=128, bf16, causal), plus f32, d=64,
@@ -42,12 +43,23 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
       product over 989 TFLOP/s); c+. the forward at phase 8's N = 131072
       against its plain version over row chunks, and the three kernels'
       times there;
+   d. ``decode_gather`` against its plain version with ``torch.equal``
+      (bit-exact) at the decode shape (S=32, NB=16, B=32, h=6, dh=128)
+      in bf16 and f32, a prefill shape (S=1) and ragged blocks whose byte
+      count is no multiple of 16 (B=5, h=3, dh=21, at two pool base
+      offsets), tables with repeated and trash (0) entries; timed at the
+      decode shape in bf16 (library: ``index_select``; bound: bytes);
 4. serving correctness at full width in f32: the 12-layer d768 h6 v32768
    GPT with seeded random weights serves 8 shared-prefix requests through
    the engine's background thread, each compared with the port's
    single-stream ``generate``; they must agree token for token except
    where ``generate``'s top-2 logit gap is below 1e-4 * max|logit| (a
    genuine near-tie that reassociating the f32 softmax can flip);
+   b. the same eight requests and references through (a) an engine built
+   under ``PADDLE_TPU_PAGED_ATTN=0`` (decode_gather and a dense softmax),
+   (b) a speculative engine (a 2-layer ``depth_draft`` of the same
+   weights, ``spec_k=4``) and (c) the same under ``=0``; each pass's
+   launches follow its switch, and (b) ran speculative rounds;
 5. serving at full width in bf16 (a main path): the 64-request
    shared-prefix load of ``benchmarks/serving.py`` (32 slots, decode chunk
    16, min bucket 16, 32-token blocks), submitted at once after a warm
@@ -56,6 +68,21 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    (launch count == layers x (decode steps + prefill steps), all counts
    zeroed just before the pass); then a few steady decode chunks traced
    with ``torch.profiler``;
+   b. the same pass on an engine built under ``PADDLE_TPU_PAGED_ATTN=0``
+   (a main path: the kill switch): every request served in full,
+   ``decode_gather`` launched 2 x layers x (decode steps + prefill steps)
+   times and ``paged_attention`` never; tok/s, decode-chunk p50 and peak
+   memory beside phase 5's, and its decode chunks profiled as phase 5's;
+   c. speculative decoding at the reference's own speculative
+   configuration (``benchmarks/serving.py:421-423``: vocab 2048, 10
+   layers, 8 heads, d_model 256, f32, deep layers softened x0.005; the
+   same engine geometry and 64-request load; a 1-layer ``depth_draft``,
+   ``spec_k=5``): the plain and the speculative engine over the same
+   work, the first 8 requests of each held to ``generate`` as in phase
+   4, all served in full, no block leaked after idle, and
+   ``paged_attention`` launches equal to draft layers x (k+1) per round
+   + 10 per verify + prefill steps x 10 (target) and x 1 (draft); the
+   accept rate, both engines' tok/s and their ratio;
 6. training correctness at full width in f32: the same 12-layer model
    (t=256, b=2) takes two Adam steps through ``Program`` -> ``Executor``
    four times from one startup state: unfused head with attention in the
@@ -90,8 +117,9 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    b. the same path for two steps with no remat and with ``compact``:
    peak memory and step wall beside phase 8's, compact's peak below no
    remat's, the three loss trajectories equal to bf16 rounding;
-9. one JSON line ``{"kernels": [...]}`` with each of the eight kernels'
-   launches on its main path (phase 5, 7 or 8), error, times and bound;
+9. one JSON line ``{"kernels": [...]}`` with each of the nine kernels'
+   launches on its main path (phase 5, 5b, 7 or 8), error, times and
+   bound;
 10. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
@@ -102,7 +130,10 @@ network.
 
 import argparse
 import contextlib
+import gc
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -113,6 +144,14 @@ SLOTS, CHUNK, MIN_BUCKET, BLOCK_TOKENS, PREFIX_LEN = 32, 16, 16, 32, 64
 CLASSES = [(16, 96), (32, 192), (64, 256), (24, 320)]
 REQUESTS = 64
 D_HEAD = D_MODEL // N_HEAD
+# phase 5c: the reference's own speculative configuration
+# (benchmarks/serving.py:421-423): the same engine geometry and load on a
+# 10-layer d256 model with 8 heads, f32, its deep layers softened x0.005,
+# and a 1-layer depth-pruned draft proposing 5 tokens a round
+SPEC_VOCAB, SPEC_LAYERS, SPEC_HEADS, SPEC_D = 2048, 10, 8, 256
+SPEC_DRAFT_LAYERS, SPEC_K, SPEC_SCALE = 1, 5, 0.005
+# phase 4b: the flagship's draft and window
+CHECK_DRAFT_LAYERS, CHECK_SPEC_K = 2, 4
 # the training path: tune/search.py flagship_dims at bench.py's sequence
 TRAIN_T, TRAIN_B, TRAIN_STEPS, TRAIN_LR = 4096, 8, 5, 1e-3
 CHECK_T, CHECK_B = 256, 2          # phase 6's short f32 comparison
@@ -132,7 +171,7 @@ def log(msg):
     print(msg, flush=True)
 
 
-def make_params(rng):
+def make_params(rng, vocab=VOCAB, n_layer=N_LAYER, d_model=D_MODEL):
     """Seeded random weights at full width, under the JAX package's
     names and [in, out] layout: matrices and embeddings N(0, 0.02),
     LayerNorm scales 1, every bias 0."""
@@ -141,9 +180,9 @@ def make_params(rng):
     def normal(*shape):
         return (0.02 * rng.standard_normal(shape, dtype=np.float32))
 
-    d, f = D_MODEL, 4 * D_MODEL
-    p = {"tok_emb.w": normal(VOCAB, d), "pos_emb.w.w": normal(MAX_LEN, d)}
-    for i in range(N_LAYER):
+    d, f = d_model, 4 * d_model
+    p = {"tok_emb.w": normal(vocab, d), "pos_emb.w.w": normal(MAX_LEN, d)}
+    for i in range(n_layer):
         b = f"block{i}_"
         for ln in ("ln1", "ln2"):
             p[b + ln + ".scale"] = np.ones(d, np.float32)
@@ -157,8 +196,36 @@ def make_params(rng):
         p[b + "ffn2.b"] = np.zeros(d, np.float32)
     p["ln_f.scale"] = np.ones(d, np.float32)
     p["ln_f.bias"] = np.zeros(d, np.float32)
-    p["lm_head.w"] = normal(d, VOCAB)
+    p["lm_head.w"] = normal(d, vocab)
     return p
+
+
+def soften_deep_layers(params, draft_layers, scale):
+    """``benchmarks/serving.py: soften_deep_layers``: scale the residual
+    branch outputs (``att_out`` / ``ffn2``) of every block at depth >=
+    ``draft_layers`` toward identity, so a depth-pruned draft of random
+    weights approximates its target as a deployed draft does."""
+    out = dict(params)
+    for k, v in params.items():
+        m = re.match(r"block(\d+)_(att_out|ffn2)\.(w|b)$", k)
+        if m and int(m.group(1)) >= draft_layers:
+            out[k] = v * scale
+    return out
+
+
+@contextlib.contextmanager
+def paged_switch(value):
+    """``PADDLE_TPU_PAGED_ATTN`` set to ``value`` for the engines built
+    inside (the step-callable factories read it once per callable)."""
+    old = os.environ.get("PADDLE_TPU_PAGED_ATTN")
+    os.environ["PADDLE_TPU_PAGED_ATTN"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PADDLE_TPU_PAGED_ATTN"]
+        else:
+            os.environ["PADDLE_TPU_PAGED_ATTN"] = old
 
 
 def make_workload(rng, n, classes, vocab, prefix_len):
@@ -182,18 +249,18 @@ def make_workload(rng, n, classes, vocab, prefix_len):
 
 # -- phase 3: the kernel against its plain version ---------------------------
 
-def paged_case(torch, gen, S, W, dtype, nb=16, num_blocks=545):
+def paged_case(torch, gen, S, W, dtype, nb=16, num_blocks=545, h=N_HEAD,
+               dh=D_HEAD):
     """Decode-geometry inputs on the card: distinct random blocks per
     chain, ``pos`` random in [0, 511], chain entries past ``pos`` naming
     the trash block 0, which holds large random garbage."""
     dev = "cuda"
-    shape = (num_blocks, BLOCK_TOKENS, N_HEAD, D_HEAD)
+    shape = (num_blocks, BLOCK_TOKENS, h, dh)
     pk = torch.randn(shape, generator=gen, device=dev).to(dtype)
     pv = torch.randn(shape, generator=gen, device=dev).to(dtype)
     pk[0] = 100 * torch.randn(shape[1:], generator=gen, device=dev)
     pv[0] = 100 * torch.randn(shape[1:], generator=gen, device=dev)
-    q = torch.randn((S, W, N_HEAD, D_HEAD), generator=gen,
-                    device=dev).to(dtype)
+    q = torch.randn((S, W, h, dh), generator=gen, device=dev).to(dtype)
     base = torch.randint(0, MAX_LEN - W + 1, (S, 1), generator=gen,
                          device=dev)
     pos = (base + torch.arange(W, device=dev)).to(torch.int32)
@@ -309,6 +376,133 @@ def kernel_phase(torch, pa):
             "max_abs_err": errs[("decode", "bfloat16")],
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms}
+
+
+# -- phase 3a+: paged attention at the speculative verify window ------------
+
+def verify_kernel_phase(torch, pa):
+    """The kernel at phase 5c's verify shape (S=32, W=k+1=6, h=8, dh=32,
+    B=32, NB=16), f32 and bf16, against its plain version; timed in f32,
+    the spec configuration's dtype.  Returns (ms, plain ms, bound ms)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    S, W, h, dh = SLOTS, SPEC_K + 1, SPEC_HEADS, SPEC_D // SPEC_HEADS
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        tol = pa.oracle_tol(dtype)
+        args = paged_case(torch, gen, S, W, dtype, h=h, dh=dh)
+        got = pa.paged_attention(*args)
+        torch.cuda.synchronize()
+        ab, rel = rel_err(torch, got, pa.paged_attention_ref(*args))
+        ok = bool(torch.isfinite(got.float()).all()) and rel <= tol
+        log(f"kernel paged_attention verify  S={S} W={W} h={h} dh={dh} "
+            f"{dname:8s} max_abs_err {ab:.3e} rel {rel:.3e} (tol {tol:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(
+                f"paged_attention kernel disagrees with its plain version "
+                f"at the verify shape {dname}: rel {rel:.3e} > {tol}")
+    layers = [paged_case(torch, gen, S, W, torch.float32, h=h, dh=dh)
+              for _ in range(SPEC_LAYERS)]
+    ms = device_ms(torch, lambda i: pa.paged_attention(
+        *layers[i % SPEC_LAYERS]), 8 * SPEC_LAYERS)
+    plain_ms = device_ms(torch, lambda i: pa.paged_attention_ref(
+        *layers[i % SPEC_LAYERS]), SPEC_LAYERS)
+    q, _, _, table, pos = layers[0]
+    # keys 0..max(pos) of each row's slot are read once per slot (the
+    # window's W rows share them), q read and ctx written once
+    live = int((pos.long().max(dim=1).values + 1).sum().item())
+    nbytes = 2 * live * h * dh * 4 + 2 * q.numel() * 4 + 4 * table.numel()
+    flops = 4 * int((pos.long() + 1).sum().item()) * h * dh
+    bound_ms = max(nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["float32"]) * 1e3
+    log(f"paged_attention verify f32 (S={S} W={W} h={h} dh={dh} B=32 "
+        f"NB=16): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms")
+    return ms, plain_ms, bound_ms
+
+
+# -- phase 3d: decode_gather against its plain version (bit-exact) -----------
+
+def gather_case(torch, gen, S, NB, B, h, dh, dtype, num_blocks, offset=0):
+    """A pool of random blocks (the first ``offset`` blocks cut off the
+    front, so the pool's base address moves by a block's bytes) and a
+    table of random entries: repeats and the trash block 0 included."""
+    pool = torch.randn((num_blocks + offset, B, h, dh), generator=gen,
+                       device="cuda").to(dtype)[offset:]
+    table = torch.randint(0, num_blocks, (S, NB), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    table[:, -1] = 0
+    table[S // 2:, 0] = int(table[0, 0])
+    return pool, table
+
+
+def gather_phase(torch, dg):
+    """The kernel against ``decode_gather_ref`` with ``torch.equal`` at
+    the decode shape (bf16, f32), a prefill shape (S=1), ragged blocks
+    whose byte count is no multiple of 16 (B=5, h=3, dh=21, at two pool
+    base offsets), then its time at the decode shape beside the
+    plain version, ``index_select`` and the bound."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(99)
+    cases = [("decode", SLOTS, 16, BLOCK_TOKENS, N_HEAD, D_HEAD, 545, 0),
+             ("prefill", 1, 16, BLOCK_TOKENS, N_HEAD, D_HEAD, 545, 0),
+             ("ragged", 7, 9, 5, 3, 21, 40, 0),
+             ("ragged+1", 7, 9, 5, 3, 21, 40, 1)]
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for label, S, NB, B, h, dh, nblk, off in cases:
+            pool, table = gather_case(torch, gen, S, NB, B, h, dh, dtype,
+                                      nblk, off)
+            got = dg.decode_gather(pool, table)
+            torch.cuda.synchronize()
+            ok = torch.equal(got, dg.decode_gather_ref(pool, table))
+            log(f"kernel decode_gather {label:8s} S={S:2d} NB={NB:2d} B={B:2d} "
+                f"h={h} dh={dh:3d} {dname:8s} ({B * h * dh * pool.element_size()}"
+                f" B a block, pool at +{pool.data_ptr() % 16} mod 16) "
+                f"{'bit-exact' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(
+                    f"decode_gather kernel is not bit-exact at {label} "
+                    f"{dname}")
+    # timing at the decode shape, bf16: distinct chains, one pool per
+    # layer so each call finds its blocks cold in L2
+    dtype = torch.bfloat16
+    layers = []
+    for _ in range(N_LAYER):
+        pool = torch.randn((545, BLOCK_TOKENS, N_HEAD, D_HEAD),
+                           generator=gen, device="cuda").to(dtype)
+        perm = torch.randperm(544, generator=gen, device="cuda") + 1
+        layers.append((pool, perm[: SLOTS * 16].reshape(SLOTS, 16)
+                       .to(torch.int32).contiguous()))
+    n = 8 * N_LAYER
+    ms = device_ms(torch, lambda i: dg.decode_gather(*layers[i % N_LAYER]), n)
+    plain_ms = device_ms(torch, lambda i: dg.decode_gather_ref(
+        *layers[i % N_LAYER]), n)
+
+    def library(pool, table):
+        S, NB = table.shape
+        return torch.index_select(pool, 0, table.flatten()).view(
+            S, NB * BLOCK_TOKENS, N_HEAD, D_HEAD)
+
+    if not torch.equal(library(*layers[0]), dg.decode_gather_ref(*layers[0])):
+        raise AssertionError("index_select yardstick disagrees")
+    library_ms = device_ms(torch, lambda i: library(*layers[i % N_LAYER]), n)
+    pool, table = layers[0]
+    out_bytes = table.numel() * BLOCK_TOKENS * N_HEAD * D_HEAD * 2
+    read_bytes = (int(torch.unique(table).numel()) * BLOCK_TOKENS * N_HEAD
+                  * D_HEAD * 2)
+    nbytes = read_bytes + out_bytes + 4 * table.numel()
+    bound_ms = nbytes / HBM_BYTES_S * 1e3
+    log(f"decode_gather decode bf16 (S={SLOTS} NB=16 B=32 h=6 dh=128, "
+        f"{out_bytes} B out, {nbytes} B moved): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library (index_select) {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms (bytes)")
+    return {"name": "decode_gather", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/decode_gather.cu",
+            "replaces": "paddle_tpu/kernels/pallas_gather.py:51",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": library_ms}
 
 
@@ -851,9 +1045,57 @@ def ce_long_phase(torch, ce):
 
 # -- phase 4: full-width f32 served vs single-stream -------------------------
 
-def correctness_phase(torch, np, params, work):
+def generate_refs(torch, params, work, n_layer, n_head, d_model):
+    """The port's single-stream ``generate`` on each request in f32:
+    ``(tokens, logits)`` per request, the bar every served pass is held
+    to."""
     from paddle_tpu_torch.models.transformer import (generate,
                                                      params_from_numpy)
+
+    p32 = params_from_numpy(params, "cuda", torch.float32)
+    refs = []
+    for prompt, max_new in work:
+        toks, logits = generate(p32, prompt[None],
+                                max_len=len(prompt) + max_new,
+                                n_layer=n_layer, n_head=n_head,
+                                d_model=d_model, device="cuda")
+        refs.append((toks[0].cpu().numpy(), logits[0]))
+    return refs
+
+
+def hold_to_generate(torch, np, outs, work, refs, what):
+    """Every served output equal to ``generate``'s token for token, except
+    from a first divergence where ``generate``'s top-2 logit gap is below
+    1e-4 * max|logit| (a genuine near-tie that reassociating f32 sums can
+    flip).  Returns how many are token-identical."""
+    full = 0
+    for k, ((prompt, _), out, (ref, logits)) in enumerate(
+            zip(work, outs, refs)):
+        if out.shape != ref.shape:
+            raise AssertionError(
+                f"{what} request {k}: {out.shape} vs {ref.shape}")
+        diff = np.nonzero(out != ref)[0]
+        if diff.size == 0:
+            full += 1
+            continue
+        i = int(diff[0])
+        lg = logits[i - 1]
+        top = torch.topk(lg, 2).values
+        gap = (top[0] - top[1]).item()
+        limit = 1e-4 * lg.abs().max().item()
+        log(f"  {what} request {k}: served and generate diverge at position "
+            f"{i} (prompt {len(prompt)}), top-2 gap {gap:.3e} vs near-tie "
+            f"limit {limit:.3e}")
+        if not gap < limit:
+            raise AssertionError(
+                f"{what} request {k} diverges from generate at position {i} "
+                f"where generate's top-2 gap {gap:.3e} is no near-tie")
+    return full
+
+
+def serve_f32(params, work, **kw):
+    """Serve ``work`` through an f32 engine's background thread at the
+    flagship geometry; returns the outputs and the engine."""
     from paddle_tpu_torch.observability import metrics as obs
     from paddle_tpu_torch.serving import ServingEngine
 
@@ -861,50 +1103,79 @@ def correctness_phase(torch, np, params, work):
     eng = ServingEngine(params, N_LAYER, N_HEAD, D_MODEL, max_len=MAX_LEN,
                         max_slots=SLOTS, decode_chunk=CHUNK,
                         min_bucket=MIN_BUCKET, block_tokens=BLOCK_TOKENS,
-                        compute_dtype="float32", prefix_reuse=True)
+                        compute_dtype="float32", prefix_reuse=True, **kw)
     eng.start()
     try:
         reqs = [eng.submit(p, m) for p, m in work]
         outs = [r.result(timeout=900) for r in reqs]
     finally:
         eng.stop()
+    return outs, eng
+
+
+def correctness_phase(torch, np, params, work):
+    outs, eng = serve_f32(params, work)
     hit = eng.stats().get("serving.prefix_hit_rate", 0.0)
     del eng
-    p32 = params_from_numpy(params, "cuda", torch.float32)
-    full = 0
-    for k, ((prompt, max_new), out) in enumerate(zip(work, outs)):
-        n = len(prompt) + max_new
-        toks, logits = generate(p32, prompt[None], max_len=n,
-                                n_layer=N_LAYER, n_head=N_HEAD,
-                                d_model=D_MODEL, device="cuda")
-        ref = toks[0].cpu().numpy()
-        if out.shape != ref.shape:
-            raise AssertionError(f"request {k}: {out.shape} vs {ref.shape}")
-        diff = np.nonzero(out != ref)[0]
-        if diff.size == 0:
-            full += 1
-            continue
-        i = int(diff[0])
-        lg = logits[0, i - 1]
-        top = torch.topk(lg, 2).values
-        gap = (top[0] - top[1]).item()
-        limit = 1e-4 * lg.abs().max().item()
-        log(f"  request {k}: served and generate diverge at position {i} "
-            f"(prompt {len(prompt)}), top-2 gap {gap:.3e} vs near-tie "
-            f"limit {limit:.3e}")
-        if not gap < limit:
-            raise AssertionError(
-                f"request {k} diverges from generate at position {i} "
-                f"where generate's top-2 gap {gap:.3e} is no near-tie")
+    refs = generate_refs(torch, params, work, N_LAYER, N_HEAD, D_MODEL)
+    full = hold_to_generate(torch, np, outs, work, refs, "f32")
     log(f"f32 full width: {full}/{len(work)} requests token-identical to "
         f"generate, the rest diverge only at near-ties "
         f"(prefix hit rate {hit:.3f})")
-    del p32
+    return refs
+
+
+# -- phase 4b: the kill switch and speculative decoding, f32, full width ----
+
+def correctness_spelling_phase(torch, np, params, work, refs, kernels):
+    """The same eight requests and ``generate`` references as phase 4:
+    (a) an engine built under ``PADDLE_TPU_PAGED_ATTN=0``, (b) a
+    speculative engine (a 2-layer ``depth_draft`` of the same weights,
+    ``spec_k=4``) under ``=1``, (c) the same under ``=0``."""
+    from paddle_tpu_torch.serving import speculative
+
+    draft = speculative.depth_draft(params, CHECK_DRAFT_LAYERS)
+    spec_kw = dict(draft_params=draft, spec_k=CHECK_SPEC_K)
+    for label, switch, kw in (("(a) gather", "0", {}),
+                              ("(b) spec", "1", spec_kw),
+                              ("(c) spec+gather", "0", spec_kw)):
+        kernels.reset_launches()
+        with paged_switch(switch):
+            outs, eng = serve_f32(params, work, **kw)
+        launches = kernels.launch_counts()
+        want = "paged_attention" if switch == "1" else "decode_gather"
+        other = "decode_gather" if switch == "1" else "paged_attention"
+        if launches[want] <= 0 or launches[other] != 0:
+            raise AssertionError(
+                f"4b {label}: launches {launches} do not follow the switch")
+        full = hold_to_generate(torch, np, outs, work, refs, f"4b {label}")
+        note = ""
+        if kw:
+            sp = eng._spec
+            if not sp.proposed > 0:
+                raise AssertionError(f"4b {label}: no speculative round ran")
+            note = (f", {sp.accepted}/{sp.proposed} draft tokens accepted "
+                    f"(k={CHECK_SPEC_K}, {CHECK_DRAFT_LAYERS}-layer draft)")
+        log(f"f32 full width {label} (PADDLE_TPU_PAGED_ATTN={switch}): "
+            f"{full}/{len(work)} requests token-identical to generate, the "
+            f"rest diverge only at near-ties; {launches[want]} {want} "
+            f"launches, 0 {other}{note}")
+        del eng
 
 
 # -- phase 5: full-width bf16 serving ----------------------------------------
 
-def serving_phase(torch, np, params, work, kernels):
+def serving_phase(torch, np, params, work, kernels, switch="1"):
+    """Phase 5 (``switch`` "1", the paged-attention kernel, profiled) or
+    5b (``PADDLE_TPU_PAGED_ATTN=0``: the decode_gather kernel and a dense
+    softmax).  The switch holds for the whole pass: the engine makes its
+    step callables, which read it, at first use.  Returns the pass's
+    launch counts and its numbers."""
+    with paged_switch(switch):
+        return _serving_pass(torch, np, params, work, kernels, switch)
+
+
+def _serving_pass(torch, np, params, work, kernels, switch):
     from paddle_tpu_torch.observability import metrics as obs
     from paddle_tpu_torch.serving import ServingEngine
 
@@ -925,6 +1196,10 @@ def serving_phase(torch, np, params, work, kernels):
         if h is not None:
             h.reset()
     eng.reset_slo_accounting()
+    # engines of earlier phases sit in reference cycles (engine <->
+    # scheduler) until the collector runs: free them before the peak
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()                     # counts start at 0 here
@@ -945,13 +1220,35 @@ def serving_phase(torch, np, params, work, kernels):
     prefill_steps = int(st["serving.prefill_tokens"])
     expect = N_LAYER * (CHUNK * chunks + prefill_steps)
     ttft = st["serving.ttft_seconds"]
+    peak = torch.cuda.max_memory_allocated()
+    out = {"launches": launches, "tok_s": emitted / wall,
+           "chunk_p50": st["serving.decode_chunk"]["p50"], "peak": peak,
+           "wall": wall}
+    if switch == "0":
+        log(f"bf16 full width, PADDLE_TPU_PAGED_ATTN=0: {len(reqs)} requests, "
+            f"{emitted} tokens in {wall:.3f} s = {emitted / wall:.1f} tok/s; "
+            f"TTFT p50 {ttft['p50'] * 1e3:.1f} ms; decode_chunk p50 "
+            f"{out['chunk_p50'] * 1e3:.2f} ms ({chunks} chunks); prefill "
+            f"steps {prefill_steps}; max_memory_allocated {peak} B")
+        log(f"decode_gather.launches {launches['decode_gather']} (2 x layers "
+            f"x (decode steps + prefill steps) = {2 * expect}), "
+            f"paged_attention.launches {launches['paged_attention']}")
+        if (launches["decode_gather"] != 2 * expect
+                or launches["paged_attention"] != 0):
+            raise AssertionError(
+                f"kill-switch pass: {launches['decode_gather']} gathers "
+                f"(expected {2 * expect}) and "
+                f"{launches['paged_attention']} paged launches (expected 0)")
+        profile_decode(torch, eng, work)
+        del eng
+        return out
     log(f"bf16 full width: {len(reqs)} requests, {emitted} tokens in "
         f"{wall:.3f} s = {emitted / wall:.1f} tok/s; TTFT p50 "
         f"{ttft['p50'] * 1e3:.1f} ms p99 {ttft['p99'] * 1e3:.1f} ms; "
         f"decode_chunk p50 {st['serving.decode_chunk']['p50'] * 1e3:.2f} ms "
         f"({chunks} chunks); prefill steps {prefill_steps}; prefix hit rate "
         f"{st['serving.prefix_hit_rate']:.3f}; max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated()} B")
+        f"{peak} B")
     log(f"paged_attention.launches {launches['paged_attention']} during the "
         f"pass (layers x (decode steps + prefill steps) = {expect}; "
         f"{N_LAYER * CHUNK} per decode chunk)")
@@ -963,7 +1260,7 @@ def serving_phase(torch, np, params, work, kernels):
             f"{expect}: some attention did not go through the kernel")
     profile_decode(torch, eng, work)
     del eng
-    return launches
+    return out
 
 
 def profile_decode(torch, eng, work, chunks=3):
@@ -1013,6 +1310,113 @@ def profile_decode(torch, eng, work, chunks=3):
     for us, count, key in sorted(rows, reverse=True)[:10]:
         log(f"  {us / 1e3 / chunks:8.3f} ms/chunk {count // chunks:6d} "
             f"calls/chunk  {key[:90]}")
+
+
+# -- phase 5c: speculative decoding at the reference's spec configuration ---
+
+def _spec_pass(torch, eng, work, kernels):
+    """Warm ``eng`` (the first two requests of each class), zero the
+    counters, then serve ``work`` at once until idle.  Returns the
+    requests, the wall and the launch counts of the pass."""
+    from paddle_tpu_torch.observability import metrics as obs
+
+    reg = obs.get_registry()
+    for prompt, _ in work[: 2 * len(CLASSES)]:
+        eng.generate_many([prompt], max_new_tokens=2)
+    for nm in ("serving.decode_chunk", "serving.step_seconds",
+               "serving.ttft_seconds", "serving.prefill_seconds"):
+        h = reg.get(nm)
+        if h is not None:
+            h.reset()
+    eng.reset_slo_accounting()
+    torch.cuda.synchronize()
+    kernels.reset_launches()                     # counts start at 0 here
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, m) for p, m in work]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for r, (prompt, max_new) in zip(reqs, work):
+        gen = r.result(timeout=0)[len(prompt):]
+        if len(gen) != max_new or gen.min() < 0 or gen.max() >= SPEC_VOCAB:
+            raise AssertionError(f"5c request {r.rid}: bad output {gen}")
+    return reqs, wall, launches
+
+
+def spec_phase(torch, np, kernels, seed):
+    """The reference's speculative pair at full width of its own
+    configuration: the plain engine and the speculative engine (a
+    ``depth_draft`` of 1 layer, ``spec_k=5``) over the same 64 requests;
+    the first 8 of each held to ``generate``, every request served in
+    full, no scratch block leaked, and the speculative pass's
+    paged-attention launches equal to the count reckoned from the
+    engine's own counters."""
+    from paddle_tpu_torch.observability import metrics as obs
+    from paddle_tpu_torch.serving import ServingEngine, speculative
+
+    rng = np.random.default_rng([seed, 5])
+    params = soften_deep_layers(
+        make_params(rng, SPEC_VOCAB, SPEC_LAYERS, SPEC_D), SPEC_DRAFT_LAYERS,
+        SPEC_SCALE)
+    work = make_workload(rng, REQUESTS, CLASSES, SPEC_VOCAB, PREFIX_LEN)
+    refs = generate_refs(torch, params, work[:8], SPEC_LAYERS, SPEC_HEADS,
+                         SPEC_D)
+    geom = dict(max_len=MAX_LEN, max_slots=SLOTS, decode_chunk=CHUNK,
+                min_bucket=MIN_BUCKET, block_tokens=BLOCK_TOKENS,
+                compute_dtype="float32", prefix_reuse=True)
+    runs = {}
+    for label, kw in (("plain", {}), ("spec", dict(
+            draft_params=speculative.depth_draft(params, SPEC_DRAFT_LAYERS),
+            spec_k=SPEC_K))):
+        obs.get_registry().clear(prefix="serving.")
+        eng = ServingEngine(params, SPEC_LAYERS, SPEC_HEADS, SPEC_D,
+                            **geom, **kw)
+        reqs, wall, launches = _spec_pass(torch, eng, work, kernels)
+        outs = [r.result(timeout=0) for r in reqs]
+        full = hold_to_generate(torch, np, outs[:8], work[:8], refs,
+                                f"5c {label}")
+        emitted = sum(len(r.tokens) for r in reqs)
+        st = eng.stats()
+        runs[label] = emitted / wall
+        log(f"5c {label}: {len(reqs)} requests, {emitted} tokens in "
+            f"{wall:.3f} s = {emitted / wall:.1f} tok/s; {full}/8 "
+            f"token-identical to generate (the rest only at near-ties); "
+            f"decode_chunk p50 {st['serving.decode_chunk']['p50'] * 1e3:.2f}"
+            f" ms over {st['serving.decode_chunk']['count']} rounds")
+        if eng.kv_pool.blocks_in_use != len(eng.prefix_trie):
+            raise AssertionError(
+                f"5c {label}: {eng.kv_pool.blocks_in_use} blocks in use "
+                f"after idle, the trie holds {len(eng.prefix_trie)}")
+        if label == "plain":
+            del eng
+            continue
+        sp = eng._spec
+        if any(sp.chains) or np.count_nonzero(sp.table):
+            raise AssertionError("5c: a scratch chain outlived its request")
+        rounds = st["serving.decode_chunk"]["count"]
+        prefill_steps = int(st["serving.prefill_tokens"])
+        draft_prefill = sum(eng.bucket_for(len(p)) for p, _ in work)
+        expect = (SPEC_DRAFT_LAYERS * (SPEC_K + 1) * rounds
+                  + SPEC_LAYERS * rounds + SPEC_LAYERS * prefill_steps
+                  + SPEC_DRAFT_LAYERS * draft_prefill)
+        log(f"5c spec: accept rate {sp.accepted / sp.proposed:.4f} "
+            f"({sp.accepted}/{sp.proposed}); serving.spec_draft_ms "
+            f"{st['serving.spec_draft_ms']:.3f} (last round); "
+            f"paged_attention.launches {launches['paged_attention']} = "
+            f"{SPEC_DRAFT_LAYERS} x {SPEC_K + 1} x {rounds} rounds + "
+            f"{SPEC_LAYERS} x {rounds} verifies + {SPEC_LAYERS} x "
+            f"{prefill_steps} target prefill steps + {SPEC_DRAFT_LAYERS} x "
+            f"{draft_prefill} draft prefill steps = {expect}")
+        if not sp.proposed > 0:
+            raise AssertionError("5c: no speculative round ran")
+        if launches["paged_attention"] != expect:
+            raise AssertionError(
+                f"5c: {launches['paged_attention']} paged launches, "
+                f"expected {expect}")
+        del eng
+    log(f"5c tok/s: spec {runs['spec']:.1f} / plain {runs['plain']:.1f} = "
+        f"{runs['spec'] / runs['plain']:.3f}x")
 
 
 # -- phases 6 and 7: training through Program -> Executor --------------------
@@ -1245,7 +1649,8 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
         raise AssertionError(f"the loss did not fall: {losses}")
     want = N_LAYER * steps
     ce_want = steps if fused_head else 0
-    expect = {"paged_attention": 0, "flash_attention_fwd": want,
+    expect = {"paged_attention": 0, "decode_gather": 0,
+              "flash_attention_fwd": want,
               "flash_attention_bwd": want if route == "fused" else 0,
               "flash_attention_bwd_dq": want if route == "split" else 0,
               "flash_attention_bwd_dkv": want if route == "split" else 0,
@@ -1432,6 +1837,7 @@ def main():
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import decode_gather as dg
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_ce as ce
     from paddle_tpu_torch.kernels import paged_attention as pa
@@ -1463,6 +1869,14 @@ def main():
 
     # 3. each kernel against its plain version, and its times
     row = kernel_phase(torch, pa)
+    walls = {}
+    t0 = time.perf_counter()
+    verify_ms = verify_kernel_phase(torch, pa)
+    walls["3a+"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gather_row = gather_phase(torch, dg)
+    walls["3d"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     flash_rows = flash_phase(torch, fa)
     torch.cuda.empty_cache()
     split_rows = split_phase(torch, fa)
@@ -1477,14 +1891,37 @@ def main():
     log(f"weights: {sum(v.size for v in params.values())} parameters, "
         f"made in {time.perf_counter() - t0:.1f} s")
 
-    # 4. correctness at full width, f32
-    correctness_phase(torch, np, params, work[:8])
+    # 4. correctness at full width, f32; 4b. the kill switch and
+    #    speculative decoding held to the same references
+    refs = correctness_phase(torch, np, params, work[:8])
+    t0 = time.perf_counter()
+    correctness_spelling_phase(torch, np, params, work[:8], refs, kernels)
+    walls["4b"] = time.perf_counter() - t0
+    del refs
     torch.cuda.empty_cache()
 
-    # 5. the main path: serving at full width, bf16
-    launches = serving_phase(torch, np, params, work, kernels)
-
+    # 5. the main path: serving at full width, bf16; 5b. the same pass
+    #    under PADDLE_TPU_PAGED_ATTN=0 (the decode_gather path)
+    served = serving_phase(torch, np, params, work, kernels)
+    launches = served["launches"]
+    t0 = time.perf_counter()
+    gathered = serving_phase(torch, np, params, work, kernels, switch="0")
+    walls["5b"] = time.perf_counter() - t0
+    log(f"5b beside 5: tok/s {gathered['tok_s']:.1f} vs {served['tok_s']:.1f}"
+        f"; decode_chunk p50 {gathered['chunk_p50'] * 1e3:.2f} vs "
+        f"{served['chunk_p50'] * 1e3:.2f} ms; peak memory {gathered['peak']} "
+        f"vs {served['peak']} B")
     del params, work
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5c. speculative decoding at the reference's spec configuration
+    t0 = time.perf_counter()
+    spec_phase(torch, np, kernels, args.seed)
+    walls["5c"] = time.perf_counter() - t0
+    log("wall of the serving-completion phases: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()))
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 6. training correctness at full width, f32: kernels vs plain, fused
@@ -1514,12 +1951,15 @@ def main():
 
     # 9. the kernels line, 10. the result
     row["launches"] = launches["paged_attention"]
+    gather_row["launches"] = gathered["launches"]["decode_gather"]
+    log(f"paged_attention at the verify shape: kernel {verify_ms[0]:.4f} ms, "
+        f"plain {verify_ms[1]:.4f} ms, bound {verify_ms[2]:.4f} ms")
     for r in flash_rows + ce_rows:
         r["launches"] = fused["launches"][r["name"]]
     for r in split_rows:
         r["launches"] = long_launches[r["name"]]
-    print(json.dumps({"kernels": [row] + flash_rows + split_rows + ce_rows}),
-          flush=True)
+    print(json.dumps({"kernels": [row, gather_row] + flash_rows + split_rows
+                      + ce_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

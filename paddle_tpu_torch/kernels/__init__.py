@@ -5,12 +5,14 @@ CPU tensors and launch the kernel for CUDA tensors, and count their
 launches (``<wrapper>.launches``)."""
 
 from . import _build
+from . import decode_gather as _dg
 from . import flash_attention as _fa
 from . import fused_ce as _ce
 from . import paged_attention as _pa
 
 # name -> wrapper, for callers that reset or read every launch count
 WRAPPERS = {"paged_attention": _pa.paged_attention,
+            "decode_gather": _dg.decode_gather,
             "flash_attention_fwd": _fa.flash_fwd,
             "flash_attention_bwd": _fa.flash_bwd,
             "flash_attention_bwd_dq": _fa.flash_bwd_dq,
@@ -35,6 +37,7 @@ def build_all():
     libraries — set-up work that belongs outside any timed window."""
     _build.build()
     _pa.build()
+    _dg.build()
     _fa.build()
     _ce.build()
 

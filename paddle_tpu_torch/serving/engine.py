@@ -20,19 +20,39 @@ scheduling.  The port's counterpart of ``paddle_tpu/serving/engine.py``.
   shedding of requests that provably cannot meet their e2e budget
   (``serving.scheduler``).
 
+* **Speculative decoding** — with a draft model
+  (``draft_params``), decode runs propose / verify / accept rounds
+  (``serving.speculative``): the draft proposes ``spec_k`` tokens per
+  slot into scratch block chains, one ``k + 1``-wide target verify
+  scores them, greedy acceptance commits the agreeing prefix plus a
+  bonus token, and rejected scratch blocks roll back to the pool.
+
 Greedy decode through the engine matches running each request alone
-through ``transformer.generate``, prefix reuse on or off.  Telemetry
-flows through the port's observability registry under the JAX engine's
-``serving.*`` names.
+through ``transformer.generate``, prefix reuse on or off, speculative or
+not.  Telemetry flows through the port's observability registry under
+the JAX engine's ``serving.*`` names; with tracing on (``observability.
+trace``, ``PADDLE_TPU_TRACE``) the engine records ``serving.prefill``,
+``serving.decode_chunk`` and ``serving.spec_round`` spans, a
+``serving.shed`` instant, and one span tree per finished request on its
+own timeline lane, exported to Chrome-trace by ``trace.save(path)``.
+An abort dumps the flight recorder (``observability.flight``);
+``PADDLE_TPU_FAULT=slot_death:n`` kills one request at the n-th decode
+round (``resilience.faults``).
+
+Attention runs through the paged-attention kernel, or, for step
+callables built under ``PADDLE_TPU_PAGED_ATTN=0``, through the
+``decode_gather`` kernel and a dense softmax; ``kernel_backends`` and
+``serving.paged_attn_compiles`` record which spelling each callable was
+built with.
 
 What differs from the JAX engine: PyTorch runs eagerly, so there is no
 ahead-of-time compile — the pools and slot state are updated in place
 instead of donated, and the CUDA kernels build when the engine is
 constructed (set-up, outside every timed window the TTFT predictor
-reads).  Speculative decoding, tracing spans, the flight recorder,
-fault injection and tune-cache lookups are not ported yet; with no
-``decode_chunk`` / ``min_bucket`` given the engine uses the JAX
-engine's tune-miss defaults, 4 and 8.
+reads).  Temperature sampling and the tune-cache lookups are not ported:
+with no ``decode_chunk`` / ``min_bucket`` / ``spec_k`` given the engine
+uses the JAX engine's tune-miss defaults, 4, 8 and
+``speculative.DEFAULT_SPEC_K``.
 """
 
 import collections
@@ -43,13 +63,18 @@ import numpy as np
 import torch
 
 from ..core.place import resolve_device
+from ..kernels import decode_gather as _dg
 from ..kernels import paged_attention as _pa
 from ..models.transformer import (as_torch_dtype, infer_compute_dtype,
                                   params_from_numpy)
+from ..observability import flight as _flight
 from ..observability import metrics as _obs
+from ..observability import trace as _trace
+from ..resilience import faults as _faults
 from . import batched_decode as _bd
 from . import kvcache as _kv
 from . import scheduler as _sched
+from . import speculative as _spec
 
 __all__ = ["Request", "ServingEngine"]
 
@@ -71,9 +96,9 @@ class Request:
 
     __slots__ = ("rid", "prompt", "max_new", "eos_id", "tokens",
                  "submit_t", "first_token_t", "finish_t", "error",
-                 "admit_t", "bucket",
+                 "admit_t", "prefill_t0", "prefill_t1", "bucket", "chunks",
                  "slo_ok", "ttft_slo_s", "e2e_slo_s", "shed", "sheddable",
-                 "prefix_hit", "_done")
+                 "prefix_hit", "spec_proposed", "spec_accepted", "_done")
 
     def __init__(self, rid, prompt, max_new, eos_id,
                  ttft_slo_s=None, e2e_slo_s=None, sheddable=True):
@@ -86,8 +111,14 @@ class Request:
         self.first_token_t = None
         self.finish_t = None
         self.error = None
+        # span-tree timestamps (observability.trace): queue pop, prefill
+        # window, prefill bucket, and the decode-chunk windows this
+        # request was live for — its timeline lane is emitted at finish
         self.admit_t = None
+        self.prefill_t0 = None
+        self.prefill_t1 = None
         self.bucket = None
+        self.chunks = []
         # SLO verdict at finish: True (met), False (violated/shed), or
         # None (no SLO budgets configured)
         self.slo_ok = None
@@ -99,6 +130,9 @@ class Request:
         self.sheddable = sheddable
         # prompt tokens whose prefill was skipped via the prefix trie
         self.prefix_hit = 0
+        # speculative accounting (0 when the engine has no draft)
+        self.spec_proposed = 0
+        self.spec_accepted = 0
         self._done = threading.Event()
 
     @property
@@ -160,6 +194,18 @@ class ServingEngine:
     scheduler  "slo" (default) or "fifo".
     eos_id   default EOS token id (per-request override in ``submit``).
     ttft_slo_s / e2e_slo_s   per-request latency budgets (seconds).
+    draft_params  parameter dict of a small DRAFT model (identical vocab
+             / d_model / head geometry, fewer layers — e.g.
+             ``speculative.depth_draft``).  When given (and
+             ``PADDLE_TPU_SPEC`` is not off), decode runs speculative
+             rounds, token-exact against plain greedy decode.  Geometry
+             mismatches raise at construction.
+    draft_n_layer / draft_n_head  the draft's depth / head count
+             (default: inferred depth / the target's ``n_head``; a
+             differing head count is rejected — the draft shares the
+             target's pool tensors).
+    spec_k   draft tokens proposed per round (default
+             ``speculative.DEFAULT_SPEC_K``).
     device   default the card (``cuda``); ``"cpu"`` must be asked for,
              and with no card and no request construction raises.
 
@@ -173,7 +219,8 @@ class ServingEngine:
                  eos_id=None, compute_dtype=None, eps=1e-5,
                  ttft_slo_s=None, e2e_slo_s=None,
                  block_tokens=16, cache_blocks=None, prefix_reuse=True,
-                 scheduler="slo", device=None):
+                 scheduler="slo", draft_params=None, draft_n_layer=None,
+                 draft_n_head=None, spec_k=None, device=None):
         self.device = resolve_device(device)
         if d_model % n_head:
             raise ValueError(f"d_model {d_model} % n_head {n_head} != 0")
@@ -214,6 +261,21 @@ class ServingEngine:
             # the kernels' nvcc build is set-up: it lands here, never in
             # the first (timed) prefill the TTFT predictor reads
             _pa.build()
+            _dg.build()
+
+        # -- speculative decoding (serving.speculative): with a draft and
+        # PADDLE_TPU_SPEC on, decode runs propose/verify/commit rounds.
+        # Off (or no draft): none of this exists — no validation, no
+        # extra pool blocks, no draft callables.
+        spec_on = draft_params is not None and _spec.spec_enabled()
+        if spec_on:
+            draft_n_layer = _spec.validate_draft(
+                params, draft_params, n_layer, n_head, d_model,
+                self.max_len, draft_n_layer=draft_n_layer,
+                draft_n_head=draft_n_head)
+            if spec_k is None:
+                spec_k = _spec.DEFAULT_SPEC_K
+        self.spec_k = int(spec_k) if spec_on else None
 
         # -- paged KV state (kvcache.py): pool tensors + host accounting
         self.block_tokens = int(block_tokens)
@@ -225,9 +287,13 @@ class ServingEngine:
         self.cache_blocks = int(cache_blocks)
         # trash block + every slot's worst-case chain + the cache budget:
         # admission can ALWAYS allocate a full chain once the trie evicts
-        # its unreferenced tail (kvcache.py invariants)
+        # its unreferenced tail (kvcache.py invariants).  Speculative mode
+        # reserves a second worst-case chain per slot for the draft's
+        # scratch blocks, so a propose round can never starve admission.
         num_blocks = (1 + self.max_slots * self.blocks_per_slot
                       + self.cache_blocks)
+        if spec_on:
+            num_blocks += self.max_slots * self.blocks_per_slot
         self.kv_pool = _kv.BlockPool(num_blocks, self.block_tokens)
         self.prefix_trie = (_kv.PrefixTrie(self.kv_pool, self.cache_blocks)
                             if prefix_reuse else None)
@@ -256,10 +322,15 @@ class ServingEngine:
         self._next_rid = 0
         self._prefill_fns = {}            # suffix bucket -> prefill step
         self._decode_fn = None
+        # step-callable label -> {kernel: backend} of the attention
+        # spelling it was built with (paged_attention, or decode_gather
+        # under PADDLE_TPU_PAGED_ATTN=0)
+        self.kernel_backends = {}
         self._thread = None
         self._stop = threading.Event()
         self._error = None                # fatal error: engine is dead
         self._inflight = 0                # popped, not yet slotted
+        self._req_lane_ends = []          # trace lane i -> last finish_t
         # the SLO control loop: measured-latency predictor + scheduler
         self.predictor = _sched.TtftPredictor()
         self._sched = _sched.make_scheduler(scheduler, self.predictor,
@@ -277,6 +348,14 @@ class ServingEngine:
             help="physical KV blocks in the paged pool (excl. trash)",
         ).set(num_blocks - 1)
         self._reg.gauge("serving.blocks_in_use").set(0)
+        self._spec = (_spec.SpecState(self, draft_params, draft_n_layer,
+                                      spec_k) if spec_on else None)
+
+    @property
+    def _tracer(self):
+        # resolved per call, so a tracer installed with trace.set_tracer()
+        # after the engine exists still receives the spans
+        return _trace.get_tracer()
 
     # -- request intake ---------------------------------------------------
     def submit(self, prompt, max_new_tokens=16, eos_id=None,
@@ -374,6 +453,8 @@ class ServingEngine:
                 for b in self._slot_blocks[s] or ():
                     self.kv_pool.deref(b)
                 self._slot_blocks[s] = None
+                if self._spec is not None:
+                    self._spec.release(self, s)
             self._table[:] = 0
             self._free = list(range(self.max_slots))
             for req in pending:
@@ -385,6 +466,11 @@ class ServingEngine:
             self._reg.counter("serving.aborted").inc(len(pending))
         for req in pending:
             req._done.set()
+        # post-mortem: the bundle's recent spans carry the request and
+        # decode timeline that led here
+        _flight.dump("serving_abort",
+                     error=f"{type(exc).__name__}: {exc}"[:300],
+                     failed_requests=len(pending))
 
     def run_until_idle(self):
         """Drive ``step`` until the queue and every slot are empty."""
@@ -474,11 +560,27 @@ class ServingEngine:
             b *= 2
         return min(b, self.max_len)
 
+    def _record_spelling(self, fn, label):
+        """Record which attention spelling step callable ``fn`` was built
+        with (``kernel_backends[label]``; ``serving.paged_attn_compiles``
+        counts the paged ones) — the JAX engine records the same per
+        compiled executable."""
+        kern = "paged_attention" if fn.paged else "decode_gather"
+        self.kernel_backends[label] = {
+            kern: "cuda" if self.device.type == "cuda" else "torch_ref"}
+        if fn.paged:
+            self._reg.counter(
+                "serving.paged_attn_compiles",
+                help="serving step callables built through the "
+                     "paged_attention kernel (vs the "
+                     "PADDLE_TPU_PAGED_ATTN=0 gather spelling)").inc()
+
     def _prefill_fn(self, bucket):
         fn = self._prefill_fns.get(bucket)
         if fn is None:
             fn = _bd.make_prefill(self.n_layer, self.n_head, self.d_model,
                                   bucket, eps=self._eps)
+            self._record_spelling(fn, f"prefill_{bucket}")
             self._prefill_fns[bucket] = fn
         return fn
 
@@ -489,6 +591,9 @@ class ServingEngine:
             self.kv_pool.deref(b)
         self._slot_blocks[slot] = None
         self._table[slot] = 0
+        if self._spec is not None:
+            # the slot's draft scratch chain obeys the same discipline
+            self._spec.release(self, slot)
         self._slots[slot] = None
         self._free.append(slot)
         if self.prefix_trie is not None:
@@ -497,10 +602,20 @@ class ServingEngine:
             self.kv_pool.blocks_in_use)
 
     def _decode(self):
+        if self._spec is not None:
+            return self._spec_decode()
         if self._decode_fn is None:
             self._decode_fn = _bd.make_decode_chunk(
                 self.n_layer, self.n_head, self.d_model, self.decode_chunk,
                 eps=self._eps)
+            self._record_spelling(self._decode_fn, "decode")
+        # fault injection point (PADDLE_TPU_FAULT=slot_death:n): the n-th
+        # decode chunk kills one active request mid-decode — its slot and
+        # KV blocks must be reclaimed and the engine keep serving
+        if _faults.maybe_fault("serving.decode") == "slot_death":
+            self._kill_one_slot()
+            if not self.active_slots:
+                return 0
         t0 = time.perf_counter()
         tbl = torch.from_numpy(self._table).to(self.device)
         toks = self._decode_fn(self._p, self._pk, self._pv, self._last,
@@ -512,6 +627,14 @@ class ServingEngine:
             wall / self.decode_chunk)
         self._reg.histogram("serving.decode_chunk").observe(wall)
         self.predictor.observe_chunk(wall, self.decode_chunk)
+        tracer = self._tracer
+        tracer.add_span("serving.decode_chunk", t0, t1, cat="serving",
+                        steps=self.decode_chunk, active=self.active_slots)
+        if tracer.enabled:
+            # per-request windows feed only the finish-time lane emission
+            for req in self._slots:
+                if req is not None:
+                    req.chunks.append((t0, t1))
         emitted = 0
         finished = 0
         now = time.perf_counter()
@@ -532,6 +655,160 @@ class ServingEngine:
             self._reg.gauge("serving.tok_s").set(emitted / wall)
         self._reg.gauge("serving.slots_active").set(self.active_slots)
         return finished
+
+    def _spec_decode(self):
+        """One speculative round (serving.speculative): the draft proposes
+        ``spec_k`` tokens per slot into scratch chains, ONE target verify
+        scores every slot's ``k + 1``-token window, greedy acceptance
+        commits the agreeing prefix plus the bonus token, and scratch
+        blocks past the committed frontier roll back to the pool.  At
+        least one token commits per live slot per round."""
+        sp = self._spec
+        k = sp.k
+        B = self.block_tokens
+        S = self.max_slots
+        # per-slot committed frontier, rebuilt from host truth each
+        # round: last committed token, its position, and the last
+        # position the slot may ever write (the verify write limit)
+        last_h = np.zeros(S, np.int32)
+        pos_h = np.zeros(S, np.int32)
+        limit_h = np.full(S, -1, np.int32)
+        for s, req in enumerate(self._slots):
+            if req is None:
+                continue
+            p_len = req.prompt.shape[0]
+            last_h[s] = req.tokens[-1]
+            pos_h[s] = p_len + len(req.tokens) - 1
+            limit_h[s] = p_len + req.max_new - 1
+            hi = min(pos_h[s] + k, limit_h[s])
+            sp.ensure_chain(self, s, int(hi) // B + 1)
+        verify = sp.verify_fn(self)
+        t0 = time.perf_counter()
+        drafts = sp.propose(self, last_h, pos_h)       # [k, S] host
+        t_d = time.perf_counter()
+        self._reg.gauge(
+            "serving.spec_draft_ms",
+            help="draft propose wall time per speculative round (ms)",
+        ).set((t_d - t0) * 1000.0)
+        # fault injection point (PADDLE_TPU_FAULT=slot_death:n): in
+        # speculative mode the death fires MID-VERIFY, between propose
+        # and commit.  The killed slot's real AND draft chains are
+        # reclaimed (_release_slot), its table rows zero, and the verify
+        # below runs with its write limit at -1: it scatters only into
+        # the trash block.
+        if _faults.maybe_fault("serving.decode") == "slot_death":
+            self._kill_one_slot()
+            if not self.active_slots:
+                return 0
+        for s in range(S):
+            if self._slots[s] is None:
+                limit_h[s] = -1
+        U = np.zeros((S, k + 1), np.int32)
+        U[:, 0] = last_h
+        U[:, 1:] = drafts.T
+        dev = self.device
+        greedy = verify(self._p, self._pk, self._pv,
+                        torch.from_numpy(U).to(dev),
+                        torch.from_numpy(pos_h).to(dev),
+                        torch.from_numpy(limit_h).to(dev),
+                        torch.from_numpy(self._table).to(dev))
+        greedy = greedy.cpu().numpy()                  # host sync [S, k+1]
+        t1 = time.perf_counter()
+        wall = t1 - t0
+        active = self.active_slots
+        tracer = self._tracer
+        if tracer.enabled:
+            for req in self._slots:
+                if req is not None:
+                    req.chunks.append((t0, t1))
+        emitted = 0
+        finished = 0
+        round_acc = 0
+        now = time.perf_counter()
+        for s, req in enumerate(self._slots):
+            if req is None:
+                continue
+            remaining = req.max_new - len(req.tokens)
+            commit, n_matched = _spec.accept_greedy(
+                drafts[:, s], greedy[s], remaining)
+            done = False
+            appended = 0
+            for tok in commit:
+                req.tokens.append(tok)
+                emitted += 1
+                appended += 1
+                if ((req.eos_id is not None and tok == req.eos_id)
+                        or len(req.tokens) >= req.max_new):
+                    done = True
+                    break
+            acc = min(n_matched, appended)
+            # acceptance is judged over the draft tokens that COULD have
+            # committed (the request's remaining window), not the full k
+            eff = min(k, max(0, remaining - 1))
+            sp.proposed += eff
+            sp.accepted += acc
+            round_acc += acc
+            req.spec_proposed += eff
+            req.spec_accepted += acc
+            if done:
+                self._release_slot(s)
+                self._finish(req, now)
+                finished += 1
+            else:
+                # the draft KV is valid through the new frontier - 1;
+                # scratch blocks past it held rejected-token state
+                pos2 = req.prompt.shape[0] + len(req.tokens) - 1
+                sp.rollback(self, s, (int(pos2) - 1) // B + 1)
+        self._reg.counter("serving.tokens").inc(emitted)
+        if wall > 0:
+            self._reg.gauge("serving.tok_s").set(emitted / wall)
+        if sp.proposed:
+            self._reg.gauge(
+                "serving.spec_accept_rate",
+                help="draft tokens accepted / proposed since the last "
+                     "accounting reset",
+            ).set(sp.accepted / sp.proposed)
+        self._reg.histogram("serving.decode_chunk").observe(wall)
+        self._reg.histogram("serving.step_seconds").observe(wall / (k + 1))
+        if active:
+            # steps per round for the predictor: the steady-state
+            # expectation 1 + accept_rate * k, not this round's noisy
+            # emitted/active
+            if sp.proposed:
+                steps = 1 + k * (sp.accepted / sp.proposed)
+            else:
+                steps = emitted / active
+            self.predictor.observe_chunk(wall, max(1, int(round(steps))))
+        tracer.add_span("serving.spec_round", t0, t1, cat="serving",
+                        k=k, active=active, emitted=emitted,
+                        accepted=round_acc)
+        self._reg.gauge("serving.blocks_in_use").set(
+            self.kv_pool.blocks_in_use)
+        self._reg.gauge("serving.slots_active").set(self.active_slots)
+        return finished
+
+    def _kill_one_slot(self):
+        """Injected mid-decode slot death: fail the first active request,
+        reclaim its slot and KV blocks (the no-leak regression), keep the
+        engine serving."""
+        for s, req in enumerate(self._slots):
+            if req is None:
+                continue
+            req.error = RuntimeError(
+                f"injected slot death (PADDLE_TPU_FAULT) — request "
+                f"{req.rid} died in slot {s} mid-decode")
+            req.finish_t = time.perf_counter()
+            self._release_slot(s)
+            self._reg.counter(
+                "serving.slot_deaths",
+                help="requests killed by injected mid-decode slot death "
+                     "(blocks + slot reclaimed)").inc()
+            self._reg.gauge("serving.slots_active").set(self.active_slots)
+            with self._qlock:
+                self._completed.append(req)
+            req._done.set()
+            return True
+        return False
 
     def _sched_bucket(self, req):
         """The scheduler's prefill-bucket estimate for a queued request,
@@ -651,13 +928,36 @@ class ServingEngine:
             pool.deref(cow[0])
         self._table[slot] = row
         self._slot_blocks[slot] = list(shared) + list(priv)
+        if self._spec is not None:
+            # draft prefill: the FULL prompt through the draft into the
+            # slot's scratch chain, so the first propose round has a
+            # complete draft KV.  Before any request-state mutation below,
+            # so a PoolExhausted (the pool reserves a draft chain per
+            # slot, so unlikely) re-queues cleanly.
+            try:
+                self._spec.prefill(self, slot, req)
+            except _kv.PoolExhausted:
+                for b in self._slot_blocks[slot] or ():
+                    pool.deref(b)
+                self._slot_blocks[slot] = None
+                self._table[slot] = 0
+                self._spec.release(self, slot)
+                if trie is not None:
+                    trie.enforce_budget()
+                self._reg.gauge("serving.blocks_in_use").set(
+                    pool.blocks_in_use)
+                raise
         if trie is not None:
             # register the prompt's FULL blocks (shared ones are already
             # cached and skipped; our private full blocks become reusable)
             trie.insert(req.prompt,
                         [int(b) for b in row[:p_len // self.block_tokens]])
+        req.prefill_t0, req.prefill_t1 = t_p0, now
         self._reg.histogram("serving.prefill_seconds").observe(now - t_p0)
         self.predictor.observe_prefill(bucket, now - t_p0)
+        self._tracer.add_span("serving.prefill", t_p0, now, cat="serving",
+                              rid=req.rid, bucket=bucket, slot=slot,
+                              prefix_hit=start)
         req.first_token_t = now
         req.tokens.append(first)
         self._reg.counter("serving.admitted").inc()
@@ -705,6 +1005,7 @@ class ServingEngine:
             "serving.shed_total",
             help="requests shed by the SLO scheduler (could no longer "
                  "meet their e2e budget)").inc()
+        self._tracer.instant("serving.shed", cat="serving", rid=req.rid)
         with self._qlock:
             self._completed.append(req)
         req._done.set()
@@ -714,6 +1015,7 @@ class ServingEngine:
         self._reg.counter("serving.completed").inc()
         self._reg.histogram("serving.e2e_seconds").observe(req.e2e)
         self._judge_slo(req, now)
+        self._emit_request_trace(req)
         with self._qlock:
             self._completed.append(req)
         req._done.set()
@@ -727,10 +1029,15 @@ class ServingEngine:
             self._first_submit_t = None
             self._hit_tokens = 0
             self._prompt_tokens = 0
+            if self._spec is not None:
+                self._spec.proposed = 0
+                self._spec.accepted = 0
         for nm in ("serving.slo_violations", "serving.goodput_tok_s",
                    "serving.shed_total", "serving.prefix_hit_rate",
                    "serving.prefix_hit_tokens", "serving.prefill_tokens",
-                   "serving.cow_copies"):
+                   "serving.cow_copies", "serving.spec_accept_rate",
+                   "serving.spec_draft_ms",
+                   "serving.spec_rollback_blocks"):
             m = self._reg.get(nm)
             if m is not None:
                 m.reset()
@@ -766,6 +1073,57 @@ class ServingEngine:
                 "serving.goodput_tok_s",
                 help="tokens/sec from SLO-met requests since the first "
                      "submit").set(good / window)
+
+    def _emit_request_trace(self, req):
+        """Lay the finished request's span tree on its own timeline lane:
+        ``serving.request`` (submit -> finish) containing
+        ``serving.req.queue`` / ``serving.req.prefill`` / one
+        ``serving.req.decode_chunk`` per round the request was live for,
+        closed by a zero-length ``serving.req.evict`` marker.  These
+        re-present intervals the histograms and the engine-thread spans
+        already observed, so they are timeline-only (``timer=False``)."""
+        tr = self._tracer
+        if not tr.enabled or req.error is not None or req.admit_t is None:
+            return
+        lane = f"serving req {self._req_lane(req)}"
+        spec_attrs = ({"spec_proposed": req.spec_proposed,
+                       "spec_accepted": req.spec_accepted}
+                      if req.spec_proposed else {})
+        tr.add_span("serving.request", req.submit_t, req.finish_t,
+                    cat="serving", lane=lane, timer=False, rid=req.rid,
+                    prompt_len=int(req.prompt.shape[0]),
+                    tokens=len(req.tokens), prefix_hit=req.prefix_hit,
+                    **spec_attrs)
+        tr.add_span("serving.req.queue", req.submit_t, req.admit_t,
+                    cat="serving", lane=lane, timer=False, rid=req.rid)
+        if req.prefill_t0 is not None:
+            tr.add_span("serving.req.prefill", req.prefill_t0,
+                        req.prefill_t1, cat="serving", lane=lane,
+                        timer=False, rid=req.rid, bucket=req.bucket,
+                        prefix_hit=req.prefix_hit)
+        for c0, c1 in req.chunks:
+            tr.add_span("serving.req.decode_chunk", c0, c1, cat="serving",
+                        lane=lane, timer=False, rid=req.rid)
+        tr.add_span("serving.req.evict", req.finish_t, req.finish_t,
+                    cat="serving", lane=lane, timer=False, rid=req.rid)
+
+    def _req_lane(self, req):
+        """A timeline lane whose previous occupant finished before this
+        request was submitted, so overlapping requests never share a lane
+        (Chrome/Perfetto nest by ts/dur containment within a tid).  Lanes
+        are reused once free; past 64 live requests the least-recently
+        freed lane is reused.  Engine thread only, so no lock."""
+        ends = self._req_lane_ends
+        for i, end in enumerate(ends):
+            if end <= req.submit_t:
+                ends[i] = req.finish_t
+                return i
+        if len(ends) < 64:
+            ends.append(req.finish_t)
+            return len(ends) - 1
+        i = min(range(len(ends)), key=ends.__getitem__)
+        ends[i] = req.finish_t
+        return i
 
     def stats(self):
         """Snapshot of the engine's ``serving.*`` metrics."""

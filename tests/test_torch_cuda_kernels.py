@@ -1,7 +1,7 @@
-"""The port's CUDA kernels on the card (paged attention, flash attention
-forward, fused backward and split backward (dq, dk/dv), the fused
-cross-entropy head's forward, dx and dW), against their plain PyTorch
-versions
+"""The port's CUDA kernels on the card (paged attention, decode gather,
+flash attention forward, fused backward and split backward (dq, dk/dv),
+the fused cross-entropy head's forward, dx and dW), against their plain
+PyTorch versions
 (paddle_tpu_torch only: no jax, so these run on a host without it).  Every test needs an NVIDIA GPU and skips without one; on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -102,14 +102,10 @@ def test_wrapper_checks_before_launching():
     assert tpa.paged_attention.launches == before
 
 
-def test_engine_on_the_card_matches_the_cpu():
-    """A tiny f32 model served on the card gives the CPU's tokens, and
-    every attention call went through the kernel."""
-    _need_card()
-    from paddle_tpu_torch.serving import ServingEngine
-
-    rng = np.random.default_rng(0)
-    V, L, H, D, T = 64, 2, 2, 64, 48
+def _tiny_model(rng):
+    """Seeded f32 weights of a 2-layer d64 model (vocab 64, 48 positions)
+    with non-trivial biases and LayerNorm parameters."""
+    V, L, D, T = 64, 2, 64, 48
     p = {"tok_emb.w": rng.standard_normal((V, D)),
          "pos_emb.w.w": rng.standard_normal((T, D)),
          "ln_f.scale": 1 + 0.1 * rng.standard_normal(D),
@@ -124,7 +120,18 @@ def test_engine_on_the_card_matches_the_cpu():
         for ln in ("ln1", "ln2"):
             p[f"block{i}_{ln}.scale"] = 1 + 0.1 * rng.standard_normal(D)
             p[f"block{i}_{ln}.bias"] = 0.1 * rng.standard_normal(D)
-    p = {k: np.asarray(v, np.float32) for k, v in p.items()}
+    return {k: np.asarray(v, np.float32) for k, v in p.items()}
+
+
+def test_engine_on_the_card_matches_the_cpu():
+    """A tiny f32 model served on the card gives the CPU's tokens, and
+    every attention call went through the kernel."""
+    _need_card()
+    from paddle_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(0)
+    V, L, H, D, T = 64, 2, 2, 64, 48
+    p = _tiny_model(rng)
     stem = rng.integers(1, V, 10)
     prompts = [stem, np.concatenate([stem[:6], rng.integers(1, V, 5)]),
                rng.integers(1, V, 3)]
@@ -477,3 +484,81 @@ def test_fused_head_executor_on_the_card_matches_the_cpu():
         assert abs(got[0] - want[0]) <= 1e-4 * abs(want[0])
     assert (tce.ce_fwd.launches - before[0], tce.ce_dx.launches - before[1],
             tce.ce_dw.launches - before[2]) == (3, 3, 3)
+
+
+# -- decode gather -------------------------------------------------------------
+
+from paddle_tpu_torch.kernels import decode_gather as tdg  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", [(32, 16, 32, 6, 128, 0), (1, 16, 32, 6, 128, 0),
+                                  (7, 9, 5, 3, 21, 0), (7, 9, 5, 3, 21, 1),
+                                  (3, 4, 1, 1, 3, 1)],
+                         ids=["decode", "prefill", "ragged", "ragged_offset",
+                              "odd_bytes"])
+def test_decode_gather_bit_exact(dtype, geom):
+    """Bit-exact against the plain version, with repeated and trash (0)
+    table entries, block byte counts that are no multiple of 16 and a
+    pool whose base address moves by one block."""
+    _need_card()
+    S, NB, B, H, DH, off = geom
+    rng = np.random.default_rng(S * NB + B)
+    nblk = 2 * S * NB + 1
+    pool = torch.tensor(rng.standard_normal((nblk + off, B, H, DH)),
+                        dtype=torch.float32, device="cuda").to(
+        getattr(torch, dtype))[off:]
+    table = rng.integers(0, nblk, (S, NB)).astype(np.int32)
+    table[:, -1] = 0
+    table[S // 2:, 0] = table[0, 0]
+    table = torch.tensor(table, device="cuda")
+    before = tdg.decode_gather.launches
+    got = tdg.decode_gather(pool, table)
+    torch.cuda.synchronize()
+    assert tdg.decode_gather.launches == before + 1
+    assert torch.equal(got, tdg.decode_gather_ref(pool, table))
+
+
+def test_decode_gather_wrapper_checks_before_launching():
+    _need_card()
+    pool = torch.zeros((5, 4, 2, 8), device="cuda")
+    table = torch.zeros((2, 3), dtype=torch.int32, device="cuda")
+    before = tdg.decode_gather.launches
+    with pytest.raises(TypeError):
+        tdg.decode_gather(pool.half(), table)
+    with pytest.raises(TypeError):
+        tdg.decode_gather(pool, table.long())
+    with pytest.raises(ValueError):
+        tdg.decode_gather(pool, table.cpu())
+    with pytest.raises(ValueError):
+        tdg.decode_gather(pool[:, :, :, ::2], table)
+    assert tdg.decode_gather.launches == before
+
+
+@pytest.mark.parametrize("switch", ["1", "0"])
+def test_spec_engine_on_the_card_matches_the_cpu(monkeypatch, switch):
+    """A tiny speculative f32 engine on the card gives the CPU's tokens
+    in both spellings, through the kernel of its spelling only."""
+    _need_card()
+    from paddle_tpu_torch.serving import ServingEngine, depth_draft
+
+    monkeypatch.setenv("PADDLE_TPU_PAGED_ATTN", switch)
+    rng = np.random.default_rng(1)
+    V, L, H, D, T = 64, 2, 2, 64, 48
+    p = _tiny_model(rng)
+    prompts = [rng.integers(1, V, n) for n in (5, 9, 3)]
+    geom = dict(max_len=T, max_slots=2, decode_chunk=4, min_bucket=4,
+                block_tokens=4, draft_params=depth_draft(p, 1), spec_k=3)
+    want = ServingEngine(p, L, H, D, device="cpu", **geom).generate_many(
+        prompts, max_new_tokens=12)
+    eng = ServingEngine(p, L, H, D, **geom)
+    pa0, dg0 = tpa.paged_attention.launches, tdg.decode_gather.launches
+    got = eng.generate_many(prompts, max_new_tokens=12)
+    used, unused = ((tpa.paged_attention.launches - pa0,
+                     tdg.decode_gather.launches - dg0) if switch == "1" else
+                    (tdg.decode_gather.launches - dg0,
+                     tpa.paged_attention.launches - pa0))
+    assert used > 0 and unused == 0
+    assert eng._spec.proposed > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -50,10 +50,33 @@ def _run(code_or_args, cwd):
                           text=True, timeout=300)
 
 
+SERVING_MODULES = [
+    "paddle_tpu_torch.serving", "paddle_tpu_torch.serving.engine",
+    "paddle_tpu_torch.serving.batched_decode",
+    "paddle_tpu_torch.serving.kvcache", "paddle_tpu_torch.serving.scheduler",
+    "paddle_tpu_torch.serving.speculative",
+    "paddle_tpu_torch.kernels.paged_attention",
+    "paddle_tpu_torch.kernels.decode_gather",
+    "paddle_tpu_torch.observability.metrics",
+    "paddle_tpu_torch.observability.trace",
+    "paddle_tpu_torch.observability.flight",
+    "paddle_tpu_torch.resilience", "paddle_tpu_torch.resilience.faults",
+    "paddle_tpu_torch.models.transformer",
+]
+
+
+def test_every_serving_module_is_a_file_the_import_scan_covers():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in SERVING_MODULES:
+        rel = mod.replace(".", "/")
+        assert (rel + ".py" in scanned
+                or rel + "/__init__.py" in scanned), mod
+
+
 def test_serving_import_leaves_jax_out():
-    r = _run("import sys, paddle_tpu_torch.serving, "
-             "paddle_tpu_torch.models.transformer\n"
-             "bad = [m for m in sys.modules if m.split('.')[0] in "
+    r = _run("import sys\n"
+             + "".join(f"import {m}\n" for m in SERVING_MODULES)
+             + "bad = [m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'paddle_tpu')]\n"
              "assert not bad, bad\nprint('clean')", cwd=ROOT)
     assert r.returncode == 0, r.stderr
@@ -128,7 +151,8 @@ def test_kernel_wrappers_and_counters_are_registered():
     from paddle_tpu_torch import kernels
 
     assert set(kernels.WRAPPERS) == {
-        "paged_attention", "flash_attention_fwd", "flash_attention_bwd",
+        "paged_attention", "decode_gather",
+        "flash_attention_fwd", "flash_attention_bwd",
         "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
         "fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"}
     assert kernels.launch_counts() == {nm: fn.launches
@@ -143,6 +167,7 @@ def test_kernel_sources_and_build_flags():
     from paddle_tpu_torch.kernels import _build
 
     assert "paged_attention" in _build.sources()
+    assert "decode_gather" in _build.sources()
     assert "flash_attention" in _build.sources()
     assert "fused_ce" in _build.sources()
     flags = " ".join(_build.NVCC_FLAGS)
