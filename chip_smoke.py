@@ -49,6 +49,16 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
       count is no multiple of 16 (B=5, h=3, dh=21, at two pool base
       offsets), tables with repeated and trash (0) entries; timed at the
       decode shape in bf16 (library: ``index_select``; bound: bytes);
+   e. the fused ResNet bottleneck (B9) against its plain version at the
+      script's shape (N=128, 56x56, 256 -> 64 -> 256, bf16, 2e-2
+      max-relative), a small f32 shape (2e-4), a height no band divides
+      (H=13, Cm=72, bf16 and f32) and channel counts that are no multiple
+      of 8 (bf16 on the FMA spelling); timed at the script's shape
+      (library: the three convolutions on cuDNN in channels_last with the
+      same epilogues; bound: x read and out written once over 3.35 TB/s);
+      then its path, the reference experiment through
+      ``python -m paddle_tpu_torch.benchmarks.bottleneck``'s ``main``,
+      with every count zeroed before it;
 4. serving correctness at full width in f32: the 12-layer d768 h6 v32768
    GPT with seeded random weights serves 8 shared-prefix requests through
    the engine's background thread, each compared with the port's
@@ -115,12 +125,26 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    split dk/dv, 0 fused backward and one launch of each CE kernel a step;
    step wall, tokens/s, peak memory and the profiled step;
    b. the same path for two steps with no remat and with ``compact``:
-   peak memory and step wall beside phase 8's, compact's peak below no
-   remat's, the three loss trajectories equal to bf16 rounding;
-9. one JSON line ``{"kernels": [...]}`` with each of the nine kernels'
-   launches on its main path (phase 5, 5b, 7 or 8), error, times and
+   peak memory and step wall beside phase 8's, compact's and selective's
+   peaks below no remat's, the three loss trajectories equal to bf16
+   rounding;
+9. ResNet-50 training (a main path, ``bench.py``'s headline model,
+   ``bench_resnet``): ``resnet.build(depth=50, class_dim=1000,
+   image_shape=(3, 224, 224), dtype="bfloat16")`` at batch 128 on a
+   synthetic batch made on the card from ``--seed``, a warm step and five
+   counted Momentum steps: the loss finite, parameters and BN running
+   statistics moved, no hand-written kernel launched (every op is
+   ATen/cuDNN); img/s, step wall, peak memory beside the activation
+   memory reckoned from the program's shapes, one profiled step;
+   b. the same model with ``is_test=True`` on the trained state, one
+   forward (img/s); then B9 on the NHWC activation entering the second
+   stage-1 bottleneck block, its batch norm folded from the trained
+   parameters and running statistics, against the port's own forward of
+   that block (2e-2 max-relative);
+10. one JSON line ``{"kernels": [...]}`` with each of the ten kernels'
+   launches on its main path (phase 3e, 5, 5b, 7 or 8), error, times and
    bound;
-10. the last line: ``{"ok": true, "device": {...}}``.
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
 file, it exits non-zero and prints no result.  The weights, the tokens
@@ -161,6 +185,10 @@ LONG_T, LONG_STEPS = 16384, 3
 # head, t=4096, b=8), the base of phase 8's memory reckoning
 T4096_FUSED_PEAK = 13.86e9
 PATTERN = 512                      # the synthetic tokens cycle through 0..511
+# phases 9 and 9b: bench.py's headline model (bench_resnet: ResNet-50,
+# 224x224, batch 128, bf16, Momentum)
+RESNET_DEPTH, RESNET_CLASSES, RESNET_HW, RESNET_BATCH = 50, 1000, 224, 128
+RESNET_STEPS = 5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense FLOP/s by type
 HBM_BYTES_S = 3.35e12
@@ -1043,6 +1071,110 @@ def ce_long_phase(torch, ce):
     torch.cuda.empty_cache()
 
 
+# -- phase 3e: the fused bottleneck against its plain version ----------------
+
+def bottleneck_phase(torch, kernels, bn, bench):
+    """B9: the kernel against ``bottleneck_ref`` at the script's shape in
+    bf16 (N=128, 56x56, 256 -> 64 -> 256), a small f32 shape, a height no
+    band divides (bf16 and f32, Cm above one 64-channel tile) and odd
+    channel counts (bf16 on the FMA spelling); its time
+    at the script's shape beside the plain version, the cuDNN composition
+    and the bound; then the path — the script's experiment through its
+    entry point, ``paddle_tpu_torch.benchmarks.bottleneck.main`` — with
+    every launch count zeroed just before it and read just after."""
+    import torch.nn.functional as F
+
+    cases = [("script shape", bench.H, bench.W, bench.CIN, bench.CM, 128,
+              torch.bfloat16),
+             ("small", 16, 16, 32, 8, 4, torch.float32),
+             ("ragged H", 13, 11, 48, 72, 3, torch.bfloat16),
+             ("ragged H", 13, 11, 48, 72, 3, torch.float32),
+             ("odd C", 9, 7, 36, 12, 2, torch.bfloat16)]
+    path_err = None
+    for label, h, w, cin, cm, n, dtype in cases:
+        args = bench.make_inputs(n, "cuda", dtype=dtype, h=h, w=w, cin=cin,
+                                 cm=cm)
+        got = bn.bottleneck(*args)
+        torch.cuda.synchronize()
+        want = bn.bottleneck_ref(*args)
+        d, rel = rel_err(torch, got, want)
+        tol = bn.oracle_tol(dtype)
+        tc = bn.uses_tensor_cores(*args[:4], got)
+        band = bn.band_rows(h, w, cm, dtype, tc)
+        log(f"kernel bottleneck {label:12s} N={n:3d} H={h} W={w} C={cin} "
+            f"Cm={cm} {str(dtype)[6:]:8s} ({'tensor cores' if tc else 'FMA'}"
+            f", band {band} rows, {-(-h // band)} bands): max abs err "
+            f"{d:.3e}, rel {rel:.3e} (tol {tol:g})")
+        if not (rel <= tol and torch.isfinite(got.float()).all()):
+            raise AssertionError(f"bottleneck kernel disagrees at {label} "
+                                 f"{dtype}: rel {rel:.3e}")
+        if path_err is None:
+            path_err = d
+        del args, got, want
+    # timing at the script's shape
+    args = bench.make_inputs(128, "cuda")
+    x = args[0]
+    ms = device_ms(torch, lambda i: bn.bottleneck(*args), 5)
+    plain_ms = device_ms(torch, lambda i: bn.bottleneck_ref(*args), 3)
+
+    # the yardstick the port never calls: the three convolutions on cuDNN
+    # in bf16, channels_last (x's NHWC memory as an NCHW view), with the
+    # same epilogues in bf16
+    x_cl = x.permute(0, 3, 1, 2)
+    w1, w2, w3 = args[1:4]
+    f1 = w1.t()[:, :, None, None].contiguous(
+        memory_format=torch.channels_last)
+    f2 = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    f3 = w3.t()[:, :, None, None].contiguous(
+        memory_format=torch.channels_last)
+    s1, b1, s2, b2, s3, b3 = (v.to(x.dtype)[None, :, None, None]
+                              for v in args[4:])
+
+    def library():
+        y = torch.relu(F.conv2d(x_cl, f1) * s1 + b1)
+        y = torch.relu(F.conv2d(y, f2, padding=1) * s2 + b2)
+        return torch.relu(F.conv2d(y, f3) * s3 + b3 + x_cl)
+
+    lib_rel = rel_err(torch, library().permute(0, 2, 3, 1),
+                      bn.bottleneck_ref(*args))[1]
+    library_ms = device_ms(torch, lambda i: library(), 5)
+    n, h, w, c = x.shape
+    cm = w1.shape[1]
+    flops = 2 * n * h * w * (c * cm + 9 * cm * cm + cm * c)
+    nbytes = 2 * x.numel() * x.element_size()
+    ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"bottleneck bf16 (N={n} {h}x{w} {c}->{cm}->{c}, "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes} B): kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+        f"library (3 cuDNN convs channels_last + epilogues, rel "
+        f"{lib_rel:.2e} to plain) {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms "
+        f"({'operations' if ops_ms > bytes_ms else 'bytes'})")
+    del args, x, x_cl, f1, f2, f3
+    torch.cuda.empty_cache()
+    # the path: the reference experiment through its entry point
+    kernels.reset_launches()
+    if bench.main(["--batch", "128"]) != 0:
+        raise AssertionError("the bottleneck experiment failed")
+    launches = kernels.launch_counts()
+    log("launches during the bottleneck experiment: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    if launches["bottleneck"] < 1 or any(
+            v for k, v in launches.items() if k != "bottleneck"):
+        raise AssertionError(f"the bottleneck experiment did not go "
+                             f"through its kernel alone: {launches}")
+    torch.cuda.empty_cache()
+    return {"name": "bottleneck", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/bottleneck.cu",
+            "replaces": "benchmarks/bottleneck_pallas.py:111",
+            "launches": launches["bottleneck"], "max_abs_err": path_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+            "library_ms": library_ms}
+
+
 # -- phase 4: full-width f32 served vs single-stream -------------------------
 
 def generate_refs(torch, params, work, n_layer, n_head, d_model):
@@ -1655,7 +1787,7 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
               "flash_attention_bwd_dq": want if route == "split" else 0,
               "flash_attention_bwd_dkv": want if route == "split" else 0,
               "fused_ce_fwd": ce_want, "fused_ce_dx": ce_want,
-              "fused_ce_dw": ce_want}
+              "fused_ce_dw": ce_want, "bottleneck": 0}
     if launches != expect:
         raise AssertionError(
             f"launches {launches}, expected {expect}: some attention or "
@@ -1686,17 +1818,20 @@ def long_phase(torch, np, pt, kernels, seed):
     state = n_params * (2 + 2 + 8)
     scaled = T4096_FUSED_PEAK * LONG_T / TRAIN_T
     per_layer = state + N_LAYER * 30 * unit
-    # selective in eager PyTorch: a checkpointed segment keeps its inputs
-    # referenced, so a layer keeps ln1's output, q, k, v, o, ln2's output,
-    # the FFN hidden before and after gelu (4 units each), the attention
-    # projection's output and two residual-stream tensors: ~18 units
-    selective = state + N_LAYER * 18 * unit
+    # selective, one checkpointed region a layer with the matrix ops'
+    # outputs saved: a layer keeps its input and ln1's output (the
+    # region inputs), the q, k, v, out-projection and FFN products before
+    # their biases (3 + 1 + 4 + 1 units) and the flash residuals q, k, v, o
+    # (4): ~15 units; the backward recomputes one layer at a time (~18
+    # units of its saved tensors live at once)
+    selective = state + N_LAYER * 15 * unit + 18 * unit
     log(f"phase 8, t={LONG_T} b={TRAIN_B}: {tokens} tokens a step; peak "
         f"memory reckoned before the run: phase 7's measured "
         f"{T4096_FUSED_PEAK / 1e9:.2f} GB x {LONG_T // TRAIN_T} = "
         f"{scaled / 1e9:.1f} GB (no remat); phase 7's per-layer reckoning "
         f"(30 [tokens, d] bf16 tensors a layer) {per_layer / 1e9:.1f} GB; "
-        f"selective in eager PyTorch (~18 a layer) {selective / 1e9:.1f} GB")
+        f"selective (~15 a layer, one layer recomputed at a time) "
+        f"{selective / 1e9:.1f} GB")
     sel = training_phase(torch, np, pt, kernels, seed, True, t=LONG_T,
                          steps=LONG_STEPS, policy="selective", warm=1)
     torch.cuda.empty_cache()
@@ -1720,6 +1855,8 @@ def long_phase(torch, np, pt, kernels, seed):
         f" GB against no remat")
     if not runs["compact"]["peak"] < runs["none"]["peak"]:
         raise AssertionError("compact remat's peak is not below no remat's")
+    if not sel["peak"] < runs["none"]["peak"]:
+        raise AssertionError("selective remat's peak is not below no remat's")
     base = runs["none"]["losses"][:2]
     for name in ("selective", "compact"):
         got = runs[name]["losses"][:2]
@@ -1731,6 +1868,193 @@ def long_phase(torch, np, pt, kernels, seed):
         log(f"{name} remat losses {'equal' if got == base else 'within bf16 rounding of'}"
             f" no remat's")
     return sel["launches"]
+
+
+# -- phases 9 and 9b: ResNet-50 training and inference -----------------------
+
+def build_resnet(pt, seed, is_test=False):
+    """``bench.py``'s headline model (``bench_resnet``): ResNet-50, 1000
+    classes, 224x224, bf16, Momentum at lr 0.1; names restart so the
+    training and the inference programs name alike."""
+    pt.core.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = seed
+    with pt.program_guard(main, startup):
+        model = pt.models.resnet.build(
+            depth=RESNET_DEPTH, class_dim=RESNET_CLASSES,
+            image_shape=(3, RESNET_HW, RESNET_HW), dtype="bfloat16",
+            is_test=is_test)
+    return main, startup, model
+
+
+def resnet_batch(torch, seed):
+    """A synthetic batch made on the card from ``seed`` (no dataset):
+    normal images in bf16, uniform labels."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    img = torch.randn((RESNET_BATCH, 3, RESNET_HW, RESNET_HW), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    label = torch.randint(0, RESNET_CLASSES, (RESNET_BATCH, 1),
+                          generator=gen, device="cuda")
+    return {"img": img, "label": label}
+
+
+def resnet_activation_bytes(main, batch):
+    """What eager autograd keeps for the backward, reckoned from the
+    program's shapes: each conv's output (batch norm saves its input),
+    each relu's output (relu saves it; it is also the next conv's input),
+    the image (the first conv's input) and the max pool's int64 indices;
+    bf16 activations."""
+    block = main.global_block()
+
+    def numel(name):
+        n = batch
+        for s in block._find_var(name).shape[1:]:
+            n *= s
+        return n
+
+    elems, index_elems = 0, 0
+    for op in block.ops[:block.backward_index]:
+        if op.type in ("conv2d", "relu"):
+            elems += numel(op.output_names()[0])
+        elif op.type == "pool2d" and op.attrs["pooling_type"] == "max":
+            index_elems += numel(op.output_names()[0])
+    elems += numel("img")
+    return 2 * elems + 8 * index_elems
+
+
+def resnet_phase(torch, np, pt, kernels, seed):
+    """Phase 9, a main path: ResNet-50 at ``bench.py``'s batch 128, 224x224,
+    bf16, through Program -> Executor -> autograd -> Momentum on one card:
+    a warm step, then the counted steps with every launch count zeroed just
+    before them; the loss must stay finite and the parameters and the BN
+    running statistics must move.  Prints img/s, step wall, peak memory
+    beside the memory reckoned before the run, and one profiled step."""
+    main, startup, model = build_resnet(pt, seed)
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    acts = resnet_activation_bytes(main, RESNET_BATCH)
+    # bf16 weights and their gradients, f32 velocities and BN state
+    state = n_params * (2 + 2 + 4)
+    log(f"phase 9, ResNet-{RESNET_DEPTH} b={RESNET_BATCH} "
+        f"{RESNET_HW}x{RESNET_HW} bf16: {n_params} parameters; memory "
+        f"reckoned before the run: activations kept for the backward "
+        f"{acts / 1e9:.2f} GB + state {state / 1e9:.2f} GB = "
+        f"{(acts + state) / 1e9:.2f} GB")
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    watched = [p.name for p in main.all_parameters()][:: 40]
+    stats = sorted(v.name for v in main.persistable_vars()
+                   if v.name.endswith((".mean", ".variance")))[:: 20]
+    before = {n: scope.get(n).clone() for n in watched + stats}
+    fetch = [model["avg_cost"].name, model["accuracy"].name]
+    feeds = [resnet_batch(torch, seed + i) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i in range(1 + RESNET_STEPS):
+        if i == 1:
+            kernels.reset_launches()             # counts start at 0 here
+        t0 = time.perf_counter()
+        loss, acc = exe.run(main, feed=feeds[i % 2], fetch_list=fetch,
+                            scope=scope, return_numpy=False)
+        losses.append(loss.item())               # ends in a device sync
+        walls.append(time.perf_counter() - t0)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    log(f"bf16 ResNet-{RESNET_DEPTH} training (b={RESNET_BATCH}): loss "
+        + " -> ".join(f"{x:.4f}" for x in losses)
+        + f"; step wall warm {walls[0]:.3f} s, then median {steady:.4f} s "
+        f"(min {min(walls[1:]):.4f}) = {RESNET_BATCH / steady:.1f} img/s; "
+        f"grad norm {scope.get('@GRAD_NORM@').item():.4f}; "
+        f"max_memory_allocated {peak} B (reckoned "
+        f"{(acts + state) / 1e9:.2f} GB)")
+    log("launches during the counted steps: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items())
+        + " (the model runs no hand-written kernel: every op is ATen/cuDNN)")
+    if any(launches.values()):
+        raise AssertionError(f"ResNet-50 launched a kernel: {launches}")
+    if not all(np.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite ResNet loss: {losses}")
+    for n, old in before.items():
+        new = scope.get(n)
+        if torch.equal(new, old):
+            raise AssertionError(f"{n} did not change")
+        if not torch.isfinite(new.float()).all():
+            raise AssertionError(f"{n} is not finite")
+    profile_training(torch, pt, exe, main, scope, fetch, feeds[0], steady)
+    del exe, before
+    return scope
+
+
+def resnet_block_vars(main):
+    """The second stage-1 bottleneck block of a ResNet program (an identity
+    block, 256 -> 64 -> 256 at 56x56): its input and output variables,
+    its three conv filters and, for each conv, its batch norm's
+    ``(Scale, Bias, Mean, Variance)`` names and epsilon."""
+    ops = main.global_block().ops
+    adds = [i for i, op in enumerate(ops) if op.type == "elementwise_add"]
+
+    def relu_after(i):
+        out = ops[i].outputs["Out"][0]
+        return next(op for op in ops[i:] if op.type == "relu"
+                    and op.inputs["X"] == [out]).outputs["Out"][0]
+
+    first, second = adds[0], adds[1]
+    convs = [op for op in ops[first:second] if op.type == "conv2d"]
+    norms = [op for op in ops[first:second] if op.type == "batch_norm"]
+    if len(convs) != 3 or len(norms) != 3:
+        raise AssertionError("the second stage-1 block is not an identity "
+                             "bottleneck block")
+    return (relu_after(first), relu_after(second),
+            [op.inputs["Filter"][0] for op in convs],
+            [(tuple(op.inputs[k][0] for k in ("Scale", "Bias", "Mean",
+                                               "Variance")),
+              op.attrs["epsilon"]) for op in norms])
+
+
+def resnet_inference_phase(torch, pt, bn, seed, scope):
+    """Phase 9b: the same model with ``is_test=True`` on the trained state,
+    one forward (img/s); then B9 held against the model's own block: the
+    second stage-1 bottleneck block with its batch norm folded from the
+    trained parameters and running statistics, run by the kernel on the
+    NHWC activation that enters the block, against the port's ``is_test``
+    forward of that block (the script's 2e-2 max-relative criterion).
+    Neither package routes the model through the kernel: this shows only
+    that the kernel computes the model's block."""
+    main, _, model = build_resnet(pt, seed, is_test=True)
+    block_in, block_out, filters, norms = resnet_block_vars(main)
+    exe = pt.Executor()
+    feed = resnet_batch(torch, seed + 7)
+    fetch = [model["prediction"].name, block_in, block_out]
+    exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+            return_numpy=False)                  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred, x, y = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                         return_numpy=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not torch.isfinite(pred.float()).all():
+        raise AssertionError("non-finite ResNet inference output")
+    log(f"bf16 ResNet-{RESNET_DEPTH} inference (is_test, b={RESNET_BATCH}): "
+        f"one forward {wall:.4f} s = {RESNET_BATCH / wall:.1f} img/s; "
+        f"prediction {tuple(pred.shape)}, rows sum to "
+        f"{pred.float().sum(-1).mean().item():.4f}")
+    sb = []
+    for names, eps in norms:
+        sb += bn.fold_bn(*(scope.get(n) for n in names), epsilon=eps)
+    w = bn.block_weights(*(scope.get(n) for n in filters))
+    got = bn.bottleneck(x.permute(0, 2, 3, 1).contiguous(), *w, *sb)
+    want = y.permute(0, 2, 3, 1)
+    d, rel = rel_err(torch, got, want)
+    log(f"B9 on the trained model's block ({block_in} -> {block_out}, "
+        f"{tuple(x.shape)} NCHW as NHWC): max abs err {d:.3e}, rel "
+        f"{rel:.3e} against the port's is_test forward (tol "
+        f"{bn.oracle_tol(torch.bfloat16):g})")
+    if not rel < bn.oracle_tol(torch.bfloat16):
+        raise AssertionError(f"B9 disagrees with the model's block: {rel}")
 
 
 def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
@@ -1763,7 +2087,11 @@ def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
                     ("CE forward", ("ce_fwd_kernel",)),
                     ("CE dx", ("ce_dx_kernel",)),
                     ("CE dW", ("ce_dw_kernel",)),
+                    ("convolution (cuDNN)", ("conv", "fprop", "dgrad",
+                                             "wgrad", "implicit")),
                     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+                    ("batch norm / reductions", ("reduce", "batch_norm")),
+                    ("pooling", ("pool",)),
                     ("softmax / log-softmax", ("softmax",)),
                     ("LayerNorm", ("layer_norm", "LayerNorm")),
                     ("memcpy / memset", ("Memcpy", "Memset")))
@@ -1836,7 +2164,9 @@ def main():
 
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.benchmarks import bottleneck as bench
     from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import bottleneck as bn
     from paddle_tpu_torch.kernels import decode_gather as dg
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_ce as ce
@@ -1883,6 +2213,10 @@ def main():
     ce_rows = ce_phase(torch, ce)
     torch.cuda.empty_cache()
     ce_long_phase(torch, ce)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bn_row = bottleneck_phase(torch, kernels, bn, bench)
+    walls["3e"] = time.perf_counter() - t0
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
@@ -1948,8 +2282,19 @@ def main():
     # 8. the long-context path: t=16384, selective remat, the split
     #    backward; 8b. no remat and compact beside it
     long_launches = long_phase(torch, np, pt, kernels, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 9. the kernels line, 10. the result
+    # 9. ResNet-50 training, bench.py's headline model; 9b. its inference
+    #    form, and B9 held against the trained model's block
+    t0 = time.perf_counter()
+    scope = resnet_phase(torch, np, pt, kernels, args.seed)
+    resnet_inference_phase(torch, pt, bn, args.seed, scope)
+    del scope
+    log(f"wall of phases 9 and 9b: {time.perf_counter() - t0:.1f} s; "
+        f"3e: {walls['3e']:.1f} s")
+
+    # 10. the kernels line, 11. the result
     row["launches"] = launches["paged_attention"]
     gather_row["launches"] = gathered["launches"]["decode_gather"]
     log(f"paged_attention at the verify shape: kernel {verify_ms[0]:.4f} ms, "
@@ -1959,7 +2304,7 @@ def main():
     for r in split_rows:
         r["launches"] = long_launches[r["name"]]
     print(json.dumps({"kernels": [row, gather_row] + flash_rows + split_rows
-                      + ce_rows}), flush=True)
+                      + ce_rows + [bn_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -27,18 +27,28 @@ autograd graph keeps what the backward needs), and an op that takes
 to remove them.
 
 Remat (``memory_optimize``, ``program._remat_segments``, the reference's
-``executor.py:1132-1200``): each wrapped forward segment runs under
+``executor.py:1132-1200``): each wrapped forward region runs under
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so autograd
-keeps only the segment's inputs and the backward recomputes the rest;
-unwrapped segments run plainly, so the kernels' residuals
+keeps only the region's inputs and the backward recomputes the rest;
+unwrapped ones run plainly, so the kernels' residuals
 (``FLASH_BWD_RESIDUALS``, the CE head's ``lse``) stay saved and no kernel
-re-runs.  A wrapped segment returns only the names read after it: if it
-returned everything it writes, the next segment would keep every
-internal activation alive and the remat would save nothing.
-``torch.utils.checkpoint`` restores only the global RNG, and dropout
-draws from the step's generator, so each wrapped segment that draws
-snapshots the generator at entry and restores it before its recompute:
-the recomputed mask is the forward's mask.
+re-runs.  ``compact`` and ``full`` wrap the transpiler's segments as they
+are.  ``selective`` saves what the reference saves, the outputs of the
+matrix and kernel ops (``MXU_OPS``, ``EXPENSIVE_OPS``): each repeat of a
+uniform group of segments (``core/ir.py: find_uniform_groups``, one
+transformer layer) is ONE region, cut only at the kernel ops, which stay
+outside with their residuals (a CUDA kernel launched through ctypes is
+invisible to the dispatcher, so a region could only re-run it); inside,
+selective activation checkpointing caches the output of every ATen call
+a matrix op makes (views aside) and recomputes the rest (LayerNorm,
+activations, bias and residual adds, dropout).  Wrapping the cheap runs alone would save
+nothing: each matrix op would keep its input, the run before it.  A
+wrapped region returns only the names read after it: if it returned
+everything it writes, the next one would keep every internal activation
+alive.  ``torch.utils.checkpoint`` restores only the global RNG, and
+dropout draws from the step's generator, so each wrapped region that
+draws snapshots the generator at entry and restores it before its
+recompute: the recomputed mask is the forward's mask.
 
 Gradient accumulation (``gradient_accumulation``,
 ``program._grad_accum``, the reference's single-device ``_accum_grads``):
@@ -54,7 +64,9 @@ values concatenate, batch sums add, other float values average);
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    set_checkpoint_early_stop)
 
 from .dtypes import torch_dtype
 from .place import resolve_device
@@ -68,11 +80,13 @@ __all__ = ["Executor", "LoweringCtx", "run_block_ops"]
 
 class LoweringCtx:
     """What op implementations may ask of the run: the device tensors are
-    made on, and the step's random generator."""
+    made on, and the step's random generator.  ``op_type`` is the type of
+    the op running now (what a selective-remat policy keys on)."""
 
     def __init__(self, device, gen):
         self.device = device
         self.gen = gen
+        self.op_type = None
 
 
 def _check_fetches(program, fetch_names):
@@ -137,6 +151,7 @@ def run_block_ops(ctx, block, ops, env, inside_grad_prefix=False, plan=None,
         attrs = dict(op.attrs)
         if impl.stateful_rng and "_gen" not in attrs:
             attrs["_gen"] = ctx.gen
+        ctx.op_type = op.type
         try:
             outs = impl.call(ins, attrs, ctx,
                              live=None if plan is None else plan.live[i])
@@ -162,11 +177,14 @@ def run_block_ops(ctx, block, ops, env, inside_grad_prefix=False, plan=None,
 
 
 def _checkpointed(ctx, block, ops, first, env, plan, in_names, out_names,
-                  draws):
+                  draws, saved_types):
     """Run ``ops`` (``block.ops[first:...]``) under
     ``torch.utils.checkpoint``: autograd keeps the inputs, the backward
-    recomputes the rest.  ``draws``: the segment holds a random op, so the
-    generator's state at entry is restored before the recompute."""
+    recomputes the rest — but for the outputs of the ATen calls made by
+    ops of ``saved_types``, which selective activation checkpointing
+    caches in the forward (none when empty).  ``draws``: the region holds
+    a random op, so the generator's state at entry is restored before the
+    recompute."""
     rng0 = ctx.gen.get_state() if draws else None
 
     def seg_fn(*vals):
@@ -177,20 +195,59 @@ def _checkpointed(ctx, block, ops, first, env, plan, in_names, out_names,
                       plan=plan, first=first)
         return tuple(e[n] for n in out_names)
 
+    kw = {}
+    if saved_types:
+        # a view (the reshapes around a product) is not cached: it would
+        # keep the product's input alive, which is what the remat frees
+        def policy(_sac_ctx, func, *_args, **_kwargs):
+            return (CheckpointPolicy.MUST_SAVE
+                    if ctx.op_type in saved_types and not func.is_view
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            policy)
     # early stop ends a recompute by raising from inside an op, which
     # run_block_ops would report as that op's failure: recompute whole
     with set_checkpoint_early_stop(False):
         outs = checkpoint(seg_fn, *[env[n] for n in in_names],
-                          use_reentrant=False, preserve_rng_state=False)
+                          use_reentrant=False, preserve_rng_state=False,
+                          **kw)
     env.update(zip(out_names, outs))
+
+
+def _layer_regions(program, segments, cut_types):
+    """``selective``'s regions ``[(start, end, wrapped), ...]``: each
+    repeat of a uniform group of ``segments`` is one wrapped region, cut
+    at the ops of ``cut_types`` (each runs unwrapped on its own); segments
+    outside every group keep their own wrap flag."""
+    from .ir import find_uniform_groups
+
+    ops = program.global_block().ops
+    out, i = [], 0
+    for g in find_uniform_groups(program, segments):
+        out += segments[i:g["start"]]
+        for k in range(g["count"]):
+            first = g["start"] + k * g["period"]
+            s = segments[first][0]
+            t = segments[first + g["period"] - 1][1]
+            for j in range(s, t):
+                if ops[j].type in cut_types:
+                    out += [(s, j, True)] if j > s else []
+                    out.append((j, j + 1, False))
+                    s = j + 1
+            if t > s:
+                out.append((s, t, True))
+        i = g["start"] + g["count"] * g["period"]
+    return out + segments[i:]
 
 
 class _Forward:
     """The differentiated forward prefix ``block.ops[:bw]`` of a training
-    program, with its remat segments when ``memory_optimize`` marked
+    program, with its remat regions when ``memory_optimize`` marked
     them."""
 
     def __init__(self, program, plan, aux_names):
+        from ..memory_optimization_transpiler import EXPENSIVE_OPS, MXU_OPS
         from .registry import get_op_impl
 
         self.block = block = program.global_block()
@@ -199,6 +256,12 @@ class _Forward:
         self.aux_names = aux_names
         ops = block.ops
         segments = getattr(program, "_remat_segments", None) or []
+        saved_types = ()
+        if segments and getattr(program, "_remat_policy", None) == \
+                "selective":
+            saved_types = frozenset(MXU_OPS + EXPENSIVE_OPS)
+            segments = _layer_regions(program, segments, EXPENSIVE_OPS)
+        self.saved_types = saved_types
         # needed[i]: names read by ops[i:bw], the optimizer ops, fetches,
         # state or the loss
         needed = [set() for _ in range(bw + 1)]
@@ -238,7 +301,7 @@ class _Forward:
             reads, out_names, draws = wrapped
             in_names = [n for n in reads if n in env]
             _checkpointed(ctx, block, ops[s:t], s, env, plan, in_names,
-                          out_names, draws)
+                          out_names, draws, self.saved_types)
             for i in range(s, t):
                 for n in plan.drop[i]:
                     env.pop(n, None)

@@ -5,6 +5,7 @@ CPU tensors and launch the kernel for CUDA tensors, and count their
 launches (``<wrapper>.launches``)."""
 
 from . import _build
+from . import bottleneck as _bn
 from . import decode_gather as _dg
 from . import flash_attention as _fa
 from . import fused_ce as _ce
@@ -19,7 +20,8 @@ WRAPPERS = {"paged_attention": _pa.paged_attention,
             "flash_attention_bwd_dkv": _fa.flash_bwd_dkv,
             "fused_ce_fwd": _ce.ce_fwd,
             "fused_ce_dx": _ce.ce_dx,
-            "fused_ce_dw": _ce.ce_dw}
+            "fused_ce_dw": _ce.ce_dw,
+            "bottleneck": _bn.bottleneck}
 
 
 def reset_launches():
@@ -40,6 +42,7 @@ def build_all():
     _dg.build()
     _fa.build()
     _ce.build()
+    _bn.build()
 
 
 __all__ = ["WRAPPERS", "reset_launches", "launch_counts", "build_all"]

@@ -1,8 +1,10 @@
 """Neural-net layers (``paddle_tpu/layers/nn.py``), the part
-``models.transformer.build`` reaches: ``fc``, ``embedding``,
-``layer_norm``, ``dropout``, ``softmax_with_cross_entropy``,
-``fused_softmax_ce_head``, ``flash_attention`` / ``flash_attention_packed``, ``multi_head_attention``,
-``scale``, ``reduce_sum``.  Each layer creates parameters
+``models.transformer.build`` and ``models.resnet.build`` reach: ``fc``,
+``embedding``, ``layer_norm``, ``dropout``, ``softmax_with_cross_entropy``,
+``fused_softmax_ce_head``, ``flash_attention`` /
+``flash_attention_packed``, ``multi_head_attention``, ``scale``,
+``reduce_sum``, ``conv2d``, ``pool2d``, ``batch_norm``, ``cross_entropy``,
+``accuracy``, ``softmax``, ``topk``, ``mean``.  Each layer creates parameters
 through LayerHelper and appends ops; names, shapes and attrs are the
 reference's, so both packages build the same program."""
 
@@ -24,7 +26,39 @@ __all__ = [
     "multi_head_attention",
     "scale",
     "reduce_sum",
+    "conv2d",
+    "pool2d",
+    "batch_norm",
+    "cross_entropy",
+    "accuracy",
+    "softmax",
+    "topk",
+    "mean",
 ]
+
+
+def _ntuple(v, n):
+    # sequences pass through, any scalar (python or numpy int) broadcasts
+    if isinstance(v, (list, tuple)):
+        return tuple(v)
+    return (v,) * n
+
+
+def _conv_osize(i, k, s, p, d=1):
+    """Conv output extent (floor mode); -1 stays dynamic."""
+    if i < 0:
+        return -1
+    eff = (k - 1) * d + 1
+    return (i + 2 * p - eff) // s + 1
+
+
+def _pool_osize(i, k, s, p, ceil_mode=False, global_pooling=False):
+    if global_pooling:
+        return 1
+    if i < 0:
+        return -1
+    num = i + 2 * p - k
+    return (num + s - 1) // s + 1 if ceil_mode else num // s + 1
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -343,4 +377,173 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
         type="reduce_sum", inputs={"X": [input.name]},
         outputs={"Out": [out.name]}, attrs=attrs,
     )
+    return out
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None):
+    """NCHW convolution; the filter ``[num_filters, C / groups, kh, kw]``
+    is created in ``input.dtype`` (bf16 under a bf16 build) with the
+    ``MSRA(uniform=False)`` default."""
+    helper = LayerHelper("conv2d", bias_attr=bias_attr, act=act, name=name)
+    filter_size = _ntuple(filter_size, 2)
+    stride, padding = _ntuple(stride, 2), _ntuple(padding, 2)
+    dilation = _ntuple(dilation, 2)
+    cin = input.shape[1]
+    w = helper.create_parameter(
+        param_attr,
+        shape=[num_filters, cin // groups, filter_size[0], filter_size[1]],
+        dtype=input.dtype,
+        default_initializer=init_mod.MSRA(uniform=False),
+    )
+    oh = _conv_osize(input.shape[2], filter_size[0], stride[0], padding[0],
+                     dilation[0])
+    ow = _conv_osize(input.shape[3], filter_size[1], stride[1], padding[1],
+                     dilation[1])
+    pre_bias = helper.create_tmp_variable(
+        input.dtype, [input.shape[0], num_filters, oh, ow])
+    helper.append_op(
+        type="conv2d",
+        inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Output": [pre_bias.name]},
+        attrs={"strides": list(stride), "paddings": list(padding),
+               "dilations": list(dilation), "groups": groups},
+    )
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=2, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, ceil_mode=False, name=None):
+    helper = LayerHelper("pool2d", name=name)
+    k = _ntuple(pool_size, 2)
+    s, p = _ntuple(pool_stride, 2), _ntuple(pool_padding, 2)
+    oh = _pool_osize(input.shape[2], k[0], s[0], p[0], ceil_mode,
+                     global_pooling)
+    ow = _pool_osize(input.shape[3], k[1], s[1], p[1], ceil_mode,
+                     global_pooling)
+    out = helper.create_tmp_variable(
+        input.dtype, [input.shape[0], input.shape[1], oh, ow])
+    helper.append_op(
+        type="pool2d",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={"ksize": list(k), "strides": list(s), "paddings": list(p),
+               "pooling_type": pool_type, "global_pooling": global_pooling,
+               "ceil_mode": ceil_mode},
+    )
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None):
+    """Batch norm whose scale, offset and running statistics are f32 even
+    for bf16 activations; the running ``<name>.mean`` / ``<name>.variance``
+    are persistables written back as their own ``MeanOut`` /
+    ``VarianceOut``."""
+    helper = LayerHelper("batch_norm", act=act, name=name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    dtype = "float32"
+    scale = helper.create_parameter(
+        param_attr, shape=[c], dtype=dtype, suffix="scale",
+        default_initializer=init_mod.Constant(1.0),
+    )
+    bias = helper.create_parameter(
+        ParamAttr.to_attr(bias_attr) or ParamAttr(), shape=[c], dtype=dtype,
+        suffix="offset", default_initializer=init_mod.Constant(0.0),
+    )
+    mean = helper.create_global_variable(
+        shape=[c], dtype=dtype, name=f"{helper.name}.mean",
+        initializer=init_mod.Constant(0.0),
+    )
+    variance = helper.create_global_variable(
+        shape=[c], dtype=dtype, name=f"{helper.name}.variance",
+        initializer=init_mod.Constant(1.0),
+    )
+    saved_mean = helper.create_tmp_variable(dtype, [c], stop_gradient=True)
+    saved_var = helper.create_tmp_variable(dtype, [c], stop_gradient=True)
+    out = helper.create_tmp_variable(input.dtype, list(input.shape))
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input.name], "Scale": [scale.name],
+                "Bias": [bias.name], "Mean": [mean.name],
+                "Variance": [variance.name]},
+        outputs={"Y": [out.name], "MeanOut": [mean.name],
+                 "VarianceOut": [variance.name],
+                 "SavedMean": [saved_mean.name],
+                 "SavedVariance": [saved_var.name]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout},
+    )
+    return helper.append_activation(out)
+
+
+def cross_entropy(input, label, soft_label=False):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_tmp_variable(input.dtype,
+                                     list(input.shape[:-1]) + [1])
+    helper.append_op(
+        type="cross_entropy",
+        inputs={"X": [input.name], "Label": [label.name]},
+        outputs={"Y": [out.name]},
+        attrs={"soft_label": soft_label},
+    )
+    return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    helper = LayerHelper("accuracy")
+    topk_out = helper.create_tmp_variable(input.dtype, [input.shape[0], k])
+    topk_indices = helper.create_tmp_variable(
+        "int64", [input.shape[0], k], stop_gradient=True)
+    helper.append_op(
+        type="top_k",
+        inputs={"X": [input.name]},
+        outputs={"Out": [topk_out.name], "Indices": [topk_indices.name]},
+        attrs={"k": k},
+    )
+    acc_out = helper.create_tmp_variable("float32", [1], stop_gradient=True)
+    correct = correct or helper.create_tmp_variable("int32", [1],
+                                                    stop_gradient=True)
+    total = total or helper.create_tmp_variable("int32", [1],
+                                                stop_gradient=True)
+    helper.append_op(
+        type="accuracy",
+        inputs={"Out": [topk_out.name], "Indices": [topk_indices.name],
+                "Label": [label.name]},
+        outputs={"Accuracy": [acc_out.name], "Correct": [correct.name],
+                 "Total": [total.name]},
+    )
+    return acc_out
+
+
+def softmax(x, name=None):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_tmp_variable(x.dtype, list(x.shape))
+    helper.append_op(type="softmax", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def topk(input, k):
+    helper = LayerHelper("top_k")
+    vals = helper.create_tmp_variable(input.dtype,
+                                      list(input.shape[:-1]) + [k])
+    idx = helper.create_tmp_variable(
+        "int64", list(input.shape[:-1]) + [k], stop_gradient=True)
+    helper.append_op(
+        type="top_k",
+        inputs={"X": [input.name]},
+        outputs={"Out": [vals.name], "Indices": [idx.name]},
+        attrs={"k": k},
+    )
+    return vals, idx
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_tmp_variable(x.dtype, [1])
+    helper.append_op(type="mean", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]})
     return out

@@ -1,10 +1,10 @@
 """Thin op wrappers (``paddle_tpu/layers/ops.py``): the elementwise and
-compare families and ``gelu``.  Each wrapper creates an output temp var
+compare families, ``gelu`` and ``relu``.  Each wrapper creates an output temp var
 and appends the op."""
 
 from .layer_helper import LayerHelper
 
-_UNARY_OPS = ["gelu"]
+_UNARY_OPS = ["gelu", "relu"]
 
 _BINARY_OPS = [
     "elementwise_add", "elementwise_sub", "elementwise_mul", "elementwise_div",

@@ -138,6 +138,8 @@ def memory_optimize(input_program=None, num_segments=None, min_segment=2,
     norm, activations, residual adds, dropout) are wrapped; kernel ops
     (flash attention, the fused CE head) and matrix ops (projections,
     FFN matmuls) stay unwrapped with their outputs and residuals saved.
+    The Executor merges each repeated layer's segments into one region
+    whose matrix-op outputs alone are saved.
 
     ``policy="compact"``: only kernel ops stay saved; matmuls are
     recomputed too.
@@ -161,6 +163,7 @@ def memory_optimize(input_program=None, num_segments=None, min_segment=2,
         raise ValueError(
             f"memory_optimize policy must be 'selective', 'compact', "
             f"'full', 'offload' or 'auto', got {policy!r}")
+    program._remat_policy = policy
     bw = block.backward_index
     n_fwd = bw if bw is not None else len(block.ops)
     if n_fwd < 2 * min_segment:

@@ -11,3 +11,4 @@ from . import random_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import control_flow_ops  # noqa: F401
 from . import attention_ops  # noqa: F401
+from . import metric_ops  # noqa: F401

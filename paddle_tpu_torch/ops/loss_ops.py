@@ -1,5 +1,6 @@
-"""Loss ops (``paddle_tpu/ops/loss_ops.py``):
-``softmax_with_cross_entropy`` (the unfused LM head's loss) and
+"""Loss ops (``paddle_tpu/ops/loss_ops.py``): ``cross_entropy`` (over
+probabilities, ResNet's loss), ``softmax_with_cross_entropy`` (the
+unfused LM head's loss) and
 ``fused_softmax_ce_head`` (the fused head's, registered at the foot of
 ``paddle_tpu/ops/pallas_ce.py``)."""
 
@@ -13,6 +14,22 @@ def _squeeze_label(Label):
     if Label.dim() >= 2 and Label.shape[-1] == 1:
         return Label.reshape(Label.shape[:-1])
     return Label
+
+
+@register_op("cross_entropy")
+def cross_entropy(X, Label, soft_label=False, **_):
+    """``X`` holds probabilities, not logits: ``-log(max(p, 1e-20))`` of
+    the label's entry (or the soft labels' weighted sum over the last
+    axis), in f32, cast to ``X.dtype``, shape ``[..., 1]``."""
+    xf = X.float()
+    if soft_label:
+        logp = torch.log(torch.clamp_min(xf, 1e-20))
+        out = -torch.sum(Label.float() * logp, dim=-1, keepdim=True)
+    else:
+        lbl = _squeeze_label(Label).long()
+        picked = torch.gather(xf, -1, lbl[..., None])
+        out = -torch.log(torch.clamp_min(picked, 1e-20))
+    return {"Y": out.to(X.dtype)}
 
 
 @register_op("softmax_with_cross_entropy")

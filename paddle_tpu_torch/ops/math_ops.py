@@ -1,6 +1,6 @@
 """GEMM / elementwise / reduction ops (``paddle_tpu/ops/math_ops.py``):
 ``mul``, the ``elementwise_*`` family with the axis broadcast rule,
-``reduce_sum``, ``scale``, ``cast``.  Matrix products are plain
+``reduce_sum``, ``mean``, ``scale``, ``cast``.  Matrix products are plain
 ``torch.matmul`` (bf16 inputs accumulate in f32 inside the library and
 return bf16, as ``preferred_element_type=float32`` + cast does)."""
 
@@ -75,3 +75,9 @@ def reduce_sum(X, dim=None, keep_dim=False, reduce_all=False, **_):
         return {"Out": out.reshape([1] * X.dim()) if keep_dim else out}
     axis = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
     return {"Out": torch.sum(X, dim=axis, keepdim=keep_dim)}
+
+
+@register_op("mean")
+def mean(X, **_):
+    """The mean of every element, shape ``[1]``."""
+    return {"Out": torch.mean(X).reshape(1)}

@@ -1,4 +1,9 @@
-"""Neural-net ops (``paddle_tpu/ops/nn_ops.py``): ``layer_norm``."""
+"""Neural-net ops (``paddle_tpu/ops/nn_ops.py``): ``layer_norm``,
+``conv2d``, ``pool2d`` and ``batch_norm``.
+
+Layout is NCHW at the op, as in the reference.  The convolutions and the
+pools lower to ATen (cuDNN on the card): the JAX package computes them
+outside any Pallas kernel too."""
 
 import torch
 import torch.nn.functional as F
@@ -26,3 +31,159 @@ def layer_norm(X, Scale=None, Bias=None, begin_norm_axis=1, epsilon=1e-5,
             var, mean = torch.var_mean(xf, dim=axes, unbiased=False)
         out["Mean"], out["Variance"] = mean, var
     return out
+
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v),) * n
+
+
+@register_op("conv2d")
+def conv2d(Input, Filter, strides=(1, 1), paddings=(0, 0), dilations=(1, 1),
+           groups=1, **_):
+    """The filter is cast to the input's dtype and the output stays in it
+    (the reference's note at ``nn_ops.py:20-22``: no wider output type)."""
+    return {"Output": F.conv2d(Input, Filter.to(Input.dtype),
+                               stride=_pair(strides),
+                               padding=_pair(paddings),
+                               dilation=_pair(dilations),
+                               groups=int(groups))}
+
+
+def _ceil_pads(X, k, s, p):
+    """The extra high-side padding of ``ceil_mode`` (reference
+    ``_pool_nd``): enough that the last window that starts inside the
+    padded extent is whole.  The low side keeps ``p``."""
+    hi = []
+    for i in range(2):
+        rem = (X.shape[2 + i] + 2 * p[i] - k[i]) % s[i]
+        hi.append((s[i] - rem) % s[i] if rem else 0)
+    return hi
+
+
+@register_op("pool2d")
+def pool2d(X, ksize=(2, 2), strides=(1, 1), paddings=(0, 0),
+           pooling_type="max", global_pooling=False, ceil_mode=False,
+           exclusive=True, **_):
+    """Max or average pooling over NCHW, the reference's ``reduce_window``
+    semantics: padding is ``-inf`` for max and zero for the average, whose
+    divisor counts only the window's elements inside the input when
+    ``exclusive`` (``count_include_pad=False``); ``ceil_mode`` pads the
+    high side only, so a window that starts in that padding is computed
+    over the padding (torch's own ``ceil_mode`` would drop it)."""
+    k, s, p = _pair(ksize), _pair(strides), _pair(paddings)
+    if global_pooling:
+        k, p = tuple(X.shape[2:]), (0, 0)
+    hi = _ceil_pads(X, k, s, p) if ceil_mode else [0, 0]
+    if pooling_type == "max":
+        if not any(hi) and all(2 * pi <= ki for pi, ki in zip(p, k)):
+            return {"Out": F.max_pool2d(X, k, s, padding=p)}
+        xp = F.pad(X, (p[1], p[1] + hi[1], p[0], p[0] + hi[0]),
+                   value=float("-inf"))
+        return {"Out": F.max_pool2d(xp, k, s)}
+    if pooling_type != "avg":
+        raise ValueError(f"pool2d: pooling_type must be 'max' or 'avg', "
+                         f"got {pooling_type!r}")
+    if not any(hi) and all(2 * pi <= ki for pi, ki in zip(p, k)):
+        return {"Out": F.avg_pool2d(X, k, s, padding=p,
+                                    count_include_pad=not exclusive)}
+    pads = (p[1], p[1] + hi[1], p[0], p[0] + hi[0])
+    summed = F.avg_pool2d(F.pad(X, pads), k, s, divisor_override=1)
+    if exclusive:
+        ones = F.pad(torch.ones_like(X[:1, :1]), pads)
+        counts = F.avg_pool2d(ones, k, s, divisor_override=1)
+    else:
+        counts = float(k[0] * k[1])
+    return {"Out": summed / counts}
+
+
+def _bshape(X, axes):
+    return [1 if i in axes else X.shape[i] for i in range(X.dim())]
+
+
+def _bn_stats(X, axes):
+    """Per-channel mean and biased variance (``/ n``) with f32
+    accumulation over the input dtype, in the centred two-pass form
+    (reference ``_bn_stats``)."""
+    n = 1
+    for a in axes:
+        n *= X.shape[a]
+    mean = torch.sum(X, dim=axes, dtype=torch.float32) / n
+    centered = X.float() - mean.reshape(_bshape(X, axes))
+    var = torch.sum(centered * centered, dim=axes) / n
+    return mean, var
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Training-mode batch norm with the reference's custom VJP
+    (``_bn_train_fwd`` / ``_bn_train_bwd``): the forward normalises with
+    ONE multiply-add in ``X.dtype`` from per-channel f32 coefficients and
+    saves ``(X, Scale, mean, inv)``; the backward is the textbook form,
+    f32 per-channel reductions and ``X.dtype`` elementwise work.  The batch
+    statistics come out beside ``Y`` without a gradient."""
+
+    @staticmethod
+    def forward(ctx, X, Scale, Bias, axes, epsilon):
+        mean, var = _bn_stats(X, axes)
+        inv = torch.rsqrt(var + epsilon)
+        a = Scale.float() * inv
+        b = Bias.float() - mean * a
+        bs = _bshape(X, axes)
+        y = X * a.reshape(bs).to(X.dtype) + b.reshape(bs).to(X.dtype)
+        ctx.save_for_backward(X, Scale, mean, inv)
+        ctx.axes = axes
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dY, _dmean, _dvar):
+        X, Scale, mean, inv = ctx.saved_tensors
+        axes = ctx.axes
+        bs = _bshape(X, axes)
+        n = 1
+        for a in axes:
+            n *= X.shape[a]
+        xhat = ((X - mean.reshape(bs).to(X.dtype))
+                * inv.reshape(bs).to(X.dtype))
+        sum_dy = torch.sum(dY, dim=axes, dtype=torch.float32)
+        sum_dy_xhat = torch.sum((dY * xhat).float(), dim=axes)
+        coef = (Scale.float() * inv).reshape(bs)
+        dX = coef.to(X.dtype) * (
+            dY
+            - (sum_dy / n).reshape(bs).to(X.dtype)
+            - xhat * (sum_dy_xhat / n).reshape(bs).to(X.dtype))
+        return (dX, sum_dy_xhat.to(Scale.dtype), sum_dy.to(Scale.dtype),
+                None, None)
+
+
+@register_op("batch_norm")
+def batch_norm(X, Scale, Bias, Mean, Variance, momentum=0.9, epsilon=1e-5,
+               is_test=False, data_layout="NCHW", **_):
+    """Batch norm over every axis but the channel's (axis 1 in NCHW).
+
+    Training: batch statistics by :func:`_bn_stats`; ``MeanOut`` and
+    ``VarianceOut`` blend them into the running statistics in f32 with
+    ``momentum``, detached (no step's graph outlives it), as new tensors:
+    the running statistics are never updated in place, so a checkpoint
+    recompute of this op cannot apply the blend twice.  ``is_test``:
+    normalise by the running statistics, which pass through."""
+    ch = 1 if data_layout == "NCHW" else X.dim() - 1
+    axes = tuple(i for i in range(X.dim()) if i != ch)
+    bs = _bshape(X, axes)
+    if is_test:
+        inv = torch.rsqrt(Variance.float() + epsilon)
+        a = Scale.float() * inv
+        b = Bias.float() - Mean.float() * a
+        y = X * a.reshape(bs).to(X.dtype) + b.reshape(bs).to(X.dtype)
+        return {"Y": y, "MeanOut": Mean, "VarianceOut": Variance,
+                "SavedMean": Mean, "SavedVariance": Variance}
+    y, mean, var = _BatchNormTrain.apply(X, Scale, Bias, axes,
+                                         float(epsilon))
+    with torch.no_grad():
+        mean_out = (momentum * Mean.float()
+                    + (1 - momentum) * mean).to(Mean.dtype)
+        var_out = (momentum * Variance.float()
+                   + (1 - momentum) * var).to(Variance.dtype)
+    return {"Y": y, "MeanOut": mean_out, "VarianceOut": var_out,
+            "SavedMean": mean.detach(), "SavedVariance": var.detach()}

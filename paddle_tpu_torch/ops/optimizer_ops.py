@@ -1,8 +1,9 @@
-"""Optimizer update ops (``paddle_tpu/ops/optimizer_ops.py``): ``adam``.
+"""Optimizer update ops (``paddle_tpu/ops/optimizer_ops.py``): ``adam``
+and ``momentum``.
 
-The update rule is the reference's, computed in f32.  Where the JAX
+The update rules are the reference's, computed in f32.  Where the JAX
 package returns new arrays and donates the old buffers, the port updates
-``Param``, ``Moment1`` and ``Moment2`` **in place** and returns the same
+the parameter and its accumulators **in place** and returns the same
 tensors: the Executor runs these ops under ``torch.no_grad()``."""
 
 import torch
@@ -29,3 +30,21 @@ def adam(Param, Grad, Moment1, Moment2, LearningRate, Beta1Pow, Beta2Pow,
     else:
         Param.copy_(Param.float() - step)
     return {"ParamOut": Param, "Moment1Out": m1, "Moment2Out": m2}
+
+
+@register_op("momentum")
+def momentum(Param, Grad, Velocity, LearningRate, mu=0.9,
+             use_nesterov=False, **_):
+    """``v = mu * v + g``; ``p -= lr * v``, or with Nesterov
+    ``p -= (g + mu * v) * lr`` — f32 math in the reference's order, cast
+    back to the parameter's and the velocity's dtypes in place."""
+    lr = _scalar(LearningRate)
+    g = Grad.float()
+    v = mu * Velocity.float() + g
+    if use_nesterov:
+        p = Param.float() - (g + mu * v) * lr
+    else:
+        p = Param.float() - lr * v
+    Velocity.copy_(v)
+    Param.copy_(p)
+    return {"ParamOut": Param, "VelocityOut": Velocity}

@@ -1,5 +1,5 @@
 """Random ops (``paddle_tpu/ops/random_ops.py``): ``uniform_random``,
-``dropout``.
+``gaussian_random``, ``dropout``.
 
 Randomness is explicit: a startup-program initializer seeds its own
 ``torch.Generator`` from its ``seed`` attr (reproducible run to run), and
@@ -33,6 +33,16 @@ def uniform_random(shape=(), dtype="float32", min=-1.0, max=1.0, seed=0,
     u = torch.rand(tuple(shape), generator=_seeded(seed, _ctx),
                    dtype=torch.float32, device=_ctx.device)
     return {"Out": (min + (max - min) * u).to(torch_dtype(dtype))}
+
+
+@register_op("gaussian_random")
+def gaussian_random(shape=(), dtype="float32", mean=0.0, std=1.0, seed=0,
+                    _ctx=None, **_):
+    """``mean + std * N(0, 1)`` drawn in f32, cast to ``dtype`` (the
+    ``MSRA(uniform=False)`` initializer of every conv filter)."""
+    n = torch.randn(tuple(shape), generator=_seeded(seed, _ctx),
+                    dtype=torch.float32, device=_ctx.device)
+    return {"Out": (mean + std * n).to(torch_dtype(dtype))}
 
 
 @register_op("dropout", stateful_rng=True)

@@ -1,5 +1,5 @@
 """Tensor manipulation & fill ops (``paddle_tpu/ops/tensor_ops.py``):
-``fill_constant``, ``reshape``, ``lookup_table``."""
+``fill_constant``, ``reshape``, ``lookup_table``, ``top_k``."""
 
 import torch
 
@@ -37,3 +37,14 @@ def lookup_table(W, Ids, padding_idx=-1, is_sparse=False, **_):
         mask = (ids != padding_idx)[..., None]
         out = torch.where(mask, out, torch.zeros_like(out))
     return {"Out": out}
+
+
+@register_op("top_k")
+def top_k(X, k=1, **_):
+    """The ``k`` largest entries of the last axis, in descending order,
+    and their int32 indices.  ``jax.lax.top_k`` breaks ties toward the
+    lower index and ``torch.topk`` promises no order among ties, so this
+    takes a stable descending sort: among equal values the lower index
+    comes first (a bf16 softmax over many classes has many ties)."""
+    vals, idx = torch.sort(X, dim=-1, descending=True, stable=True)
+    return {"Out": vals[..., :k], "Indices": idx[..., :k].to(torch.int32)}

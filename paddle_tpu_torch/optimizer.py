@@ -1,5 +1,5 @@
-"""Optimizers (``paddle_tpu/optimizer.py``): the ``Optimizer`` base and
-``Adam``.
+"""Optimizers (``paddle_tpu/optimizer.py``): the ``Optimizer`` base,
+``Adam`` and ``Momentum``.
 
 ``minimize(loss)`` appends: the backward marker (the autograd boundary)
 -> one optimizer op per parameter + accumulators.  Gradient clipping and
@@ -11,7 +11,8 @@ from .core.program import default_startup_program, Variable
 from .core import unique_name
 from . import initializer as init_mod
 
-__all__ = ["Optimizer", "Adam", "AdamOptimizer"]
+__all__ = ["Optimizer", "Adam", "AdamOptimizer", "Momentum",
+           "MomentumOptimizer"]
 
 
 def _tag_optimize_ops(block):
@@ -124,6 +125,36 @@ class Optimizer:
         return ops, params_grads
 
 
+class MomentumOptimizer(Optimizer):
+    """SGD with momentum (and Nesterov's form), one f32 velocity
+    ``<param>_velocity`` per parameter."""
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters, sp):
+        for p in parameters:
+            self._add_accumulator(block, "velocity", p, startup_program=sp)
+
+    def _append_optimize_op(self, block, pg):
+        param, grad = pg
+        velocity = self._accumulators[("velocity", param.name)]
+        return block.append_op(
+            type="momentum",
+            inputs={
+                "Param": [param.name],
+                "Grad": [grad.name],
+                "Velocity": [velocity.name],
+                "LearningRate": [self._param_lr(block, param).name],
+            },
+            outputs={"ParamOut": [param.name],
+                     "VelocityOut": [velocity.name]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
+        )
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kw):
@@ -183,3 +214,4 @@ class AdamOptimizer(Optimizer):
 
 
 Adam = AdamOptimizer
+Momentum = MomentumOptimizer

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card (paged attention, decode gather,
 flash attention forward, fused backward and split backward (dq, dk/dv),
-the fused cross-entropy head's forward, dx and dW), against their plain
-PyTorch versions
+the fused cross-entropy head's forward, dx and dW, the fused ResNet
+bottleneck), against their plain PyTorch versions
 (paddle_tpu_torch only: no jax, so these run on a host without it).  Every test needs an NVIDIA GPU and skips without one; on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -562,3 +562,152 @@ def test_spec_engine_on_the_card_matches_the_cpu(monkeypatch, switch):
     assert eng._spec.proposed > 0
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+# -- the fused bottleneck (kernels/bottleneck.py) -----------------------------
+
+from paddle_tpu_torch.kernels import bottleneck as tbn  # noqa: E402
+
+BOTTLENECK_GEOMS = {            # N, H, W, C, Cm
+    "small": (2, 16, 16, 32, 8),
+    "ragged_h_wide_cm": (3, 13, 11, 48, 72),
+    "odd_channels": (2, 9, 7, 36, 12),
+    "stage1": (4, 56, 56, 256, 64),
+}
+
+
+def _bottleneck_case(n, h, w, c, cm, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale, shift=0.0, dt=dtype):
+        a = rng.normal(size=shape) * scale + shift
+        return torch.tensor(a, dtype=torch.float32, device="cuda").to(dt)
+
+    return (t((n, h, w, c), 0.5), t((c, cm), 0.05), t((3, 3, cm, cm), 0.05),
+            t((cm, c), 0.05)) + tuple(
+        t((k,), 0.1, 1.0, torch.float32) for k in (cm, cm, cm, cm, c, c))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", list(BOTTLENECK_GEOMS))
+def test_bottleneck_matches_plain_version(dtype, geom):
+    _need_card()
+    torch.backends.cudnn.allow_tf32 = False
+    args = _bottleneck_case(*BOTTLENECK_GEOMS[geom], getattr(torch, dtype))
+    before = tbn.bottleneck.launches
+    got = tbn.bottleneck(*args)
+    torch.cuda.synchronize()
+    assert tbn.bottleneck.launches == before + 1
+    assert got.dtype == args[0].dtype and got.shape == args[0].shape
+    assert torch.isfinite(got.float()).all()
+    assert tbn.uses_tensor_cores(*args[:4], got) == (
+        dtype == "bfloat16" and geom != "odd_channels")
+    assert _rel(got, tbn.bottleneck_ref(*args)) <= tbn.oracle_tol(
+        getattr(torch, dtype))
+
+
+def test_bottleneck_band_height_and_wrapper_checks():
+    _need_card()
+    assert tbn.band_rows(56, 56, 64, torch.bfloat16, True) == 8
+    assert tbn.band_rows(3, 56, 64, torch.bfloat16, True) == 3
+    assert 1 <= tbn.band_rows(56, 56, 64, torch.float32) <= 8
+    assert tbn.band_rows(4, 4096, 512, torch.float32) == 0
+    # a tensor one element off 16-byte alignment takes the FMA spelling
+    args = _bottleneck_case(2, 8, 8, 16, 8, torch.bfloat16)
+    x_off = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16,
+                        device="cuda")[1:].view(args[0].shape)
+    x_off.copy_(args[0])
+    out = tbn.bottleneck(x_off, *args[1:])
+    assert not tbn.uses_tensor_cores(x_off, *args[1:4], out)
+    assert _rel(out, tbn.bottleneck(*args)) <= tbn.oracle_tol(torch.bfloat16)
+    before = tbn.bottleneck.launches
+    with pytest.raises(TypeError, match="not supported on the card"):
+        tbn.bottleneck(*(a.half() if i < 4 else a
+                         for i, a in enumerate(args)))
+    with pytest.raises(ValueError, match="contiguous"):
+        tbn.bottleneck(args[0].transpose(1, 2), *args[1:])
+    with pytest.raises(ValueError, match="share a device"):
+        tbn.bottleneck(args[0].cpu(), *args[1:])
+    with pytest.raises(ValueError, match="does not fit"):
+        big = _bottleneck_case(1, 2, 4096, 16, 512, torch.float32)
+        tbn.bottleneck(*big)
+    assert tbn.bottleneck.launches == before
+
+
+def test_resnet_executor_on_the_card_matches_the_cpu():
+    """Two Momentum steps of the f32 CIFAR ResNet (depth 8) on the card
+    (cuDNN, TF32 off) against the CPU from one state: losses within 1e-4
+    relative, parameters within 1e-4 of their largest magnitude."""
+    _need_card()
+    import paddle_tpu_torch as tpt
+
+    torch.backends.cudnn.allow_tf32 = False
+    tpt.core.unique_name.reset()
+    main, startup = tpt.Program(), tpt.Program()
+    with tpt.program_guard(main, startup):
+        out = tpt.models.resnet.build(depth=8, class_dim=10,
+                                      image_shape=(3, 16, 16),
+                                      dtype="float32", learning_rate=1e-3)
+    base = tpt.Scope()
+    tpt.Executor(tpt.CPUPlace()).run(startup, scope=base)
+    rng = np.random.default_rng(0)
+    feeds = [{"img": rng.normal(size=(8, 3, 16, 16)).astype(np.float32),
+              "label": rng.integers(0, 10, (8, 1))} for _ in range(2)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        scope = tpt.Scope()
+        for n in base.var_names():
+            if n != "@RNG@":
+                scope.set(n, base.get(n).clone().to(dev))
+        exe = tpt.Executor(dev)
+        losses = [exe.run(main, feed=f, fetch_list=[out["avg_cost"]],
+                          scope=scope)[0][0] for f in feeds]
+        runs[dev] = (losses, {p.name: scope.numpy(p.name)
+                              for p in main.all_parameters()})
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    for name, want in runs["cpu"][1].items():
+        got = runs["cuda"][1][name]
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max(), name
+
+
+def test_selective_remat_runs_on_the_card(monkeypatch):
+    """The selective checkpointing API of the card's torch: a 2-layer GPT
+    step with dropout under ``memory_optimize("selective")`` gives the
+    loss of the step without remat, and holds fewer bytes on the card when
+    the backward starts."""
+    _need_card()
+    import paddle_tpu_torch as tpt
+
+    held = []
+    real_grad = torch.autograd.grad
+
+    def grad(*a, **kw):
+        held.append(torch.cuda.memory_allocated())
+        return real_grad(*a, **kw)
+
+    monkeypatch.setattr(torch.autograd, "grad", grad)
+
+    def step(policy):
+        tpt.core.unique_name.reset()
+        main, startup = tpt.Program(), tpt.Program()
+        main.random_seed = startup.random_seed = 1
+        with tpt.program_guard(main, startup):
+            out = tpt.models.transformer.build(
+                vocab_size=64, n_layer=2, n_head=2, d_model=256, max_len=256,
+                dropout_rate=0.1, dtype="float32", learning_rate=1e-3)
+        if policy:
+            tpt.memory_optimize(main, policy=policy)
+        exe, scope = tpt.Executor("cuda"), tpt.Scope()
+        exe.run(startup, scope=scope)
+        toks = torch.arange(4 * 256, device="cuda").reshape(4, 256) % 64
+        feed = {"tokens": toks, "labels": (toks + 1) % 64}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        loss = exe.run(main, feed=feed, fetch_list=[out["avg_cost"]],
+                       scope=scope)[0][0]
+        return loss, held[-1] - base
+
+    plain, selective = step(None), step("selective")
+    assert selective[0] == plain[0]
+    assert 0 < selective[1] < plain[1]

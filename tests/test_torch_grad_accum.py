@@ -27,6 +27,20 @@ from paddle_tpu.models import transformer as jtr
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.models import transformer as ttr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_tune_cache(tmp_path_factory):
+    """The reference reads tuned attention and serving geometry from its
+    tune cache (``PADDLE_TPU_TUNE_CACHE``, else ``~/.cache/paddle_tpu``);
+    the port reads none.  A cache path in a fresh directory holds no
+    entry, so both packages build with their defaults whatever cache the
+    host has."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PADDLE_TPU_TUNE_CACHE",
+                  str(tmp_path_factory.mktemp("tune") / "tuned.json"))
+        yield
+
+
 VOCAB, T, BATCH, STEPS = 61, 16, 8, 3
 CFG = dict(vocab_size=VOCAB, n_layer=2, n_head=2, d_model=32, max_len=T,
            dropout_rate=0.0, dtype="float32", fused_head=True,

@@ -102,6 +102,11 @@ TRAINING_MODULES = [
     "paddle_tpu_torch.kernels.flash_attention",
     "paddle_tpu_torch.kernels.fused_ce",
     "paddle_tpu_torch.models.transformer",
+    "paddle_tpu_torch.ops.metric_ops",
+    "paddle_tpu_torch.kernels.bottleneck",
+    "paddle_tpu_torch.models.resnet",
+    "paddle_tpu_torch.benchmarks",
+    "paddle_tpu_torch.benchmarks.bottleneck",
 ]
 
 
@@ -124,6 +129,11 @@ def test_training_import_leaves_jax_out():
              "dtype='float32')\n"
              "exe = pt.Executor(pt.CPUPlace())\n"
              "exe.run(startup, scope=pt.Scope())\n"
+             "rmain, rstart = pt.Program(), pt.Program()\n"
+             "with pt.program_guard(rmain, rstart):\n"
+             "    pt.models.resnet.build(depth=8, class_dim=3, "
+             "image_shape=(3, 8, 8), dtype='float32')\n"
+             "exe.run(rstart, scope=pt.Scope())\n"
              "bad = [m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')]\n"
              "assert not bad, bad\nprint('clean')", cwd=ROOT)
@@ -154,7 +164,7 @@ def test_kernel_wrappers_and_counters_are_registered():
         "paged_attention", "decode_gather",
         "flash_attention_fwd", "flash_attention_bwd",
         "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-        "fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"}
+        "fused_ce_fwd", "fused_ce_dx", "fused_ce_dw", "bottleneck"}
     assert kernels.launch_counts() == {nm: fn.launches
                                        for nm, fn in kernels.WRAPPERS.items()}
     for fn in kernels.WRAPPERS.values():
@@ -170,6 +180,7 @@ def test_kernel_sources_and_build_flags():
     assert "decode_gather" in _build.sources()
     assert "flash_attention" in _build.sources()
     assert "fused_ce" in _build.sources()
+    assert "bottleneck" in _build.sources()
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert _build.lib_path("paged_attention").startswith(_build.BUILD_DIR)

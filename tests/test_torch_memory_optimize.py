@@ -13,11 +13,16 @@ package's, on the CPU.
 * With ``dropout_rate=0.1`` remat still equals no remat exactly: a
   wrapped segment's recompute draws the forward's dropout mask.
 * ``offload`` and ``auto`` raise with the ROADMAP item that brings them.
+* The bytes of forward activations alive when the backward starts order
+  the policies as the reference's saved sets do: ``compact`` below
+  ``selective`` below no remat.
 """
 
 import numpy as np
 import pytest
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import paddle_tpu as pt
 import paddle_tpu_torch as tpt
@@ -28,6 +33,20 @@ from paddle_tpu_torch import memory_optimization_transpiler as tmo
 from paddle_tpu_torch.core import ir as tir
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.models import transformer as ttr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_tune_cache(tmp_path_factory):
+    """The reference reads tuned attention and serving geometry from its
+    tune cache (``PADDLE_TPU_TUNE_CACHE``, else ``~/.cache/paddle_tpu``);
+    the port reads none.  A cache path in a fresh directory holds no
+    entry, so both packages build with their defaults whatever cache the
+    host has."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PADDLE_TPU_TUNE_CACHE",
+                  str(tmp_path_factory.mktemp("tune") / "tuned.json"))
+        yield
+
 
 VOCAB, T, BATCH, STEPS = 61, 16, 4, 3
 POLICIES = ("selective", "compact", "full")
@@ -252,3 +271,65 @@ def test_unported_policies_raise_with_their_roadmap_item(policy):
     with pytest.raises(ValueError):
         tpt.memory_optimize(main, policy="everything")
     assert tpt.release_memory(main) is main
+
+
+class _OpOutputs(TorchDispatchMode):
+    """Records a weak reference to the storage of every tensor an ATen
+    call returns while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.storages = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                self.storages[st.data_ptr()] = (StorageWeakRef(st),
+                                                st.nbytes())
+        return out
+
+    def live_bytes(self):
+        return sum(n for ref, n in self.storages.values()
+                   if not ref.expired())
+
+
+def _bytes_held_for_the_backward(policy, init):
+    """Bytes of every forward activation still alive when the backward
+    starts: what autograd saved, what checkpointed regions keep as inputs
+    and what selective checkpointing cached (parameters and feeds are no
+    op's output and do not count)."""
+    main, _, out = _build(tpt, ttr, _cfg(d_model=64))
+    if policy:
+        tpt.memory_optimize(main, policy=policy)
+    scope = tpt.load_numpy_state(tpt.Scope(), init, device="cpu")
+    held = []
+    real_grad = torch.autograd.grad
+
+    def grad(*a, **kw):
+        held.append(rec.live_bytes())
+        return real_grad(*a, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.autograd, "grad", grad)
+        with _OpOutputs() as rec:
+            loss, = tpt.Executor(tpt.CPUPlace()).run(
+                main, feed=_batches(6)[0], fetch_list=[out["avg_cost"]],
+                scope=scope)
+    assert len(held) == 1 and np.isfinite(loss).all()
+    return held[0]
+
+
+def test_selective_saves_fewer_bytes_than_no_remat_and_compact_fewer_still():
+    """The reference's ordering of the policies' saved sets
+    (``docs/memory.md``): ``selective`` keeps the matrix and kernel ops'
+    outputs and recomputes the rest, ``compact`` keeps only the kernels'."""
+    main, startup, _ = _build(pt, jtr, _cfg(d_model=64))
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    init = {v.name: np.asarray(scope.get(v.name))
+            for v in main.persistable_vars()}
+    held = {policy: _bytes_held_for_the_backward(policy, init)
+            for policy in (None, "selective", "compact")}
+    assert held["compact"] < held["selective"] < held[None], held

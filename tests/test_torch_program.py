@@ -30,6 +30,20 @@ from paddle_tpu_torch.core.registry import get_op_impl as torch_op
 from paddle_tpu_torch.core.scope import tensor_from_numpy, tensor_to_numpy
 from paddle_tpu_torch.models import transformer as ttr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_tune_cache(tmp_path_factory):
+    """The reference reads tuned attention and serving geometry from its
+    tune cache (``PADDLE_TPU_TUNE_CACHE``, else ``~/.cache/paddle_tpu``);
+    the port reads none.  A cache path in a fresh directory holds no
+    entry, so both packages build with their defaults whatever cache the
+    host has."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PADDLE_TPU_TUNE_CACHE",
+                  str(tmp_path_factory.mktemp("tune") / "tuned.json"))
+        yield
+
+
 CONFIGS = {
     "d32_h2_4d": dict(vocab_size=61, n_layer=2, n_head=2, d_model=32,
                       max_len=16, dropout_rate=0.0, dtype="float32",

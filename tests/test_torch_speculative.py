@@ -27,6 +27,20 @@ from paddle_tpu_torch.resilience import faults
 from paddle_tpu_torch.serving import ServingEngine, batched_decode
 from paddle_tpu_torch.serving import speculative as spec
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_tune_cache(tmp_path_factory):
+    """The reference reads tuned attention and serving geometry from its
+    tune cache (``PADDLE_TPU_TUNE_CACHE``, else ``~/.cache/paddle_tpu``);
+    the port reads none.  A cache path in a fresh directory holds no
+    entry, so both packages build with their defaults whatever cache the
+    host has."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PADDLE_TPU_TUNE_CACHE",
+                  str(tmp_path_factory.mktemp("tune") / "tuned.json"))
+        yield
+
+
 VOCAB, NL, NH, DM, T = 50, 2, 2, 32, 48
 MAX_NEW = 10
 
