@@ -25,13 +25,21 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
       ``[b, h, t, t]`` scores, so it runs over the batch two rows at a
       time; timed at the path shape (library: SDPA forward, and forward
       plus backward; bound: causal flops over 989 TFLOP/s, or bytes);
-      b+. the split backward (dq kernel, dk/dv kernel) with the route
-      forced in this script: at b=8 t=4096 and the small cases against
-      the plain version, with and without ``dlse``, its dk and dv equal to
-      the fused kernel's bits and its dq within rounding; at phase 8's
-      shape (b=8, t=16384) against the fused kernel and, on batch row 0
-      one head at a time, the plain version; timed there (library: SDPA's
-      backward for the pair; bound: three and four causal products);
+      b+. the split backward (delta pre-pass, dq kernel, dk/dv kernel)
+      with the route forced in this script, on both kernel families: the
+      one the rule picks (sm90 for bf16, ``csrc/flash_bwd_sm90.cu``;
+      simple for f32) and the simple one (``csrc/flash_attention.cu``)
+      forced by a patch of the rule in this script: at b=8 t=4096 and the
+      small cases against the plain version, with and without ``dlse``,
+      bit-identical run to run, against the fused kernel (the simple
+      family's dk and dv its exact bits, the sm90 family's within 2**-7
+      in bf16; dq within rounding); at phase 8's shape (b=8, t=16384)
+      against the fused kernel and, on batch row 0 one head at a time,
+      the plain version; timed there, both families in turns (simple,
+      sm90, sm90, simple; each sm90 kernel must beat the simple one), the
+      pre-pass and the whole split route (library: SDPA's backward for
+      the pair; bound: three and four causal products, the pre-pass's
+      bytes);
    c. the fused cross-entropy head's forward (``loss``, ``lse``), dx and
       dW kernels at the training path's shape (N = 32768 rows, d=768,
       V=32768, bf16), at phase 6's f32 shape (N=512) and at a ragged shape
@@ -121,13 +129,18 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    ``BENCH_GPT_TUNE=1`` sequence): the same model at max_len 16384, batch
    8, with ``memory_optimize(policy="selective")``; the memory reckoned
    before the run, then a warm step and three counted Adam steps: the
-   same loss and parameter checks, and 12 flash forward, 12 split dq, 12
-   split dk/dv, 0 fused backward and one launch of each CE kernel a step;
-   step wall, tokens/s, peak memory and the profiled step;
+   same loss and parameter checks, and 12 flash forward, 12 delta
+   pre-pass, 12 split dq, 12 split dk/dv (every split kernel on the sm90
+   family, by the family counter), 0 fused backward and one launch of
+   each CE kernel a step; step wall, tokens/s, peak memory and the
+   profiled step;
    b. the same path for two steps with no remat and with ``compact``:
    peak memory and step wall beside phase 8's, compact's and selective's
    peaks below no remat's, the three loss trajectories equal to bf16
-   rounding;
+   rounding; c. one step of phase 8's program from one startup state
+   and batch on each split family (sm90 by the rule, simple forced): the
+   losses within 1e-2 relative, every parameter's gradient within the
+   flash bf16 grad tolerance;
 9. ResNet-50 training (a main path, ``bench.py``'s headline model,
    ``bench_resnet``): ``resnet.build(depth=50, class_dim=1000,
    image_shape=(3, 224, 224), dtype="bfloat16")`` at batch 128 on a
@@ -141,7 +154,7 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    stage-1 bottleneck block, its batch norm folded from the trained
    parameters and running statistics, against the port's own forward of
    that block (2e-2 max-relative);
-10. one JSON line ``{"kernels": [...]}`` with each of the ten kernels'
+10. one JSON line ``{"kernels": [...]}`` with each of the eleven kernels'
    launches on its main path (phase 3e, 5, 5b, 7 or 8), error, times and
    bound;
 11. the last line: ``{"ok": true, "device": {...}}``.
@@ -697,28 +710,54 @@ def forced_route(fa, route):
         fa.FUSED_BWD_PARTIAL_BYTES = old
 
 
-def split_vs_fused(torch, fa, split, fused, dtype, what):
-    """dk and dv of the split route must be the fused route's bits (one
-    shared kernel body); dq, summed in another order, within rounding of
-    the input dtype (one bf16 ulp, or 1e-5 of max |dq| in f32)."""
-    for name, a, b_ in (("dk", split[1], fused[1]), ("dv", split[2], fused[2])):
-        if not torch.equal(a, b_):
-            raise AssertionError(f"split {name} differs from the fused "
-                                 f"kernel's at {what}")
-    _, rel = rel_err(torch, split[0], fused[0])
+@contextlib.contextmanager
+def forced_family(fa, family):
+    """The split route's kernel family forced for a comparison: the rule
+    (``bwd_family``, looked up by name at each call) is patched here, in
+    this script only."""
+    real = fa.bwd_family
+    fa.bwd_family = lambda *a, **kw: family
+    try:
+        yield
+    finally:
+        fa.bwd_family = real
+
+
+def split_vs_fused(torch, fa, split, fused, dtype, family, what):
+    """The split route against the fused kernel.  The simple family shares
+    the fused kernel's k-major body, so its dk and dv must be the fused
+    bits; the sm90 family sums in another order, so its dk and dv (bf16
+    only) are held to one bf16 ulp relative, 2**-7.  dq, summed in another
+    order by both, within rounding of the input dtype (2**-7 in bf16, 1e-5
+    of max |dq| in f32).  Returns the worst relative difference."""
     limit = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    worst = 0.0
+    for name, a, b_ in (("dk", split[1], fused[1]), ("dv", split[2], fused[2])):
+        if family == "simple" or dtype != torch.bfloat16:
+            if not torch.equal(a, b_):
+                raise AssertionError(f"split {name} ({family}) differs from "
+                                     f"the fused kernel's at {what}")
+        else:
+            _, rel = rel_err(torch, a, b_)
+            if not rel <= limit:
+                raise AssertionError(f"split {name} ({family}) vs fused rel "
+                                     f"{rel:.3e} > {limit} at {what}")
+            worst = max(worst, rel)
+    _, rel = rel_err(torch, split[0], fused[0])
     if not rel <= limit:
-        raise AssertionError(f"split dq vs fused dq rel {rel:.3e} > {limit} "
-                             f"at {what}")
-    return rel
+        raise AssertionError(f"split dq ({family}) vs fused dq rel {rel:.3e} "
+                             f"> {limit} at {what}")
+    return max(worst, rel)
 
 
 def split_phase(torch, fa):
-    """The split route (dq kernel + dk/dv kernel): against the plain
-    version at the t=4096 path shape with the route forced, and at the
-    small cases; at the t=16384 path shape against the fused kernel (dk,
-    dv bit-equal) and, on batch row 0 one head at a time, the plain
-    version; then its times at t=16384.  Returns the two kernel rows."""
+    """The split route (delta pre-pass, dq kernel, dk/dv kernel) on both
+    kernel families — the one the rule picks and the simple one forced —
+    against the plain version at the t=4096 path shape with the route
+    forced, and at the small cases; at the t=16384 path shape against the
+    fused kernel and, on batch row 0 one head at a time, the plain version;
+    then both families' times at t=16384, in turns.  Returns the three
+    kernel rows (delta, dq, dk/dv)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda")
@@ -731,43 +770,61 @@ def split_phase(torch, fa):
              ("ragged", 1, 1000, N_HEAD, D_HEAD, bf16, True),
              ("ragged f32 d64", 1, 333, 2, 64, f32, False)]
     names = ("dq", "dk", "dv")
+    counts = lambda: (fa.flash_bwd.launches, fa.flash_bwd_delta.launches,  # noqa: E731
+                      fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches,
+                      dict(fa.BWD_FAMILY_CALLS))
     for label, b, t, h, d, dtype, causal in cases:
         dname = str(dtype).replace("torch.", "")
         tol = fa.oracle_tol(dtype, "grad")
         q, k, v, do = flash_inputs(torch, gen, b, t, h, d, dtype)
         dlse = torch.randn((b * h, t), generator=gen, device="cuda")
         o, lse = fa.flash_fwd(q, k, v, causal)
-        worst, dq_rel = 0.0, 0.0
+        rule = fa._family(q, k, v, o, do)
+        want_rule = "sm90" if dtype == bf16 else "simple"
+        if rule != want_rule:
+            raise AssertionError(f"the family rule gave {rule} at {label}")
+        worst, vs_fused = {}, {}
         for dl in (None, dlse):
-            c0 = (fa.flash_bwd.launches, fa.flash_bwd_dq.launches,
-                  fa.flash_bwd_dkv.launches)
-            with forced_route(fa, "split"):
-                split = fa.flash_bwd(q, k, v, o, lse, do, dl, causal)
-            c1 = (fa.flash_bwd.launches, fa.flash_bwd_dq.launches,
-                  fa.flash_bwd_dkv.launches)
-            if (c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2]) != (0, 1, 1):
-                raise AssertionError(f"the forced split route launched "
-                                     f"{c0} -> {c1}")
             with forced_route(fa, "fused"):
                 fused = fa.flash_bwd(q, k, v, o, lse, do, dl, causal)
-            torch.cuda.synchronize()
             ref = plain_bwd(fa, q, k, v, o, lse, do, dl, causal)
-            for name, got, want in zip(names, split, ref):
-                _, rel = rel_err(torch, got, want)
-                if not (bool(torch.isfinite(got.float()).all())
-                        and rel <= tol):
+            for family in dict.fromkeys((rule, "simple")):
+                c0 = counts()
+                with forced_route(fa, "split"), forced_family(fa, family):
+                    split = fa.flash_bwd(q, k, v, o, lse, do, dl, causal)
+                    again = fa.flash_bwd(q, k, v, o, lse, do, dl, causal)
+                c1 = counts()
+                torch.cuda.synchronize()
+                pre = 2 if family == "sm90" else 0
+                got = (c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2],
+                       c1[3] - c0[3], c1[4][family] - c0[4][family])
+                if got != (0, pre, 2, 2, 4):
                     raise AssertionError(
-                        f"split {name} disagrees with its plain version at "
-                        f"{label} {dname}{' +dlse' if dl is not None else ''}"
-                        f": rel {rel:.3e} > {tol}")
-                worst = max(worst, rel)
-            dq_rel = max(dq_rel, split_vs_fused(torch, fa, split, fused, dtype,
-                                                label))
+                        f"the forced split route ({family}) launched "
+                        f"{got} (fused, delta, dq, dkv, family calls)")
+                if not all(torch.equal(a, b_) for a, b_ in zip(split, again)):
+                    raise AssertionError(f"split ({family}) gradients differ "
+                                         f"from run to run at {label}")
+                for name, g_, want in zip(names, split, ref):
+                    _, rel = rel_err(torch, g_, want)
+                    if not (bool(torch.isfinite(g_.float()).all())
+                            and rel <= tol):
+                        raise AssertionError(
+                            f"split {name} ({family}) disagrees with its "
+                            f"plain version at {label} {dname}"
+                            f"{' +dlse' if dl is not None else ''}: rel "
+                            f"{rel:.3e} > {tol}")
+                    worst[family] = max(worst.get(family, 0.0), rel)
+                vs_fused[family] = max(vs_fused.get(family, 0.0), split_vs_fused(
+                    torch, fa, split, fused, dtype, family, label))
+                del split, again
         log(f"kernel flash_attention split {label:14s} b={b} t={t} h={h} "
-            f"d={d} {dname:8s} {'causal' if causal else 'full  '} grad rel "
-            f"{worst:.3e} (tol {tol:g}), with and without dlse; dk, dv equal "
-            f"the fused kernel's bits, dq rel {dq_rel:.2e} ok")
-        del q, k, v, do, dlse, o, lse, split, fused, ref
+            f"d={d} {dname:8s} {'causal' if causal else 'full  '}, with and "
+            f"without dlse, bit-identical run to run: "
+            + "; ".join(f"{fam} grad rel {worst[fam]:.3e} (tol {tol:g}), vs "
+                        f"fused {vs_fused[fam]:.2e}" for fam in worst)
+            + f" (rule: {rule}) ok")
+        del q, k, v, do, dlse, o, lse, fused, ref
         torch.cuda.empty_cache()
 
     # the t=16384 path shape: kernel against kernel, then the plain version
@@ -777,13 +834,23 @@ def split_phase(torch, fa):
         raise AssertionError("the t=16384 path shape does not route split")
     q, k, v, do = flash_inputs(torch, gen, b, t, h, d, bf16)
     o, lse = fa.flash_fwd(q, k, v, True)
-    dq = fa.flash_bwd_dq(q, k, v, o, lse, do, None, True)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, o, lse, do, None, True)
+    if fa._family(q, k, v, o, do) != "sm90":
+        raise AssertionError("the t=16384 path shape does not take sm90")
+    delta = fa.flash_bwd_delta(o, do, None)
+    dq = fa.flash_bwd_dq(q, k, v, o, lse, do, None, True, None, delta)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, o, lse, do, None, True, None, delta)
+    again = (fa.flash_bwd_dq(q, k, v, o, lse, do, None, True, None, delta),
+             *fa.flash_bwd_dkv(q, k, v, o, lse, do, None, True, None, delta))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b_) for a, b_ in zip((dq, dk, dv), again)):
+        raise AssertionError("sm90 split gradients differ from run to run "
+                             "at t=16384")
+    del again
     with forced_route(fa, "fused"):
         fused = fa.flash_bwd(q, k, v, o, lse, do, None, True)
     torch.cuda.synchronize()
-    dq_rel = split_vs_fused(torch, fa, (dq, dk, dv), fused, bf16,
-                            f"t={t} b={b}")
+    fused_rel = split_vs_fused(torch, fa, (dq, dk, dv), fused, bf16, "sm90",
+                               f"t={t} b={b}")
     del fused
     torch.cuda.empty_cache()
     tol = fa.oracle_tol(bf16, "grad")
@@ -807,17 +874,38 @@ def split_phase(torch, fa):
                     f"plain version: rel {rel:.3e} > {tol}")
             if rel >= errs[name][1]:
                 errs[name] = (ab, rel)
+    delta_ref = fa.flash_bwd_delta_ref(o, do, None)
+    delta_err, delta_rel = rel_err(torch, delta, delta_ref)
+    if not delta_rel <= 1e-5:
+        raise AssertionError(f"delta pre-pass vs its plain version rel "
+                             f"{delta_rel:.3e} > 1e-5")
     log(f"kernel flash_attention split path t={t} b={b} h={h} d={d} bf16 "
-        f"causal: dk, dv equal the fused kernel's bits, dq rel {dq_rel:.2e}; "
+        f"causal (sm90): bit-identical run to run; vs the fused kernel rel "
+        f"{fused_rel:.2e} (limit 2**-7); delta vs plain rel {delta_rel:.2e}; "
         f"batch row 0, every head, against the plain version: "
         + ", ".join(f"{n} rel {errs[n][1]:.3e}" for n in names)
         + f" (tol {tol:g}) ok")
 
-    # times at the t=16384 path shape
-    dq_ms = device_ms(torch, lambda i: fa.flash_bwd_dq(
-        q, k, v, o, lse, do, None, True), 2)
-    dkv_ms = device_ms(torch, lambda i: fa.flash_bwd_dkv(
-        q, k, v, o, lse, do, None, True), 2)
+    # times at the t=16384 path shape: both families in turns (simple, sm90,
+    # sm90, simple), the pre-pass, and the whole split route
+    def launch(family, which):
+        with forced_family(fa, family):
+            if which == "dq":
+                return fa.flash_bwd_dq(q, k, v, o, lse, do, None, True, None,
+                                       delta)
+            return fa.flash_bwd_dkv(q, k, v, o, lse, do, None, True, None,
+                                    delta)
+
+    times = {}
+    for family, n in (("simple", 1), ("sm90", 3), ("sm90", 3), ("simple", 1)):
+        for which in ("dq", "dkv"):
+            ms = device_ms(torch, lambda i: launch(family, which), n)
+            times.setdefault((family, which), []).append(ms)
+    delta_ms = device_ms(torch, lambda i: fa.flash_bwd_delta(o, do, None), 20)
+    plain_delta_ms = device_ms(
+        torch, lambda i: fa.flash_bwd_delta_ref(o, do, None), 3)
+    route_ms = device_ms(torch, lambda i: fa.flash_bwd(
+        q, k, v, o, lse, do, None, True), 3)
     with forced_route(fa, "fused"):
         fused_ms = device_ms(torch, lambda i: fa.flash_bwd(
             q, k, v, o, lse, do, None, True), 1)
@@ -851,38 +939,68 @@ def split_phase(torch, fa):
     lib_bwd_ms = device_ms(torch, lib_both, 2) - lib_fwd_ms
     # bounds: t (t + 1) / 2 causal score entries a head, 2 d flops an
     # entry a product; dq does three products (s, dp, ds.k), dk/dv four
-    # (s, dp, p^T.do, ds^T.q); each input read once, each output written
+    # (s, dp, p^T.do, ds^T.q); each input read once, each output written.
+    # The sm90 kernels read delta [b*h, t] f32 where the simple ones read o;
+    # the pre-pass reads o and do and writes delta.
     entries = b * h * t * (t + 1) // 2
     n, es = q.numel(), q.element_size()
+    stat = 4 * b * h * t
+    sm90 = {w: sorted(times[("sm90", w)])[0] for w in ("dq", "dkv")}
+    simple = {w: sorted(times[("simple", w)])[0] for w in ("dq", "dkv")}
+    for w in ("dq", "dkv"):
+        if not sm90[w] < min(times[("simple", w)]):
+            raise AssertionError(
+                f"the sm90 {w} kernel ({times[('sm90', w)]} ms) is not faster "
+                f"than the simple one ({times[('simple', w)]} ms)")
     log(f"flash_attention t={t} b={b} bf16 causal: forward {fwd_ms:.3f} ms, "
-        f"fused backward {fused_ms:.3f} ms (the route not taken), split dq "
-        f"{dq_ms:.3f} + dk/dv {dkv_ms:.3f} = {dq_ms + dkv_ms:.3f} ms; plain "
-        f"backward (all heads, one at a time) {plain_ms:.3f} ms; library "
-        f"(sdpa) forward {lib_fwd_ms:.3f} ms, backward {lib_bwd_ms:.3f} ms")
+        f"fused backward {fused_ms:.3f} ms (the route not taken); split, in "
+        f"turns simple/sm90/sm90/simple: dq "
+        + "/".join(f"{x:.3f}" for x in times[("simple", "dq")][:1]
+                   + times[("sm90", "dq")] + times[("simple", "dq")][1:])
+        + " ms, dk/dv "
+        + "/".join(f"{x:.3f}" for x in times[("simple", "dkv")][:1]
+                   + times[("sm90", "dkv")] + times[("simple", "dkv")][1:])
+        + f" ms; delta pre-pass {delta_ms:.4f} ms (plain {plain_delta_ms:.3f}"
+        f" ms); the whole split route (pre-pass + sm90 dq + dk/dv) "
+        f"{route_ms:.3f} ms against the simple pair's "
+        f"{simple['dq'] + simple['dkv']:.3f} ms; plain backward (all heads, "
+        f"one at a time) {plain_ms:.3f} ms; library (sdpa) forward "
+        f"{lib_fwd_ms:.3f} ms, backward {lib_bwd_ms:.3f} ms (route / sdpa "
+        f"backward {route_ms / lib_bwd_ms:.2f}x)")
     rows = []
-    for name, line, ms, flops, nbytes, err in (
-            ("flash_attention_bwd_dq", 900, dq_ms, 6 * d * entries,
-             6 * n * es + 4 * b * h * t, errs["dq"][0]),
-            ("flash_attention_bwd_dkv", 921, dkv_ms, 8 * d * entries,
-             7 * n * es + 4 * b * h * t, max(errs["dk"][0], errs["dv"][0]))):
-        ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    for name, line, ms, flops, nbytes, err, plain, lib in (
+            ("flash_attention_bwd_delta", 418, delta_ms, 2 * n,
+             2 * n * es + stat, delta_err, plain_delta_ms, None),
+            ("flash_attention_bwd_dq", 900, sm90["dq"], 6 * d * entries,
+             5 * n * es + 2 * stat, errs["dq"][0], plain_ms, lib_bwd_ms),
+            ("flash_attention_bwd_dkv", 921, sm90["dkv"], 8 * d * entries,
+             6 * n * es + 2 * stat, max(errs["dk"][0], errs["dv"][0]),
+             plain_ms, lib_bwd_ms)):
+        # the pre-pass's multiply-adds run on the CUDA cores in f32
+        peak = PEAK_FLOPS["float32" if name.endswith("delta") else "bfloat16"]
+        ops_ms = flops / peak * 1e3
         bytes_ms = nbytes / HBM_BYTES_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
+        old = simple.get(name.rsplit("_", 1)[1])
         log(f"{name} bf16 causal (b={b} t={t} h={h} d={d}, "
             f"{flops / 1e12:.4f} TFLOP, {nbytes} bytes): kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain (the whole backward, "
-            f"head-chunked) {plain_ms:.4f} ms, library (sdpa backward, for "
-            f"the pair) {lib_bwd_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the "
+            f"bound)" + (f", simple family {old:.4f} ms ({old / ms:.2f}x)"
+                         if old else "")
+            + f", plain {plain:.4f} ms"
+            + (f", library (sdpa backward, for the pair) {lib:.4f} ms"
+               if lib else ", library none")
+            + f", bound {bound_ms:.4f} ms "
             f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
         rows.append({"name": name, "route": "cuda",
-                     "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                     "source": "paddle_tpu_torch/csrc/flash_bwd_sm90.cu",
                      "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
                      "bound_ms": bound_ms,
                      "bound_by": ("operations" if ops_ms >= bytes_ms
                                   else "bytes"),
-                     "library_ms": lib_bwd_ms})
-    del q, k, v, do, o, lse, dq, dk, dv, q4, k4, v4, do4
+                     "library_ms": lib})
+    del q, k, v, do, o, lse, delta, delta_ref, dq, dk, dv, q4, k4, v4, do4
     torch.cuda.empty_cache()
     return rows
 
@@ -1749,6 +1867,8 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
     for i in range(warm + steps):
         if i == warm:
             kernels.reset_launches()             # counts start at 0 here
+            for fam in fa.BWD_FAMILY_CALLS:
+                fa.BWD_FAMILY_CALLS[fam] = 0
         feed = make_batch(torch, rng, TRAIN_B, t)
         t0 = time.perf_counter()
         loss, = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
@@ -1756,6 +1876,7 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
         losses.append(loss.item())               # ends in a device sync
         walls.append(time.perf_counter() - t0)
     launches = kernels.launch_counts()
+    families = dict(fa.BWD_FAMILY_CALLS)
     peak = torch.cuda.max_memory_allocated()
     steady = sorted(walls[1:])[len(walls[1:]) // 2]
     route = fa.bwd_route((TRAIN_B, t, N_HEAD, D_HEAD), t, 2)
@@ -1769,8 +1890,10 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
         + ", ".join(f"{k} {v}" for k, v in launches.items())
         + f" (expected a step: {N_LAYER} flash forward, {N_LAYER} "
         + ("fused backward" if route == "fused" else
-           f"split dq + {N_LAYER} split dk/dv, 0 fused backward")
-        + (", 1 of each CE kernel)" if fused_head else ", no CE)"))
+           f"delta pre-pass + {N_LAYER} split dq + {N_LAYER} split dk/dv, "
+           f"0 fused backward")
+        + (", 1 of each CE kernel)" if fused_head else ", no CE)")
+        + f"; split kernels by family {families}")
     if not all(np.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     if abs(losses[0] - np.log(VOCAB)) > 0.5:
@@ -1784,6 +1907,7 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
     expect = {"paged_attention": 0, "decode_gather": 0,
               "flash_attention_fwd": want,
               "flash_attention_bwd": want if route == "fused" else 0,
+              "flash_attention_bwd_delta": want if route == "split" else 0,
               "flash_attention_bwd_dq": want if route == "split" else 0,
               "flash_attention_bwd_dkv": want if route == "split" else 0,
               "fused_ce_fwd": ce_want, "fused_ce_dx": ce_want,
@@ -1792,6 +1916,11 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
         raise AssertionError(
             f"launches {launches}, expected {expect}: some attention or "
             f"head call did not go through its kernel")
+    split_calls = 2 * want if route == "split" else 0
+    if families != {"sm90": split_calls, "simple": 0}:
+        raise AssertionError(
+            f"split kernels by family {families}, expected every one of "
+            f"{split_calls} on sm90")
     for n, old in before.items():
         if torch.equal(scope.get(n), old):
             raise AssertionError(f"parameter {n} did not change")
@@ -1803,6 +1932,53 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
     del exe, scope, before
     return {"launches": launches, "peak": peak, "losses": losses,
             "steady": steady}
+
+
+def family_step_phase(torch, np, pt, fa, seed):
+    """Phase 8c: phase 8's program (t=16384, selective) takes one step from
+    one startup state and one batch twice: the split kernels by the rule
+    (sm90) and the simple family forced (a switch in this script only).
+    The losses must agree to bf16 rounding (1e-2 relative) and every
+    parameter's gradient within the flash bf16 grad tolerance."""
+    main, startup, model = build_training(pt, seed, LONG_T, "bfloat16", True)
+    pt.memory_optimize(main, policy="selective")
+    params = [p.name for p in main.all_parameters()]
+    exe = pt.Executor()
+    base = pt.Scope()
+    exe.run(startup, scope=base)
+    feed = make_batch(torch, np.random.default_rng(seed), TRAIN_B, LONG_T)
+    fetch = [model["avg_cost"].name] + [p + "@GRAD" for p in params]
+    runs, walls = {}, {}
+    for family in ("sm90", "simple"):
+        scope = pt.Scope()
+        for n in base.var_names():
+            scope.set(n, base.get(n).clone())
+        c0 = dict(fa.BWD_FAMILY_CALLS)
+        forced = (forced_family(fa, family) if family == "simple"
+                  else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with forced:
+            out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                          return_numpy=False)
+            loss = out[0].item()
+        walls[family] = time.perf_counter() - t0
+        calls = {f: fa.BWD_FAMILY_CALLS[f] - c0[f] for f in c0}
+        if calls[family] != 2 * N_LAYER or sum(calls.values()) != 2 * N_LAYER:
+            raise AssertionError(f"the {family} step's split kernels by "
+                                 f"family: {calls}")
+        runs[family] = (loss, out[1:])
+        del scope, out
+    (la, ga), (lb, gb) = runs["sm90"], runs["simple"]
+    if not (np.isfinite(la) and abs(la - lb) <= 1e-2 * abs(lb)):
+        raise AssertionError(f"phase 8c loss {la} (sm90) vs {lb} (simple)")
+    tol = fa.oracle_tol(torch.bfloat16, "grad")
+    worst = grads_agree(params, ga, gb, tol, "sm90 vs simple family, bf16")
+    log(f"phase 8c t={LONG_T}: one step from one state and batch, loss "
+        f"{la:.6f} (sm90) vs {lb:.6f} (simple family forced); gradients of "
+        f"{len(params)} parameters within {tol:g} (worst {worst[0]} rel "
+        f"{worst[1]:.3e}); step wall {walls['sm90']:.3f} vs "
+        f"{walls['simple']:.3f} s (first steps: allocation included)")
+    del exe, base, runs, ga, gb
 
 
 def long_phase(torch, np, pt, kernels, seed):
@@ -1834,6 +2010,10 @@ def long_phase(torch, np, pt, kernels, seed):
         f"{selective / 1e9:.1f} GB")
     sel = training_phase(torch, np, pt, kernels, seed, True, t=LONG_T,
                          steps=LONG_STEPS, policy="selective", warm=1)
+    torch.cuda.empty_cache()
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    family_step_phase(torch, np, pt, fa, seed)
+    gc.collect()
     torch.cuda.empty_cache()
     runs = {"selective": sel}
     for policy in (None, "compact"):
@@ -2081,9 +2261,16 @@ def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
     else:
         families = (("flash forward", ("flash_fwd_kernel",)),
                     ("flash backward (fused)", ("flash_bwd_kernel",)),
-                    ("flash backward dq (split)", ("flash_bwd_dq_kernel",)),
-                    ("flash backward dk/dv (split)",
+                    ("flash backward dq (split, simple)",
+                     ("flash_bwd_dq_kernel",)),
+                    ("flash backward dk/dv (split, simple)",
                      ("flash_bwd_dkv_kernel",)),
+                    ("flash backward dq (split, sm90)",
+                     ("flash_bwd_sm90_dq_kernel",)),
+                    ("flash backward dk/dv (split, sm90)",
+                     ("flash_bwd_sm90_dkv_kernel",)),
+                    ("flash backward delta pre-pass",
+                     ("flash_bwd_delta_kernel",)),
                     ("CE forward", ("ce_fwd_kernel",)),
                     ("CE dx", ("ce_dx_kernel",)),
                     ("CE dW", ("ce_dw_kernel",)),

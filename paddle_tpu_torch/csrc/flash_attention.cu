@@ -32,7 +32,10 @@
 //
 // The wrapper picks the fused or the split route by the reference's rule
 // (the fused kernel's dq partials would pass 512 MiB: long t), so both
-// packages run the same kernel family for the same program.
+// packages run the same kernel family for the same program.  On the split
+// route, bf16 inputs that TMA can address (d <= 128, 16-byte aligned strides
+// and pointers) go to flash_bwd_sm90.cu (wgmma, a TMA ring, a delta
+// pre-pass); the split kernels here serve the rest (f32, odd strides).
 //
 // One interface for both layouts: tensors are addressed as [b, t, h, d] with
 // the (batch, time, head) strides passed in, so the packed [b, t, h*d]

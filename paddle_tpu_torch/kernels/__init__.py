@@ -16,6 +16,7 @@ WRAPPERS = {"paged_attention": _pa.paged_attention,
             "decode_gather": _dg.decode_gather,
             "flash_attention_fwd": _fa.flash_fwd,
             "flash_attention_bwd": _fa.flash_bwd,
+            "flash_attention_bwd_delta": _fa.flash_bwd_delta,
             "flash_attention_bwd_dq": _fa.flash_bwd_dq,
             "flash_attention_bwd_dkv": _fa.flash_bwd_dkv,
             "fused_ce_fwd": _ce.ce_fwd,

@@ -27,7 +27,10 @@ Two spellings of each function live here:
   and the numerics reference the kernels are held against.
 * the CUDA kernels ``csrc/flash_attention.cu``, hand-written for Hopper
   (``sm_90a``), which replace the TPU kernels ``_flash_fwd``,
-  ``_flash_bwd_fused`` and ``_flash_bwd``'s split dq and dk/dv kernels.
+  ``_flash_bwd_fused`` and ``_flash_bwd``'s split dq and dk/dv kernels,
+  and ``csrc/flash_bwd_sm90.cu``, the split pair again on ``wgmma`` with
+  register accumulators and a TMA operand ring, behind a once-per-row
+  delta pre-pass (:func:`flash_bwd_delta`).
 
 The backward takes one of two routes, chosen as the reference chooses
 (:func:`bwd_route`, ``pallas_attention.py: _flash_bwd``): the fused
@@ -36,6 +39,15 @@ block_k``) fit in ``FUSED_BWD_PARTIAL_BYTES``, else the split pair — a
 q-major dq kernel and a k-major dk/dv kernel.  At the flagship's b=8,
 h=6, d=128 in bf16 the split route starts at t=8192.  The route is
 decided before any launch; each route launches its kernels or raises.
+
+The split route has two kernel families, chosen by :func:`bwd_family`, a
+static rule on the dtype, the head dim, the strides and the pointers:
+bf16 with ``d <= 128`` and every stride and base pointer 16-byte aligned
+(what TMA can address) takes ``"sm90"`` (``flash_bwd_sm90.cu``); anything
+else (f32, or a ``d`` or stride TMA cannot address) the ``"simple"``
+kernels of ``flash_attention.cu``.  ``BWD_FAMILY_CALLS`` counts the split
+kernels launched by family.  The sm90 kernels read ``delta [b*h, t_q]``
+f32 from the pre-pass, which :func:`flash_bwd` launches once for both.
 
 :func:`flash_fwd`, :func:`flash_bwd`, :func:`flash_bwd_dq` and
 :func:`flash_bwd_dkv` are the wrappers.  They dispatch on the tensors'
@@ -51,8 +63,10 @@ the end (the TPU kernel writes per-k-block partials and sums them; with
 64-key tiles that buffer would be ``t_k / 64`` copies of ``q``).  Atomics
 add in an order that changes from run to run, so the fused route's
 ``dq`` is reproducible only to f32 rounding; its ``dk`` and ``dv``, and
-all three gradients of the split route, are bit-exact run to run, and
-the two routes' ``dk`` and ``dv`` are the same bits.
+all three gradients of the split route (either family), are bit-exact
+run to run.  The simple split family shares the fused kernel's k-major
+body, so its ``dk`` and ``dv`` are the fused route's bits; the sm90
+family sums in another order (within one bf16 ulp of them).
 
 Gradients flow through :class:`FlashAttentionFunction`, whose forward
 saves exactly ``FLASH_BWD_RESIDUALS = (q, k, v, o, lse)`` and whose
@@ -71,9 +85,10 @@ from . import _build
 
 __all__ = ["NEG_INF", "ORACLE_TOL", "FLASH_BWD_RESIDUALS",
            "FUSED_BWD_PARTIAL_BYTES", "BWD_ROUTE_CALLS", "oracle_tol",
-           "bwd_route",
-           "flash_attention_ref", "flash_attention_bwd_ref", "flash_fwd",
-           "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
+           "BWD_FAMILY_CALLS", "bwd_route", "bwd_family",
+           "flash_attention_ref", "flash_attention_bwd_ref",
+           "flash_bwd_delta_ref", "flash_fwd", "flash_bwd",
+           "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkv",
            "FlashAttentionFunction", "flash_attention",
            "flash_attention_with_lse", "flash_attention_packed",
            "packed_sub_heads", "build"]
@@ -89,6 +104,9 @@ FUSED_BWD_PARTIAL_BYTES = 512 << 20
 # flash_bwd calls by route, on either device (launches are counted by
 # the wrappers that launch)
 BWD_ROUTE_CALLS = {"fused": 0, "split": 0}
+
+# split-route kernels launched on the card, by family (bwd_family)
+BWD_FAMILY_CALLS = {"sm90": 0, "simple": 0}
 
 # what the backward is computed from, and all the forward saves
 FLASH_BWD_RESIDUALS = ("q", "k", "v", "o", "lse")
@@ -146,6 +164,30 @@ def bwd_route(q_shape, t_k, itemsize, block_k=1024):
     return "fused" if part_bytes <= FUSED_BWD_PARTIAL_BYTES else "split"
 
 
+def bwd_family(dtype, d, strides, ptrs):
+    """``"sm90"`` or ``"simple"``: the split-route kernel family for inputs
+    of ``dtype`` with head dim ``d``, element strides ``strides`` (one
+    tuple per tensor) and base addresses ``ptrs``.  ``"sm90"`` takes bf16
+    with ``d <= 128`` and every stride, the head dim's bytes and every
+    pointer a multiple of 16 bytes (what TMA addresses); anything else is
+    ``"simple"``.  Static: decided before any launch."""
+    if dtype != torch.bfloat16 or not 1 <= d <= _MAX_D:
+        return "simple"
+    es = 2
+    if (d * es) % 16 or any((s * es) % 16 for st in strides for s in st):
+        return "simple"
+    if any(p % 16 for p in ptrs):
+        return "simple"
+    return "sm90"
+
+
+def _family(*ts):
+    """:func:`bwd_family` of ``[b, t, h, d]`` tensors (strides of the
+    batch, time and head dims)."""
+    return bwd_family(ts[0].dtype, ts[0].shape[-1],
+                      [t.stride()[:3] for t in ts], [t.data_ptr() for t in ts])
+
+
 def _acc_dtype(dtype):
     return torch.float64 if dtype == torch.float64 else torch.float32
 
@@ -180,20 +222,34 @@ def flash_attention_ref(q, k, v, causal=False, sm_scale=None):
     return o.to(q.dtype).contiguous(), lse.contiguous()
 
 
+def flash_bwd_delta_ref(o, do, dlse=None):
+    """The plain pre-pass: ``delta [b*h, t_q] = rowsum(do * o) - dlse`` in
+    the accumulation dtype, from ``o``, ``do [b, t_q, h, d]`` and the lse
+    cotangent ``dlse [b*h, t_q]`` (or None)."""
+    b, t_q, h, _ = o.shape
+    acc = _acc_dtype(o.dtype)
+    delta = (do.to(acc) * o.to(acc)).sum(dim=-1)             # [b, t_q, h]
+    delta = delta.permute(0, 2, 1)                           # [b, h, t_q]
+    if dlse is not None:
+        delta = delta - dlse.reshape(b, h, t_q).to(acc)
+    return delta.reshape(b * h, t_q).contiguous()
+
+
 def flash_attention_bwd_ref(q, k, v, o, lse, do, dlse=None, causal=False,
-                            sm_scale=None):
+                            sm_scale=None, delta=None):
     """The plain PyTorch backward from the saved ``(q, k, v, o, lse)``:
     ``(dq, dk, dv)`` in the input dtype.  ``dlse [b*h, t_q]`` is the
-    cotangent of the returned ``lse`` (None when nothing consumed it)."""
+    cotangent of the returned ``lse`` (None when nothing consumed it);
+    ``delta``, when given, is :func:`flash_bwd_delta_ref`'s value for the
+    same ``o``, ``do``, ``dlse`` and is used instead of recomputing it."""
     b, t_q, h, d = q.shape
     sm_scale = d ** -0.5 if sm_scale is None else sm_scale
     acc = _acc_dtype(q.dtype)
     dt = q.dtype
     do_a = do.to(acc)
-    delta = (do_a * o.to(acc)).sum(dim=-1)                   # [b, t_q, h]
-    delta = delta.permute(0, 2, 1)                           # [b, h, t_q]
-    if dlse is not None:
-        delta = delta - dlse.reshape(b, h, t_q).to(acc)
+    if delta is None:
+        delta = flash_bwd_delta_ref(o, do, dlse)
+    delta = delta.reshape(b, h, t_q).to(acc)
     s = _scores(q, k, causal, sm_scale)
     p = torch.exp(s - lse.reshape(b, h, t_q, 1).to(acc))
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).to(acc), do_a)
@@ -264,10 +320,34 @@ def _kernels():
     return _fns
 
 
+_sm90_fns = None
+
+
+def _sm90_kernels():
+    global _sm90_fns
+    if _sm90_fns is None:
+        lib = _build.load("flash_bwd_sm90")
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        geom = [i32] * 5 + [i64] * 6 + [ctypes.c_float, i32, i32, ptr]
+        fns = {"delta": lib.flash_bwd_sm90_delta,
+               "dq": lib.flash_bwd_sm90_dq, "dkv": lib.flash_bwd_sm90_dkv}
+        fns["delta"].argtypes = [ptr] * 4 + [i32] * 4 + [i64] * 3 + [ptr]
+        fns["dq"].argtypes = [ptr] * 7 + geom
+        fns["dkv"].argtypes = [ptr] * 8 + geom
+        for fn in fns.values():
+            fn.restype = i32
+        lib.flash_bwd_sm90_error_string.argtypes = [i32]
+        lib.flash_bwd_sm90_error_string.restype = ctypes.c_char_p
+        fns["errstr"] = lib.flash_bwd_sm90_error_string
+        _sm90_fns = fns
+    return _sm90_fns
+
+
 def build():
-    """Build (if stale) and load the kernel library — set-up work that
+    """Build (if stale) and load both kernel libraries — set-up work that
     belongs outside any timed window."""
     _kernels()
+    _sm90_kernels()
 
 
 def _geom(q, k, sm_scale, causal):
@@ -335,6 +415,72 @@ def _check_bwd(q, k, v, o, lse, do, dlse):
         raise TypeError("flash_attention: lse and dlse must be float32")
 
 
+def flash_bwd_delta(o, do, dlse=None):
+    """``delta [b*h, t_q] f32 = rowsum(do * o) - dlse``, once per query
+    row — the sm90 split family's pre-pass.  CPU tensors take
+    :func:`flash_bwd_delta_ref`; CUDA tensors launch the pre-pass kernel
+    when they are what the sm90 family takes (:func:`bwd_family`: bf16,
+    16-byte aligned rows, contiguous ``[b, t_q, h, d]``), or raise."""
+    if o.dim() != 4 or do.shape != o.shape:
+        raise ValueError(
+            f"flash_bwd_delta: o {tuple(o.shape)} and do {tuple(do.shape)} "
+            f"must be one [b, t, h, d] shape")
+    b, t_q, h, d = o.shape
+    if dlse is not None and tuple(dlse.shape) != (b * h, t_q):
+        raise ValueError(f"flash_bwd_delta: dlse must be [b*h, t_q] = "
+                         f"{(b * h, t_q)}")
+    ts = (o, do) + (() if dlse is None else (dlse,))
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("flash_bwd_delta: all tensors must share a device")
+    if o.device.type == "cpu":
+        return flash_bwd_delta_ref(o, do, dlse)
+    if o.device.type != "cuda":
+        raise ValueError(f"flash_bwd_delta: unsupported device {o.device}")
+    if dlse is not None and dlse.dtype != torch.float32:
+        raise TypeError("flash_bwd_delta: dlse must be float32")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("flash_bwd_delta: all tensors must be contiguous")
+    if do.dtype != o.dtype or _family(o, do) != "sm90":
+        raise ValueError(
+            f"flash_bwd_delta: the pre-pass serves the sm90 family only "
+            f"(bf16, d <= {_MAX_D}, 16-byte aligned rows); got {o.dtype}, "
+            f"{do.dtype}, d={d}")
+    fns = _sm90_kernels()
+    delta = torch.empty((b * h, t_q), dtype=torch.float32, device=o.device)
+    with torch.cuda.device(o.device):
+        err = fns["delta"](o.data_ptr(), do.data_ptr(),
+                           None if dlse is None else dlse.data_ptr(),
+                           delta.data_ptr(), b, h, t_q, d, o.stride(0),
+                           o.stride(1), o.stride(2),
+                           torch.cuda.current_stream(o.device).cuda_stream)
+    if err:
+        _raise("backward delta", err, fns["errstr"])
+    flash_bwd_delta.launches += 1
+    return delta
+
+
+flash_bwd_delta.launches = 0
+
+
+def _check_delta(q, delta):
+    b, t_q, h, _ = q.shape
+    if tuple(delta.shape) != (b * h, t_q) or delta.device != q.device:
+        raise ValueError(f"flash_attention: delta must be [b*h, t_q] = "
+                         f"{(b * h, t_q)} on {q.device}")
+    if q.device.type == "cuda" and (delta.dtype != torch.float32
+                                    or not delta.is_contiguous()):
+        raise TypeError("flash_attention: delta must be contiguous float32")
+
+
+def _sm90_delta(q, o, do, dlse, delta):
+    """The delta an sm90 launch reads: ``delta`` as given (checked), or
+    one pre-pass launch."""
+    if delta is None:
+        return flash_bwd_delta(o, do, dlse)
+    _check_delta(q, delta)
+    return delta
+
+
 def _bwd_ptrs(q, k, v, o, do, lse, dlse):
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(),
@@ -348,8 +494,9 @@ def flash_bwd(q, k, v, o, lse, do, dlse=None, causal=False, sm_scale=None,
     (:func:`bwd_route`, from ``block_k`` as the reference reads it;
     ``block_q`` is accepted for the same signature) is decided first.
     CPU tensors take :func:`flash_attention_bwd_ref` on either route;
-    CUDA tensors launch the fused kernel, or :func:`flash_bwd_dq` and
-    :func:`flash_bwd_dkv`, or raise."""
+    CUDA tensors launch the fused kernel, or (split) the pre-pass when the
+    family is sm90, then :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`,
+    or raise."""
     _check_bwd(q, k, v, o, lse, do, dlse)
     route = bwd_route(q.shape, k.shape[1], q.element_size(), block_k)
     BWD_ROUTE_CALLS[route] += 1
@@ -358,8 +505,12 @@ def flash_bwd(q, k, v, o, lse, do, dlse=None, causal=False, sm_scale=None,
         return flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal,
                                        sm_scale)
     if route == "split":
-        dq = flash_bwd_dq(q, k, v, o, lse, do, dlse, causal, sm_scale)
-        dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, dlse, causal, sm_scale)
+        # the sm90 family reads delta: one pre-pass serves both kernels
+        delta = (flash_bwd_delta(o, do, dlse)
+                 if _family(q, k, v, o, do) == "sm90" else None)
+        dq = flash_bwd_dq(q, k, v, o, lse, do, dlse, causal, sm_scale, delta)
+        dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, dlse, causal, sm_scale,
+                               delta)
         return dq, dk, dv
     fns = _kernels()
     dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
@@ -379,22 +530,37 @@ flash_bwd.launches = 0
 
 
 def flash_bwd_dq(q, k, v, o, lse, do, dlse=None, causal=False,
-                 sm_scale=None):
+                 sm_scale=None, delta=None):
     """The split route's ``dq`` (input dtype, written once by the q-major
-    kernel).  CPU tensors take the plain backward's ``dq``."""
+    kernel of the family :func:`bwd_family` picks).  ``delta`` is
+    :func:`flash_bwd_delta` of the same ``o, do, dlse``, or None: the sm90
+    family then launches the pre-pass itself, the simple kernel computes
+    it inside.  CPU tensors take the plain backward's ``dq``."""
     _check_bwd(q, k, v, o, lse, do, dlse)
     sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
     if q.device.type == "cpu":
+        if delta is not None:
+            _check_delta(q, delta)
         return flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal,
-                                       sm_scale)[0]
-    fns = _kernels()
+                                       sm_scale, delta)[0]
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = fns["bwd_dq"](*_bwd_ptrs(q, k, v, o, do, lse, dlse),
+    family = _family(q, k, v, o, do, dq)
+    if family == "sm90":
+        delta = _sm90_delta(q, o, do, dlse, delta)
+        fns = _sm90_kernels()
+        with torch.cuda.device(q.device):
+            err = fns["dq"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                             dq.data_ptr(), *_geom(q, k, sm_scale, causal))
+    else:
+        fns = _kernels()
+        with torch.cuda.device(q.device):
+            err = fns["bwd_dq"](*_bwd_ptrs(q, k, v, o, do, lse, dlse),
+                                dq.data_ptr(), *_geom(q, k, sm_scale, causal))
     if err:
-        _raise("backward dq", err, fns["errstr"])
+        _raise(f"backward dq ({family})", err, fns["errstr"])
     flash_bwd_dq.launches += 1
+    BWD_FAMILY_CALLS[family] += 1
     return dq
 
 
@@ -402,25 +568,39 @@ flash_bwd_dq.launches = 0
 
 
 def flash_bwd_dkv(q, k, v, o, lse, do, dlse=None, causal=False,
-                  sm_scale=None):
-    """The split route's ``(dk, dv)`` (the k-major kernel: the fused
-    kernel's arithmetic without its dq).  CPU tensors take the plain
-    backward's ``dk, dv``."""
+                  sm_scale=None, delta=None):
+    """The split route's ``(dk, dv)`` (the k-major kernel of the family
+    :func:`bwd_family` picks; the simple one is the fused kernel's
+    arithmetic without its dq).  ``delta`` as for :func:`flash_bwd_dq`.
+    CPU tensors take the plain backward's ``dk, dv``."""
     _check_bwd(q, k, v, o, lse, do, dlse)
     sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
     if q.device.type == "cpu":
+        if delta is not None:
+            _check_delta(q, delta)
         return flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal,
-                                       sm_scale)[1:]
-    fns = _kernels()
+                                       sm_scale, delta)[1:]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = fns["bwd_dkv"](*_bwd_ptrs(q, k, v, o, do, lse, dlse),
+    family = _family(q, k, v, o, do, dk, dv)
+    if family == "sm90":
+        delta = _sm90_delta(q, o, do, dlse, delta)
+        fns = _sm90_kernels()
+        with torch.cuda.device(q.device):
+            err = fns["dkv"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                              dk.data_ptr(), dv.data_ptr(),
                              *_geom(q, k, sm_scale, causal))
+    else:
+        fns = _kernels()
+        with torch.cuda.device(q.device):
+            err = fns["bwd_dkv"](*_bwd_ptrs(q, k, v, o, do, lse, dlse),
+                                 dk.data_ptr(), dv.data_ptr(),
+                                 *_geom(q, k, sm_scale, causal))
     if err:
-        _raise("backward dk/dv", err, fns["errstr"])
+        _raise(f"backward dk/dv ({family})", err, fns["errstr"])
     flash_bwd_dkv.launches += 1
+    BWD_FAMILY_CALLS[family] += 1
     return dk, dv
 
 

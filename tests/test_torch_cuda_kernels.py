@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card (paged attention, decode gather,
-flash attention forward, fused backward and split backward (dq, dk/dv),
+flash attention forward, fused backward and split backward (dq, dk/dv:
+the simple family and the sm90 one with its delta pre-pass),
 the fused cross-entropy head's forward, dx and dW, the fused ResNet
 bottleneck), against their plain PyTorch versions
 (paddle_tpu_torch only: no jax, so these run on a host without it).  Every test needs an NVIDIA GPU and skips without one; on the card:
@@ -217,8 +218,12 @@ def test_flash_backward_matches_plain_version(dtype, geom, causal, with_dlse):
 def test_flash_split_backward_matches_plain_and_fused(dtype, geom, causal,
                                                      with_dlse, monkeypatch):
     """The split route (dq kernel + dk/dv kernel) within ORACLE_TOL of the
-    plain version; its dk and dv the fused kernel's bits; its dq the same
-    bits run to run."""
+    plain version, on the family the rule picks (sm90 for bf16 that TMA
+    can address; ragged_d100's 300-element time stride and f32 take the
+    simple kernels); the same bits run to run; dk and dv the fused
+    kernel's bits in f32 (the simple family shares its body) and within
+    one bf16 ulp relative, 2**-7, in bf16 (the sm90 family sums in
+    another order)."""
     _need_card()
     q, k, v, do, dlse = _flash_case(*FLASH_GEOMS[geom], getattr(torch, dtype),
                                     seed=5)
@@ -226,22 +231,128 @@ def test_flash_split_backward_matches_plain_and_fused(dtype, geom, causal,
     o, lse = tfa.flash_attention_ref(q, k, v, causal)
     fused = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
     monkeypatch.setattr(tfa, "FUSED_BWD_PARTIAL_BYTES", 0)
+    family = ("sm90" if dtype == "bfloat16" and geom != "ragged_d100"
+              else "simple")
     before = (tfa.flash_bwd.launches, tfa.flash_bwd_dq.launches,
-              tfa.flash_bwd_dkv.launches)
+              tfa.flash_bwd_dkv.launches, tfa.flash_bwd_delta.launches,
+              dict(tfa.BWD_FAMILY_CALLS))
     got = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
     again = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
     torch.cuda.synchronize()
+    pre = 2 if family == "sm90" else 0
     assert (tfa.flash_bwd.launches, tfa.flash_bwd_dq.launches,
-            tfa.flash_bwd_dkv.launches) == (before[0], before[1] + 2,
-                                            before[2] + 2)
+            tfa.flash_bwd_dkv.launches, tfa.flash_bwd_delta.launches) == (
+        before[0], before[1] + 2, before[2] + 2, before[3] + pre)
+    assert tfa.BWD_FAMILY_CALLS[family] == before[4][family] + 4
+    assert sum(tfa.BWD_FAMILY_CALLS.values()) == sum(before[4].values()) + 4
     want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal)
     tol = tfa.oracle_tol(dtype, "grad")
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == q.dtype and g.shape == w.shape
         assert _rel(g, w) <= tol, name
-    assert torch.equal(got[1], fused[1]) and torch.equal(got[2], fused[2])
+    if dtype == "float32":
+        assert torch.equal(got[1], fused[1]) and torch.equal(got[2], fused[2])
+    else:
+        assert _rel(got[1], fused[1]) <= 2.0 ** -7
+        assert _rel(got[2], fused[2]) <= 2.0 ** -7
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert _rel(got[0], fused[0]) <= tol
+
+
+# the sm90 split family's geometries: FLASH_GEOMS' bf16 cases that TMA can
+# address, and ragged t that is no multiple of 64 or 128 at d=128
+SM90_GEOMS = {nm: g for nm, g in FLASH_GEOMS.items() if nm != "ragged_d100"}
+SM90_GEOMS.update({"ragged_t1000": (1, 1000, 1000, 2, 128),
+                   "ragged_t77": (1, 77, 77, 2, 128),
+                   "tk_gt_tq": (1, 128, 320, 2, 64)})
+
+
+@pytest.mark.parametrize("with_dlse", [False, True], ids=["do", "do_dlse"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("geom", list(SM90_GEOMS))
+def test_flash_sm90_split_matches_plain_version(geom, causal, with_dlse,
+                                                monkeypatch):
+    """The sm90 pre-pass, dq and dk/dv kernels (csrc/flash_bwd_sm90.cu)
+    within ORACLE_TOL of the plain version, bit-identical run to run; the
+    wrappers called without delta launch the pre-pass themselves and give
+    the same bits; the pre-pass within 1e-5 of its plain version."""
+    _need_card()
+    q, k, v, do, dlse = _flash_case(*SM90_GEOMS[geom], torch.bfloat16, seed=7)
+    dlse = dlse if with_dlse else None
+    o, lse = tfa.flash_attention_ref(q, k, v, causal)
+    assert tfa._family(q, k, v, o, do) == "sm90"
+    monkeypatch.setattr(tfa, "FUSED_BWD_PARTIAL_BYTES", 0)
+    c0 = (tfa.flash_bwd_delta.launches, tfa.BWD_FAMILY_CALLS["sm90"])
+    got = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
+    again = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
+    torch.cuda.synchronize()
+    assert (tfa.flash_bwd_delta.launches, tfa.BWD_FAMILY_CALLS["sm90"]) == (
+        c0[0] + 2, c0[1] + 4)
+    want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal)
+    tol = tfa.oracle_tol(torch.bfloat16, "grad")
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == q.dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all()) and _rel(g, w) <= tol, name
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    d0 = tfa.flash_bwd_delta.launches
+    dq = tfa.flash_bwd_dq(q, k, v, o, lse, do, dlse, causal)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, o, lse, do, dlse, causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_bwd_delta.launches == d0 + 2
+    assert torch.equal(dq, got[0]) and torch.equal(dk, got[1])
+    assert torch.equal(dv, got[2])
+    delta = tfa.flash_bwd_delta(o, do, dlse)
+    assert _rel(delta, tfa.flash_bwd_delta_ref(o, do, dlse)) <= 1e-5
+
+
+@pytest.mark.parametrize("geom", [(2, 130, 3, 128), (1, 77, 2, 64)],
+                         ids=["d128", "ragged_d64"])
+def test_flash_bwd_delta_kernel_matches_plain_version(geom):
+    """The pre-pass within 1e-5 of its plain version, with and without
+    dlse; inputs the sm90 family does not take (f32, bf16 d=100: rows no
+    multiple of 16 bytes) raise before any launch."""
+    _need_card()
+    b, t, h, d = geom
+    _, _, _, do, dlse = _flash_case(b, t, t, h, d, torch.bfloat16, seed=9)
+    o = _flash_case(b, t, t, h, d, torch.bfloat16, seed=10)[0]
+    for dl in (None, dlse):
+        before = tfa.flash_bwd_delta.launches
+        got = tfa.flash_bwd_delta(o, do, dl)
+        torch.cuda.synchronize()
+        assert tfa.flash_bwd_delta.launches == before + 1
+        assert got.shape == (b * h, t) and got.dtype == torch.float32
+        assert _rel(got, tfa.flash_bwd_delta_ref(o, do, dl)) <= 1e-5
+    before = tfa.flash_bwd_delta.launches
+    for dtype, d_ in ((torch.float32, d), (torch.bfloat16, 100)):
+        x = _flash_case(1, 8, 8, 3, d_, dtype)[0]
+        with pytest.raises(ValueError):
+            tfa.flash_bwd_delta(x, x)
+    assert tfa.flash_bwd_delta.launches == before
+
+
+@pytest.mark.parametrize("h,d", [(1, 128), (2, 64)],
+                         ids=["packed_d128", "packed_d64_paired"])
+def test_flash_sm90_packed_autograd(h, d, monkeypatch):
+    """The packed [b, t, h*d] entry point on the split route: one head a
+    128-lane slice (d=128) and two (d=64), read in place by the tensor
+    maps; gradients within the bf16 grad tolerance, every split kernel on
+    the sm90 family."""
+    _need_card()
+    b, t = 2, 320
+    q, k, v, do, _ = _flash_case(b, t, t, h, d, torch.bfloat16, seed=8)
+    monkeypatch.setattr(tfa, "FUSED_BWD_PARTIAL_BYTES", 0)
+    flat = [x.reshape(b, t, h * d).clone().requires_grad_() for x in (q, k, v)]
+    c0 = dict(tfa.BWD_FAMILY_CALLS)
+    out = tfa.flash_attention_packed(*flat, n_head=h, causal=True)
+    out.backward(do.reshape(b, t, h * d))
+    torch.cuda.synchronize()
+    assert tfa.BWD_FAMILY_CALLS == {"sm90": c0["sm90"] + 2,
+                                    "simple": c0["simple"]}
+    o_ref, lse_ref = tfa.flash_attention_ref(q, k, v, True)
+    want = tfa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, None, True)
+    for x, w in zip(flat, want):
+        assert _rel(x.grad, w.reshape(b, t, h * d)) <= tfa.oracle_tol(
+            torch.bfloat16, "grad")
 
 
 def test_flash_autograd_route_follows_block_k(monkeypatch):

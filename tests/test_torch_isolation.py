@@ -163,7 +163,8 @@ def test_kernel_wrappers_and_counters_are_registered():
     assert set(kernels.WRAPPERS) == {
         "paged_attention", "decode_gather",
         "flash_attention_fwd", "flash_attention_bwd",
-        "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+        "flash_attention_bwd_delta", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv",
         "fused_ce_fwd", "fused_ce_dx", "fused_ce_dw", "bottleneck"}
     assert kernels.launch_counts() == {nm: fn.launches
                                        for nm, fn in kernels.WRAPPERS.items()}
@@ -179,6 +180,7 @@ def test_kernel_sources_and_build_flags():
     assert "paged_attention" in _build.sources()
     assert "decode_gather" in _build.sources()
     assert "flash_attention" in _build.sources()
+    assert "flash_bwd_sm90" in _build.sources()
     assert "fused_ce" in _build.sources()
     assert "bottleneck" in _build.sources()
     flags = " ".join(_build.NVCC_FLAGS)
