@@ -21,25 +21,35 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    b. flash attention forward (``o``, ``lse``) and fused backward
       (``dq, dk, dv``, with and without ``dlse``) at the training path's
       shape (b=8, t=4096, h=6, d=128, bf16, causal), plus f32, d=64,
-      non-causal and ragged lengths; the plain version materialises
-      ``[b, h, t, t]`` scores, so it runs over the batch two rows at a
-      time; timed at the path shape (library: SDPA forward, and forward
-      plus backward; bound: causal flops over 989 TFLOP/s, or bytes);
+      non-causal and ragged lengths, on the kernel family the rule picks
+      (sm90 for bf16 that TMA can address: ``csrc/flash_fwd_sm90.cu`` and
+      the fused kernel of ``csrc/flash_bwd_sm90.cu`` behind its delta
+      pre-pass; simple for f32) and, where that is sm90, on the simple one
+      (``csrc/flash_attention.cu``) forced by a patch of the rule in this
+      script; the plain version materialises ``[b, h, t, t]`` scores, so
+      it runs over the batch two rows at a time; at the path shape the
+      fused sm90 route's dk and dv equal the split sm90 route's bit for
+      bit; timed there, both families in turns (simple, sm90, sm90,
+      simple; each sm90 kernel must beat the simple one; library: SDPA
+      forward, and forward plus backward; bound: causal flops over 989
+      TFLOP/s, or bytes);
       b+. the split backward (delta pre-pass, dq kernel, dk/dv kernel)
       with the route forced in this script, on both kernel families: the
       one the rule picks (sm90 for bf16, ``csrc/flash_bwd_sm90.cu``;
       simple for f32) and the simple one (``csrc/flash_attention.cu``)
       forced by a patch of the rule in this script: at b=8 t=4096 and the
       small cases against the plain version, with and without ``dlse``,
-      bit-identical run to run, against the fused kernel (the simple
-      family's dk and dv its exact bits, the sm90 family's within 2**-7
-      in bf16; dq within rounding); at phase 8's shape (b=8, t=16384)
+      bit-identical run to run, against the fused kernel of the same
+      family (dk and dv its exact bits: one k-major body; dq within
+      rounding); at phase 8's shape (b=8, t=16384)
       against the fused kernel and, on batch row 0 one head at a time,
       the plain version; timed there, both families in turns (simple,
       sm90, sm90, simple; each sm90 kernel must beat the simple one), the
       pre-pass and the whole split route (library: SDPA's backward for
       the pair; bound: three and four causal products, the pre-pass's
-      bytes);
+      bytes); and the forward there: both families in turns (the sm90 one
+      must win), on batch row 0 one head at a time against the plain
+      version, beside SDPA's forward and its bound (two causal products);
    c. the fused cross-entropy head's forward (``loss``, ``lse``), dx and
       dW kernels at the training path's shape (N = 32768 rows, d=768,
       V=32768, bf16), at phase 6's f32 shape (N=512) and at a ragged shape
@@ -118,13 +128,19 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    ``--seed``, five Adam steps on the card: the loss must be finite and
    fall from about ln(32768), the parameters must change, and every
    attention and head call must have gone through the kernels (12 flash
-   forward, 12 fused flash backward and one launch of each CE kernel a
-   step, all counts zeroed just before the steps); prints step wall,
-   tokens/s and peak memory, then where one more step's device time goes
-   (``torch.profiler`` by kernel family, CUDA events by op type);
+   forward, 12 delta pre-pass, 12 fused flash backward and one launch of
+   each CE kernel a step, every flash kernel on the sm90 family by the
+   family counters, all counts zeroed just before the steps); prints
+   step wall, tokens/s and peak memory, then where one more step's
+   device time goes (``torch.profiler`` by kernel family, which must
+   list ``flash_fwd_sm90_kernel`` and ``flash_bwd_sm90_fused_kernel`` 12
+   times each; CUDA events by op type);
    b. the same five steps with ``fused_head=False`` (full depth), for the
    unfused head's peak memory: the fused step's peak must lie at least
-   10 GB below it;
+   10 GB below it; c. one step of phase 7's program from one startup
+   state and batch on each kernel family (sm90 by the rule, simple
+   forced): losses within 1e-3 relative, every parameter's gradient
+   within 1e-2 (max |a - b| / max |b|);
 8. training at long context (a main path, ``bench.py``'s
    ``BENCH_GPT_TUNE=1`` sequence): the same model at max_len 16384, batch
    8, with ``memory_optimize(policy="selective")``; the memory reckoned
@@ -132,15 +148,15 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    same loss and parameter checks, and 12 flash forward, 12 delta
    pre-pass, 12 split dq, 12 split dk/dv (every split kernel on the sm90
    family, by the family counter), 0 fused backward and one launch of
-   each CE kernel a step; step wall, tokens/s, peak memory and the
-   profiled step;
+   each CE kernel a step, the forward on the sm90 family too; step
+   wall, tokens/s, peak memory and the profiled step;
    b. the same path for two steps with no remat and with ``compact``:
    peak memory and step wall beside phase 8's, compact's and selective's
    peaks below no remat's, the three loss trajectories equal to bf16
    rounding; c. one step of phase 8's program from one startup state
-   and batch on each split family (sm90 by the rule, simple forced): the
-   losses within 1e-2 relative, every parameter's gradient within the
-   flash bf16 grad tolerance;
+   and batch on each kernel family (sm90 by the rule, simple forced,
+   the forward included): the losses within 1e-2 relative, every
+   parameter's gradient within the flash bf16 grad tolerance;
 9. ResNet-50 training (a main path, ``bench.py``'s headline model,
    ``bench_resnet``): ``resnet.build(depth=50, class_dim=1000,
    image_shape=(3, 224, 224), dtype="bfloat16")`` at batch 128 on a
@@ -156,7 +172,9 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    that block (2e-2 max-relative);
 10. one JSON line ``{"kernels": [...]}`` with each of the eleven kernels'
    launches on its main path (phase 3e, 5, 5b, 7 or 8), error, times and
-   bound;
+   bound; the flash forward and fused backward rows add the simple
+   family's time (``simple_ms``), and the forward's row its t=16384
+   entry (``t16384``, launches from phase 8);
 11. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
@@ -589,6 +607,13 @@ def flash_plain(torch, fa, q, k, v, do, dlse, causal):
 
 
 def flash_phase(torch, fa):
+    """Phase 3b: the forward and the fused backward against their plain
+    versions at every case, on the family the rule picks and, where that
+    is sm90 (bf16 that TMA can address), on the simple family forced too;
+    the fused sm90 route's dk and dv equal to the split sm90 route's at
+    the path shape; then both families timed at the path shape in turns
+    (simple, sm90, sm90, simple), each sm90 kernel faster than the simple
+    one.  Returns the two kernel rows."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda")
@@ -600,47 +625,98 @@ def flash_phase(torch, fa):
              ("non-causal", 1, 1024, N_HEAD, D_HEAD, bf16, False),
              ("ragged", 1, 1000, N_HEAD, D_HEAD, bf16, True),
              ("ragged f32 d64", 1, 333, 2, 64, f32, False)]
+    counts = lambda: (dict(fa.FWD_FAMILY_CALLS), dict(fa.FUSED_FAMILY_CALLS),  # noqa: E731
+                      fa.flash_bwd_delta.launches)
     errs = {}
     for label, b, t, h, d, dtype, causal in cases:
         dname = str(dtype).replace("torch.", "")
         q, k, v, do = flash_inputs(torch, gen, b, t, h, d, dtype)
         dlse = torch.randn((b * h, t), generator=gen, device="cuda")
-        o, lse = fa.flash_fwd(q, k, v, causal)
-        dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, None, causal)
-        dq2, dk2, dv2 = fa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
-        torch.cuda.synchronize()
+        rule = fa._family(q, k, v, q)
+        if rule != ("sm90" if dtype == bf16 else "simple"):
+            raise AssertionError(f"the family rule gave {rule} at {label}")
         ro, rlse, rg, rgl = flash_plain(torch, fa, q, k, v, do, dlse, causal)
-        pairs = [("o", o, ro, "fwd"), ("lse", lse, rlse, "fwd"),
-                 ("dq", dq, rg[0], "grad"), ("dk", dk, rg[1], "grad"),
-                 ("dv", dv, rg[2], "grad"), ("dq+dlse", dq2, rgl[0], "grad"),
-                 ("dk+dlse", dk2, rgl[1], "grad"),
-                 ("dv+dlse", dv2, rgl[2], "grad")]
-        worst = {"fwd": (0.0, 0.0), "grad": (0.0, 0.0)}
-        for name, got, ref, kind in pairs:
-            tol = fa.oracle_tol(dtype, kind)
-            ab, rel = rel_err(torch, got, ref)
-            if not (bool(torch.isfinite(got.float()).all()) and rel <= tol):
+        worst = {}
+        for family in dict.fromkeys((rule, "simple")):
+            c0 = counts()
+            forced = (forced_family(fa, family) if family != rule
+                      else contextlib.nullcontext())
+            with forced:
+                o, lse = fa.flash_fwd(q, k, v, causal)
+                dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, None, causal)
+                dq2, dk2, dv2 = fa.flash_bwd(q, k, v, o, lse, do, dlse,
+                                             causal)
+            torch.cuda.synchronize()
+            c1 = counts()
+            pre = 2 if family == "sm90" else 0
+            got = (c1[0][family] - c0[0][family],
+                   c1[1][family] - c0[1][family], c1[2] - c0[2])
+            if got != (1, 2, pre) or sum(c1[0].values()) - sum(
+                    c0[0].values()) != 1:
                 raise AssertionError(
-                    f"flash attention {name} disagrees with its plain "
-                    f"version at {label} {dname}: rel {rel:.3e} > {tol}")
-            if rel >= worst[kind][1]:
-                worst[kind] = (ab, rel)
+                    f"{family} at {label} launched {got} (forward, fused "
+                    f"backward, pre-pass) on its family")
+            pairs = [("o", o, ro, "fwd"), ("lse", lse, rlse, "fwd"),
+                     ("dq", dq, rg[0], "grad"), ("dk", dk, rg[1], "grad"),
+                     ("dv", dv, rg[2], "grad"),
+                     ("dq+dlse", dq2, rgl[0], "grad"),
+                     ("dk+dlse", dk2, rgl[1], "grad"),
+                     ("dv+dlse", dv2, rgl[2], "grad")]
+            w = {"fwd": (0.0, 0.0), "grad": (0.0, 0.0)}
+            for name, got_, ref, kind in pairs:
+                tol = fa.oracle_tol(dtype, kind)
+                ab, rel = rel_err(torch, got_, ref)
+                if not (bool(torch.isfinite(got_.float()).all())
+                        and rel <= tol):
+                    raise AssertionError(
+                        f"flash attention {name} ({family}) disagrees with "
+                        f"its plain version at {label} {dname}: rel "
+                        f"{rel:.3e} > {tol}")
+                if rel >= w[kind][1]:
+                    w[kind] = (ab, rel)
+            worst[family] = w
+            if family == "sm90" and label == "path":
+                # one k-major body: the fused route's dk, dv are the split
+                # route's bits
+                with forced_route(fa, "split"):
+                    split = fa.flash_bwd(q, k, v, o, lse, do, None, causal)
+                torch.cuda.synchronize()
+                if not (torch.equal(split[1], dk) and torch.equal(split[2], dv)):
+                    raise AssertionError("the fused sm90 route's dk, dv "
+                                         "differ from the split sm90 route's")
+                log(f"kernel flash_attention {label}: the fused sm90 route's "
+                    f"dk and dv equal the split sm90 route's bit for bit")
+                del split
+            del o, lse, dq, dk, dv, dq2, dk2, dv2
         log(f"kernel flash_attention {label:14s} b={b} t={t} h={h} d={d} "
-            f"{dname:8s} {'causal' if causal else 'full  '} fwd rel "
-            f"{worst['fwd'][1]:.3e} (tol {fa.oracle_tol(dtype, 'fwd'):g}) "
-            f"grad rel {worst['grad'][1]:.3e} (tol "
-            f"{fa.oracle_tol(dtype, 'grad'):g}) ok")
-        errs[label] = (worst["fwd"][0], worst["grad"][0])
-        del q, k, v, do, dlse, o, lse, ro, rlse, rg, rgl
+            f"{dname:8s} {'causal' if causal else 'full  '}, with and without "
+            f"dlse: " + "; ".join(
+                f"{fam} fwd rel {w['fwd'][1]:.3e} grad rel "
+                f"{w['grad'][1]:.3e}" for fam, w in worst.items())
+            + f" (tol {fa.oracle_tol(dtype, 'fwd'):g} / "
+            f"{fa.oracle_tol(dtype, 'grad'):g}; rule: {rule}) ok")
+        errs[label] = (worst[rule]["fwd"][0], worst[rule]["grad"][0])
+        del q, k, v, do, dlse, ro, rlse, rg, rgl
         torch.cuda.empty_cache()
 
-    # timing at the training path's shape
+    # timing at the training path's shape: both families in turns
     b, t, h, d = TRAIN_B, TRAIN_T, N_HEAD, D_HEAD
     q, k, v, do = flash_inputs(torch, gen, b, t, h, d, bf16)
     o, lse = fa.flash_fwd(q, k, v, True)
-    fwd_ms = device_ms(torch, lambda i: fa.flash_fwd(q, k, v, True), 4)
-    bwd_ms = device_ms(
-        torch, lambda i: fa.flash_bwd(q, k, v, o, lse, do, None, True), 4)
+    times = {}
+    for family, n in (("simple", 2), ("sm90", 8), ("sm90", 8), ("simple", 2)):
+        with forced_family(fa, family):
+            times.setdefault(("fwd", family), []).append(device_ms(
+                torch, lambda i: fa.flash_fwd(q, k, v, True), n))
+            times.setdefault(("bwd", family), []).append(device_ms(
+                torch, lambda i: fa.flash_bwd(q, k, v, o, lse, do, None,
+                                              True), n))
+    for which in ("fwd", "bwd"):
+        if not max(times[(which, "sm90")]) < min(times[(which, "simple")]):
+            raise AssertionError(
+                f"the sm90 {which} ({times[(which, 'sm90')]} ms) is not "
+                f"faster than the simple one ({times[(which, 'simple')]} ms)")
+    fwd_ms, bwd_ms = (min(times[(w, "sm90")]) for w in ("fwd", "bwd"))
     plain_fwd_ms = device_ms(torch, lambda i: _chunked(
         lambda a, b_, c: fa.flash_attention_ref(a, b_, c, True),
         (q, k, v)), 1)
@@ -670,29 +746,42 @@ def flash_phase(torch, fa):
     fwd_flops, bwd_flops = 4 * d * entries, 10 * d * entries
     fwd_bytes = 4 * q.numel() * es + 4 * lse.numel()
     bwd_bytes = 8 * q.numel() * es + 4 * lse.numel()
+    log(f"flash_attention t={t} b={b} bf16 causal, in turns simple/sm90/"
+        f"sm90/simple: forward "
+        + "/".join(f"{x:.4f}" for x in times[("fwd", "simple")][:1]
+                   + times[("fwd", "sm90")] + times[("fwd", "simple")][1:])
+        + " ms; fused backward (the sm90 one with its delta pre-pass) "
+        + "/".join(f"{x:.4f}" for x in times[("bwd", "simple")][:1]
+                   + times[("bwd", "sm90")] + times[("bwd", "simple")][1:])
+        + " ms")
     rows = []
-    for name, line, ms, plain, lib, flops, nbytes, err in (
-            ("flash_attention_fwd", 363, fwd_ms, plain_fwd_ms, lib_fwd_ms,
-             fwd_flops, fwd_bytes, errs["path"][0]),
-            ("flash_attention_bwd", 843, bwd_ms, plain_bwd_ms, lib_bwd_ms,
-             bwd_flops, bwd_bytes, errs["path"][1])):
+    for name, line, src, ms, plain, lib, flops, nbytes, err in (
+            ("flash_attention_fwd", 363, "flash_fwd_sm90.cu", fwd_ms,
+             plain_fwd_ms, lib_fwd_ms, fwd_flops, fwd_bytes,
+             errs["path"][0]),
+            ("flash_attention_bwd", 843, "flash_bwd_sm90.cu", bwd_ms,
+             plain_bwd_ms, lib_bwd_ms, bwd_flops, bwd_bytes,
+             errs["path"][1])):
         ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
         bytes_ms = nbytes / HBM_BYTES_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
+        simple = min(times[(name.rsplit("_", 1)[1], "simple")])
         log(f"{name} bf16 causal (b={b} t={t} h={h} d={d}, "
             f"{flops / 1e12:.4f} TFLOP, {nbytes} bytes): kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
-            f"library (sdpa, fwd rel err {lib_rel:.2e}) {lib:.4f} ms, bound "
+            f"({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the "
+            f"bound), simple family {simple:.4f} ms ({simple / ms:.2f}x), "
+            f"plain {plain:.4f} ms, library (sdpa, fwd rel err "
+            f"{lib_rel:.2e}) {lib:.4f} ms ({ms / lib:.2f}x), bound "
             f"{bound_ms:.4f} ms "
             f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
         rows.append({"name": name, "route": "cuda",
-                     "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                     "source": f"paddle_tpu_torch/csrc/{src}",
                      "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
                      "bound_ms": bound_ms,
                      "bound_by": ("operations" if ops_ms >= bytes_ms
                                   else "bytes"),
-                     "library_ms": lib})
+                     "library_ms": lib, "simple_ms": simple})
     return rows
 
 
@@ -712,9 +801,9 @@ def forced_route(fa, route):
 
 @contextlib.contextmanager
 def forced_family(fa, family):
-    """The split route's kernel family forced for a comparison: the rule
-    (``bwd_family``, looked up by name at each call) is patched here, in
-    this script only."""
+    """The kernel family of every flash launch (forward, fused backward,
+    split pair) forced for a comparison: the rule (``bwd_family``, looked
+    up by name at each call) is patched here, in this script only."""
     real = fa.bwd_family
     fa.bwd_family = lambda *a, **kw: family
     try:
@@ -724,30 +813,21 @@ def forced_family(fa, family):
 
 
 def split_vs_fused(torch, fa, split, fused, dtype, family, what):
-    """The split route against the fused kernel.  The simple family shares
-    the fused kernel's k-major body, so its dk and dv must be the fused
-    bits; the sm90 family sums in another order, so its dk and dv (bf16
-    only) are held to one bf16 ulp relative, 2**-7.  dq, summed in another
-    order by both, within rounding of the input dtype (2**-7 in bf16, 1e-5
-    of max |dq| in f32).  Returns the worst relative difference."""
+    """The split route against the fused kernel of the same family: each
+    family's fused and dk/dv kernels share one k-major body, so dk and dv
+    must be the fused bits; dq, summed in another order, within rounding of
+    the input dtype (2**-7 in bf16, 1e-5 of max |dq| in f32).  Returns dq's
+    relative difference."""
     limit = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
-    worst = 0.0
     for name, a, b_ in (("dk", split[1], fused[1]), ("dv", split[2], fused[2])):
-        if family == "simple" or dtype != torch.bfloat16:
-            if not torch.equal(a, b_):
-                raise AssertionError(f"split {name} ({family}) differs from "
-                                     f"the fused kernel's at {what}")
-        else:
-            _, rel = rel_err(torch, a, b_)
-            if not rel <= limit:
-                raise AssertionError(f"split {name} ({family}) vs fused rel "
-                                     f"{rel:.3e} > {limit} at {what}")
-            worst = max(worst, rel)
+        if not torch.equal(a, b_):
+            raise AssertionError(f"split {name} ({family}) differs from "
+                                 f"the fused kernel's at {what}")
     _, rel = rel_err(torch, split[0], fused[0])
     if not rel <= limit:
         raise AssertionError(f"split dq ({family}) vs fused dq rel {rel:.3e} "
                              f"> {limit} at {what}")
-    return max(worst, rel)
+    return rel
 
 
 def split_phase(torch, fa):
@@ -757,7 +837,9 @@ def split_phase(torch, fa):
     forced, and at the small cases; at the t=16384 path shape against the
     fused kernel and, on batch row 0 one head at a time, the plain version;
     then both families' times at t=16384, in turns.  Returns the three
-    kernel rows (delta, dq, dk/dv)."""
+    kernel rows (delta, dq, dk/dv) and the forward's entry at t=16384
+    (both families in turns, the plain version, SDPA's forward, the
+    bound)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda")
@@ -785,10 +867,10 @@ def split_phase(torch, fa):
             raise AssertionError(f"the family rule gave {rule} at {label}")
         worst, vs_fused = {}, {}
         for dl in (None, dlse):
-            with forced_route(fa, "fused"):
-                fused = fa.flash_bwd(q, k, v, o, lse, do, dl, causal)
             ref = plain_bwd(fa, q, k, v, o, lse, do, dl, causal)
             for family in dict.fromkeys((rule, "simple")):
+                with forced_route(fa, "fused"), forced_family(fa, family):
+                    fused = fa.flash_bwd(q, k, v, o, lse, do, dl, causal)
                 c0 = counts()
                 with forced_route(fa, "split"), forced_family(fa, family):
                     split = fa.flash_bwd(q, k, v, o, lse, do, dl, causal)
@@ -817,14 +899,15 @@ def split_phase(torch, fa):
                     worst[family] = max(worst.get(family, 0.0), rel)
                 vs_fused[family] = max(vs_fused.get(family, 0.0), split_vs_fused(
                     torch, fa, split, fused, dtype, family, label))
-                del split, again
+                del split, again, fused
         log(f"kernel flash_attention split {label:14s} b={b} t={t} h={h} "
             f"d={d} {dname:8s} {'causal' if causal else 'full  '}, with and "
             f"without dlse, bit-identical run to run: "
-            + "; ".join(f"{fam} grad rel {worst[fam]:.3e} (tol {tol:g}), vs "
-                        f"fused {vs_fused[fam]:.2e}" for fam in worst)
+            + "; ".join(f"{fam} grad rel {worst[fam]:.3e} (tol {tol:g}), dk "
+                        f"dv the fused {fam} kernel's bits, dq vs fused "
+                        f"{vs_fused[fam]:.2e}" for fam in worst)
             + f" (rule: {rule}) ok")
-        del q, k, v, do, dlse, o, lse, fused, ref
+        del q, k, v, do, dlse, o, lse, ref
         torch.cuda.empty_cache()
 
     # the t=16384 path shape: kernel against kernel, then the plain version
@@ -880,8 +963,9 @@ def split_phase(torch, fa):
         raise AssertionError(f"delta pre-pass vs its plain version rel "
                              f"{delta_rel:.3e} > 1e-5")
     log(f"kernel flash_attention split path t={t} b={b} h={h} d={d} bf16 "
-        f"causal (sm90): bit-identical run to run; vs the fused kernel rel "
-        f"{fused_rel:.2e} (limit 2**-7); delta vs plain rel {delta_rel:.2e}; "
+        f"causal (sm90): bit-identical run to run; dk, dv the fused sm90 "
+        f"kernel's bits, dq vs its dq rel {fused_rel:.2e} (limit 2**-7); "
+        f"delta vs plain rel {delta_rel:.2e}; "
         f"batch row 0, every head, against the plain version: "
         + ", ".join(f"{n} rel {errs[n][1]:.3e}" for n in names)
         + f" (tol {tol:g}) ok")
@@ -909,7 +993,40 @@ def split_phase(torch, fa):
     with forced_route(fa, "fused"):
         fused_ms = device_ms(torch, lambda i: fa.flash_bwd(
             q, k, v, o, lse, do, None, True), 1)
-    fwd_ms = device_ms(torch, lambda i: fa.flash_fwd(q, k, v, True), 2)
+    # the forward at t=16384 (phase 8's): both families in turns, held to
+    # the plain version on batch row 0, one head at a time
+    for family, n in (("simple", 1), ("sm90", 3), ("sm90", 3), ("simple", 1)):
+        with forced_family(fa, family):
+            times.setdefault((family, "fwd"), []).append(device_ms(
+                torch, lambda i: fa.flash_fwd(q, k, v, True), n))
+    fwd_ms, fwd_simple = (min(times[(f, "fwd")]) for f in ("sm90", "simple"))
+    if not max(times[("sm90", "fwd")]) < fwd_simple:
+        raise AssertionError(f"the sm90 forward at t={t} is not faster than "
+                             f"the simple one: {times}")
+    fwd_errs = {"o": (0.0, 0.0), "lse": (0.0, 0.0)}
+    ftol = fa.oracle_tol(bf16, "fwd")
+    for hh in range(h):
+        ro, rl = fa.flash_attention_ref(head(q, 0, hh), head(k, 0, hh),
+                                        head(v, 0, hh), True)
+        for name, got, want in (("o", head(o, 0, hh), ro),
+                                ("lse", lse[hh:hh + 1], rl)):
+            ab, rel = rel_err(torch, got, want)
+            if not (bool(torch.isfinite(got.float()).all()) and rel <= ftol):
+                raise AssertionError(f"the sm90 forward's {name} at t={t} "
+                                     f"head {hh}: rel {rel:.3e} > {ftol}")
+            if rel >= fwd_errs[name][1]:
+                fwd_errs[name] = (ab, rel)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for bb in range(b):
+        for hh in range(h):
+            fa.flash_attention_ref(head(q, bb, hh), head(k, bb, hh),
+                                   head(v, bb, hh), True)
+    e1.record()
+    e1.synchronize()
+    plain_fwd_ms = e0.elapsed_time(e1)
+    torch.cuda.empty_cache()
     # the plain backward, head-chunked: one sweep over every (row, head)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -952,6 +1069,24 @@ def split_phase(torch, fa):
             raise AssertionError(
                 f"the sm90 {w} kernel ({times[('sm90', w)]} ms) is not faster "
                 f"than the simple one ({times[('simple', w)]} ms)")
+    fwd_flops = 4 * d * entries
+    fwd_bound = fwd_flops / PEAK_FLOPS["bfloat16"] * 1e3
+    fwd16k = {"t": t, "ms": fwd_ms, "simple_ms": fwd_simple,
+              "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound,
+              "bound_by": "operations", "library_ms": lib_fwd_ms,
+              "max_abs_err": max(fwd_errs["o"][0], fwd_errs["lse"][0])}
+    log(f"flash_attention_fwd t={t} b={b} h={h} d={d} bf16 causal "
+        f"({fwd_flops / 1e12:.4f} TFLOP), in turns simple/sm90/sm90/simple: "
+        + "/".join(f"{x:.3f}" for x in times[("simple", "fwd")][:1]
+                   + times[("sm90", "fwd")] + times[("simple", "fwd")][1:])
+        + f" ms; sm90 {fwd_ms:.4f} ms ({fwd_flops / fwd_ms / 1e9:.1f} "
+        f"TFLOP/s, {fwd_bound / fwd_ms:.3f} of the bound), simple "
+        f"{fwd_simple:.4f} ms ({fwd_simple / fwd_ms:.2f}x), plain (all heads, "
+        f"one at a time) {plain_fwd_ms:.3f} ms, library (sdpa forward) "
+        f"{lib_fwd_ms:.4f} ms ({fwd_ms / lib_fwd_ms:.2f}x), bound "
+        f"{fwd_bound:.4f} ms (operations); batch row 0, every head, against "
+        f"the plain version: o rel {fwd_errs['o'][1]:.3e}, lse rel "
+        f"{fwd_errs['lse'][1]:.3e} (tol {ftol:g}) ok")
     log(f"flash_attention t={t} b={b} bf16 causal: forward {fwd_ms:.3f} ms, "
         f"fused backward {fused_ms:.3f} ms (the route not taken); split, in "
         f"turns simple/sm90/sm90/simple: dq "
@@ -1002,7 +1137,7 @@ def split_phase(torch, fa):
                      "library_ms": lib})
     del q, k, v, do, o, lse, delta, delta_ref, dq, dk, dv, q4, k4, v4, do4
     torch.cuda.empty_cache()
-    return rows
+    return rows, fwd16k
 
 
 # -- phase 3c: the fused cross-entropy kernels against their plain versions --
@@ -1867,8 +2002,10 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
     for i in range(warm + steps):
         if i == warm:
             kernels.reset_launches()             # counts start at 0 here
-            for fam in fa.BWD_FAMILY_CALLS:
-                fa.BWD_FAMILY_CALLS[fam] = 0
+            for calls in (fa.FWD_FAMILY_CALLS, fa.FUSED_FAMILY_CALLS,
+                          fa.BWD_FAMILY_CALLS):
+                for fam in calls:
+                    calls[fam] = 0
         feed = make_batch(torch, rng, TRAIN_B, t)
         t0 = time.perf_counter()
         loss, = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
@@ -1876,7 +2013,9 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
         losses.append(loss.item())               # ends in a device sync
         walls.append(time.perf_counter() - t0)
     launches = kernels.launch_counts()
-    families = dict(fa.BWD_FAMILY_CALLS)
+    families = {"forward": dict(fa.FWD_FAMILY_CALLS),
+                "fused": dict(fa.FUSED_FAMILY_CALLS),
+                "split": dict(fa.BWD_FAMILY_CALLS)}
     peak = torch.cuda.max_memory_allocated()
     steady = sorted(walls[1:])[len(walls[1:]) // 2]
     route = fa.bwd_route((TRAIN_B, t, N_HEAD, D_HEAD), t, 2)
@@ -1888,12 +2027,12 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
         f"{peak} B")
     log(f"launches during the {steps} counted steps: "
         + ", ".join(f"{k} {v}" for k, v in launches.items())
-        + f" (expected a step: {N_LAYER} flash forward, {N_LAYER} "
-        + ("fused backward" if route == "fused" else
-           f"delta pre-pass + {N_LAYER} split dq + {N_LAYER} split dk/dv, "
-           f"0 fused backward")
+        + f" (expected a step: {N_LAYER} flash forward, {N_LAYER} delta "
+        f"pre-pass, "
+        + (f"{N_LAYER} fused backward" if route == "fused" else
+           f"{N_LAYER} split dq + {N_LAYER} split dk/dv, 0 fused backward")
         + (", 1 of each CE kernel)" if fused_head else ", no CE)")
-        + f"; split kernels by family {families}")
+        + f"; kernels by family {families}")
     if not all(np.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     if abs(losses[0] - np.log(VOCAB)) > 0.5:
@@ -1907,7 +2046,7 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
     expect = {"paged_attention": 0, "decode_gather": 0,
               "flash_attention_fwd": want,
               "flash_attention_bwd": want if route == "fused" else 0,
-              "flash_attention_bwd_delta": want if route == "split" else 0,
+              "flash_attention_bwd_delta": want,
               "flash_attention_bwd_dq": want if route == "split" else 0,
               "flash_attention_bwd_dkv": want if route == "split" else 0,
               "fused_ce_fwd": ce_want, "fused_ce_dx": ce_want,
@@ -1917,43 +2056,57 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
             f"launches {launches}, expected {expect}: some attention or "
             f"head call did not go through its kernel")
     split_calls = 2 * want if route == "split" else 0
-    if families != {"sm90": split_calls, "simple": 0}:
+    fused_calls = want if route == "fused" else 0
+    expect = {"forward": {"sm90": want, "simple": 0},
+              "fused": {"sm90": fused_calls, "simple": 0},
+              "split": {"sm90": split_calls, "simple": 0}}
+    if families != expect:
         raise AssertionError(
-            f"split kernels by family {families}, expected every one of "
-            f"{split_calls} on sm90")
+            f"flash kernels by family {families}, expected every one on "
+            f"sm90: {expect}")
     for n, old in before.items():
         if torch.equal(scope.get(n), old):
             raise AssertionError(f"parameter {n} did not change")
         if not torch.isfinite(scope.get(n).float()).all():
             raise AssertionError(f"parameter {n} is not finite")
+    sums = {}
     if profile:
-        profile_training(torch, pt, exe, main, scope, fetch,
-                         make_batch(torch, rng, TRAIN_B, t), steady)
+        sums = profile_training(torch, pt, exe, main, scope, fetch,
+                                make_batch(torch, rng, TRAIN_B, t), steady)
     del exe, scope, before
     return {"launches": launches, "peak": peak, "losses": losses,
-            "steady": steady}
+            "steady": steady, "profile": sums}
 
 
-def family_step_phase(torch, np, pt, fa, seed):
-    """Phase 8c: phase 8's program (t=16384, selective) takes one step from
-    one startup state and one batch twice: the split kernels by the rule
-    (sm90) and the simple family forced (a switch in this script only).
-    The losses must agree to bf16 rounding (1e-2 relative) and every
-    parameter's gradient within the flash bf16 grad tolerance."""
-    main, startup, model = build_training(pt, seed, LONG_T, "bfloat16", True)
-    pt.memory_optimize(main, policy="selective")
+def family_step_phase(torch, np, pt, fa, seed, label, t, policy, loss_tol,
+                      grad_tol):
+    """Phases 7c and 8c: a training path's program (``t``, remat
+    ``policy``, fused head, bf16) takes one step from one startup state and
+    one batch twice: every flash kernel (forward, and the fused or split
+    backward) on the family the rule picks (sm90) and on the simple family
+    forced (a switch in this script only).  The losses must agree within
+    ``loss_tol`` relative and every parameter's gradient within
+    ``grad_tol`` of the other family's."""
+    main, startup, model = build_training(pt, seed, t, "bfloat16", True)
+    if policy:
+        pt.memory_optimize(main, policy=policy)
     params = [p.name for p in main.all_parameters()]
     exe = pt.Executor()
     base = pt.Scope()
     exe.run(startup, scope=base)
-    feed = make_batch(torch, np.random.default_rng(seed), TRAIN_B, LONG_T)
+    feed = make_batch(torch, np.random.default_rng(seed), TRAIN_B, t)
     fetch = [model["avg_cost"].name] + [p + "@GRAD" for p in params]
+    route = fa.bwd_route((TRAIN_B, t, N_HEAD, D_HEAD), t, 2)
+    want = {"forward": N_LAYER, "fused": N_LAYER if route == "fused" else 0,
+            "split": 2 * N_LAYER if route == "split" else 0}
+    tables = {"forward": fa.FWD_FAMILY_CALLS, "fused": fa.FUSED_FAMILY_CALLS,
+              "split": fa.BWD_FAMILY_CALLS}
     runs, walls = {}, {}
     for family in ("sm90", "simple"):
         scope = pt.Scope()
         for n in base.var_names():
             scope.set(n, base.get(n).clone())
-        c0 = dict(fa.BWD_FAMILY_CALLS)
+        c0 = {k: dict(v) for k, v in tables.items()}
         forced = (forced_family(fa, family) if family == "simple"
                   else contextlib.nullcontext())
         t0 = time.perf_counter()
@@ -1962,22 +2115,27 @@ def family_step_phase(torch, np, pt, fa, seed):
                           return_numpy=False)
             loss = out[0].item()
         walls[family] = time.perf_counter() - t0
-        calls = {f: fa.BWD_FAMILY_CALLS[f] - c0[f] for f in c0}
-        if calls[family] != 2 * N_LAYER or sum(calls.values()) != 2 * N_LAYER:
-            raise AssertionError(f"the {family} step's split kernels by "
-                                 f"family: {calls}")
+        calls = {k: {f: v[f] - c0[k][f] for f in v} for k, v in tables.items()}
+        expect = {k: {"sm90": 0, "simple": 0, family: n}
+                  for k, n in want.items()}
+        if calls != expect:
+            raise AssertionError(f"the {family} step's flash kernels by "
+                                 f"family: {calls}, expected {expect}")
         runs[family] = (loss, out[1:])
         del scope, out
     (la, ga), (lb, gb) = runs["sm90"], runs["simple"]
-    if not (np.isfinite(la) and abs(la - lb) <= 1e-2 * abs(lb)):
-        raise AssertionError(f"phase 8c loss {la} (sm90) vs {lb} (simple)")
-    tol = fa.oracle_tol(torch.bfloat16, "grad")
-    worst = grads_agree(params, ga, gb, tol, "sm90 vs simple family, bf16")
-    log(f"phase 8c t={LONG_T}: one step from one state and batch, loss "
-        f"{la:.6f} (sm90) vs {lb:.6f} (simple family forced); gradients of "
-        f"{len(params)} parameters within {tol:g} (worst {worst[0]} rel "
-        f"{worst[1]:.3e}); step wall {walls['sm90']:.3f} vs "
-        f"{walls['simple']:.3f} s (first steps: allocation included)")
+    if not (np.isfinite(la) and abs(la - lb) <= loss_tol * abs(lb)):
+        raise AssertionError(f"phase {label} loss {la} (sm90) vs {lb} "
+                             f"(simple)")
+    worst = grads_agree(params, ga, gb, grad_tol,
+                        "sm90 vs simple family, bf16")
+    log(f"phase {label} t={t} ({route} backward, "
+        f"{policy or 'no'} remat): one step from one state and batch, loss "
+        f"{la:.6f} (sm90) vs {lb:.6f} (simple family forced; limit "
+        f"{loss_tol:g} relative); gradients of {len(params)} parameters "
+        f"within {grad_tol:g} (worst {worst[0]} rel {worst[1]:.6e}); step "
+        f"wall {walls['sm90']:.3f} vs {walls['simple']:.3f} s (first steps: "
+        f"allocation included)")
     del exe, base, runs, ga, gb
 
 
@@ -2012,7 +2170,8 @@ def long_phase(torch, np, pt, kernels, seed):
                          steps=LONG_STEPS, policy="selective", warm=1)
     torch.cuda.empty_cache()
     from paddle_tpu_torch.kernels import flash_attention as fa
-    family_step_phase(torch, np, pt, fa, seed)
+    family_step_phase(torch, np, pt, fa, seed, "8c", LONG_T, "selective",
+                      1e-2, fa.oracle_tol(torch.bfloat16, "grad"))
     gc.collect()
     torch.cuda.empty_cache()
     runs = {"selective": sel}
@@ -2241,7 +2400,9 @@ def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
     """Where one training step's time goes (measured, not judged): the
     device's kernel time by kernel family under ``torch.profiler``, then
     the device time of each forward and optimizer op type by CUDA events
-    around the op implementations (what is left is autograd's backward)."""
+    around the op implementations (what is left is autograd's backward).
+    Returns ``{family: (ms, calls)}`` of the profiled step ({} when the
+    profiler recorded no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2256,11 +2417,15 @@ def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
+    sums = {}
     if not rows:
         log("profile: the profiler recorded no device time")
     else:
-        families = (("flash forward", ("flash_fwd_kernel",)),
-                    ("flash backward (fused)", ("flash_bwd_kernel",)),
+        families = (("flash forward (sm90)", ("flash_fwd_sm90_kernel",)),
+                    ("flash forward (simple)", ("flash_fwd_kernel",)),
+                    ("flash backward (fused, sm90)",
+                     ("flash_bwd_sm90_fused_kernel",)),
+                    ("flash backward (fused, simple)", ("flash_bwd_kernel",)),
                     ("flash backward dq (split, simple)",
                      ("flash_bwd_dq_kernel",)),
                     ("flash backward dk/dv (split, simple)",
@@ -2283,7 +2448,6 @@ def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
                     ("LayerNorm", ("layer_norm", "LayerNorm")),
                     ("memcpy / memset", ("Memcpy", "Memset")))
         total = sum(r[0] for r in rows) / 1e3
-        sums = {}
         for us, count, key in rows:
             fam = next((f for f, pats in families
                         if any(p_ in key for p_ in pats)),
@@ -2334,6 +2498,7 @@ def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
         f"and the gradient norm — {step_ms - op_ms:.1f} ms")
     for typ, (ms, n) in sorted(by_type.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"  {ms:9.3f} ms {n:5d} calls  {typ}")
+    return sums
 
 
 def main():
@@ -2396,7 +2561,7 @@ def main():
     torch.cuda.empty_cache()
     flash_rows = flash_phase(torch, fa)
     torch.cuda.empty_cache()
-    split_rows = split_phase(torch, fa)
+    split_rows, fwd16k = split_phase(torch, fa)
     ce_rows = ce_phase(torch, ce)
     torch.cuda.empty_cache()
     ce_long_phase(torch, ce)
@@ -2454,6 +2619,17 @@ def main():
     #    7b. the unfused head, the same steps, for its peak memory
     fused = training_phase(torch, np, pt, kernels, args.seed,
                            fused_head=True)
+    prof = fused["profile"]
+    if prof and not all(prof.get(f, (0, 0))[1] == N_LAYER for f in (
+            "flash forward (sm90)", "flash backward (fused, sm90)")):
+        raise AssertionError(f"phase 7's profiled step does not list "
+                             f"{N_LAYER} flash_fwd_sm90_kernel and "
+                             f"flash_bwd_sm90_fused_kernel calls: {prof}")
+    torch.cuda.empty_cache()
+    # 7c. one step of phase 7's program on each kernel family
+    family_step_phase(torch, np, pt, fa, args.seed, "7c", TRAIN_T, None,
+                      1e-3, 1e-2)
+    gc.collect()
     torch.cuda.empty_cache()
     unfused = training_phase(torch, np, pt, kernels, args.seed,
                              fused_head=False)
@@ -2490,6 +2666,8 @@ def main():
         r["launches"] = fused["launches"][r["name"]]
     for r in split_rows:
         r["launches"] = long_launches[r["name"]]
+    fwd16k["launches"] = long_launches["flash_attention_fwd"]
+    flash_rows[0]["t16384"] = fwd16k
     print(json.dumps({"kernels": [row, gather_row] + flash_rows + split_rows
                       + ce_rows + [bn_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,21 @@
-// The split flash-attention backward for Hopper (sm_90a): a delta pre-pass,
-// a q-major dq kernel and a k-major dk/dv kernel, hand-written CUDA C++ bound
-// to PyTorch through a plain C interface (ctypes), as the other sources here.
+// The flash-attention backward for Hopper (sm_90a): a delta pre-pass, the
+// fused kernel, and the split route's q-major dq kernel and k-major dk/dv
+// kernel, hand-written CUDA C++ bound to PyTorch through a plain C
+// interface (ctypes), as the other sources here; the primitives (TMA,
+// mbarriers, wgmma, descriptors, tensor maps) are sm90.cuh's.
 //
-// Replaces paddle_tpu/ops/pallas_attention.py: _flash_bwd's split pair,
-// _bwd_dq_kernel (called at :900) and _bwd_dkv_kernel (:921), and the
-// delta = rowsum(do * o) - dlse that both compute inside (:418, :543).  The
-// wrapper (paddle_tpu_torch/kernels/flash_attention.py) takes these kernels
-// for bf16 inputs with d <= 128 whose strides and base pointers are 16-byte
+// Replaces paddle_tpu/ops/pallas_attention.py: _flash_bwd_fused (:843, the
+// fused route), _flash_bwd's split pair, _bwd_dq_kernel (called at :900)
+// and _bwd_dkv_kernel (:921), and the delta = rowsum(do * o) - dlse that
+// they compute inside (:418, :543).  The wrapper
+// (paddle_tpu_torch/kernels/flash_attention.py) takes these kernels for
+// bf16 inputs with d <= 128 whose strides and base pointers are 16-byte
 // aligned (what TMA can address), and the simple kernels of
 // flash_attention.cu for everything else; the rule is static and counted.
 //
 //   delta   one half-warp a query row (b, t, h): 16-byte vector loads of o
 //           and do, f32 sum, minus dlse; written [b*h, t_q] f32 once, read
-//           by row in both kernels (neither reads o).  Bound by bytes.
+//           by row in every kernel below (none reads o).  Bound by bytes.
 //   dq      grid (q-tiles of 128 rows, b*h), heavy causal tiles first.  Two
 //           consumer warpgroups own 64 query rows each; their Q and dO
 //           tiles stay resident in shared memory.  K and V tiles of 64 keys
@@ -36,6 +39,15 @@
 //           dK and dV (64 x d f32 each) stay in registers for the whole walk
 //           (setmaxnreg: 240 registers a consumer thread, 24 a producer) and
 //           are written once.
+//   fused   the dk/dv kernel's body (one template, DQ set) plus the dq
+//           product: each warpgroup stores its bf16 dS^T in a swizzled
+//           shared tile, a named barrier joins the two, and each computes
+//           its columns of the tile's dQ = dS.K by wgmma (A read transposed
+//           from shared memory, B the resident K), added into a zeroed f32
+//           dq with 16-byte vector reductions: one add a dq element per
+//           128-key block, against the simple kernel's scalar atomic per
+//           64-key tile.  dk and dv are the split route's bits; dq is
+//           reproducible to f32 rounding only (atomics).
 //
 // Common: a tile wholly above the causal diagonal is never visited, and only
 // tiles that cross it (or a ragged edge) are masked.  Ragged t: TMA fills
@@ -45,265 +57,29 @@
 // scores and softmax state in f32, p rounded to bf16 before p^T.do, ds
 // rounded before ds^T.q and ds.k.  Tensor maps address [b, t, h, d] with the
 // (batch, time, head) strides, so the packed [b, t, h*d] projections are
-// read in place; they are encoded on the host per launch, with
-// cuTensorMapEncodeTiled reached through cudaGetDriverEntryPoint (no -lcuda).
-// The head dim is padded to 64 or 128 by the box and TMA's zero fill.
-// Shared-memory tiles are [rows, 64] column halves in the 128-byte swizzle
-// that both TMA and wgmma read; no CUTLASS header is used.
+// read in place.  The head dim is padded to 64 or 128 by the box and TMA's
+// zero fill.
 //
 // Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s): operations for dq (three
-// causal products, 4.95 TFLOP at b=8, t=16384, h=6, d=128) and dk/dv (four,
-// 6.60 TFLOP); bytes for delta (0.40 GB read).  What the design does about
+// causal products, 4.95 TFLOP at b=8, t=16384, h=6, d=128), dk/dv (four,
+// 6.60 TFLOP) and the fused kernel (five, 0.516 TFLOP at t=4096: 0.521 ms);
+// bytes for delta (0.40 GB read at t=16384).  What the design does about
 // it: the products run on wgmma with register accumulators, and the next
 // tile's TMA load is in flight while the current one is multiplied.
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kRows = 64;                     // rows of a consumer warpgroup
-constexpr int kConsumers = 2;                 // consumer warpgroups a block
-constexpr int kBlockRows = kRows * kConsumers;  // resident rows a block
-constexpr int kTile = 64;                     // rows of a streamed tile
-constexpr int kStages = 3;                    // depth of the TMA ring
-constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
+// bytes of one bf16 dS^T tile of the fused kernel: the block's 128 keys by
+// a streamed tile's 64 queries
+constexpr int kDsBytes = kBlockRows * kTile * 2;
 
-struct Geom {
-  int B, H, TQ, TK, D;           // D: the real head dim (<= DP)
-  long long q_sb, q_st, q_sh;    // element strides of q, o, do, dq
-  long long k_sb, k_st, k_sh;    // element strides of k, v, dk, dv
-  float scale;
-  int causal;
-};
-
-// -- shared memory, mbarriers, TMA -------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// One box of a 4-D tensor map ({d, h, t, b}, innermost first) into shared
-// memory; completion adds its bytes to the barrier's transaction count.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c_d, int c_h,
-                                         int c_t, int c_b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c_d),
-      "r"(c_h), "r"(c_t), "r"(c_b)
-      : "memory");
-}
-
-// -- wgmma -------------------------------------------------------------------
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving reads of an accumulator above the wait
-// that makes it valid (the wgmma's outputs look ready at issue).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Matrix descriptors of a 128-byte-swizzled tile: rows of 64 bf16 (128 B),
-// 8-row groups 1024 B apart (the stride byte offset).  K-major: the
-// reduction runs along the row.  MN-major: it runs down the rows, and `lbo`
-// is the distance between 64-column halves of the tile.
-__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared
-// memory; acc == 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (the accumulator
-// layout's fragment), B MN-major in shared memory (the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64 x 128] += A[64 x 16] . B[16 x 128], A in registers (the accumulator
-// layout's fragment), B MN-major in shared memory (the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// Tiles in shared memory are [rows, DP] bf16 stored as DP / 64 column halves
-// of [rows, 64] (rows * 128 bytes each), 128-byte swizzled, as TMA writes
-// them.  `a` and `b` are shared addresses of a tile's first row in its first
-// half; `a_rows` / `b_rows` the rows each half holds.
-
-// d[64 x 64] = A[64 x DP] . B[64 x DP]^T (both K-major)
-template <int DP>
-__device__ __forceinline__ void gemm_abt(float (&d)[32], uint32_t a,
-                                         int a_rows, uint32_t b, int b_rows) {
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const uint32_t off = (kk & 3) * 32;  // 16 columns = 32 bytes
-    const uint32_t half = kk >> 2;
-    wgmma_ss_n64(d, desc_k(a + half * a_rows * 128 + off),
-                 desc_k(b + half * b_rows * 128 + off), kk > 0);
-  }
-}
-
-// d[64 x DP] += A[64 x 64] . B[64 x DP]: A as four k16 register fragments,
-// B a streamed tile of kTile rows read MN-major (16 rows = 2048 bytes a step)
-template <int DP>
-__device__ __forceinline__ void gemm_rs(float (&d)[DP / 2],
-                                        const uint32_t (&a)[4][4],
-                                        uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = desc_mn(b + kk * 2048, kTile * 128);
-    if constexpr (DP == 128)
-      wgmma_rs_n128(d, a[kk], db);
-    else
-      wgmma_rs_n64(d, a[kk], db);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The f32 accumulator of a 64 x 64 product, rounded to bf16, as the A
-// operand of the next one: thread (warp w, lane l) holds d[4 j + e] at row
-// 16 w + l / 4 + 8 (e >> 1), column 8 j + 2 (l % 4) + (e & 1), which is the
-// k16 A-fragment layout for columns 16 kk .. 16 kk + 15 (j = 2 kk, 2 kk + 1).
-__device__ __forceinline__ void to_frags(const float (&d)[32],
-                                         uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
-}
-
-// Aligns the dynamic shared memory to 1024 bytes (the swizzle's period).
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
-  return raw + pad;
-}
-
-template <int DP>
+template <int DP, bool DQ = false>
 constexpr size_t sm90_smem_bytes() {
   constexpr size_t res = (size_t)(DP / 64) * kBlockRows * 128;
   constexpr size_t stg = (size_t)(DP / 64) * kTile * 128;
-  return 1024 + 2 * res + kStages * 2 * stg +
+  return 1024 + 2 * res + kStages * 2 * stg + (DQ ? 2 * kDsBytes : 0) +
          kStages * 2 * kTile * sizeof(float) +
          (2 * kStages + 1) * sizeof(uint64_t);
 }
@@ -500,26 +276,42 @@ flash_bwd_sm90_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// -- dk/dv: k-major ----------------------------------------------------------
+// -- dk/dv (and, fused, dq): k-major ------------------------------------------
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_sm90_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
-                          const __grid_constant__ CUtensorMap tm_do,
-                          const __grid_constant__ CUtensorMap tm_k,
-                          const __grid_constant__ CUtensorMap tm_v,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, Geom g) {
+// The k-major body: dK and dV of a 128-key block and, with DQ, the block's
+// share of dQ.  flash_bwd_sm90_dkv_kernel (split route) and
+// flash_bwd_sm90_fused_kernel (fused route) are this body with DQ false and
+// true, so the two routes' dk and dv are the same bits.
+//
+// DQ: once a q-tile's dS^T (64 keys x 64 queries a consumer warpgroup) is
+// in registers, each warpgroup stores it in bf16 into a swizzled shared
+// tile (double-buffered by q-tile parity), a named barrier joins the two
+// warpgroups, and warpgroup w computes dQ_tile = dS . K with A the dS^T tile
+// read transposed and B the resident K read MN-major: at DP = 128 its 64
+// columns of dQ over all 128 keys, at DP = 64 all 64 columns over its own
+// 64 keys.  32 f32 accumulators a thread; the tile is added into the zeroed
+// f32 dq with 16-byte vector reductions (atomicAdd on float4, a
+// red.global.add.v4.f32): a lane swaps one f32 pair with its neighbour so
+// that it holds four consecutive columns of one row.
+//
+// g comes by value: through a reference to the kernel parameter the
+// compiler reloads the lengths and the causal flag in the masking loop and
+// branches once an element (the dk/dv kernel measured 10% slower so).
+template <int DP, bool DQ>
+__device__ __forceinline__ void bwd_kv_body(
+    const CUtensorMap& tm_q, const CUtensorMap& tm_do, const CUtensorMap& tm_k,
+    const CUtensorMap& tm_v, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq32,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    const Geom g, unsigned char* smem_raw) {
   constexpr int NH = DP / 64;
   constexpr int RES = NH * kBlockRows * 128;
   constexpr int STG = NH * kTile * 128;
-  extern __shared__ unsigned char smem_raw[];
   unsigned char* Ks = aligned_smem(smem_raw);   // [NH][kBlockRows][64]
   unsigned char* Vs = Ks + RES;
   unsigned char* ring = Vs + RES;               // kStages x {Q, dO}
-  float* stats = reinterpret_cast<float*>(ring + kStages * 2 * STG);
+  unsigned char* dSs = ring + kStages * 2 * STG;  // DQ: 2 x [128 keys][64]
+  float* stats = reinterpret_cast<float*>(dSs + (DQ ? 2 * kDsBytes : 0));
   uint64_t* full = reinterpret_cast<uint64_t*>(stats + kStages * 2 * kTile);
   uint64_t* empty = full + kStages;
   uint64_t* res = empty + kStages;
@@ -607,7 +399,12 @@ flash_bwd_sm90_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int s = it % kStages;
       mbar_wait(&full[s], (it / kStages) & 1);
       const int q0 = (jq0 + it) * kTile;
-      if (live && !(g.causal && q0 + kTile - 1 < kw0)) {
+      const bool mine = live && !(g.causal && q0 + kTile - 1 < kw0);
+      // DQ: this q-tile's dS^T buffer; WG1's keys (64..127) are live here
+      unsigned char* dsb = dSs + (it & 1) * kDsBytes;
+      const bool live1 = k0 + kRows < g.TK &&
+                         !(g.causal && q0 + kTile - 1 < k0 + kRows);
+      if (mine) {
         const uint32_t qs = smem_u32(ring + s * 2 * STG), dos = qs + STG;
         const float* ls = stats + s * 2 * kTile;
         wgmma_fence();
@@ -617,8 +414,10 @@ flash_bwd_sm90_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(S);
-        const bool mask =
-            (g.causal && q0 < kw0 + kRows - 1) || q0 + kTile > g.TQ;
+        // DQ also masks keys past t_k (their zero-filled K rows meet dS in
+        // the dq product, and a non-finite p there would poison it)
+        const bool mask = (g.causal && q0 < kw0 + kRows - 1) ||
+                          q0 + kTile > g.TQ || (DQ && kw0 + kRows > g.TK);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int c = 8 * j + 2 * gc;  // this thread's two query columns
@@ -629,7 +428,9 @@ flash_bwd_sm90_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
             const int key = (e & 2) ? kb : ka;
             const int qp = q0 + c + (e & 1);
             float p = exp2f(S[i] * sl2 - ((e & 1) ? l2.y : l2.x));
-            if (mask && (qp >= g.TQ || (g.causal && qp < key))) p = 0.f;
+            if (mask && (qp >= g.TQ || (g.causal && qp < key) ||
+                         (DQ && key >= g.TK)))
+              p = 0.f;
             S[i] = p;
           }
         }
@@ -648,13 +449,87 @@ flash_bwd_sm90_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         uint32_t pa[4][4], sa[4][4];
         to_frags(S, pa);
         to_frags(dP, sa);
+        if constexpr (DQ) {
+          // dS^T rows are this thread's keys, columns its query pairs: row
+          // r's 16-byte chunk j sits at chunk j ^ (r % 8) (128-byte swizzle)
+          const int r_a = wg * kRows + warp * 16 + gr, r_b = r_a + 8;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int j = 2 * kk + (i >> 1), r = (i & 1) ? r_b : r_a;
+              *reinterpret_cast<uint32_t*>(dsb + r * 128 +
+                                           ((j ^ (r & 7)) << 4) + gc * 4) =
+                  sa[kk][i];
+            }
+          fence_proxy_async();
+        }
         wgmma_fence();
         gemm_rs<DP>(dV, pa, dos);  // dV += P^T . dO
         gemm_rs<DP>(dK, sa, qs);   // dK += dS^T . Q
         wgmma_commit();
+        if constexpr (!DQ) {
+          wgmma_wait<0>();
+          fence_regs(dV);
+          fence_regs(dK);
+        }
+      }
+      if constexpr (DQ) {
+        // every visited q-tile reaches some key of the block (q0 + 63 >=
+        // k0), so WG0's keys are live and both warpgroups meet here
+        const bool run = DP == 128 || mine;
+        if (DP == 128)
+          named_bar_sync(1, kConsumers * 128);
+        else if (mine)
+          named_bar_sync(2 + wg, 128);
+        float dQ[32];
+        if (run) {
+          // DP = 128: columns 64 wg.., keys 0..63 (+ 64..127 when live1);
+          // DP = 64: all columns over this warpgroup's own keys
+          const int nkk = DP == 128 ? (live1 ? 8 : 4) : 4;
+          const uint32_t as = smem_u32(dsb) + (DP == 128 ? 0 : wg * kRows * 128);
+          const uint32_t bs =
+              smem_u32(Ks) + wg * (DP == 128 ? kBlockRows : kRows) * 128;
+#pragma unroll
+          for (int i = 0; i < 32; ++i) dQ[i] = 0.f;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk)
+            if (kk < nkk)
+              wgmma_ss_n64_tt(dQ, desc_mn(as + kk * 2048, 64 * 128),
+                              desc_mn(bs + kk * 2048, kBlockRows * 128),
+                              kk > 0);
+          wgmma_commit();
+        }
         wgmma_wait<0>();
-        fence_regs(dV);
-        fence_regs(dK);
+        if (mine) {
+          fence_regs(dV);
+          fence_regs(dK);
+        }
+        if (run) {
+          fence_regs(dQ);
+          const int ra = q0 + warp * 16 + gr, rb = ra + 8;
+          const int cbase = DP == 128 ? wg * 64 : 0;
+          const bool even = (gc & 1) == 0;
+          const int row = even ? ra : rb;
+          float* out = dq32 + (long long)b * g.q_sb + (long long)h * g.q_sh +
+                       (long long)row * g.q_st;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            // even lanes keep row a and take the neighbour's row-a pair,
+            // odd lanes row b: four consecutive columns of one row each
+            const float s0 = even ? dQ[4 * j + 2] : dQ[4 * j];
+            const float s1 = even ? dQ[4 * j + 3] : dQ[4 * j + 1];
+            const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+            const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+            const float4 v4 = even ? make_float4(dQ[4 * j], dQ[4 * j + 1], r0, r1)
+                                   : make_float4(r0, r1, dQ[4 * j + 2],
+                                                 dQ[4 * j + 3]);
+            const int col = cbase + 8 * j + 2 * (gc & ~1);
+            if (row < g.TQ && col < g.D)
+              atomicAdd(reinterpret_cast<float4*>(out + col), v4);
+          }
+        }
       }
       mbar_arrive(&empty[s]);
     }
@@ -684,85 +559,36 @@ flash_bwd_sm90_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// -- host side ---------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_sm90_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dq32,  // null, unused
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, Geom g) {
+  extern __shared__ unsigned char smem_raw[];
+  bwd_kv_body<DP, false>(tm_q, tm_do, tm_k, tm_v, lse, delta, dq32, dk, dv, g,
+                         smem_raw);
 }
 
-// A [b, t, h, d] bf16 tensor as a 4-D map, innermost first, with boxes of
-// 64 columns by `rows` rows of one (batch, head), 128-byte swizzled; reads
-// past any edge fill zeros.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, const Geom& g, int T,
-                     long long sb, long long st, long long sh, int rows) {
-  EncodeTiled enc = encoder();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)g.D, (cuuint64_t)g.H, (cuuint64_t)T,
-                              (cuuint64_t)g.B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = enc(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
-// What these kernels take (the wrapper decides the same before calling).
-bool sm90_ok(const Geom& g, const void* const* ptrs, int n) {
-  if (g.B < 1 || g.H < 1 || g.TQ < 1 || g.TK < 1 || g.D < 1 || g.D > 128 ||
-      g.D % 8 != 0 || (long long)g.B * g.H > 65535)
-    return false;
-  const long long s[6] = {g.q_sb, g.q_st, g.q_sh, g.k_sb, g.k_st, g.k_sh};
-  for (long long x : s)
-    if (x % 8 != 0) return false;  // 16 bytes of bf16
-  for (int i = 0; i < n; ++i)
-    if (!aligned16(ptrs[i])) return false;
-  return true;
-}
-
-// The four maps of a launch: the resident side boxes kBlockRows rows, the
-// streamed side kTile.
-cudaError_t make_maps(CUtensorMap (&m)[4], const void* q, const void* dout,
-                      const void* k, const void* v, const Geom& g,
-                      bool q_resident) {
-  const int qr = q_resident ? kBlockRows : kTile;
-  const int kr = q_resident ? kTile : kBlockRows;
-  cudaError_t e;
-  if ((e = make_map(&m[0], q, g, g.TQ, g.q_sb, g.q_st, g.q_sh, qr)) ||
-      (e = make_map(&m[1], dout, g, g.TQ, g.q_sb, g.q_st, g.q_sh, qr)) ||
-      (e = make_map(&m[2], k, g, g.TK, g.k_sb, g.k_st, g.k_sh, kr)) ||
-      (e = make_map(&m[3], v, g, g.TK, g.k_sb, g.k_st, g.k_sh, kr)))
-    return e;
-  return cudaSuccess;
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_sm90_fused_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq32,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, Geom g) {
+  extern __shared__ unsigned char smem_raw[];
+  bwd_kv_body<DP, true>(tm_q, tm_do, tm_k, tm_v, lse, delta, dq32, dk, dv, g,
+                        smem_raw);
 }
 
 template <int DP>
@@ -784,21 +610,25 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <int DP>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dk, void* dv,
-               const Geom& g, cudaStream_t st) {
+// The k-major launch: the split route's dk/dv kernel, or (DQ) the fused
+// route's kernel, which also adds dq into the zeroed f32 dq32.  Both take
+// one parameter list, so one launch serves either.
+template <int DP, bool DQ>
+int launch_kv(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, float* dq32, void* dk,
+              void* dv, const Geom& g, cudaStream_t st) {
   CUtensorMap m[4];
   cudaError_t e = make_maps(m, q, dout, k, v, g, false);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = sm90_smem_bytes<DP>();
-  auto kern = flash_bwd_sm90_dkv_kernel<DP>;
+  const size_t smem = sm90_smem_bytes<DP, DQ>();
+  auto kern = DQ ? flash_bwd_sm90_fused_kernel<DP>
+                 : flash_bwd_sm90_dkv_kernel<DP>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((g.TK + kBlockRows - 1) / kBlockRows),
                   (unsigned)(g.B * g.H));
-  kern<<<grid, kThreads, smem, st>>>(m[0], m[1], m[2], m[3], lse, delta,
+  kern<<<grid, kThreads, smem, st>>>(m[0], m[1], m[2], m[3], lse, delta, dq32,
                                      static_cast<__nv_bfloat16*>(dk),
                                      static_cast<__nv_bfloat16*>(dv), g);
   return (int)cudaGetLastError();
@@ -807,10 +637,11 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // Every entry point launches on `stream`, allocates nothing and returns the
-// cudaError_t of the launch (0 on success).  dq and dk/dv take dtype 1
-// (bfloat16) only.  Strides are in elements; the head-dim stride is 1.  The wrapper (paddle_tpu_torch/kernels/
+// cudaError_t of the launch (0 on success).  dq, dk/dv and the fused
+// kernel take dtype 1 (bfloat16) only.  Strides are in elements; the
+// head-dim stride is 1.  The wrapper (paddle_tpu_torch/kernels/
 // flash_attention.py) checks shapes, dtypes and contiguity, applies the
-// dispatch rule and allocates delta, dq, dk and dv.
+// dispatch rule and allocates delta, dq (dq32), dk and dv.
 
 // delta [B*H, TQ] f32 = rowsum(do * o) - dlse (dlse may be null), for the
 // bf16 tensors the sm90 kernels take: D and every stride a multiple of 8
@@ -868,8 +699,34 @@ extern "C" int flash_bwd_sm90_dkv(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (D <= 64) return launch_dkv<64>(q, k, v, dout, l, dl, dk, dv, g, st);
-  return launch_dkv<128>(q, k, v, dout, l, dl, dk, dv, g, st);
+  if (D <= 64)
+    return launch_kv<64, false>(q, k, v, dout, l, dl, nullptr, dk, dv, g, st);
+  return launch_kv<128, false>(q, k, v, dout, l, dl, nullptr, dk, dv, g, st);
+}
+
+// The fused route: dk, dv (the split route's bits) and dq added with f32
+// vector atomics into dq32, a zeroed f32 tensor of q's shape and strides.
+extern "C" int flash_bwd_sm90_fused(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dq32, void* dk, void* dv, int B,
+                                    int H, int TQ, int TK, int D,
+                                    long long q_sb, long long q_st,
+                                    long long q_sh, long long k_sb,
+                                    long long k_st, long long k_sh,
+                                    float scale, int causal, int dtype,
+                                    void* stream) {
+  const Geom g{B, H, TQ, TK, D, q_sb, q_st, q_sh, k_sb, k_st, k_sh, scale,
+               causal};
+  const void* ptrs[7] = {q, k, v, dout, dq32, dk, dv};
+  if (dtype != 1 || !sm90_ok(g, ptrs, 7)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  float* dq = static_cast<float*>(dq32);
+  if (D <= 64)
+    return launch_kv<64, true>(q, k, v, dout, l, dl, dq, dk, dv, g, st);
+  return launch_kv<128, true>(q, k, v, dout, l, dl, dq, dk, dv, g, st);
 }
 
 extern "C" const char* flash_bwd_sm90_error_string(int err) {

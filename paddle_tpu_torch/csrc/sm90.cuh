@@ -1,0 +1,411 @@
+// The sm90 primitives shared by the port's Hopper (sm_90a) attention
+// kernels, flash_bwd_sm90.cu and flash_fwd_sm90.cu: mbarriers and TMA
+// loads, wgmma (shared-memory and register A operands) with its matrix
+// descriptors, the packing of an f32 accumulator into a bf16 A fragment,
+// and the host-side encoding of the [b, t, h, d] tensor maps.  Inline PTX;
+// no CUTLASS header.  Everything lives in an anonymous namespace: each
+// source is its own library (paddle_tpu_torch/kernels/_build.py), and a
+// changed header rebuilds every source that includes it.
+//
+// Layout conventions: shared-memory tiles are [rows, DP] bf16 stored as
+// DP / 64 column halves of [rows, 64] (rows * 128 bytes each) in the
+// 128-byte swizzle that both TMA and wgmma read; a tile's base is 1024-byte
+// aligned (the swizzle's period).  A consumer warpgroup owns 64 rows of a
+// 128-row resident tile; streamed tiles come through a kStages-deep ring
+// that one producer warp feeds.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kRows = 64;                     // rows of a consumer warpgroup
+constexpr int kConsumers = 2;                 // consumer warpgroups a block
+constexpr int kBlockRows = kRows * kConsumers;  // resident rows a block
+constexpr int kTile = 64;                     // rows of a streamed tile
+constexpr int kStages = 3;                    // depth of the TMA ring
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
+
+struct Geom {
+  int B, H, TQ, TK, D;           // D: the real head dim (<= DP)
+  long long q_sb, q_st, q_sh;    // element strides of q, o, do, dq
+  long long k_sb, k_st, k_sh;    // element strides of k, v, dk, dv
+  float scale;
+  int causal;
+};
+
+// -- shared memory, mbarriers, TMA -------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of a 4-D tensor map ({d, h, t, b}, innermost first) into shared
+// memory; completion adds its bytes to the barrier's transaction count.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c_d, int c_h,
+                                         int c_t, int c_b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c_d),
+      "r"(c_h), "r"(c_t), "r"(c_b)
+      : "memory");
+}
+
+// -- wgmma -------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads of an accumulator above the wait
+// that makes it valid (the wgmma's outputs look ready at issue).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `n` threads, whole warps.
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// Makes this thread's generic-proxy shared-memory writes visible to the
+// async proxy (wgmma and TMA operand reads) once a barrier orders them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Matrix descriptors of a 128-byte-swizzled tile: rows of 64 bf16 (128 B),
+// 8-row groups 1024 B apart (the stride byte offset).  K-major: the
+// reduction runs along the row.  MN-major: it runs down the rows, and `lbo`
+// is the distance between 64-column halves of the tile.
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared
+// memory; acc == 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, A and B K-major in shared
+// memory; acc == 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B both MN-major in shared
+// memory (both transpose bits: A's rows and B's columns are contiguous);
+// acc == 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64_tt(float (&d)[32], uint64_t da,
+                                                uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (the accumulator
+// layout's fragment), B MN-major in shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] . B[16 x 128], A in registers (the accumulator
+// layout's fragment), B MN-major in shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Tiles in shared memory are [rows, DP] bf16 stored as DP / 64 column halves
+// of [rows, 64] (rows * 128 bytes each), 128-byte swizzled, as TMA writes
+// them.  `a` and `b` are shared addresses of a tile's first row in its first
+// half; `a_rows` / `b_rows` the rows each half holds.
+
+// d[64 x N] = A[64 x DP] . B[N x DP]^T (both K-major), N = 64 or 128
+template <int DP, int N = 64>
+__device__ __forceinline__ void gemm_abt(float (&d)[N / 2], uint32_t a,
+                                         int a_rows, uint32_t b, int b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = (kk & 3) * 32;  // 16 columns = 32 bytes
+    const uint32_t half = kk >> 2;
+    const uint64_t da = desc_k(a + half * a_rows * 128 + off);
+    const uint64_t db = desc_k(b + half * b_rows * 128 + off);
+    if constexpr (N == 128)
+      wgmma_ss_n128(d, da, db, kk > 0);
+    else
+      wgmma_ss_n64(d, da, db, kk > 0);
+  }
+}
+
+// d[64 x DP] += A[64 x KT] . B[KT x DP]: A as KT / 16 k16 register
+// fragments, B a streamed tile of KT rows read MN-major (16 rows = 2048
+// bytes a step; KT * 128 bytes between its 64-column halves)
+template <int DP, int KT = kTile>
+__device__ __forceinline__ void gemm_rs(float (&d)[DP / 2],
+                                        const uint32_t (&a)[KT / 16][4],
+                                        uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk) {
+    const uint64_t db = desc_mn(b + kk * 2048, KT * 128);
+    if constexpr (DP == 128)
+      wgmma_rs_n128(d, a[kk], db);
+    else
+      wgmma_rs_n64(d, a[kk], db);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The f32 accumulator of a 64 x N product, rounded to bf16, as the A
+// operand of the next one: thread (warp w, lane l) holds d[4 j + e] at row
+// 16 w + l / 4 + 8 (e >> 1), column 8 j + 2 (l % 4) + (e & 1), which is the
+// k16 A-fragment layout for columns 16 kk .. 16 kk + 15 (j = 2 kk, 2 kk + 1).
+template <int NR, int NK>
+__device__ __forceinline__ void to_frags(const float (&d)[NR],
+                                         uint32_t (&a)[NK][4]) {
+  static_assert(NR == 8 * NK, "four registers a k16 fragment");
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// Aligns the dynamic shared memory to 1024 bytes (the swizzle's period).
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
+  return raw + pad;
+}
+
+// -- host side ---------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [b, t, h, d] bf16 tensor as a 4-D map, innermost first, with boxes of
+// 64 columns by `rows` rows of one (batch, head), 128-byte swizzled; reads
+// past any edge fill zeros.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, const Geom& g, int T,
+                     long long sb, long long st, long long sh, int rows) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)g.D, (cuuint64_t)g.H, (cuuint64_t)T,
+                              (cuuint64_t)g.B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// What these kernels take (the wrapper decides the same before calling).
+bool sm90_ok(const Geom& g, const void* const* ptrs, int n) {
+  if (g.B < 1 || g.H < 1 || g.TQ < 1 || g.TK < 1 || g.D < 1 || g.D > 128 ||
+      g.D % 8 != 0 || (long long)g.B * g.H > 65535)
+    return false;
+  const long long s[6] = {g.q_sb, g.q_st, g.q_sh, g.k_sb, g.k_st, g.k_sh};
+  for (long long x : s)
+    if (x % 8 != 0) return false;  // 16 bytes of bf16
+  for (int i = 0; i < n; ++i)
+    if (!aligned16(ptrs[i])) return false;
+  return true;
+}
+
+// The four maps of a launch: the resident side boxes kBlockRows rows, the
+// streamed side kTile.
+cudaError_t make_maps(CUtensorMap (&m)[4], const void* q, const void* dout,
+                      const void* k, const void* v, const Geom& g,
+                      bool q_resident) {
+  const int qr = q_resident ? kBlockRows : kTile;
+  const int kr = q_resident ? kTile : kBlockRows;
+  cudaError_t e;
+  if ((e = make_map(&m[0], q, g, g.TQ, g.q_sb, g.q_st, g.q_sh, qr)) ||
+      (e = make_map(&m[1], dout, g, g.TQ, g.q_sb, g.q_st, g.q_sh, qr)) ||
+      (e = make_map(&m[2], k, g, g.TK, g.k_sb, g.k_st, g.k_sh, kr)) ||
+      (e = make_map(&m[3], v, g, g.TK, g.k_sb, g.k_st, g.k_sh, kr)))
+    return e;
+  return cudaSuccess;
+}
+
+}  // namespace

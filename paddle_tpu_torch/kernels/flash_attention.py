@@ -25,12 +25,15 @@ Two spellings of each function live here:
   before ``ds^T @ q`` and ``ds @ k``, ``delta = rowsum(do * o) - dlse``.
   They materialise the ``[b, h, t_q, t_k]`` score matrix.  The CPU path
   and the numerics reference the kernels are held against.
-* the CUDA kernels ``csrc/flash_attention.cu``, hand-written for Hopper
-  (``sm_90a``), which replace the TPU kernels ``_flash_fwd``,
-  ``_flash_bwd_fused`` and ``_flash_bwd``'s split dq and dk/dv kernels,
-  and ``csrc/flash_bwd_sm90.cu``, the split pair again on ``wgmma`` with
-  register accumulators and a TMA operand ring, behind a once-per-row
-  delta pre-pass (:func:`flash_bwd_delta`).
+* the CUDA kernels, hand-written for Hopper (``sm_90a``), which replace
+  the TPU kernels ``_flash_fwd``, ``_flash_bwd_fused`` and
+  ``_flash_bwd``'s split dq and dk/dv kernels, in two families:
+  ``"sm90"`` — ``csrc/flash_fwd_sm90.cu`` (the forward) and
+  ``csrc/flash_bwd_sm90.cu`` (the fused backward and the split pair, one
+  k-major body), on ``wgmma`` with register accumulators and a TMA
+  operand ring, the backwards behind a once-per-row delta pre-pass
+  (:func:`flash_bwd_delta`) — and ``"simple"`` — ``csrc/flash_attention.cu``,
+  WMMA tiles staged in shared memory, for everything TMA cannot address.
 
 The backward takes one of two routes, chosen as the reference chooses
 (:func:`bwd_route`, ``pallas_attention.py: _flash_bwd``): the fused
@@ -40,14 +43,17 @@ q-major dq kernel and a k-major dk/dv kernel.  At the flagship's b=8,
 h=6, d=128 in bf16 the split route starts at t=8192.  The route is
 decided before any launch; each route launches its kernels or raises.
 
-The split route has two kernel families, chosen by :func:`bwd_family`, a
-static rule on the dtype, the head dim, the strides and the pointers:
+Every launch takes one of the two families, chosen by :func:`bwd_family`,
+a static rule on the dtype, the head dim, the strides and the pointers:
 bf16 with ``d <= 128`` and every stride and base pointer 16-byte aligned
-(what TMA can address) takes ``"sm90"`` (``flash_bwd_sm90.cu``); anything
-else (f32, or a ``d`` or stride TMA cannot address) the ``"simple"``
-kernels of ``flash_attention.cu``.  ``BWD_FAMILY_CALLS`` counts the split
-kernels launched by family.  The sm90 kernels read ``delta [b*h, t_q]``
-f32 from the pre-pass, which :func:`flash_bwd` launches once for both.
+(what TMA can address) takes ``"sm90"``; anything else (f32, or a ``d``
+or stride TMA cannot address) the ``"simple"`` kernels.  The rule picks
+the forward's family, the fused route's and the split pair's alike.
+``FWD_FAMILY_CALLS``, ``FUSED_FAMILY_CALLS`` and ``BWD_FAMILY_CALLS``
+count the forward, fused-backward and split kernels launched by family.
+The sm90 backwards read ``delta [b*h, t_q]`` f32 from the pre-pass,
+which :func:`flash_bwd` launches once a call (for the fused kernel, or
+for both split kernels); they never read ``o``.
 
 :func:`flash_fwd`, :func:`flash_bwd`, :func:`flash_bwd_dq` and
 :func:`flash_bwd_dkv` are the wrappers.  They dispatch on the tensors'
@@ -60,13 +66,16 @@ counts the backward calls by route, on either device.
 The fused kernel adds each k-tile's share of ``dq`` with f32 atomics
 into a zeroed f32 buffer that the wrapper allocates and casts once at
 the end (the TPU kernel writes per-k-block partials and sums them; with
-64-key tiles that buffer would be ``t_k / 64`` copies of ``q``).  Atomics
+64-key tiles that buffer would be ``t_k / 64`` copies of ``q``): scalar
+atomics per (64-key, 64-query) tile pair in the simple family, 16-byte
+vector reductions per (128-key, 64-query) pair in the sm90 one.  Atomics
 add in an order that changes from run to run, so the fused route's
 ``dq`` is reproducible only to f32 rounding; its ``dk`` and ``dv``, and
 all three gradients of the split route (either family), are bit-exact
-run to run.  The simple split family shares the fused kernel's k-major
-body, so its ``dk`` and ``dv`` are the fused route's bits; the sm90
-family sums in another order (within one bf16 ulp of them).
+run to run.  Within a family the fused and split kernels share one
+k-major body, so the split route's ``dk`` and ``dv`` are the fused
+route's bits; the two families sum in other orders (within one bf16 ulp
+of each other).
 
 Gradients flow through :class:`FlashAttentionFunction`, whose forward
 saves exactly ``FLASH_BWD_RESIDUALS = (q, k, v, o, lse)`` and whose
@@ -85,7 +94,8 @@ from . import _build
 
 __all__ = ["NEG_INF", "ORACLE_TOL", "FLASH_BWD_RESIDUALS",
            "FUSED_BWD_PARTIAL_BYTES", "BWD_ROUTE_CALLS", "oracle_tol",
-           "BWD_FAMILY_CALLS", "bwd_route", "bwd_family",
+           "FWD_FAMILY_CALLS", "FUSED_FAMILY_CALLS", "BWD_FAMILY_CALLS",
+           "bwd_route", "bwd_family",
            "flash_attention_ref", "flash_attention_bwd_ref",
            "flash_bwd_delta_ref", "flash_fwd", "flash_bwd",
            "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkv",
@@ -105,7 +115,10 @@ FUSED_BWD_PARTIAL_BYTES = 512 << 20
 # the wrappers that launch)
 BWD_ROUTE_CALLS = {"fused": 0, "split": 0}
 
-# split-route kernels launched on the card, by family (bwd_family)
+# kernels launched on the card, by family (bwd_family): the forward, the
+# fused backward, and the split route's dq and dk/dv kernels
+FWD_FAMILY_CALLS = {"sm90": 0, "simple": 0}
+FUSED_FAMILY_CALLS = {"sm90": 0, "simple": 0}
 BWD_FAMILY_CALLS = {"sm90": 0, "simple": 0}
 
 # what the backward is computed from, and all the forward saves
@@ -165,9 +178,10 @@ def bwd_route(q_shape, t_k, itemsize, block_k=1024):
 
 
 def bwd_family(dtype, d, strides, ptrs):
-    """``"sm90"`` or ``"simple"``: the split-route kernel family for inputs
-    of ``dtype`` with head dim ``d``, element strides ``strides`` (one
-    tuple per tensor) and base addresses ``ptrs``.  ``"sm90"`` takes bf16
+    """``"sm90"`` or ``"simple"``: the kernel family (forward, fused
+    backward, split pair) for inputs of ``dtype`` with head dim ``d``,
+    element strides ``strides`` (one tuple per tensor) and base addresses
+    ``ptrs``.  ``"sm90"`` takes bf16
     with ``d <= 128`` and every stride, the head dim's bytes and every
     pointer a multiple of 16 bytes (what TMA addresses); anything else is
     ``"simple"``.  Static: decided before any launch."""
@@ -327,15 +341,20 @@ def _sm90_kernels():
     global _sm90_fns
     if _sm90_fns is None:
         lib = _build.load("flash_bwd_sm90")
+        fwd = _build.load("flash_fwd_sm90")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         geom = [i32] * 5 + [i64] * 6 + [ctypes.c_float, i32, i32, ptr]
         fns = {"delta": lib.flash_bwd_sm90_delta,
-               "dq": lib.flash_bwd_sm90_dq, "dkv": lib.flash_bwd_sm90_dkv}
+               "dq": lib.flash_bwd_sm90_dq, "dkv": lib.flash_bwd_sm90_dkv,
+               "fused": lib.flash_bwd_sm90_fused, "fwd": fwd.flash_fwd_sm90}
         fns["delta"].argtypes = [ptr] * 4 + [i32] * 4 + [i64] * 3 + [ptr]
         fns["dq"].argtypes = [ptr] * 7 + geom
         fns["dkv"].argtypes = [ptr] * 8 + geom
+        fns["fused"].argtypes = [ptr] * 9 + geom
+        fns["fwd"].argtypes = [ptr] * 5 + geom
         for fn in fns.values():
             fn.restype = i32
+        # both libraries return cudaError_t codes: one table names them
         lib.flash_bwd_sm90_error_string.argtypes = [i32]
         lib.flash_bwd_sm90_error_string.restype = ctypes.c_char_p
         fns["errstr"] = lib.flash_bwd_sm90_error_string
@@ -344,8 +363,8 @@ def _sm90_kernels():
 
 
 def build():
-    """Build (if stale) and load both kernel libraries — set-up work that
-    belongs outside any timed window."""
+    """Build (if stale) and load the kernel libraries of both families —
+    set-up work that belongs outside any timed window."""
     _kernels()
     _sm90_kernels()
 
@@ -368,22 +387,25 @@ def _raise(what, err, errstr):
 def flash_fwd(q, k, v, causal=False, sm_scale=None):
     """``(o, lse [b*h, t_q] f32)`` of attention on ``[b, t, h, d]``.
     CPU tensors take :func:`flash_attention_ref`; CUDA tensors launch the
-    forward kernel on the current stream, or raise."""
+    forward kernel of the family :func:`bwd_family` picks on the current
+    stream, or raise."""
     _check(q, k, v)
     sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, sm_scale)
-    fns = _kernels()
     b, t_q, h, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b * h, t_q), dtype=torch.float32, device=q.device)
+    family = _family(q, k, v, o)
+    fns = _sm90_kernels() if family == "sm90" else _kernels()
     with torch.cuda.device(q.device):
         err = fns["fwd"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          o.data_ptr(), lse.data_ptr(),
                          *_geom(q, k, sm_scale, causal))
     if err:
-        _raise("forward", err, fns["errstr"])
+        _raise(f"forward ({family})", err, fns["errstr"])
     flash_fwd.launches += 1
+    FWD_FAMILY_CALLS[family] += 1
     return o, lse
 
 
@@ -494,9 +516,9 @@ def flash_bwd(q, k, v, o, lse, do, dlse=None, causal=False, sm_scale=None,
     (:func:`bwd_route`, from ``block_k`` as the reference reads it;
     ``block_q`` is accepted for the same signature) is decided first.
     CPU tensors take :func:`flash_attention_bwd_ref` on either route;
-    CUDA tensors launch the fused kernel, or (split) the pre-pass when the
-    family is sm90, then :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`,
-    or raise."""
+    CUDA tensors launch the pre-pass when the family (:func:`bwd_family`)
+    is sm90, then the fused kernel of the family, or (split)
+    :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`, or raise."""
     _check_bwd(q, k, v, o, lse, do, dlse)
     route = bwd_route(q.shape, k.shape[1], q.element_size(), block_k)
     BWD_ROUTE_CALLS[route] += 1
@@ -512,17 +534,29 @@ def flash_bwd(q, k, v, o, lse, do, dlse=None, causal=False, sm_scale=None,
         dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, dlse, causal, sm_scale,
                                delta)
         return dq, dk, dv
-    fns = _kernels()
     dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = fns["bwd"](*_bwd_ptrs(q, k, v, o, do, lse, dlse),
-                         dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                         *_geom(q, k, sm_scale, causal))
+    family = _family(q, k, v, o, do, dk, dv)
+    if family == "sm90":
+        delta = flash_bwd_delta(o, do, dlse)
+        fns = _sm90_kernels()
+        with torch.cuda.device(q.device):
+            err = fns["fused"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               do.data_ptr(), lse.data_ptr(),
+                               delta.data_ptr(), dq32.data_ptr(),
+                               dk.data_ptr(), dv.data_ptr(),
+                               *_geom(q, k, sm_scale, causal))
+    else:
+        fns = _kernels()
+        with torch.cuda.device(q.device):
+            err = fns["bwd"](*_bwd_ptrs(q, k, v, o, do, lse, dlse),
+                             dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                             *_geom(q, k, sm_scale, causal))
     if err:
-        _raise("backward", err, fns["errstr"])
+        _raise(f"backward ({family})", err, fns["errstr"])
     flash_bwd.launches += 1
+    FUSED_FAMILY_CALLS[family] += 1
     return dq32.to(q.dtype), dk, dv
 
 

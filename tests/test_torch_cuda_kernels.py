@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (paged attention, decode gather,
-flash attention forward, fused backward and split backward (dq, dk/dv:
-the simple family and the sm90 one with its delta pre-pass),
+flash attention forward, fused backward and split backward (dq, dk/dv),
+each on the simple family and the sm90 one (the backwards with its delta
+pre-pass),
 the fused cross-entropy head's forward, dx and dW, the fused ResNet
 bottleneck), against their plain PyTorch versions
 (paddle_tpu_torch only: no jax, so these run on a host without it).  Every test needs an NVIDIA GPU and skips without one; on the card:
@@ -174,6 +175,14 @@ FLASH_GEOMS = {
 }
 
 
+def _rule_family(dtype, geom):
+    """The family the static rule gives FLASH_GEOMS' inputs: sm90 for bf16
+    that TMA can address; ragged_d100's 300-element time stride and f32
+    take the simple kernels."""
+    return ("sm90" if dtype in ("bfloat16", torch.bfloat16)
+            and geom != "ragged_d100" else "simple")
+
+
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("geom", list(FLASH_GEOMS))
@@ -181,9 +190,12 @@ def test_flash_forward_matches_plain_version(dtype, geom, causal):
     _need_card()
     q, k, v, _, _ = _flash_case(*FLASH_GEOMS[geom], getattr(torch, dtype))
     before = tfa.flash_fwd.launches
+    family = _rule_family(dtype, geom)
+    c0 = dict(tfa.FWD_FAMILY_CALLS)
     o, lse = tfa.flash_fwd(q, k, v, causal)
     torch.cuda.synchronize()
     assert tfa.flash_fwd.launches == before + 1
+    assert tfa.FWD_FAMILY_CALLS[family] == c0[family] + 1
     o_ref, lse_ref = tfa.flash_attention_ref(q, k, v, causal)
     tol = tfa.oracle_tol(dtype, "fwd")
     assert o.dtype == q.dtype and o.shape == q.shape
@@ -201,9 +213,13 @@ def test_flash_backward_matches_plain_version(dtype, geom, causal, with_dlse):
     dlse = dlse if with_dlse else None
     o, lse = tfa.flash_attention_ref(q, k, v, causal)
     before = tfa.flash_bwd.launches
+    family = _rule_family(dtype, geom)
+    c0 = (dict(tfa.FUSED_FAMILY_CALLS), tfa.flash_bwd_delta.launches)
     got = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
     torch.cuda.synchronize()
     assert tfa.flash_bwd.launches == before + 1
+    assert tfa.FUSED_FAMILY_CALLS[family] == c0[0][family] + 1
+    assert tfa.flash_bwd_delta.launches == c0[1] + (family == "sm90")
     want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal)
     tol = tfa.oracle_tol(dtype, "grad")
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -221,9 +237,8 @@ def test_flash_split_backward_matches_plain_and_fused(dtype, geom, causal,
     plain version, on the family the rule picks (sm90 for bf16 that TMA
     can address; ragged_d100's 300-element time stride and f32 take the
     simple kernels); the same bits run to run; dk and dv the fused
-    kernel's bits in f32 (the simple family shares its body) and within
-    one bf16 ulp relative, 2**-7, in bf16 (the sm90 family sums in
-    another order)."""
+    kernel's bits (the fused route takes the same family, and each family's
+    fused and dk/dv kernels share one k-major body)."""
     _need_card()
     q, k, v, do, dlse = _flash_case(*FLASH_GEOMS[geom], getattr(torch, dtype),
                                     seed=5)
@@ -231,8 +246,7 @@ def test_flash_split_backward_matches_plain_and_fused(dtype, geom, causal,
     o, lse = tfa.flash_attention_ref(q, k, v, causal)
     fused = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
     monkeypatch.setattr(tfa, "FUSED_BWD_PARTIAL_BYTES", 0)
-    family = ("sm90" if dtype == "bfloat16" and geom != "ragged_d100"
-              else "simple")
+    family = _rule_family(dtype, geom)
     before = (tfa.flash_bwd.launches, tfa.flash_bwd_dq.launches,
               tfa.flash_bwd_dkv.launches, tfa.flash_bwd_delta.launches,
               dict(tfa.BWD_FAMILY_CALLS))
@@ -250,11 +264,7 @@ def test_flash_split_backward_matches_plain_and_fused(dtype, geom, causal,
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == q.dtype and g.shape == w.shape
         assert _rel(g, w) <= tol, name
-    if dtype == "float32":
-        assert torch.equal(got[1], fused[1]) and torch.equal(got[2], fused[2])
-    else:
-        assert _rel(got[1], fused[1]) <= 2.0 ** -7
-        assert _rel(got[2], fused[2]) <= 2.0 ** -7
+    assert torch.equal(got[1], fused[1]) and torch.equal(got[2], fused[2])
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert _rel(got[0], fused[0]) <= tol
 
@@ -350,6 +360,124 @@ def test_flash_sm90_packed_autograd(h, d, monkeypatch):
                                     "simple": c0["simple"]}
     o_ref, lse_ref = tfa.flash_attention_ref(q, k, v, True)
     want = tfa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, None, True)
+    for x, w in zip(flat, want):
+        assert _rel(x.grad, w.reshape(b, t, h * d)) <= tfa.oracle_tol(
+            torch.bfloat16, "grad")
+
+
+# the sm90 forward and fused backward's geometries: FLASH_GEOMS' bf16 cases
+# that TMA can address (t_q > t_k, three rows in one partial tile, d=16
+# padded to 64 by the box's zero fill)
+SM90_FLASH_GEOMS = [nm for nm in FLASH_GEOMS if nm != "ragged_d100"]
+
+
+def _forced_simple(monkeypatch):
+    """The simple family forced for inputs the rule sends to sm90."""
+    monkeypatch.setattr(tfa, "bwd_family", lambda *a, **kw: "simple")
+
+
+@pytest.mark.parametrize("family", ["sm90", "simple"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("geom", SM90_FLASH_GEOMS)
+def test_flash_forward_families_match_plain_version(geom, causal, family,
+                                                    monkeypatch):
+    """The forward of either family on bf16 inputs the rule sends to sm90
+    (the simple one forced): o and lse within ORACLE_TOL of the plain
+    version (lse holds the natural log: the exp2-domain state converted),
+    one launch on the named family, finite everywhere."""
+    _need_card()
+    q, k, v, _, _ = _flash_case(*FLASH_GEOMS[geom], torch.bfloat16, seed=11)
+    if family == "simple":
+        _forced_simple(monkeypatch)
+    c0 = dict(tfa.FWD_FAMILY_CALLS)
+    o, lse = tfa.flash_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert tfa.FWD_FAMILY_CALLS == {**c0, family: c0[family] + 1}
+    o_ref, lse_ref = tfa.flash_attention_ref(q, k, v, causal)
+    tol = tfa.oracle_tol(torch.bfloat16, "fwd")
+    assert bool(torch.isfinite(o.float()).all())
+    assert _rel(o, o_ref) <= tol and _rel(lse, lse_ref) <= tol
+
+
+@pytest.mark.parametrize("family", ["sm90", "simple"])
+@pytest.mark.parametrize("with_dlse", [False, True], ids=["do", "do_dlse"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("geom", SM90_FLASH_GEOMS)
+def test_flash_fused_families_match_plain_version(geom, causal, with_dlse,
+                                                  family, monkeypatch):
+    """The fused route of either family (sm90 by the rule, simple forced)
+    within ORACLE_TOL of the plain version, with and without dlse; the
+    sm90 one launches the pre-pass once and its dk, dv are the same bits
+    run to run (dq only to f32 rounding: atomics)."""
+    _need_card()
+    q, k, v, do, dlse = _flash_case(*FLASH_GEOMS[geom], torch.bfloat16,
+                                    seed=12)
+    dlse = dlse if with_dlse else None
+    o, lse = tfa.flash_attention_ref(q, k, v, causal)
+    if family == "simple":
+        _forced_simple(monkeypatch)
+    c0 = (dict(tfa.FUSED_FAMILY_CALLS), tfa.flash_bwd_delta.launches)
+    got = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
+    again = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
+    torch.cuda.synchronize()
+    assert tfa.FUSED_FAMILY_CALLS == {**c0[0], family: c0[0][family] + 2}
+    assert tfa.flash_bwd_delta.launches == c0[1] + 2 * (family == "sm90")
+    want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal)
+    tol = tfa.oracle_tol(torch.bfloat16, "grad")
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(g.float()).all()) and _rel(g, w) <= tol, name
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    assert _rel(got[0], again[0]) <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("geom", SM90_FLASH_GEOMS)
+def test_flash_fused_sm90_dk_dv_are_the_split_bits(geom, causal,
+                                                   monkeypatch):
+    """The fused sm90 kernel and the split sm90 dk/dv kernel are one k-major
+    body: the same dk and dv bits; dq within bf16 rounding of the split
+    dq kernel's."""
+    _need_card()
+    q, k, v, do, dlse = _flash_case(*FLASH_GEOMS[geom], torch.bfloat16,
+                                    seed=13)
+    o, lse = tfa.flash_attention_ref(q, k, v, causal)
+    c0 = dict(tfa.FUSED_FAMILY_CALLS)
+    fused = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
+    assert tfa.FUSED_FAMILY_CALLS["sm90"] == c0["sm90"] + 1
+    monkeypatch.setattr(tfa, "FUSED_BWD_PARTIAL_BYTES", 0)
+    b0 = tfa.BWD_FAMILY_CALLS["sm90"]
+    split = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
+    torch.cuda.synchronize()
+    assert tfa.BWD_FAMILY_CALLS["sm90"] == b0 + 2
+    assert torch.equal(fused[1], split[1]) and torch.equal(fused[2], split[2])
+    assert _rel(fused[0], split[0]) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("h,d", [(1, 128), (2, 64)],
+                         ids=["packed_d128", "packed_d64_paired"])
+def test_flash_sm90_forward_and_fused_packed_autograd(h, d):
+    """The packed [b, t, h*d] entry point on the default (fused) route: the
+    sm90 forward and the fused sm90 backward read the projections in place;
+    one launch of each on the sm90 family, one pre-pass; values within the
+    bf16 tolerances of the plain versions."""
+    _need_card()
+    b, t = 2, 320
+    q, k, v, do, _ = _flash_case(b, t, t, h, d, torch.bfloat16, seed=14)
+    flat = [x.reshape(b, t, h * d).clone().requires_grad_() for x in (q, k, v)]
+    c0 = (dict(tfa.FWD_FAMILY_CALLS), dict(tfa.FUSED_FAMILY_CALLS),
+          tfa.flash_bwd_delta.launches)
+    out = tfa.flash_attention_packed(*flat, n_head=h, causal=True)
+    out.backward(do.reshape(b, t, h * d))
+    torch.cuda.synchronize()
+    assert tfa.FWD_FAMILY_CALLS == {"sm90": c0[0]["sm90"] + 1,
+                                    "simple": c0[0]["simple"]}
+    assert tfa.FUSED_FAMILY_CALLS == {"sm90": c0[1]["sm90"] + 1,
+                                      "simple": c0[1]["simple"]}
+    assert tfa.flash_bwd_delta.launches == c0[2] + 1
+    o_ref, lse_ref = tfa.flash_attention_ref(q, k, v, True)
+    want = tfa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, None, True)
+    assert _rel(out, o_ref.reshape(b, t, h * d)) <= tfa.oracle_tol(
+        torch.bfloat16, "fwd")
     for x, w in zip(flat, want):
         assert _rel(x.grad, w.reshape(b, t, h * d)) <= tfa.oracle_tol(
             torch.bfloat16, "grad")

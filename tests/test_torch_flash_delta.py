@@ -12,10 +12,14 @@ CPU (the CUDA kernels of ``csrc/flash_bwd_sm90.cu`` run on the card only:
   equal their results without it, bit for bit.
 * The split route, its wrappers fed one precomputed delta, still matches
   the JAX split Pallas kernels in interpret mode (both packages forced
-  onto the split route).
+  onto the split route); the fused route's plain backward fed one
+  pre-pass delta matches the JAX package's ``_flash_bwd_fused`` in
+  interpret mode and equals its result without delta.
 * ``bwd_family`` as a pure function over (dtype, d, strides, pointers):
   bf16 with d <= 128 and every stride and pointer 16-byte aligned takes
-  the sm90 kernels, anything else the simple ones.
+  the sm90 kernels, anything else the simple ones — for the split pair's
+  tensors, the forward's (q, k, v, o) and the fused route's; on the CPU
+  no family counter moves.
 Tolerance: f32 ``ORACLE_TOL`` (flash grad 1e-3); delta to 1e-6 relative
 (two f32 sums of d products in other orders)."""
 
@@ -191,6 +195,25 @@ FAMILY_CASES = {
                                   [(16384 * 768 + 4, 768, 128)] + [FLAGSHIP]
                                   * 4, [1 << 20] * 5, "simple"),
     "f16": (torch.float16, 128, [FLAGSHIP] * 5, [1 << 20] * 5, "simple"),
+    # the forward's q, k, v, o and the fused route's q, k, v, o, do, dk, dv
+    "forward_flagship_packed_t4096": (torch.bfloat16, 128,
+                                      [(4096 * 768, 768, 128)] * 4,
+                                      [0x7f0000000000 + i * 2 ** 26
+                                       for i in range(4)], "sm90"),
+    "forward_o_off_by_8_bytes": (torch.bfloat16, 128,
+                                 [(4096 * 768, 768, 128)] * 4,
+                                 [1 << 20] * 3 + [(1 << 20) + 8], "simple"),
+    "forward_f32": (torch.float32, 128, [(4096 * 768, 768, 128)] * 4,
+                    [1 << 20] * 4, "simple"),
+    "fused_flagship_packed_t4096": (torch.bfloat16, 128,
+                                    [(4096 * 768, 768, 128)] * 7,
+                                    [0x7f0000000000 + i * 2 ** 26
+                                     for i in range(7)], "sm90"),
+    "fused_packed_d64_two_heads": (torch.bfloat16, 64,
+                                   [(1024 * 128, 128, 64)] * 7,
+                                   [1 << 20] * 7, "sm90"),
+    "fused_ragged_d100": (torch.bfloat16, 100, [(77 * 300, 300, 100)] * 7,
+                          [1 << 20] * 7, "simple"),
 }
 
 
@@ -209,3 +232,78 @@ def test_family_of_real_tensors():
     assert tfa._family(x.float(), x.float()) == "simple"
     odd = torch.zeros(2 * 8 * 3 * 128 + 1, dtype=torch.bfloat16)[1:]
     assert tfa._family(x, odd.view(2, 8, 3, 128)) == "simple"
+
+
+def test_cpu_family_counters_stay_at_zero():
+    """CPU tensors take the plain versions on every route and count no
+    kernel family: the forward, the fused route and the split route."""
+    q, k, v, do = (torch.from_numpy(x) for x in _arrays(2, 16, seed=71))
+    before = (dict(tfa.FWD_FAMILY_CALLS), dict(tfa.FUSED_FAMILY_CALLS),
+              dict(tfa.BWD_FAMILY_CALLS), tfa.flash_bwd_delta.launches)
+    o, lse = tfa.flash_fwd(q, k, v, True)
+    assert tfa.bwd_route(q.shape, T, 4) == "fused"
+    tfa.flash_bwd(q, k, v, o, lse, do, None, True)
+    tfa.flash_bwd(q, k, v, o, lse, do, None, True, None, BLK, 1)
+    assert tfa.bwd_route(q.shape, T, 4, 1) == "fused"
+    assert (dict(tfa.FWD_FAMILY_CALLS), dict(tfa.FUSED_FAMILY_CALLS),
+            dict(tfa.BWD_FAMILY_CALLS), tfa.flash_bwd_delta.launches) == before
+
+
+def _jax_fused(q, k, v, do, dlse, causal, h, d, packed):
+    """The JAX package's fused backward kernel (``_flash_bwd_fused``) in
+    interpret mode, from its own forward's ``o`` and ``lse``: ``(o, lse
+    [b*h, t], dq, dk, dv)``, back in the [b, t, h, d] layout."""
+    if packed:
+        def lay(x):
+            return jnp.asarray(x).reshape(B, T, h * d)
+
+        def back(y):
+            return np.asarray(y).reshape(B, T, h, d)
+        kw = {"n_head": h, "sub_heads": jfa.packed_sub_heads(h, d)}
+    else:
+        def lay(x):
+            return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(B * h, T, d)
+
+        def back(y):
+            return np.asarray(y).reshape(B, h, T, d).transpose(0, 2, 1, 3)
+        kw = {}
+    sm_scale = d ** -0.5
+    jq, jk, jv, jdo = (lay(x) for x in (q, k, v, do))
+    o, lse = jfa._flash_fwd(jq, jk, jv, sm_scale, causal, BLK, BLK, True,
+                            **kw)
+    jdl = None if dlse is None else jnp.asarray(dlse).reshape(B * h, T, 1)
+    dq, dk, dv = jfa._flash_bwd_fused(jq, jk, jv, o, lse[:, :, None], jdo,
+                                      sm_scale, causal, BLK, BLK, True,
+                                      dlse=jdl, **kw)
+    return (back(o), np.asarray(lse).reshape(B * h, T), back(dq), back(dk),
+            back(dv))
+
+
+@pytest.mark.parametrize("with_dlse", [False, True], ids=["do", "do_dlse"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("packed", [False, True], ids=["4d", "packed_d64"])
+def test_fused_route_fed_one_delta_matches_the_jax_fused_kernel(
+        packed, causal, with_dlse):
+    """The sm90 fused route reads one pre-pass delta where the JAX fused
+    kernel computes delta inside: the port's plain backward fed
+    ``flash_bwd_delta_ref``'s delta matches ``_flash_bwd_fused`` within
+    the f32 ORACLE_TOL, and equals the same backward without delta."""
+    h, d = 2, (64 if packed else 16)
+    q, k, v, do = _arrays(h, d, seed=81 + causal + 2 * with_dlse)
+    dlse = (np.random.default_rng(82).standard_normal((B * h, T)).astype(
+        np.float32) if with_dlse else None)
+    o, lse, *want = _jax_fused(q, k, v, do, dlse, causal, h, d, packed)
+    tq, tk, tv, to, tdo = (torch.from_numpy(np.array(x))
+                           for x in (q, k, v, o, do))
+    tlse = torch.from_numpy(np.array(lse))
+    tdl = None if dlse is None else torch.from_numpy(dlse)
+    assert tfa.bwd_route(tq.shape, T, 4, BLK) == "fused"
+    delta = tfa.flash_bwd_delta_ref(to, tdo, tdl)
+    got = tfa.flash_attention_bwd_ref(tq, tk, tv, to, tlse, tdo, tdl, causal,
+                                      d ** -0.5, delta=delta)
+    plain = tfa.flash_attention_bwd_ref(tq, tk, tv, to, tlse, tdo, tdl,
+                                        causal, d ** -0.5)
+    tol = tfa.oracle_tol(torch.float32, "grad")
+    for name, g, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+        assert torch.equal(g, p), name
+        assert _rel(g.numpy(), w) <= tol, name

@@ -181,11 +181,31 @@ def test_kernel_sources_and_build_flags():
     assert "decode_gather" in _build.sources()
     assert "flash_attention" in _build.sources()
     assert "flash_bwd_sm90" in _build.sources()
+    assert "flash_fwd_sm90" in _build.sources()
     assert "fused_ce" in _build.sources()
     assert "bottleneck" in _build.sources()
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert _build.lib_path("paged_attention").startswith(_build.BUILD_DIR)
+
+
+def test_build_digest_keys_on_shared_header(tmp_path, monkeypatch):
+    """Both sm90 sources include ``sm90.cuh``: a changed header must give
+    each of them a new library name (a rebuild), a changed source only
+    its own."""
+    from paddle_tpu_torch.kernels import _build
+
+    for name in ("a", "b"):
+        (tmp_path / f"{name}.cu").write_text(f'#include "h.cuh"\n// {name}\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "SRC_DIR", str(tmp_path))
+    before = {n: _build.lib_path(n) for n in ("a", "b")}
+    (tmp_path / "h.cuh").write_text("// two\n")
+    after = {n: _build.lib_path(n) for n in ("a", "b")}
+    assert all(before[n] != after[n] for n in before)
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n// a, changed\n')
+    assert _build.lib_path("a") != after["a"]
+    assert _build.lib_path("b") == after["b"]
 
 
 def test_chip_smoke_refuses_without_the_repo(tmp_path):
