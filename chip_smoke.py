@@ -14,10 +14,16 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    ORACLE_TOL, then its time, the plain version's, one PyTorch library
    call's (a yardstick the port never calls) and the bound:
    a. paged attention at the serving path's shapes (decode S=32 W=1,
-      prefill S=1 W=1, and W=4), bf16 and f32; timed at the decode shape
-      in bf16 (library: ``scaled_dot_product_attention`` on the gathered
-      view; bound: bytes over 3.35 TB/s); a+. at phase 5c's verify shape
-      (S=32, W=6, h=8, dh=32), f32 and bf16, timed in f32;
+      prefill S=1 W=1, and W=4), bf16 and f32, on both kernel families
+      (split, which the rule picks there, and simple, forced by a patch of
+      the rule in this script), each against the plain block scan and the
+      split one also against the plain split-and-merge spelling, and the
+      same bits twice; timed at the decode shape in bf16, both families in
+      turns (simple, split, split, simple; the split kernels must win and
+      must not be slower than the library call: ``scaled_dot_product_
+      attention`` on the gathered view; bound: bytes over 3.35 TB/s); a+.
+      the same at phase 5c's verify shape (S=32, W=6, h=8, dh=32), f32 and
+      bf16, timed in f32;
    b. flash attention forward (``o``, ``lse``) and fused backward
       (``dq, dk, dv``, with and without ``dlse``) at the training path's
       shape (b=8, t=4096, h=6, d=128, bf16, causal), plus f32, d=64,
@@ -54,13 +60,16 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
       dW kernels at the training path's shape (N = 32768 rows, d=768,
       V=32768, bf16), at phase 6's f32 shape (N=512) and at a ragged shape
       (N=1000, d=200, V=5000, bf16 and f32), with labels -1 and V in some
-      rows and a loss cotangent with zeros; timed at the path shape
-      (library: ``torch.matmul`` + ``F.cross_entropy`` forward, and that
-      composition's backward by autograd for x alone and for w alone —
-      no single PyTorch call computes the head; bound: 2 N d V flops a
-      product over 989 TFLOP/s); c+. the forward at phase 8's N = 131072
-      against its plain version over row chunks, and the three kernels'
-      times there;
+      rows and a loss cotangent with zeros; dW on the family the rule
+      picks (sm90, ``csrc/fused_ce_sm90.cu``, for the bf16 cases; simple
+      for f32), the same bits twice; timed at the path shape, dW on both
+      families in turns (simple forced by a patch of the rule; the sm90
+      kernel must win) (library: ``torch.matmul`` + ``F.cross_entropy``
+      forward, and that composition's backward by autograd for x alone
+      and for w alone — no single PyTorch call computes the head; bound:
+      2 N d V flops a product over 989 TFLOP/s); c+. the forward at phase
+      8's N = 131072 against its plain version over row chunks, and the
+      three kernels' times there (dW on both families);
    d. ``decode_gather`` against its plain version with ``torch.equal``
       (bit-exact) at the decode shape (S=32, NB=16, B=32, h=6, dh=128)
       in bf16 and f32, a prefill shape (S=1) and ragged blocks whose byte
@@ -82,7 +91,9 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    the engine's background thread, each compared with the port's
    single-stream ``generate``; they must agree token for token except
    where ``generate``'s top-2 logit gap is below 1e-4 * max|logit| (a
-   genuine near-tie that reassociating the f32 softmax can flip);
+   genuine near-tie that reassociating the f32 softmax can flip); every
+   paged-attention call on the split family (the family counters, zeroed
+   before the pass, as in 4b, 5 and 5c);
    b. the same eight requests and references through (a) an engine built
    under ``PADDLE_TPU_PAGED_ATTN=0`` (decode_gather and a dense softmax),
    (b) a speculative engine (a 2-layer ``depth_draft`` of the same
@@ -129,12 +140,13 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    fall from about ln(32768), the parameters must change, and every
    attention and head call must have gone through the kernels (12 flash
    forward, 12 delta pre-pass, 12 fused flash backward and one launch of
-   each CE kernel a step, every flash kernel on the sm90 family by the
-   family counters, all counts zeroed just before the steps); prints
+   each CE kernel a step, every flash kernel and the CE dW on the sm90
+   family by the family counters, all counts zeroed just before the
+   steps); prints
    step wall, tokens/s and peak memory, then where one more step's
    device time goes (``torch.profiler`` by kernel family, which must
    list ``flash_fwd_sm90_kernel`` and ``flash_bwd_sm90_fused_kernel`` 12
-   times each; CUDA events by op type);
+   times each and ``ce_dw_sm90_kernel`` once; CUDA events by op type);
    b. the same five steps with ``fused_head=False`` (full depth), for the
    unfused head's peak memory: the fused step's peak must lie at least
    10 GB below it; c. one step of phase 7's program from one startup
@@ -148,8 +160,8 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    same loss and parameter checks, and 12 flash forward, 12 delta
    pre-pass, 12 split dq, 12 split dk/dv (every split kernel on the sm90
    family, by the family counter), 0 fused backward and one launch of
-   each CE kernel a step, the forward on the sm90 family too; step
-   wall, tokens/s, peak memory and the profiled step;
+   each CE kernel a step, the forward and the CE dW on the sm90 family
+   too; step wall, tokens/s, peak memory and the profiled step;
    b. the same path for two steps with no remat and with ``compact``:
    peak memory and step wall beside phase 8's, compact's and selective's
    peaks below no remat's, the three loss trajectories equal to bf16
@@ -172,9 +184,9 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    that block (2e-2 max-relative);
 10. one JSON line ``{"kernels": [...]}`` with each of the eleven kernels'
    launches on its main path (phase 3e, 5, 5b, 7 or 8), error, times and
-   bound; the flash forward and fused backward rows add the simple
-   family's time (``simple_ms``), and the forward's row its t=16384
-   entry (``t16384``, launches from phase 8);
+   bound; the paged attention, flash forward, fused backward and CE dW
+   rows add the simple family's time (``simple_ms``), and the forward's
+   row its t=16384 entry (``t16384``, launches from phase 8);
 11. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
@@ -356,6 +368,58 @@ def device_ms(torch, fn, n, reps=3):
     return sorted(out)[len(out) // 2]
 
 
+def paged_check(torch, pa, args, label, dname, family):
+    """One call of the wrapper on ``args``: it must take ``family``, give
+    finite values and agree with the plain block scan and, for the split
+    family, the plain split-and-merge spelling, within ORACLE_TOL; a second
+    call must give the same bits.  Returns the max abs error against the
+    block scan."""
+    before = dict(pa.PAGED_FAMILY_CALLS)
+    got = pa.paged_attention(*args)
+    again = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    calls = {f: pa.PAGED_FAMILY_CALLS[f] - before[f] for f in before}
+    if calls[family] != 2 or sum(calls.values()) != 2:
+        raise AssertionError(f"paged_attention at {label} {dname} ran the "
+                             f"families {calls}, expected {family}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"paged_attention ({family}) at {label} {dname} "
+                             f"differs from run to run")
+    tol = pa.oracle_tol(args[0].dtype)
+    ab, rel = rel_err(torch, got, pa.paged_attention_ref(*args))
+    refs = [("block scan", rel)]
+    if family == "split":
+        S, _, h, _ = args[0].shape
+        splits, _ = pa.paged_splits(S, h, args[3].shape[1])
+        _, srel = rel_err(torch, got,
+                          pa.paged_attention_split_ref(*args, splits))
+        refs.append(("split spelling", srel))
+    ok = bool(torch.isfinite(got.float()).all()) and all(
+        r <= tol for _, r in refs)
+    log(f"kernel paged_attention {label:7s} {family:6s} {dname:8s} max_abs_err "
+        f"{ab:.3e} rel " + ", ".join(f"{r:.3e} ({n})" for n, r in refs)
+        + f" (tol {tol:g}), bit-identical twice {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(
+            f"paged_attention ({family}) disagrees with its plain version "
+            f"at {label} {dname}: {refs} > {tol}")
+    return ab
+
+
+def paged_turns(torch, pa, fn, n):
+    """Device ms of ``n`` calls of ``fn(i)`` on both paged families in
+    turns (simple, split, split, simple): ``{family: [ms, ms]}``."""
+    times = {}
+    for family in ("simple", "split", "split", "simple"):
+        with forced_rule(pa, "paged_family", family):
+            times.setdefault(family, []).append(device_ms(torch, fn, n))
+    if not max(times["split"]) < min(times["simple"]):
+        raise AssertionError(f"the split paged kernels ({times['split']} ms) "
+                             f"are not faster than the simple one "
+                             f"({times['simple']} ms)")
+    return times
+
+
 def kernel_phase(torch, pa):
     import torch.nn.functional as F
 
@@ -364,23 +428,14 @@ def kernel_phase(torch, pa):
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
-        tol = pa.oracle_tol(dtype)
         for label, S, W in (("decode", 32, 1), ("prefill", 1, 1),
                             ("window", 32, 4)):
             args = paged_case(torch, gen, S, W, dtype)
-            got = pa.paged_attention(*args)
-            torch.cuda.synchronize()
-            ref = pa.paged_attention_ref(*args)
-            ab, rel = rel_err(torch, got, ref)
-            ok = bool(torch.isfinite(got.float()).all()) and rel <= tol
-            log(f"kernel paged_attention {label:7s} S={S:2d} W={W} {dname:8s}"
-                f" max_abs_err {ab:.3e} rel {rel:.3e} (tol {tol:g})"
-                f" {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(
-                    f"paged_attention kernel disagrees with its plain "
-                    f"version at {label} {dname}: rel {rel:.3e} > {tol}")
-            errs[(label, dname)] = ab
+            errs[(label, dname)] = paged_check(torch, pa, args, label, dname,
+                                               "split")
+            # the simple family, forced, on the same inputs
+            with forced_rule(pa, "paged_family", "simple"):
+                paged_check(torch, pa, args, label, dname, "simple")
 
     # timing at the decode shape, bf16: one pool pair per layer, so each
     # call finds its K/V cold in L2 as the 12-layer decode step does
@@ -392,8 +447,9 @@ def kernel_phase(torch, pa):
         layers.append((pk, pv))
     reps = 8
     n = reps * N_LAYER
-    kernel_ms = device_ms(torch, lambda i: pa.paged_attention(
+    times = paged_turns(torch, pa, lambda i: pa.paged_attention(
         q, *layers[i % N_LAYER], table, pos), n)
+    kernel_ms, simple_ms = min(times["split"]), min(times["simple"])
     plain_ms = device_ms(torch, lambda i: pa.paged_attention_ref(
         q, *layers[i % N_LAYER], table, pos), N_LAYER)
     # the yardstick: one SDPA call over each slot's gathered [S, T, h, dh]
@@ -424,48 +480,52 @@ def kernel_phase(torch, pa):
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    splits, per = pa.paged_splits(32, N_HEAD, NB)
     log(f"paged_attention decode bf16 (S=32 W=1 h=6 dh=128 B=32 NB=16, "
-        f"{live} live tokens, {nbytes} bytes): kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, library (sdpa, rel err {lib_rel:.2e}) "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+        f"{live} live tokens, {nbytes} bytes; split family: {splits} splits "
+        f"of {per} entries + the merge), in turns simple/split/split/simple "
+        + "/".join(f"{x:.4f}" for x in times["simple"][:1] + times["split"]
+                   + times["simple"][1:])
+        + f" ms: kernel {kernel_ms:.4f} ms ({nbytes / kernel_ms / 1e6:.1f} "
+        f"GB/s, {bound_ms / kernel_ms:.3f} of the bound), simple family "
+        f"{simple_ms:.4f} ms ({simple_ms / kernel_ms:.2f}x), plain "
+        f"{plain_ms:.4f} ms, library (sdpa, rel err {lib_rel:.2e}) "
+        f"{library_ms:.4f} ms ({kernel_ms / library_ms:.2f}x), bound "
+        f"{bound_ms:.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+    if not kernel_ms <= library_ms:
+        raise AssertionError(
+            f"the split paged kernels ({kernel_ms:.4f} ms) are slower than "
+            f"SDPA on the gathered view ({library_ms:.4f} ms)")
     return {"name": "paged_attention", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_attention.cu",
-            "replaces": "paddle_tpu/kernels/paged_attention.py:161",
+            "replaces": "paddle_tpu/kernels/paged_attention.py:238",
             "max_abs_err": errs[("decode", "bfloat16")],
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "simple_ms": simple_ms}
 
 
 # -- phase 3a+: paged attention at the speculative verify window ------------
 
 def verify_kernel_phase(torch, pa):
-    """The kernel at phase 5c's verify shape (S=32, W=k+1=6, h=8, dh=32,
-    B=32, NB=16), f32 and bf16, against its plain version; timed in f32,
-    the spec configuration's dtype.  Returns (ms, plain ms, bound ms)."""
+    """The kernels at phase 5c's verify shape (S=32, W=k+1=6, h=8, dh=32,
+    B=32, NB=16), f32 and bf16, both families, against the plain versions;
+    timed in f32, the spec configuration's dtype, both families in turns.
+    Returns (ms, plain ms, bound ms, simple ms)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
     S, W, h, dh = SLOTS, SPEC_K + 1, SPEC_HEADS, SPEC_D // SPEC_HEADS
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        tol = pa.oracle_tol(dtype)
         args = paged_case(torch, gen, S, W, dtype, h=h, dh=dh)
-        got = pa.paged_attention(*args)
-        torch.cuda.synchronize()
-        ab, rel = rel_err(torch, got, pa.paged_attention_ref(*args))
-        ok = bool(torch.isfinite(got.float()).all()) and rel <= tol
-        log(f"kernel paged_attention verify  S={S} W={W} h={h} dh={dh} "
-            f"{dname:8s} max_abs_err {ab:.3e} rel {rel:.3e} (tol {tol:g}) "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(
-                f"paged_attention kernel disagrees with its plain version "
-                f"at the verify shape {dname}: rel {rel:.3e} > {tol}")
+        paged_check(torch, pa, args, "verify", dname, "split")
+        with forced_rule(pa, "paged_family", "simple"):
+            paged_check(torch, pa, args, "verify", dname, "simple")
     layers = [paged_case(torch, gen, S, W, torch.float32, h=h, dh=dh)
               for _ in range(SPEC_LAYERS)]
-    ms = device_ms(torch, lambda i: pa.paged_attention(
+    times = paged_turns(torch, pa, lambda i: pa.paged_attention(
         *layers[i % SPEC_LAYERS]), 8 * SPEC_LAYERS)
+    ms, simple_ms = min(times["split"]), min(times["simple"])
     plain_ms = device_ms(torch, lambda i: pa.paged_attention_ref(
         *layers[i % SPEC_LAYERS]), SPEC_LAYERS)
     q, _, _, table, pos = layers[0]
@@ -476,9 +536,13 @@ def verify_kernel_phase(torch, pa):
     flops = 4 * int((pos.long() + 1).sum().item()) * h * dh
     bound_ms = max(nbytes / HBM_BYTES_S, flops / PEAK_FLOPS["float32"]) * 1e3
     log(f"paged_attention verify f32 (S={S} W={W} h={h} dh={dh} B=32 "
-        f"NB=16): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms")
-    return ms, plain_ms, bound_ms
+        f"NB=16, {nbytes} bytes), in turns simple/split/split/simple "
+        + "/".join(f"{x:.4f}" for x in times["simple"][:1] + times["split"]
+                   + times["simple"][1:])
+        + f" ms: kernel {ms:.4f} ms ({bound_ms / ms:.3f} of the bound), "
+        f"simple family {simple_ms:.4f} ms ({simple_ms / ms:.2f}x), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    return ms, plain_ms, bound_ms, simple_ms
 
 
 # -- phase 3d: decode_gather against its plain version (bit-exact) -----------
@@ -800,16 +864,22 @@ def forced_route(fa, route):
 
 
 @contextlib.contextmanager
-def forced_family(fa, family):
-    """The kernel family of every flash launch (forward, fused backward,
-    split pair) forced for a comparison: the rule (``bwd_family``, looked
-    up by name at each call) is patched here, in this script only."""
-    real = fa.bwd_family
-    fa.bwd_family = lambda *a, **kw: family
+def forced_rule(mod, rule, family):
+    """The kernel family a wrapper of ``mod`` launches, forced for a
+    comparison: its static rule (``rule``, looked up by name at each call)
+    is patched here, in this script only."""
+    real = getattr(mod, rule)
+    setattr(mod, rule, lambda *a, **kw: family)
     try:
         yield
     finally:
-        fa.bwd_family = real
+        setattr(mod, rule, real)
+
+
+def forced_family(fa, family):
+    """The kernel family of every flash launch (forward, fused backward,
+    split pair) forced for a comparison."""
+    return forced_rule(fa, "bwd_family", family)
 
 
 def split_vs_fused(torch, fa, split, fused, dtype, family, what):
@@ -1177,8 +1247,18 @@ def ce_phase(torch, ce):
         x, w, y, g = ce_inputs(torch, gen, n, d, v, dtype)
         loss, lse = ce.ce_fwd(x, w, y)
         dx = ce.ce_dx(x, w, y, lse, g)
+        before = dict(ce.CE_DW_FAMILY_CALLS)
         dw = ce.ce_dw(x, w, y, lse, g)
+        again = ce.ce_dw(x, w, y, lse, g)
         torch.cuda.synchronize()
+        family = "sm90" if dtype == bf16 else "simple"
+        if ce.CE_DW_FAMILY_CALLS[family] != before[family] + 2:
+            raise AssertionError(f"fused CE dW at {label} {dname} ran "
+                                 f"{ce.CE_DW_FAMILY_CALLS}, expected {family}")
+        if not torch.equal(dw, again):
+            raise AssertionError(f"fused CE dW ({family}) at {label} {dname} "
+                                 f"differs from run to run")
+        del again
         rloss, rlse = ce.fused_ce_ref(x, w, y)
         rdx, rdw = ce.fused_ce_bwd_ref(x, w, y, rlse, g)
         worst = {"fwd": (0.0, 0.0), "grad": (0.0, 0.0)}
@@ -1200,7 +1280,8 @@ def ce_phase(torch, ce):
         log(f"kernel fused_ce {label:10s} N={n} d={d} V={v} {dname:8s} "
             f"fwd rel {worst['fwd'][1]:.3e} (tol {ce.oracle_tol(dtype):g}) "
             f"grad rel {worst['grad'][1]:.3e} (tol "
-            f"{ce.oracle_tol(dtype, 'grad'):g}) ok")
+            f"{ce.oracle_tol(dtype, 'grad'):g}); dW on the {family} family, "
+            f"bit-identical twice ok")
         errs[label] = (worst["fwd"][0], worst["grad"][0])
         del x, w, y, g, loss, lse, dx, dw, rloss, rlse, rdx, rdw
         torch.cuda.empty_cache()
@@ -1212,7 +1293,8 @@ def ce_phase(torch, ce):
     loss, lse = ce.ce_fwd(x, w, y)
     fwd_ms = device_ms(torch, lambda i: ce.ce_fwd(x, w, y), 4)
     dx_ms = device_ms(torch, lambda i: ce.ce_dx(x, w, y, lse, g), 3)
-    dw_ms = device_ms(torch, lambda i: ce.ce_dw(x, w, y, lse, g), 3)
+    dw_times = ce_dw_turns(torch, ce, lambda i: ce.ce_dw(x, w, y, lse, g))
+    dw_ms, dw_simple_ms = min(dw_times["sm90"]), min(dw_times["simple"])
     plain_fwd_ms = device_ms(torch, lambda i: ce.fused_ce_ref(x, w, y), 1)
     plain_dx_ms = device_ms(
         torch, lambda i: ce.fused_ce_dx_ref(x, w, y, lse, g), 1)
@@ -1254,14 +1336,22 @@ def ce_phase(torch, ce):
     prod = 2 * n * d * v
     es = x.element_size()
     io = x.numel() * es + w.numel() * es + 4 * n        # x, w, y
+    log(f"fused_ce_dw bf16 path, in turns simple/sm90/sm90/simple "
+        + "/".join(f"{t:.4f}" for t in dw_times["simple"][:1]
+                   + dw_times["sm90"] + dw_times["simple"][1:])
+        + f" ms: sm90 {dw_ms:.4f} ms, {dw_simple_ms / dw_ms:.2f}x the "
+        f"simple family, {dw_ms / lib_bwd[1]:.3f}x the library backward for "
+        f"w ({lib_bwd[1]:.4f} ms)")
     rows = []
-    for name, line, ms, plain, lib, flops, nbytes, err in (
-            ("fused_ce_fwd", 153, fwd_ms, plain_fwd_ms, lib_fwd_ms, prod,
-             io + 8 * n, errs["path"][0]),
-            ("fused_ce_dx", 198, dx_ms, plain_dx_ms, lib_bwd[0], 2 * prod,
-             io + 8 * n + x.numel() * es, errs["path"][1]),
-            ("fused_ce_dw", 211, dw_ms, plain_dw_ms, lib_bwd[1], 2 * prod,
-             io + 8 * n + w.numel() * es, errs["path"][1])):
+    for name, line, src, ms, plain, lib, flops, nbytes, err in (
+            ("fused_ce_fwd", 153, "fused_ce.cu", fwd_ms, plain_fwd_ms,
+             lib_fwd_ms, prod, io + 8 * n, errs["path"][0]),
+            ("fused_ce_dx", 198, "fused_ce.cu", dx_ms, plain_dx_ms,
+             lib_bwd[0], 2 * prod, io + 8 * n + x.numel() * es,
+             errs["path"][1]),
+            ("fused_ce_dw", 211, "fused_ce_sm90.cu", dw_ms, plain_dw_ms,
+             lib_bwd[1], 2 * prod, io + 8 * n + w.numel() * es,
+             errs["path"][1])):
         ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
         bytes_ms = nbytes / HBM_BYTES_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
@@ -1273,14 +1363,29 @@ def ce_phase(torch, ce):
             f"{bound_ms:.4f} ms "
             f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
         rows.append({"name": name, "route": "cuda",
-                     "source": "paddle_tpu_torch/csrc/fused_ce.cu",
+                     "source": f"paddle_tpu_torch/csrc/{src}",
                      "replaces": f"paddle_tpu/ops/pallas_ce.py:{line}",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
                      "bound_ms": bound_ms,
                      "bound_by": ("operations" if ops_ms >= bytes_ms
                                   else "bytes"),
                      "library_ms": lib})
+    rows[2]["simple_ms"] = dw_simple_ms
     return rows
+
+
+def ce_dw_turns(torch, ce, fn):
+    """Device ms of ``fn(i)`` (a dW call) on both dW families in turns
+    (simple, sm90, sm90, simple): ``{family: [ms, ms]}``; the sm90 kernel
+    must win."""
+    times = {}
+    for family in ("simple", "sm90", "sm90", "simple"):
+        with forced_rule(ce, "ce_family", family):
+            times.setdefault(family, []).append(device_ms(torch, fn, 2))
+    if not max(times["sm90"]) < min(times["simple"]):
+        raise AssertionError(f"the sm90 dW ({times['sm90']} ms) is not faster "
+                             f"than the simple one ({times['simple']} ms)")
+    return times
 
 
 def ce_long_phase(torch, ce):
@@ -1311,13 +1416,15 @@ def ce_long_phase(torch, ce):
         errs.append(rel)
     fwd_ms = device_ms(torch, lambda i: ce.ce_fwd(x, w, y), 2)
     dx_ms = device_ms(torch, lambda i: ce.ce_dx(x, w, y, lse, g), 2)
-    dw_ms = device_ms(torch, lambda i: ce.ce_dw(x, w, y, lse, g), 2)
+    dw_times = ce_dw_turns(torch, ce, lambda i: ce.ce_dw(x, w, y, lse, g))
+    dw_ms = min(dw_times["sm90"])
     prod = 2 * n * d * v
     log(f"kernel fused_ce path N={n} d={d} V={v} bfloat16: loss rel "
         f"{errs[0]:.3e}, lse rel {errs[1]:.3e} (tol {tol:g}, plain over "
         f"{chunk}-row chunks) ok; forward {fwd_ms:.4f} ms "
         f"({prod / fwd_ms / 1e9:.1f} TFLOP/s), dx {dx_ms:.4f} ms, dW "
-        f"{dw_ms:.4f} ms ({2 * prod / dw_ms / 1e9:.1f} TFLOP/s); bounds "
+        f"{dw_ms:.4f} ms ({2 * prod / dw_ms / 1e9:.1f} TFLOP/s; simple family "
+        f"{min(dw_times['simple']):.4f} ms); bounds "
         f"{prod / PEAK_FLOPS['bfloat16'] * 1e3:.4f} / "
         f"{2 * prod / PEAK_FLOPS['bfloat16'] * 1e3:.4f} ms (operations)")
     del x, w, y, g, loss, lse, rloss, rlse
@@ -1498,15 +1605,27 @@ def serve_f32(params, work, **kw):
     return outs, eng
 
 
-def correctness_phase(torch, np, params, work):
+def paged_on_split(kernels, what):
+    """The paged-attention calls since the last reset all ran the split
+    family (the serving paths' shapes).  Returns their count."""
+    fams = kernels.family_counts()["paged_attention"]
+    if fams["simple"] or not fams["split"]:
+        raise AssertionError(f"{what}: paged attention ran the families "
+                             f"{fams}, expected every call on split")
+    return fams["split"]
+
+
+def correctness_phase(torch, np, params, work, kernels):
+    kernels.reset_launches()
     outs, eng = serve_f32(params, work)
+    split = paged_on_split(kernels, "phase 4")
     hit = eng.stats().get("serving.prefix_hit_rate", 0.0)
     del eng
     refs = generate_refs(torch, params, work, N_LAYER, N_HEAD, D_MODEL)
     full = hold_to_generate(torch, np, outs, work, refs, "f32")
     log(f"f32 full width: {full}/{len(work)} requests token-identical to "
         f"generate, the rest diverge only at near-ties "
-        f"(prefix hit rate {hit:.3f})")
+        f"(prefix hit rate {hit:.3f}); {split} paged calls, all split")
     return refs
 
 
@@ -1533,6 +1652,8 @@ def correctness_spelling_phase(torch, np, params, work, refs, kernels):
         if launches[want] <= 0 or launches[other] != 0:
             raise AssertionError(
                 f"4b {label}: launches {launches} do not follow the switch")
+        if switch == "1":
+            paged_on_split(kernels, f"4b {label}")
         full = hold_to_generate(torch, np, outs, work, refs, f"4b {label}")
         note = ""
         if kw:
@@ -1643,6 +1764,8 @@ def _serving_pass(torch, np, params, work, kernels, switch):
         raise AssertionError(
             f"{launches['paged_attention']} kernel launches, expected "
             f"{expect}: some attention did not go through the kernel")
+    if paged_on_split(kernels, "phase 5") != expect:
+        raise AssertionError("phase 5: family counts disagree with launches")
     profile_decode(torch, eng, work)
     del eng
     return out
@@ -1758,6 +1881,7 @@ def spec_phase(torch, np, kernels, seed):
         eng = ServingEngine(params, SPEC_LAYERS, SPEC_HEADS, SPEC_D,
                             **geom, **kw)
         reqs, wall, launches = _spec_pass(torch, eng, work, kernels)
+        paged_on_split(kernels, f"5c {label}")
         outs = [r.result(timeout=0) for r in reqs]
         full = hold_to_generate(torch, np, outs[:8], work[:8], refs,
                                 f"5c {label}")
@@ -1799,6 +1923,8 @@ def spec_phase(torch, np, kernels, seed):
             raise AssertionError(
                 f"5c: {launches['paged_attention']} paged launches, "
                 f"expected {expect}")
+        if paged_on_split(kernels, "5c spec") != expect:
+            raise AssertionError("5c: family counts disagree with launches")
         del eng
     log(f"5c tok/s: spec {runs['spec']:.1f} / plain {runs['plain']:.1f} = "
         f"{runs['spec'] / runs['plain']:.3f}x")
@@ -2002,10 +2128,6 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
     for i in range(warm + steps):
         if i == warm:
             kernels.reset_launches()             # counts start at 0 here
-            for calls in (fa.FWD_FAMILY_CALLS, fa.FUSED_FAMILY_CALLS,
-                          fa.BWD_FAMILY_CALLS):
-                for fam in calls:
-                    calls[fam] = 0
         feed = make_batch(torch, rng, TRAIN_B, t)
         t0 = time.perf_counter()
         loss, = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
@@ -2013,9 +2135,11 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
         losses.append(loss.item())               # ends in a device sync
         walls.append(time.perf_counter() - t0)
     launches = kernels.launch_counts()
-    families = {"forward": dict(fa.FWD_FAMILY_CALLS),
-                "fused": dict(fa.FUSED_FAMILY_CALLS),
-                "split": dict(fa.BWD_FAMILY_CALLS)}
+    fams = kernels.family_counts()
+    families = {"forward": fams["flash_attention_fwd"],
+                "fused": fams["flash_attention_bwd"],
+                "split": fams["flash_attention_split"],
+                "ce_dw": fams["fused_ce_dw"]}
     peak = torch.cuda.max_memory_allocated()
     steady = sorted(walls[1:])[len(walls[1:]) // 2]
     route = fa.bwd_route((TRAIN_B, t, N_HEAD, D_HEAD), t, 2)
@@ -2059,11 +2183,12 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
     fused_calls = want if route == "fused" else 0
     expect = {"forward": {"sm90": want, "simple": 0},
               "fused": {"sm90": fused_calls, "simple": 0},
-              "split": {"sm90": split_calls, "simple": 0}}
+              "split": {"sm90": split_calls, "simple": 0},
+              "ce_dw": {"sm90": ce_want, "simple": 0}}
     if families != expect:
         raise AssertionError(
-            f"flash kernels by family {families}, expected every one on "
-            f"sm90: {expect}")
+            f"flash and CE dW kernels by family {families}, expected every "
+            f"one on sm90: {expect}")
     for n, old in before.items():
         if torch.equal(scope.get(n), old):
             raise AssertionError(f"parameter {n} did not change")
@@ -2398,25 +2523,35 @@ def resnet_inference_phase(torch, pt, bn, seed, scope):
 
 def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
     """Where one training step's time goes (measured, not judged): the
-    device's kernel time by kernel family under ``torch.profiler``, then
+    device's kernel time by kernel family under ``torch.profiler`` (the
+    second of two steps; the first warms the profiler up), then
     the device time of each forward and optimizer op type by CUDA events
     around the op implementations (what is left is autograd's backward).
     Returns ``{family: (ms, calls)}`` of the profiled step ({} when the
     profiler recorded no device time)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from paddle_tpu_torch.core import registry
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
-                return_numpy=False)
-        torch.cuda.synchronize()
+    # one warm-up step, then the step recorded: events launched just as
+    # the profiler starts can be lost (an H100 run counted 11 of a step's
+    # 12 flash forwards), so none of them is the recorded step's
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                    return_numpy=False)
+            torch.cuda.synchronize()
+            prof.step()
+    # device rows only; the schedule's ProfilerStep range spans the whole
+    # step and is no kernel
     rows = [(e.self_device_time_total, e.count, e.key)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
     sums = {}
     if not rows:
         log("profile: the profiler recorded no device time")
@@ -2438,7 +2573,11 @@ def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
                      ("flash_bwd_delta_kernel",)),
                     ("CE forward", ("ce_fwd_kernel",)),
                     ("CE dx", ("ce_dx_kernel",)),
-                    ("CE dW", ("ce_dw_kernel",)),
+                    ("CE dW (sm90)", ("ce_dw_sm90_kernel",)),
+                    ("CE dW (simple)", ("ce_dw_kernel",)),
+                    ("paged attention (split)", ("paged_split_kernel",)),
+                    ("paged attention merge", ("paged_merge_kernel",)),
+                    ("paged attention (simple)", ("paged_attention_kernel",)),
                     ("convolution (cuDNN)", ("conv", "fprop", "dgrad",
                                              "wgrad", "implicit")),
                     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
@@ -2579,7 +2718,7 @@ def main():
 
     # 4. correctness at full width, f32; 4b. the kill switch and
     #    speculative decoding held to the same references
-    refs = correctness_phase(torch, np, params, work[:8])
+    refs = correctness_phase(torch, np, params, work[:8], kernels)
     t0 = time.perf_counter()
     correctness_spelling_phase(torch, np, params, work[:8], refs, kernels)
     walls["4b"] = time.perf_counter() - t0
@@ -2620,11 +2759,14 @@ def main():
     fused = training_phase(torch, np, pt, kernels, args.seed,
                            fused_head=True)
     prof = fused["profile"]
-    if prof and not all(prof.get(f, (0, 0))[1] == N_LAYER for f in (
-            "flash forward (sm90)", "flash backward (fused, sm90)")):
+    if prof and not (all(prof.get(f, (0, 0))[1] == N_LAYER for f in (
+            "flash forward (sm90)", "flash backward (fused, sm90)"))
+            and prof.get("CE dW (sm90)", (0, 0))[1] == 1
+            and "CE dW (simple)" not in prof):
         raise AssertionError(f"phase 7's profiled step does not list "
                              f"{N_LAYER} flash_fwd_sm90_kernel and "
-                             f"flash_bwd_sm90_fused_kernel calls: {prof}")
+                             f"flash_bwd_sm90_fused_kernel calls and one "
+                             f"ce_dw_sm90_kernel: {prof}")
     torch.cuda.empty_cache()
     # 7c. one step of phase 7's program on each kernel family
     family_step_phase(torch, np, pt, fa, args.seed, "7c", TRAIN_T, None,
@@ -2661,7 +2803,8 @@ def main():
     row["launches"] = launches["paged_attention"]
     gather_row["launches"] = gathered["launches"]["decode_gather"]
     log(f"paged_attention at the verify shape: kernel {verify_ms[0]:.4f} ms, "
-        f"plain {verify_ms[1]:.4f} ms, bound {verify_ms[2]:.4f} ms")
+        f"plain {verify_ms[1]:.4f} ms, bound {verify_ms[2]:.4f} ms, simple "
+        f"family {verify_ms[3]:.4f} ms")
     for r in flash_rows + ce_rows:
         r["launches"] = fused["launches"][r["name"]]
     for r in split_rows:

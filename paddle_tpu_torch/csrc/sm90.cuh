@@ -1,9 +1,10 @@
-// The sm90 primitives shared by the port's Hopper (sm_90a) attention
-// kernels, flash_bwd_sm90.cu and flash_fwd_sm90.cu: mbarriers and TMA
-// loads, wgmma (shared-memory and register A operands) with its matrix
-// descriptors, the packing of an f32 accumulator into a bf16 A fragment,
-// and the host-side encoding of the [b, t, h, d] tensor maps.  Inline PTX;
-// no CUTLASS header.  Everything lives in an anonymous namespace: each
+// The sm90 primitives shared by the port's Hopper (sm_90a) kernels,
+// flash_bwd_sm90.cu, flash_fwd_sm90.cu and fused_ce_sm90.cu: mbarriers
+// and TMA loads, wgmma (shared-memory and register A operands) with its
+// matrix descriptors, the packing of an f32 accumulator into a bf16 A
+// fragment, thread-block-cluster barriers and distributed shared memory,
+// and the host-side encoding of tensor maps.  Inline PTX; no CUTLASS
+// header.  Everything lives in an anonymous namespace: each
 // source is its own library (paddle_tpu_torch/kernels/_build.py), and a
 // changed header rebuilds every source that includes it.
 //
@@ -93,6 +94,75 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 2-D (c0 innermost) or 1-D tensor map into shared memory.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+// -- thread-block clusters ---------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+// Every thread of every block of the cluster: shared-memory writes before
+// it are visible to reads after it, in any block of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+// The shared::cluster address, in block `rank` of the cluster, of the
+// shared::cta address `addr` of this block.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+// `bytes` (a multiple of 16) of this block's shared memory at `src` into
+// another block's at `dst` (a mapa address), completing them on that
+// block's barrier `bar` (a mapa address).  The source is read through the
+// async proxy: generic writes to it need fence_proxy_async() first.
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, uint32_t src,
+                                                  uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// Arrives on a barrier of another block (a mapa address).  No cluster-
+// scope release (measured costly on the H100): it tells the other block
+// that this block has read what that block copied in, and those reads have
+// completed, their values in registers, before the arrival is issued.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
 // -- wgmma -------------------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -200,6 +270,28 @@ __device__ __forceinline__ void wgmma_ss_n64_tt(float (&d)[32], uint64_t da,
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31 "
       "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A MN-major (the transpose
+// bit: A's rows contiguous), B K-major, both in shared memory; acc == 0
+// overwrites d
+__device__ __forceinline__ void wgmma_ss_n64_ta(float (&d)[32], uint64_t da,
+                                                uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -354,25 +446,35 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A [b, t, h, d] bf16 tensor as a 4-D map, innermost first, with boxes of
-// 64 columns by `rows` rows of one (batch, head), 128-byte swizzled; reads
-// past any edge fill zeros.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, const Geom& g, int T,
-                     long long sb, long long st, long long sh, int rows) {
+// A tensor of `rank` (1 to 4) dims as a tensor map: `dims` innermost
+// first, `strides` the byte strides of dims 1.. (rank - 1 of them), boxes
+// of `box`; reads past any edge fill zeros.
+cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                       const void* ptr, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, type, (cuuint32_t)rank, const_cast<void*>(ptr),
+                         dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A [b, t, h, d] bf16 tensor as a 4-D map, innermost first, with boxes of
+// 64 columns by `rows` rows of one (batch, head), 128-byte swizzled.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, const Geom& g, int T,
+                     long long sb, long long st, long long sh, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)g.D, (cuuint64_t)g.H, (cuuint64_t)T,
                               (cuuint64_t)g.B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
                                  (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = enc(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 4, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 bool aligned16(const void* p) {

@@ -2,7 +2,8 @@
 a hand-written CUDA kernel for Hopper (``paddle_tpu_torch/csrc/``),
 built at first use by ``_build``.  Wrappers take the plain version for
 CPU tensors and launch the kernel for CUDA tensors, and count their
-launches (``<wrapper>.launches``)."""
+launches (``<wrapper>.launches``) and, where a static rule picks among
+kernel families, the calls of each family (``FAMILIES``)."""
 
 from . import _build
 from . import bottleneck as _bn
@@ -25,9 +26,26 @@ WRAPPERS = {"paged_attention": _pa.paged_attention,
             "bottleneck": _bn.bottleneck}
 
 
+# name -> {family: calls} of the wrappers whose kernels come in families
+FAMILIES = {"paged_attention": _pa.PAGED_FAMILY_CALLS,
+            "flash_attention_fwd": _fa.FWD_FAMILY_CALLS,
+            "flash_attention_bwd": _fa.FUSED_FAMILY_CALLS,
+            "flash_attention_split": _fa.BWD_FAMILY_CALLS,
+            "fused_ce_dw": _ce.CE_DW_FAMILY_CALLS}
+
+
 def reset_launches():
+    """Every launch count, and every family's, back to 0."""
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for calls in FAMILIES.values():
+        for fam in calls:
+            calls[fam] = 0
+
+
+def family_counts():
+    """``{name: {family: calls}}`` of every wrapper with kernel families."""
+    return {nm: dict(calls) for nm, calls in FAMILIES.items()}
 
 
 def launch_counts():
@@ -46,4 +64,5 @@ def build_all():
     _bn.build()
 
 
-__all__ = ["WRAPPERS", "reset_launches", "launch_counts", "build_all"]
+__all__ = ["WRAPPERS", "FAMILIES", "reset_launches", "launch_counts",
+           "family_counts", "build_all"]

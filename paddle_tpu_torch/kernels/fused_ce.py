@@ -18,14 +18,22 @@ logit leaves the chip.  Two spellings of each function live here:
   and ``x^T @ ds`` (as ``pallas_ce.py`` casts it; the ``xla_ref`` backend
   keeps ``ds`` in f32).  They materialise ``[N, V]``: the CPU path and the
   numerics reference the kernels are held against.
+* :func:`fused_ce_dw_split_ref` — the plain spelling of the sm90 dW
+  kernel's decomposition (partial scores over ``d`` slices summed in slice
+  order, ``ds`` cast to the input dtype, each slice's update), for the
+  tests.
 * the CUDA kernels ``csrc/fused_ce.cu``, hand-written for Hopper
   (``sm_90a``), which replace the TPU kernels ``_ce_fwd`` and the two
-  calls of ``_ce_bwd`` (dx, dW).
+  calls of ``_ce_bwd`` (dx, dW); the dW of bf16 inputs that TMA can
+  address runs on ``csrc/fused_ce_sm90.cu`` (``wgmma``, a TMA ring, the
+  ``d`` accumulator split across a thread-block cluster), picked by the
+  static rule :func:`ce_family`.
 
 :func:`ce_fwd`, :func:`ce_dx` and :func:`ce_dw` are the wrappers.  They
 dispatch on the tensors' device: CPU tensors take the plain versions,
 CUDA tensors launch the kernels or raise — there is no fallback from one
-to the other.  Every successful launch adds one to ``<wrapper>.launches``.
+to the other.  Every successful launch adds one to ``<wrapper>.launches``;
+:func:`ce_dw` adds one to ``CE_DW_FAMILY_CALLS[family]`` too.
 
 Gradients flow through :class:`FusedCEFunction`, whose forward saves
 exactly ``FUSED_CE_RESIDUALS = (x, w, y, lse)`` — nothing ``[N, V]`` —
@@ -42,9 +50,10 @@ import torch
 
 from . import _build
 
-__all__ = ["ORACLE_TOL", "FUSED_CE_RESIDUALS", "oracle_tol", "fused_ce_ref",
-           "fused_ce_bwd_ref", "fused_ce_dx_ref", "fused_ce_dw_ref",
-           "ce_fwd", "ce_dx", "ce_dw", "FusedCEFunction",
+__all__ = ["ORACLE_TOL", "FUSED_CE_RESIDUALS", "CE_DW_FAMILY_CALLS",
+           "oracle_tol", "fused_ce_ref", "fused_ce_bwd_ref",
+           "fused_ce_dx_ref", "fused_ce_dw_ref", "fused_ce_dw_split_ref",
+           "ce_family", "ce_fwd", "ce_dx", "ce_dw", "FusedCEFunction",
            "fused_softmax_ce_head", "build"]
 
 # what the backward is computed from, and all the forward saves
@@ -61,6 +70,24 @@ ORACLE_TOL = {
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 768
+D_SLICE = 256      # d a block of the sm90 dW kernel's cluster owns
+
+# ce_dw launches on the card, by kernel family
+CE_DW_FAMILY_CALLS = {"sm90": 0, "simple": 0}
+
+
+def ce_family(dtype, d, v, ptrs):
+    """``"sm90"`` or ``"simple"``: the dW kernel family for ``x [N, d]``,
+    ``w [d, v]`` of ``dtype`` and the inputs' base addresses ``ptrs``.
+    ``"sm90"`` takes bf16 with ``d <= 768``, rows of ``x`` and ``w`` (``d``
+    and ``v`` elements) a multiple of 16 bytes and every pointer 16-byte
+    aligned (what TMA addresses); anything else is ``"simple"``.  Static:
+    decided before any launch."""
+    if dtype != torch.bfloat16 or not 1 <= d <= _MAX_D:
+        return "simple"
+    if d % 8 or v % 8 or any(p % 16 for p in ptrs):
+        return "simple"
+    return "sm90"
 
 
 def oracle_tol(dtype, kind="fwd"):
@@ -127,6 +154,34 @@ def fused_ce_dw_ref(x, w, y, lse, g):
     return _dw(x, w, _ds_ref(x, w, y, lse, g))
 
 
+def fused_ce_dw_split_ref(x, w, y, lse, g, d_slice=D_SLICE, block_n=64):
+    """The plain spelling of the sm90 dW kernel's decomposition: over row
+    tiles of ``block_n``, the scores as partial products over ``d`` slices
+    of ``d_slice`` summed in slice order (the cluster's exchange), ``ds``
+    rounded to the input dtype, then each slice's ``x_slice^T . ds``
+    accumulated in the accumulation dtype; dW in the input dtype."""
+    acc = _acc_dtype(x.dtype)
+    n, d = x.shape
+    v = w.shape[1]
+    cuts = [(a, min(a + d_slice, d)) for a in range(0, d, d_slice)]
+    wa = w.to(acc)
+    cols = torch.arange(v, device=x.device)
+    dw = torch.zeros((d, v), dtype=acc, device=x.device)
+    for r0 in range(0, n, block_n):
+        xs = x[r0:r0 + block_n].to(acc)
+        s = None
+        for a, b in cuts:
+            part = xs[:, a:b] @ wa[a:b]
+            s = part if s is None else s + part
+        onehot = cols[None, :] == y[r0:r0 + block_n].long()[:, None]
+        ds = ((torch.exp(s - lse[r0:r0 + block_n].to(acc)[:, None])
+               - onehot.to(acc)) * g[r0:r0 + block_n].to(acc)[:, None])
+        ds = ds.to(x.dtype).to(acc)
+        for a, b in cuts:
+            dw[a:b] += xs[:, a:b].T @ ds
+    return dw.to(w.dtype)
+
+
 def fused_ce_bwd_ref(x, w, y, lse, g):
     """The plain backward from the saved ``(x, w, y, lse)`` and the loss
     cotangent ``g [N]``: ``(dx [N, d], dw [d, V])`` in the input dtype,
@@ -186,6 +241,7 @@ def _kernels():
     global _fns
     if _fns is None:
         lib = _build.load("fused_ce")
+        sm90 = _build.load("fused_ce_sm90")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         geom = [i32, i32, i32, i32, ptr]                 # N, D, V, dtype, stream
         fwd = lib.fused_ce_fwd
@@ -197,14 +253,17 @@ def _kernels():
         dw = lib.fused_ce_dw
         dw.argtypes = [ptr] * 6 + geom
         dw.restype = i32
+        dw90 = sm90.fused_ce_dw_sm90
+        dw90.argtypes = [ptr] * 6 + [i32, i32, i32, ptr]  # N, D, V, stream
+        dw90.restype = i32
         lib.fused_ce_error_string.argtypes = [i32]
         lib.fused_ce_error_string.restype = ctypes.c_char_p
-        _fns = (fwd, dx, dw, lib.fused_ce_error_string)
+        _fns = (fwd, dx, dw, dw90, lib.fused_ce_error_string)
     return _fns
 
 
 def build():
-    """Build (if stale) and load the kernel library — set-up work that
+    """Build (if stale) and load the kernel libraries — set-up work that
     belongs outside any timed window."""
     _kernels()
 
@@ -231,7 +290,7 @@ def ce_fwd(x, w, y):
     _check(x, w, y)
     if x.device.type == "cpu":
         return fused_ce_ref(x, w, y)
-    fwd, _, _, errstr = _kernels()
+    fwd, _, _, _, errstr = _kernels()
     n = x.shape[0]
     loss = torch.empty(n, dtype=torch.float32, device=x.device)
     lse = torch.empty(n, dtype=torch.float32, device=x.device)
@@ -251,7 +310,7 @@ def ce_dx(x, w, y, lse, g):
     _check(x, w, y, (lse, g))
     if x.device.type == "cpu":
         return fused_ce_dx_ref(x, w, y, lse, g)
-    _, dxk, _, errstr = _kernels()
+    _, dxk, _, _, errstr = _kernels()
     dx = torch.empty_like(x)
     _launch("dx", dxk, (x.data_ptr(), w.data_ptr(), y.data_ptr(),
                         lse.data_ptr(), g.data_ptr(), dx.data_ptr()),
@@ -266,15 +325,28 @@ ce_dx.launches = 0
 def ce_dw(x, w, y, lse, g):
     """``dw [d, V]`` from the saved ``(x, w, y, lse)`` and the loss
     cotangent ``g [N]``.  CPU tensors take the plain version; CUDA tensors
-    launch the dW kernel on the current stream, or raise."""
+    launch the dW kernel of the family :func:`ce_family` picks on the
+    current stream, or raise."""
     _check(x, w, y, (lse, g))
     if x.device.type == "cpu":
         return fused_ce_dw_ref(x, w, y, lse, g)
-    _, _, dwk, errstr = _kernels()
+    _, _, dwk, dw90, errstr = _kernels()
+    ins = (x.data_ptr(), w.data_ptr(), y.data_ptr(), lse.data_ptr(),
+           g.data_ptr())
+    family = ce_family(x.dtype, x.shape[1], w.shape[1], ins)
     dw = torch.empty_like(w)
-    _launch("dW", dwk, (x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                        lse.data_ptr(), g.data_ptr(), dw.data_ptr()),
-            x, w, errstr)
+    if family == "sm90":
+        n, d = x.shape
+        with torch.cuda.device(x.device):
+            err = dw90(*ins, dw.data_ptr(), n, d, w.shape[1],
+                       torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(
+                f"fused_ce dW sm90 kernel launch failed: cudaError {err} "
+                f"({errstr(err).decode()})")
+    else:
+        _launch("dW", dwk, ins + (dw.data_ptr(),), x, w, errstr)
+    CE_DW_FAMILY_CALLS[family] += 1
     ce_dw.launches += 1
     return dw
 

@@ -12,27 +12,39 @@ Calling convention and layout are the JAX package's::
     pos     [S, W]  int32            key token ``j`` counts iff ``j <= pos``
     ctx     [S, W, h, dh]            in ``q.dtype``
 
-Two spellings of the one function live here:
+Spellings of the one function here:
 
 * :func:`paged_attention_ref` — the plain PyTorch version: the block scan
   with online softmax of the JAX ``paged_attention_ref`` (f32 scores and
   ``(m, l, acc)`` state, ``NEG_INF`` masking, one normalisation at the
   end with the ``l == 0 -> 1`` guard, output cast to ``q.dtype``).  The
-  CPU path and the numerics reference the kernel is held against.
-* the CUDA kernel ``csrc/paged_attention.cu``, hand-written for Hopper
-  (``sm_90a``), which replaces the TPU kernel ``paged_attention_pallas``.
+  CPU path and the numerics reference the kernels are held against.
+* :func:`paged_attention_split_ref` — the plain spelling of the split
+  family's decomposition (the chain cut into splits, each split's
+  ``(m, l, acc)`` merged in split order), for the tests and
+  ``chip_smoke.py``.
+* the CUDA kernels of ``csrc/paged_attention.cu``, hand-written for
+  Hopper (``sm_90a``), which replace the TPU kernel
+  ``paged_attention_pallas``, in two families that :func:`paged_family`
+  picks by a static rule: ``"split"`` (flash-decoding: a block a (chain
+  split, head, slot) owning all W queries, then a merge kernel; every
+  call of the serving paths) and ``"simple"`` (a block a query row
+  walking the whole chain; what the split family does not take).
 
 :func:`paged_attention` is the wrapper.  It dispatches on the tensors'
 device: CPU tensors take the plain version, CUDA tensors launch the
-kernel or raise — there is no fallback from one to the other.  Every
-successful launch adds one to ``paged_attention.launches``.
+kernels or raise — there is no fallback from one to the other.  Every
+successful call on the card adds one to ``paged_attention.launches``
+and to ``PAGED_FAMILY_CALLS[family]``.
 
 Kernel limits (checked here, before the launch): ``q`` and the pools
 bf16 or f32 and of one dtype, ``table``/``pos`` int32, every tensor
 contiguous and on one device, ``1 <= B <= 1024``, ``1 <= dh <= 1024``,
-``pos >= 0`` (a row whose ``pos`` is negative attends nothing and
-returns zeros), and table entries that name blocks of the pool (they
-are data and are not checked without a device sync).
+and table entries that name blocks of the pool (they are data and are
+not checked without a device sync).  A row whose ``pos`` is negative
+attends nothing: the kernels return zeros there, where the JAX oracle
+averages every value of the chain (its finite ``NEG_INF`` weighs all
+masked keys alike).
 """
 
 import ctypes
@@ -41,8 +53,9 @@ import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "ORACLE_TOL", "paged_attention", "paged_attention_ref",
-           "oracle_tol"]
+__all__ = ["NEG_INF", "ORACLE_TOL", "PAGED_FAMILY_CALLS", "paged_attention",
+           "paged_attention_ref", "paged_attention_split_ref", "paged_family",
+           "paged_splits", "oracle_tol"]
 
 NEG_INF = -1e30
 
@@ -56,6 +69,40 @@ ORACLE_TOL = {
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DIM = 1024
+_SMS = 132         # streaming multiprocessors of an H100 SXM
+
+# paged_attention calls on the card, by kernel family
+PAGED_FAMILY_CALLS = {"split": 0, "simple": 0}
+
+
+def paged_family(dtype, S, W, h, dh, B, ptrs):
+    """``"split"`` or ``"simple"``: the kernel family for a call with
+    ``q [S, W, h, dh]`` and pools of ``B``-token blocks in ``dtype``, whose
+    ``q`` and pools start at the addresses ``ptrs``.  ``"split"`` takes
+    ``1 <= W <= 8``, a head row of ``dh * itemsize = 16 << k <= 512``
+    bytes (one 16-byte chunk a lane, at most a warp a key), ``B <= 64``,
+    ``S, h <= 65535`` and 16-byte aligned pointers; anything else is
+    ``"simple"``.  Static: decided before any launch."""
+    row = dh * (2 if dtype == torch.bfloat16 else 4)
+    if dtype not in _DTYPE_CODE or not 1 <= W <= 8 or not 1 <= B <= 64:
+        return "simple"
+    if row < 16 or row > 512 or row & (row - 1):
+        return "simple"
+    if S > 65535 or h > 65535 or any(p % 16 for p in ptrs):
+        return "simple"
+    return "split"
+
+
+def paged_splits(S, h, NB):
+    """``(splits, entries)``: the split family cuts each slot's chain of
+    ``NB`` entries into ``splits`` runs of ``entries`` (the last shorter),
+    about 16 blocks an SM of the card over ``S * h`` (slot, head) pairs:
+    about half of a serving chain is live, and an SM holds some 8 of these
+    blocks, so the live blocks fill the card about once.  A pure function
+    of the shapes."""
+    want = min(NB, max(1, -(-16 * _SMS // (S * h))))
+    entries = -(-NB // want)
+    return -(-NB // entries), entries
 
 
 def oracle_tol(dtype, kind="fwd"):
@@ -89,6 +136,64 @@ def paged_attention_ref(q, pool_k, pool_v, table, pos):
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("swhb,sbhd->swhd", p, vb)
         m = m2
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l_safe[..., None]).to(q.dtype)
+
+
+def paged_attention_split_ref(q, pool_k, pool_v, table, pos, splits):
+    """The plain spelling of the split family: each slot's chain cut into
+    ``splits`` runs of ``ceil(NB / splits)`` entries; in each run the online
+    softmax with ``-inf`` masking over the keys the kernel reads (those of
+    entries holding a token ``<= max_w pos``, up to that position; the rest
+    are never read, so garbage there cannot reach the output), a key past a
+    row's own ``pos`` skipped rather than weighted by zero; the runs'
+    ``(m, l, acc)`` merged in run order, the ``l == 0 -> 1`` guard, the cast
+    to ``q.dtype``.  A row with no live key is zeros.  Runs on any device;
+    the tests and ``chip_smoke.py`` hold the kernels and the JAX package to
+    it."""
+    S, W, h, dh = q.shape
+    B = pool_k.shape[1]
+    NB = table.shape[1]
+    per = -(-NB // splits)
+    scale = 1.0 / float(dh) ** 0.5
+    dev = q.device
+    qf = q.float()
+    pw = pos.long()                                          # [S, W]
+    pmax = pw.max(dim=1).values                              # [S]
+    off = torch.arange(B, device=dev)
+    ninf = float("-inf")
+    parts = []
+    for c in range(splits):
+        m = torch.full((S, W, h), ninf, device=dev)
+        l = torch.zeros((S, W, h), device=dev)
+        acc = torch.zeros((S, W, h, dh), device=dev)
+        for nb in range(c * per, min((c + 1) * per, NB)):
+            tok = nb * B + off                                # [B]
+            read = tok[None, :] <= pmax[:, None]              # [S, B]
+            blk = table[:, nb].long()
+            kb = torch.where(read[:, :, None, None], pool_k[blk].float(), 0.0)
+            vb = torch.where(read[:, :, None, None], pool_v[blk].float(), 0.0)
+            keep = tok[None, None, :] <= pw[:, :, None]       # [S, W, B]
+            s = torch.einsum("swhd,sbhd->swhb", qf, kb) * scale
+            s = torch.where(keep[:, :, None, :], s, ninf)
+            m2 = torch.maximum(m, s.amax(dim=-1))
+            ms = torch.where(m2 == ninf, 0.0, m2)
+            alpha = torch.exp(m - ms)
+            p = torch.exp(s - ms[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            vm = torch.where(keep[:, :, :, None, None], vb[:, None], 0.0)
+            acc = (acc * alpha[..., None]
+                   + torch.einsum("swhb,swbhd->swhd", p, vm))
+            m = m2
+        parts.append((m, l, acc))
+    big = torch.stack([pm for pm, _, _ in parts]).amax(dim=0)
+    big = torch.where(big == ninf, 0.0, big)
+    l = torch.zeros_like(big)
+    acc = torch.zeros_like(parts[0][2])
+    for pm, pl, pa in parts:
+        a = torch.exp(pm - big)
+        l = l + pl * a
+        acc = acc + pa * a[..., None]
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc / l_safe[..., None]).to(q.dtype)
 
@@ -147,9 +252,13 @@ def _kernel():
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        split = lib.paged_attention_split
+        split.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        split.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.paged_attention_error_string)
+        _fn = (fn, split, lib.paged_attention_error_string)
     return _fn
 
 
@@ -162,26 +271,39 @@ def build():
 def paged_attention(q, pool_k, pool_v, table, pos):
     """Attention of ``q`` over each slot's block chain (module
     docstring).  CPU tensors take :func:`paged_attention_ref`; CUDA
-    tensors launch the hand-written kernel on the current stream of the
-    calling thread, or raise."""
+    tensors launch the family :func:`paged_family` picks on the current
+    stream of the calling thread, or raise."""
     _check(q, pool_k, pool_v, table, pos)
     if q.device.type == "cpu":
         return paged_attention_ref(q, pool_k, pool_v, table, pos)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    fn, errstr = _kernel()
+    fn, split, errstr = _kernel()
     S, W, h, dh = q.shape
+    B, NB = pool_k.shape[1], table.shape[1]
+    family = paged_family(q.dtype, S, W, h, dh, B,
+                          (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr()))
     out = torch.empty_like(q)
+    scale = 1.0 / float(dh) ** 0.5
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-                 table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                 S, W, h, dh, pool_k.shape[1], table.shape[1],
-                 1.0 / float(dh) ** 0.5, _DTYPE_CODE[q.dtype], stream)
+        if family == "split":
+            splits, entries = paged_splits(S, h, NB)
+            part = torch.empty((S, W, h, splits, dh + 2), dtype=torch.float32,
+                               device=q.device)
+            err = split(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                        table.data_ptr(), pos.data_ptr(), part.data_ptr(),
+                        out.data_ptr(), S, W, h, dh, B, NB, entries, splits,
+                        scale, _DTYPE_CODE[q.dtype], stream)
+        else:
+            err = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                     table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                     S, W, h, dh, B, NB, scale, _DTYPE_CODE[q.dtype], stream)
     if err:
         raise RuntimeError(
-            f"paged_attention kernel launch failed: cudaError {err} "
+            f"paged_attention {family} kernel launch failed: cudaError {err} "
             f"({errstr(err).decode()})")
+    PAGED_FAMILY_CALLS[family] += 1
     paged_attention.launches += 1
     return out
 

@@ -1,10 +1,11 @@
-"""The port's CUDA kernels on the card (paged attention, decode gather,
-flash attention forward, fused backward and split backward (dq, dk/dv),
-each on the simple family and the sm90 one (the backwards with its delta
-pre-pass),
-the fused cross-entropy head's forward, dx and dW, the fused ResNet
-bottleneck), against their plain PyTorch versions
-(paddle_tpu_torch only: no jax, so these run on a host without it).  Every test needs an NVIDIA GPU and skips without one; on the card:
+"""The port's CUDA kernels on the card (paged attention on both kernel
+families, decode gather, flash attention forward, fused backward and split
+backward (dq, dk/dv), each on the simple family and the sm90 one (the
+backwards with its delta pre-pass), the fused cross-entropy head's
+forward, dx and dW (dW on both families), the fused ResNet bottleneck),
+against their plain PyTorch versions (paddle_tpu_torch only: no jax, so
+these run on a host without it).  Every test needs an NVIDIA GPU and skips
+without one; on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -72,12 +73,14 @@ def test_kernel_matches_plain_version(dtype, geom):
     assert _rel(got, tpa.paged_attention_ref(*args)) <= tpa.oracle_tol(dtype)
 
 
-def test_kernel_never_reads_past_pos():
+@pytest.mark.parametrize("dh,family", [(32, "split"), (100, "simple")])
+def test_kernel_never_reads_past_pos(dh, family):
     """Non-finite garbage in the trash block and past each position stays
-    out of the output: the kernel skips those keys rather than weighting
-    them by zero."""
+    out of the output: each kernel family skips those keys rather than
+    weighting them by zero."""
     _need_card()
-    q, pk, pv, table, pos = _case(4, 2, 2, 32, 4, 6, torch.float32, seed=3)
+    q, pk, pv, table, pos = _case(4, 2, 2, dh, 4, 6, torch.float32, seed=3)
+    before = dict(tpa.PAGED_FAMILY_CALLS)
     clean = tpa.paged_attention(q, pk, pv, table, pos)
     live = torch.zeros(pk.shape[:2], dtype=torch.bool, device="cuda")
     for s in range(table.shape[0]):
@@ -88,6 +91,63 @@ def test_kernel_never_reads_past_pos():
     got = tpa.paged_attention(q, pk, pv, table, pos)
     torch.cuda.synchronize()
     assert torch.equal(got, clean)
+    assert tpa.PAGED_FAMILY_CALLS[family] == before[family] + 2
+
+
+# the serving paths' shapes, all on the split family: decode and prefill
+# (phase 5), a 4-token window, the speculative verify window (phase 5c)
+PAGED_SPLIT_GEOMS = {"decode": (32, 1, 6, 128, 32, 16),
+                     "prefill": (1, 1, 6, 128, 32, 16),
+                     "window": (32, 4, 6, 128, 32, 16),
+                     "verify": (32, 6, 8, 32, 32, 16)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", list(PAGED_SPLIT_GEOMS))
+def test_split_kernel_matches_plain_versions(dtype, geom):
+    """The split family against the plain block scan and the plain
+    split-and-merge spelling, and the same bits from run to run."""
+    _need_card()
+    S, W, H, DH, B, NB = PAGED_SPLIT_GEOMS[geom]
+    args = _case(S, W, H, DH, B, NB, getattr(torch, dtype), seed=7)
+    before = dict(tpa.PAGED_FAMILY_CALLS)
+    got = tpa.paged_attention(*args)
+    again = tpa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert tpa.PAGED_FAMILY_CALLS == {"split": before["split"] + 2,
+                                      "simple": before["simple"]}
+    assert torch.equal(got, again)
+    tol = tpa.oracle_tol(dtype)
+    assert _rel(got, tpa.paged_attention_ref(*args)) <= tol
+    splits, _ = tpa.paged_splits(S, H, NB)
+    assert _rel(got, tpa.paged_attention_split_ref(*args, splits)) <= tol
+
+
+def test_split_kernel_rows_without_keys_are_zero():
+    """``pos = -1`` attends nothing: a whole slot, and one row of a window
+    whose other rows are live."""
+    _need_card()
+    q, pk, pv, table, pos = _case(4, 3, 2, 32, 4, 6, torch.float32, seed=5)
+    pos[1] = -1
+    pos[2, 0] = -1
+    got = tpa.paged_attention(q, pk, pv, table, pos)
+    torch.cuda.synchronize()
+    assert not got[1].any() and not got[2, 0].any()
+    splits, _ = tpa.paged_splits(4, 2, 6)
+    want = tpa.paged_attention_split_ref(q, pk, pv, table, pos, splits)
+    assert _rel(got, want) <= tpa.oracle_tol("float32")
+
+
+def test_split_launch_refuses_what_it_does_not_take(monkeypatch):
+    """A call the split kernels cannot take, forced onto them, raises: the
+    wrapper never falls back to another kernel or the plain version."""
+    _need_card()
+    args = _case(2, 1, 2, 100, 4, 3, torch.float32)
+    monkeypatch.setattr(tpa, "paged_family", lambda *a: "split")
+    before = tpa.paged_attention.launches
+    with pytest.raises(RuntimeError):
+        tpa.paged_attention(*args)
+    assert tpa.paged_attention.launches == before
 
 
 def test_wrapper_checks_before_launching():
@@ -638,13 +698,55 @@ def test_ce_kernels_match_plain_versions(dtype, geom):
     assert torch.equal(loss[out], lse[out])
     # the backward from the plain lse, so only the backward is compared
     ref_dx, ref_dw = tce.fused_ce_bwd_ref(x, w, y, ref_lse, g)
+    family = tce.ce_family(x.dtype, x.shape[1], w.shape[1],
+                           [t.data_ptr() for t in (x, w, y, ref_lse, g)])
+    fam = dict(tce.CE_DW_FAMILY_CALLS)
     dx = tce.ce_dx(x, w, y, ref_lse.float(), g)
     dw = tce.ce_dw(x, w, y, ref_lse.float(), g)
+    assert tce.CE_DW_FAMILY_CALLS[family] == fam[family] + 1
     tol = tce.oracle_tol(dtype, "grad")
     assert dx.dtype == x.dtype and dw.dtype == w.dtype
     assert _rel(dx, ref_dx) <= tol
     assert _rel(dw, ref_dw) <= tol
     assert torch.equal(dx[g == 0], torch.zeros_like(dx[g == 0]))
+
+
+# the training path's shape (phase 7: b=8, t=4096) and the ragged one
+CE_DW_SM90_GEOMS = {"path": (32768, 768, 32768), "ragged": (1000, 200, 5000)}
+
+
+@pytest.mark.parametrize("geom", list(CE_DW_SM90_GEOMS))
+def test_ce_dw_sm90_matches_plain_and_repeats_its_bits(geom):
+    """The sm90 dW kernel (a cluster of d slices at the path shape, one
+    block at the ragged one) against the plain version, and bit-identical
+    over two launches (no atomics)."""
+    _need_card()
+    n, d, v = CE_DW_SM90_GEOMS[geom]
+    x, w, y, g = _ce_case(n, d, v, torch.bfloat16, seed=11)
+    _, lse = tce.fused_ce_ref(x, w, y)
+    lse = lse.float()
+    fam = dict(tce.CE_DW_FAMILY_CALLS)
+    got = tce.ce_dw(x, w, y, lse, g)
+    again = tce.ce_dw(x, w, y, lse, g)
+    torch.cuda.synchronize()
+    assert tce.CE_DW_FAMILY_CALLS == {"sm90": fam["sm90"] + 2,
+                                      "simple": fam["simple"]}
+    assert torch.equal(got, again)
+    ref = tce.fused_ce_dw_ref(x, w, y, lse, g)
+    assert _rel(got, ref) <= tce.oracle_tol("bfloat16", "grad")
+
+
+def test_ce_dw_sm90_refuses_what_it_does_not_take(monkeypatch):
+    """An input the sm90 kernel cannot take (d = 61 is no multiple of 8),
+    forced onto it, raises: no fallback to the simple kernel."""
+    _need_card()
+    x, w, y, g = _ce_case(77, 61, 333, torch.bfloat16)
+    _, lse = tce.fused_ce_ref(x, w, y)
+    monkeypatch.setattr(tce, "ce_family", lambda *a: "sm90")
+    before = tce.ce_dw.launches
+    with pytest.raises(RuntimeError):
+        tce.ce_dw(x, w, y, lse.float(), g)
+    assert tce.ce_dw.launches == before
 
 
 def test_ce_autograd_goes_through_the_three_kernels():

@@ -183,6 +183,7 @@ def test_kernel_sources_and_build_flags():
     assert "flash_bwd_sm90" in _build.sources()
     assert "flash_fwd_sm90" in _build.sources()
     assert "fused_ce" in _build.sources()
+    assert "fused_ce_sm90" in _build.sources()
     assert "bottleneck" in _build.sources()
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
