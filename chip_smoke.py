@@ -60,16 +60,19 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
       dW kernels at the training path's shape (N = 32768 rows, d=768,
       V=32768, bf16), at phase 6's f32 shape (N=512) and at a ragged shape
       (N=1000, d=200, V=5000, bf16 and f32), with labels -1 and V in some
-      rows and a loss cotangent with zeros; dW on the family the rule
-      picks (sm90, ``csrc/fused_ce_sm90.cu``, for the bf16 cases; simple
-      for f32), the same bits twice; timed at the path shape, dW on both
-      families in turns (simple forced by a patch of the rule; the sm90
-      kernel must win) (library: ``torch.matmul`` + ``F.cross_entropy``
-      forward, and that composition's backward by autograd for x alone
-      and for w alone — no single PyTorch call computes the head; bound:
-      2 N d V flops a product over 989 TFLOP/s); c+. the forward at phase
-      8's N = 131072 against its plain version over row chunks, and the
-      three kernels' times there (dW on both families);
+      rows and a loss cotangent with zeros; all three on the family the
+      rule picks (sm90 for the bf16 cases: the forward and dx in
+      ``csrc/fused_ce_fwd_dx_sm90.cu``, dW in ``csrc/fused_ce_sm90.cu``;
+      simple, ``csrc/fused_ce.cu``, for f32), each the same bits twice;
+      timed at the path shape, each kernel on both families in turns
+      (simple, sm90, sm90, simple; the simple one forced by a patch of the
+      rule; each sm90 kernel must win) (library: ``torch.matmul`` +
+      ``F.cross_entropy`` forward, and that composition's backward by
+      autograd for x alone and for w alone — no single PyTorch call
+      computes the head; bound: 2 N d V flops a product over 989
+      TFLOP/s); c+. the forward and dx at phase 8's N = 131072 against
+      their plain versions over row chunks, and the three kernels' times
+      there on both families in turns;
    d. ``decode_gather`` against its plain version with ``torch.equal``
       (bit-exact) at the decode shape (S=32, NB=16, B=32, h=6, dh=128)
       in bf16 and f32, a prefill shape (S=1) and ragged blocks whose byte
@@ -140,19 +143,22 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    fall from about ln(32768), the parameters must change, and every
    attention and head call must have gone through the kernels (12 flash
    forward, 12 delta pre-pass, 12 fused flash backward and one launch of
-   each CE kernel a step, every flash kernel and the CE dW on the sm90
-   family by the family counters, all counts zeroed just before the
-   steps); prints
+   each CE kernel a step, every flash kernel and the three CE kernels
+   on the sm90 family by the family counters, all counts zeroed just
+   before the steps); prints
    step wall, tokens/s and peak memory, then where one more step's
    device time goes (``torch.profiler`` by kernel family, which must
    list ``flash_fwd_sm90_kernel`` and ``flash_bwd_sm90_fused_kernel`` 12
-   times each and ``ce_dw_sm90_kernel`` once; CUDA events by op type);
+   times each, ``ce_fwd_sm90_kernel``, ``ce_dx_sm90_kernel`` and
+   ``ce_dw_sm90_kernel`` once each and no simple CE kernel; CUDA events
+   by op type);
    b. the same five steps with ``fused_head=False`` (full depth), for the
    unfused head's peak memory: the fused step's peak must lie at least
    10 GB below it; c. one step of phase 7's program from one startup
-   state and batch on each kernel family (sm90 by the rule, simple
-   forced): losses within 1e-3 relative, every parameter's gradient
-   within 1e-2 (max |a - b| / max |b|);
+   state and batch on each kernel family (sm90 by the rules, simple
+   forced: the flash kernels and all three CE kernels): losses within
+   1e-3 relative, every parameter's gradient within 1e-2 (max |a - b| /
+   max |b|);
 8. training at long context (a main path, ``bench.py``'s
    ``BENCH_GPT_TUNE=1`` sequence): the same model at max_len 16384, batch
    8, with ``memory_optimize(policy="selective")``; the memory reckoned
@@ -160,15 +166,17 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    same loss and parameter checks, and 12 flash forward, 12 delta
    pre-pass, 12 split dq, 12 split dk/dv (every split kernel on the sm90
    family, by the family counter), 0 fused backward and one launch of
-   each CE kernel a step, the forward and the CE dW on the sm90 family
-   too; step wall, tokens/s, peak memory and the profiled step;
+   each CE kernel a step, the forward and the three CE kernels on the
+   sm90 family too; step wall, tokens/s, peak memory and the profiled
+   step (one launch of each sm90 CE kernel, as in phase 7);
    b. the same path for two steps with no remat and with ``compact``:
    peak memory and step wall beside phase 8's, compact's and selective's
    peaks below no remat's, the three loss trajectories equal to bf16
    rounding; c. one step of phase 8's program from one startup state
-   and batch on each kernel family (sm90 by the rule, simple forced,
-   the forward included): the losses within 1e-2 relative, every
-   parameter's gradient within the flash bf16 grad tolerance;
+   and batch on each kernel family (sm90 by the rules, simple forced,
+   the flash forward and the three CE kernels included): the losses
+   within 1e-2 relative, every parameter's gradient within the flash
+   bf16 grad tolerance;
 9. ResNet-50 training (a main path, ``bench.py``'s headline model,
    ``bench_resnet``): ``resnet.build(depth=50, class_dim=1000,
    image_shape=(3, 224, 224), dtype="bfloat16")`` at batch 128 on a
@@ -184,9 +192,9 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    that block (2e-2 max-relative);
 10. one JSON line ``{"kernels": [...]}`` with each of the eleven kernels'
    launches on its main path (phase 3e, 5, 5b, 7 or 8), error, times and
-   bound; the paged attention, flash forward, fused backward and CE dW
-   rows add the simple family's time (``simple_ms``), and the forward's
-   row its t=16384 entry (``t16384``, launches from phase 8);
+   bound; the paged attention, flash forward, fused backward and the
+   three CE rows add the simple family's time (``simple_ms``), and the
+   forward's row its t=16384 entry (``t16384``, launches from phase 8);
 11. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
@@ -1242,23 +1250,32 @@ def ce_phase(torch, ce):
              ("ragged", 1000, 200, 5000, bf16),
              ("ragged f32", 1000, 200, 5000, f32)]
     errs = {}
+    tables = {"forward": ce.CE_FWD_FAMILY_CALLS, "dx": ce.CE_DX_FAMILY_CALLS,
+              "dW": ce.CE_DW_FAMILY_CALLS}
     for label, n, d, v, dtype in cases:
         dname = str(dtype).replace("torch.", "")
         x, w, y, g = ce_inputs(torch, gen, n, d, v, dtype)
+        before = {k: dict(t) for k, t in tables.items()}
         loss, lse = ce.ce_fwd(x, w, y)
+        loss2, lse2 = ce.ce_fwd(x, w, y)
         dx = ce.ce_dx(x, w, y, lse, g)
-        before = dict(ce.CE_DW_FAMILY_CALLS)
+        dx2 = ce.ce_dx(x, w, y, lse, g)
         dw = ce.ce_dw(x, w, y, lse, g)
-        again = ce.ce_dw(x, w, y, lse, g)
+        dw2 = ce.ce_dw(x, w, y, lse, g)
         torch.cuda.synchronize()
         family = "sm90" if dtype == bf16 else "simple"
-        if ce.CE_DW_FAMILY_CALLS[family] != before[family] + 2:
-            raise AssertionError(f"fused CE dW at {label} {dname} ran "
-                                 f"{ce.CE_DW_FAMILY_CALLS}, expected {family}")
-        if not torch.equal(dw, again):
-            raise AssertionError(f"fused CE dW ({family}) at {label} {dname} "
-                                 f"differs from run to run")
-        del again
+        calls = {k: {f: t[f] - before[k][f] for f in t}
+                 for k, t in tables.items()}
+        want = {k: {"sm90": 0, "simple": 0, family: 2} for k in tables}
+        if calls != want:
+            raise AssertionError(f"fused CE at {label} {dname} ran the "
+                                 f"families {calls}, expected {family}")
+        for name, a, b_ in (("loss", loss, loss2), ("lse", lse, lse2),
+                            ("dx", dx, dx2), ("dW", dw, dw2)):
+            if not torch.equal(a, b_):
+                raise AssertionError(f"fused CE {name} ({family}) at {label} "
+                                     f"{dname} differs from run to run")
+        del loss2, lse2, dx2, dw2
         rloss, rlse = ce.fused_ce_ref(x, w, y)
         rdx, rdw = ce.fused_ce_bwd_ref(x, w, y, rlse, g)
         worst = {"fwd": (0.0, 0.0), "grad": (0.0, 0.0)}
@@ -1280,8 +1297,8 @@ def ce_phase(torch, ce):
         log(f"kernel fused_ce {label:10s} N={n} d={d} V={v} {dname:8s} "
             f"fwd rel {worst['fwd'][1]:.3e} (tol {ce.oracle_tol(dtype):g}) "
             f"grad rel {worst['grad'][1]:.3e} (tol "
-            f"{ce.oracle_tol(dtype, 'grad'):g}); dW on the {family} family, "
-            f"bit-identical twice ok")
+            f"{ce.oracle_tol(dtype, 'grad'):g}); forward, dx and dW on the "
+            f"{family} family, each bit-identical twice ok")
         errs[label] = (worst["fwd"][0], worst["grad"][0])
         del x, w, y, g, loss, lse, dx, dw, rloss, rlse, rdx, rdw
         torch.cuda.empty_cache()
@@ -1291,10 +1308,13 @@ def ce_phase(torch, ce):
     n, d, v = tokens, D_MODEL, VOCAB
     x, w, y, g = ce_inputs(torch, gen, n, d, v, bf16, out_of_range=False)
     loss, lse = ce.ce_fwd(x, w, y)
-    fwd_ms = device_ms(torch, lambda i: ce.ce_fwd(x, w, y), 4)
-    dx_ms = device_ms(torch, lambda i: ce.ce_dx(x, w, y, lse, g), 3)
-    dw_times = ce_dw_turns(torch, ce, lambda i: ce.ce_dw(x, w, y, lse, g))
-    dw_ms, dw_simple_ms = min(dw_times["sm90"]), min(dw_times["simple"])
+    times = {"forward": ce_turns(torch, ce, lambda i: ce.ce_fwd(x, w, y),
+                                 "forward"),
+             "dx": ce_turns(torch, ce, lambda i: ce.ce_dx(x, w, y, lse, g),
+                            "dx"),
+             "dW": ce_turns(torch, ce, lambda i: ce.ce_dw(x, w, y, lse, g),
+                            "dW")}
+    best = {k: (min(t["sm90"]), min(t["simple"])) for k, t in times.items()}
     plain_fwd_ms = device_ms(torch, lambda i: ce.fused_ce_ref(x, w, y), 1)
     plain_dx_ms = device_ms(
         torch, lambda i: ce.fused_ce_dx_ref(x, w, y, lse, g), 1)
@@ -1336,31 +1356,36 @@ def ce_phase(torch, ce):
     prod = 2 * n * d * v
     es = x.element_size()
     io = x.numel() * es + w.numel() * es + 4 * n        # x, w, y
-    log(f"fused_ce_dw bf16 path, in turns simple/sm90/sm90/simple "
-        + "/".join(f"{t:.4f}" for t in dw_times["simple"][:1]
-                   + dw_times["sm90"] + dw_times["simple"][1:])
-        + f" ms: sm90 {dw_ms:.4f} ms, {dw_simple_ms / dw_ms:.2f}x the "
-        f"simple family, {dw_ms / lib_bwd[1]:.3f}x the library backward for "
-        f"w ({lib_bwd[1]:.4f} ms)")
+    lib_of = {"forward": lib_fwd_ms, "dx": lib_bwd[0], "dW": lib_bwd[1]}
+    for kind, t in times.items():
+        log(f"fused_ce {kind} bf16 path, in turns simple/sm90/sm90/simple "
+            + "/".join(f"{v_:.4f}" for v_ in t["simple"][:1] + t["sm90"]
+                       + t["simple"][1:])
+            + f" ms: sm90 {best[kind][0]:.4f} ms, "
+            f"{best[kind][1] / best[kind][0]:.2f}x the simple family, "
+            f"{best[kind][0] / lib_of[kind]:.3f}x the library call "
+            f"({lib_of[kind]:.4f} ms)")
     rows = []
-    for name, line, src, ms, plain, lib, flops, nbytes, err in (
-            ("fused_ce_fwd", 153, "fused_ce.cu", fwd_ms, plain_fwd_ms,
-             lib_fwd_ms, prod, io + 8 * n, errs["path"][0]),
-            ("fused_ce_dx", 198, "fused_ce.cu", dx_ms, plain_dx_ms,
-             lib_bwd[0], 2 * prod, io + 8 * n + x.numel() * es,
+    for kind, name, line, src, plain, flops, nbytes, err in (
+            ("forward", "fused_ce_fwd", 153, "fused_ce_fwd_dx_sm90.cu",
+             plain_fwd_ms, prod, io + 8 * n, errs["path"][0]),
+            ("dx", "fused_ce_dx", 198, "fused_ce_fwd_dx_sm90.cu",
+             plain_dx_ms, 2 * prod, io + 8 * n + x.numel() * es,
              errs["path"][1]),
-            ("fused_ce_dw", 211, "fused_ce_sm90.cu", dw_ms, plain_dw_ms,
-             lib_bwd[1], 2 * prod, io + 8 * n + w.numel() * es,
-             errs["path"][1])):
+            ("dW", "fused_ce_dw", 211, "fused_ce_sm90.cu", plain_dw_ms,
+             2 * prod, io + 8 * n + w.numel() * es, errs["path"][1])):
+        ms, simple_ms = best[kind]
+        lib = lib_of[kind]
         ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
         bytes_ms = nbytes / HBM_BYTES_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         log(f"{name} bf16 (N={n} d={d} V={v}, {flops / 1e12:.4f} TFLOP, "
             f"{nbytes} bytes): kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
-            f"library (matmul + cross_entropy{'' if line == 153 else ' backward'}"
-            f", loss rel err {lib_rel:.2e}) {lib:.4f} ms, bound "
-            f"{bound_ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the "
+            f"bound), simple family {simple_ms:.4f} ms, plain {plain:.4f} "
+            f"ms, library (matmul + cross_entropy"
+            f"{'' if line == 153 else ' backward'}, loss rel err "
+            f"{lib_rel:.2e}) {lib:.4f} ms, bound {bound_ms:.4f} ms "
             f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
         rows.append({"name": name, "route": "cuda",
                      "source": f"paddle_tpu_torch/csrc/{src}",
@@ -1369,65 +1394,81 @@ def ce_phase(torch, ce):
                      "bound_ms": bound_ms,
                      "bound_by": ("operations" if ops_ms >= bytes_ms
                                   else "bytes"),
-                     "library_ms": lib})
-    rows[2]["simple_ms"] = dw_simple_ms
+                     "library_ms": lib, "simple_ms": simple_ms})
     return rows
 
 
-def ce_dw_turns(torch, ce, fn):
-    """Device ms of ``fn(i)`` (a dW call) on both dW families in turns
-    (simple, sm90, sm90, simple): ``{family: [ms, ms]}``; the sm90 kernel
-    must win."""
+def ce_turns(torch, ce, fn, kind, n=2):
+    """Device ms of ``n`` calls of ``fn(i)`` (one CE kernel's wrapper) on
+    both families in turns (simple, sm90, sm90, simple; the simple one
+    forced by a patch of the rule): ``{family: [ms, ms]}``; the sm90
+    kernel must win."""
     times = {}
     for family in ("simple", "sm90", "sm90", "simple"):
         with forced_rule(ce, "ce_family", family):
-            times.setdefault(family, []).append(device_ms(torch, fn, 2))
+            times.setdefault(family, []).append(device_ms(torch, fn, n))
     if not max(times["sm90"]) < min(times["simple"]):
-        raise AssertionError(f"the sm90 dW ({times['sm90']} ms) is not faster "
-                             f"than the simple one ({times['simple']} ms)")
+        raise AssertionError(f"the sm90 CE {kind} ({times['sm90']} ms) is "
+                             f"not faster than the simple one "
+                             f"({times['simple']} ms)")
     return times
 
 
 def ce_long_phase(torch, ce):
     """The CE kernels at phase 8's row count (N = b * 16384 = 131072, d=768,
-    V=32768, bf16), the first time they see that many rows: the forward
-    against its plain version run over 16384-row chunks, and the three
-    kernels' times."""
+    V=32768, bf16), the first time they see that many rows: the forward and
+    dx against their plain versions run over 16384-row chunks, and the
+    three kernels' times on both families in turns."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(8765)
     n, d, v = TRAIN_B * LONG_T, D_MODEL, VOCAB
     x, w, y, g = ce_inputs(torch, gen, n, d, v, torch.bfloat16,
                            out_of_range=False)
     loss, lse = ce.ce_fwd(x, w, y)
+    dx = ce.ce_dx(x, w, y, lse, g)
     torch.cuda.synchronize()
     chunk = 16384
-    parts = [ce.fused_ce_ref(x[i:i + chunk], w, y[i:i + chunk])
-             for i in range(0, n, chunk)]
-    rloss = torch.cat([p_[0] for p_ in parts])
-    rlse = torch.cat([p_[1] for p_ in parts])
-    del parts
-    tol = ce.oracle_tol(torch.bfloat16)
-    errs = []
-    for name, got, ref in (("loss", loss, rloss), ("lse", lse, rlse)):
-        _, rel = rel_err(torch, got, ref)
-        if not (bool(torch.isfinite(got).all()) and rel <= tol):
+    refs = {"loss": [], "lse": [], "dx": []}
+    for i in range(0, n, chunk):
+        rl, rs = ce.fused_ce_ref(x[i:i + chunk], w, y[i:i + chunk])
+        refs["loss"].append(rl)
+        refs["lse"].append(rs)
+        refs["dx"].append(ce.fused_ce_dx_ref(
+            x[i:i + chunk], w, y[i:i + chunk], lse[i:i + chunk],
+            g[i:i + chunk]))
+    refs = {k: torch.cat(v_) for k, v_ in refs.items()}
+    errs = {}
+    for name, got, kind in (("loss", loss, "fwd"), ("lse", lse, "fwd"),
+                            ("dx", dx, "grad")):
+        tol = ce.oracle_tol(torch.bfloat16, kind)
+        _, rel = rel_err(torch, got, refs[name])
+        if not (bool(torch.isfinite(got.float()).all()) and rel <= tol):
             raise AssertionError(f"fused CE {name} at N={n} disagrees with "
                                  f"its plain version: rel {rel:.3e} > {tol}")
-        errs.append(rel)
-    fwd_ms = device_ms(torch, lambda i: ce.ce_fwd(x, w, y), 2)
-    dx_ms = device_ms(torch, lambda i: ce.ce_dx(x, w, y, lse, g), 2)
-    dw_times = ce_dw_turns(torch, ce, lambda i: ce.ce_dw(x, w, y, lse, g))
-    dw_ms = min(dw_times["sm90"])
+        errs[name] = rel
+    del refs, dx
+    torch.cuda.empty_cache()
+    times = {"forward": ce_turns(torch, ce, lambda i: ce.ce_fwd(x, w, y),
+                                 "forward"),
+             "dx": ce_turns(torch, ce, lambda i: ce.ce_dx(x, w, y, lse, g),
+                            "dx"),
+             "dW": ce_turns(torch, ce, lambda i: ce.ce_dw(x, w, y, lse, g),
+                            "dW")}
     prod = 2 * n * d * v
     log(f"kernel fused_ce path N={n} d={d} V={v} bfloat16: loss rel "
-        f"{errs[0]:.3e}, lse rel {errs[1]:.3e} (tol {tol:g}, plain over "
-        f"{chunk}-row chunks) ok; forward {fwd_ms:.4f} ms "
-        f"({prod / fwd_ms / 1e9:.1f} TFLOP/s), dx {dx_ms:.4f} ms, dW "
-        f"{dw_ms:.4f} ms ({2 * prod / dw_ms / 1e9:.1f} TFLOP/s; simple family "
-        f"{min(dw_times['simple']):.4f} ms); bounds "
-        f"{prod / PEAK_FLOPS['bfloat16'] * 1e3:.4f} / "
+        f"{errs['loss']:.3e}, lse rel {errs['lse']:.3e}, dx rel "
+        f"{errs['dx']:.3e} (plain over {chunk}-row chunks) ok; bounds "
+        f"{prod / PEAK_FLOPS['bfloat16'] * 1e3:.4f} (forward) / "
         f"{2 * prod / PEAK_FLOPS['bfloat16'] * 1e3:.4f} ms (operations)")
-    del x, w, y, g, loss, lse, rloss, rlse
+    for kind, t in times.items():
+        flops = prod if kind == "forward" else 2 * prod
+        ms, simple = min(t["sm90"]), min(t["simple"])
+        log(f"  fused_ce {kind} N={n}: in turns simple/sm90/sm90/simple "
+            + "/".join(f"{v_:.4f}" for v_ in t["simple"][:1] + t["sm90"]
+                       + t["simple"][1:])
+            + f" ms: sm90 {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+            f"{simple / ms:.2f}x the simple family")
+    del x, w, y, g, loss, lse
     torch.cuda.empty_cache()
 
 
@@ -2139,6 +2180,7 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
     families = {"forward": fams["flash_attention_fwd"],
                 "fused": fams["flash_attention_bwd"],
                 "split": fams["flash_attention_split"],
+                "ce_fwd": fams["fused_ce_fwd"], "ce_dx": fams["fused_ce_dx"],
                 "ce_dw": fams["fused_ce_dw"]}
     peak = torch.cuda.max_memory_allocated()
     steady = sorted(walls[1:])[len(walls[1:]) // 2]
@@ -2184,10 +2226,12 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
     expect = {"forward": {"sm90": want, "simple": 0},
               "fused": {"sm90": fused_calls, "simple": 0},
               "split": {"sm90": split_calls, "simple": 0},
+              "ce_fwd": {"sm90": ce_want, "simple": 0},
+              "ce_dx": {"sm90": ce_want, "simple": 0},
               "ce_dw": {"sm90": ce_want, "simple": 0}}
     if families != expect:
         raise AssertionError(
-            f"flash and CE dW kernels by family {families}, expected every "
+            f"flash and CE kernels by family {families}, expected every "
             f"one on sm90: {expect}")
     for n, old in before.items():
         if torch.equal(scope.get(n), old):
@@ -2198,18 +2242,29 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
     if profile:
         sums = profile_training(torch, pt, exe, main, scope, fetch,
                                 make_batch(torch, rng, TRAIN_B, t), steady)
+        # the profiled step's kernel list: one launch of each sm90 CE
+        # kernel, none of the simple family
+        ce_fams = ("CE forward", "CE dx", "CE dW")
+        if sums and fused_head and not (
+                all(sums.get(f"{f} (sm90)", (0, 0))[1] == 1 for f in ce_fams)
+                and not any(f"{f} (simple)" in sums for f in ce_fams)):
+            raise AssertionError(
+                f"the profiled step at t={t} does not list one "
+                f"ce_fwd_sm90_kernel, ce_dx_sm90_kernel and "
+                f"ce_dw_sm90_kernel each and no simple CE kernel: {sums}")
     del exe, scope, before
     return {"launches": launches, "peak": peak, "losses": losses,
             "steady": steady, "profile": sums}
 
 
-def family_step_phase(torch, np, pt, fa, seed, label, t, policy, loss_tol,
-                      grad_tol):
+def family_step_phase(torch, np, pt, fa, ce, seed, label, t, policy,
+                      loss_tol, grad_tol):
     """Phases 7c and 8c: a training path's program (``t``, remat
     ``policy``, fused head, bf16) takes one step from one startup state and
     one batch twice: every flash kernel (forward, and the fused or split
-    backward) on the family the rule picks (sm90) and on the simple family
-    forced (a switch in this script only).  The losses must agree within
+    backward) and the three CE kernels (forward, dx, dW) on the family the
+    rules pick (sm90) and on the simple family forced (a switch in this
+    script only).  The losses must agree within
     ``loss_tol`` relative and every parameter's gradient within
     ``grad_tol`` of the other family's."""
     main, startup, model = build_training(pt, seed, t, "bfloat16", True)
@@ -2223,19 +2278,23 @@ def family_step_phase(torch, np, pt, fa, seed, label, t, policy, loss_tol,
     fetch = [model["avg_cost"].name] + [p + "@GRAD" for p in params]
     route = fa.bwd_route((TRAIN_B, t, N_HEAD, D_HEAD), t, 2)
     want = {"forward": N_LAYER, "fused": N_LAYER if route == "fused" else 0,
-            "split": 2 * N_LAYER if route == "split" else 0}
+            "split": 2 * N_LAYER if route == "split" else 0,
+            "ce_fwd": 1, "ce_dx": 1, "ce_dw": 1}
     tables = {"forward": fa.FWD_FAMILY_CALLS, "fused": fa.FUSED_FAMILY_CALLS,
-              "split": fa.BWD_FAMILY_CALLS}
+              "split": fa.BWD_FAMILY_CALLS, "ce_fwd": ce.CE_FWD_FAMILY_CALLS,
+              "ce_dx": ce.CE_DX_FAMILY_CALLS, "ce_dw": ce.CE_DW_FAMILY_CALLS}
     runs, walls = {}, {}
     for family in ("sm90", "simple"):
         scope = pt.Scope()
         for n in base.var_names():
             scope.set(n, base.get(n).clone())
         c0 = {k: dict(v) for k, v in tables.items()}
-        forced = (forced_family(fa, family) if family == "simple"
-                  else contextlib.nullcontext())
+        stack = contextlib.ExitStack()
+        if family == "simple":
+            stack.enter_context(forced_family(fa, family))
+            stack.enter_context(forced_rule(ce, "ce_family", family))
         t0 = time.perf_counter()
-        with forced:
+        with stack:
             out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
                           return_numpy=False)
             loss = out[0].item()
@@ -2244,8 +2303,8 @@ def family_step_phase(torch, np, pt, fa, seed, label, t, policy, loss_tol,
         expect = {k: {"sm90": 0, "simple": 0, family: n}
                   for k, n in want.items()}
         if calls != expect:
-            raise AssertionError(f"the {family} step's flash kernels by "
-                                 f"family: {calls}, expected {expect}")
+            raise AssertionError(f"the {family} step's flash and CE kernels "
+                                 f"by family: {calls}, expected {expect}")
         runs[family] = (loss, out[1:])
         del scope, out
     (la, ga), (lb, gb) = runs["sm90"], runs["simple"]
@@ -2295,7 +2354,8 @@ def long_phase(torch, np, pt, kernels, seed):
                          steps=LONG_STEPS, policy="selective", warm=1)
     torch.cuda.empty_cache()
     from paddle_tpu_torch.kernels import flash_attention as fa
-    family_step_phase(torch, np, pt, fa, seed, "8c", LONG_T, "selective",
+    from paddle_tpu_torch.kernels import fused_ce as ce
+    family_step_phase(torch, np, pt, fa, ce, seed, "8c", LONG_T, "selective",
                       1e-2, fa.oracle_tol(torch.bfloat16, "grad"))
     gc.collect()
     torch.cuda.empty_cache()
@@ -2571,8 +2631,10 @@ def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
                      ("flash_bwd_sm90_dkv_kernel",)),
                     ("flash backward delta pre-pass",
                      ("flash_bwd_delta_kernel",)),
-                    ("CE forward", ("ce_fwd_kernel",)),
-                    ("CE dx", ("ce_dx_kernel",)),
+                    ("CE forward (sm90)", ("ce_fwd_sm90_kernel",)),
+                    ("CE forward (simple)", ("ce_fwd_kernel",)),
+                    ("CE dx (sm90)", ("ce_dx_sm90_kernel",)),
+                    ("CE dx (simple)", ("ce_dx_kernel",)),
                     ("CE dW (sm90)", ("ce_dw_sm90_kernel",)),
                     ("CE dW (simple)", ("ce_dw_kernel",)),
                     ("paged attention (split)", ("paged_split_kernel",)),
@@ -2759,17 +2821,14 @@ def main():
     fused = training_phase(torch, np, pt, kernels, args.seed,
                            fused_head=True)
     prof = fused["profile"]
-    if prof and not (all(prof.get(f, (0, 0))[1] == N_LAYER for f in (
-            "flash forward (sm90)", "flash backward (fused, sm90)"))
-            and prof.get("CE dW (sm90)", (0, 0))[1] == 1
-            and "CE dW (simple)" not in prof):
+    if prof and not all(prof.get(f, (0, 0))[1] == N_LAYER for f in (
+            "flash forward (sm90)", "flash backward (fused, sm90)")):
         raise AssertionError(f"phase 7's profiled step does not list "
                              f"{N_LAYER} flash_fwd_sm90_kernel and "
-                             f"flash_bwd_sm90_fused_kernel calls and one "
-                             f"ce_dw_sm90_kernel: {prof}")
+                             f"flash_bwd_sm90_fused_kernel calls: {prof}")
     torch.cuda.empty_cache()
     # 7c. one step of phase 7's program on each kernel family
-    family_step_phase(torch, np, pt, fa, args.seed, "7c", TRAIN_T, None,
+    family_step_phase(torch, np, pt, fa, ce, args.seed, "7c", TRAIN_T, None,
                       1e-3, 1e-2)
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,4 +1,4 @@
-"""The design readings behind two Hopper kernels, measured on the card.
+"""The design readings behind four Hopper kernels, measured on the card.
 
     python -m paddle_tpu_torch.benchmarks.kernel_variants [--seed N]
 
@@ -16,6 +16,30 @@ variants give wrong gradients; only their time is read):
   against waiting for the other blocks);
 * ``eighth_payload``: an eighth of the exchanged bytes (what the bytes,
   as against the meeting, cost).
+
+CE forward and dx (``csrc/fused_ce_fwd_dx_sm90.cu``) at the same shape:
+the shipped kernels (the forward a GEMM mainloop streaming x and w
+chunks through a 6-stage ring, each w chunk multicast by TMA into the
+two row blocks of a cluster; dx with d split between the block's two
+warpgroups, x resident, 32-column w tiles through a 2-stage ring) beside
+variants of the same source, each one decision changed by a text
+substitution, every variant held to the shipped kernels' outputs (2e-2
+of max |out|; only the tile change reassociates a sum):
+
+* ``fwd_no_multicast``: the forward without clusters, each block loading
+  its own w chunks;
+* ``fwd_resident_x``: the forward's x resident ([128, 768], 192 KB, w
+  alone re-read from L2) with a 2-stage ring of w chunks;
+* ``fwd_stream_x4`` / ``fwd_stream_x7``: the forward's ring 4 or 7
+  stages deep;
+* ``dx_multicast``: dx's w tiles multicast into clusters of two;
+* ``dx_bv64``: dx with 64-column w tiles in the 128-byte swizzle, which
+  leaves room for one stage and one exchange slot.
+
+* ``dx_cluster_mirror``: dx built as the dW kernel's mirror
+  (``benchmarks/ce_dx_cluster.cu``, a source of its own that nothing
+  else builds): d over a cluster of 256-wide slices, the partial scores
+  exchanged through distributed shared memory.
 
 Paged attention (``csrc/paged_attention.cu``, the split family) at the
 serving shapes: the verify window's heads (S=32, h=8, dh=32, f32) at W =
@@ -79,13 +103,41 @@ def dw_variants():
     }
 
 
-def build_variants(sources):
-    """Compile every source in parallel; ``{name: ctypes dW entry}``."""
+def ce_variants():
+    """``{name: source}`` of the shipped forward and dx kernels and their
+    variants."""
+    with open(os.path.join(_build.SRC_DIR, "fused_ce_fwd_dx_sm90.cu")) as f:
+        src = f.read()
+    return {
+        "shipped": src,
+        "fwd_no_multicast": _substitute(src, "constexpr int kFwdMc = 2;",
+                                        "constexpr int kFwdMc = 1;"),
+        "fwd_resident_x": _substitute(
+            src, "constexpr bool kStreamX = true;",
+            "constexpr bool kStreamX = false;"),
+        "fwd_stream_x4": _substitute(src, "kStreamX ? 6 : 2",
+                                     "kStreamX ? 4 : 2"),
+        "fwd_stream_x7": _substitute(src, "kStreamX ? 6 : 2",
+                                     "kStreamX ? 7 : 2"),
+        "dx_multicast": _substitute(src, "constexpr int kDxMc = 1;",
+                                    "constexpr int kDxMc = 2;"),
+        "dx_bv64": _substitute(_substitute(_substitute(
+            src, "constexpr int kDxBV = 32;", "constexpr int kDxBV = 64;"),
+            "constexpr int kDxStages = 2;", "constexpr int kDxStages = 1;"),
+            "constexpr int kXchSlots = 2;", "constexpr int kXchSlots = 1;"),
+    }
+
+
+def build_variants(sources, tag, entries):
+    """Compile every source in parallel into ``_build/variants/<tag>_*``;
+    ``{name: {entry: ctypes function}}`` for the C ``entries``
+    (``{entry: number of pointer arguments}``), each taking its pointers,
+    then N, D, V, the dtype code and the stream."""
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for name, text in sources.items():
-        cu = os.path.join(out_dir, f"{name}.cu")
+        cu = os.path.join(out_dir, f"{tag}_{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
         cmd = ([_build.nvcc_path()] + _build.NVCC_FLAGS
@@ -97,11 +149,17 @@ def build_variants(sources):
         log = proc.communicate()[0].decode()
         if proc.returncode:
             raise RuntimeError(f"variant {name} failed to build:\n{log}")
-        fn = ctypes.CDLL(os.path.join(out_dir, f"{name}.so")).fused_ce_dw_sm90
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        for line in log.splitlines():
+            if "spill" in line and not line.strip().startswith("0 bytes"):
+                print(f"  ptxas {tag} {name}: {line.strip()}", flush=True)
+        lib = ctypes.CDLL(os.path.join(out_dir, f"{tag}_{name}.so"))
+        fns[name] = {}
+        for entry, n_ptrs in entries.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns[name][entry] = fn
     return fns
 
 
@@ -168,15 +226,63 @@ def main(argv=None):
     _, lse = ce.ce_fwd(x, w, y)
     dw = torch.empty_like(w)
     stream = torch.cuda.current_stream().cuda_stream
-    for name, fn in build_variants(dw_variants()).items():
+    ce_libs = build_variants(ce_variants(), "ce",
+                             {"fused_ce_fwd_sm90": 5, "fused_ce_dx_sm90": 6})
+    with open(os.path.join(os.path.dirname(__file__),
+                           "ce_dx_cluster.cu")) as f:
+        mirror = build_variants({"dx_cluster_mirror": f.read()}, "ce",
+                                {"fused_ce_dx_cluster": 6})
+    ce_libs["dx_cluster_mirror"] = {
+        "fused_ce_fwd_sm90": ce_libs["shipped"]["fused_ce_fwd_sm90"],
+        "fused_ce_dx_sm90": mirror["dx_cluster_mirror"]["fused_ce_dx_cluster"]}
+    for name, fns in build_variants(dw_variants(), "dw",
+                                    {"fused_ce_dw_sm90": 6}).items():
+        fn = fns["fused_ce_dw_sm90"]
+
         def call(i, fn=fn):
             err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), lse.data_ptr(),
-                     g.data_ptr(), dw.data_ptr(), n, d, v, stream)
+                     g.data_ptr(), dw.data_ptr(), n, d, v, 1, stream)
             if err:
                 raise RuntimeError(f"dW variant {name}: cudaError {err}")
         readings[f"dw_{name}_ms"] = device_ms(call, 3)
         print(f"CE dW {name} (N={n} d={d} V={v} bf16): "
               f"{readings[f'dw_{name}_ms']:.4f} ms", flush=True)
+    loss, lse2 = torch.empty_like(lse), torch.empty_like(lse)
+    dx = torch.empty_like(x)
+    outs = {}
+    for name, fns in ce_libs.items():
+        fwd, dxk = fns["fused_ce_fwd_sm90"], fns["fused_ce_dx_sm90"]
+
+        def call_fwd(i, fwd=fwd):
+            err = fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                      loss.data_ptr(), lse2.data_ptr(), n, d, v, 1, stream)
+            if err:
+                raise RuntimeError(f"forward variant {name}: cudaError {err}")
+
+        def call_dx(i, dxk=dxk):
+            err = dxk(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                      lse.data_ptr(), g.data_ptr(), dx.data_ptr(), n, d, v,
+                      1, stream)
+            if err:
+                raise RuntimeError(f"dx variant {name}: cudaError {err}")
+
+        call_fwd(0)
+        call_dx(0)
+        torch.cuda.synchronize()
+        got = (lse2.clone(), loss.clone(), dx.clone())
+        outs.setdefault("shipped", got)
+        for a, b, what in zip(got, outs["shipped"], ("lse", "loss", "dx")):
+            rel = ((a.float() - b.float()).abs().max()
+                   / b.float().abs().max()).item()
+            if not rel <= 2e-2:
+                raise RuntimeError(f"CE variant {name}: {what} rel {rel:.3e} "
+                                   f"from the shipped kernel's")
+        for kind, fn_ in (("fwd", call_fwd), ("dx", call_dx)):
+            readings[f"ce_{kind}_{name}_ms"] = device_ms(fn_, 3)
+        print(f"CE forward / dx {name} (N={n} d={d} V={v} bf16): "
+              f"{readings[f'ce_fwd_{name}_ms']:.4f} / "
+              f"{readings[f'ce_dx_{name}_ms']:.4f} ms", flush=True)
+    del loss, lse2, dx, outs
     del x, w, y, g, lse, dw
     torch.cuda.empty_cache()
 

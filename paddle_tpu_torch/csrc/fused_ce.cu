@@ -4,8 +4,11 @@
 //
 // Replaces paddle_tpu/ops/pallas_ce.py: _ce_fwd (the forward pallas_call,
 // _ce_fwd_kernel) and the two pallas_calls of _ce_bwd (_ce_dx_kernel,
-// _ce_dw_kernel); the dW of bf16 inputs that TMA can address runs on
-// fused_ce_sm90.cu instead (the wrapper's static rule, ce_family).  The TPU kernels run a sequential grid whose innermost axis
+// _ce_dw_kernel) as the simple family: f32 (phase 6's parity), odd widths
+// and misaligned pointers.  bf16 inputs that TMA can address run on the
+// sm90 family instead (the wrapper's static rule, ce_family): the forward
+// and dx on fused_ce_fwd_dx_sm90.cu, dW on fused_ce_sm90.cu.  The TPU
+// kernels run a sequential grid whose innermost axis
 // (vocab for the forward and dx, rows for dW) carries the online-softmax
 // state or an accumulator in VMEM scratch.  Blocks of a CUDA grid run in
 // parallel and in no order, so that axis becomes a loop INSIDE the block:

@@ -317,19 +317,22 @@ ce_dw_sm90_kernel(const __grid_constant__ CUtensorMap tm_x,
 
 // Launches on `stream`, allocates nothing and returns the cudaError_t of the
 // launch (0 on success).  x [N, D] and w [D, V] bf16 row-major, y [N] int32,
-// lse and g [N] float32, dw [D, V] bf16 written whole; D <= 768, D and V
-// multiples of 8, every pointer 16-byte aligned.  The wrapper
-// (paddle_tpu_torch/kernels/fused_ce.py) checks shapes, dtypes and
-// contiguity, applies the dispatch rule and allocates dw.
+// lse and g [N] float32, dw [D, V] bf16 written whole; dtype 1 (bfloat16)
+// only, D <= 768, D and V multiples of 8, every pointer 16-byte aligned.
+// The wrapper (paddle_tpu_torch/kernels/fused_ce.py) checks shapes, dtypes
+// and contiguity, applies the dispatch rule and allocates dw.
 extern "C" int fused_ce_dw_sm90(const void* x, const void* w, const void* y,
                                 const void* lse, const void* g, void* dw,
-                                int N, int D, int V, void* stream) {
-  if (N < 1 || D < 1 || D > kMaxCluster * kSlice || V < 1 || D % 8 != 0 ||
-      V % 8 != 0 || (V + kBV - 1) / kBV > 65535)
+                                int N, int D, int V, int dtype,
+                                void* stream) {
+  if (dtype != 1 || N < 1 || D < 1 || D > kMaxCluster * kSlice || V < 1 ||
+      D % 8 != 0 || V % 8 != 0 || (V + kBV - 1) / kBV > 65535)
     return (int)cudaErrorInvalidValue;
   const void* ptrs[6] = {x, w, y, lse, g, dw};
   for (const void* p : ptrs)
     if (!aligned16(p)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = bind_device_of(x);
+  if (e != cudaSuccess) return (int)e;
   CUtensorMap mx, mw, ml, mg, my;
   const cuuint64_t xd[2] = {(cuuint64_t)D, (cuuint64_t)N};
   const cuuint64_t xs[1] = {(cuuint64_t)D * 2};
@@ -340,7 +343,6 @@ extern "C" int fused_ce_dw_sm90(const void* x, const void* w, const void* y,
   const cuuint64_t nd[1] = {(cuuint64_t)N};
   const cuuint64_t ns[1] = {0};  // rank 1: no strides, read or not
   const cuuint32_t nb[1] = {kBM};
-  cudaError_t e;
   if ((e = encode_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, 2, xd, xs,
                       xb, CU_TENSOR_MAP_SWIZZLE_128B)) ||
       (e = encode_map(&mw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, 2, wd, ws,

@@ -18,22 +18,27 @@ logit leaves the chip.  Two spellings of each function live here:
   and ``x^T @ ds`` (as ``pallas_ce.py`` casts it; the ``xla_ref`` backend
   keeps ``ds`` in f32).  They materialise ``[N, V]``: the CPU path and the
   numerics reference the kernels are held against.
-* :func:`fused_ce_dw_split_ref` — the plain spelling of the sm90 dW
-  kernel's decomposition (partial scores over ``d`` slices summed in slice
-  order, ``ds`` cast to the input dtype, each slice's update), for the
+* :func:`fused_ce_fwd_tiled_ref`, :func:`fused_ce_dx_split_ref` and
+  :func:`fused_ce_dw_split_ref` — plain spellings of the sm90 kernels'
+  decompositions (the forward's online softmax over vocab tiles in the
+  exp2 domain; dx's and dW's partial scores over ``d`` slices summed, ``ds``
+  cast to the input dtype, each slice's product accumulated), for the
   tests.
-* the CUDA kernels ``csrc/fused_ce.cu``, hand-written for Hopper
-  (``sm_90a``), which replace the TPU kernels ``_ce_fwd`` and the two
-  calls of ``_ce_bwd`` (dx, dW); the dW of bf16 inputs that TMA can
-  address runs on ``csrc/fused_ce_sm90.cu`` (``wgmma``, a TMA ring, the
-  ``d`` accumulator split across a thread-block cluster), picked by the
-  static rule :func:`ce_family`.
+* the CUDA kernels, hand-written for Hopper (``sm_90a``), which replace the
+  TPU kernels ``_ce_fwd`` and the two calls of ``_ce_bwd`` (dx, dW), in two
+  families picked by the static rule :func:`ce_family`: for bf16 inputs
+  that TMA can address, ``csrc/fused_ce_fwd_dx_sm90.cu`` (the forward and
+  dx: ``wgmma``, a TMA ring, dx's ``d`` split between the block's two
+  consumer warpgroups) and ``csrc/fused_ce_sm90.cu`` (dW: ``d`` split
+  across a thread-block cluster); for everything else (f32, odd widths,
+  misaligned pointers) the WMMA kernels of ``csrc/fused_ce.cu``.
 
 :func:`ce_fwd`, :func:`ce_dx` and :func:`ce_dw` are the wrappers.  They
 dispatch on the tensors' device: CPU tensors take the plain versions,
 CUDA tensors launch the kernels or raise — there is no fallback from one
-to the other.  Every successful launch adds one to ``<wrapper>.launches``;
-:func:`ce_dw` adds one to ``CE_DW_FAMILY_CALLS[family]`` too.
+to the other, nor from one family to the other.  Every successful launch
+adds one to ``<wrapper>.launches`` and to its family's count in
+``CE_FWD_FAMILY_CALLS``, ``CE_DX_FAMILY_CALLS`` or ``CE_DW_FAMILY_CALLS``.
 
 Gradients flow through :class:`FusedCEFunction`, whose forward saves
 exactly ``FUSED_CE_RESIDUALS = (x, w, y, lse)`` — nothing ``[N, V]`` —
@@ -45,14 +50,17 @@ one dtype, y int32, all contiguous on one card, ``1 <= d <= 768``.
 """
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
 
-__all__ = ["ORACLE_TOL", "FUSED_CE_RESIDUALS", "CE_DW_FAMILY_CALLS",
-           "oracle_tol", "fused_ce_ref", "fused_ce_bwd_ref",
-           "fused_ce_dx_ref", "fused_ce_dw_ref", "fused_ce_dw_split_ref",
+__all__ = ["ORACLE_TOL", "FUSED_CE_RESIDUALS", "CE_FWD_FAMILY_CALLS",
+           "CE_DX_FAMILY_CALLS", "CE_DW_FAMILY_CALLS", "oracle_tol",
+           "fused_ce_ref", "fused_ce_bwd_ref", "fused_ce_dx_ref",
+           "fused_ce_dw_ref", "fused_ce_fwd_tiled_ref",
+           "fused_ce_dx_split_ref", "fused_ce_dw_split_ref", "dx_d_half",
            "ce_family", "ce_fwd", "ce_dx", "ce_dw", "FusedCEFunction",
            "fused_softmax_ce_head", "build"]
 
@@ -71,14 +79,27 @@ ORACLE_TOL = {
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 768
 D_SLICE = 256      # d a block of the sm90 dW kernel's cluster owns
+FWD_BLOCK_V = 128  # vocab columns of an sm90 forward tile
+DX_BLOCK_V = 32    # vocab columns of an sm90 dx tile
 
-# ce_dw launches on the card, by kernel family
+# launches on the card, by kernel family
+CE_FWD_FAMILY_CALLS = {"sm90": 0, "simple": 0}
+CE_DX_FAMILY_CALLS = {"sm90": 0, "simple": 0}
 CE_DW_FAMILY_CALLS = {"sm90": 0, "simple": 0}
 
 
+def dx_d_half(d):
+    """Where the sm90 dx kernel splits ``d <= 768`` between its two
+    consumer warpgroups: each owns ``64 * c`` columns, ``c`` in (1, 2, 3,
+    6) the least that covers ``d`` (384 at d = 768; the second half is
+    ragged or empty where ``d`` falls short)."""
+    return 64 * next(c for c in (1, 2, 3, 6) if 128 * c >= d)
+
+
 def ce_family(dtype, d, v, ptrs):
-    """``"sm90"`` or ``"simple"``: the dW kernel family for ``x [N, d]``,
-    ``w [d, v]`` of ``dtype`` and the inputs' base addresses ``ptrs``.
+    """``"sm90"`` or ``"simple"``: the kernel family of the forward, dx and
+    dW alike for ``x [N, d]``, ``w [d, v]`` of ``dtype`` and the inputs'
+    base addresses ``ptrs``.
     ``"sm90"`` takes bf16 with ``d <= 768``, rows of ``x`` and ``w`` (``d``
     and ``v`` elements) a multiple of 16 bytes and every pointer 16-byte
     aligned (what TMA addresses); anything else is ``"simple"``.  Static:
@@ -154,6 +175,67 @@ def fused_ce_dw_ref(x, w, y, lse, g):
     return _dw(x, w, _ds_ref(x, w, y, lse, g))
 
 
+def fused_ce_fwd_tiled_ref(x, w, y, block_v=FWD_BLOCK_V):
+    """The plain spelling of the sm90 forward's decomposition: an online
+    softmax over vocab tiles of ``block_v`` columns in the exp2 domain
+    (scores scaled by log2(e), the running max ``m2`` and sum ``l``
+    carried from tile to tile), the label's logit picked in the tile that
+    holds it (an out-of-range label picks nothing), ``lse = m2 ln 2 +
+    log(l)``; ``(loss [N], lse [N])`` in the accumulation dtype."""
+    acc = _acc_dtype(x.dtype)
+    n = x.shape[0]
+    v = w.shape[1]
+    xa, wa = x.to(acc), w.to(acc)
+    y = y.long()
+    log2e = 1.0 / math.log(2.0)
+    m = torch.full((n,), -math.inf, dtype=acc, device=x.device)
+    l = torch.zeros((n,), dtype=acc, device=x.device)
+    pick = torch.zeros((n,), dtype=acc, device=x.device)
+    for v0 in range(0, v, block_v):
+        s = xa @ wa[:, v0:v0 + block_v]
+        cols = torch.arange(v0, v0 + s.shape[1], device=x.device)
+        pick += torch.where(cols[None, :] == y[:, None], s, 0).sum(dim=1)
+        s2 = s * log2e
+        m_new = torch.maximum(m, s2.amax(dim=1))
+        l = l * torch.exp2(m - m_new) + torch.exp2(
+            s2 - m_new[:, None]).sum(dim=1)
+        m = m_new
+    lse = m * math.log(2.0) + torch.log(l)
+    return lse - pick, lse
+
+
+def _slices(d, cut):
+    return [(a, min(a + cut, d)) for a in range(0, d, cut)]
+
+
+def fused_ce_dx_split_ref(x, w, y, lse, g, d_half=None, block_v=DX_BLOCK_V):
+    """The plain spelling of the sm90 dx kernel's decomposition: over vocab
+    tiles of ``block_v``, the scores as partial products over the ``d``
+    halves cut at ``d_half`` (default :func:`dx_d_half`) summed, ``ds``
+    rounded to the input dtype, then each half's ``ds . w_half^T``
+    accumulated in the accumulation dtype; dx in the input dtype."""
+    acc = _acc_dtype(x.dtype)
+    n, d = x.shape
+    v = w.shape[1]
+    cuts = _slices(d, dx_d_half(d) if d_half is None else d_half)
+    xa, wa = x.to(acc), w.to(acc)
+    y = y.long()
+    la, ga = lse.to(acc)[:, None], g.to(acc)[:, None]
+    dx = torch.zeros((n, d), dtype=acc, device=x.device)
+    for v0 in range(0, v, block_v):
+        wt = wa[:, v0:v0 + block_v]
+        s = None
+        for a, b in cuts:
+            part = xa[:, a:b] @ wt[a:b]
+            s = part if s is None else s + part
+        cols = torch.arange(v0, v0 + s.shape[1], device=x.device)
+        onehot = (cols[None, :] == y[:, None]).to(acc)
+        ds = ((torch.exp(s - la) - onehot) * ga).to(x.dtype).to(acc)
+        for a, b in cuts:
+            dx[:, a:b] += ds @ wt[a:b].T
+    return dx.to(x.dtype)
+
+
 def fused_ce_dw_split_ref(x, w, y, lse, g, d_slice=D_SLICE, block_n=64):
     """The plain spelling of the sm90 dW kernel's decomposition: over row
     tiles of ``block_n``, the scores as partial products over ``d`` slices
@@ -163,7 +245,7 @@ def fused_ce_dw_split_ref(x, w, y, lse, g, d_slice=D_SLICE, block_n=64):
     acc = _acc_dtype(x.dtype)
     n, d = x.shape
     v = w.shape[1]
-    cuts = [(a, min(a + d_slice, d)) for a in range(0, d, d_slice)]
+    cuts = _slices(d, d_slice)
     wa = w.to(acc)
     cols = torch.arange(v, device=x.device)
     dw = torch.zeros((d, v), dtype=acc, device=x.device)
@@ -238,27 +320,32 @@ _fns = None
 
 
 def _kernels():
+    """``{(kind, family): C entry}`` of the six kernels, and the error
+    string function; every entry takes its pointers, then N, D, V, the
+    dtype code and the stream."""
     global _fns
     if _fns is None:
-        lib = _build.load("fused_ce")
-        sm90 = _build.load("fused_ce_sm90")
+        libs = {"simple": _build.load("fused_ce"),
+                "sm90": _build.load("fused_ce_fwd_dx_sm90"),
+                "sm90_dw": _build.load("fused_ce_sm90")}
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        geom = [i32, i32, i32, i32, ptr]                 # N, D, V, dtype, stream
-        fwd = lib.fused_ce_fwd
-        fwd.argtypes = [ptr] * 5 + geom
-        fwd.restype = i32
-        dx = lib.fused_ce_dx
-        dx.argtypes = [ptr] * 6 + geom
-        dx.restype = i32
-        dw = lib.fused_ce_dw
-        dw.argtypes = [ptr] * 6 + geom
-        dw.restype = i32
-        dw90 = sm90.fused_ce_dw_sm90
-        dw90.argtypes = [ptr] * 6 + [i32, i32, i32, ptr]  # N, D, V, stream
-        dw90.restype = i32
-        lib.fused_ce_error_string.argtypes = [i32]
-        lib.fused_ce_error_string.restype = ctypes.c_char_p
-        _fns = (fwd, dx, dw, dw90, lib.fused_ce_error_string)
+        geom = [i32, i32, i32, i32, ptr]             # N, D, V, dtype, stream
+        fns = {}
+        for (kind, family), (lib, name, n_ptrs) in {
+                ("forward", "simple"): ("simple", "fused_ce_fwd", 5),
+                ("dx", "simple"): ("simple", "fused_ce_dx", 6),
+                ("dW", "simple"): ("simple", "fused_ce_dw", 6),
+                ("forward", "sm90"): ("sm90", "fused_ce_fwd_sm90", 5),
+                ("dx", "sm90"): ("sm90", "fused_ce_dx_sm90", 6),
+                ("dW", "sm90"): ("sm90_dw", "fused_ce_dw_sm90", 6)}.items():
+            fn = getattr(libs[lib], name)
+            fn.argtypes = [ptr] * n_ptrs + geom
+            fn.restype = i32
+            fns[kind, family] = fn
+        errstr = libs["simple"].fused_ce_error_string
+        errstr.argtypes = [i32]
+        errstr.restype = ctypes.c_char_p
+        _fns = (fns, errstr)
     return _fns
 
 
@@ -268,34 +355,39 @@ def build():
     _kernels()
 
 
-def _geom(x, w):
+def _launch(kind, ins, outs, calls):
+    """Launch the ``kind`` kernel of the family :func:`ce_family` picks for
+    the inputs ``ins`` (``x``, ``w`` first) on the current stream, writing
+    ``outs``; count it in ``calls``.  Raises (and counts nothing) when the
+    launch fails."""
+    x, w = ins[:2]
     n, d = x.shape
-    return (n, d, w.shape[1], _DTYPE_CODE[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
-
-
-def _launch(what, fn, ptrs, x, w, errstr):
+    family = ce_family(x.dtype, d, w.shape[1], [t.data_ptr() for t in ins])
+    fns, errstr = _kernels()
     with torch.cuda.device(x.device):
-        err = fn(*ptrs, *_geom(x, w))
+        err = fns[kind, family](
+            *(t.data_ptr() for t in ins + outs), n, d, w.shape[1],
+            _DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(
-            f"fused_ce {what} kernel launch failed: cudaError {err} "
+            f"fused_ce {kind} {family} kernel launch failed: cudaError {err} "
             f"({errstr(err).decode()})")
+    calls[family] += 1
 
 
 def ce_fwd(x, w, y):
     """``(loss [N], lse [N])`` f32 of the fused head on ``x [N, d]``,
     ``w [d, V]``, ``y [N]``.  CPU tensors take :func:`fused_ce_ref`; CUDA
-    tensors launch the forward kernel on the current stream, or raise."""
+    tensors launch the forward kernel of the family :func:`ce_family`
+    picks on the current stream, or raise."""
     _check(x, w, y)
     if x.device.type == "cpu":
         return fused_ce_ref(x, w, y)
-    fwd, _, _, _, errstr = _kernels()
     n = x.shape[0]
     loss = torch.empty(n, dtype=torch.float32, device=x.device)
     lse = torch.empty(n, dtype=torch.float32, device=x.device)
-    _launch("forward", fwd, (x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                             loss.data_ptr(), lse.data_ptr()), x, w, errstr)
+    _launch("forward", (x, w, y), (loss, lse), CE_FWD_FAMILY_CALLS)
     ce_fwd.launches += 1
     return loss, lse
 
@@ -306,15 +398,13 @@ ce_fwd.launches = 0
 def ce_dx(x, w, y, lse, g):
     """``dx [N, d]`` from the saved ``(x, w, y, lse)`` and the loss
     cotangent ``g [N]``.  CPU tensors take the plain version; CUDA tensors
-    launch the dx kernel on the current stream, or raise."""
+    launch the dx kernel of the family :func:`ce_family` picks on the
+    current stream, or raise."""
     _check(x, w, y, (lse, g))
     if x.device.type == "cpu":
         return fused_ce_dx_ref(x, w, y, lse, g)
-    _, dxk, _, _, errstr = _kernels()
     dx = torch.empty_like(x)
-    _launch("dx", dxk, (x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                        lse.data_ptr(), g.data_ptr(), dx.data_ptr()),
-            x, w, errstr)
+    _launch("dx", (x, w, y, lse, g), (dx,), CE_DX_FAMILY_CALLS)
     ce_dx.launches += 1
     return dx
 
@@ -330,23 +420,8 @@ def ce_dw(x, w, y, lse, g):
     _check(x, w, y, (lse, g))
     if x.device.type == "cpu":
         return fused_ce_dw_ref(x, w, y, lse, g)
-    _, _, dwk, dw90, errstr = _kernels()
-    ins = (x.data_ptr(), w.data_ptr(), y.data_ptr(), lse.data_ptr(),
-           g.data_ptr())
-    family = ce_family(x.dtype, x.shape[1], w.shape[1], ins)
     dw = torch.empty_like(w)
-    if family == "sm90":
-        n, d = x.shape
-        with torch.cuda.device(x.device):
-            err = dw90(*ins, dw.data_ptr(), n, d, w.shape[1],
-                       torch.cuda.current_stream(x.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f"fused_ce dW sm90 kernel launch failed: cudaError {err} "
-                f"({errstr(err).decode()})")
-    else:
-        _launch("dW", dwk, ins + (dw.data_ptr(),), x, w, errstr)
-    CE_DW_FAMILY_CALLS[family] += 1
+    _launch("dW", (x, w, y, lse, g), (dw,), CE_DW_FAMILY_CALLS)
     ce_dw.launches += 1
     return dw
 

@@ -749,6 +749,109 @@ def test_ce_dw_sm90_refuses_what_it_does_not_take(monkeypatch):
     assert tce.ce_dw.launches == before
 
 
+# the sm90 forward and dx: the training path's shape, the ragged one, a
+# wide head with few rows and V no tile divides, and the 192-column half
+CE_FWD_DX_SM90_GEOMS = {"path": (32768, 768, 32768),
+                        "ragged": (1000, 200, 5000),
+                        "d768": (130, 768, 2096),
+                        "d384": (300, 384, 1000)}
+
+
+@pytest.mark.parametrize("geom", list(CE_FWD_DX_SM90_GEOMS))
+def test_ce_fwd_dx_sm90_match_plain_and_repeat_their_bits(geom):
+    """The sm90 forward and dx kernels against the plain versions (the
+    forward's loss and lse, dx from the plain lse), on the sm90 family by
+    its counters, and bit-identical over two launches (no atomics)."""
+    _need_card()
+    n, d, v = CE_FWD_DX_SM90_GEOMS[geom]
+    x, w, y, g = _ce_case(n, d, v, torch.bfloat16, seed=13)
+    fams = (dict(tce.CE_FWD_FAMILY_CALLS), dict(tce.CE_DX_FAMILY_CALLS))
+    loss, lse = tce.ce_fwd(x, w, y)
+    loss2, lse2 = tce.ce_fwd(x, w, y)
+    chunk = 4096
+    refs = [tce.fused_ce_ref(x[i:i + chunk], w, y[i:i + chunk])
+            for i in range(0, n, chunk)]
+    ref_loss = torch.cat([r[0] for r in refs])
+    ref_lse = torch.cat([r[1] for r in refs])
+    del refs
+    dx = tce.ce_dx(x, w, y, ref_lse, g)
+    dx2 = tce.ce_dx(x, w, y, ref_lse, g)
+    torch.cuda.synchronize()
+    assert tce.CE_FWD_FAMILY_CALLS == {"sm90": fams[0]["sm90"] + 2,
+                                       "simple": fams[0]["simple"]}
+    assert tce.CE_DX_FAMILY_CALLS == {"sm90": fams[1]["sm90"] + 2,
+                                      "simple": fams[1]["simple"]}
+    assert torch.equal(loss, loss2) and torch.equal(lse, lse2)
+    assert torch.equal(dx, dx2)
+    tol = tce.oracle_tol("bfloat16", "fwd")
+    assert _rel(loss, ref_loss) <= tol and _rel(lse, ref_lse) <= tol
+    out = (y < 0) | (y >= v)
+    assert torch.equal(loss[out], lse[out])
+    ref_dx = torch.cat([tce.fused_ce_dx_ref(
+        x[i:i + chunk], w, y[i:i + chunk], ref_lse[i:i + chunk],
+        g[i:i + chunk]) for i in range(0, n, chunk)])
+    assert _rel(dx, ref_dx) <= tce.oracle_tol("bfloat16", "grad")
+    assert torch.equal(dx[g == 0], torch.zeros_like(dx[g == 0]))
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 2 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["forward", "dx", "dW"])
+@pytest.mark.parametrize("what", ["odd_d", "f32", "misaligned"])
+def test_ce_sm90_refuses_what_it_does_not_take(monkeypatch, kernel, what):
+    """An input the sm90 kernels cannot take (d = 61 is no multiple of 8,
+    f32, an x that starts off a 16-byte boundary), forced onto them,
+    raises: no fallback to the simple family, no launch counted."""
+    _need_card()
+    d = 61 if what == "odd_d" else 64
+    dtype = torch.float32 if what == "f32" else torch.bfloat16
+    x, w, y, g = _ce_case(77, d, 336, dtype)
+    if what == "misaligned":
+        x = _misaligned(x)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    _, lse = tce.fused_ce_ref(x, w, y)
+    lse = lse.float()
+    monkeypatch.setattr(tce, "ce_family", lambda *a: "sm90")
+    wrapper, table, args = {
+        "forward": (tce.ce_fwd, tce.CE_FWD_FAMILY_CALLS, (x, w, y)),
+        "dx": (tce.ce_dx, tce.CE_DX_FAMILY_CALLS, (x, w, y, lse, g)),
+        "dW": (tce.ce_dw, tce.CE_DW_FAMILY_CALLS, (x, w, y, lse, g))}[kernel]
+    before = (wrapper.launches, dict(table))
+    with pytest.raises(RuntimeError):
+        wrapper(*args)
+    assert (wrapper.launches, dict(table)) == before
+
+
+def test_ce_autograd_launches_the_sm90_family():
+    """Autograd through ``FusedCEFunction`` on bf16 inputs: one launch of
+    each sm90 kernel (forward, dx, dW), the loss and gradients of the plain
+    versions within the bf16 tolerances."""
+    _need_card()
+    x, w, y, g = _ce_case(1000, 200, 5000, torch.bfloat16, seed=5)
+    xr = x.clone().requires_grad_()
+    wr = w.clone().requires_grad_()
+    tables = (tce.CE_FWD_FAMILY_CALLS, tce.CE_DX_FAMILY_CALLS,
+              tce.CE_DW_FAMILY_CALLS)
+    before = [dict(t) for t in tables]
+    loss = tce.FusedCEFunction.apply(xr, wr, y)
+    loss.backward(g)
+    torch.cuda.synchronize()
+    for t, b in zip(tables, before):
+        assert t == {"sm90": b["sm90"] + 1, "simple": b["simple"]}
+    ref_loss, ref_lse = tce.fused_ce_ref(x, w, y)
+    ref_dx, ref_dw = tce.fused_ce_bwd_ref(x, w, y, ref_lse, g)
+    assert _rel(loss, ref_loss) <= tce.oracle_tol("bfloat16", "fwd")
+    assert _rel(xr.grad, ref_dx) <= tce.oracle_tol("bfloat16", "grad")
+    assert _rel(wr.grad, ref_dw) <= tce.oracle_tol("bfloat16", "grad")
+
+
 def test_ce_autograd_goes_through_the_three_kernels():
     """The head's entry point on the card: leading dims, int64 labels cast
     once, the same loss and gradients as the plain versions, one launch of
