@@ -27,7 +27,9 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    b. flash attention forward (``o``, ``lse``) and fused backward
       (``dq, dk, dv``, with and without ``dlse``) at the training path's
       shape (b=8, t=4096, h=6, d=128, bf16, causal), plus f32, d=64,
-      non-causal and ragged lengths, on the kernel family the rule picks
+      non-causal and ragged lengths, and d_head 192 and 256 in bf16 and
+      f32 (past the sm90 family's 128: the simple family's 32-key tiles),
+      on the kernel family the rule picks
       (sm90 for bf16 that TMA can address: ``csrc/flash_fwd_sm90.cu`` and
       the fused kernel of ``csrc/flash_bwd_sm90.cu`` behind its delta
       pre-pass; simple for f32) and, where that is sm90, on the simple one
@@ -58,12 +60,15 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
       version, beside SDPA's forward and its bound (two causal products);
    c. the fused cross-entropy head's forward (``loss``, ``lse``), dx and
       dW kernels at the training path's shape (N = 32768 rows, d=768,
-      V=32768, bf16), at phase 6's f32 shape (N=512) and at a ragged shape
-      (N=1000, d=200, V=5000, bf16 and f32), with labels -1 and V in some
-      rows and a loss cotangent with zeros; all three on the family the
-      rule picks (sm90 for the bf16 cases: the forward and dx in
-      ``csrc/fused_ce_fwd_dx_sm90.cu``, dW in ``csrc/fused_ce_sm90.cu``;
-      simple, ``csrc/fused_ce.cu``, for f32), each the same bits twice;
+      V=32768, bf16), at phase 6's f32 shape (N=512), at a ragged shape
+      (N=1000, d=200, V=5000, bf16 and f32) and past the sm90 family's
+      d <= 768 (d=1024, V=32768 and the reference's own d=2048, V=50,000
+      in bf16, d=1024 in f32: the simple family's d-chunks), with labels
+      -1 and V in some rows and a loss cotangent with zeros; all three on
+      the family the rule picks (sm90 for the bf16 cases up to d=768: the
+      forward and dx in ``csrc/fused_ce_fwd_dx_sm90.cu``, dW in
+      ``csrc/fused_ce_sm90.cu``; simple, ``csrc/fused_ce.cu``, for f32 and
+      the wider heads), each the same bits twice;
       timed at the path shape, each kernel on both families in turns
       (simple, sm90, sm90, simple; the simple one forced by a patch of the
       rule; each sm90 kernel must win) (library: ``torch.matmul`` +
@@ -79,16 +84,21 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
       count is no multiple of 16 (B=5, h=3, dh=21, at two pool base
       offsets), tables with repeated and trash (0) entries; timed at the
       decode shape in bf16 (library: ``index_select``; bound: bytes);
-   e. the fused ResNet bottleneck (B9) against its plain version at the
-      script's shape (N=128, 56x56, 256 -> 64 -> 256, bf16, 2e-2
-      max-relative), a small f32 shape (2e-4), a height no band divides
-      (H=13, Cm=72, bf16 and f32) and channel counts that are no multiple
-      of 8 (bf16 on the FMA spelling); timed at the script's shape
+   e. the fused ResNet bottleneck (B9) on the family the rule picks:
+      sm90 (``csrc/bottleneck_sm90.cu``) at the script's shape (N=128,
+      56x56, 256 -> 64 -> 256, bf16, 2e-2 max-relative), a small batch
+      whose images split into strips, W=64 at Cin 192 and H=W=1, each
+      also against the simple family forced; simple
+      (``csrc/bottleneck.cu``) at a small f32 shape (2e-4), a height no
+      band divides (H=13, Cm=72, bf16 and f32) and channel counts that
+      are no multiple of 8 (bf16 on the FMA spelling); every case the same
+      bits twice; timed at the script's shape on both families in turns
+      (simple, sm90, sm90, simple; the sm90 kernel must win every turn)
       (library: the three convolutions on cuDNN in channels_last with the
       same epilogues; bound: x read and out written once over 3.35 TB/s);
       then its path, the reference experiment through
       ``python -m paddle_tpu_torch.benchmarks.bottleneck``'s ``main``,
-      with every count zeroed before it;
+      with every count zeroed before it: every launch on sm90;
 4. serving correctness at full width in f32: the 12-layer d768 h6 v32768
    GPT with seeded random weights serves 8 shared-prefix requests through
    the engine's background thread, each compared with the port's
@@ -186,15 +196,18 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    ATen/cuDNN); img/s, step wall, peak memory beside the activation
    memory reckoned from the program's shapes, one profiled step;
    b. the same model with ``is_test=True`` on the trained state, one
-   forward (img/s); then B9 on the NHWC activation entering the second
-   stage-1 bottleneck block, its batch norm folded from the trained
-   parameters and running statistics, against the port's own forward of
-   that block (2e-2 max-relative);
-10. one JSON line ``{"kernels": [...]}`` with each of the eleven kernels'
-   launches on its main path (phase 3e, 5, 5b, 7 or 8), error, times and
-   bound; the paged attention, flash forward, fused backward and the
-   three CE rows add the simple family's time (``simple_ms``), and the
-   forward's row its t=16384 entry (``t16384``, launches from phase 8);
+   forward (img/s); then B9 on the NHWC activations entering the second
+   stage-1 bottleneck block (sm90) and the second stage-2 block (512 ->
+   128 -> 512 at 28x28: the simple family), each with its batch norm
+   folded from the trained parameters and running statistics, against
+   the port's own forward of that block (2e-2 max-relative), counts
+   zeroed before: one launch of each family;
+10. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
+   launches on its main path (phase 3e, 5, 5b, 7, 8 or 9b), error, times
+   and bound; the paged attention, flash forward, fused backward, the
+   three CE rows and the sm90 bottleneck add the simple family's time
+   (``simple_ms``), and the forward's row its t=16384 entry (``t16384``,
+   launches from phase 8);
 11. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
@@ -678,6 +691,25 @@ def flash_plain(torch, fa, q, k, v, do, dlse, causal):
             plain_bwd(fa, q, k, v, o, lse, do, dlse, causal))
 
 
+def flash_rule(fa, dtype, d):
+    """The family the rule must give these cases (all with 16-byte aligned
+    rows): sm90 for bf16 up to its widest head, else simple."""
+    import torch
+    return ("sm90" if dtype == torch.bfloat16 and d <= fa.SM90_MAX_D
+            else "simple")
+
+
+def wide_heads():
+    """Phases 3b and 3b+'s cases past the sm90 family's d_head 128: the
+    simple family at d_head 192 and 256, bf16 and f32."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [("d192", 1, 1024, 2, 192, bf16, True),
+            ("d256", 2, 1024, 2, 256, bf16, True),
+            ("d256 f32 ragged", 1, 333, 2, 256, f32, False),
+            ("d192 f32", 1, 512, 2, 192, f32, True)]
+
+
 def flash_phase(torch, fa):
     """Phase 3b: the forward and the fused backward against their plain
     versions at every case, on the family the rule picks and, where that
@@ -696,7 +728,7 @@ def flash_phase(torch, fa):
              ("d64", 2, 1024, 4, 64, bf16, True),
              ("non-causal", 1, 1024, N_HEAD, D_HEAD, bf16, False),
              ("ragged", 1, 1000, N_HEAD, D_HEAD, bf16, True),
-             ("ragged f32 d64", 1, 333, 2, 64, f32, False)]
+             ("ragged f32 d64", 1, 333, 2, 64, f32, False)] + wide_heads()
     counts = lambda: (dict(fa.FWD_FAMILY_CALLS), dict(fa.FUSED_FAMILY_CALLS),  # noqa: E731
                       fa.flash_bwd_delta.launches)
     errs = {}
@@ -705,7 +737,7 @@ def flash_phase(torch, fa):
         q, k, v, do = flash_inputs(torch, gen, b, t, h, d, dtype)
         dlse = torch.randn((b * h, t), generator=gen, device="cuda")
         rule = fa._family(q, k, v, q)
-        if rule != ("sm90" if dtype == bf16 else "simple"):
+        if rule != flash_rule(fa, dtype, d):
             raise AssertionError(f"the family rule gave {rule} at {label}")
         ro, rlse, rg, rgl = flash_plain(torch, fa, q, k, v, do, dlse, causal)
         worst = {}
@@ -928,7 +960,7 @@ def split_phase(torch, fa):
              ("d64", 2, 1024, 4, 64, bf16, True),
              ("non-causal", 1, 1024, N_HEAD, D_HEAD, bf16, False),
              ("ragged", 1, 1000, N_HEAD, D_HEAD, bf16, True),
-             ("ragged f32 d64", 1, 333, 2, 64, f32, False)]
+             ("ragged f32 d64", 1, 333, 2, 64, f32, False)] + wide_heads()
     names = ("dq", "dk", "dv")
     counts = lambda: (fa.flash_bwd.launches, fa.flash_bwd_delta.launches,  # noqa: E731
                       fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches,
@@ -940,8 +972,7 @@ def split_phase(torch, fa):
         dlse = torch.randn((b * h, t), generator=gen, device="cuda")
         o, lse = fa.flash_fwd(q, k, v, causal)
         rule = fa._family(q, k, v, o, do)
-        want_rule = "sm90" if dtype == bf16 else "simple"
-        if rule != want_rule:
+        if rule != flash_rule(fa, dtype, d):
             raise AssertionError(f"the family rule gave {rule} at {label}")
         worst, vs_fused = {}, {}
         for dl in (None, dlse):
@@ -1245,10 +1276,16 @@ def ce_phase(torch, ce):
     gen.manual_seed(5678)
     bf16, f32 = torch.bfloat16, torch.float32
     tokens = TRAIN_B * TRAIN_T
+    # d = 1024 and the reference's own d = 2048, V = 50,000
+    # (tests/test_fused_ce.py) past the sm90 family's d <= 768: the simple
+    # family's d-chunks
     cases = [("path", tokens, D_MODEL, VOCAB, bf16),
              ("f32", CHECK_B * CHECK_T, D_MODEL, VOCAB, f32),
              ("ragged", 1000, 200, 5000, bf16),
-             ("ragged f32", 1000, 200, 5000, f32)]
+             ("ragged f32", 1000, 200, 5000, f32),
+             ("d1024", 4096, 1024, VOCAB, bf16),
+             ("d2048", 2048, 2048, 50000, bf16),
+             ("d1024 f32", 512, 1024, 5000, f32)]
     errs = {}
     tables = {"forward": ce.CE_FWD_FAMILY_CALLS, "dx": ce.CE_DX_FAMILY_CALLS,
               "dW": ce.CE_DW_FAMILY_CALLS}
@@ -1263,7 +1300,8 @@ def ce_phase(torch, ce):
         dw = ce.ce_dw(x, w, y, lse, g)
         dw2 = ce.ce_dw(x, w, y, lse, g)
         torch.cuda.synchronize()
-        family = "sm90" if dtype == bf16 else "simple"
+        family = ("sm90" if dtype == bf16 and d <= ce.SM90_MAX_D
+                  else "simple")
         calls = {k: {f: t[f] - before[k][f] for f in t}
                  for k, t in tables.items()}
         want = {k: {"sm90": 0, "simple": 0, family: 2} for k in tables}
@@ -1474,48 +1512,97 @@ def ce_long_phase(torch, ce):
 
 # -- phase 3e: the fused bottleneck against its plain version ----------------
 
+def bottleneck_turns(torch, bn, args, n=2):
+    """Device ms of the bottleneck at ``args`` on each family in turns
+    (simple, sm90, sm90, simple), ``n`` calls a turn: ``{family:
+    [ms, ms]}``."""
+    times = {"sm90": [], "simple": []}
+    for family in ("simple", "sm90", "sm90", "simple"):
+        times[family].append(device_ms(
+            torch, lambda i: bn.bottleneck(*args, family=family), n))
+    return times
+
+
 def bottleneck_phase(torch, kernels, bn, bench):
-    """B9: the kernel against ``bottleneck_ref`` at the script's shape in
-    bf16 (N=128, 56x56, 256 -> 64 -> 256), a small f32 shape, a height no
-    band divides (bf16 and f32, Cm above one 64-channel tile) and odd
-    channel counts (bf16 on the FMA spelling); its time
-    at the script's shape beside the plain version, the cuDNN composition
-    and the bound; then the path — the script's experiment through its
-    entry point, ``paddle_tpu_torch.benchmarks.bottleneck.main`` — with
-    every launch count zeroed just before it and read just after."""
+    """B9: every case on the family the rule picks (sm90 for bf16 with
+    Cm = 64, Cin = Cout a multiple of 64 up to 256, W <= 64: the script's
+    shape N=128, 56x56, 256 -> 64 -> 256, a small batch whose images split
+    into strips with an odd last one, W = 64 at Cin 192, H = W = 1; simple
+    for a small f32 shape, a height no band divides at Cm=72 in bf16 and
+    f32, and channel counts no multiple of 8), each against
+    ``bottleneck_ref`` and the same bits twice; the sm90 cases also against
+    the simple family forced; the two families' times at the script's shape
+    in turns (simple, sm90, sm90, simple; the sm90 kernel must win every
+    turn) beside the plain version, the cuDNN composition and the bound;
+    then the path — the script's experiment through its entry point,
+    ``paddle_tpu_torch.benchmarks.bottleneck.main`` — with every count
+    zeroed just before it and read just after: every launch on sm90.
+    Returns the simple family's row and the sm90 family's."""
     import torch.nn.functional as F
 
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [("script shape", bench.H, bench.W, bench.CIN, bench.CM, 128,
-              torch.bfloat16),
-             ("small", 16, 16, 32, 8, 4, torch.float32),
-             ("ragged H", 13, 11, 48, 72, 3, torch.bfloat16),
-             ("ragged H", 13, 11, 48, 72, 3, torch.float32),
-             ("odd C", 9, 7, 36, 12, 2, torch.bfloat16)]
-    path_err = None
+              bf16),
+             ("strips", 13, 13, 128, 64, 6, bf16),
+             ("W64 C192", 9, 64, 192, 64, 3, bf16),
+             ("H1 W1", 1, 1, 64, 64, 5, bf16),
+             ("small", 16, 16, 32, 8, 4, f32),
+             ("ragged H", 13, 11, 48, 72, 3, bf16),
+             ("ragged H", 13, 11, 48, 72, 3, f32),
+             ("odd C", 9, 7, 36, 12, 2, bf16)]
+    path_err = {}
     for label, h, w, cin, cm, n, dtype in cases:
         args = bench.make_inputs(n, "cuda", dtype=dtype, h=h, w=w, cin=cin,
                                  cm=cm)
+        before = dict(bn.BOTTLENECK_FAMILY_CALLS)
         got = bn.bottleneck(*args)
+        again = bn.bottleneck(*args)
         torch.cuda.synchronize()
+        family = bn.bottleneck_family(dtype, h, w, cin, cm, [
+            t.data_ptr() for t in args[:4] + (got,)])
+        want_family = ("sm90" if dtype == bf16 and cm == 64 and cin % 64 == 0
+                       else "simple")
+        calls = {f: bn.BOTTLENECK_FAMILY_CALLS[f] - before[f]
+                 for f in before}
+        if family != want_family or calls[family] != 2 or sum(
+                calls.values()) != 2:
+            raise AssertionError(f"bottleneck {label}: the rule gave "
+                                 f"{family}, the launches {calls}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"bottleneck {label} ({family}) differs "
+                                 f"from run to run")
         want = bn.bottleneck_ref(*args)
         d, rel = rel_err(torch, got, want)
         tol = bn.oracle_tol(dtype)
-        tc = bn.uses_tensor_cores(*args[:4], got)
-        band = bn.band_rows(h, w, cm, dtype, tc)
+        if family == "sm90":
+            how = f"strips of {bn.strip_rows(n, h)} rows"
+            _, vs_simple = rel_err(torch, got,
+                                   bn.bottleneck(*args, family="simple"))
+            how += f", {vs_simple:.3e} from the simple family"
+        else:
+            tc = bn.uses_tensor_cores(*args[:4], got)
+            band = bn.band_rows(h, w, cm, dtype, tc)
+            how = (f"{'tensor cores' if tc else 'FMA'}, band {band} rows, "
+                   f"{-(-h // band)} bands")
         log(f"kernel bottleneck {label:12s} N={n:3d} H={h} W={w} C={cin} "
-            f"Cm={cm} {str(dtype)[6:]:8s} ({'tensor cores' if tc else 'FMA'}"
-            f", band {band} rows, {-(-h // band)} bands): max abs err "
-            f"{d:.3e}, rel {rel:.3e} (tol {tol:g})")
+            f"Cm={cm} {str(dtype)[6:]:8s} {family} ({how}), the same bits "
+            f"twice: max abs err {d:.3e}, rel {rel:.3e} (tol {tol:g})")
         if not (rel <= tol and torch.isfinite(got.float()).all()):
             raise AssertionError(f"bottleneck kernel disagrees at {label} "
                                  f"{dtype}: rel {rel:.3e}")
-        if path_err is None:
-            path_err = d
-        del args, got, want
-    # timing at the script's shape
+        if family == "sm90" and vs_simple > tol:
+            raise AssertionError(f"the bottleneck families disagree at "
+                                 f"{label}: rel {vs_simple:.3e}")
+        path_err.setdefault(family, d)
+        del args, got, again, want
+    # timing at the script's shape: both families in turns
     args = bench.make_inputs(128, "cuda")
     x = args[0]
-    ms = device_ms(torch, lambda i: bn.bottleneck(*args), 5)
+    times = bottleneck_turns(torch, bn, args, 5)
+    if not max(times["sm90"]) < min(times["simple"]):
+        raise AssertionError(f"the sm90 bottleneck lost a turn to the "
+                             f"simple family: {times}")
+    ms, simple_ms = min(times["sm90"]), min(times["simple"])
     plain_ms = device_ms(torch, lambda i: bn.bottleneck_ref(*args), 3)
 
     # the yardstick the port never calls: the three convolutions on cuDNN
@@ -1546,13 +1633,17 @@ def bottleneck_phase(torch, kernels, bn, bench):
     ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms > bytes_ms else "bytes"
     log(f"bottleneck bf16 (N={n} {h}x{w} {c}->{cm}->{c}, "
-        f"{flops / 1e9:.2f} GFLOP, {nbytes} B): kernel {ms:.4f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-        f"library (3 cuDNN convs channels_last + epilogues, rel "
-        f"{lib_rel:.2e} to plain) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms "
-        f"({'operations' if ops_ms > bytes_ms else 'bytes'})")
+        f"{flops / 1e9:.2f} GFLOP, {nbytes} B), in turns simple/sm90/sm90/"
+        f"simple " + "/".join(f"{v_:.4f}" for v_ in times["simple"][:1]
+                              + times["sm90"] + times["simple"][1:])
+        + f" ms: sm90 {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{bound_ms / ms:.3f} of the bound, {simple_ms / ms:.2f}x the simple "
+        f"family's {simple_ms:.4f} ms), plain {plain_ms:.4f} ms, library (3 "
+        f"cuDNN convs channels_last + epilogues, rel {lib_rel:.2e} to plain) "
+        f"{library_ms:.4f} ms ({library_ms / ms:.2f}x the sm90 kernel), bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
     del args, x, x_cl, f1, f2, f3
     torch.cuda.empty_cache()
     # the path: the reference experiment through its entry point
@@ -1560,20 +1651,27 @@ def bottleneck_phase(torch, kernels, bn, bench):
     if bench.main(["--batch", "128"]) != 0:
         raise AssertionError("the bottleneck experiment failed")
     launches = kernels.launch_counts()
+    fams = kernels.family_counts()["bottleneck"]
     log("launches during the bottleneck experiment: " + ", ".join(
-        f"{k} {v}" for k, v in launches.items()))
+        f"{k} {v}" for k, v in launches.items()) + f"; by family {fams}")
     if launches["bottleneck"] < 1 or any(
             v for k, v in launches.items() if k != "bottleneck"):
         raise AssertionError(f"the bottleneck experiment did not go "
                              f"through its kernel alone: {launches}")
+    if fams != {"sm90": launches["bottleneck"], "simple": 0}:
+        raise AssertionError(f"the bottleneck experiment launched another "
+                             f"family than sm90: {fams}")
     torch.cuda.empty_cache()
-    return {"name": "bottleneck", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/bottleneck.cu",
-            "replaces": "benchmarks/bottleneck_pallas.py:111",
-            "launches": launches["bottleneck"], "max_abs_err": path_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
-            "library_ms": library_ms}
+    row = {"route": "cuda", "replaces": "benchmarks/bottleneck_pallas.py:111",
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms}
+    return (dict(row, name="bottleneck",
+                 source="paddle_tpu_torch/csrc/bottleneck.cu",
+                 max_abs_err=path_err["simple"], ms=simple_ms),
+            dict(row, name="bottleneck_sm90",
+                 source="paddle_tpu_torch/csrc/bottleneck_sm90.cu",
+                 launches=fams["sm90"], max_abs_err=path_err["sm90"], ms=ms,
+                 simple_ms=simple_ms))
 
 
 # -- phase 4: full-width f32 served vs single-stream -------------------------
@@ -2512,11 +2610,13 @@ def resnet_phase(torch, np, pt, kernels, seed):
     return scope
 
 
-def resnet_block_vars(main):
-    """The second stage-1 bottleneck block of a ResNet program (an identity
-    block, 256 -> 64 -> 256 at 56x56): its input and output variables,
-    its three conv filters and, for each conv, its batch norm's
-    ``(Scale, Bias, Mean, Variance)`` names and epsilon."""
+def resnet_block_vars(main, block=1):
+    """The identity bottleneck block of a ResNet program that ends at its
+    ``block``-th residual add (from 0): 1 is the second stage-1 block (256
+    -> 64 -> 256 at 56x56), 4 the second stage-2 block (512 -> 128 -> 512
+    at 28x28).  Its input and output variables, its three conv filters
+    and, for each conv, its batch norm's ``(Scale, Bias, Mean, Variance)``
+    names and epsilon."""
     ops = main.global_block().ops
     adds = [i for i, op in enumerate(ops) if op.type == "elementwise_add"]
 
@@ -2525,12 +2625,12 @@ def resnet_block_vars(main):
         return next(op for op in ops[i:] if op.type == "relu"
                     and op.inputs["X"] == [out]).outputs["Out"][0]
 
-    first, second = adds[0], adds[1]
+    first, second = adds[block - 1], adds[block]
     convs = [op for op in ops[first:second] if op.type == "conv2d"]
     norms = [op for op in ops[first:second] if op.type == "batch_norm"]
     if len(convs) != 3 or len(norms) != 3:
-        raise AssertionError("the second stage-1 block is not an identity "
-                             "bottleneck block")
+        raise AssertionError(f"block {block} is not an identity bottleneck "
+                             f"block")
     return (relu_after(first), relu_after(second),
             [op.inputs["Filter"][0] for op in convs],
             [(tuple(op.inputs[k][0] for k in ("Scale", "Bias", "Mean",
@@ -2538,26 +2638,30 @@ def resnet_block_vars(main):
               op.attrs["epsilon"]) for op in norms])
 
 
-def resnet_inference_phase(torch, pt, bn, seed, scope):
+def resnet_inference_phase(torch, pt, bn, kernels, seed, scope):
     """Phase 9b: the same model with ``is_test=True`` on the trained state,
-    one forward (img/s); then B9 held against the model's own block: the
-    second stage-1 bottleneck block with its batch norm folded from the
-    trained parameters and running statistics, run by the kernel on the
-    NHWC activation that enters the block, against the port's ``is_test``
-    forward of that block (the script's 2e-2 max-relative criterion).
-    Neither package routes the model through the kernel: this shows only
-    that the kernel computes the model's block."""
+    one forward (img/s); then B9 held against the model's own blocks: the
+    second stage-1 bottleneck block (the sm90 family's shape) and the
+    second stage-2 block (512 -> 128 -> 512: the simple family's), each
+    with its batch norm folded from the trained parameters and running
+    statistics, run by the kernel on the NHWC activation that enters the
+    block, against the port's ``is_test`` forward of that block (the
+    script's 2e-2 max-relative criterion), every count zeroed before the
+    two calls: one launch on each family.  Neither package routes the
+    model through the kernel: this shows only that the kernel computes
+    the model's blocks.  Returns the simple family's launches."""
     main, _, model = build_resnet(pt, seed, is_test=True)
-    block_in, block_out, filters, norms = resnet_block_vars(main)
+    blocks = [resnet_block_vars(main, i) for i in (1, 4)]
     exe = pt.Executor()
     feed = resnet_batch(torch, seed + 7)
-    fetch = [model["prediction"].name, block_in, block_out]
+    fetch = [model["prediction"].name] + [v for blk in blocks
+                                          for v in blk[:2]]
     exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
             return_numpy=False)                  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pred, x, y = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
-                         return_numpy=False)
+    pred, *acts = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                          return_numpy=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if not torch.isfinite(pred.float()).all():
@@ -2566,19 +2670,31 @@ def resnet_inference_phase(torch, pt, bn, seed, scope):
         f"one forward {wall:.4f} s = {RESNET_BATCH / wall:.1f} img/s; "
         f"prediction {tuple(pred.shape)}, rows sum to "
         f"{pred.float().sum(-1).mean().item():.4f}")
-    sb = []
-    for names, eps in norms:
-        sb += bn.fold_bn(*(scope.get(n) for n in names), epsilon=eps)
-    w = bn.block_weights(*(scope.get(n) for n in filters))
-    got = bn.bottleneck(x.permute(0, 2, 3, 1).contiguous(), *w, *sb)
-    want = y.permute(0, 2, 3, 1)
-    d, rel = rel_err(torch, got, want)
-    log(f"B9 on the trained model's block ({block_in} -> {block_out}, "
-        f"{tuple(x.shape)} NCHW as NHWC): max abs err {d:.3e}, rel "
-        f"{rel:.3e} against the port's is_test forward (tol "
-        f"{bn.oracle_tol(torch.bfloat16):g})")
-    if not rel < bn.oracle_tol(torch.bfloat16):
-        raise AssertionError(f"B9 disagrees with the model's block: {rel}")
+    kernels.reset_launches()
+    for i, (block_in, block_out, filters, norms) in enumerate(blocks):
+        x, y = acts[2 * i], acts[2 * i + 1]
+        sb = []
+        for names, eps in norms:
+            sb += bn.fold_bn(*(scope.get(n) for n in names), epsilon=eps)
+        w = bn.block_weights(*(scope.get(n) for n in filters))
+        before = dict(bn.BOTTLENECK_FAMILY_CALLS)
+        got = bn.bottleneck(x.permute(0, 2, 3, 1).contiguous(), *w, *sb)
+        family = next(f for f, v in bn.BOTTLENECK_FAMILY_CALLS.items()
+                      if v != before[f])
+        want = y.permute(0, 2, 3, 1)
+        d, rel = rel_err(torch, got, want)
+        log(f"B9 ({family}) on the trained model's block ({block_in} -> "
+            f"{block_out}, {tuple(x.shape)} NCHW as NHWC): max abs err "
+            f"{d:.3e}, rel {rel:.3e} against the port's is_test forward "
+            f"(tol {bn.oracle_tol(torch.bfloat16):g})")
+        if not rel < bn.oracle_tol(torch.bfloat16):
+            raise AssertionError(f"B9 disagrees with the model's block: "
+                                 f"{rel}")
+    fams = kernels.family_counts()["bottleneck"]
+    if fams != {"sm90": 1, "simple": 1}:
+        raise AssertionError(f"phase 9b's blocks did not take one family "
+                             f"each: {fams}")
+    return fams["simple"]
 
 
 def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
@@ -2768,7 +2884,7 @@ def main():
     ce_long_phase(torch, ce)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    bn_row = bottleneck_phase(torch, kernels, bn, bench)
+    bn_row, bn_sm90_row = bottleneck_phase(torch, kernels, bn, bench)
     walls["3e"] = time.perf_counter() - t0
 
     rng = np.random.default_rng(args.seed)
@@ -2853,7 +2969,8 @@ def main():
     #    form, and B9 held against the trained model's block
     t0 = time.perf_counter()
     scope = resnet_phase(torch, np, pt, kernels, args.seed)
-    resnet_inference_phase(torch, pt, bn, args.seed, scope)
+    bn_row["launches"] = resnet_inference_phase(torch, pt, bn, kernels,
+                                                args.seed, scope)
     del scope
     log(f"wall of phases 9 and 9b: {time.perf_counter() - t0:.1f} s; "
         f"3e: {walls['3e']:.1f} s")
@@ -2871,7 +2988,7 @@ def main():
     fwd16k["launches"] = long_launches["flash_attention_fwd"]
     flash_rows[0]["t16384"] = fwd16k
     print(json.dumps({"kernels": [row, gather_row] + flash_rows + split_rows
-                      + ce_rows + [bn_row]}), flush=True)
+                      + ce_rows + [bn_row, bn_sm90_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

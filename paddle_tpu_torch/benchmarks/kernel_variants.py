@@ -1,6 +1,7 @@
-"""The design readings behind four Hopper kernels, measured on the card.
+"""The design readings behind five Hopper kernels, measured on the card.
 
     python -m paddle_tpu_torch.benchmarks.kernel_variants [--seed N]
+        [--only ce|paged|bottleneck ...]
 
 CE dW (``csrc/fused_ce_sm90.cu``) at the training path's shape (N=32768,
 d=768, V=32768, bf16): the shipped kernel beside variants built from its
@@ -44,6 +45,25 @@ of max |out|; only the tile change reassociates a sum):
 Paged attention (``csrc/paged_attention.cu``, the split family) at the
 serving shapes: the verify window's heads (S=32, h=8, dh=32, f32) at W =
 1, 2, 4, 6, and the decode heads (h=6, dh=128, bf16) at W = 1, 4.
+
+The fused bottleneck's sm90 family (``csrc/bottleneck_sm90.cu``) at the
+script's shape (N=128, 56x56, 256 -> 64 -> 256, bf16): the shipped kernel
+(a strip of one whole image a block, a 4-stage x ring, the residual
+streamed through the ring, conv2 waiting once per row of taps, streaming
+16-byte stores, two consumer warpgroups) beside variants, every one held to the shipped output bit for
+bit (none changes a sum):
+
+* ``strip8`` / ``strip14`` / ``strip28``: the shipped source launched with
+  strips of 8, 14 or 28 rows (more blocks, two halo rows of conv1 each);
+* ``ring2`` / ``ring3`` / ``ring5``: the x ring 2, 3 or 5 stages deep;
+* ``res_l2``: the residual loaded from L2 into registers before conv2
+  (16 bytes a lane, transposed in the epilogue) instead of streamed
+  through the ring;
+* ``taps1``: conv2 waits for its products once per tap (four wgmmas),
+  not once per row of taps (twelve);
+* ``one_wg``: one consumer warpgroup doing both rows of a step;
+* ``plain_stores``: out written by plain 16-byte stores, not streaming
+  (evict-first) ones.
 
 Prints the card's ``nvidia-smi`` name and power limit, one line a
 reading, and one JSON line of all of them.  Needs a CUDA card; the
@@ -128,11 +148,41 @@ def ce_variants():
     }
 
 
+def bottleneck_variants():
+    """``{name: source}`` of the shipped sm90 bottleneck and its variants."""
+    with open(os.path.join(_build.SRC_DIR, "bottleneck_sm90.cu")) as f:
+        src = f.read()
+    ring = "constexpr int kXStages = 4;"
+    ring_res = "constexpr bool kResFromRing = true;"
+    l2_res = "constexpr bool kResFromRing = false;"
+    return {
+        "shipped": src,
+        "ring2": _substitute(src, ring, "constexpr int kXStages = 2;"),
+        "ring3": _substitute(src, ring, "constexpr int kXStages = 3;"),
+        "ring5": _substitute(src, ring, "constexpr int kXStages = 5;"),
+        "res_l2": _substitute(src, ring_res, l2_res),
+        "taps1": _substitute(src, "constexpr int kTapsPerWait = 3;",
+                             "constexpr int kTapsPerWait = 1;"),
+        "one_wg": _substitute(src, "constexpr int kBnConsumers = 2;",
+                              "constexpr int kBnConsumers = 1;"),
+        "plain_stores": _substitute(_substitute(
+            src, "__stcs(dst, make_uint4(", "*dst = (make_uint4("),
+            "__stcs(dst + 4, make_uint4(", "dst[4] = (make_uint4("),
+    }
+
+
+# the sm90 bottleneck's C entry: 11 pointers, N H W Cin Cm Cout R dtype,
+# the stream
+BOTTLENECK_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+
+
 def build_variants(sources, tag, entries):
     """Compile every source in parallel into ``_build/variants/<tag>_*``;
     ``{name: {entry: ctypes function}}`` for the C ``entries``
-    (``{entry: number of pointer arguments}``), each taking its pointers,
-    then N, D, V, the dtype code and the stream."""
+    (``{entry: number of pointer arguments}`` for the CE kernels' calling
+    convention — their pointers, then N, D, V, the dtype code and the
+    stream — or ``{entry: argtypes}``)."""
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
@@ -156,8 +206,9 @@ def build_variants(sources, tag, entries):
         fns[name] = {}
         for entry, n_ptrs in entries.items():
             fn = getattr(lib, entry)
-            fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p]
+            fn.argtypes = (n_ptrs if isinstance(n_ptrs, list) else
+                           [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             fns[name][entry] = fn
     return fns
@@ -201,9 +252,50 @@ def paged_inputs(gen, S, W, h, dh, dtype, B=32, nb=16):
     return q, pk, pv, table.contiguous(), pos.contiguous()
 
 
+def bottleneck_readings(gen, readings):
+    """The sm90 bottleneck's design readings (module docstring)."""
+    from . import bottleneck as bench
+    from ..kernels import bottleneck as bn
+
+    args = bench.make_inputs(128, "cuda", seed=int(torch.randint(
+        0, 1 << 30, (1,), generator=gen, device="cuda")))
+    n, h, w, c = args[0].shape
+    cm = args[1].shape[1]
+    out = torch.empty_like(args[0])
+    stream = torch.cuda.current_stream().cuda_stream
+    want = bn.bottleneck(*args, family="sm90")
+    libs = build_variants(bottleneck_variants(), "bottleneck",
+                          {"bottleneck_sm90_fwd": BOTTLENECK_ARGS})
+    runs = [(name, fns["bottleneck_sm90_fwd"], h)
+            for name, fns in libs.items()]
+    runs += [(f"strip{r}", libs["shipped"]["bottleneck_sm90_fwd"], r)
+             for r in (8, 14, 28)]
+    for name, fn, rows in runs:
+        def call(i, fn=fn, rows=rows):
+            err = fn(*(t.data_ptr() for t in args), out.data_ptr(), n, h, w,
+                     c, cm, c, rows, 1, stream)
+            if err:
+                raise RuntimeError(f"bottleneck variant {name}: cudaError "
+                                   f"{err}")
+        call(0)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise RuntimeError(f"bottleneck variant {name} differs from the "
+                               f"shipped kernel's output")
+        readings[f"bottleneck_{name}_ms"] = device_ms(call, 5)
+        print(f"bottleneck sm90 {name} (N={n} {h}x{w} {c}->{cm}->{c} bf16, "
+              f"strips of {rows} rows): "
+              f"{readings[f'bottleneck_{name}_ms']:.4f} ms", flush=True)
+    del args, out, want
+    torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", nargs="+", choices=("ce", "paged", "bottleneck"),
+                    default=("ce", "paged", "bottleneck"),
+                    help="the kernels whose readings to take (default all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants measures the card: no CUDA device")
@@ -215,7 +307,17 @@ def main(argv=None):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     readings = {}
+    if "bottleneck" in args.only:
+        bottleneck_readings(gen, readings)
+    if "ce" in args.only:
+        ce_readings(gen, readings)
+    if "paged" in args.only:
+        paged_readings(gen, readings)
+    print(json.dumps({"card": card, "readings": readings}), flush=True)
 
+
+def ce_readings(gen, readings):
+    """The CE dW, forward and dx design readings (module docstring)."""
     n, d, v = 32768, 768, 32768
     x = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
     w = (torch.randn((d, v), generator=gen, device="cuda")
@@ -286,6 +388,9 @@ def main(argv=None):
     del x, w, y, g, lse, dw
     torch.cuda.empty_cache()
 
+
+def paged_readings(gen, readings):
+    """The paged attention W sweep (module docstring)."""
     for label, h, dh, dtype, windows in (
             ("verify", 8, 32, torch.float32, (1, 2, 4, 6)),
             ("decode", 6, 128, torch.bfloat16, (1, 4))):
@@ -297,7 +402,6 @@ def main(argv=None):
                   f"{str(dtype)[6:]}) W={W}: {ms:.4f} ms "
                   f"({pa.paged_family(dtype, 32, W, h, dh, 32, (0,))})",
                   flush=True)
-    print(json.dumps({"card": card, "readings": readings}), flush=True)
 
 
 if __name__ == "__main__":

@@ -53,7 +53,12 @@
 // Matrix products: bf16 inputs go through the tensor cores (WMMA 16x16x16,
 // f32 accumulate) with every operand and accumulator tile staged in shared
 // memory; f32 inputs use plain f32 FMAs (no TF32), because the f32 contract
-// is 2e-4.  Head dims up to 128 are zero-padded to 64 or 128 in shared memory.
+// is 2e-4.  Head dims up to 256 are zero-padded to 64, 128 or 256 in shared
+// memory.  The reference sizes its blocks by the head width and sets no
+// limit (pallas_attention.py _flash_fwd); here the 227 KB a block may take
+// decides the tiles at 256: the forward keeps 64 query rows in bf16 and 32
+// (two warps) in f32; the backwards take 32-key tiles (the dk and dv f32
+// sums of a 64-key tile alone would be 133 KB).
 //
 // Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s): operations.  At the
 // training shape (b=8, h=6, t=4096, d=128, bf16, causal) the forward does
@@ -80,9 +85,7 @@ namespace {
 using namespace nvcuda;
 
 constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX kernels
-constexpr int kBN = 64;            // keys per tile
-constexpr int kFwdBM = 64;         // query rows per forward block
-constexpr int kFwdThreads = 128;
+constexpr int kBN = 64;            // keys per forward tile
 constexpr int kBwdThreads = 256;
 
 struct Geom {
@@ -244,36 +247,42 @@ struct Pitch {
   static constexpr int pad = 16 / (int)sizeof(T);
 };
 
-template <typename T, int DP>
+// The forward runs one warp per 16 query rows: BM rows, 2 BM threads.
+template <int BM>
+__host__ __device__ constexpr int fwd_threads() {
+  return 2 * BM;
+}
+
+template <typename T, int DP, int BM>
 constexpr size_t fwd_smem_bytes() {
   constexpr int LD = DP + Pitch<T>::pad, LDP = kBN + Pitch<T>::pad;
   constexpr int LDS = kBN + 4, LDO = DP + 4;
-  return sizeof(T) * (size_t)(kFwdBM * LD + 2 * kBN * LD + kFwdBM * LDP) +
-         sizeof(float) * (size_t)(kFwdBM * LDS + kFwdBM * LDO + 2 * kFwdBM);
+  return sizeof(T) * (size_t)(BM * LD + 2 * kBN * LD + BM * LDP) +
+         sizeof(float) * (size_t)(BM * LDS + BM * LDO + 2 * BM);
 }
 
-template <typename T, int DP, int BM>
+template <typename T, int DP, int BM, int BN>
 constexpr size_t bwd_smem_bytes() {
-  constexpr int LD = DP + Pitch<T>::pad, LDP = kBN + Pitch<T>::pad;
-  constexpr int LDS = kBN + 4, LDO = DP + 4;
-  return sizeof(T) * (size_t)(2 * kBN * LD + 2 * BM * LD + 2 * BM * LDP) +
-         sizeof(float) * (size_t)(2 * BM * LDS + 2 * kBN * LDO + 2 * BM);
+  constexpr int LD = DP + Pitch<T>::pad, LDP = BN + Pitch<T>::pad;
+  constexpr int LDS = BN + 4, LDO = DP + 4;
+  return sizeof(T) * (size_t)(2 * BN * LD + 2 * BM * LD + 2 * BM * LDP) +
+         sizeof(float) * (size_t)(2 * BM * LDS + 2 * BN * LDO + 2 * BM);
 }
 
-template <typename T, int DP, int BM>
+template <typename T, int DP, int BM, int BN>
 constexpr size_t dq_smem_bytes() {
-  constexpr int LD = DP + Pitch<T>::pad, LDP = kBN + Pitch<T>::pad;
-  constexpr int LDS = kBN + 4, LDO = DP + 4;
-  return sizeof(T) * (size_t)(2 * BM * LD + 2 * kBN * LD + BM * LDP) +
+  constexpr int LD = DP + Pitch<T>::pad, LDP = BN + Pitch<T>::pad;
+  constexpr int LDS = BN + 4, LDO = DP + 4;
+  return sizeof(T) * (size_t)(2 * BM * LD + 2 * BN * LD + BM * LDP) +
          sizeof(float) * (size_t)(2 * BM * LDS + BM * LDO + 2 * BM);
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(kFwdThreads)
+template <typename T, int DP, int BM>
+__global__ void __launch_bounds__(fwd_threads<BM>())
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, Geom g) {
-  constexpr int BM = kFwdBM, BN = kBN, NW = kFwdThreads / 32;
+  constexpr int BN = kBN, NT = fwd_threads<BM>(), NW = NT / 32;
   static_assert(BM == 16 * NW, "one 16-row tile a warp");
   constexpr int LD = DP + Pitch<T>::pad, LDP = BN + Pitch<T>::pad;
   constexpr int LDS = BN + 4, LDO = DP + 4;
@@ -298,8 +307,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + (long long)b * g.k_sb + (long long)h * g.k_sh;
 
   load_tile<T>(Qs, LD, DP, qb + (long long)q0 * g.q_st, g.q_st, g.TQ - q0, BM,
-               g.D, g.vec, tid, kFwdThreads);
-  for (int i = tid; i < BM * LDO; i += kFwdThreads) Os[i] = 0.f;
+               g.D, g.vec, tid, NT);
+  for (int i = tid; i < BM * LDO; i += NT) Os[i] = 0.f;
   if (tid < BM) {
     ms[tid] = kNegInf;
     ls[tid] = 0.f;
@@ -311,9 +320,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = kt * BN;
     __syncthreads();  // the last tile's p.v has read Ks, Vs, Ps
     load_tile<T>(Ks, LD, DP, kb + (long long)k0 * g.k_st, g.k_st, g.TK - k0,
-                 BN, g.D, g.vec, tid, kFwdThreads);
+                 BN, g.D, g.vec, tid, NT);
     load_tile<T>(Vs, LD, DP, vb + (long long)k0 * g.k_st, g.k_st, g.TK - k0,
-                 BN, g.D, g.vec, tid, kFwdThreads);
+                 BN, g.D, g.vec, tid, NT);
     __syncthreads();
     // one unit a warp: warp w computes, rescales and accumulates rows
     // [16 w, 16 w + 16) itself, so warp-level syncs order these steps
@@ -366,14 +375,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // The k-major backward block: dk and dv of one k-tile, and (DQ) its dq
 // share by atomics.  flash_bwd_kernel (fused route) and flash_bwd_dkv_kernel
 // (split route) are this body with DQ true and false.
-template <typename T, int DP, int BM, bool DQ>
+template <typename T, int DP, int BM, int BN, bool DQ>
 __device__ __forceinline__ void bwd_kv_block(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ o, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dlse,
     float* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
     const Geom& g, unsigned char* smem_raw) {
-  constexpr int BN = kBN, NW = kBwdThreads / 32;
+  constexpr int NW = kBwdThreads / 32;
   constexpr int LD = DP + Pitch<T>::pad, LDP = BN + Pitch<T>::pad;
   constexpr int LDS = BN + 4, LDO = DP + 4;
   T* Ks = reinterpret_cast<T*>(smem_raw);             // [BN, LD]
@@ -458,19 +467,24 @@ __device__ __forceinline__ void bwd_kv_block(
     block_gemm<T, true, false, true, DP / 32>(dKs, LDO, dSs, LDP, Qs, LD, BN,
                                               DP, BM, warp, lane, NW);
     if constexpr (DQ) {
-      // dq tile = ds . k, 64 columns at a time into the free score buffers
-      for (int ch = 0; ch < DP / 64; ++ch)
-        block_gemm<T, false, false, false, BM / 32>(
-            (ch & 1) ? dPs : Ss, LDS, dSs, LDP, Ks + ch * 64, LD, BM, 64, BN,
-            warp, lane, NW);
-      __syncthreads();
-      for (int i = tid; i < BM * DP; i += kBwdThreads) {
-        const int r = i / DP, d = i % DP;
-        const int qpos = q0 + r;
-        if (qpos < g.TQ && d < g.D) {
-          const float* src = ((d >> 6) & 1) ? dPs : Ss;
-          atomicAdd(dq + qoff + (long long)qpos * g.q_st + d,
-                    src[r * LDS + (d & 63)]);
+      // dq tile = ds . k, BN columns at a time into the two free score
+      // buffers, a pair of column groups a pass
+      for (int c0 = 0; c0 < DP; c0 += 2 * BN) {
+        if (c0) __syncthreads();  // the last pass's atomics have read them
+        for (int ch = 0; ch < 2 && c0 + ch * BN < DP; ++ch)
+          block_gemm<T, false, false, false, BM / 32>(
+              ch ? dPs : Ss, LDS, dSs, LDP, Ks + c0 + ch * BN, LD, BM, BN, BN,
+              warp, lane, NW);
+        __syncthreads();
+        const int cols = min(2 * BN, DP - c0);
+        for (int i = tid; i < BM * cols; i += kBwdThreads) {
+          const int r = i / cols, dd = i % cols, d = c0 + dd;
+          const int qpos = q0 + r;
+          if (qpos < g.TQ && d < g.D) {
+            const float* src = dd >= BN ? dPs : Ss;
+            atomicAdd(dq + qoff + (long long)qpos * g.q_st + d,
+                      src[r * LDS + dd % BN]);
+          }
         }
       }
     }
@@ -487,7 +501,7 @@ __device__ __forceinline__ void bwd_kv_block(
   }
 }
 
-template <typename T, int DP, int BM>
+template <typename T, int DP, int BM, int BN>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ o,
@@ -495,11 +509,11 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ dlse, float* __restrict__ dq,
                  T* __restrict__ dk, T* __restrict__ dv, Geom g) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bwd_kv_block<T, DP, BM, true>(q, k, v, o, dout, lse, dlse, dq, dk, dv, g,
-                                smem_raw);
+  bwd_kv_block<T, DP, BM, BN, true>(q, k, v, o, dout, lse, dlse, dq, dk, dv,
+                                    g, smem_raw);
 }
 
-template <typename T, int DP, int BM>
+template <typename T, int DP, int BM, int BN>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ o,
@@ -508,21 +522,21 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ dlse, T* __restrict__ dk,
                      T* __restrict__ dv, Geom g) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bwd_kv_block<T, DP, BM, false>(q, k, v, o, dout, lse, dlse, nullptr, dk, dv,
-                                 g, smem_raw);
+  bwd_kv_block<T, DP, BM, BN, false>(q, k, v, o, dout, lse, dlse, nullptr,
+                                     dk, dv, g, smem_raw);
 }
 
 // Split route, dq: one block owns a BM-row q-tile of one (batch, head) and
 // walks the k-tiles up to its diagonal; dq stays in f32 in shared memory and
 // is written once.  Heavy (late) causal q-tiles launch first.
-template <typename T, int DP, int BM>
+template <typename T, int DP, int BM, int BN>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ dlse, T* __restrict__ dq,
                     Geom g) {
-  constexpr int BN = kBN, NW = kBwdThreads / 32;
+  constexpr int NW = kBwdThreads / 32;
   constexpr int LD = DP + Pitch<T>::pad, LDP = BN + Pitch<T>::pad;
   constexpr int LDS = BN + 4, LDO = DP + 4;
   // dQ[BM, DP] += dS[BM, BN] . K[BN, DP]: one output unit a warp
@@ -628,18 +642,18 @@ int vec_ok(const Geom& g) {
          g.k_sh % V == 0;
 }
 
-template <typename T, int DP>
+template <typename T, int DP, int BM>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                Geom g, cudaStream_t st) {
   g.vec = vec_ok<T>(g) && aligned16(q) && aligned16(k) && aligned16(v);
-  const size_t smem = fwd_smem_bytes<T, DP>();
-  auto kern = flash_fwd_kernel<T, DP>;
+  constexpr size_t smem = fwd_smem_bytes<T, DP, BM>();
+  static_assert(smem <= 232448, "forward shared memory");
+  auto kern = flash_fwd_kernel<T, DP, BM>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)((g.TQ + kFwdBM - 1) / kFwdBM),
-                  (unsigned)(g.B * g.H));
-  kern<<<grid, kFwdThreads, smem, st>>>(
+  const dim3 grid((unsigned)((g.TQ + BM - 1) / BM), (unsigned)(g.B * g.H));
+  kern<<<grid, fwd_threads<BM>(), smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       g);
@@ -656,7 +670,7 @@ cudaError_t allow_smem(K kern, size_t smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int DP, int BM, int KIND>
+template <typename T, int DP, int BM, int BN, int KIND>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const void* lse, const void* dlse, void* dq,
                void* dk, void* dv, Geom g, cudaStream_t st) {
@@ -670,25 +684,28 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   const float* lse_ = static_cast<const float*>(lse);
   const float* dlse_ = static_cast<const float*>(dlse);
   const unsigned bh = (unsigned)(g.B * g.H);
-  const dim3 kgrid((unsigned)((g.TK + kBN - 1) / kBN), bh);
+  const dim3 kgrid((unsigned)((g.TK + BN - 1) / BN), bh);
+  static_assert(bwd_smem_bytes<T, DP, BM, BN>() <= 232448 &&
+                    dq_smem_bytes<T, DP, BM, BN>() <= 232448,
+                "backward shared memory");
   cudaError_t e;
   if constexpr (KIND == kFused) {
-    const size_t smem = bwd_smem_bytes<T, DP, BM>();
-    auto kern = flash_bwd_kernel<T, DP, BM>;
+    const size_t smem = bwd_smem_bytes<T, DP, BM, BN>();
+    auto kern = flash_bwd_kernel<T, DP, BM, BN>;
     if ((e = allow_smem(kern, smem)) != cudaSuccess) return (int)e;
     kern<<<kgrid, kBwdThreads, smem, st>>>(
         q_, k_, v_, o_, do_, lse_, dlse_, static_cast<float*>(dq),
         static_cast<T*>(dk), static_cast<T*>(dv), g);
   } else if constexpr (KIND == kDkv) {
-    const size_t smem = bwd_smem_bytes<T, DP, BM>();
-    auto kern = flash_bwd_dkv_kernel<T, DP, BM>;
+    const size_t smem = bwd_smem_bytes<T, DP, BM, BN>();
+    auto kern = flash_bwd_dkv_kernel<T, DP, BM, BN>;
     if ((e = allow_smem(kern, smem)) != cudaSuccess) return (int)e;
     kern<<<kgrid, kBwdThreads, smem, st>>>(q_, k_, v_, o_, do_, lse_, dlse_,
                                            static_cast<T*>(dk),
                                            static_cast<T*>(dv), g);
   } else {
-    const size_t smem = dq_smem_bytes<T, DP, BM>();
-    auto kern = flash_bwd_dq_kernel<T, DP, BM>;
+    const size_t smem = dq_smem_bytes<T, DP, BM, BN>();
+    auto kern = flash_bwd_dq_kernel<T, DP, BM, BN>;
     if ((e = allow_smem(kern, smem)) != cudaSuccess) return (int)e;
     const dim3 qgrid((unsigned)((g.TQ + BM - 1) / BM), bh);
     kern<<<qgrid, kBwdThreads, smem, st>>>(q_, k_, v_, o_, do_, lse_, dlse_,
@@ -699,7 +716,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
 
 bool geom_ok(const Geom& g) {
   return g.B >= 1 && g.H >= 1 && g.TQ >= 1 && g.TK >= 1 && g.D >= 1 &&
-         g.D <= 128 && (long long)g.B * g.H <= 65535;
+         g.D <= 256 && (long long)g.B * g.H <= 65535;
 }
 
 }  // namespace
@@ -722,12 +739,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (!geom_ok(g)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (D <= 64) return launch_fwd<float, 64>(q, k, v, o, lse, g, st);
-    return launch_fwd<float, 128>(q, k, v, o, lse, g, st);
+    if (D <= 64) return launch_fwd<float, 64, 64>(q, k, v, o, lse, g, st);
+    if (D <= 128) return launch_fwd<float, 128, 64>(q, k, v, o, lse, g, st);
+    return launch_fwd<float, 256, 32>(q, k, v, o, lse, g, st);
   }
   if (dtype == 1) {
-    if (D <= 64) return launch_fwd<__nv_bfloat16, 64>(q, k, v, o, lse, g, st);
-    return launch_fwd<__nv_bfloat16, 128>(q, k, v, o, lse, g, st);
+    using bf = __nv_bfloat16;
+    if (D <= 64) return launch_fwd<bf, 64, 64>(q, k, v, o, lse, g, st);
+    if (D <= 128) return launch_fwd<bf, 128, 64>(q, k, v, o, lse, g, st);
+    return launch_fwd<bf, 256, 64>(q, k, v, o, lse, g, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -740,17 +760,24 @@ int bwd_entry(const void* q, const void* k, const void* v, const void* o,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (g.D <= 64)
-      return launch_bwd<float, 64, 32, KIND>(q, k, v, o, dout, lse, dlse, dq,
-                                             dk, dv, g, st);
-    return launch_bwd<float, 128, 32, KIND>(q, k, v, o, dout, lse, dlse, dq,
-                                            dk, dv, g, st);
+      return launch_bwd<float, 64, 32, 64, KIND>(q, k, v, o, dout, lse, dlse,
+                                                 dq, dk, dv, g, st);
+    if (g.D <= 128)
+      return launch_bwd<float, 128, 32, 64, KIND>(q, k, v, o, dout, lse, dlse,
+                                                  dq, dk, dv, g, st);
+    return launch_bwd<float, 256, 32, 32, KIND>(q, k, v, o, dout, lse, dlse,
+                                                dq, dk, dv, g, st);
   }
   if (dtype == 1) {
+    using bf = __nv_bfloat16;
     if (g.D <= 64)
-      return launch_bwd<__nv_bfloat16, 64, 64, KIND>(q, k, v, o, dout, lse,
-                                                     dlse, dq, dk, dv, g, st);
-    return launch_bwd<__nv_bfloat16, 128, 64, KIND>(q, k, v, o, dout, lse,
-                                                    dlse, dq, dk, dv, g, st);
+      return launch_bwd<bf, 64, 64, 64, KIND>(q, k, v, o, dout, lse, dlse, dq,
+                                              dk, dv, g, st);
+    if (g.D <= 128)
+      return launch_bwd<bf, 128, 64, 64, KIND>(q, k, v, o, dout, lse, dlse,
+                                               dq, dk, dv, g, st);
+    return launch_bwd<bf, 256, 64, 32, KIND>(q, k, v, o, dout, lse, dlse, dq,
+                                             dk, dv, g, st);
   }
   return (int)cudaErrorInvalidValue;
 }

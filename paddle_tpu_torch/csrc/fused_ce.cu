@@ -53,9 +53,18 @@
 // buffer (the resident operands fill shared memory), no TMA and no wgmma:
 // making it fast is later work.
 //
+// Any d: d <= 768 runs in one d-chunk of DP = 256 or 768 (the resident
+// operand, x or the w slice, is staged once).  Past 768 (the reference's
+// block chooser shrinks its blocks for d_model >= 1024, pallas_ce.py
+// _auto_blocks) each kernel loops over d-chunks of 768, staging the chunk's
+// x and w rows in turn: the forward adds each chunk's product into the
+// score tile before the online softmax (the sum over d in d order); dx and
+// dW write their output one d-chunk at a time, recomputing the scores over
+// every chunk for each, so d = 2048 costs three score products a tile.
+//
 // Tiles, from the budget of 227 KB of shared memory and 255 registers a
-// thread, 256 threads (8 warps) a block, one block an SM, d padded to DP
-// (256 or 768; d <= 768):
+// thread, 256 threads (8 warps) a block, one block an SM, a d-chunk padded
+// to DP (256 or 768):
 //   bf16 forward  64 rows x 64 vocab: x rows 64 x 776 x 2 = 99,328 B, w tile
 //                 768 x 72 x 2 = 110,592 B, f32 scores 64 x 68 x 4 = 17,408 B:
 //                 227,328 B; two 16x16 score fragments a warp.
@@ -346,14 +355,39 @@ __device__ __forceinline__ void acc_store(float* C, int ldc,
     }
 }
 
-// Ss[BM, BV] = Xs[BM, DP] . Ws[DP, BV]: each active warp owns F score tiles
-// side by side and keeps them in fragments over the whole d loop, which
-// runs in kChunks slices as the walked tile's copy (fetch_tile) lands.
-// Every thread takes part in the barriers.
+// c[i][j] = C[m0 + 16 i .., n0 + 16 j ..]: acc_store's inverse, bit for bit
+template <typename T, int FM, int FN>
+__device__ __forceinline__ void acc_load(Acc<T> (&c)[FM][FN], const float* C,
+                                         int ldc, int m0, int n0, int lane) {
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j) {
+      const float* src = C + (m0 + 16 * i) * ldc + n0 + 16 * j;
+      if constexpr (is_bf16<T>()) {
+        wmma::load_matrix_sync(c[i][j].f, src, ldc, wmma::mem_row_major);
+      } else {
+        const int ri = (lane >> 2) * 2;
+        const int ci = (lane & 3) * 4;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            c[i][j].v[r * 4 + q] = src[(ri + r) * ldc + ci + q];
+      }
+    }
+}
+
+// Ss[BM, BV] (+)= Xs[BM, DP] . Ws[DP, BV]: each active warp owns F score
+// tiles side by side and keeps them in fragments over the whole d loop,
+// which runs in kChunks slices as the walked tile's copy (fetch_tile)
+// lands.  With `more`, the product adds to the scores the calling warp
+// left in Ss (the previous d-chunk's), so the sum over d runs in d order
+// whatever the chunking.  Every thread takes part in the barriers.
 template <typename T, int BM, int BV, int DP>
 __device__ __forceinline__ void score_tile(float* Ss, const T* Xs,
                                            const T* Ws, int vec, int warp,
-                                           int lane) {
+                                           int lane, bool more = false) {
   constexpr int LDX = DP + pad_of<T>(), LDW = BV + pad_of<T>();
   constexpr int LDS = BV + kPadF;
   constexpr int units = (BM / 16) * (BV / 16);
@@ -365,7 +399,10 @@ __device__ __forceinline__ void score_tile(float* Ss, const T* Xs,
   const int m0 = (warp / CG) * 16;
   const int n0 = (warp % CG) * 16 * F;
   Acc<T> c[1][F];
-  acc_zero(c);
+  if (more && active)
+    acc_load(c, Ss, LDS, m0, n0, lane);
+  else
+    acc_zero(c);
 #pragma unroll 1
   for (int ch = 0; ch < kChunks; ++ch) {
     if (vec) cp_async_wait_pending(kChunks - 1 - ch);
@@ -447,8 +484,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int r0 = blockIdx.x * BM;
-  load_tile<T>(Xs, LDX, x + (long long)r0 * D, D, BM, DP, N - r0, D, vec,
-               tid);
+  const int nch = (D + DP - 1) / DP;  // d-chunks: x is resident when one
+  if (nch == 1)
+    load_tile<T>(Xs, LDX, x + (long long)r0 * D, D, BM, DP, N - r0, D, vec,
+                 tid);
   // running max, sum and this lane's share of the picked logit, per row;
   // every lane of the warp holds the same m and l
   float m[RPW], l[RPW], pick[RPW];
@@ -462,17 +501,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     yr[i] = row < N ? y[row] : -1;
   }
   const int nvt = (V + BV - 1) / BV;
-  if (vec) fetch_tile<T, DP, true>(Ws, LDW, w, V, DP, BV, D, V, vec, tid);
+  if (vec && nch == 1)
+    fetch_tile<T, DP, true>(Ws, LDW, w, V, DP, BV, D, V, vec, tid);
   for (int vt = 0; vt < nvt; ++vt) {
     const int v0 = vt * BV;
-    // without vec the copy is synchronous: Ws is free (the barrier after
-    // the last score product), and score_tile publishes it
-    if (!vec) fetch_tile<T, DP, true>(Ws, LDW, w + v0, V, DP, BV, D, V - v0,
-                                      vec, tid);
-    score_tile<T, BM, BV, DP>(Ss, Xs, Ws, vec, warp, lane);
+    if (nch == 1) {
+      // without vec the copy is synchronous: Ws is free (the barrier after
+      // the last score product), and score_tile publishes it
+      if (!vec) fetch_tile<T, DP, true>(Ws, LDW, w + v0, V, DP, BV, D,
+                                        V - v0, vec, tid);
+      score_tile<T, BM, BV, DP>(Ss, Xs, Ws, vec, warp, lane);
+    } else {
+      // d > DP: the score tile accumulates over the d-chunks, each
+      // chunk's x rows and w rows staged in turn
+      for (int ch = 0; ch < nch; ++ch) {
+        const int d0 = ch * DP;
+        __syncthreads();  // the last chunk's product has read Xs and Ws
+        load_tile<T>(Xs, LDX, x + (long long)r0 * D + d0, D, BM, DP, N - r0,
+                     D - d0, vec, tid);
+        fetch_tile<T, DP, true>(Ws, LDW, w + (long long)d0 * V + v0, V, DP,
+                                BV, D - d0, V - v0, vec, tid);
+        score_tile<T, BM, BV, DP>(Ss, Xs, Ws, vec, warp, lane, ch > 0);
+      }
+    }
     __syncthreads();  // Ss is whole and nobody reads Ws any more
     // the next tile's copy runs under this tile's softmax epilogue
-    if (vec && vt + 1 < nvt)
+    if (vec && nch == 1 && vt + 1 < nvt)
       fetch_tile<T, DP, true>(Ws, LDW, w + v0 + BV, V, DP, BV, D,
                               V - v0 - BV, vec, tid);
 #pragma unroll
@@ -529,33 +583,54 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int r0 = blockIdx.x * BM;
-  load_tile<T>(Xs, LDX, x + (long long)r0 * D, D, BM, DP, N - r0, D, vec,
-               tid);
+  const int nch = (D + DP - 1) / DP;  // d-chunks: x is resident when one
+  if (nch == 1)
+    load_tile<T>(Xs, LDX, x + (long long)r0 * D, D, BM, DP, N - r0, D, vec,
+                 tid);
   load_stats<BM>(lse_s, g_s, y_s, lse, g, y, r0, N, tid);
-  // warp w owns dx columns [16 FNX w, 16 FNX (w + 1)) of all BM rows
+  // warp w owns dx columns [16 FNX w, 16 FNX (w + 1)) of all BM rows of
+  // the output chunk; with d > DP the block writes dx one d-chunk at a
+  // time, recomputing the scores (over every d-chunk) for each
   const int n0x = warp * 16 * FNX;
-  Acc<T> cx[FMX][FNX];
-  acc_zero(cx);
   const int nvt = (V + BV - 1) / BV;
-  for (int vt = 0; vt < nvt; ++vt) {
-    const int v0 = vt * BV;
-    __syncthreads();  // the last tile's dx product has read Ws and dSs
-    fetch_tile<T, DP, true>(Ws, LDW, w + v0, V, DP, BV, D, V - v0, vec, tid);
-    score_tile<T, BM, BV, DP>(Ss, Xs, Ws, vec, warp, lane);
+  for (int oc = 0; oc < nch; ++oc) {
+    const int o0 = oc * DP;
+    Acc<T> cx[FMX][FNX];
+    acc_zero(cx);
+    for (int vt = 0; vt < nvt; ++vt) {
+      const int v0 = vt * BV;
+      for (int ch = 0; ch < nch; ++ch) {
+        const int d0 = ch * DP;
+        __syncthreads();  // the last product has read Xs, Ws and dSs
+        if (nch > 1)
+          load_tile<T>(Xs, LDX, x + (long long)r0 * D + d0, D, BM, DP,
+                       N - r0, D - d0, vec, tid);
+        fetch_tile<T, DP, true>(Ws, LDW, w + (long long)d0 * V + v0, V, DP,
+                                BV, D - d0, V - v0, vec, tid);
+        score_tile<T, BM, BV, DP>(Ss, Xs, Ws, vec, warp, lane, ch > 0);
+      }
+      __syncthreads();
+      // the dx product takes the output chunk's w rows: Ws holds the last
+      // d-chunk's
+      if (oc != nch - 1)
+        load_tile<T>(Ws, LDW, w + (long long)o0 * V + v0, V, DP, BV, D - o0,
+                     V - v0, vec, tid);
+      ds_tile<T, BM, BV>(dSs, Ss, lse_s, g_s, y_s, r0, v0, N, V, tid);
+      __syncthreads();
+      // dx += ds . w_tile^T: B(k = vocab, n = d) = Ws[d, vocab]
+      warp_mma<T, FMX, FNX, false, true>(cx, dSs, LDP, Ws, LDW, 0, n0x, BV,
+                                         lane);
+    }
+    __syncthreads();  // the operand tiles are dead: stage dx over them
+    float* Os = reinterpret_cast<float*>(smem_raw);       // [BM, LDO]
+    acc_store(Os, LDO, cx, 0, n0x, lane);
     __syncthreads();
-    ds_tile<T, BM, BV>(dSs, Ss, lse_s, g_s, y_s, r0, v0, N, V, tid);
-    __syncthreads();
-    // dx += ds . w_tile^T: B(k = vocab, n = d) = Ws[d, vocab]
-    warp_mma<T, FMX, FNX, false, true>(cx, dSs, LDP, Ws, LDW, 0, n0x, BV,
-                                       lane);
-  }
-  __syncthreads();  // the operand tiles are dead: stage dx over them
-  float* Os = reinterpret_cast<float*>(smem_raw);         // [BM, LDO]
-  acc_store(Os, LDO, cx, 0, n0x, lane);
-  __syncthreads();
-  for (int i = tid; i < BM * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    if (r0 + r < N) dx[(long long)(r0 + r) * D + c] = from_f32<T>(Os[r * LDO + c]);
+    const int dc = min(DP, D - o0);
+    for (int i = tid; i < BM * dc; i += kThreads) {
+      const int r = i / dc, c = i % dc;
+      if (r0 + r < N)
+        dx[(long long)(r0 + r) * D + o0 + c] = from_f32<T>(Os[r * LDO + c]);
+    }
   }
 }
 
@@ -581,33 +656,52 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int v0 = blockIdx.x * BV;
-  load_tile<T>(Ws, LDW, w + v0, V, DP, BV, D, V - v0, vec, tid);
-  // warp w owns dW rows [16 FMW w, 16 FMW (w + 1)) of all BV columns
+  const int nch = (D + DP - 1) / DP;  // d-chunks: w is resident when one
+  if (nch == 1) load_tile<T>(Ws, LDW, w + v0, V, DP, BV, D, V - v0, vec, tid);
+  // warp w owns dW rows [16 FMW w, 16 FMW (w + 1)) of all BV columns of the
+  // output chunk; with d > DP the block writes dW one d-chunk at a time,
+  // recomputing the scores (over every d-chunk) for each
   const int m0w = warp * 16 * FMW;
-  Acc<T> cw[FMW][FNW];
-  acc_zero(cw);
   const int nrt = (N + BM - 1) / BM;
-  for (int rt = 0; rt < nrt; ++rt) {
-    const int r0 = rt * BM;
-    __syncthreads();  // the last tile's dW product has read Xs and dSs
-    fetch_tile<T, DP, false>(Xs, LDX, x + (long long)r0 * D, D, BM, DP,
-                             N - r0, D, vec, tid);
-    load_stats<BM>(lse_s, g_s, y_s, lse, g, y, r0, N, tid);
-    score_tile<T, BM, BV, DP>(Ss, Xs, Ws, vec, warp, lane);
+  for (int oc = 0; oc < nch; ++oc) {
+    const int o0 = oc * DP;
+    Acc<T> cw[FMW][FNW];
+    acc_zero(cw);
+    for (int rt = 0; rt < nrt; ++rt) {
+      const int r0 = rt * BM;
+      for (int ch = 0; ch < nch; ++ch) {
+        const int d0 = ch * DP;
+        __syncthreads();  // the last product has read Xs, Ws and dSs
+        if (nch > 1)
+          load_tile<T>(Ws, LDW, w + (long long)d0 * V + v0, V, DP, BV,
+                       D - d0, V - v0, vec, tid);
+        fetch_tile<T, DP, false>(Xs, LDX, x + (long long)r0 * D + d0, D, BM,
+                                 DP, N - r0, D - d0, vec, tid);
+        if (ch == 0) load_stats<BM>(lse_s, g_s, y_s, lse, g, y, r0, N, tid);
+        score_tile<T, BM, BV, DP>(Ss, Xs, Ws, vec, warp, lane, ch > 0);
+      }
+      __syncthreads();
+      // the dW product takes the output chunk's x columns: Xs holds the
+      // last d-chunk's
+      if (oc != nch - 1)
+        load_tile<T>(Xs, LDX, x + (long long)r0 * D + o0, D, BM, DP, N - r0,
+                     D - o0, vec, tid);
+      ds_tile<T, BM, BV>(dSs, Ss, lse_s, g_s, y_s, r0, v0, N, V, tid);
+      __syncthreads();
+      // dW += x_tile^T . ds: A(m = d, k = row) = Xs[row, d]
+      warp_mma<T, FMW, FNW, true, false>(cw, Xs, LDX, dSs, LDP, m0w, 0, BM,
+                                         lane);
+    }
+    __syncthreads();  // the operand tiles are dead: stage dW over them
+    float* Os = reinterpret_cast<float*>(smem_raw);       // [DP, LDO]
+    acc_store(Os, LDO, cw, m0w, 0, lane);
     __syncthreads();
-    ds_tile<T, BM, BV>(dSs, Ss, lse_s, g_s, y_s, r0, v0, N, V, tid);
-    __syncthreads();
-    // dW += x_tile^T . ds: A(m = d, k = row) = Xs[row, d]
-    warp_mma<T, FMW, FNW, true, false>(cw, Xs, LDX, dSs, LDP, m0w, 0, BM,
-                                       lane);
-  }
-  __syncthreads();  // the operand tiles are dead: stage dW over them
-  float* Os = reinterpret_cast<float*>(smem_raw);         // [DP, LDO]
-  acc_store(Os, LDO, cw, m0w, 0, lane);
-  __syncthreads();
-  for (int i = tid; i < D * BV; i += kThreads) {
-    const int r = i / BV, c = i % BV;
-    if (v0 + c < V) dw[(long long)r * V + v0 + c] = from_f32<T>(Os[r * LDO + c]);
+    const int dc = min(DP, D - o0);
+    for (int i = tid; i < dc * BV; i += kThreads) {
+      const int r = i / BV, c = i % BV;
+      if (v0 + c < V)
+        dw[(long long)(o0 + r) * V + v0 + c] = from_f32<T>(Os[r * LDO + c]);
+    }
   }
 }
 
@@ -679,9 +773,7 @@ int launch_dw(const void* x, const void* w, const void* y, const void* lse,
   return (int)cudaGetLastError();
 }
 
-bool geom_ok(int N, int D, int V) {
-  return N >= 1 && D >= 1 && D <= 768 && V >= 1;
-}
+bool geom_ok(int N, int D, int V) { return N >= 1 && D >= 1 && V >= 1; }
 
 }  // namespace
 
@@ -693,6 +785,8 @@ bool geom_ok(int N, int D, int V) {
 // (paddle_tpu_torch/kernels/fused_ce.py) checks shapes, dtypes and
 // contiguity and allocates every output.
 
+// D <= 256 and D <= 768 run in one d-chunk (x or w resident); past 768 the
+// kernels loop over chunks of 768.
 #define CE_DISPATCH(LAUNCH, ...)                                       \
   do {                                                                 \
     if (!geom_ok(N, D, V)) return (int)cudaErrorInvalidValue;          \

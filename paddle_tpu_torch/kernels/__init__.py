@@ -33,7 +33,8 @@ FAMILIES = {"paged_attention": _pa.PAGED_FAMILY_CALLS,
             "flash_attention_split": _fa.BWD_FAMILY_CALLS,
             "fused_ce_fwd": _ce.CE_FWD_FAMILY_CALLS,
             "fused_ce_dx": _ce.CE_DX_FAMILY_CALLS,
-            "fused_ce_dw": _ce.CE_DW_FAMILY_CALLS}
+            "fused_ce_dw": _ce.CE_DW_FAMILY_CALLS,
+            "bottleneck": _bn.BOTTLENECK_FAMILY_CALLS}
 
 
 def reset_launches():

@@ -16,22 +16,33 @@ Calling convention and layouts are the script's::
     y2  = relu(conv2(y1) * s2 + b2)  f32 sums, rounded to x's dtype
     out = relu(conv3(y2) * s3 + b3 + x)
 
-Two spellings of the one function live here:
+The spellings of the one function that live here:
 
 * :func:`bottleneck_ref` — the plain PyTorch version, the script's
   ``xla_reference``: three ``F.conv2d`` on NCHW views, summed in f32 from
   the operands' exact values, with the same two roundings.  The CPU path
-  and the reference the kernel is held against.
-* the CUDA kernel ``csrc/bottleneck.cu``, hand-written for Hopper
-  (``sm_90a``), which replaces the TPU kernel ``make_fused``: the mid
-  activations never reach device memory.  bf16 with channel counts that
-  are multiples of 8 runs on the tensor cores (WMMA), anything else on
-  f32 FMA (:func:`uses_tensor_cores`).
+  and the reference the kernels are held against.
+* :func:`bottleneck_rows_ref` — a plain spelling of the sm90 kernel's
+  decomposition (strips of rows, a row-by-row walk, a rolling ring of y1
+  rows with zero slots and zero rows), for the tests.
+* two CUDA kernel families, hand-written for Hopper (``sm_90a``), which
+  replace the TPU kernel ``make_fused`` (the mid activations never reach
+  device memory), picked by the static rule :func:`bottleneck_family`:
+  ``"sm90"`` (``csrc/bottleneck_sm90.cu``: resident weights, ``wgmma``,
+  a TMA ring of x rows, a rolling y1 ring; bf16, Cm = 64, Cin = Cout a
+  multiple of 64 up to 256, W <= 64, 16-byte aligned tensors) and
+  ``"simple"`` (``csrc/bottleneck.cu``: bf16 with channel counts that are
+  multiples of 8 on WMMA tiles, anything else on f32 FMA,
+  :func:`uses_tensor_cores`).
 
 :func:`bottleneck` is the wrapper: CPU tensors take the plain version,
-CUDA tensors launch the kernel or raise — there is no fallback.  Every
-launch adds one to ``bottleneck.launches``.  The kernel picks its own band
-height (:func:`band_rows`) and handles a last band that H does not fill.
+CUDA tensors launch the kernel of the rule's family (or of ``family=``,
+for tests) or raise — there is no fallback, from one family to the other
+either.  Every launch adds one to ``bottleneck.launches`` and to its
+family's count in ``BOTTLENECK_FAMILY_CALLS``.  The simple kernel picks
+its own band height (:func:`band_rows`) and handles a last band that H
+does not fill; the sm90 kernel takes its strip height from
+:func:`strip_rows`.
 
 :func:`kernel_weights` turns the script's weights into the kernel's
 layout; :func:`fold_bn` and :func:`block_weights` take a ResNet identity
@@ -46,9 +57,10 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["ORACLE_TOL", "oracle_tol", "bottleneck", "bottleneck_ref",
-           "kernel_weights", "fold_bn", "block_weights", "band_rows",
-           "uses_tensor_cores", "build"]
+__all__ = ["ORACLE_TOL", "BOTTLENECK_FAMILY_CALLS", "oracle_tol",
+           "bottleneck", "bottleneck_ref", "bottleneck_rows_ref",
+           "bottleneck_family", "strip_rows", "kernel_weights", "fold_bn",
+           "block_weights", "band_rows", "uses_tensor_cores", "build"]
 
 # max |kernel - ref| / max |ref|: f32 within the ORACLE_TOL f32 forward
 # bound (summation order only); bf16 within the script's own criterion
@@ -59,6 +71,14 @@ ORACLE_TOL = {
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# launches on the card, by kernel family (bottleneck_family)
+BOTTLENECK_FAMILY_CALLS = {"sm90": 0, "simple": 0}
+
+SM90_CM = 64         # the mid width the sm90 family takes
+SM90_MAX_C = 256     # its widest Cin = Cout: the weights stay resident
+SM90_MAX_W = 64      # its widest row: one image row is one 64-row tile
+Y1_RING_ROWS = 6     # rows of its y1 ring
 
 
 def oracle_tol(dtype, kind="fwd"):
@@ -86,6 +106,82 @@ def bottleneck_ref(x, w1, w2, w3, s1, b1, s2, b2, s3, b3):
     y3 = F.conv2d(y2.to(acc), w3.to(acc).t()[:, :, None, None])
     out = torch.relu(y3 * chan(s3) + chan(b3) + xn).to(dt)
     return out.permute(0, 2, 3, 1).contiguous()
+
+
+def strip_rows(n, h, sms=132):
+    """The sm90 kernel's strip height for ``n`` images of ``h`` rows on a
+    card of ``sms`` SMs: the strips of an image are ``sms // n`` (at least
+    one, at most ``h``), so that the grid of ``n`` times that many blocks
+    about fills the card, and each is ``ceil(h / strips)`` rows (the last
+    may be shorter).  At N = 128 on 132 SMs a strip is a whole image."""
+    strips = max(1, min(h, sms // max(n, 1)))
+    return -(-h // strips)
+
+
+def bottleneck_rows_ref(x, w1, w2, w3, s1, b1, s2, b2, s3, b3,
+                        strip=None, ring=Y1_RING_ROWS):
+    """The plain spelling of the sm90 kernel's decomposition, NHWC in and
+    out: each image is cut into strips of ``strip`` rows (default
+    :func:`strip_rows` on 132 SMs); a strip walks its rows two a step,
+    keeping y1 in a ring of ``ring`` rows of ``W + 2`` pixel slots (a zero
+    slot at each end; rows outside the image are zero rows), computing
+    conv1 once for each row it needs (its own and one halo row above and
+    below), conv2 as nine shifted ``[W, Cm] . [Cm, Cm]`` products summed in
+    tap order and conv3 with the residual, rounding y1 and y2 to x's dtype
+    as the kernel does.  Sums in f32 (f64 for f64)."""
+    n, h, w, c = x.shape
+    cm = w1.shape[1]
+    dt, acc = x.dtype, _acc_dtype(x.dtype)
+    strip = strip or strip_rows(n, h)
+    xa, w1a, w2a, w3a = (t.to(acc) for t in (x, w1, w2, w3))
+    s1, b1, s2, b2, s3, b3 = (v.to(acc) for v in (s1, b1, s2, b2, s3, b3))
+    out = torch.empty_like(x)
+    for img in range(n):
+        for a in range(0, h, strip):
+            e = min(a + strip, h)
+            y1 = torch.zeros((ring, w + 2, cm), dtype=acc, device=x.device)
+            steps = (e - a + 1) // 2
+            for s in range(-1, steps):
+                for g in (a + 2 * s + 1, a + 2 * s + 2):
+                    if g > e:
+                        continue      # past the strip's bottom halo row
+                    slot = y1[(g - a + 1) % ring, 1:w + 1]
+                    if 0 <= g < h:
+                        v = torch.relu(xa[img, g] @ w1a * s1 + b1)
+                        slot.copy_(v.to(dt).to(acc))
+                    else:
+                        slot.zero_()  # a zero row: SAME padding
+                if s < 0:
+                    continue
+                for o in (a + 2 * s, a + 2 * s + 1):
+                    if o >= e:
+                        continue
+                    y2 = torch.zeros((w, cm), dtype=acc, device=x.device)
+                    for dy in range(3):
+                        row = y1[(o + dy - a) % ring]
+                        for dx in range(3):
+                            y2 += row[dx:dx + w] @ w2a[dy, dx]
+                    y2 = torch.relu(y2 * s2 + b2).to(dt).to(acc)
+                    y3 = y2 @ w3a * s3 + b3 + xa[img, o]
+                    out[img, o] = torch.relu(y3).to(dt)
+    return out
+
+
+def bottleneck_family(dtype, H, W, Cin, Cm, ptrs):
+    """``"sm90"`` or ``"simple"``: the kernel family for ``x [N, H, W,
+    Cin]`` of ``dtype`` with mid width ``Cm`` (Cout = Cin) and the base
+    addresses ``ptrs`` of x, w1, w2, w3 and out.  ``"sm90"`` takes bf16,
+    ``Cm == 64``, ``Cin`` a multiple of 64 up to 256 (the three weights stay
+    resident in shared memory), ``W <= 64`` (one image row is one 64-row
+    tile) and 16-byte aligned pointers (what TMA addresses); anything else
+    is ``"simple"``.  Static: decided before any launch."""
+    if dtype != torch.bfloat16 or Cm != SM90_CM or H < 1:
+        return "simple"
+    if Cin % 64 or not 64 <= Cin <= SM90_MAX_C or not 1 <= W <= SM90_MAX_W:
+        return "simple"
+    if any(p % 16 for p in ptrs):
+        return "simple"
+    return "sm90"
 
 
 def kernel_weights(w1, w2, w3, dtype=None):
@@ -159,6 +255,22 @@ def _check(x, w1, w2, w3, sb):
 
 
 _fns = None
+_sm90_fns = None
+
+
+def _sm90_kernel():
+    """The sm90 family's entry and error string function."""
+    global _sm90_fns
+    if _sm90_fns is None:
+        lib = _build.load("bottleneck_sm90")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fwd = lib.bottleneck_sm90_fwd
+        fwd.argtypes = [ptr] * 11 + [i32] * 8 + [ptr]
+        fwd.restype = i32
+        lib.bottleneck_sm90_error_string.argtypes = [i32]
+        lib.bottleneck_sm90_error_string.restype = ctypes.c_char_p
+        _sm90_fns = (fwd, lib.bottleneck_sm90_error_string)
+    return _sm90_fns
 
 
 def _kernel():
@@ -182,9 +294,10 @@ def _kernel():
 
 
 def build():
-    """Build (if stale) and load the kernel library — set-up work that
+    """Build (if stale) and load the kernel libraries — set-up work that
     belongs outside any timed window."""
     _kernel()
+    _sm90_kernel()
 
 
 def band_rows(H, W, Cm, dtype, tensor_cores=False):
@@ -204,9 +317,10 @@ def uses_tensor_cores(x, w1, w2, w3, out):
                              w1.shape[1], _DTYPE_CODE[x.dtype]))
 
 
-def bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3):
+def bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3, family=None):
     """The fused bottleneck forward (module docstring).  CPU tensors take
-    :func:`bottleneck_ref`; CUDA tensors launch the hand-written kernel on
+    :func:`bottleneck_ref`; CUDA tensors launch the kernel of the family
+    :func:`bottleneck_family` picks (``family`` forces one, for tests) on
     the current stream, or raise."""
     sb = (s1, b1, s2, b2, s3, b3)
     _check(x, w1, w2, w3, sb)
@@ -214,8 +328,28 @@ def bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3):
         return bottleneck_ref(x, w1, w2, w3, *sb)
     n, h, w, c = x.shape
     cm = w1.shape[1]
-    fwd, _, _, errstr = _kernel()
     out = torch.empty_like(x)
+    if family is None:
+        family = bottleneck_family(x.dtype, h, w, c, cm, [
+            t.data_ptr() for t in (x, w1, w2, w3, out)])
+    if family == "sm90":
+        fwd, errstr = _sm90_kernel()
+        dev = x.device
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        with torch.cuda.device(dev):
+            err = fwd(*(t.data_ptr() for t in (x, w1, w2, w3) + sb),
+                      out.data_ptr(), n, h, w, c, cm, c,
+                      strip_rows(n, h, sms), _DTYPE_CODE[x.dtype],
+                      torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"bottleneck sm90 kernel launch failed: "
+                               f"cudaError {err} ({errstr(err).decode()})")
+        BOTTLENECK_FAMILY_CALLS["sm90"] += 1
+        bottleneck.launches += 1
+        return out
+    if family != "simple":
+        raise ValueError(f"bottleneck: unknown family {family!r}")
+    fwd, _, _, errstr = _kernel()
     if band_rows(h, w, cm, x.dtype,
                  uses_tensor_cores(x, w1, w2, w3, out)) == 0:
         raise ValueError(f"bottleneck: a band of one row (W={w}, Cm={cm}) "
@@ -227,6 +361,7 @@ def bottleneck(x, w1, w2, w3, s1, b1, s2, b2, s3, b3):
     if err:
         raise RuntimeError(f"bottleneck kernel launch failed: cudaError "
                            f"{err} ({errstr(err).decode()})")
+    BOTTLENECK_FAMILY_CALLS["simple"] += 1
     bottleneck.launches += 1
     return out
 

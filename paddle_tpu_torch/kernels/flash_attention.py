@@ -82,8 +82,9 @@ saves exactly ``FLASH_BWD_RESIDUALS = (q, k, v, o, lse)`` and whose
 backward is one :func:`flash_bwd` call — the forward is never recomputed.
 
 Kernel limits (checked here, before the launch): bf16 or f32, one dtype
-and one device for all tensors, contiguous ``[b, t, h, d]``, ``d <= 128``,
-``b * h <= 65535``.
+and one device for all tensors, contiguous ``[b, t, h, d]``, ``d <= 256``
+(the simple family's limit; the sm90 family takes ``d <= 128``, as its
+rule says), ``b * h <= 65535``.
 """
 
 import ctypes
@@ -95,7 +96,7 @@ from . import _build
 __all__ = ["NEG_INF", "ORACLE_TOL", "FLASH_BWD_RESIDUALS",
            "FUSED_BWD_PARTIAL_BYTES", "BWD_ROUTE_CALLS", "oracle_tol",
            "FWD_FAMILY_CALLS", "FUSED_FAMILY_CALLS", "BWD_FAMILY_CALLS",
-           "bwd_route", "bwd_family",
+           "SM90_MAX_D", "bwd_route", "bwd_family",
            "flash_attention_ref", "flash_attention_bwd_ref",
            "flash_bwd_delta_ref", "flash_fwd", "flash_bwd",
            "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkv",
@@ -133,7 +134,8 @@ ORACLE_TOL = {
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 128
+_MAX_D = 256       # the simple family's widest head
+SM90_MAX_D = 128   # the sm90 family's
 _MAX_BH = 65535
 
 
@@ -185,7 +187,7 @@ def bwd_family(dtype, d, strides, ptrs):
     with ``d <= 128`` and every stride, the head dim's bytes and every
     pointer a multiple of 16 bytes (what TMA addresses); anything else is
     ``"simple"``.  Static: decided before any launch."""
-    if dtype != torch.bfloat16 or not 1 <= d <= _MAX_D:
+    if dtype != torch.bfloat16 or not 1 <= d <= SM90_MAX_D:
         return "simple"
     es = 2
     if (d * es) % 16 or any((s * es) % 16 for st in strides for s in st):
@@ -465,8 +467,8 @@ def flash_bwd_delta(o, do, dlse=None):
     if do.dtype != o.dtype or _family(o, do) != "sm90":
         raise ValueError(
             f"flash_bwd_delta: the pre-pass serves the sm90 family only "
-            f"(bf16, d <= {_MAX_D}, 16-byte aligned rows); got {o.dtype}, "
-            f"{do.dtype}, d={d}")
+            f"(bf16, d <= {SM90_MAX_D}, 16-byte aligned rows); got "
+            f"{o.dtype}, {do.dtype}, d={d}")
     fns = _sm90_kernels()
     delta = torch.empty((b * h, t_q), dtype=torch.float32, device=o.device)
     with torch.cuda.device(o.device):

@@ -46,7 +46,10 @@ and whose backward launches the dx and dW kernels; the forward is never
 re-run.
 
 Kernel limits (checked here, before the launch): x and w bf16 or f32 in
-one dtype, y int32, all contiguous on one card, ``1 <= d <= 768``.
+one dtype, y int32, all contiguous on one card.  Any ``d >= 1``: the
+simple family loops over d-chunks of 768 past that width (the reference
+shrinks its blocks for ``d_model >= 1024``, ``pallas_ce.py:
+_auto_blocks``); the sm90 family takes ``d <= 768`` and refuses more.
 """
 
 import ctypes
@@ -61,8 +64,8 @@ __all__ = ["ORACLE_TOL", "FUSED_CE_RESIDUALS", "CE_FWD_FAMILY_CALLS",
            "fused_ce_ref", "fused_ce_bwd_ref", "fused_ce_dx_ref",
            "fused_ce_dw_ref", "fused_ce_fwd_tiled_ref",
            "fused_ce_dx_split_ref", "fused_ce_dw_split_ref", "dx_d_half",
-           "ce_family", "ce_fwd", "ce_dx", "ce_dw", "FusedCEFunction",
-           "fused_softmax_ce_head", "build"]
+           "SM90_MAX_D", "ce_family", "ce_fwd", "ce_dx", "ce_dw",
+           "FusedCEFunction", "fused_softmax_ce_head", "build"]
 
 # what the backward is computed from, and all the forward saves
 # (pallas_ce.py: _ce_core_fwd)
@@ -77,7 +80,7 @@ ORACLE_TOL = {
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 768
+SM90_MAX_D = 768   # the widest d the sm90 family takes
 D_SLICE = 256      # d a block of the sm90 dW kernel's cluster owns
 FWD_BLOCK_V = 128  # vocab columns of an sm90 forward tile
 DX_BLOCK_V = 32    # vocab columns of an sm90 dx tile
@@ -104,7 +107,7 @@ def ce_family(dtype, d, v, ptrs):
     and ``v`` elements) a multiple of 16 bytes and every pointer 16-byte
     aligned (what TMA addresses); anything else is ``"simple"``.  Static:
     decided before any launch."""
-    if dtype != torch.bfloat16 or not 1 <= d <= _MAX_D:
+    if dtype != torch.bfloat16 or not 1 <= d <= SM90_MAX_D:
         return "simple"
     if d % 8 or v % 8 or any(p % 16 for p in ptrs):
         return "simple"
@@ -312,8 +315,6 @@ def _check(x, w, y, extra=()):
         raise TypeError("fused_ce: lse and g must be float32")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("fused_ce: all tensors must be contiguous")
-    if d > _MAX_D:
-        raise ValueError(f"fused_ce: d {d} must be <= {_MAX_D} on the card")
 
 
 _fns = None

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card (paged attention on both kernel
 families, decode gather, flash attention forward, fused backward and split
 backward (dq, dk/dv), each on the simple family and the sm90 one (the
-backwards with its delta pre-pass), the fused cross-entropy head's
-forward, dx and dW (dW on both families), the fused ResNet bottleneck),
+backwards with its delta pre-pass; the simple family alone past d_head
+128), the fused cross-entropy head's forward, dx and dW on both families
+(the simple one alone past d = 768), the fused ResNet bottleneck on both),
 against their plain PyTorch versions (paddle_tpu_torch only: no jax, so
 these run on a host without it).  Every test needs an NVIDIA GPU and skips
 without one; on the card:
@@ -600,9 +601,73 @@ def test_flash_wrapper_checks_before_launching():
     with pytest.raises(ValueError):
         tfa.flash_fwd(q[..., ::2], k[..., ::2], v[..., ::2])
     with pytest.raises(ValueError):
-        wide = torch.zeros(1, 8, 1, 256, device="cuda")
+        wide = torch.zeros(1, 8, 1, 257, device="cuda")
         tfa.flash_fwd(wide, wide, wide)
     assert tfa.flash_fwd.launches == before
+
+
+# head widths past the sm90 family's 128: the simple family takes them to
+# 256 (the forward on 32 query rows in f32, the backwards on 32-key tiles)
+WIDE_FLASH_GEOMS = {"d192": (1, 130, 130, 2, 192),    # b, t_q, t_k, h, d
+                    "d256": (2, 200, 200, 2, 256)}
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", list(WIDE_FLASH_GEOMS))
+def test_flash_wide_heads_match_plain_version(dtype, geom, causal,
+                                              monkeypatch):
+    """The forward, the fused backward and the split pair at d_head 192
+    and 256 on the simple family (by the rule and the counters) against
+    the plain version, with an lse cotangent."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    q, k, v, do, dlse = _flash_case(*WIDE_FLASH_GEOMS[geom], dt)
+    c0 = (dict(tfa.FWD_FAMILY_CALLS), dict(tfa.FUSED_FAMILY_CALLS),
+          dict(tfa.BWD_FAMILY_CALLS))
+    o, lse = tfa.flash_fwd(q, k, v, causal)
+    fused = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
+    monkeypatch.setattr(tfa, "FUSED_BWD_PARTIAL_BYTES", 0)
+    split = tfa.flash_bwd(q, k, v, o, lse, do, dlse, causal)
+    torch.cuda.synchronize()
+    assert tfa.FWD_FAMILY_CALLS == {"sm90": c0[0]["sm90"],
+                                    "simple": c0[0]["simple"] + 1}
+    assert tfa.FUSED_FAMILY_CALLS == {"sm90": c0[1]["sm90"],
+                                      "simple": c0[1]["simple"] + 1}
+    assert tfa.BWD_FAMILY_CALLS == {"sm90": c0[2]["sm90"],
+                                    "simple": c0[2]["simple"] + 2}
+    o_ref, lse_ref = tfa.flash_attention_ref(q, k, v, causal)
+    assert _rel(o, o_ref) <= tfa.oracle_tol(dtype, "fwd")
+    assert _rel(lse, lse_ref) <= tfa.oracle_tol(dtype, "fwd")
+    want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal)
+    for route, got in (("fused", fused), ("split", split)):
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert _rel(g, w) <= tfa.oracle_tol(dtype, "grad"), (route, name)
+    # the split route's dk and dv are the fused kernel's bits (one body)
+    assert torch.equal(split[1], fused[1]) and torch.equal(split[2], fused[2])
+
+
+@pytest.mark.parametrize("kernel", ["forward", "fused", "split"])
+def test_flash_sm90_refuses_wide_heads(kernel, monkeypatch):
+    """bf16 at d_head 256 forced onto the sm90 family raises and counts
+    nothing: that family takes d_head <= 128."""
+    _need_card()
+    q, k, v, do, _ = _flash_case(1, 64, 64, 2, 256, torch.bfloat16)
+    o, lse = tfa.flash_attention_ref(q, k, v, True)
+    monkeypatch.setattr(tfa, "bwd_family", lambda *a, **kw: "sm90")
+    if kernel == "split":
+        monkeypatch.setattr(tfa, "FUSED_BWD_PARTIAL_BYTES", 0)
+    tables = (tfa.FWD_FAMILY_CALLS, tfa.FUSED_FAMILY_CALLS,
+              tfa.BWD_FAMILY_CALLS)
+    before = [dict(t) for t in tables] + [tfa.flash_fwd.launches,
+                                          tfa.flash_bwd.launches]
+    with pytest.raises((RuntimeError, ValueError)):
+        if kernel == "forward":
+            tfa.flash_fwd(q, k, v, True)
+        else:
+            tfa.flash_bwd(q, k, v, o, lse.float(), do, None, True)
+    assert [dict(t) for t in tables] + [
+        tfa.flash_fwd.launches, tfa.flash_bwd.launches] == before
 
 
 def test_executor_on_the_card_matches_the_cpu():
@@ -888,9 +953,68 @@ def test_ce_wrapper_checks_before_launching():
     with pytest.raises(ValueError):
         tce.ce_fwd(x, w.T.contiguous().T, y)            # contiguity
     with pytest.raises(ValueError):
-        wide = torch.zeros(4, 800, device="cuda")
-        tce.ce_fwd(wide, torch.zeros(800, 8, device="cuda"), y[:4])
+        tce.ce_fwd(x, w, y[:-1])                        # label count
     assert tce.ce_fwd.launches == before
+
+
+# past the sm90 family's d <= 768: the simple kernels loop over d-chunks
+# of 768; d = 2048, V = 50,000 is the reference's own test shape
+# (tests/test_fused_ce.py)
+CE_WIDE_GEOMS = {"d1024": (4096, 1024, 32768), "d2048": (2048, 2048, 50000),
+                 "d800_ragged": (333, 800, 1001)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", list(CE_WIDE_GEOMS))
+def test_ce_wide_heads_match_plain_versions(dtype, geom):
+    """The forward, dx and dW past d = 768 on the simple family (by the
+    rule and the counters) against the plain versions, the same bits
+    twice."""
+    _need_card()
+    n, d, v = CE_WIDE_GEOMS[geom]
+    if dtype == "float32" and geom != "d800_ragged":
+        n = 512                   # the f32 FMA tiles are slow; fewer rows
+    x, w, y, g = _ce_case(n, d, v, getattr(torch, dtype), seed=17)
+    tables = (tce.CE_FWD_FAMILY_CALLS, tce.CE_DX_FAMILY_CALLS,
+              tce.CE_DW_FAMILY_CALLS)
+    before = [dict(t) for t in tables]
+    loss, lse = tce.ce_fwd(x, w, y)
+    ref_loss, ref_lse = tce.fused_ce_ref(x, w, y)
+    ref_lse = ref_lse.float()
+    dx = tce.ce_dx(x, w, y, ref_lse, g)
+    dw = tce.ce_dw(x, w, y, ref_lse, g)
+    dw2 = tce.ce_dw(x, w, y, ref_lse, g)
+    torch.cuda.synchronize()
+    for t, b, k in zip(tables, before, (1, 1, 2)):
+        assert t == {"sm90": b["sm90"], "simple": b["simple"] + k}
+    assert torch.equal(dw, dw2)
+    tol = tce.oracle_tol(dtype, "fwd")
+    assert _rel(loss, ref_loss) <= tol and _rel(lse, ref_lse) <= tol
+    out = (y < 0) | (y >= v)
+    assert torch.equal(loss[out], lse[out])
+    ref_dx, ref_dw = tce.fused_ce_bwd_ref(x, w, y, ref_lse, g)
+    tol = tce.oracle_tol(dtype, "grad")
+    assert _rel(dx, ref_dx) <= tol and _rel(dw, ref_dw) <= tol
+    assert torch.equal(dx[g == 0], torch.zeros_like(dx[g == 0]))
+
+
+@pytest.mark.parametrize("kernel", ["forward", "dx", "dW"])
+def test_ce_sm90_refuses_past_768(monkeypatch, kernel):
+    """bf16 at d = 1024 forced onto the sm90 family raises and counts
+    nothing: that family takes d <= 768."""
+    _need_card()
+    x, w, y, g = _ce_case(77, 1024, 336, torch.bfloat16)
+    _, lse = tce.fused_ce_ref(x, w, y)
+    lse = lse.float()
+    monkeypatch.setattr(tce, "ce_family", lambda *a: "sm90")
+    wrapper, table, args = {
+        "forward": (tce.ce_fwd, tce.CE_FWD_FAMILY_CALLS, (x, w, y)),
+        "dx": (tce.ce_dx, tce.CE_DX_FAMILY_CALLS, (x, w, y, lse, g)),
+        "dW": (tce.ce_dw, tce.CE_DW_FAMILY_CALLS, (x, w, y, lse, g))}[kernel]
+    before = (wrapper.launches, dict(table))
+    with pytest.raises(RuntimeError):
+        wrapper(*args)
+    assert (wrapper.launches, dict(table)) == before
 
 
 def test_fused_head_executor_on_the_card_matches_the_cpu():
@@ -928,6 +1052,50 @@ def test_fused_head_executor_on_the_card_matches_the_cpu():
         assert abs(got[0] - want[0]) <= 1e-4 * abs(want[0])
     assert (tce.ce_fwd.launches - before[0], tce.ce_dx.launches - before[1],
             tce.ce_dw.launches - before[2]) == (3, 3, 3)
+
+
+def test_fused_head_d1024_step_on_the_card_matches_the_cpu():
+    """One Adam step of a one-layer f32 fused-head GPT at
+    d_model 1024 on the card, from the state the CPU run starts from: the
+    loss within 1e-4 relative, every parameter's gradient within 1e-3 of
+    its largest entry, each CE kernel launched once on the simple family
+    (d > 768)."""
+    _need_card()
+    import paddle_tpu_torch as pt
+
+    pt.core.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        model = pt.models.transformer.build(
+            vocab_size=61, n_layer=1, n_head=8, d_model=1024, max_len=32,
+            dropout_rate=0.0, dtype="float32", learning_rate=2e-3,
+            fused_head=True)
+    cpu_scope = pt.Scope()
+    cpu = pt.Executor(pt.CPUPlace())
+    cpu.run(startup, scope=cpu_scope)
+    state = {v.name: cpu_scope.numpy(v.name)
+             for v in main.persistable_vars()}
+    card_scope = pt.load_numpy_state(pt.Scope(), state)
+    card = pt.Executor(pt.CUDAPlace(0))
+    rng = np.random.default_rng(1)
+    start = rng.integers(0, 61, (4, 1))
+    toks = (start + np.arange(32)[None, :]) % 61
+    labels = np.concatenate([toks[:, 1:], -np.ones((4, 1), int)], 1)
+    feed = {"tokens": toks, "labels": labels}
+    params = [p.name for p in main.all_parameters()]
+    fetch = [model["avg_cost"]] + [p + "@GRAD" for p in params]
+    tables = (tce.CE_FWD_FAMILY_CALLS, tce.CE_DX_FAMILY_CALLS,
+              tce.CE_DW_FAMILY_CALLS)
+    before = [dict(t) for t in tables]
+    want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    got = card.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+    for t, b in zip(tables, before):
+        assert t == {"sm90": b["sm90"], "simple": b["simple"] + 1}
+    assert abs(got[0][0] - want[0][0]) <= 1e-4 * abs(want[0][0])
+    top = max(float(np.abs(w).max()) for w in want[1:])
+    for name, g, w in zip(params, got[1:], want[1:]):
+        scale = top if "_att_k.b" in name else float(np.abs(w).max())
+        assert float(np.abs(g - w).max()) <= 1e-3 * max(scale, 1e-30), name
 
 
 # -- decode gather -------------------------------------------------------------
@@ -1076,6 +1244,60 @@ def test_bottleneck_band_height_and_wrapper_checks():
         big = _bottleneck_case(1, 2, 4096, 16, 512, torch.float32)
         tbn.bottleneck(*big)
     assert tbn.bottleneck.launches == before
+
+
+# the sm90 family (csrc/bottleneck_sm90.cu): the script's shape (a whole
+# image a strip), a small batch (strips of one and two rows, an odd last
+# strip), W = 13 and 64, H = 1 and W = 1, each Cin it takes
+BOTTLENECK_SM90_GEOMS = {"script": (128, 56, 56, 256), "ragged_strips":
+                         (6, 13, 13, 128), "w64_c192": (3, 9, 64, 192),
+                         "h1_w1_c64": (5, 1, 1, 64), "n4_stage1":
+                         (4, 56, 56, 256)}
+
+
+@pytest.mark.parametrize("geom", list(BOTTLENECK_SM90_GEOMS))
+def test_bottleneck_sm90_matches_plain_and_repeats_its_bits(geom):
+    _need_card()
+    n, h, w, c = BOTTLENECK_SM90_GEOMS[geom]
+    args = _bottleneck_case(n, h, w, c, 64, torch.bfloat16, seed=7)
+    assert tbn.bottleneck_family(torch.bfloat16, h, w, c, 64, [
+        a.data_ptr() for a in args[:4]]) == "sm90"
+    before = dict(tbn.BOTTLENECK_FAMILY_CALLS)
+    got = tbn.bottleneck(*args)
+    again = tbn.bottleneck(*args)
+    torch.cuda.synchronize()
+    assert tbn.BOTTLENECK_FAMILY_CALLS == {"sm90": before["sm90"] + 2,
+                                           "simple": before["simple"]}
+    assert torch.equal(got, again)
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, tbn.bottleneck_ref(*args)) <= tbn.oracle_tol(
+        torch.bfloat16)
+    assert _rel(got, tbn.bottleneck(*args, family="simple")) <= (
+        tbn.oracle_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("what", ["f32", "cm72", "cin512", "misaligned",
+                                  "w65"])
+def test_bottleneck_sm90_refuses_what_it_does_not_take(what):
+    """Inputs the sm90 family does not take, forced onto it, raise and
+    count nothing: no fallback to the simple kernel."""
+    _need_card()
+    n, h, w, c, cm, dt = {"f32": (2, 8, 8, 64, 64, torch.float32),
+                          "cm72": (2, 8, 8, 64, 72, torch.bfloat16),
+                          "cin512": (1, 4, 4, 512, 64, torch.bfloat16),
+                          "misaligned": (2, 8, 8, 64, 64, torch.bfloat16),
+                          "w65": (1, 3, 65, 64, 64, torch.bfloat16)}[what]
+    args = _bottleneck_case(n, h, w, c, cm, dt)
+    if what == "misaligned":
+        x = torch.empty(args[0].numel() + 1, dtype=dt,
+                        device="cuda")[1:].view(args[0].shape)
+        x.copy_(args[0])
+        args = (x,) + args[1:]
+    before = (tbn.bottleneck.launches, dict(tbn.BOTTLENECK_FAMILY_CALLS))
+    with pytest.raises(RuntimeError):
+        tbn.bottleneck(*args, family="sm90")
+    assert (tbn.bottleneck.launches,
+            dict(tbn.BOTTLENECK_FAMILY_CALLS)) == before
 
 
 def test_resnet_executor_on_the_card_matches_the_cpu():

@@ -174,13 +174,17 @@ def _reference_route(b, t, h, d, dtype, block_k):
 
 
 # (b, t, h, d, dtype, block_k): the flagship's shape across t, f32, ragged
-# t (_pick_block's divisor search), a smaller block_k
+# t (_pick_block's divisor search), a smaller block_k, and d_head 256 (the
+# partial bytes scale with d: 3 heads of 256 split at t=8192 as 6 of 128
+# do)
 ROUTE_CASES = [(8, t, 6, 128, "bfloat16", 1024)
                for t in (4096, 6144, 8192, 16384)] + [
     (8, 4096, 6, 128, "float32", 1024), (8, 6144, 6, 128, "float32", 1024),
     (8, 6144, 6, 128, "bfloat16", 512), (2, 1000, 6, 128, "bfloat16", 1024),
     (8, 8191, 6, 128, "bfloat16", 1024), (8, 10000, 6, 128, "bfloat16", 1024),
-    (1, 12288, 12, 64, "float32", 1024)]
+    (1, 12288, 12, 64, "float32", 1024)] + [
+    (8, t, h, 256, "bfloat16", 1024)
+    for t, h in ((2048, 6), (4096, 6), (4096, 3), (8192, 3))]
 
 
 @pytest.mark.parametrize("case", ROUTE_CASES,
