@@ -202,13 +202,46 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    folded from the trained parameters and running statistics, against
    the port's own forward of that block (2e-2 max-relative), counts
    zeroed before: one launch of each family;
-10. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
+10. phase 7's training through the training loop (a main path, the
+   public entry point): ``Trainer(...).train`` over a resumable
+   ``reader.batch`` of phase 7's synthetic stream through ``DataFeeder``,
+   prefetched two batches ahead, with async step checkpoints every 2
+   steps (2 kept) and ``MetricsReporter``'s JSONL, 6 steps at full width
+   and depth: the losses finite and falling, 12 flash forwards, 12 delta
+   pre-passes, 12 fused backwards and one of each CE kernel a step, all
+   sm90 (counts zeroed before the phase; a check beside phases 7 and 8,
+   not a source of the kernels line), 6 step records with an ``mfu``, the
+   step_6 checkpoint on disk in the JAX package's format (every CRC,
+   bf16 under ``'<V2'``, ``__done0__``, the sidecar's torch RNG state);
+   prints the Trainer's step wall beside phase 7's ``Executor.run``,
+   ``checkpoint.snapshot_ms`` (what ``save()``'s synchronous copy
+   blocks), ``checkpoint.save_ms`` and ``checkpoint.bytes`` beside the
+   bytes reckoned from the program, and the loop interval after a
+   checkpointed step beside the others; a+. ``save()``'s copy once the
+   pinned blocks of 10a's saves are back in the host cache; b. the op
+   that keeps two runs apart, found by running it twice from one state:
+   the flash backward
+   at the path shape (the fused kernel's dq atomics) and one whole step
+   from the step_4 checkpoint, on the rules' routes and under
+   ``torch.use_deterministic_algorithms`` (there it must be the same
+   bits); then what determinism costs with no checkpoint write in
+   flight, three modes (the rules' fused route, the split route forced
+   alone, deterministic algorithms): the flash backward's device time at
+   the path shape in turns, and 8 rounds of one ``Executor.run`` step a
+   mode (each round's step walls and their differences);
+   c. under deterministic algorithms (the flash backward on its split
+   route), the same 6 steps; d. a fresh scope and a second Trainer
+   with ``resume=True`` from its step_4 checkpoint: steps 5 and 6's
+   losses and every parameter after step 6 bit-equal to c's; e. 2 steps
+   with ``steps_per_call=2`` from the same start: c's first 2 losses bit
+   for bit;
+11. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
    launches on its main path (phase 3e, 5, 5b, 7, 8 or 9b), error, times
    and bound; the paged attention, flash forward, fused backward, the
    three CE rows and the sm90 bottleneck add the simple family's time
    (``simple_ms``), and the forward's row its t=16384 entry (``t16384``,
    launches from phase 8);
-11. the last line: ``{"ok": true, "device": {...}}``.
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
 file, it exits non-zero and prints no result.  The weights, the tokens
@@ -2818,6 +2851,430 @@ def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
     return sums
 
 
+# -- phase 10: training through the Trainer ----------------------------------
+
+TRAINER_STEPS, TRAINER_CKPT_EVERY = 6, 2
+
+
+def trainer_samples(np, seed, steps):
+    """Phase 7's synthetic stream as a sample reader: next = tok + 1 on a
+    cycle of ``PATTERN`` tokens from a seeded start per row, labels the
+    tokens shifted left with the last one padding."""
+    def samples():
+        rng = np.random.default_rng(seed)
+        for _ in range(steps * TRAIN_B):
+            toks = (rng.integers(0, PATTERN) + np.arange(TRAIN_T)) % PATTERN
+            yield toks, np.concatenate([toks[1:], [-1]])
+    return samples
+
+
+def trainer_run(torch, np, pt, seed, steps, ckdir=None, jsonl=None,
+                resume=False, steps_per_call=1):
+    """One ``Trainer.train`` over ``steps`` batches of phase 7's program
+    (full width and depth, bf16, fused head) from its seeded startup
+    state: a resumable ``reader.batch`` through ``DataFeeder``, prefetched
+    two batches ahead on a side stream (unfused path), with step
+    checkpoints every 2 steps (async, 2 kept) when ``ckdir`` is given.
+    Returns the losses, the host clock at each EndIteration, the
+    EndIteration events, the parameters after the run, and the
+    trainer."""
+    main, startup, model = build_training(pt, seed, TRAIN_T, "bfloat16",
+                                          True)
+    scope = pt.Scope()
+    losses, stamps, ends = [], [], []
+
+    def on_event(e):
+        if isinstance(e, pt.EndIteration):
+            losses.append(e.cost)
+            stamps.append(time.perf_counter())
+            ends.append(e)
+
+    reader = pt.reader.resumable(pt.reader.batch(
+        trainer_samples(np, seed, steps), TRAIN_B))
+    with pt.scope_guard(scope):
+        tr = pt.Trainer(model["avg_cost"], model["feed"], main_program=main,
+                        startup_program=startup)
+        rep = pt.MetricsReporter(log_every_n=0, jsonl_path=jsonl)
+        kw = {"prefetch": 2} if steps_per_call == 1 else {}
+        if ckdir:
+            kw.update(checkpoint_dir=ckdir, resume=resume,
+                      checkpoint_every_n_steps=TRAINER_CKPT_EVERY,
+                      async_checkpoint=True, keep_checkpoints=2,
+                      checkpoint_every_n_passes=10 ** 9)
+        try:
+            tr.train(reader, num_passes=1, event_handler=rep.chain(on_event),
+                     steps_per_call=steps_per_call, **kw)
+        finally:
+            rep.close()
+        torch.cuda.synchronize()
+        params = {p.name: scope.get(p.name) for p in main.all_parameters()}
+    return {"losses": losses, "stamps": stamps, "ends": ends,
+            "params": params, "trainer": tr, "main": main, "startup": startup,
+            "model": model}
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """``torch.use_deterministic_algorithms`` for a bit-exact comparison
+    (warnings only, so a PyTorch op without a deterministic spelling is
+    named rather than fatal; uninitialized memory left unfilled, so the
+    cost measured is the routes')."""
+    import warnings
+
+    from torch.utils import deterministic as det
+
+    fill = det.fill_uninitialized_memory
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        det.fill_uninitialized_memory = fill
+
+
+def check_checkpoint_files(np, path):
+    """The checkpoint on disk in the JAX package's format: every manifest
+    entry's CRC over its file, bf16 files under ``'<V2'`` headers with
+    manifest dtype ``"bfloat16"``, the completion marker and the sidecar's
+    torch RNG state.  Returns (files, bf16 files, bytes)."""
+    import pickle
+    import zlib
+
+    with open(os.path.join(path, "__manifest__.pkl"), "rb") as f:
+        manifest = pickle.load(f)
+    if manifest.get("__nprocs__") != 1 or not os.path.exists(
+            os.path.join(path, "__done0__")):
+        raise AssertionError(f"{path}: no single-process completion marker")
+    n_bf16 = 0
+    for name, meta in manifest.items():
+        if name == "__nprocs__":
+            continue
+        with open(os.path.join(path, meta["file"]), "rb") as f:
+            raw = f.read()
+        if zlib.crc32(raw) != meta["crc32"]:
+            raise AssertionError(f"{path}: CRC of {name} disagrees")
+        v2 = b"'descr': '<V2'" in raw[:128]
+        if v2 != (meta["dtype"] == "bfloat16"):
+            raise AssertionError(f"{path}: {name} is {meta['dtype']} with "
+                                 f"header {raw[:80]!r}")
+        n_bf16 += v2
+    with open(os.path.join(path, "__train_state__.pkl"), "rb") as f:
+        st = pickle.load(f)
+    if st.get("rng_kind") != "torch" or st["rng_key"].dtype != np.uint8:
+        raise AssertionError(f"{path}: sidecar RNG {st.get('rng_kind')}")
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    return len(manifest) - 1, n_bf16, nbytes, st
+
+
+def pinned_reuse_ms(pt, seed, path):
+    """``AsyncCheckpointer.save``'s blocking time (``checkpoint.
+    snapshot_ms``) for phase 7's state once earlier saves have returned
+    their pinned blocks to the caching host allocator."""
+    from paddle_tpu_torch.observability import metrics as obs
+
+    main, startup, _ = build_training(pt, seed, TRAIN_T, "bfloat16", True)
+    scope = pt.Scope()
+    pt.Executor().run(startup, scope=scope)
+    ck = pt.io.AsyncCheckpointer()
+    with pt.scope_guard(scope):
+        ck.save(path, main)
+    ms = obs.get_registry().value("checkpoint.last_snapshot_ms")
+    ck.close()
+    return ms
+
+
+def determinism_probe(torch, np, pt, fa, seed, ckpt):
+    """The op that keeps two runs of one step apart, found by running it
+    twice from one state: the flash backward at the path shape (dq, dk, dv
+    compared bit for bit), then a whole step of phase 7's program from the
+    ``ckpt`` state and one batch, by mode (the rules' routes; torch's
+    deterministic algorithms).  Returns the parameters that differ by
+    mode."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = flash_inputs(torch, gen, TRAIN_B, TRAIN_T, N_HEAD,
+                               D_HEAD, torch.bfloat16)
+    o, lse = fa.flash_fwd(q, k, v, causal=True)
+    main, startup, model = build_training(pt, seed, TRAIN_T, "bfloat16",
+                                          True)
+    params = [p.name for p in main.all_parameters()]
+    exe = pt.Executor()
+    feed = make_batch(torch, np.random.default_rng(seed + 1), TRAIN_B,
+                      TRAIN_T)
+    out = {}
+    for mode in ("rules", "deterministic"):
+        stack = contextlib.ExitStack()
+        if mode == "deterministic":
+            stack.enter_context(deterministic(torch))
+        with stack:
+            a, b = (fa.flash_bwd(q, k, v, o, lse, do, causal=True)
+                    for _ in range(2))
+            grads = {g: int((x != y).sum()) for g, x, y in
+                     zip(("dq", "dk", "dv"), a, b)}
+            steps, walls = [], []
+            for _ in range(2):
+                scope = pt.Scope()
+                exe.run(startup, scope=scope)
+                with pt.scope_guard(scope):
+                    pt.io.load_persistables(exe, ckpt, main)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, = exe.run(main, feed=feed, scope=scope,
+                                fetch_list=[model["avg_cost"].name],
+                                return_numpy=False)
+                steps.append((loss.item(), {n: scope.get(n) for n in params}))
+                walls.append(time.perf_counter() - t0)
+                del scope
+        differ = [n for n in params
+                  if not torch.equal(steps[0][1][n], steps[1][1][n])]
+        out[mode] = differ
+        log(f"phase 10 probe, {mode}: the flash backward twice at the path "
+            f"shape differs in {grads} elements; one step of phase 7's "
+            f"program twice from the step-4 state: loss {steps[0][0]!r} vs "
+            f"{steps[1][0]!r}, {len(differ)} of {len(params)} parameters "
+            f"differ" + (f" ({', '.join(differ[:6])}, ...)" if differ
+                         else "")
+            + f"; step wall {walls[0]:.4f}, {walls[1]:.4f} s (no "
+            f"checkpoint write in flight)")
+        if mode == "deterministic" and (differ or any(grads.values())
+                                        or steps[0][0] != steps[1][0]):
+            raise AssertionError("phase 10: under deterministic algorithms "
+                                 "one step twice is not the same bits")
+        del steps
+    return out
+
+
+ROUTE_TURNS = ("rules", "split", "deterministic", "deterministic", "split",
+               "rules")
+ROUTE_ROUNDS = 8
+
+
+def route_mode(torch, fa, mode):
+    """One mode of the route-cost reading: the rules' fused route; the
+    split route forced alone; torch's deterministic algorithms (the split
+    route and every PyTorch op's deterministic spelling)."""
+    if mode == "split":
+        return forced_route(fa, "split")
+    if mode == "deterministic":
+        return deterministic(torch)
+    return contextlib.nullcontext()
+
+
+def route_cost(torch, np, pt, fa, seed, ckpt):
+    """What determinism costs, read with no checkpoint write in flight:
+    the flash backward at the path shape (device time of 12 queued calls,
+    a step's worth), each mode in turns (``ROUTE_TURNS``); then
+    ``ROUTE_ROUNDS`` rounds of one step of phase 7's program a mode
+    through ``Executor.run`` from the ``ckpt`` state (host wall a step,
+    the loss materialised), the modes' order reversed every other round,
+    after one unrecorded step a mode.  A round's steps run within half a
+    second of each other, so the host's drift, which moves one mode's
+    steps by tens of ms over a few seconds, mostly cancels in each
+    round's difference.  Returns ``{mode: (kernel ms a call by turn,
+    step walls by round)}``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = flash_inputs(torch, gen, TRAIN_B, TRAIN_T, N_HEAD,
+                               D_HEAD, torch.bfloat16)
+    o, lse = fa.flash_fwd(q, k, v, causal=True)
+    out = {m: ([], []) for m in ROUTE_TURNS}
+    for mode in ROUTE_TURNS:
+        with route_mode(torch, fa, mode):
+            out[mode][0].append(device_ms(
+                torch, lambda i: fa.flash_bwd(q, k, v, o, lse, do,
+                                              causal=True), N_LAYER))
+    del q, k, v, do, o, lse
+    main, startup, model = build_training(pt, seed, TRAIN_T, "bfloat16",
+                                          True)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    with pt.scope_guard(scope):
+        pt.io.load_persistables(exe, ckpt, main)
+    feed = make_batch(torch, np.random.default_rng(seed + 1), TRAIN_B,
+                      TRAIN_T)
+    fetch = [model["avg_cost"].name]
+    modes = ROUTE_TURNS[:3]
+    for r in range(ROUTE_ROUNDS + 1):
+        for mode in (modes if r % 2 else modes[::-1]):
+            with route_mode(torch, fa, mode):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, = exe.run(main, feed=feed, fetch_list=fetch,
+                                scope=scope, return_numpy=False)
+                loss.item()
+                if r:
+                    out[mode][1].append(time.perf_counter() - t0)
+    for mode, (ms, walls) in out.items():
+        log(f"phase 10 route cost, {mode}: flash backward at the path "
+            f"shape {', '.join(f'{x:.4f}' for x in ms)} ms a call by turn "
+            f"(x{N_LAYER} a step: {N_LAYER * np.median(ms):.2f} ms); "
+            f"Executor.run step wall median {np.median(walls):.4f} s "
+            f"(by round {', '.join(f'{w:.4f}' for w in walls)}; no "
+            f"checkpoint write in flight)")
+    rules = np.asarray(out["rules"][1])
+    for mode in ("split", "deterministic"):
+        diff = (np.asarray(out[mode][1]) - rules) * 1e3
+        log(f"phase 10 route cost, {mode} - rules: kernels "
+            f"{N_LAYER * (np.median(out[mode][0]) - np.median(out['rules'][0])):+.2f} "
+            f"ms a step; step wall by round "
+            f"{', '.join(f'{d:+.2f}' for d in diff)} ms, median "
+            f"{np.median(diff):+.2f} ms, quartiles "
+            f"{np.percentile(diff, 25):+.2f} / {np.percentile(diff, 75):+.2f}"
+            f" ms; {int((diff > 0).sum())} of {len(diff)} rounds slower")
+    return out
+
+
+def trainer_phase(torch, np, pt, kernels, fa, seed, exe_wall):
+    """Phase 10: phase 7's training through ``Trainer.train`` (see the
+    module docstring); checkpoints go to a temporary directory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as root:
+        _trainer_phase(torch, np, pt, kernels, fa, seed, exe_wall, root)
+
+
+def _trainer_phase(torch, np, pt, kernels, fa, seed, exe_wall, root):
+    from paddle_tpu_torch.observability import metrics as obs
+    from paddle_tpu_torch.observability import runlog
+
+    t_phase = time.perf_counter()
+    steps = TRAINER_STEPS
+    main, _, _ = build_training(pt, seed, TRAIN_T, "bfloat16", True)
+    reckoned = sum(int(np.prod(v.shape)) * v.dtype.itemsize
+                   for v in main.persistable_vars())
+    log(f"phase 10: a checkpoint reckoned before the run at {reckoned} B of "
+        f"tensors ({len(main.persistable_vars())} persistables: bf16 "
+        f"weights, f32 moments) plus one 128 B .npy header each")
+    del main
+    # a. the Trainer on the rules' routes, every resilience knob on
+    ck_a = os.path.join(root, "a")
+    jsonl = os.path.join(root, "run.jsonl")
+    kernels.reset_launches()                     # counts start at 0 here
+    reg = obs.get_registry()
+    reg.reset(prefix="checkpoint.")
+    a = trainer_run(torch, np, pt, seed, steps, ck_a, jsonl)
+    launches, fams = kernels.launch_counts(), kernels.family_counts()
+    want = N_LAYER * steps
+    expect = {"paged_attention": 0, "decode_gather": 0,
+              "flash_attention_fwd": want, "flash_attention_bwd": want,
+              "flash_attention_bwd_delta": want, "flash_attention_bwd_dq": 0,
+              "flash_attention_bwd_dkv": 0, "fused_ce_fwd": steps,
+              "fused_ce_dx": steps, "fused_ce_dw": steps, "bottleneck": 0}
+    if launches != expect:
+        raise AssertionError(f"phase 10 launches {launches}, expected "
+                             f"{expect}")
+    for name, n in (("flash_attention_fwd", want),
+                    ("flash_attention_bwd", want), ("fused_ce_fwd", steps),
+                    ("fused_ce_dx", steps), ("fused_ce_dw", steps)):
+        if fams[name] != {"sm90": n, "simple": 0}:
+            raise AssertionError(f"phase 10 {name} by family {fams[name]}")
+    losses = a["losses"]
+    if not (all(np.isfinite(x) for x in losses)
+            and losses[-1] < losses[0] - 0.05):
+        raise AssertionError(f"phase 10 losses {losses}")
+    rows = runlog.read_jsonl(jsonl, event="step")
+    if len(rows) != steps or any(r["mfu"] is None for r in rows):
+        raise AssertionError(f"phase 10 JSONL: {len(rows)} step records, "
+                             f"mfu {[r['mfu'] for r in rows]}")
+    walls = [e.wall_time for e in a["ends"]]
+    loop = np.diff(a["stamps"])
+    after_ckpt = [loop[i - 1] for i in range(TRAINER_CKPT_EVERY, steps,
+                                             TRAINER_CKPT_EVERY)]
+    others = [loop[i - 1] for i in range(2, steps)
+              if i % TRAINER_CKPT_EVERY]
+    files, n_bf16, nbytes, _ = check_checkpoint_files(
+        np, os.path.join(ck_a, f"step_{steps}"))
+    snap = reg.get("checkpoint.snapshot_ms")
+    save = reg.get("checkpoint.save_ms")
+    sc = a["ends"][-1].step_cost
+    log(f"phase 10a, Trainer.train, {steps} steps (t={TRAIN_T}, "
+        f"b={TRAIN_B}, prefetch 2, async step checkpoints every "
+        f"{TRAINER_CKPT_EVERY}): loss "
+        + " -> ".join(f"{x:.4f}" for x in losses)
+        + f"; launches {launches}; JSONL {len(rows)} step records, mfu "
+        + ", ".join(f"{r['mfu']:.4f}" for r in rows)
+        + f" (flops a step {sc['flops']:.4e}, the port's count)")
+    log(f"phase 10a step wall (EndIteration.wall_time) first "
+        f"{walls[0]:.4f} s, then median {np.median(walls[1:]):.4f} s "
+        f"(steps {', '.join(f'{w:.4f}' for w in walls[1:])}); phase 7's "
+        f"Executor.run median {exe_wall:.4f} s; the loop's own overhead "
+        f"{np.median(walls[1:]) - exe_wall:+.4f} s a step")
+    log(f"phase 10a checkpoints: {int(reg.value('checkpoint.saves'))} "
+        f"saves; save()'s synchronous copy (checkpoint.snapshot_ms) min "
+        f"{snap.min:.1f}, mean {snap.mean:.1f}, max {snap.max:.1f} ms; the "
+        f"worker's write (checkpoint.save_ms) min {save.min:.1f}, mean "
+        f"{save.mean:.1f}, max {save.max:.1f} ms; checkpoint.bytes "
+        f"{int(reg.value('checkpoint.last_bytes'))} B on disk against "
+        f"{reckoned} B reckoned ({files} files, {n_bf16} bf16 under '<V2', "
+        f"every CRC matching, __done0__ present; step_{steps} {nbytes} B); "
+        f"loop interval after a checkpointed step "
+        f"{', '.join(f'{x:.4f}' for x in after_ckpt)} s against "
+        f"{', '.join(f'{x:.4f}' for x in others)} s after the others")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a+. a save once the run's pinned blocks are back in the host cache
+    reused = pinned_reuse_ms(pt, seed, os.path.join(root, "reuse"))
+    log(f"phase 10a+ save() with the pinned block cached from phase 10a's "
+        f"saves: {reused:.1f} ms (the copy of {reckoned} B alone)")
+    # b. the op that is not deterministic, by running one step twice
+    probe = determinism_probe(torch, np, pt, fa, seed,
+                              os.path.join(ck_a, "step_4"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    route_cost(torch, np, pt, fa, seed, os.path.join(ck_a, "step_4"))
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    # c-e. under deterministic algorithms: the uninterrupted run, the
+    #    resume from step 4, and steps_per_call=2 from the same start
+    ck_b = os.path.join(root, "b")
+    with deterministic(torch) as caught:
+        kernels.reset_launches()
+        b = trainer_run(torch, np, pt, seed, steps, ck_b)
+        dlaunch = kernels.launch_counts()
+        os.rename(os.path.join(ck_b, f"step_{steps}"),
+                  os.path.join(root, "moved"))
+        c = trainer_run(torch, np, pt, seed, steps, ck_b, resume=True)
+        d = trainer_run(torch, np, pt, seed, 2, steps_per_call=2)
+    if (dlaunch["flash_attention_bwd"], dlaunch["flash_attention_bwd_dq"],
+            dlaunch["flash_attention_bwd_dkv"]) != (0, want, want):
+        raise AssertionError(f"phase 10c launches {dlaunch}: the split "
+                             f"route expected under deterministic algorithms")
+    tail = b["losses"][4:]
+    same = [n for n in b["params"]
+            if torch.equal(b["params"][n], c["params"][n])]
+    if c["losses"] != tail or len(same) != len(b["params"]):
+        raise AssertionError(
+            f"phase 10d resume: losses {c['losses']} vs {tail}, "
+            f"{len(b['params']) - len(same)} parameters differ")
+    if c["trainer"].last_resume["global_step"] != 4:
+        raise AssertionError("phase 10d did not resume from step 4")
+    if d["losses"] != b["losses"][:2]:
+        raise AssertionError(f"phase 10e steps_per_call=2 losses "
+                             f"{d['losses']} vs {b['losses'][:2]}")
+    dwalls = [e.wall_time for e in b["ends"]]
+    log(f"phase 10c under deterministic algorithms (the flash backward on "
+        f"its split route: {dlaunch['flash_attention_bwd_dq']} dq + "
+        f"{dlaunch['flash_attention_bwd_dkv']} dk/dv kernels, 0 fused): "
+        f"loss " + " -> ".join(f"{x:.4f}" for x in b["losses"])
+        + f"; step wall median {np.median(dwalls[1:]):.4f} s against "
+        f"{np.median(walls[1:]):.4f} s on the rules' fused route "
+        f"({np.median(dwalls[1:]) - np.median(walls[1:]):+.4f} s, both "
+        f"runs with checkpoint writes in flight: the route cost is read "
+        f"apart above); PyTorch warnings "
+        f"{sorted({str(w.message)[:100] for w in caught}) or 'none'}")
+    log(f"phase 10d resume from step_4: steps 5-6 loss "
+        f"{c['losses']} == {tail}, all {len(same)} parameters bit-equal; "
+        f"10e steps_per_call=2: {d['losses']} == {b['losses'][:2]}; the "
+        f"rules' route differed step to step in {len(probe['rules'])} "
+        f"parameters")
+    log(f"phase 10 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2974,8 +3431,14 @@ def main():
     del scope
     log(f"wall of phases 9 and 9b: {time.perf_counter() - t0:.1f} s; "
         f"3e: {walls['3e']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 10. the kernels line, 11. the result
+    # 10. phase 7's training through Trainer.train: prefetch, async step
+    #     checkpoints, the reporter's JSONL, a bit-exact resume
+    trainer_phase(torch, np, pt, kernels, fa, args.seed, fused["steady"])
+
+    # 11. the kernels line, 12. the result
     row["launches"] = launches["paged_attention"]
     gather_row["launches"] = gathered["launches"]["decode_gather"]
     log(f"paged_attention at the verify shape: kernel {verify_ms[0]:.4f} ms, "

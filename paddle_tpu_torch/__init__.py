@@ -17,11 +17,17 @@ Ported so far: the serving path (``serving``, ``models.transformer``,
 ``kernels.flash_attention`` — so a training script reads the same with
 ``import paddle_tpu_torch as pt``; the memory engine
 (``memory_optimize``, ``gradient_accumulation``, ``release_memory``) and
-``Program.prune`` (``core/ir.py``) as in the JAX package.
+``Program.prune`` (``core/ir.py``) as in the JAX package; the v2
+training loop (``Trainer`` / ``SGD`` and its events, step checkpoints
+with a bit-exact resume, ``Executor.run_steps``), the checkpoint format
+(``io``, byte for byte the JAX package's files), the input pipeline
+(``reader``, ``DataFeeder``), ``profiler`` and the step telemetry
+(``observability.MetricsReporter``).
 """
 
 from . import ops as _ops  # noqa: F401  (registers the op lowerings)
-from . import initializer, layers, models, optimizer
+from . import (data_feeder, initializer, io, layers, models, observability,
+               optimizer, profiler, reader, resilience, trainer)
 from .backward import append_backward
 from .core.executor import Executor
 from .core.place import CPUPlace, CUDAPlace, resolve_device
@@ -29,9 +35,13 @@ from .core.program import (Block, OpDesc, Parameter, Program, Variable,
                            default_main_program, default_startup_program,
                            name_scope, program_guard)
 from .core.scope import Scope, global_scope, load_numpy_state, scope_guard
+from .data_feeder import DataFeeder
 from .memory_optimization_transpiler import (gradient_accumulation,
                                              memory_optimize, release_memory)
+from .observability.reporter import MetricsReporter
 from .param_attr import ParamAttr
+from .trainer import (SGD, BeginIteration, BeginPass, EndIteration, EndPass,
+                      Trainer)
 
 __all__ = [
     "resolve_device", "Program", "Block", "Variable", "Parameter",
@@ -40,4 +50,7 @@ __all__ = [
     "global_scope", "scope_guard", "load_numpy_state", "append_backward",
     "ParamAttr", "initializer", "layers", "models", "optimizer",
     "memory_optimize", "gradient_accumulation", "release_memory",
+    "Trainer", "SGD", "BeginPass", "EndPass", "BeginIteration",
+    "EndIteration", "DataFeeder", "MetricsReporter", "io", "reader",
+    "profiler", "data_feeder", "observability", "resilience", "trainer",
 ]

@@ -60,7 +60,21 @@ mean once.  Forward-written persistables thread from one microbatch to
 the next; fetches are reassembled as the reference does (batch-leading
 values concatenate, batch sums add, other float values average);
 ``@GRAD_NORM@`` is the mean gradient's norm.
+
+``run_steps`` takes feeds stacked ``[steps, ...]`` and runs the lowered
+step once for each, threading the state (the RNG included) exactly as
+``steps`` calls of ``run`` do: the losses and parameters are those calls'
+bits.  It is one host call that loops; it does not capture the loop as a
+CUDA graph (ROADMAP B).
+
+``last_step_cost`` is the reference's dict for the last ``run`` /
+``run_steps``: ``compile_seconds`` (the lowering's host time, on the
+cache miss that built it), ``flops`` (:func:`step_flops`),
+``bytes_accessed`` (None: nothing measures it), ``cache_hit`` and, for
+``run_steps``, ``steps``.
 """
+
+import time
 
 import numpy as np
 import torch
@@ -68,6 +82,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     set_checkpoint_early_stop)
 
+from ..observability import metrics as _obs
 from .dtypes import torch_dtype
 from .place import resolve_device
 from .program import GRAD_SUFFIX, Parameter, default_main_program
@@ -75,7 +90,85 @@ from .registry import get_op_impl
 from .scope import (GRAD_NORM_VAR, RNG_VAR, global_scope, tensor_from_numpy,
                     tensor_to_numpy)
 
-__all__ = ["Executor", "LoweringCtx", "run_block_ops"]
+__all__ = ["Executor", "LoweringCtx", "run_block_ops", "step_flops",
+           "draws_random"]
+
+# depth of the active ``profiler.nan_guard()`` contexts: while above 0,
+# every training step checks its loss and gradient norm before the
+# optimizer ops (the reference's process-wide ``jax_debug_nans`` flag)
+NAN_GUARD = [0]
+
+
+def draws_random(program):
+    """Whether any op of ``program`` draws from the step's generator
+    (dropout) — a program that does not has no RNG stream to resume."""
+    return any(get_op_impl(op.type).stateful_rng
+               for blk in program.blocks for op in blk.ops)
+
+
+def step_flops(program, batch=1):
+    """The FLOPs of one step of ``program``, counted from its static
+    shapes with ``batch`` for their -1 dims: the sum of the ``flops``
+    hooks of its ops' registrations (the matrix products of ``mul``, the
+    flash ops and the fused CE head).  An op without a hook counts 0, so
+    this is a count of the products, a lower bound of the work."""
+    block = program.global_block()
+    bw = block.backward_index
+    info = program._backward_info.get(0)
+    train = bw is not None and info is not None
+    trained = set(info["params"]) if train else set()
+    ops = block.ops[:bw] if train else block.ops
+
+    def shape(name):
+        return [batch if s == -1 else s for s in block._find_var(name).shape]
+
+    def grad(name):
+        """A trained parameter, or a computed value the backward
+        reaches."""
+        if name in trained:
+            return True
+        var = block._find_var(name)
+        return train and not (isinstance(var, Parameter) or var.is_data
+                              or var.stop_gradient)
+
+    total = 0
+    for op in ops:
+        hook = get_op_impl(op.type).flops
+        if hook is not None:
+            total += hook(op, shape, grad, train)
+    return total
+
+
+def _feed_batch(block, feeds):
+    """The batch a run's -1 dims stand for: the leading dim of the first
+    feed whose variable is batch-leading (-1 first), else 1."""
+    for n, val in feeds.items():
+        var = block._find_var(n)
+        if var is not None and var.shape and var.shape[0] == -1 \
+                and val.dim():
+            return int(val.shape[0])
+    return 1
+
+
+def _raise_if_not_finite(values):
+    """``nan_guard``'s check: record and raise on the first non-finite
+    value of ``{name: tensor}``."""
+    for name, val in values.items():
+        if val is None or bool(torch.isfinite(val).all()):
+            continue
+        _obs.get_registry().counter(
+            "executor.nan_trips",
+            help="NaN/Inf aborts caught by nan_guard").inc()
+        from ..observability import flight as _flight
+        from ..observability import trace as _trace
+
+        _trace.get_tracer().instant("nan_guard_trip", cat="executor",
+                                    var=name)
+        _flight.dump("nan_trip", var=name)
+        err = FloatingPointError(
+            f"NaN/Inf detected in {name!r} before the optimizer ops")
+        err._pt_nan_counted = True   # recorded here; do not count twice
+        raise err
 
 
 class LoweringCtx:
@@ -458,6 +551,7 @@ class Executor:
         self.place = place
         self.device = resolve_device(place)
         self._cache = {}
+        self.last_step_cost = None
         if self.device.type == "cuda":
             if self.device.index is None:  # "cuda" -> the current card
                 self.device = torch.device(
@@ -559,6 +653,9 @@ class Executor:
                 grad_norm = (torch.linalg.vector_norm(torch.stack(
                     [torch.linalg.vector_norm(g.float()) for g in grads]))
                     if grads else torch.zeros((), device=device))
+                if NAN_GUARD[0]:
+                    _raise_if_not_finite({info["loss"]: env[info["loss"]],
+                                          GRAD_NORM_VAR: grad_norm})
                 for n, g in zip(param_names, grads):
                     env[n + GRAD_SUFFIX] = g
                 del grads
@@ -569,24 +666,116 @@ class Executor:
 
         return step
 
-    def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True):
-        program, scope, feeds, fetch_names, state_names, state = (
-            self._prepare(program, feed, fetch_list, scope))
+    def _entry(self, program, fetch_names, state_names):
+        """``(step, cost)`` for this signature, lowered (and counted) on
+        a miss; and whether it was a cache hit."""
         key = (program._serial, program._version, tuple(fetch_names),
                state_names)
-        step = self._cache.get(key)
-        if step is None:
-            _check_fetches(program, fetch_names)
-            step = self._cache[key] = self.lower(
-                program, fetch_names, state_names)
+        reg = _obs.get_registry()
+        entry = self._cache.get(key)
+        if entry is not None:
+            reg.counter("executor.cache_hits").inc()
+            return entry, True
+        reg.counter("executor.cache_misses").inc()
+        _check_fetches(program, fetch_names)
+        t0 = time.perf_counter()
+        step = self.lower(program, fetch_names, state_names)
+        dt = time.perf_counter() - t0
+        reg.counter("executor.compile_count",
+                    help="step lowerings (cache misses)").inc()
+        reg.histogram("executor.compile_seconds").observe(dt)
+        cost = {"label": f"run:{program._serial}v{program._version}",
+                "compile_seconds": dt, "bytes_accessed": None}
+        entry = self._cache[key] = (step, cost, {})
+        return entry, False
+
+    def _cost(self, program, entry, cache_hit, feeds, steps=None):
+        """The ``last_step_cost`` of a run: the entry's cost with the
+        flops of this batch (memoized per batch) and the hit flag."""
+        _, cost, flops_by_batch = entry
+        batch = _feed_batch(program.global_block(), feeds)
+        if batch not in flops_by_batch:
+            flops_by_batch[batch] = step_flops(program, batch)
+        out = dict(cost, flops=flops_by_batch[batch], cache_hit=cache_hit)
+        if steps is not None:
+            out.update(flops=out["flops"] * steps, steps=steps)
+        return out
+
+    def _generator(self, scope):
+        """The step's generator, at the state the scope carries."""
         gen = torch.Generator(device=self.device)
         gen.set_state(scope.get(RNG_VAR))
+        return gen
+
+    @staticmethod
+    def _run_lowered(step, scope, state, feeds, gen):
+        """Run one lowered step and write what it leaves — the new state,
+        the generator's state, the gradient norm — back to ``scope``;
+        the fetches.  ``run`` and every step of ``run_steps`` go through
+        here, so both thread the state alike."""
         new_state, fetches, grad_norm = step(state, feeds, gen)
         scope.update(new_state)
         scope.set(RNG_VAR, gen.get_state())
         if grad_norm is not None:
             scope.set(GRAD_NORM_VAR, grad_norm)
+        return fetches
+
+    def run(self, program=None, feed=None, fetch_list=None, scope=None,
+            return_numpy=True):
+        program, scope, feeds, fetch_names, state_names, state = (
+            self._prepare(program, feed, fetch_list, scope))
+        entry, cache_hit = self._entry(program, fetch_names, state_names)
+        self.last_step_cost = self._cost(program, entry, cache_hit, feeds)
+        fetches = self._run_lowered(entry[0], scope, state, feeds,
+                                    self._generator(scope))
+        if return_numpy:
+            return [tensor_to_numpy(f) for f in fetches]
+        return fetches
+
+    def run_steps(self, program=None, feed=None, fetch_list=None, steps=None,
+                  scope=None, return_numpy=True):
+        """Run ``steps`` training steps in one call.  ``feed`` values are
+        STACKED along a leading steps axis (``[steps, batch, ...]``);
+        ``steps`` defaults to that axis.  Fetches come back stacked
+        (``[steps, ...]``).  State (parameters, moments, the RNG) threads
+        through the steps exactly as across ``steps`` separate ``run``
+        calls, so the results are those calls' bits."""
+        program, scope, feeds, fetch_names, state_names, state = (
+            self._prepare(program, feed, fetch_list, scope))
+        if steps is None:
+            if not feeds:
+                raise ValueError("steps is required when there is no feed")
+            steps = int(next(iter(feeds.values())).shape[0])
+        for n, v in feeds.items():
+            if v.dim() == 0 or v.shape[0] != steps:
+                raise ValueError(
+                    f"feed {n!r} leading (steps) axis "
+                    f"{tuple(v.shape)[:1]} != {steps}; run_steps feeds are "
+                    f"stacked [steps, ...]")
+        # every step must read the state the last one wrote: a
+        # persistable the step would create is not threaded (run()
+        # tolerates a step creating it; a fixed state set cannot)
+        written = {n for blk in program.blocks for op in blk.ops
+                   for n in op.output_names()}
+        extra = sorted(v.name for v in program.persistable_vars()
+                       if v.name in written and v.name not in state_names)
+        if extra:
+            raise ValueError(
+                f"run_steps needs persistable var(s) {extra} initialized "
+                f"before the steps (run the startup program, or one "
+                f"regular run() step, first)")
+        entry, cache_hit = self._entry(program, fetch_names, state_names)
+        step_feeds = [{n: v[i] for n, v in feeds.items()}
+                      for i in range(steps)]
+        self.last_step_cost = self._cost(
+            program, entry, cache_hit,
+            step_feeds[0] if step_feeds else {}, steps)
+        gen = self._generator(scope)
+        outs = []
+        for fs in step_feeds:
+            outs.append(self._run_lowered(entry[0], scope, state, fs, gen))
+            state = {n: scope.get(n) for n in state_names}
+        fetches = [torch.stack(col) for col in zip(*outs)] if outs else []
         if return_numpy:
             return [tensor_to_numpy(f) for f in fetches]
         return fetches

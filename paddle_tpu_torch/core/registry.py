@@ -12,6 +12,10 @@ returns ``{slot: tensor-or-list}``:
 ``stateful_rng=True`` ops receive the step's ``torch.Generator`` as
 ``_gen``; an op that names ``_ctx`` receives the run's context (device,
 generator), one that names ``_live`` the output slots somebody reads.
+``flops(op, shape, grad, train)`` counts the products of one step of
+the op for ``core.executor.step_flops``: ``shape(name)`` is a var's
+static shape with the batch filled in, ``grad(name)`` whether it takes a
+gradient, ``train`` whether the step runs the backward.
 The reference's ``raw=True`` ops (block-structured control flow) come
 with the slice that ports them.
 """
@@ -22,10 +26,12 @@ _REGISTRY = {}
 
 
 class OpImpl:
-    def __init__(self, op_type, fn, stateful_rng=False, nondiff=False):
+    def __init__(self, op_type, fn, stateful_rng=False, nondiff=False,
+                 flops=None):
         self.type = op_type
         self.fn = fn
         self.stateful_rng = stateful_rng
+        self.flops = flops
         # nondiff: op has no linearization rule (integer outputs, argsort-
         # style selection, DP recursions over ints).  The executor
         # detaches its inputs inside the grad prefix.
@@ -53,12 +59,13 @@ class OpImpl:
         return self.fn(**kwargs)
 
 
-def register_op(op_type, stateful_rng=False, nondiff=False):
+def register_op(op_type, stateful_rng=False, nondiff=False, flops=None):
     def deco(fn):
         if op_type in _REGISTRY:
             raise ValueError(f"op {op_type!r} registered twice")
         _REGISTRY[op_type] = OpImpl(
-            op_type, fn, stateful_rng=stateful_rng, nondiff=nondiff
+            op_type, fn, stateful_rng=stateful_rng, nondiff=nondiff,
+            flops=flops
         )
         return fn
 

@@ -40,8 +40,12 @@ The backward takes one of two routes, chosen as the reference chooses
 kernel while its dq partials ``nk * b * h * t_q * d`` (``nk = t_k //
 block_k``) fit in ``FUSED_BWD_PARTIAL_BYTES``, else the split pair — a
 q-major dq kernel and a k-major dk/dv kernel.  At the flagship's b=8,
-h=6, d=128 in bf16 the split route starts at t=8192.  The route is
-decided before any launch; each route launches its kernels or raises.
+h=6, d=128 in bf16 the split route starts at t=8192.  Under
+``torch.use_deterministic_algorithms(True)`` the split route runs
+whatever the budget says: the fused kernel adds ``dq`` with atomics, in
+an order that changes from run to run (below), and the split pair
+computes the same gradients with none.  The route is decided before any
+launch; each route launches its kernels or raises.
 
 Every launch takes one of the two families, chosen by :func:`bwd_family`,
 a static rule on the dtype, the head dim, the strides and the pointers:
@@ -516,13 +520,16 @@ def flash_bwd(q, k, v, o, lse, do, dlse=None, causal=False, sm_scale=None,
     """``(dq, dk, dv)`` from the saved ``(q, k, v, o, lse)`` and the
     cotangents ``do`` (and ``dlse [b*h, t_q]`` or None).  The route
     (:func:`bwd_route`, from ``block_k`` as the reference reads it;
-    ``block_q`` is accepted for the same signature) is decided first.
+    ``block_q`` is accepted for the same signature; split whenever torch's
+    deterministic algorithms are on) is decided first.
     CPU tensors take :func:`flash_attention_bwd_ref` on either route;
     CUDA tensors launch the pre-pass when the family (:func:`bwd_family`)
     is sm90, then the fused kernel of the family, or (split)
     :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`, or raise."""
     _check_bwd(q, k, v, o, lse, do, dlse)
     route = bwd_route(q.shape, k.shape[1], q.element_size(), block_k)
+    if torch.are_deterministic_algorithms_enabled():
+        route = "split"       # no dq atomics: the same bits run to run
     BWD_ROUTE_CALLS[route] += 1
     sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
     if q.device.type == "cpu":

@@ -21,10 +21,14 @@ caller records) and on a trip dumps ONE bundle::
      "metrics": {...}}            # scalar registry snapshot
 
 Dump triggers in the port (each also drops a ``flight_dump`` trace
-instant and counts ``flight.dumps``): ``ServingEngine._abort`` — a
-device error or a dead serving thread (``serving_abort``).  The JAX package also
-dumps from its ``Trainer`` and ``resilience.Watchdog``, which the port
-does not have yet.
+instant and counts ``flight.dumps``):
+
+* ``Trainer`` — a NaN step cost (incl. the ``nan_grad`` injected
+  fault), any exception escaping the train loop (classified ``oom`` /
+  ``nan_trip`` / ``trainer_exception`` by ``classify_exception``);
+* ``resilience.Watchdog`` — a deadline trip (``watchdog``);
+* ``ServingEngine._abort`` — a device error or a dead serving thread
+  (``serving_abort``).
 
 ``PADDLE_TPU_FLIGHT=0`` is the kill switch (recording AND dumping
 become no-ops); ``PADDLE_TPU_FLIGHT_STEPS`` sizes the ring (default
@@ -46,6 +50,7 @@ from . import metrics as _obs
 __all__ = [
     "SCHEMA_VERSION", "FlightRecorder", "get_recorder", "set_recorder",
     "flight_enabled", "record_step", "dump", "load_bundle",
+    "classify_exception",
 ]
 
 SCHEMA_VERSION = 1
@@ -53,10 +58,36 @@ DEFAULT_STEPS = 30
 DEFAULT_SPANS = 200
 
 
+_ALLOC_MARKS = ("RESOURCE_EXHAUSTED", "Out of memory", "out of memory",
+                "Failed to allocate", "failed to allocate",
+                "exceeds the memory", "Allocation of ")
+
+
 def flight_enabled():
     """``PADDLE_TPU_FLIGHT=0`` kills recording and dumping entirely."""
     return os.environ.get("PADDLE_TPU_FLIGHT", "1").lower() not in (
         "0", "", "false", "off", "no")
+
+
+def classify_exception(e):
+    """The dump reason for an exception escaping a supervised loop:
+    ``"oom"`` for allocator failures anywhere in the cause chain (torch's
+    ``CUDA out of memory`` among the spellings), ``"nan_trip"`` for the
+    nan-guard's FloatingPointError, else ``"trainer_exception"``."""
+    seen = set()
+    exc = e
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        if isinstance(exc, MemoryError):
+            return "oom"
+        if isinstance(exc, FloatingPointError):
+            return "nan_trip"
+        s = f"{type(exc).__name__}: {exc}"
+        if any(m in s for m in _ALLOC_MARKS):
+            return "oom"
+        exc = exc.__cause__ or (
+            None if exc.__suppress_context__ else exc.__context__)
+    return "trainer_exception"
 
 
 def _jsonable(v):

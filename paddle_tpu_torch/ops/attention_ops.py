@@ -12,7 +12,24 @@ from ..core.registry import register_op
 from ..kernels import flash_attention as _fa
 
 
-@register_op("flash_attention")
+def _flash_flops(op, shape, grad, train):
+    """The causal products: q·kᵀ and p·v forward; dv, dp, dq and dk
+    backward (the model's own, not the backward's recompute of the
+    scores)."""
+    qs, ks = shape(op.inputs["Q"][0]), shape(op.inputs["K"][0])
+    if op.type == "flash_attention":
+        b, tq, h, d = qs
+    else:
+        h = int(op.attrs["n_head"])
+        b, tq, d = qs[0], qs[1], qs[2] // h
+    tk = ks[1]
+    pairs = tq * tk
+    if op.attrs.get("causal", False):
+        pairs = tq * (tq + 1) // 2 if tq == tk else pairs // 2
+    return 2 * b * h * pairs * d * (2 + (4 if train else 0))
+
+
+@register_op("flash_attention", flops=_flash_flops)
 def flash_attention_op(Q, K, V, causal=False, sm_scale=0.0, block_q=1024,
                        block_k=1024, **_):
     scale = None if not sm_scale else float(sm_scale)
@@ -21,7 +38,7 @@ def flash_attention_op(Q, K, V, causal=False, sm_scale=0.0, block_q=1024,
                                        block_k=int(block_k))}
 
 
-@register_op("flash_attention_packed")
+@register_op("flash_attention_packed", flops=_flash_flops)
 def flash_attention_packed_op(Q, K, V, n_head=None, causal=False,
                               sm_scale=0.0, block_q=1024, block_k=1024, **_):
     if n_head is None:

@@ -4,6 +4,8 @@ unfused LM head's loss) and
 ``fused_softmax_ce_head`` (the fused head's, registered at the foot of
 ``paddle_tpu/ops/pallas_ce.py``)."""
 
+import math
+
 import torch
 
 from ..core.registry import register_op
@@ -50,7 +52,15 @@ def softmax_with_cross_entropy(Logits, Label, soft_label=False, _live=None,
     return out
 
 
-@register_op("fused_softmax_ce_head")
+def _ce_head_flops(op, shape, grad, train):
+    """2·N·d·V for the logits, and for dx and dW where X and W take a
+    gradient."""
+    xs, ws = shape(op.inputs["X"][0]), shape(op.inputs["W"][0])
+    one = 2 * math.prod(xs[:-1]) * xs[-1] * ws[-1]
+    return one * (1 + grad(op.inputs["W"][0]) + grad(op.inputs["X"][0]))
+
+
+@register_op("fused_softmax_ce_head", flops=_ce_head_flops)
 def fused_softmax_ce_head(X, W, Label, **_):
     """Projection + softmax cross-entropy in one pass
     (``kernels/fused_ce.py``: the CUDA kernels on the card, the plain

@@ -4,6 +4,8 @@
 ``torch.matmul`` (bf16 inputs accumulate in f32 inside the library and
 return bf16, as ``preferred_element_type=float32`` + cast does)."""
 
+import math
+
 import numpy as np
 import torch
 
@@ -44,7 +46,18 @@ _register_elementwise("min", torch.minimum)
 _register_elementwise("pow", torch.pow)
 
 
-@register_op("mul")
+def _mul_flops(op, shape, grad, train):
+    """2·m·n·k, and the backward's product for each operand that takes a
+    gradient."""
+    x, y = op.inputs["X"][0], op.inputs["Y"][0]
+    xs, ys = shape(x), shape(y)
+    xc = int(op.attrs.get("x_num_col_dims", 1))
+    yc = int(op.attrs.get("y_num_col_dims", 1))
+    one = 2 * math.prod(xs[:xc]) * math.prod(xs[xc:]) * math.prod(ys[yc:])
+    return one * (1 + grad(y) + grad(x))
+
+
+@register_op("mul", flops=_mul_flops)
 def mul(X, Y, x_num_col_dims=1, y_num_col_dims=1, **_):
     """Flattening matmul: X collapses to 2-D at x_num_col_dims, Y at
     y_num_col_dims; the result regains X's leading dims."""

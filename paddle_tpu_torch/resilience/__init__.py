@@ -1,9 +1,33 @@
-"""Resilience of the port — failure as a tested code path.  The port's
-counterpart of ``paddle_tpu.resilience``; so far it holds only
-``faults`` (``PADDLE_TPU_FAULT`` injection), which the serving engine's
-``slot_death`` point uses.  The checkpoint sidecar, retry and watchdog
-are still to port."""
+"""Resilience of the port — failure as a tested code path; the port's
+counterpart of ``paddle_tpu.resilience``:
 
-from . import faults
+* ``checkpoint`` — the schema-versioned train-state sidecar (RNG state,
+  reader cursor, pass/step counters) that upgrades the persistables
+  snapshot to a FULL-state checkpoint, plus latest-valid discovery and
+  retention;
+* ``faults``     — ``PADDLE_TPU_FAULT=kind:n`` injection points
+  (SIGKILL mid-pass, crash mid-publish, transient IO error, reader
+  exception, NaN gradient, a serving slot's death);
+* ``retry``      — jittered-exponential-backoff for transient IO;
+* ``watchdog``   — step-deadline supervision (trips are metrics + trace
+  instants, not silent hangs).
 
-__all__ = ["faults"]
+``Trainer.train(..., checkpoint_every_n_steps=N, resume=True)`` is the
+consumer: kill-and-resume reproduces the uninterrupted loss trajectory
+bit-exactly.  The reference's ``--resilience-selftest`` CLI
+(``selftest.py``) is not ported yet (ROADMAP A8); its checks live in
+``tests/test_torch_trainer.py``.
+"""
+
+from . import checkpoint, faults, retry, watchdog
+from .checkpoint import (latest_checkpoint, load_train_state,
+                         prune_checkpoints, save_train_state, step_dir)
+from .retry import Backoff, RetryError, retry_call
+from .watchdog import Watchdog
+
+__all__ = [
+    "checkpoint", "faults", "retry", "watchdog",
+    "latest_checkpoint", "load_train_state", "prune_checkpoints",
+    "save_train_state", "step_dir",
+    "Backoff", "RetryError", "retry_call", "Watchdog",
+]

@@ -1,8 +1,9 @@
 """Fault injection — failure as a tested code path.  The port's own copy
 of ``paddle_tpu/resilience/faults.py`` (standard library only; the
-telemetry goes to the port's ``metrics`` and ``trace``).  Of the
-injection points below the port wires ``serving.decode`` (the serving
-engine); the others wait for its trainer and checkpoint modules.
+telemetry goes to the port's ``metrics`` and ``trace``).  The port
+wires every injection point below: ``trainer.step`` and ``reader.next``
+(``Trainer``), ``ckpt.write`` and ``ckpt.publish``
+(``io.AsyncCheckpointer``), ``serving.decode`` (the serving engine).
 
 The reference's distributed generation was *designed around* process
 churn (the Go master re-dispatches timed-out task leases,

@@ -1377,3 +1377,111 @@ def test_selective_remat_runs_on_the_card(monkeypatch):
     plain, selective = step(None), step("selective")
     assert selective[0] == plain[0]
     assert 0 < selective[1] < plain[1]
+
+
+# -- the training loop and the checkpoint format on the card -----------------
+
+def _tiny_gpt(tpt, dtype="bfloat16"):
+    tpt.core.unique_name.reset()
+    main, startup = tpt.Program(), tpt.Program()
+    main.random_seed = startup.random_seed = 3
+    with tpt.program_guard(main, startup):
+        out = tpt.models.transformer.build(
+            vocab_size=256, n_layer=2, n_head=2, d_model=128, max_len=128,
+            dropout_rate=0.1, dtype=dtype, fused_head=True,
+            learning_rate=1e-3)
+    return main, startup, out
+
+
+def _tiny_samples(n):
+    def reader():
+        rng = np.random.default_rng(0)
+        for _ in range(n):
+            toks = (rng.integers(0, 256) + np.arange(128)) % 256
+            yield toks, (toks + 1) % 256
+    return reader
+
+
+def test_trainer_resume_is_bitwise_on_the_card(tmp_path):
+    """bf16 with dropout on the card, prefetch and async step checkpoints:
+    under deterministic algorithms (the flash backward on its split
+    route) a resume from step 4 repeats the uninterrupted run's steps 5-6
+    and every parameter bit for bit."""
+    _need_card()
+    import os
+
+    import paddle_tpu_torch as tpt
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = []
+        for ck, resume in ((tmp_path / "a", False), (tmp_path / "b", True)):
+            if resume:
+                ck.mkdir()
+                os.rename(tmp_path / "a" / "step_4", ck / "step_4")
+            main, startup, out = _tiny_gpt(tpt)
+            scope, losses = tpt.Scope(), []
+            with tpt.scope_guard(scope):
+                tr = tpt.Trainer(out["avg_cost"], out["feed"],
+                                 main_program=main, startup_program=startup)
+                tr.train(tpt.reader.resumable(tpt.reader.batch(
+                    _tiny_samples(12), 2)),
+                    event_handler=lambda e: losses.append(e.cost) if
+                    isinstance(e, tpt.EndIteration) else None,
+                    checkpoint_dir=str(ck), checkpoint_every_n_steps=2,
+                    keep_checkpoints=2, async_checkpoint=True, prefetch=2,
+                    resume=resume)
+            runs.append((losses, {p.name: scope.get(p.name).cpu()
+                                  for p in main.all_parameters()}))
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    (full, pa), (tail, pb) = runs
+    assert len(full) == 6 and tail == full[4:]
+    assert all(torch.equal(pa[n], pb[n]) for n in pa)
+
+
+def test_prefetch_waits_for_the_side_stream_copy():
+    """Batches large enough that a read racing the copy would see a
+    half-written tensor: every prefetched batch sums as its host copy."""
+    _need_card()
+    import paddle_tpu_torch as tpt
+
+    def reader():
+        rng = np.random.default_rng(0)
+        for _ in range(6):
+            yield {"x": rng.standard_normal((4096, 4096)).astype(np.float32)}
+
+    got = [b["x"].sum().item()
+           for b in tpt.reader.prefetch_to_device(reader, 2)()]
+    want = [torch.from_numpy(h["x"]).cuda().sum().item() for h in reader()]
+    assert got == want
+
+
+def test_async_checkpoint_snapshot_under_in_place_updates(tmp_path):
+    """bf16 on the card: the pinned side-stream copy is complete when
+    save() returns, before the next in-place Adam step overwrites the
+    tensors; the files hold the state of the moment of save()."""
+    _need_card()
+    import paddle_tpu_torch as tpt
+
+    main, startup, out = _tiny_gpt(tpt)
+    exe, scope = tpt.Executor(), tpt.Scope()
+    exe.run(startup, scope=scope)
+    toks = torch.arange(2 * 128, device="cuda").reshape(2, 128) % 256
+    feed = {"tokens": toks, "labels": (toks + 1) % 256}
+    ck = tpt.io.AsyncCheckpointer()
+    with tpt.scope_guard(scope):
+        exe.run(main, feed=feed, fetch_list=[out["avg_cost"]])
+        want = {v.name: scope.get(v.name).cpu().clone()
+                for v in main.persistable_vars()}
+        ck.save(str(tmp_path), main)
+        exe.run(main, feed=feed, fetch_list=[out["avg_cost"]])
+        ck.close()
+    loaded = tpt.Scope()
+    with tpt.scope_guard(loaded):
+        tpt.io.load_persistables(tpt.Executor(tpt.CPUPlace()), str(tmp_path),
+                                 main)
+    assert not torch.equal(scope.get("lm_head.w").cpu(), want["lm_head.w"])
+    for n, w in want.items():
+        assert torch.equal(loaded.get(n), w), n

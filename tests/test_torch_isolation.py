@@ -107,6 +107,17 @@ TRAINING_MODULES = [
     "paddle_tpu_torch.models.resnet",
     "paddle_tpu_torch.benchmarks",
     "paddle_tpu_torch.benchmarks.bottleneck",
+    # the training loop, the checkpoint format and the input pipeline
+    "paddle_tpu_torch.trainer", "paddle_tpu_torch.io",
+    "paddle_tpu_torch.data_feeder", "paddle_tpu_torch.profiler",
+    "paddle_tpu_torch.reader", "paddle_tpu_torch.reader.creator",
+    "paddle_tpu_torch.reader.decorator", "paddle_tpu_torch.reader.provider",
+    "paddle_tpu_torch.observability", "paddle_tpu_torch.observability.hardware",
+    "paddle_tpu_torch.observability.runlog",
+    "paddle_tpu_torch.observability.reporter",
+    "paddle_tpu_torch.resilience.checkpoint",
+    "paddle_tpu_torch.resilience.retry",
+    "paddle_tpu_torch.resilience.watchdog",
 ]
 
 
@@ -150,7 +161,9 @@ def test_training_entry_points_raise_without_a_card():
 
     for call in (lambda: pt.Executor(), lambda: pt.Executor(pt.CUDAPlace()),
                  lambda: pt.load_numpy_state(pt.Scope(), {}),
-                 lambda: pt.resolve_device(None)):
+                 lambda: pt.resolve_device(None),
+                 lambda: pt.Trainer(None, []), lambda: pt.DataFeeder([]),
+                 lambda: pt.reader.prefetch_to_device(lambda: iter(()))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert pt.Executor(pt.CPUPlace()).device.type == "cpu"
