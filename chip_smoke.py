@@ -235,13 +235,55 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    losses and every parameter after step 6 bit-equal to c's; e. 2 steps
    with ``steps_per_call=2`` from the same start: c's first 2 losses bit
    for bit;
-11. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
+11. the training recipes at full width (main paths: ``Trainer.train``
+   and the memory engine's ``offload``):
+   a. phase 10's ``Trainer.train`` for 6 steps of phase 7's program with
+   ``Adam(learning_rate=polynomial_decay(3e-4, 6, 3e-5),
+   regularization=L2Decay(1e-4),
+   global_clip=GradientClipByGlobalNorm(1.0))`` and a
+   ``ModelAverage(0.999)`` built after ``minimize``: the losses finite
+   and falling; 12 flash forwards, 12 pre-passes, 12 fused backwards and
+   one of each CE kernel a step, all sm90 (counts zeroed before; a check
+   beside phase 7, not a source of the kernels line); the step counter at
+   6 and the fetched rate of every step the schedule's closed form; the
+   fetched clip factor ``1 / max(@GRAD_NORM@, 1)`` within ORACLE_TOL bf16
+   (``@GRAD_NORM@`` is the executor's norm of the gradients before the
+   clip, as the reference's); then under ``ModelAverage.apply()`` one
+   forward of ``clone(for_test=True)`` on a held-out batch (12 flash
+   forwards and one CE forward, no training op), after which every
+   parameter is the same tensor with the same bits and the averages and
+   the counter are unchanged; the step wall beside phase 10a's plain
+   Adam, and the kernels a profiled step of the recipe adds to one of
+   phase 7's program;
+   a+. every other optimizer (SGD with L1Decay and GradientClipByValue
+   on every parameter, Momentum with Nesterov, L1Decay and
+   GradientClipByNorm, Adagrad, Adamax, DecayedAdagrad, Adadelta,
+   RMSProp with momentum, Ftrl with l1 and l2): its update op on the
+   card against the same op on the CPU over the flagship's 197 parameter
+   shapes (bf16 parameters and a gradient from ``--seed``, f32 state),
+   max-relative within ORACLE_TOL bf16, then 2 ``Trainer.train`` steps of
+   phase 7's program with it, the losses finite;
+   b. phase 9's ResNet-50 for 4 steps with ``Momentum(0.9,
+   exponential_decay(0.1, 2, 0.1, staircase=True),
+   regularization=L2Decay(1e-4))``: the rates read back 0.1, 0.01, 0.01,
+   0.001 (the counter advances before the rate is read, as in the
+   reference), the losses finite, no hand-written kernel launched;
+   c. phase 8's program (t=16384) under deterministic algorithms, 3
+   steps of ``selective``, of ``offload`` and of ``offload`` under
+   ``PADDLE_TPU_OFFLOAD=0`` from one state and the same batches: the
+   losses and every parameter bit-equal, 12 split dq and 12 dk/dv
+   launches a step, modes ``off``, ``host``, ``off``; offload's
+   ``max_memory_allocated`` strictly below selective's and the kill
+   switch's within 64 MiB of it, printed with the bytes sent to the host
+   beside the bytes reckoned; then step walls of both policies in
+   alternated rounds;
+12. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
    launches on its main path (phase 3e, 5, 5b, 7, 8 or 9b), error, times
    and bound; the paged attention, flash forward, fused backward, the
    three CE rows and the sm90 bottleneck add the simple family's time
    (``simple_ms``), and the forward's row its t=16384 entry (``t16384``,
    launches from phase 8);
-12. the last line: ``{"ok": true, "device": {...}}``.
+13. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
 file, it exits non-zero and prints no result.  The weights, the tokens
@@ -3130,11 +3172,13 @@ def route_cost(torch, np, pt, fa, seed, ckpt):
 
 def trainer_phase(torch, np, pt, kernels, fa, seed, exe_wall):
     """Phase 10: phase 7's training through ``Trainer.train`` (see the
-    module docstring); checkpoints go to a temporary directory."""
+    module docstring); checkpoints go to a temporary directory.  Returns
+    10a's median step wall."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as root:
-        _trainer_phase(torch, np, pt, kernels, fa, seed, exe_wall, root)
+        return _trainer_phase(torch, np, pt, kernels, fa, seed, exe_wall,
+                              root)
 
 
 def _trainer_phase(torch, np, pt, kernels, fa, seed, exe_wall, root):
@@ -3273,6 +3317,533 @@ def _trainer_phase(torch, np, pt, kernels, fa, seed, exe_wall, root):
         f"rules' route differed step to step in {len(probe['rules'])} "
         f"parameters")
     log(f"phase 10 wall {time.perf_counter() - t_phase:.1f} s")
+    return float(np.median(walls[1:]))
+
+
+# -- phase 11: the training recipes at full width ----------------------------
+
+RECIPE_STEPS, RECIPE_LR, RECIPE_END_LR = 6, 3e-4, 3e-5
+RECIPE_L2, RECIPE_CLIP, RECIPE_EMA = 1e-4, 1.0, 0.999
+OTHER_STEPS, RESNET_RECIPE_STEPS, OFFLOAD_STEPS, OFFLOAD_ROUNDS = 2, 4, 3, 4
+BF16_TOL = 2e-2                     # ORACLE_TOL bf16, forward
+
+
+@contextlib.contextmanager
+def optimizer_of(module, name, make):
+    """``module.build`` (the transformer's or ResNet's) with ``make()`` as
+    its optimizer in place of the ``opt.<name>`` it constructs (a switch
+    in this script only): build then appends the recipe's ops inside its
+    program guard, where a user's script appends them."""
+    import types
+
+    orig = module.opt
+    module.opt = types.SimpleNamespace(**{name: lambda **_: make()})
+    try:
+        yield
+    finally:
+        module.opt = orig
+
+
+def recipe_training(pt, seed, make, t=TRAIN_T):
+    """Phase 7's program (bf16, fused head, full width and depth) at
+    sequence ``t`` with ``make()`` as its optimizer."""
+    with optimizer_of(pt.models.transformer, "Adam", make):
+        return build_training(pt, seed, t, "bfloat16", True)
+
+
+def flagship_recipe(pt):
+    """Adam on a polynomial schedule with L2 decay and a global-norm clip:
+    the recipe of phase 11a."""
+    lr = pt.learning_rate_decay.polynomial_decay(
+        RECIPE_LR, decay_steps=RECIPE_STEPS, end_learning_rate=RECIPE_END_LR)
+    return pt.optimizer.Adam(
+        learning_rate=lr, regularization=pt.regularizer.L2Decay(RECIPE_L2),
+        global_clip=pt.clip.GradientClipByGlobalNorm(RECIPE_CLIP))
+
+
+def chain_end(main, prefix):
+    """The last var the chain of schedule ``prefix`` writes (its rate)."""
+    out = None
+    for op in main.global_block().ops:
+        for n in op.output_names():
+            if re.match(rf"{prefix}_\d+\.tmp", n):
+                out = n
+    return out
+
+
+def clip_factor_var(main):
+    return next(n for n in main.global_block().vars
+                if re.search(r"\.factor(_\d+)?$", n))
+
+
+def step_kernels(torch, exe, main, scope, fetch, feed):
+    """Kernels launched and their device time in one step (the second of
+    two under ``torch.profiler``; the first warms it up): (calls, ms),
+    or None when the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                    return_numpy=False)
+            torch.cuda.synchronize()
+            prof.step()
+    rows = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+    if not rows:
+        return None
+    return sum(r[1] for r in rows), sum(r[0] for r in rows) / 1e3
+
+
+def recipe_phase(torch, np, pt, kernels, seed, adam_wall):
+    """Phase 11a: phase 10's ``Trainer.train`` with the flagship recipe,
+    then a ``ModelAverage`` evaluation; returns nothing, raises on any
+    failed check."""
+    t_phase = time.perf_counter()
+    main, startup, model = recipe_training(pt, seed,
+                                           lambda: flagship_recipe(pt))
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        ma = pt.optimizer.ModelAverage(RECIPE_EMA, main_program=main,
+                                       startup_program=startup)
+    lr_var, factor = chain_end(main, "polynomial_decay"), clip_factor_var(main)
+    counter = next(v.name for v in main.persistable_vars()
+                   if v.name.endswith(".step"))
+    n_params = len(main.all_parameters())
+    losses, lrs, factors, norms, walls = [], [], [], [], []
+
+    def on_event(e):
+        if isinstance(e, pt.EndIteration):
+            losses.append(e.cost)
+            lrs.append(float(e.metrics[0].reshape(-1)[0]))
+            factors.append(float(e.metrics[1].reshape(-1)[0]))
+            norms.append(float(e.grad_norm))
+            walls.append(e.wall_time)
+
+    kernels.reset_launches()                     # counts start at 0 here
+    with pt.scope_guard(scope):
+        tr = pt.Trainer(model["avg_cost"], model["feed"], main_program=main,
+                        startup_program=startup, extra_fetch=[lr_var, factor])
+        tr.train(pt.reader.batch(trainer_samples(np, seed, RECIPE_STEPS),
+                                 TRAIN_B),
+                 num_passes=1, event_handler=on_event, prefetch=2)
+    torch.cuda.synchronize()
+    launches, fams = kernels.launch_counts(), kernels.family_counts()
+    steps, want = RECIPE_STEPS, N_LAYER * RECIPE_STEPS
+    expect = {"paged_attention": 0, "decode_gather": 0,
+              "flash_attention_fwd": want, "flash_attention_bwd": want,
+              "flash_attention_bwd_delta": want, "flash_attention_bwd_dq": 0,
+              "flash_attention_bwd_dkv": 0, "fused_ce_fwd": steps,
+              "fused_ce_dx": steps, "fused_ce_dw": steps, "bottleneck": 0}
+    if launches != expect:
+        raise AssertionError(f"phase 11a launches {launches}, expected "
+                             f"{expect}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd",
+                 "fused_ce_dx", "fused_ce_dw"):
+        if fams[name]["simple"] or not fams[name]["sm90"]:
+            raise AssertionError(f"phase 11a {name} by family {fams[name]}")
+    if not (all(np.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 11a losses {losses}")
+    closed = [(RECIPE_LR - RECIPE_END_LR) * (1 - min(k, steps) / steps)
+              + RECIPE_END_LR for k in range(1, steps + 1)]
+    if not all(abs(a - b) <= 1e-6 * b for a, b in zip(lrs, closed)):
+        raise AssertionError(f"phase 11a rates {lrs}, closed form {closed}")
+    if float(scope.get(counter)[0]) != steps:
+        raise AssertionError(f"phase 11a counter {scope.get(counter)}")
+    # @GRAD_NORM@ is the executor's f32 norm of the gradients before the
+    # clip (as the reference's); the factor the bf16 op chain's
+    want_f = [RECIPE_CLIP / max(g, RECIPE_CLIP) for g in norms]
+    if not all(abs(a - b) <= BF16_TOL * b for a, b in zip(factors, want_f)):
+        raise AssertionError(f"phase 11a clip factors {factors}, from "
+                             f"@GRAD_NORM@ {want_f}")
+    log(f"phase 11a, Trainer.train with Adam + polynomial_decay({RECIPE_LR}"
+        f" -> {RECIPE_END_LR} over {steps}) + L2Decay({RECIPE_L2}) + "
+        f"GradientClipByGlobalNorm({RECIPE_CLIP}) + ModelAverage("
+        f"{RECIPE_EMA}), {steps} steps (t={TRAIN_T}, b={TRAIN_B}): loss "
+        + " -> ".join(f"{x:.4f}" for x in losses)
+        + "; rate " + ", ".join(f"{x:.4e}" for x in lrs)
+        + f" (the closed form at step 1..{steps}); {counter} = "
+        f"{float(scope.get(counter)[0]):.0f}; clip factor "
+        + ", ".join(f"{x:.5f}" for x in factors) + " against 1/max("
+        "@GRAD_NORM@, 1) " + ", ".join(f"{x:.5f}" for x in want_f)
+        + f" (@GRAD_NORM@ {', '.join(f'{g:.4f}' for g in norms)}); "
+        f"launches {launches}")
+    log(f"phase 11a step wall (EndIteration.wall_time) median "
+        f"{np.median(walls[1:]):.4f} s (steps "
+        f"{', '.join(f'{w:.4f}' for w in walls[1:])}); phase 10a's plain "
+        f"Adam median {adam_wall:.4f} s; "
+        f"{np.median(walls[1:]) - adam_wall:+.4f} s a step")
+    # the ModelAverage evaluation: the averages swapped in for one
+    # forward of the test program on a held-out batch
+    test = main.clone(for_test=True)
+    test_types = {op.type for op in test.global_block().ops}
+    if test_types & {"increment", "adam", "squared_l2_norm"} or any(
+            op.role != "forward" for op in test.global_block().ops):
+        raise AssertionError(f"phase 11a's test program keeps training ops: "
+                             f"{sorted(test_types)}")
+    params = [p.name for p in main.all_parameters()]
+    before = {n: scope.get(n) for n in params}
+    values = {n: t.clone() for n, t in before.items()}
+    emas = {e: scope.get(e).clone() for _, e in ma.pairs}
+    count0 = scope.get(counter).clone()
+    held_out = make_batch(torch, np.random.default_rng(seed + 7), TRAIN_B,
+                          TRAIN_T)
+    kernels.reset_launches()
+    with ma.apply(scope=scope):
+        swapped = all(torch.equal(scope.get(p), scope.get(e))
+                      and scope.get(p).data_ptr() != scope.get(e).data_ptr()
+                      for p, e in ma.pairs)
+        ev, = tr.exe.run(test, feed=held_out, scope=scope,
+                         fetch_list=[model["avg_cost"]], return_numpy=False)
+        ev = ev.item()
+    eval_launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    if eval_launches != {"flash_attention_fwd": N_LAYER, "fused_ce_fwd": 1}:
+        raise AssertionError(f"phase 11a eval launches {eval_launches}")
+    restored = all(scope.get(n) is before[n]
+                   and torch.equal(scope.get(n), values[n]) for n in params)
+    ema_kept = all(torch.equal(scope.get(e), v) for e, v in emas.items())
+    if not (swapped and restored and ema_kept and np.isfinite(ev)
+            and torch.equal(scope.get(counter), count0)):
+        raise AssertionError(
+            f"phase 11a ModelAverage: swapped {swapped}, restored "
+            f"{restored}, averages kept {ema_kept}, eval loss {ev}")
+    log(f"phase 11a ModelAverage.apply(): eval loss {ev:.4f} on a held-out "
+        f"batch with the averages in (launches {eval_launches}); every one "
+        f"of {len(params)} parameters the same tensor and bits after, the "
+        f"averages and the counter unchanged")
+    # what the recipe costs in launches: one step of the recipe program
+    # against one of phase 7's plain Adam program, each profiled
+    fetch = [model["avg_cost"]]
+    recipe_k = step_kernels(torch, tr.exe, main, scope, fetch, held_out)
+    del tr, scope, before, values, emas, ma
+    gc.collect()
+    torch.cuda.empty_cache()
+    pmain, pstart, pmodel = build_training(pt, seed, TRAIN_T, "bfloat16",
+                                           True)
+    pexe, pscope = pt.Executor(), pt.Scope()
+    pexe.run(pstart, scope=pscope)
+    plain_k = step_kernels(torch, pexe, pmain, pscope, [pmodel["avg_cost"]],
+                           held_out)
+    if recipe_k and plain_k:
+        log(f"phase 11a launches a step: recipe {recipe_k[0]} kernels "
+            f"({recipe_k[1]:.1f} ms of device time), plain Adam "
+            f"{plain_k[0]} ({plain_k[1]:.1f} ms): the recipe adds "
+            f"{recipe_k[0] - plain_k[0]} kernels and "
+            f"{recipe_k[1] - plain_k[1]:.1f} ms ({n_params} parameters: "
+            f"the global clip's squared_l2_norm and elementwise_mul, L2's "
+            f"scale and sum, the average's two scales and add, each per "
+            f"parameter)")
+    else:
+        log("phase 11a launches a step: the profiler recorded no device "
+            "time")
+    del pexe, pscope
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 11a wall {time.perf_counter() - t_phase:.1f} s")
+
+
+# phase 11a+: every other optimizer, two with L1 decay and per-parameter
+# clips (a clip attribute on every parameter, set where ParamAttr's
+# gradient_clip lands)
+OTHER_RECIPES = {
+    "SGD + L1Decay + GradientClipByValue": (
+        "sgd", lambda pt: pt.optimizer.SGD(
+            learning_rate=1e-2, regularization=pt.regularizer.L1Decay(1e-5)),
+        lambda pt: pt.clip.GradientClipByValue(1e-2)),
+    "Momentum (Nesterov) + L1Decay + GradientClipByNorm": (
+        "momentum", lambda pt: pt.optimizer.Momentum(
+            learning_rate=1e-2, momentum=0.9, use_nesterov=True,
+            regularization=pt.regularizer.L1Decay(1e-5)),
+        lambda pt: pt.clip.GradientClipByNorm(1.0)),
+    "Adagrad": ("adagrad", lambda pt: pt.optimizer.Adagrad(
+        learning_rate=1e-3), None),
+    "Adamax": ("adamax", lambda pt: pt.optimizer.Adamax(
+        learning_rate=1e-3), None),
+    "DecayedAdagrad": ("decayed_adagrad", lambda pt:
+                       pt.optimizer.DecayedAdagrad(learning_rate=1e-3), None),
+    "Adadelta": ("adadelta", lambda pt: pt.optimizer.Adadelta(
+        learning_rate=1.0, rho=0.95), None),
+    "RMSProp (momentum)": ("rmsprop", lambda pt: pt.optimizer.RMSProp(
+        learning_rate=1e-4, momentum=0.9), None),
+    "Ftrl (l1, l2)": ("ftrl", lambda pt: pt.optimizer.Ftrl(
+        learning_rate=1e-2, l1=1e-4, l2=1e-4), None),
+}
+# each op's attrs as its optimizer passes them, and its state slots
+# (positive: a sum of squares)
+OP_STATE = {
+    "sgd": ({}, {}),
+    "momentum": ({"mu": 0.9, "use_nesterov": True}, {"Velocity": False}),
+    "adagrad": ({"epsilon": 1e-6}, {"Moment": True}),
+    "adamax": ({"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+               {"Moment": False, "InfNorm": True}),
+    "decayed_adagrad": ({"decay": 0.95, "epsilon": 1e-6}, {"Moment": True}),
+    "adadelta": ({"rho": 0.95, "epsilon": 1e-6},
+                 {"AvgSquaredGrad": True, "AvgSquaredUpdate": True}),
+    "rmsprop": ({"decay": 0.95, "epsilon": 1e-6, "momentum": 0.9},
+                {"MeanSquare": True, "Moment": False}),
+    "ftrl": ({"l1": 1e-4, "l2": 1e-4, "lr_power": -0.5},
+             {"SquaredAccumulator": True, "LinearAccumulator": False}),
+}
+
+
+def op_card_vs_cpu(torch, op, shapes, gen):
+    """``op`` on the card and on the CPU, on copies of the flagship's
+    parameter ``shapes``: bf16 parameters and one gradient each from
+    ``gen``, f32 state; the worst max-relative error over every output
+    of every parameter, and the card's time for all of them."""
+    from paddle_tpu_torch.core.registry import get_op_impl
+
+    fn = get_op_impl(op).fn
+    attrs, state = OP_STATE[op]
+    lr = torch.tensor([1e-3], device="cuda")
+    worst, ms = 0.0, 0.0
+    for shape in shapes:
+        ins = {"Param": torch.randn(shape, generator=gen, device="cuda"
+                                    ).to(torch.bfloat16),
+               "Grad": (1e-2 * torch.randn(shape, generator=gen,
+                                           device="cuda")).to(torch.bfloat16)}
+        for slot, pos in state.items():
+            x = 1e-3 * torch.randn(shape, generator=gen, device="cuda")
+            ins[slot] = x.abs() + 1e-4 if pos else x
+        if op == "adamax":
+            ins["Beta1Pow"] = torch.tensor([0.9], device="cuda")
+        if op != "adadelta":
+            ins["LearningRate"] = lr
+        cpu = {k: v.cpu() for k, v in ins.items()}
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        got = fn(**ins, **attrs)
+        e1.record()
+        want = fn(**cpu, **attrs)
+        e1.synchronize()
+        ms += e0.elapsed_time(e1)
+        for slot, t in got.items():
+            w = want[slot].float()
+            scale = float(w.abs().max()) or 1.0
+            worst = max(worst, float((t.float().cpu() - w).abs().max())
+                        / scale)
+    return worst, ms
+
+
+def other_optimizers_phase(torch, np, pt, seed):
+    """Phase 11a+: each other optimizer's update op on the card against
+    the CPU over the flagship's parameter shapes, then two full-width
+    ``Trainer.train`` steps with it."""
+    t_phase = time.perf_counter()
+    main, _, _ = build_training(pt, seed, TRAIN_T, "bfloat16", True)
+    shapes = [tuple(p.shape) for p in main.all_parameters()]
+    del main
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for label, (op, make, clip) in OTHER_RECIPES.items():
+        err, ms = op_card_vs_cpu(torch, op, shapes, gen)
+        if not err <= BF16_TOL:
+            raise AssertionError(f"phase 11a+ {op} on the card vs the CPU: "
+                                 f"max-relative {err}")
+
+        def recipe(make=make, clip=clip):
+            if clip is not None:
+                for p in pt.default_main_program().all_parameters():
+                    p.gradient_clip_attr = clip(pt)
+            return make(pt)
+
+        main, startup, model = recipe_training(pt, seed, recipe)
+        types = [op_.type for op_ in main.global_block().ops]
+        if types.count(op) != len(shapes):
+            raise AssertionError(f"phase 11a+ {label}: {types.count(op)} "
+                                 f"{op} ops for {len(shapes)} parameters")
+        scope, losses = pt.Scope(), []
+        with pt.scope_guard(scope):
+            tr = pt.Trainer(model["avg_cost"], model["feed"],
+                            main_program=main, startup_program=startup)
+            tr.train(pt.reader.batch(trainer_samples(np, seed, OTHER_STEPS),
+                                     TRAIN_B), num_passes=1,
+                     event_handler=lambda e: losses.append(e.cost)
+                     if isinstance(e, pt.EndIteration) else None)
+        if len(losses) != OTHER_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"phase 11a+ {label} losses {losses}")
+        log(f"phase 11a+ {label}: {op} on the card vs the CPU over "
+            f"{len(shapes)} parameter shapes (bf16 parameters, f32 state) "
+            f"max-relative {err:.3e} (card {ms:.2f} ms for all); "
+            f"{OTHER_STEPS} Trainer steps, loss "
+            + " -> ".join(f"{x:.4f}" for x in losses))
+        del tr, scope
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 11a+ wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def resnet_recipe_phase(torch, np, pt, kernels, seed):
+    """Phase 11b: ResNet-50 (phase 9's) with Momentum on a staircase
+    exponential decay and L2 decay, 4 steps."""
+    t_phase = time.perf_counter()
+
+    def recipe():
+        lr = pt.learning_rate_decay.exponential_decay(
+            0.1, decay_steps=2, decay_rate=0.1, staircase=True)
+        return pt.optimizer.Momentum(
+            learning_rate=lr, momentum=0.9,
+            regularization=pt.regularizer.L2Decay(1e-4))
+
+    with optimizer_of(pt.models.resnet, "Momentum", recipe):
+        main, startup, model = build_resnet(pt, seed)
+    lr_var = chain_end(main, "exponential_decay")
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = resnet_batch(torch, seed)
+    kernels.reset_launches()
+    losses, lrs = [], []
+    for _ in range(RESNET_RECIPE_STEPS):
+        loss, lr = exe.run(main, feed=feed, scope=scope,
+                           fetch_list=[model["avg_cost"], lr_var],
+                           return_numpy=False)
+        losses.append(loss.item())
+        lrs.append(lr.item())
+    # the counter advances before the rate is read: step k reads
+    # 0.1 * 0.1 ** floor(k / 2)
+    want = [0.1 * 0.1 ** (k // 2) for k in range(1, RESNET_RECIPE_STEPS + 1)]
+    if not all(abs(a - b) <= 1e-6 * b for a, b in zip(lrs, want)):
+        raise AssertionError(f"phase 11b rates {lrs}, expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase 11b losses {losses}")
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"phase 11b launched a hand-written kernel: "
+                             f"{kernels.launch_counts()}")
+    log(f"phase 11b, ResNet-{RESNET_DEPTH} b={RESNET_BATCH} with Momentum "
+        f"(0.9) on exponential_decay(0.1, 2, 0.1, staircase) + "
+        f"L2Decay(1e-4), {RESNET_RECIPE_STEPS} steps: rate "
+        + ", ".join(f"{x:g}" for x in lrs) + "; loss "
+        + " -> ".join(f"{x:.4f}" for x in losses)
+        + f"; wall {time.perf_counter() - t_phase:.1f} s")
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def offload_phase(torch, np, pt, kernels, seed):
+    """Phase 11c: phase 8's program (t=16384) under ``selective`` and under
+    ``offload`` from one state and batch under deterministic algorithms:
+    the same bits, offload's peak below selective's; the kill switch;
+    step walls in alternated rounds."""
+    t_phase = time.perf_counter()
+    mains = {}
+    for policy in ("selective", "offload"):
+        main, startup, model = build_training(pt, seed, LONG_T, "bfloat16",
+                                              True)
+        pt.memory_optimize(main, policy=policy)
+        mains[policy] = main
+    fetch = [model["avg_cost"].name]
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    start = {n: scope.get(n) for n in scope.var_names()}
+    start = {n: v.cpu().clone() if isinstance(v, torch.Tensor) else v
+             for n, v in start.items()}
+    rng = np.random.default_rng(seed + 11)
+    batches = [make_batch(torch, rng, TRAIN_B, LONG_T)
+               for _ in range(OFFLOAD_STEPS)]
+    params = [p.name for p in mains["selective"].all_parameters()]
+    unit = TRAIN_B * LONG_T * D_MODEL * 2
+    want = N_LAYER * OFFLOAD_STEPS
+
+    def run(policy, switch="1"):
+        for n, v in start.items():
+            scope.set(n, v.to("cuda") if n != "@RNG@" else v.clone())
+        prev = os.environ.get("PADDLE_TPU_OFFLOAD")
+        os.environ["PADDLE_TPU_OFFLOAD"] = switch
+        try:
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses = [exe.run(mains[policy], feed=b, fetch_list=fetch,
+                              scope=scope, return_numpy=False)[0]
+                      for b in batches]
+            torch.cuda.synchronize()
+        finally:
+            if prev is None:
+                os.environ.pop("PADDLE_TPU_OFFLOAD")
+            else:
+                os.environ["PADDLE_TPU_OFFLOAD"] = prev
+        return {"losses": [x.cpu() for x in losses],
+                "peak": torch.cuda.max_memory_allocated(),
+                "plan": exe.last_remat_plan,
+                "launches": kernels.launch_counts(),
+                "params": {n: scope.get(n).cpu() for n in params}}
+
+    with deterministic(torch) as caught:
+        sel = run("selective")
+        off = run("offload")
+        killed = run("offload", switch="0")
+        walls = {"selective": [], "offload": []}
+        for r in range(OFFLOAD_ROUNDS + 1):
+            for policy in (("selective", "offload") if r % 2
+                           else ("offload", "selective")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, = exe.run(mains[policy], feed=batches[0],
+                                fetch_list=fetch, scope=scope,
+                                return_numpy=False)
+                loss.item()
+                if r:
+                    walls[policy].append(time.perf_counter() - t0)
+    for name, r in (("offload", off), ("PADDLE_TPU_OFFLOAD=0", killed)):
+        same = [n for n in params if torch.equal(r["params"][n],
+                                                 sel["params"][n])]
+        if not (all(torch.equal(a, b) for a, b in zip(r["losses"],
+                                                       sel["losses"]))
+                and len(same) == len(params)):
+            raise AssertionError(
+                f"phase 11c {name}: losses {r['losses']} vs selective's "
+                f"{sel['losses']}, {len(params) - len(same)} parameters "
+                f"differ")
+    for name, r in (("selective", sel), ("offload", off),
+                    ("PADDLE_TPU_OFFLOAD=0", killed)):
+        split = (r["launches"]["flash_attention_bwd_dq"],
+                 r["launches"]["flash_attention_bwd_dkv"],
+                 r["launches"]["flash_attention_bwd"])
+        if split != (want, want, 0):
+            raise AssertionError(f"phase 11c {name} split launches {split}")
+    if (sel["plan"]["offload"], off["plan"]["offload"],
+            killed["plan"]["offload"]) != ("off", "host", "off"):
+        raise AssertionError(f"phase 11c modes {sel['plan']}, "
+                             f"{off['plan']}, {killed['plan']}")
+    if not off["peak"] < sel["peak"]:
+        raise AssertionError(f"phase 11c offload's peak {off['peak']} B is "
+                             f"not below selective's {sel['peak']} B")
+    if abs(killed["peak"] - sel["peak"]) > 64 * 2 ** 20:
+        raise AssertionError(f"phase 11c PADDLE_TPU_OFFLOAD=0 peak "
+                             f"{killed['peak']} B, selective's {sel['peak']}")
+    plan = off["plan"]
+    group = plan["groups"][0]
+    log(f"phase 11c t={LONG_T} b={TRAIN_B} under deterministic algorithms, "
+        f"{OFFLOAD_STEPS} steps each from one state: losses "
+        + ", ".join(f"{x.item():.6f}" for x in sel["losses"])
+        + f" under selective, offload and PADDLE_TPU_OFFLOAD=0 alike, all "
+        f"{len(params)} parameters bit-equal; max_memory_allocated "
+        f"selective {sel['peak']} B, offload {off['peak']} B "
+        f"({(sel['peak'] - off['peak']) / 1e9:.3f} GB less), "
+        f"PADDLE_TPU_OFFLOAD=0 {killed['peak']} B; sent to the host a step "
+        f"{plan['offloaded']} tensors, {plan['offloaded_bytes']} B (the "
+        f"group's carry {group['carry']} x {group['count']} repeats; "
+        f"reckoned: one [b, t, d] bf16 input a layer {N_LAYER * unit} B, "
+        f"two {2 * N_LAYER * unit} B); split dq/dkv launches "
+        f"{want}/{want} each run; PyTorch warnings "
+        f"{sorted({str(w.message)[:100] for w in caught}) or 'none'}")
+    for policy, ws in walls.items():
+        log(f"phase 11c step wall {policy}: median {np.median(ws):.4f} s "
+            f"(by round {', '.join(f'{w:.4f}' for w in ws)})")
+    diff = (np.asarray(walls["offload"]) - np.asarray(walls["selective"]))
+    log(f"phase 11c offload - selective by round "
+        f"{', '.join(f'{d * 1e3:+.2f}' for d in diff)} ms, median "
+        f"{np.median(diff) * 1e3:+.2f} ms; wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del exe, scope, start
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -3436,9 +4007,22 @@ def main():
 
     # 10. phase 7's training through Trainer.train: prefetch, async step
     #     checkpoints, the reporter's JSONL, a bit-exact resume
-    trainer_phase(torch, np, pt, kernels, fa, args.seed, fused["steady"])
+    adam_wall = trainer_phase(torch, np, pt, kernels, fa, args.seed,
+                              fused["steady"])
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 11. the kernels line, 12. the result
+    # 11. the training recipes at full width: the flagship's recipe and
+    #     ModelAverage, every other optimizer, ResNet-50's staircase
+    #     recipe, and t=16384 under offload
+    t0 = time.perf_counter()
+    recipe_phase(torch, np, pt, kernels, args.seed, adam_wall)
+    other_optimizers_phase(torch, np, pt, args.seed)
+    resnet_recipe_phase(torch, np, pt, kernels, args.seed)
+    offload_phase(torch, np, pt, kernels, args.seed)
+    log(f"phase 11 wall {time.perf_counter() - t0:.1f} s")
+
+    # 12. the kernels line, 13. the result
     row["launches"] = launches["paged_attention"]
     gather_row["launches"] = gathered["launches"]["decode_gather"]
     log(f"paged_attention at the verify shape: kernel {verify_ms[0]:.4f} ms, "

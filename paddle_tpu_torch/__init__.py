@@ -22,12 +22,17 @@ training loop (``Trainer`` / ``SGD`` and its events, step checkpoints
 with a bit-exact resume, ``Executor.run_steps``), the checkpoint format
 (``io``, byte for byte the JAX package's files), the input pipeline
 (``reader``, ``DataFeeder``), ``profiler`` and the step telemetry
-(``observability.MetricsReporter``).
+(``observability.MetricsReporter``); the training recipes: every
+optimizer of the JAX package and ``ModelAverage`` (``optimizer``),
+gradient and error clipping (``clip``), weight decay (``regularizer``)
+and learning-rate schedules (``learning_rate_decay``), and the memory
+engine's ``offload`` policy.
 """
 
 from . import ops as _ops  # noqa: F401  (registers the op lowerings)
-from . import (data_feeder, initializer, io, layers, models, observability,
-               optimizer, profiler, reader, resilience, trainer)
+from . import (clip, data_feeder, initializer, io, layers,
+               learning_rate_decay, models, observability, optimizer,
+               profiler, reader, regularizer, resilience, trainer)
 from .backward import append_backward
 from .core.executor import Executor
 from .core.place import CPUPlace, CUDAPlace, resolve_device
@@ -53,4 +58,5 @@ __all__ = [
     "Trainer", "SGD", "BeginPass", "EndPass", "BeginIteration",
     "EndIteration", "DataFeeder", "MetricsReporter", "io", "reader",
     "profiler", "data_feeder", "observability", "resilience", "trainer",
+    "clip", "regularizer", "learning_rate_decay",
 ]

@@ -50,6 +50,24 @@ dropout draws from the step's generator, so each wrapped region that
 draws snapshots the generator at entry and restores it before its
 recompute: the recomputed mask is the forward's mask.
 
+``offload`` (``program._offload``, the reference's ``executor.py:46-94``
+and ``:1373-1391``) runs ``selective``'s regions and moves each layer's
+block inputs (what a repeat of the layer group reads from the one
+before, the reference's scan carry: the residual stream and its first
+LayerNorm's output) to pinned host memory: a ``saved_tensors_hooks``
+around each wrapped region catches the checkpoint saving those inputs
+(``torch.utils.checkpoint`` saves its inputs before it installs its own
+hooks) and hands back a record; ``_Offload`` copies the tensor out on a
+side stream without blocking, and the device copy is freed once no
+region holds it.  In the backward the first recompute that reads an
+input brings it back (waiting on its event in the compute stream) and
+starts the copy of the input saved before it, so each transfer runs
+under the backward of the region before.  On CPU
+tensors the same records keep the inputs in place (mode ``"save"``);
+``PADDLE_TPU_OFFLOAD=0`` runs plain ``selective`` (mode ``"off"``).
+``Executor.last_remat_plan`` records the mode, the bytes sent to the
+host and the layer groups.
+
 Gradient accumulation (``gradient_accumulation``,
 ``program._grad_accum``, the reference's single-device ``_accum_grads``):
 every non-scalar feed is sliced along its leading axis into
@@ -57,9 +75,13 @@ every non-scalar feed is sliced along its leading axis into
 raises); forward and backward run per microbatch, with the segments
 applied inside each; gradients sum in f32 and the optimizer ops see the
 mean once.  Forward-written persistables thread from one microbatch to
-the next; fetches are reassembled as the reference does (batch-leading
-values concatenate, batch sums add, other float values average);
-``@GRAD_NORM@`` is the mean gradient's norm.
+the next, but for those an ``optimize``-role op of the forward prefix
+writes (a learning-rate schedule's step counter): each microbatch reads
+the step's value, so the counter advances once a step and every
+microbatch sees the step's rate (the reference advances it once a
+microbatch).  Fetches are reassembled as the reference does
+(batch-leading values concatenate, batch sums add, other float values
+average); ``@GRAD_NORM@`` is the mean gradient's norm.
 
 ``run_steps`` takes feeds stacked ``[steps, ...]`` and runs the lowered
 step once for each, threading the state (the RNG included) exactly as
@@ -74,7 +96,10 @@ cache miss that built it), ``flops`` (:func:`step_flops`),
 ``run_steps``, ``steps``.
 """
 
+import contextlib
+import os
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -308,16 +333,124 @@ def _checkpointed(ctx, block, ops, first, env, plan, in_names, out_names,
     env.update(zip(out_names, outs))
 
 
+def _offload_mode(program, device):
+    """How a step runs an ``offload`` program: ``"host"`` (block inputs
+    to pinned host memory; CUDA tensors), ``"save"`` (the same records,
+    the inputs kept in place; CPU tensors), or ``"off"`` (not an offload
+    program, or ``PADDLE_TPU_OFFLOAD=0``: plain ``selective``)."""
+    if not getattr(program, "_offload", False):
+        return "off"
+    if os.environ.get("PADDLE_TPU_OFFLOAD", "1").lower() in (
+            "0", "", "false"):
+        return "off"
+    return "host" if device.type == "cuda" else "save"
+
+
+class _Saved:
+    """One offloaded block input: its pinned host copy, and its device
+    copy from the fetch that brings it back until a recompute takes it."""
+
+    __slots__ = ("index", "host", "dev", "ready")
+
+    def __init__(self, index):
+        self.index = index
+        self.host = self.dev = self.ready = None
+
+
+class _Offload:
+    """The block inputs of one forward under ``offload``.  ``saving(xs)``
+    is a ``saved_tensors_hooks`` context: a save of one of the tensors
+    ``xs`` (the checkpoint saving its inputs) becomes a :class:`_Saved`.
+    Mode ``"host"`` copies the tensor to pinned memory on a side stream
+    ordered after the compute stream (``record_stream`` keeps the device
+    block until the copy is done) and drops it; its unpack in the
+    backward copies it back on the side stream, makes the compute stream
+    wait for that copy's event, and starts the copy of the input saved
+    before it, the next one the backward reads.  Mode ``"save"`` keeps
+    the tensor."""
+
+    def __init__(self, mode, device):
+        self.mode = mode
+        self.device = device
+        self.records = []
+        self.bytes = 0
+        self.side = torch.cuda.Stream(device) if mode == "host" else None
+
+    def saving(self, tensors):
+        # weak: every saved variable keeps these hooks (and what they
+        # close over) alive until the backward frees it
+        targets = {id(t): weakref.ref(t) for t in tensors}
+
+        def pack(t):
+            ref = targets.get(id(t))
+            if ref is None or ref() is not t:
+                return t
+            return self._pack(t)
+
+        def unpack(obj):
+            return self._unpack(obj) if isinstance(obj, _Saved) else obj
+
+        return torch.autograd.graph.saved_tensors_hooks(pack, unpack)
+
+    def _pack(self, t):
+        rec = _Saved(len(self.records))
+        self.records.append(rec)
+        if self.mode == "save":
+            rec.dev = t
+            return rec
+        self.side.wait_stream(torch.cuda.current_stream(t.device))
+        with torch.cuda.stream(self.side):
+            rec.host = torch.empty_like(t, device="cpu", pin_memory=True)
+            rec.host.copy_(t.detach(), non_blocking=True)
+        t.record_stream(self.side)
+        self.bytes += t.numel() * t.element_size()
+        return rec
+
+    def _fetch(self, rec):
+        if rec.dev is not None:
+            return
+        with torch.cuda.stream(self.side):
+            rec.dev = torch.empty_like(rec.host, device=self.device)
+            rec.dev.copy_(rec.host, non_blocking=True)
+            rec.ready = torch.cuda.Event()
+            rec.ready.record(self.side)
+
+    def _unpack(self, rec):
+        if self.mode == "save":
+            return rec.dev
+        self._fetch(rec)
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(rec.ready)
+        t, rec.dev = rec.dev, None
+        t.record_stream(cur)
+        if rec.index > 0:
+            self._fetch(self.records[rec.index - 1])
+        return t
+
+
 def _layer_regions(program, segments, cut_types):
     """``selective``'s regions ``[(start, end, wrapped), ...]``: each
     repeat of a uniform group of ``segments`` is one wrapped region, cut
     at the ops of ``cut_types`` (each runs unwrapped on its own); segments
-    outside every group keep their own wrap flag."""
+    outside every group keep their own wrap flag.  Also the groups
+    (``start``, ``period``, ``count`` and the canonical names of the
+    ``carry``: inputs each repeat reads from the one before, the
+    reference's scan carry) and the block inputs, every repeat's carry
+    names."""
     from .ir import find_uniform_groups
 
     ops = program.global_block().ops
     out, i = [], 0
+    groups, block_inputs = [], []
     for g in find_uniform_groups(program, segments):
+        ext, outs, count = g["ext_maps"], g["out_maps"], g["count"]
+        carry = sorted(
+            n for n in ext[0]
+            if ext[1][n] in outs[0] and all(
+                ext[k][n] == outs[k - 1][ext[1][n]] for k in range(1, count)))
+        groups.append({"start": g["start"], "period": g["period"],
+                       "count": count, "carry": carry})
+        block_inputs += [ext[k][n] for k in range(count) for n in carry]
         out += segments[i:g["start"]]
         for k in range(g["count"]):
             first = g["start"] + k * g["period"]
@@ -331,7 +464,7 @@ def _layer_regions(program, segments, cut_types):
             if t > s:
                 out.append((s, t, True))
         i = g["start"] + g["count"] * g["period"]
-    return out + segments[i:]
+    return out + segments[i:], groups, block_inputs
 
 
 class _Forward:
@@ -348,13 +481,19 @@ class _Forward:
         self.plan = plan
         self.aux_names = aux_names
         ops = block.ops
+        self.program = program
         segments = getattr(program, "_remat_segments", None) or []
         saved_types = ()
-        if segments and getattr(program, "_remat_policy", None) == \
-                "selective":
+        self.groups, self.block_inputs = [], frozenset()
+        if segments and getattr(program, "_remat_policy", None) in (
+                "selective", "offload"):
             saved_types = frozenset(MXU_OPS + EXPENSIVE_OPS)
-            segments = _layer_regions(program, segments, EXPENSIVE_OPS)
+            segments, self.groups, block_inputs = _layer_regions(
+                program, segments, EXPENSIVE_OPS)
+            self.block_inputs = frozenset(block_inputs)
+        self.remat = bool(segments)
         self.saved_types = saved_types
+        self.offloaded = []      # this step's _Offload of each forward
         # needed[i]: names read by ops[i:bw], the optimizer ops, fetches,
         # state or the loss
         needed = [set() for _ in range(bw + 1)]
@@ -386,6 +525,11 @@ class _Forward:
             run_block_ops(ctx, block, ops[:self.bw], env,
                           inside_grad_prefix=True, plan=plan)
             return
+        mode = _offload_mode(self.program, ctx.device)
+        off = None
+        if mode != "off" and self.block_inputs:
+            off = _Offload(mode, ctx.device)
+            self.offloaded.append(off)
         for s, t, wrapped in self.segments:
             if wrapped is None:
                 run_block_ops(ctx, block, ops[s:t], env,
@@ -393,11 +537,29 @@ class _Forward:
                 continue
             reads, out_names, draws = wrapped
             in_names = [n for n in reads if n in env]
-            _checkpointed(ctx, block, ops[s:t], s, env, plan, in_names,
-                          out_names, draws, self.saved_types)
+            moved = [env[n] for n in in_names if n in self.block_inputs]
+            with (off.saving(moved) if off is not None and moved
+                  else contextlib.nullcontext()):
+                _checkpointed(ctx, block, ops[s:t], s, env, plan, in_names,
+                              out_names, draws, self.saved_types)
+            del moved
             for i in range(s, t):
                 for n in plan.drop[i]:
                     env.pop(n, None)
+
+    def plan_log(self, device):
+        """``Executor.last_remat_plan`` for the step that just ran: the
+        policy, the offload mode, the block inputs sent to the host (count
+        and bytes, over every microbatch) and the layer groups; None
+        without remat."""
+        if not self.remat:
+            return None
+        offs, self.offloaded = self.offloaded, []
+        return {"policy": getattr(self.program, "_remat_policy", None),
+                "offload": _offload_mode(self.program, device),
+                "offloaded": sum(len(o.records) for o in offs),
+                "offloaded_bytes": sum(o.bytes for o in offs),
+                "groups": [dict(g) for g in self.groups]}
 
     def grads(self, ctx, env, params, loss_name):
         """Forward into ``env``, then the parameters' gradients (zeros for
@@ -434,7 +596,13 @@ def _accum_grads(fwd, ctx, env, params, feeds, persist_out, accum,
     full_b = feeds[sorted(mbs)[0]].shape[0] if mbs else 0
     block, bw = fwd.block, fwd.bw
     fwd_written = {n for op in block.ops[:bw] for n in op.output_names()}
-    carry = sorted(n for n in persist_out if n in fwd_written and n in env)
+    # state an optimize-role op of the forward writes (a schedule's step
+    # counter) advances once a step: every microbatch starts from the
+    # step's value, and the last one's result is kept
+    once = {n for op in block.ops[:bw] if op.role == "optimize"
+            for n in op.output_names()} & set(persist_out)
+    carry = sorted(n for n in persist_out
+                   if n in fwd_written and n in env and n not in once)
     # names the forward merely passes through (parameters, optimizer
     # state): env already holds their exact values
     passthrough = {v.name for v in block.program.persistable_vars()
@@ -455,10 +623,13 @@ def _accum_grads(fwd, ctx, env, params, feeds, persist_out, accum,
         del g
         for n in carry:
             env[n] = e[n]
+        last = {n: e[n] for n in once if n in e}
         for n in fwd.aux_names:
-            if n in e and n not in carry and n not in passthrough:
+            if (n in e and n not in carry and n not in once
+                    and n not in passthrough):
                 ys.setdefault(n, []).append(e[n].detach())
         del e
+    env.update(last)
     env.update(_reassemble(block, bw, ys, full_b))
     return [(x / accum).to(p.dtype) for x, p in zip(gsum, params)]
 
@@ -552,6 +723,9 @@ class Executor:
         self.device = resolve_device(place)
         self._cache = {}
         self.last_step_cost = None
+        # the last training step's remat plan (``_Forward.plan_log``):
+        # policy, offload mode and bytes, layer groups; None without remat
+        self.last_remat_plan = None
         if self.device.type == "cuda":
             if self.device.index is None:  # "cuda" -> the current card
                 self.device = torch.device(
@@ -660,6 +834,7 @@ class Executor:
                     env[n + GRAD_SUFFIX] = g
                 del grads
                 run_block_ops(ctx, block, ops[bw:], env, plan=plan, first=bw)
+            self.last_remat_plan = fwd.plan_log(device)
             new_state = {n: env[n] for n in persist_out}
             fetches = [env[n].detach() for n in fetch_names]
             return new_state, fetches, grad_norm

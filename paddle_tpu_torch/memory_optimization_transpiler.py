@@ -12,10 +12,13 @@ program — and the Executor runs each wrapped segment under
 ``torch.utils.checkpoint`` so the backward recomputes its activations
 instead of keeping them (``core/executor.py``).
 
-Policies: ``selective``, ``compact`` and ``full`` as in the reference.
-``offload`` (pinned-host saved tensors) and ``auto`` (the tune cache)
-raise ``NotImplementedError`` until the items of ROADMAP.md that bring
-them.
+Policies: ``selective``, ``compact``, ``full`` and ``offload`` as in the
+reference.  ``offload`` is ``selective``'s segmentation with each
+transformer block's input streamed to pinned host memory during the
+forward and brought back one layer ahead during the backward (the
+Executor's ``_Offload``; kill switch ``PADDLE_TPU_OFFLOAD=0``).  ``auto``
+(the tune cache) raises ``NotImplementedError`` until ROADMAP.md A5
+brings the tune cache.
 
 ``ControlFlowGraph`` is also exposed directly (defs/uses/live-in/live-out
 and a peak-live-bytes estimate) for inspection parity with the reference.
@@ -121,9 +124,7 @@ MXU_OPS = ("mul", "matmul", "conv2d", "conv3d", "depthwise_conv2d",
            "conv2d_transpose", "conv3d_transpose")
 
 _NOT_PORTED = {
-    "offload": "ROADMAP.md A4a: pinned-host saved-tensor hooks "
-               "(torch.autograd.graph.saved_tensors_hooks)",
-    "auto": "ROADMAP.md A4b: the tune cache (paddle_tpu.tune) is not "
+    "auto": "ROADMAP.md A5: the tune cache (paddle_tpu.tune) is not "
             "ported",
 }
 
@@ -148,8 +149,17 @@ def memory_optimize(input_program=None, num_segments=None, min_segment=2,
     cut at the program's repeated structure (one transformer block a
     segment) or, failing that, at sqrt-N liveness-minimal cuts.
 
-    ``policy="offload"`` and ``policy="auto"`` raise
-    ``NotImplementedError`` (see ``_NOT_PORTED``).
+    ``policy="offload"``: ``selective``'s segments and saved set, with
+    the block inputs (the residual stream entering each repeated layer)
+    moved to pinned host memory between the forward and the backward: a
+    change of placement only, so losses and gradients are ``selective``'s
+    bits.  On CPU tensors the same structure runs with the inputs left
+    in place (the reference's ``"save"`` mode); ``PADDLE_TPU_OFFLOAD=0``
+    runs plain ``selective``.  ``Executor.last_remat_plan`` records the
+    mode that ran.
+
+    ``policy="auto"`` raises ``NotImplementedError`` (see
+    ``_NOT_PORTED``).
 
     Returns the segment list ``[(start, end, wrapped), ...]`` tiling the
     forward prefix, and stores it as ``program._remat_segments``."""
@@ -159,11 +169,16 @@ def memory_optimize(input_program=None, num_segments=None, min_segment=2,
             f"memory_optimize(policy={policy!r}) is not ported yet: "
             f"{_NOT_PORTED[policy]}")
     block = program.global_block()
-    if policy not in ("selective", "compact", "full"):
+    if policy not in ("selective", "compact", "full", "offload"):
         raise ValueError(
             f"memory_optimize policy must be 'selective', 'compact', "
             f"'full', 'offload' or 'auto', got {policy!r}")
+    # the offload flag rides on the program (the Executor reads it); the
+    # segmentation below is exactly selective's
+    program._offload = policy == "offload"
     program._remat_policy = policy
+    if policy == "offload":
+        policy = "selective"
     bw = block.backward_index
     n_fwd = bw if bw is not None else len(block.ops)
     if n_fwd < 2 * min_segment:

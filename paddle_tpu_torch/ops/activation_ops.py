@@ -1,6 +1,8 @@
 """Activation ops (``paddle_tpu/ops/activation_ops.py``): ``gelu`` in its
-exact erf form, as the reference registers it, ``relu`` and ``softmax``
-over the last axis."""
+exact erf form, as the reference registers it, ``relu``, ``softmax``
+over the last axis, and the elementwise functions the learning-rate
+schedules and the clips use: ``sqrt``, ``floor``, ``exp``,
+``reciprocal``, ``pow``."""
 
 import torch
 import torch.nn.functional as F
@@ -21,3 +23,28 @@ def relu(X, **_):
 @register_op("softmax")
 def softmax(X, **_):
     return {"Out": torch.softmax(X, dim=-1)}
+
+
+@register_op("sqrt")
+def sqrt(X, **_):
+    return {"Out": torch.sqrt(X)}
+
+
+@register_op("floor")
+def floor(X, **_):
+    return {"Out": torch.floor(X)}
+
+
+@register_op("exp")
+def exp(X, **_):
+    return {"Out": torch.exp(X)}
+
+
+@register_op("reciprocal")
+def reciprocal(X, **_):
+    return {"Out": 1.0 / X}
+
+
+@register_op("pow")
+def pow_op(X, factor=1.0, **_):
+    return {"Out": torch.pow(X, factor)}

@@ -1,8 +1,14 @@
 """GEMM / elementwise / reduction ops (``paddle_tpu/ops/math_ops.py``):
 ``mul``, the ``elementwise_*`` family with the axis broadcast rule,
-``reduce_sum``, ``mean``, ``scale``, ``cast``.  Matrix products are plain
+``reduce_sum``, ``mean``, ``scale``, ``cast``, and what the clips and
+regularizers append: ``sum``, ``sign``, ``clip``, ``clip_by_norm``,
+``squared_l2_norm``, ``error_clip``.  Matrix products are plain
 ``torch.matmul`` (bf16 inputs accumulate in f32 inside the library and
-return bf16, as ``preferred_element_type=float32`` + cast does)."""
+return bf16, as ``preferred_element_type=float32`` + cast does).
+
+The reference keeps its scalar results ``[1]``-shaped, and so does the
+port: PyTorch lets a 0-d tensor's dtype drop out of type promotion (it
+counts as a Python scalar), where JAX promotes it like any array."""
 
 import math
 
@@ -74,6 +80,69 @@ def scale(X, scale=1.0, bias=0.0, bias_after_scale=True, **_):
     if bias_after_scale:
         return {"Out": X * scale + bias}
     return {"Out": (X + bias) * scale}
+
+
+@register_op("sum")
+def sum_op(X, **_):
+    """The inputs added in order (a duplicable slot), in the promoted
+    dtype."""
+    xs = X if isinstance(X, (list, tuple)) else [X]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": out}
+
+
+@register_op("sign")
+def sign(X, **_):
+    return {"Out": torch.sign(X)}
+
+
+@register_op("clip")
+def clip(X, min=-1.0, max=1.0, **_):
+    return {"Out": torch.clamp(X, min, max)}
+
+
+@register_op("clip_by_norm")
+def clip_by_norm(X, max_norm=1.0, **_):
+    """``X`` scaled to L2 norm ``max_norm`` where it is longer: the norm
+    in f32, the factor cast to ``X``'s dtype before the product."""
+    norm = torch.sqrt(torch.sum(torch.square(X.float())))
+    factor = torch.where(norm > max_norm,
+                         max_norm / torch.clamp(norm, min=1e-12),
+                         torch.ones_like(norm))
+    return {"Out": X * factor.to(X.dtype)}
+
+
+@register_op("squared_l2_norm")
+def squared_l2_norm(X, **_):
+    """``sum(X * X)`` as ``[1]`` in ``X``'s dtype: squared in that dtype,
+    summed with a wider accumulator (both frameworks upcast a bf16
+    reduction)."""
+    return {"Out": torch.sum(torch.square(X)).reshape(1)}
+
+
+class _ErrorClip(torch.autograd.Function):
+    """Identity forward; the cotangent flowing back through it is
+    clipped to ``[lo, hi]`` (the reference's custom-VJP identity)."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.lo, ctx.hi = lo, hi
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.clamp(g, ctx.lo, ctx.hi), None, None
+
+
+@register_op("error_clip")
+def error_clip(X, max=1.0, min=None, **_):
+    """``ErrorClipByValue``: the value passes unchanged, the
+    backpropagated error at this point is clipped to ``[min, max]``
+    (``[-|max|, max]`` when ``min`` is None)."""
+    lo = -abs(float(max)) if min is None else float(min)
+    return {"Out": _ErrorClip.apply(X, lo, float(max))}
 
 
 @register_op("cast")

@@ -1,5 +1,6 @@
 """Tensor manipulation & fill ops (``paddle_tpu/ops/tensor_ops.py``):
-``fill_constant``, ``reshape``, ``lookup_table``, ``top_k``."""
+``fill_constant``, ``assign``, ``reshape``, ``increment``,
+``lookup_table``, ``top_k``."""
 
 import torch
 
@@ -16,12 +17,30 @@ def fill_constant(shape=(), dtype="float32", value=0.0, _ctx=None, **_):
                               device=_ctx.device)}
 
 
+@register_op("assign")
+def assign(X, **_):
+    """A copy of ``X``.  The JAX package returns ``X`` itself (its arrays
+    never change); here a parameter is updated in place, so an alias
+    would carry the update into the copy (``ModelAverage``'s average
+    starts as an ``assign`` of its parameter)."""
+    return {"Out": X.clone()}
+
+
 @register_op("reshape")
 def reshape(X, shape=(), **_):
     # Paddle convention: 0 means "copy this dim from the input".
     shape = [int(X.shape[i]) if int(s) == 0 else int(s)
              for i, s in enumerate(shape)]
     return {"Out": X.reshape(shape)}
+
+
+@register_op("increment")
+def increment(X, step=1.0, **_):
+    """``X + step`` in ``X``'s dtype (the step cast first, as the
+    reference's ``jnp.asarray(step, X.dtype)``), a new tensor: a
+    recomputed region or a second microbatch must not advance a counter
+    that was read before."""
+    return {"Out": X + torch.tensor(step, dtype=X.dtype)}
 
 
 @register_op("lookup_table")

@@ -1485,3 +1485,119 @@ def test_async_checkpoint_snapshot_under_in_place_updates(tmp_path):
     assert not torch.equal(scope.get("lm_head.w").cpu(), want["lm_head.w"])
     for n, w in want.items():
         assert torch.equal(loaded.get(n), w), n
+
+
+def _recipe_gpt(tpt, make, t=256, n_layer=4, policy=None):
+    """A bf16 GPT (fused head, dropout 0) built with ``make(tpt)`` as its
+    optimizer in place of ``build``'s Adam, and ``policy`` remat."""
+    import types
+
+    mod = tpt.models.transformer
+    tpt.core.unique_name.reset()
+    main, startup = tpt.Program(), tpt.Program()
+    main.random_seed = startup.random_seed = 5
+    orig = mod.opt
+    mod.opt = types.SimpleNamespace(Adam=lambda learning_rate: make(tpt))
+    try:
+        with tpt.program_guard(main, startup):
+            out = mod.build(vocab_size=512, n_layer=n_layer, n_head=2,
+                            d_model=256, max_len=t, dropout_rate=0.0,
+                            dtype="bfloat16", fused_head=True)
+    finally:
+        mod.opt = orig
+    if policy:
+        tpt.memory_optimize(main, policy=policy)
+    return main, startup, out
+
+
+def _recipe_feed(t, b=4, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, 512, (b, t)), device="cuda")
+    return {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+
+
+def test_offload_streams_on_the_card_and_keeps_selective_bits():
+    """Mode ``"host"``: the block inputs go to pinned host memory and come
+    back for the recompute; under deterministic algorithms the losses and
+    every parameter after 2 Adam steps are ``selective``'s bits, and the
+    peak is below ``selective``'s."""
+    _need_card()
+    import paddle_tpu_torch as tpt
+
+    adam = lambda pkg: pkg.optimizer.Adam(learning_rate=1e-3)  # noqa: E731
+    runs = {}
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for policy in ("selective", "offload"):
+            main, startup, out = _recipe_gpt(tpt, adam, t=2048,
+                                             policy=policy)
+            exe, scope = tpt.Executor(), tpt.Scope()
+            exe.run(startup, scope=scope)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses = [exe.run(main, feed=_recipe_feed(2048, seed=i),
+                              fetch_list=[out["avg_cost"]], scope=scope,
+                              return_numpy=False)[0] for i in range(2)]
+            torch.cuda.synchronize()
+            runs[policy] = (losses, torch.cuda.max_memory_allocated(),
+                            exe.last_remat_plan,
+                            {p.name: scope.get(p.name).cpu()
+                             for p in main.all_parameters()})
+            del exe, scope
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    (sl, speak, splan, sp), (ol, opeak, oplan, op) = (runs["selective"],
+                                                      runs["offload"])
+    assert splan["offload"] == "off" and oplan["offload"] == "host"
+    assert oplan["offloaded"] == 2 * 4 and oplan["offloaded_bytes"] > 0
+    assert all(torch.equal(a, b) for a, b in zip(sl, ol))
+    assert all(torch.equal(sp[n], op[n]) for n in sp)
+    assert opeak < speak
+
+
+def test_recipe_ops_on_the_card_match_the_cpu():
+    """Every update op the recipes add, on bf16 parameters and gradients
+    with f32 state: the card's result within ORACLE_TOL bf16 (2e-2) of
+    the CPU's, written in place."""
+    _need_card()
+    import paddle_tpu_torch  # noqa: F401  (registers the ops)
+    from paddle_tpu_torch.core.registry import get_op_impl
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = (768, 3072)
+
+    def rnd(pos=False, dtype=torch.float32):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        return (x.abs() + 0.1 if pos else x).to(dtype)
+
+    cases = {
+        "sgd": {},
+        "adagrad": {"Moment": rnd(True)},
+        "adamax": {"Moment": rnd(), "InfNorm": rnd(True),
+                   "Beta1Pow": torch.tensor([0.729], device="cuda")},
+        "adadelta": {"AvgSquaredGrad": rnd(True),
+                     "AvgSquaredUpdate": rnd(True)},
+        "decayed_adagrad": {"Moment": rnd(True)},
+        "rmsprop": {"MeanSquare": rnd(True), "Moment": rnd()},
+        "ftrl": {"SquaredAccumulator": rnd(True), "LinearAccumulator": rnd()},
+        "proximal_gd": {},
+        "proximal_adagrad": {"Moment": rnd(True)},
+    }
+    attrs = {"ftrl": {"l1": 1e-3, "l2": 1e-3}, "rmsprop": {"momentum": 0.9},
+             "proximal_gd": {"l1": 1e-3, "l2": 1e-3},
+             "proximal_adagrad": {"l1": 1e-3, "l2": 1e-3}}
+    for name, state in cases.items():
+        ins = dict(state, Param=rnd(dtype=torch.bfloat16),
+                   Grad=rnd(dtype=torch.bfloat16))
+        if name != "adadelta":
+            ins["LearningRate"] = torch.tensor([0.01], device="cuda")
+        cpu = {k: v.cpu().clone() for k, v in ins.items()}
+        ptr = ins["Param"].data_ptr()
+        got = get_op_impl(name).fn(**ins, **attrs.get(name, {}))
+        want = get_op_impl(name).fn(**cpu, **attrs.get(name, {}))
+        assert got["ParamOut"].data_ptr() == ptr
+        for slot, t in got.items():
+            w = want[slot].float()
+            err = (t.cpu().float() - w).abs().max() / w.abs().max()
+            assert float(err) <= 2e-2, (name, slot)

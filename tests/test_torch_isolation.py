@@ -118,6 +118,9 @@ TRAINING_MODULES = [
     "paddle_tpu_torch.resilience.checkpoint",
     "paddle_tpu_torch.resilience.retry",
     "paddle_tpu_torch.resilience.watchdog",
+    # the training recipes: clipping, regularizers, schedules
+    "paddle_tpu_torch.clip", "paddle_tpu_torch.regularizer",
+    "paddle_tpu_torch.learning_rate_decay",
 ]
 
 

@@ -265,9 +265,17 @@ def test_remat_with_dropout_equals_no_remat(reference_runs):
 
 @pytest.mark.parametrize("policy", ["offload", "auto"])
 def test_unported_policies_raise_with_their_roadmap_item(policy):
+    """``auto`` raises, naming its ROADMAP.md item (A5, the tune cache).
+    ``offload`` raised until the port brought it: it now marks the
+    program and cuts selective's segments (tests/test_torch_offload.py)."""
     main = _build(tpt, ttr, _cfg())[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        tpt.memory_optimize(main, policy=policy)
+    if policy == "auto":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
+            tpt.memory_optimize(main, policy=policy)
+    else:
+        segs = tpt.memory_optimize(main, policy=policy)
+        assert main._offload and segs == tpt.memory_optimize(
+            _build(tpt, ttr, _cfg())[0], policy="selective")
     with pytest.raises(ValueError):
         tpt.memory_optimize(main, policy="everything")
     assert tpt.release_memory(main) is main
