@@ -277,13 +277,30 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    switch's within 64 MiB of it, printed with the bytes sent to the host
    beside the bytes reckoned; then step walls of both policies in
    alternated rounds;
-12. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
+12. the recurrent path (main paths: ``StaticRNN``'s ``scan_block`` and
+   the LSTM/GRU and sequence ops, through ``DataFeeder`` and
+   ``Executor.run``), f32, Adam at ``build``'s rate, 6 steps on one
+   batch, ragged (lengths from t/5 to t) and then full length, from
+   fresh startup states: a. ``text_classification`` at the reference's
+   ``lstm`` row (``benchmarks/run.py:39-40``: bs64, t=100, hid 512, dict
+   10,000, emb 128, two stacked LSTMs); b. ``seq2seq`` at its
+   ``seq2seq`` row (``:44-45``: bs64, t=32, dicts 30,000, word 256, hid
+   512): the losses finite and the last below the first, no
+   hand-written kernel launched (the path reaches none of the table's),
+   the median step wall, seq/s, tok/s, ``step_flops``' TFLOP/s, the peak
+   memory, and for the full-length run the kernels and busy share of a
+   profiled step, each beside the card's name and power limit; c. each
+   model at t=16 and hidden 128, batch 16, ragged, one step from one
+   startup state on the card and on the port's CPU path (TF32 off): the
+   loss within ORACLE_TOL f32 (2e-4) and every parameter's gradient
+   within 1e-3 of its largest entry;
+13. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
    launches on its main path (phase 3e, 5, 5b, 7, 8 or 9b), error, times
    and bound; the paged attention, flash forward, fused backward, the
    three CE rows and the sm90 bottleneck add the simple family's time
    (``simple_ms``), and the forward's row its t=16384 entry (``t16384``,
    launches from phase 8);
-13. the last line: ``{"ok": true, "device": {...}}``.
+14. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
 file, it exits non-zero and prints no result.  The weights, the tokens
@@ -3846,6 +3863,161 @@ def offload_phase(torch, np, pt, kernels, seed):
     torch.cuda.empty_cache()
 
 
+
+# -- phase 12: the recurrent path ---------------------------------------------
+
+# the reference's two recurrent rows of its benchmark sweep, f32, Adam at
+# build's own rate: benchmarks/run.py:39-40 ("lstm": text_classification,
+# bs64, t=100, hid 512, dict 10,000; the reference's
+# benchmark/paddle/rnn/rnn.py) and :44-45 ("seq2seq": bs64, t=32, dict
+# 30,000, word 256, hid 512; BASELINE config 3)
+RNN_CFGS = {
+    "text_classification": dict(dict_dim=10000, class_dim=2, emb_dim=128,
+                                hid_dim=512, stacked_num=2, max_len=100),
+    "seq2seq": dict(src_dict_size=30000, trg_dict_size=30000, word_dim=256,
+                    hidden_dim=512, max_len=32),
+}
+RNN_BATCH, RNN_STEPS = 64, 6
+# 12c: the card against the port's CPU path at a reduced width
+RNN_CHECK_T, RNN_CHECK_HID, RNN_CHECK_BATCH = 16, 128, 16
+
+
+def rnn_build(pt, name, cfg):
+    pt.core.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        model = getattr(pt.models, name).build(**cfg)
+    return main, startup, model
+
+
+def rnn_rows(np, seed, name, cfg, batch, ragged):
+    """One batch of rows in feed order, made from ``seed``: every
+    sequence ``max_len`` long, or ragged (lengths drawn from
+    ``[max_len // 5, max_len]``: 20-100 at t=100)."""
+    rng = np.random.default_rng(seed)
+    t = cfg["max_len"]
+
+    def seq(high):
+        n = int(rng.integers(t // 5, t + 1)) if ragged else t
+        return rng.integers(0, high, n).tolist()
+
+    if name == "text_classification":
+        return [(seq(cfg["dict_dim"]), [int(rng.integers(0, 2))])
+                for _ in range(batch)]
+    rows = []
+    for _ in range(batch):
+        trg = seq(cfg["trg_dict_size"])
+        rows.append((seq(cfg["src_dict_size"]), trg, trg[1:] + [0]))
+    return rows
+
+
+def rnn_phase(torch, np, pt, kernels, smi, seed, name, ragged):
+    """Phase 12a / 12b: ``name`` at the full width of its benchmark row,
+    f32, ``RNN_STEPS`` Adam steps on one batch through ``DataFeeder`` and
+    ``Executor.run``: the losses finite and falling, no hand-written
+    kernel launched (the path reaches none of the table's kernels); then,
+    at full length, one profiled step."""
+    cfg = RNN_CFGS[name]
+    main, startup, model = rnn_build(pt, name, cfg)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    rows = rnn_rows(np, seed, name, cfg, RNN_BATCH, ragged)
+    feed = pt.DataFeeder(model["feed"]).feed(rows)
+    lens = feed[model["feed"][0].name + "@LENGTH"]
+    if name == "seq2seq":
+        lens = feed["target_language_word@LENGTH"]
+    tokens = int(lens.sum())
+    fetch = [model["avg_cost"].name]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, walls = [], []
+    for _ in range(RNN_STEPS):
+        t0 = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                        return_numpy=False)
+        losses.append(loss.item())               # ends in a device sync
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    flops = exe.last_step_cost["flops"]
+    what = (f"phase 12{'a' if name == 'text_classification' else 'b'} "
+            f"{name} b={RNN_BATCH} t={cfg['max_len']} "
+            f"{'ragged' if ragged else 'full length'} ({smi})")
+    log(f"{what}: loss " + " -> ".join(f"{x:.4f}" for x in losses)
+        + f"; step wall first {walls[0]:.3f} s, then median {steady:.4f} s "
+        f"= {RNN_BATCH / steady:.1f} seq/s, {tokens / steady:.0f} tok/s "
+        f"({tokens} tokens a step); {flops / 1e9:.2f} GFLOP a step by "
+        f"step_flops = {flops / steady / 1e12:.3f} TFLOP/s "
+        f"({flops / steady / PEAK_FLOPS['float32']:.4f} of the f32 peak); "
+        f"max_memory_allocated {peak} B")
+    if not all(np.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss did not fall: {losses}")
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"{what} launched a hand-written kernel: "
+                             f"{kernels.launch_counts()}")
+    if not ragged:
+        sums = profile_training(torch, pt, exe, main, scope, fetch, feed,
+                                steady)
+        if not sums:
+            raise AssertionError(f"{what}: the profiler recorded no device "
+                                 f"time")
+        busy_ms = sum(ms for ms, _ in sums.values())
+        log(f"{what}: {sum(n for _, n in sums.values())} kernels a step, "
+            f"busy share {busy_ms / (steady * 1e3):.3f} ({busy_ms:.1f} ms "
+            f"of kernels in a {steady * 1e3:.1f} ms step)")
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def rnn_check_phase(torch, np, pt, smi, seed, name):
+    """Phase 12c: ``name`` at t=16 and hidden 128 (the rest at full
+    width), batch 16, ragged, from one startup state: one Adam step on
+    the card and on the port's CPU path (TF32 off), the loss within
+    ORACLE_TOL f32's forward bound (2e-4 relative) and every parameter's
+    gradient within its gradient bound (1e-3 of the largest entry)."""
+    cfg = dict(RNN_CFGS[name], max_len=RNN_CHECK_T)
+    cfg["hid_dim" if name == "text_classification" else
+        "hidden_dim"] = RNN_CHECK_HID
+    main, startup, model = rnn_build(pt, name, cfg)
+    cpu_exe, cpu_scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    init = {v.name: cpu_scope.numpy(v.name).copy()
+            for v in main.persistable_vars()
+            if cpu_scope.find_var(v.name) is not None}
+    exe, scope = pt.Executor(), pt.load_numpy_state(pt.Scope(), init)
+    feed = pt.DataFeeder(model["feed"], pt.CPUPlace()).feed(
+        rnn_rows(np, seed, name, cfg, RNN_CHECK_BATCH, True))
+    params = [p.name for p in main.all_parameters()]
+    fetch = [model["avg_cost"].name] + [p + "@GRAD" for p in params]
+    got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    want = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        scale = np.abs(b).max()
+        return float(np.abs(a - b).max() / scale) if scale else float(
+            np.abs(a).max())
+
+    loss_err = rel(got[0], want[0])
+    grad_errs = {p: rel(g, w) for p, g, w in zip(params, got[1:], want[1:])}
+    worst = max(grad_errs, key=grad_errs.get)
+    log(f"phase 12c {name} t={RNN_CHECK_T} hid={RNN_CHECK_HID} "
+        f"b={RNN_CHECK_BATCH}, one step card vs CPU ({smi}): loss "
+        f"{float(np.ravel(got[0])[0]):.6f} vs {float(np.ravel(want[0])[0]):.6f}"
+        f" (rel {loss_err:.2e}); {len(params)} gradients, worst "
+        f"{worst} rel {grad_errs[worst]:.2e}")
+    if loss_err > 2e-4:
+        raise AssertionError(f"phase 12c {name}: loss rel {loss_err}")
+    bad = {p: e for p, e in grad_errs.items() if e > 1e-3}
+    if bad:
+        raise AssertionError(f"phase 12c {name}: gradients off {bad}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4022,7 +4194,19 @@ def main():
     offload_phase(torch, np, pt, kernels, args.seed)
     log(f"phase 11 wall {time.perf_counter() - t0:.1f} s")
 
-    # 12. the kernels line, 13. the result
+    # 12. the recurrent path: the reference's two RNN rows at full width,
+    #     f32 (12a the stacked-LSTM classifier, 12b seq2seq with
+    #     attention), each full length and ragged; 12c each against the
+    #     port's CPU path at a reduced width
+    t0 = time.perf_counter()
+    for name in RNN_CFGS:
+        # ragged first: a step run after torch.profiler read slower
+        rnn_phase(torch, np, pt, kernels, smi, args.seed + 1, name, True)
+        rnn_phase(torch, np, pt, kernels, smi, args.seed, name, False)
+        rnn_check_phase(torch, np, pt, smi, args.seed, name)
+    log(f"phase 12 wall {time.perf_counter() - t0:.1f} s")
+
+    # 13. the kernels line, 14. the result
     row["launches"] = launches["paged_attention"]
     gather_row["launches"] = gathered["launches"]["decode_gather"]
     log(f"paged_attention at the verify shape: kernel {verify_ms[0]:.4f} ms, "

@@ -26,12 +26,15 @@ with a bit-exact resume, ``Executor.run_steps``), the checkpoint format
 optimizer of the JAX package and ``ModelAverage`` (``optimizer``),
 gradient and error clipping (``clip``), weight decay (``regularizer``)
 and learning-rate schedules (``learning_rate_decay``), and the memory
-engine's ``offload`` policy.
+engine's ``offload`` policy; the recurrent path: ``StaticRNN`` /
+``DynamicRNN`` over the ``scan_block`` op, the LSTM, GRU and sequence
+ops and layers, ``nets``, and the training programs of
+``models.text_classification`` and ``models.seq2seq``.
 """
 
 from . import ops as _ops  # noqa: F401  (registers the op lowerings)
 from . import (clip, data_feeder, initializer, io, layers,
-               learning_rate_decay, models, observability, optimizer,
+               learning_rate_decay, models, nets, observability, optimizer,
                profiler, reader, regularizer, resilience, trainer)
 from .backward import append_backward
 from .core.executor import Executor
@@ -58,5 +61,5 @@ __all__ = [
     "Trainer", "SGD", "BeginPass", "EndPass", "BeginIteration",
     "EndIteration", "DataFeeder", "MetricsReporter", "io", "reader",
     "profiler", "data_feeder", "observability", "resilience", "trainer",
-    "clip", "regularizer", "learning_rate_decay",
+    "clip", "regularizer", "learning_rate_decay", "nets",
 ]

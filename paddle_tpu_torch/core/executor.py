@@ -24,7 +24,10 @@ state at the end of the forward, whatever a recompute did to it since.
 Memory: the environment drops a value right after its last reader (the
 autograd graph keeps what the backward needs), and an op that takes
 ``_live`` skips outputs nothing reads — eager execution has no compiler
-to remove them.
+to remove them.  A control-flow op (``raw=True``: ``scan_block``) reads
+what its sub-block reads of the outer names too (:func:`op_reads`), so
+an encoder output that only a decoder's sub-block reads lives until the
+scan has run.
 
 Remat (``memory_optimize``, ``program._remat_segments``, the reference's
 ``executor.py:1132-1200``): each wrapped forward region runs under
@@ -109,6 +112,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..observability import metrics as _obs
 from .dtypes import torch_dtype
+from .ir import sub_block_names
 from .place import resolve_device
 from .program import GRAD_SUFFIX, Parameter, default_main_program
 from .registry import get_op_impl
@@ -116,7 +120,7 @@ from .scope import (GRAD_NORM_VAR, RNG_VAR, global_scope, tensor_from_numpy,
                     tensor_to_numpy)
 
 __all__ = ["Executor", "LoweringCtx", "run_block_ops", "step_flops",
-           "draws_random"]
+           "draws_random", "op_reads"]
 
 # depth of the active ``profiler.nan_guard()`` contexts: while above 0,
 # every training step checks its loss and gradient norm before the
@@ -131,37 +135,60 @@ def draws_random(program):
                for blk in program.blocks for op in blk.ops)
 
 
+def op_reads(program, op):
+    """The names ``op`` reads: its inputs and, for a control-flow op,
+    every name its sub-block (and the blocks nested in it) reads —
+    outer activations and parameters the op's own slots do not list."""
+    names = op.input_names()
+    sub = op.attrs.get("sub_block")
+    if sub is not None:
+        seen = set(names)
+        names += sorted(n for n in sub_block_names(program, sub)[0]
+                        if n not in seen)
+    return names
+
+
 def step_flops(program, batch=1):
     """The FLOPs of one step of ``program``, counted from its static
     shapes with ``batch`` for their -1 dims: the sum of the ``flops``
     hooks of its ops' registrations (the matrix products of ``mul``, the
-    flash ops and the fused CE head).  An op without a hook counts 0, so
-    this is a count of the products, a lower bound of the work."""
-    block = program.global_block()
-    bw = block.backward_index
+    recurrent ops, the flash ops and the fused CE head), a control-flow
+    op's sub-block counted once for each time the step runs it (its
+    ``trips``).  An op without a hook counts 0, so this is a count of
+    the products, a lower bound of the work."""
+    gb = program.global_block()
+    bw = gb.backward_index
     info = program._backward_info.get(0)
     train = bw is not None and info is not None
     trained = set(info["params"]) if train else set()
-    ops = block.ops[:bw] if train else block.ops
 
-    def shape(name):
-        return [batch if s == -1 else s for s in block._find_var(name).shape]
+    def block_flops(block, ops):
+        def shape(name):
+            return [batch if s == -1 else s
+                    for s in block._find_var(name).shape]
 
-    def grad(name):
-        """A trained parameter, or a computed value the backward
-        reaches."""
-        if name in trained:
-            return True
-        var = block._find_var(name)
-        return train and not (isinstance(var, Parameter) or var.is_data
-                              or var.stop_gradient)
+        def grad(name):
+            """A trained parameter, or a computed value the backward
+            reaches."""
+            if name in trained:
+                return True
+            var = block._find_var(name)
+            return train and not (isinstance(var, Parameter) or var.is_data
+                                  or var.stop_gradient)
 
-    total = 0
-    for op in ops:
-        hook = get_op_impl(op.type).flops
-        if hook is not None:
-            total += hook(op, shape, grad, train)
-    return total
+        total = 0
+        for op in ops:
+            impl = get_op_impl(op.type)
+            if impl.flops is not None:
+                total += impl.flops(op, shape, grad, train)
+            sub = op.attrs.get("sub_block")
+            if sub is not None and impl.trips is not None:
+                sub_blk = program.block(sub)
+                total += impl.trips(op, shape) * block_flops(
+                    sub_blk, sub_blk.ops)
+        return total
+
+    return block_flops(gb, gb.ops[:bw] if train else gb.ops)
 
 
 def _feed_batch(block, feeds):
@@ -198,13 +225,18 @@ def _raise_if_not_finite(values):
 
 class LoweringCtx:
     """What op implementations may ask of the run: the device tensors are
-    made on, and the step's random generator.  ``op_type`` is the type of
-    the op running now (what a selective-remat policy keys on)."""
+    made on, the step's random generator, and the program (where a
+    control-flow op finds its sub-block).  ``op_type`` is the type of the
+    op running now (what a selective-remat policy keys on);
+    ``grad_prefix`` whether a control-flow op runs in the differentiated
+    forward (its sub-block then runs the same way)."""
 
-    def __init__(self, device, gen):
+    def __init__(self, device, gen, program=None):
         self.device = device
         self.gen = gen
+        self.program = program
         self.op_type = None
+        self.grad_prefix = False
 
 
 def _check_fetches(program, fetch_names):
@@ -225,12 +257,14 @@ class _Plan:
     """Static liveness of one block walk: for op ``i``, ``drop[i]`` names
     the values nobody reads after it, ``live[i]`` the output slots
     somebody does read (``keep`` — fetches, state, the loss — is always
-    read)."""
+    read).  An op's reads are :func:`op_reads`: a control-flow op keeps
+    alive what its sub-block reads."""
 
-    def __init__(self, ops, keep):
+    def __init__(self, program, ops, keep):
+        reads = [op_reads(program, op) for op in ops]
         last = {}
         for i, op in enumerate(ops):
-            for n in op.input_names() + op.output_names():
+            for n in reads[i] + op.output_names():
                 last[n] = i
         self.drop = [[] for _ in ops]
         for n, i in last.items():
@@ -241,15 +275,28 @@ class _Plan:
         for i in range(len(ops) - 1, -1, -1):
             self.live[i] = {slot for slot, names in ops[i].outputs.items()
                             if any(n in read_later for n in names)}
-            read_later.update(ops[i].input_names())
+            read_later.update(reads[i])
 
 
 def run_block_ops(ctx, block, ops, env, inside_grad_prefix=False, plan=None,
                   first=0):
     """Evaluate ``ops`` (``block.ops[first:first + len(ops)]`` of ``plan``)
-    over the name -> tensor environment ``env``."""
+    over the name -> tensor environment ``env``.  A control-flow op
+    (``raw``) is called as ``fn(ctx, block, op, env)`` and writes its
+    outputs itself."""
     for i, op in enumerate(ops, start=first):
         impl = get_op_impl(op.type)
+        if impl.raw:
+            ctx.op_type = op.type
+            ctx.grad_prefix = inside_grad_prefix
+            try:
+                impl.fn(ctx, block, op, env)
+            except Exception as e:
+                raise RuntimeError(f"error running {op}: {e}") from e
+            if plan is not None:
+                for n in plan.drop[i]:
+                    env.pop(n, None)
+            continue
         detach_all = inside_grad_prefix and impl.nondiff
         ins = {}
         for slot, names in op.inputs.items():
@@ -500,7 +547,7 @@ class _Forward:
         acc = set(aux_names)
         needed[bw] = set(acc)
         for i in range(bw - 1, -1, -1):
-            acc.update(ops[i].input_names())
+            acc.update(op_reads(program, ops[i]))
             needed[i] = set(acc)
         self.segments = []
         for s, t, wrap in segments:
@@ -510,7 +557,8 @@ class _Forward:
             seg_ops = ops[s:t]
             reads = []
             for op in seg_ops:
-                reads += [n for n in op.input_names() if n not in reads]
+                reads += [n for n in op_reads(program, op)
+                          if n not in reads]
             out_names = tuple(sorted(
                 {n for op in seg_ops for n in op.output_names()}
                 & needed[t]))
@@ -783,11 +831,11 @@ class Executor:
         keep = set(fetch_names) | set(persist_out)
         if info is not None:
             keep.add(info["loss"])
-        plan = _Plan(ops, keep)
+        plan = _Plan(program, ops, keep)
         device = self.device
         if bw is None or info is None:
             def step(state, feeds, gen):
-                ctx = LoweringCtx(device, gen)
+                ctx = LoweringCtx(device, gen, program)
                 env = dict(state)
                 env.update(feeds)
                 with torch.no_grad():
@@ -804,7 +852,7 @@ class Executor:
         accum = int(getattr(program, "_grad_accum", 1) or 1)
 
         def step(state, feeds, gen):
-            ctx = LoweringCtx(device, gen)
+            ctx = LoweringCtx(device, gen, program)
             env = dict(state)
             env.update(feeds)
             param_names = [n for n in info["params"] if n in env]

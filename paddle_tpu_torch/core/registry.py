@@ -16,8 +16,13 @@ generator), one that names ``_live`` the output slots somebody reads.
 the op for ``core.executor.step_flops``: ``shape(name)`` is a var's
 static shape with the batch filled in, ``grad(name)`` whether it takes a
 gradient, ``train`` whether the step runs the backward.
-The reference's ``raw=True`` ops (block-structured control flow) come
-with the slice that ports them.
+
+Block-structured control flow registers with ``raw=True``, as in the
+reference: such an op is called as ``fn(ctx, block, op, env)``, runs
+its sub-block itself (``ctx.program.block(op.attrs["sub_block"])``) and
+writes its outputs into ``env``.  Its ``trips(op, shape)`` is how many
+times one step runs the sub-block; ``step_flops`` counts the
+sub-block's products that many times.
 """
 
 import inspect
@@ -26,12 +31,14 @@ _REGISTRY = {}
 
 
 class OpImpl:
-    def __init__(self, op_type, fn, stateful_rng=False, nondiff=False,
-                 flops=None):
+    def __init__(self, op_type, fn, raw=False, stateful_rng=False,
+                 nondiff=False, flops=None, trips=None):
         self.type = op_type
         self.fn = fn
+        self.raw = raw
         self.stateful_rng = stateful_rng
         self.flops = flops
+        self.trips = trips
         # nondiff: op has no linearization rule (integer outputs, argsort-
         # style selection, DP recursions over ints).  The executor
         # detaches its inputs inside the grad prefix.
@@ -59,13 +66,14 @@ class OpImpl:
         return self.fn(**kwargs)
 
 
-def register_op(op_type, stateful_rng=False, nondiff=False, flops=None):
+def register_op(op_type, raw=False, stateful_rng=False, nondiff=False,
+                flops=None, trips=None):
     def deco(fn):
         if op_type in _REGISTRY:
             raise ValueError(f"op {op_type!r} registered twice")
         _REGISTRY[op_type] = OpImpl(
-            op_type, fn, stateful_rng=stateful_rng, nondiff=nondiff,
-            flops=flops
+            op_type, fn, raw=raw, stateful_rng=stateful_rng,
+            nondiff=nondiff, flops=flops, trips=trips
         )
         return fn
 

@@ -1,22 +1,36 @@
 """Neural-net layers (``paddle_tpu/layers/nn.py``), the part
-``models.transformer.build`` and ``models.resnet.build`` reach: ``fc``,
-``embedding``, ``layer_norm``, ``dropout``, ``softmax_with_cross_entropy``,
-``fused_softmax_ce_head``, ``flash_attention`` /
-``flash_attention_packed``, ``multi_head_attention``, ``scale``,
-``reduce_sum``, ``conv2d``, ``pool2d``, ``batch_norm``, ``cross_entropy``,
-``accuracy``, ``softmax``, ``topk``, ``mean``.  Each layer creates parameters
-through LayerHelper and appends ops; names, shapes and attrs are the
-reference's, so both packages build the same program."""
+``models.transformer``, ``resnet``, ``text_classification`` and
+``seq2seq`` reach: ``fc``, ``embedding``, ``layer_norm``, ``dropout``,
+``softmax_with_cross_entropy``, ``fused_softmax_ce_head``,
+``flash_attention`` / ``flash_attention_packed``,
+``multi_head_attention``, ``scale``, ``reduce_sum``, ``conv2d``,
+``pool2d``, ``batch_norm``, ``cross_entropy``, ``accuracy``,
+``softmax``, ``topk``, ``mean``; the recurrent layers
+``dynamic_lstm``, ``dynamic_lstmp``, ``dynamic_gru``, ``gru_unit``,
+``lstm_unit``; and the sequence layers ``link_sequence``,
+``sequence_conv``, ``sequence_pool``, ``sequence_first_step`` /
+``sequence_last_step``, ``sequence_expand``, ``sequence_reshape``,
+``sequence_softmax``, ``sequence_reverse``, which wire the shadow
+``@LENGTH`` variables as the reference does.  Each layer creates
+parameters through LayerHelper and appends ops; names, shapes, attrs
+and initializers are the reference's, so both packages build the same
+program and weights carry across by name."""
 
 import numpy as np
 
 from ..param_attr import ParamAttr
 from .. import initializer as init_mod
-from .layer_helper import LayerHelper
+from .layer_helper import LayerHelper, seq_length
 
 __all__ = [
+    "link_sequence",
     "fc",
     "embedding",
+    "dynamic_lstm",
+    "dynamic_lstmp",
+    "dynamic_gru",
+    "gru_unit",
+    "lstm_unit",
     "layer_norm",
     "dropout",
     "softmax_with_cross_entropy",
@@ -34,6 +48,14 @@ __all__ = [
     "softmax",
     "topk",
     "mean",
+    "sequence_conv",
+    "sequence_pool",
+    "sequence_first_step",
+    "sequence_last_step",
+    "sequence_expand",
+    "sequence_reshape",
+    "sequence_softmax",
+    "sequence_reverse",
 ]
 
 
@@ -59,6 +81,13 @@ def _pool_osize(i, k, s, p, ceil_mode=False, global_pooling=False):
         return -1
     num = i + 2 * p - k
     return (num + s - 1) // s + 1 if ceil_mode else num // s + 1
+
+
+def _seq_inputs(inputs, x):
+    ln = seq_length(x)
+    if ln is not None:
+        inputs["Length"] = [ln.name]
+    return ln
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -132,6 +161,174 @@ def _link_length(out, src):
         out.block.vars.setdefault(out.name + "@LENGTH", src.length_var())
         out.lod_level = src.lod_level
     return out
+
+
+def link_sequence(out, src):
+    """Mark ``out`` as a sequence batch sharing ``src``'s lengths (after
+    a shape-preserving layer such as ``fc`` with ``num_flatten_dims=2``)."""
+    return _link_length(out, src)
+
+
+def dynamic_lstm(input, size, use_peepholes=True, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", param_attr=None, bias_attr=None,
+                 name=None):
+    """LSTM over a padded sequence batch ``[b, t, 4d]`` (the input already
+    projected to ``4 * hidden``); ``size = 4 * hidden``."""
+    helper = LayerHelper("lstm", name=name)
+    d = size // 4
+    weight = helper.create_parameter(param_attr, shape=[d, 4 * d],
+                                     dtype=input.dtype)
+    bias_size = 7 * d if use_peepholes else 4 * d
+    bias = helper.create_parameter(
+        ParamAttr.to_attr(bias_attr) or ParamAttr(), shape=[1, bias_size],
+        dtype=input.dtype, suffix="b",
+        default_initializer=init_mod.Constant(0.0),
+    )
+    hidden = helper.create_tmp_variable(
+        input.dtype, list(input.shape[:2]) + [d], lod_level=input.lod_level)
+    cell = helper.create_tmp_variable(
+        input.dtype, list(input.shape[:2]) + [d], lod_level=input.lod_level)
+    inputs = {"Input": [input.name], "Weight": [weight.name],
+              "Bias": [bias.name]}
+    _seq_inputs(inputs, input)
+    helper.append_op(
+        type="lstm",
+        inputs=inputs,
+        outputs={"Hidden": [hidden.name], "Cell": [cell.name]},
+        attrs={
+            "use_peepholes": use_peepholes,
+            "is_reverse": is_reverse,
+            "gate_activation": gate_activation,
+            "cell_activation": cell_activation,
+            "candidate_activation": candidate_activation,
+        },
+    )
+    _link_length(hidden, input)
+    _link_length(cell, input)
+    return hidden, cell
+
+
+def dynamic_lstmp(input, size, proj_size, use_peepholes=True,
+                  is_reverse=False, gate_activation="sigmoid",
+                  cell_activation="tanh", candidate_activation="tanh",
+                  proj_activation="tanh", param_attr=None, bias_attr=None,
+                  name=None):
+    """LSTM with a recurrent projection to ``proj_size``."""
+    helper = LayerHelper("lstmp", name=name)
+    d = size // 4
+    weight = helper.create_parameter(
+        param_attr, shape=[proj_size, 4 * d], dtype=input.dtype)
+    proj_weight = helper.create_parameter(
+        param_attr, shape=[d, proj_size], dtype=input.dtype, suffix="proj_w")
+    bias_size = 7 * d if use_peepholes else 4 * d
+    bias = helper.create_parameter(
+        ParamAttr.to_attr(bias_attr) or ParamAttr(), shape=[1, bias_size],
+        dtype=input.dtype, suffix="b",
+        default_initializer=init_mod.Constant(0.0),
+    )
+    proj = helper.create_tmp_variable(
+        input.dtype, list(input.shape[:2]) + [proj_size],
+        lod_level=input.lod_level)
+    inputs = {
+        "Input": [input.name],
+        "Weight": [weight.name],
+        "ProjWeight": [proj_weight.name],
+        "Bias": [bias.name],
+    }
+    _seq_inputs(inputs, input)
+    helper.append_op(
+        type="lstmp",
+        inputs=inputs,
+        outputs={"Projection": [proj.name]},
+        attrs={
+            "use_peepholes": use_peepholes,
+            "is_reverse": is_reverse,
+            "gate_activation": gate_activation,
+            "cell_activation": cell_activation,
+            "candidate_activation": candidate_activation,
+            "proj_activation": proj_activation,
+        },
+    )
+    return _link_length(proj, input)
+
+
+def dynamic_gru(input, size, is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", param_attr=None, bias_attr=None,
+                h_0=None, name=None):
+    """GRU over a padded batch ``[b, t, 3d]``; ``size = d``."""
+    helper = LayerHelper("gru", name=name)
+    d = size
+    weight = helper.create_parameter(param_attr, shape=[d, 3 * d],
+                                     dtype=input.dtype)
+    bias = helper.create_parameter(
+        ParamAttr.to_attr(bias_attr) or ParamAttr(), shape=[1, 3 * d],
+        dtype=input.dtype, suffix="b",
+        default_initializer=init_mod.Constant(0.0),
+    )
+    hidden = helper.create_tmp_variable(
+        input.dtype, list(input.shape[:2]) + [d], lod_level=input.lod_level)
+    inputs = {"Input": [input.name], "Weight": [weight.name],
+              "Bias": [bias.name]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0.name]
+    _seq_inputs(inputs, input)
+    helper.append_op(
+        type="gru",
+        inputs=inputs,
+        outputs={"Hidden": [hidden.name]},
+        attrs={
+            "is_reverse": is_reverse,
+            "gate_activation": gate_activation,
+            "activation": candidate_activation,
+        },
+    )
+    return _link_length(hidden, input)
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid"):
+    """One GRU step; ``size = 3 * hidden_dim``."""
+    helper = LayerHelper("gru_unit")
+    d = size // 3
+    weight = helper.create_parameter(param_attr, shape=[d, 3 * d],
+                                     dtype=input.dtype)
+    bias = helper.create_parameter(
+        ParamAttr.to_attr(bias_attr) or ParamAttr(), shape=[1, 3 * d],
+        dtype=input.dtype, suffix="b",
+        default_initializer=init_mod.Constant(0.0),
+    )
+    out = helper.create_tmp_variable(input.dtype, list(hidden.shape))
+    helper.append_op(
+        type="gru_unit",
+        inputs={
+            "Input": [input.name],
+            "HiddenPrev": [hidden.name],
+            "Weight": [weight.name],
+            "Bias": [bias.name],
+        },
+        outputs={"Hidden": [out.name]},
+        attrs={"activation": activation, "gate_activation": gate_activation},
+    )
+    return out
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None):
+    """One LSTM step with its own input projection."""
+    d = cell_t_prev.shape[-1]
+    gates = fc([x_t, hidden_t_prev], size=4 * d, param_attr=param_attr,
+               bias_attr=bias_attr if bias_attr is not None else ParamAttr())
+    helper = LayerHelper("lstm_unit")
+    c = helper.create_tmp_variable(x_t.dtype, list(cell_t_prev.shape))
+    h = helper.create_tmp_variable(x_t.dtype, list(cell_t_prev.shape))
+    helper.append_op(
+        type="lstm_unit",
+        inputs={"X": [gates.name], "C_prev": [cell_t_prev.name]},
+        outputs={"C": [c.name], "H": [h.name]},
+        attrs={"forget_bias": float(forget_bias)},
+    )
+    return h, c
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
@@ -546,4 +743,122 @@ def mean(x, name=None):
     out = helper.create_tmp_variable(x.dtype, [1])
     helper.append_op(type="mean", inputs={"X": [x.name]},
                      outputs={"Out": [out.name]})
+    return out
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, param_attr=None, bias_attr=None, act=None,
+                  name=None):
+    helper = LayerHelper("sequence_conv", bias_attr=bias_attr, act=act,
+                         name=name)
+    d = input.shape[-1]
+    w = helper.create_parameter(
+        param_attr, shape=[filter_size * d, num_filters], dtype=input.dtype)
+    out = helper.create_tmp_variable(
+        input.dtype, list(input.shape[:2]) + [num_filters],
+        lod_level=input.lod_level)
+    inputs = {"X": [input.name], "Filter": [w.name]}
+    _seq_inputs(inputs, input)
+    helper.append_op(
+        type="sequence_conv",
+        inputs=inputs,
+        outputs={"Out": [out.name]},
+        attrs={"contextLength": filter_size,
+               "contextStart": -(filter_size // 2)},
+    )
+    _link_length(out, input)
+    pre_act = helper.append_bias_op(out, dim_start=len(out.shape) - 1)
+    return helper.append_activation(pre_act)
+
+
+def sequence_pool(input, pool_type):
+    helper = LayerHelper("sequence_pool")
+    out = helper.create_tmp_variable(
+        input.dtype, [input.shape[0]] + list(input.shape[2:]))
+    inputs = {"X": [input.name]}
+    _seq_inputs(inputs, input)
+    helper.append_op(
+        type="sequence_pool",
+        inputs=inputs,
+        outputs={"Out": [out.name]},
+        attrs={"pooltype": pool_type.upper()},
+    )
+    return out
+
+
+def sequence_first_step(input):
+    return sequence_pool(input, "first")
+
+
+def sequence_last_step(input):
+    return sequence_pool(input, "last")
+
+
+def sequence_expand(x, y, name=None):
+    helper = LayerHelper("sequence_expand", name=name)
+    t = y.shape[1] if len(y.shape) > 1 else -1
+    out = helper.create_tmp_variable(
+        x.dtype, [x.shape[0], t] + list(x.shape[1:]), lod_level=1)
+    inputs = {"X": [x.name], "Y": [y.name]}
+    yl = seq_length(y)
+    if yl is not None:
+        inputs["YLength"] = [yl.name]
+        out.block.vars[out.name + "@LENGTH"] = yl
+    helper.append_op(type="sequence_expand", inputs=inputs,
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def sequence_reshape(input, new_dim):
+    helper = LayerHelper("sequence_reshape")
+    b, t, d = input.shape
+    new_t = t * d // new_dim if t >= 0 else -1
+    out = helper.create_tmp_variable(input.dtype, [b, new_t, new_dim],
+                                     lod_level=1)
+    inputs = {"X": [input.name]}
+    _seq_inputs(inputs, input)
+    helper.append_op(
+        type="sequence_reshape",
+        inputs=inputs,
+        outputs={"Out": [out.name], "OutLength": [out.length_var().name]},
+        attrs={"new_dim": new_dim},
+    )
+    return out
+
+
+def sequence_softmax(x, name=None):
+    helper = LayerHelper("sequence_softmax", name=name)
+    out = helper.create_tmp_variable(x.dtype, list(x.shape),
+                                     lod_level=x.lod_level)
+    inputs = {"X": [x.name]}
+    _seq_inputs(inputs, x)
+    helper.append_op(
+        type="sequence_softmax", inputs=inputs, outputs={"Out": [out.name]}
+    )
+    return _link_length(out, x)
+
+
+def sequence_reverse(x, name=None):
+    """Length-aware reversal along the (outer) time axis: element t of
+    each sequence swaps with element len-1-t; padding stays in place.
+    For a nested (lod 2) input the outer order is reversed and the
+    ``@SUBLENGTH`` shadow is permuted to match."""
+    helper = LayerHelper("sequence_reverse", name=name)
+    inputs = {"X": [x.name]}
+    ln = seq_length(x)
+    if ln is not None:
+        inputs["Length"] = [ln.name]
+    out = helper.create_tmp_variable(x.dtype, list(x.shape),
+                                     lod_level=x.lod_level)
+    helper.append_op(type="sequence_reverse", inputs=inputs,
+                     outputs={"Out": [out.name]})
+    _link_length(out, x)
+    if getattr(x, "lod_level", 0) >= 2:
+        sub = x.sub_length_var()
+        sub_rev = helper.create_tmp_variable(sub.dtype, list(sub.shape))
+        helper.append_op(
+            type="sequence_reverse",
+            inputs={"X": [sub.name], "Length": [x.length_var().name]},
+            outputs={"Out": [sub_rev.name]})
+        out.block.vars[out.name + "@SUBLENGTH"] = sub_rev
     return out

@@ -1,10 +1,10 @@
 """Thin op wrappers (``paddle_tpu/layers/ops.py``): the elementwise and
-compare families, ``gelu`` and ``relu``.  Each wrapper creates an output temp var
-and appends the op."""
+compare families, ``gelu``, ``relu``, ``tanh`` and ``sigmoid``.  Each
+wrapper creates an output temp var and appends the op."""
 
 from .layer_helper import LayerHelper
 
-_UNARY_OPS = ["gelu", "relu"]
+_UNARY_OPS = ["sigmoid", "relu", "tanh", "gelu"]
 
 _BINARY_OPS = [
     "elementwise_add", "elementwise_sub", "elementwise_mul", "elementwise_div",

@@ -1,9 +1,9 @@
 """Tensor layers (``paddle_tpu/layers/tensor.py``): ``create_parameter``,
-``cast``, ``fill_constant``, ``reshape``."""
+``cast``, ``concat``, ``fill_constant``, ``reshape``."""
 
 from .layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "cast", "fill_constant", "reshape"]
+__all__ = ["create_parameter", "cast", "concat", "fill_constant", "reshape"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -21,6 +21,20 @@ def cast(x, dtype):
     helper.append_op(
         type="cast", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
         attrs={"out_dtype": str(dtype)},
+    )
+    return out
+
+
+def concat(input, axis=0):
+    helper = LayerHelper("concat")
+    shape = list(input[0].shape)
+    shape[axis] = sum(v.shape[axis] for v in input) if all(
+        v.shape[axis] >= 0 for v in input
+    ) else -1
+    out = helper.create_tmp_variable(input[0].dtype, shape)
+    helper.append_op(
+        type="concat", inputs={"X": input}, outputs={"Out": [out.name]},
+        attrs={"axis": axis},
     )
     return out
 

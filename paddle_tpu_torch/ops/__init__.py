@@ -12,3 +12,5 @@ from . import optimizer_ops  # noqa: F401
 from . import control_flow_ops  # noqa: F401
 from . import attention_ops  # noqa: F401
 from . import metric_ops  # noqa: F401
+from . import sequence_ops  # noqa: F401
+from . import rnn_ops  # noqa: F401

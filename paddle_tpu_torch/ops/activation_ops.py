@@ -1,8 +1,9 @@
 """Activation ops (``paddle_tpu/ops/activation_ops.py``): ``gelu`` in its
-exact erf form, as the reference registers it, ``relu``, ``softmax``
-over the last axis, and the elementwise functions the learning-rate
-schedules and the clips use: ``sqrt``, ``floor``, ``exp``,
-``reciprocal``, ``pow``."""
+exact erf form, as the reference registers it, ``relu``, ``tanh`` and
+``sigmoid`` (the attention and recurrent layers'), ``softmax`` over the
+last axis, and the elementwise functions the learning-rate schedules
+and the clips use: ``sqrt``, ``floor``, ``exp``, ``reciprocal``,
+``pow``."""
 
 import torch
 import torch.nn.functional as F
@@ -18,6 +19,16 @@ def gelu(X, **_):
 @register_op("relu")
 def relu(X, **_):
     return {"Out": torch.relu(X)}
+
+
+@register_op("tanh")
+def tanh(X, **_):
+    return {"Out": torch.tanh(X)}
+
+
+@register_op("sigmoid")
+def sigmoid(X, **_):
+    return {"Out": torch.sigmoid(X)}
 
 
 @register_op("softmax")

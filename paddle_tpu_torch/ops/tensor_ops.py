@@ -1,5 +1,5 @@
 """Tensor manipulation & fill ops (``paddle_tpu/ops/tensor_ops.py``):
-``fill_constant``, ``assign``, ``reshape``, ``increment``,
+``fill_constant``, ``assign``, ``reshape``, ``concat``, ``increment``,
 ``lookup_table``, ``top_k``."""
 
 import torch
@@ -32,6 +32,12 @@ def reshape(X, shape=(), **_):
     shape = [int(X.shape[i]) if int(s) == 0 else int(s)
              for i, s in enumerate(shape)]
     return {"Out": X.reshape(shape)}
+
+
+@register_op("concat")
+def concat(X, axis=0, **_):
+    xs = X if isinstance(X, (list, tuple)) else [X]
+    return {"Out": torch.cat(xs, dim=axis)}
 
 
 @register_op("increment")

@@ -4,8 +4,10 @@ backward (dq, dk/dv), each on the simple family and the sm90 one (the
 backwards with its delta pre-pass; the simple family alone past d_head
 128), the fused cross-entropy head's forward, dx and dW on both families
 (the simple one alone past d = 768), the fused ResNet bottleneck on both),
-against their plain PyTorch versions (paddle_tpu_torch only: no jax, so
-these run on a host without it).  Every test needs an NVIDIA GPU and skips
+against their plain PyTorch versions; and the recurrent path's ops
+(``lstm``, ``gru``, the stacked-LSTM classifier's training), which run on
+ATen, against the CPU (paddle_tpu_torch only: no jax, so these run on a
+host without it).  Every test needs an NVIDIA GPU and skips
 without one; on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -1601,3 +1603,111 @@ def test_recipe_ops_on_the_card_match_the_cpu():
             w = want[slot].float()
             err = (t.cpu().float() - w).abs().max() / w.abs().max()
             assert float(err) <= 2e-2, (name, slot)
+
+
+# -- the recurrent path (no hand-written kernel: ATen on the card) ----------
+
+def _rnn_op_on_both(op, inputs, lengths, attrs, outs):
+    """``op`` on the card and on the CPU from the same seeded f32 inputs
+    with TF32 off: every output within ORACLE_TOL f32's forward bound,
+    every input's gradient under one cotangent within its gradient
+    bound."""
+    import paddle_tpu_torch  # noqa: F401  (registers the ops)
+    from paddle_tpu_torch.core.registry import get_op_impl
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = {}
+        for dev in ("cuda", "cpu"):
+            ts = {k: torch.tensor(v, device=dev, requires_grad=True)
+                  for k, v in inputs.items()}
+            got = get_op_impl(op).fn(
+                **ts, Length=torch.tensor(lengths, device=dev), **attrs)
+            vals = [got[o] for o in outs]
+            gen = torch.Generator().manual_seed(1)
+            cots = [torch.randn(v.shape, generator=gen).to(dev)
+                    for v in vals]
+            grads = torch.autograd.grad(
+                sum((v * c).sum() for v, c in zip(vals, cots)),
+                list(ts.values()))
+            res[dev] = ([v.detach().cpu() for v in vals],
+                        [g.cpu() for g in grads])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for g, w in zip(res["cuda"][0], res["cpu"][0]):
+        assert _rel(g, w) <= 2e-4
+    for g, w in zip(res["cuda"][1], res["cpu"][1]):
+        assert _rel(g, w) <= 1e-3
+
+
+def test_lstm_op_on_the_card_matches_the_cpu():
+    """``lstm`` with peepholes, reversed, on a ragged batch, at the
+    text classifier's hidden width."""
+    _need_card()
+    rng = np.random.default_rng(0)
+    b, t, d = 8, 20, 512
+    _rnn_op_on_both(
+        "lstm",
+        {"Input": rng.standard_normal((b, t, 4 * d)).astype(np.float32),
+         "Weight": (rng.standard_normal((d, 4 * d)) / d ** 0.5
+                    ).astype(np.float32),
+         "Bias": (0.1 * rng.standard_normal((1, 7 * d))).astype(np.float32)},
+        rng.integers(4, t + 1, b).astype(np.int32),
+        {"use_peepholes": True, "is_reverse": True}, ("Hidden", "Cell"))
+
+
+def test_gru_op_on_the_card_matches_the_cpu():
+    """``gru`` from ``H0`` on a ragged batch, at seq2seq's hidden width."""
+    _need_card()
+    rng = np.random.default_rng(1)
+    b, t, d = 8, 16, 512
+    _rnn_op_on_both(
+        "gru",
+        {"Input": rng.standard_normal((b, t, 3 * d)).astype(np.float32),
+         "Weight": (rng.standard_normal((d, 3 * d)) / d ** 0.5
+                    ).astype(np.float32),
+         "Bias": (0.1 * rng.standard_normal((1, 3 * d))).astype(np.float32),
+         "H0": rng.standard_normal((b, d)).astype(np.float32)},
+        rng.integers(4, t + 1, b).astype(np.int32), {}, ("Hidden",))
+
+
+def test_text_classification_trains_on_the_card_without_a_cpu_tensor():
+    """Every tensor an op of the stacked-LSTM classifier reads or writes
+    lies on the card, for three Adam steps of one ragged batch fed
+    through ``DataFeeder``; the loss falls."""
+    _need_card()
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.core import registry
+
+    tpt.core.unique_name.reset()
+    main, startup = tpt.Program(), tpt.Program()
+    with tpt.program_guard(main, startup):
+        out = tpt.models.text_classification.build(
+            dict_dim=1000, emb_dim=32, hid_dim=64, max_len=24)
+    exe, scope = tpt.Executor(), tpt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.default_rng(2)
+    rows = [(rng.integers(0, 1000, int(rng.integers(5, 25))).tolist(),
+             [int(rng.integers(0, 2))]) for _ in range(16)]
+    feed = tpt.DataFeeder(out["feed"]).feed(rows)
+    seen = []
+    real_call = registry.OpImpl.call
+
+    def checked_call(self, ins, attrs, ctx, live=None):
+        res = real_call(self, ins, attrs, ctx, live)
+        for v in list(ins.values()) + list((res or {}).values()):
+            for x in (v if isinstance(v, (list, tuple)) else [v]):
+                if isinstance(x, torch.Tensor) and x.device.type != "cuda":
+                    seen.append((self.type, x.device))
+        return res
+
+    registry.OpImpl.call = checked_call
+    try:
+        losses = [float(exe.run(main, feed=feed, scope=scope,
+                                fetch_list=[out["avg_cost"]])[0][0])
+                  for _ in range(3)]
+    finally:
+        registry.OpImpl.call = real_call
+    assert not seen, seen[:5]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses

@@ -121,6 +121,12 @@ TRAINING_MODULES = [
     # the training recipes: clipping, regularizers, schedules
     "paddle_tpu_torch.clip", "paddle_tpu_torch.regularizer",
     "paddle_tpu_torch.learning_rate_decay",
+    # the recurrent path: control flow, sequence and LSTM/GRU ops, nets,
+    # the two recurrent models
+    "paddle_tpu_torch.ops.sequence_ops", "paddle_tpu_torch.ops.rnn_ops",
+    "paddle_tpu_torch.layers.control_flow", "paddle_tpu_torch.nets",
+    "paddle_tpu_torch.models.text_classification",
+    "paddle_tpu_torch.models.seq2seq",
 ]
 
 
@@ -148,6 +154,16 @@ def test_training_import_leaves_jax_out():
              "    pt.models.resnet.build(depth=8, class_dim=3, "
              "image_shape=(3, 8, 8), dtype='float32')\n"
              "exe.run(rstart, scope=pt.Scope())\n"
+             "smain, sstart = pt.Program(), pt.Program()\n"
+             "with pt.program_guard(smain, sstart):\n"
+             "    pt.models.seq2seq.build(src_dict_size=11, trg_dict_size=11, "
+             "word_dim=4, hidden_dim=4, max_len=3)\n"
+             "exe.run(sstart, scope=pt.Scope())\n"
+             "lmain, lstart = pt.Program(), pt.Program()\n"
+             "with pt.program_guard(lmain, lstart):\n"
+             "    pt.models.text_classification.build(dict_dim=11, "
+             "emb_dim=4, hid_dim=4, max_len=3)\n"
+             "exe.run(lstart, scope=pt.Scope())\n"
              "bad = [m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')]\n"
              "assert not bad, bad\nprint('clean')", cwd=ROOT)

@@ -393,14 +393,21 @@ def test_deterministic_mode_takes_the_split_route():
 
 
 def test_product_ops_carry_a_flops_hook():
-    """``step_flops`` sums the registrations' hooks: the matrix products,
-    the flash ops and the fused CE head have one, nothing else."""
+    """``step_flops`` sums the registrations' hooks: the matrix products
+    (``mul``, the recurrent ops' hidden products, ``sequence_conv``'s
+    context product), the flash ops and the fused CE head have one,
+    nothing else; ``scan_block`` says how many times a step runs its
+    sub-block."""
     from paddle_tpu_torch.core import registry
 
     hooked = {t for t in registry.registered_ops()
               if registry.get_op_impl(t).flops is not None}
     assert hooked == {"mul", "flash_attention", "flash_attention_packed",
-                      "fused_softmax_ce_head"}
+                      "fused_softmax_ce_head", "lstm", "lstmp", "gru",
+                      "gru_unit", "sequence_conv"}
+    trips = {t for t in registry.registered_ops()
+             if registry.get_op_impl(t).trips is not None}
+    assert trips == {"scan_block"}
 
 
 def test_resume_on_the_card_warns_without_deterministic_algorithms():
