@@ -11,7 +11,9 @@
 ``sequence_conv``, ``sequence_pool``, ``sequence_first_step`` /
 ``sequence_last_step``, ``sequence_expand``, ``sequence_reshape``,
 ``sequence_softmax``, ``sequence_reverse``, which wire the shadow
-``@LENGTH`` variables as the reference does.  Each layer creates
+``@LENGTH`` variables as the reference does; CTC's ``warpctc``,
+``ctc_greedy_decoder``, ``edit_distance`` and ``row_conv``; the CRF's
+``linear_chain_crf`` and ``crf_decoding``; and ``lrn``.  Each layer creates
 parameters through LayerHelper and appends ops; names, shapes, attrs
 and initializers are the reference's, so both packages build the same
 program and weights carry across by name."""
@@ -56,6 +58,13 @@ __all__ = [
     "sequence_reshape",
     "sequence_softmax",
     "sequence_reverse",
+    "warpctc",
+    "ctc_greedy_decoder",
+    "edit_distance",
+    "row_conv",
+    "linear_chain_crf",
+    "crf_decoding",
+    "lrn",
 ]
 
 
@@ -861,4 +870,175 @@ def sequence_reverse(x, name=None):
             inputs={"X": [sub.name], "Length": [x.length_var().name]},
             outputs={"Out": [sub_rev.name]})
         out.block.vars[out.name + "@SUBLENGTH"] = sub_rev
+    return out
+
+
+def warpctc(input, label, blank=0, norm_by_times=False):
+    helper = LayerHelper("warpctc")
+    loss = helper.create_tmp_variable(input.dtype, [input.shape[0], 1])
+    inputs = {"Logits": [input.name], "Label": [label.name]}
+    il = seq_length(input)
+    ll = seq_length(label)
+    if il is not None:
+        inputs["LogitsLength"] = [il.name]
+    if ll is not None:
+        inputs["LabelLength"] = [ll.name]
+    helper.append_op(
+        type="warpctc",
+        inputs=inputs,
+        outputs={"Loss": [loss.name]},
+        attrs={"blank": blank, "norm_by_times": norm_by_times},
+    )
+    return loss
+
+
+def ctc_greedy_decoder(input, blank):
+    """``input [b, t, V]`` probabilities -> argmax ids -> ``ctc_align``:
+    a sequence whose lengths are the decoded lengths."""
+    helper = LayerHelper("ctc_greedy_decoder")
+    ids = helper.create_tmp_variable("int64", list(input.shape[:2]),
+                                     stop_gradient=True)
+    helper.append_op(
+        type="arg_max", inputs={"X": [input.name]},
+        outputs={"Out": [ids.name]}, attrs={"axis": -1},
+    )
+    out = helper.create_tmp_variable("int64", list(input.shape[:2]),
+                                     lod_level=1, stop_gradient=True)
+    inputs = {"Input": [ids.name]}
+    il = seq_length(input)
+    if il is not None:
+        inputs["Length"] = [il.name]
+    helper.append_op(
+        type="ctc_align",
+        inputs=inputs,
+        outputs={"Output": [out.name],
+                 "OutputLength": [out.length_var().name]},
+        attrs={"blank": blank, "merge_repeated": True},
+    )
+    return out
+
+
+def _erase(helper, x, tokens):
+    """``x`` with ``tokens`` removed (``sequence_erase``), a sequence
+    with its own lengths."""
+    out = helper.create_tmp_variable(x.dtype, list(x.shape), lod_level=1,
+                                     stop_gradient=True)
+    inputs = {"X": [x.name]}
+    ln = seq_length(x)
+    if ln is not None:
+        inputs["Length"] = [ln.name]
+    helper.append_op(
+        type="sequence_erase", inputs=inputs,
+        outputs={"Out": [out.name], "OutLength": [out.length_var().name]},
+        attrs={"tokens": list(tokens)},
+    )
+    return out
+
+
+def edit_distance(input, label, normalized=False, ignored_tokens=None):
+    """Levenshtein distance of each hypothesis row to its reference,
+    ``[b, 1]`` float32, and the row count."""
+    helper = LayerHelper("edit_distance")
+    hyp, ref = input, label
+    if ignored_tokens:
+        hyp = _erase(helper, hyp, ignored_tokens)
+        ref = _erase(helper, ref, ignored_tokens)
+    out = helper.create_tmp_variable("float32", [input.shape[0], 1],
+                                     stop_gradient=True)
+    seq_num = helper.create_tmp_variable("int64", [1], stop_gradient=True)
+    inputs = {"Hyps": [hyp.name], "Refs": [ref.name]}
+    hl, rl = seq_length(hyp), seq_length(ref)
+    if hl is not None:
+        inputs["HypsLength"] = [hl.name]
+    if rl is not None:
+        inputs["RefsLength"] = [rl.name]
+    helper.append_op(
+        type="edit_distance",
+        inputs=inputs,
+        outputs={"Out": [out.name], "SequenceNum": [seq_num.name]},
+        attrs={"normalized": normalized},
+    )
+    return out, seq_num
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None,
+             name=None):
+    helper = LayerHelper("row_conv", act=act, name=name)
+    d = input.shape[-1]
+    w = helper.create_parameter(
+        param_attr, shape=[future_context_size + 1, d], dtype=input.dtype
+    )
+    out = helper.create_tmp_variable(input.dtype, list(input.shape),
+                                     lod_level=input.lod_level)
+    inputs = {"X": [input.name], "Filter": [w.name]}
+    _seq_inputs(inputs, input)
+    helper.append_op(type="row_conv", inputs=inputs,
+                     outputs={"Out": [out.name]})
+    _link_length(out, input)
+    return helper.append_activation(out)
+
+
+def linear_chain_crf(input, label, param_attr=None):
+    """The CRF's negative log-likelihood ``[b, 1]``; creates the
+    ``[num_tags + 2, num_tags]`` transition parameter (start row, end
+    row, transitions)."""
+    helper = LayerHelper("linear_chain_crf")
+    num_tags = input.shape[-1]
+    transition = helper.create_parameter(
+        param_attr, shape=[num_tags + 2, num_tags], dtype="float32",
+        suffix="transition", default_initializer=init_mod.Uniform(-0.1, 0.1),
+    )
+    b = input.shape[0]
+    ll = helper.create_tmp_variable(input.dtype, [b, 1])
+    emission_exps = helper.create_tmp_variable(
+        input.dtype, list(input.shape), stop_gradient=True)
+    transition_exps = helper.create_tmp_variable(
+        "float32", [num_tags + 2, num_tags], stop_gradient=True)
+    alpha = helper.create_tmp_variable(input.dtype, list(input.shape),
+                                       stop_gradient=True)
+    inputs = {"Emission": [input.name], "Transition": [transition.name],
+              "Label": [label.name]}
+    _seq_inputs(inputs, input)
+    helper.append_op(
+        type="linear_chain_crf",
+        inputs=inputs,
+        outputs={
+            "LogLikelihood": [ll.name],
+            "EmissionExps": [emission_exps.name],
+            "TransitionExps": [transition_exps.name],
+            "Alpha": [alpha.name],
+        },
+    )
+    return ll
+
+
+def crf_decoding(input, param_attr=None, label=None):
+    """Viterbi decode with the transition parameter ``linear_chain_crf``
+    created, found by ``param_attr``'s name."""
+    helper = LayerHelper("crf_decoding")
+    attr = ParamAttr.to_attr(param_attr)
+    transition = helper.main_program.global_block().var(attr.name)
+    out = helper.create_tmp_variable("int64", list(input.shape[:2]),
+                                     stop_gradient=True)
+    inputs = {"Emission": [input.name], "Transition": [transition.name]}
+    if label is not None:
+        inputs["Label"] = [label.name]
+    _seq_inputs(inputs, input)
+    helper.append_op(
+        type="crf_decoding", inputs=inputs,
+        outputs={"ViterbiPath": [out.name]}
+    )
+    return out
+
+
+def lrn(input, n=5, k=2.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_tmp_variable(input.dtype, list(input.shape))
+    mid = helper.create_tmp_variable(input.dtype, list(input.shape),
+                                     stop_gradient=True)
+    helper.append_op(
+        type="lrn", inputs={"X": [input.name]},
+        outputs={"Out": [out.name], "MidOut": [mid.name]},
+        attrs={"n": n, "k": k, "alpha": alpha, "beta": beta},
+    )
     return out

@@ -1,9 +1,10 @@
 """Tensor layers (``paddle_tpu/layers/tensor.py``): ``create_parameter``,
-``cast``, ``concat``, ``fill_constant``, ``reshape``."""
+``cast``, ``concat``, ``sums``, ``fill_constant``, ``reshape``."""
 
 from .layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "cast", "concat", "fill_constant", "reshape"]
+__all__ = ["create_parameter", "cast", "concat", "sums", "fill_constant",
+           "reshape"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -36,6 +37,16 @@ def concat(input, axis=0):
         type="concat", inputs={"X": input}, outputs={"Out": [out.name]},
         attrs={"axis": axis},
     )
+    return out
+
+
+def sums(input, out=None):
+    """The elementwise sum of the variables ``input`` (the ``sum`` op)."""
+    helper = LayerHelper("sums")
+    if out is None:
+        out = helper.create_tmp_variable(input[0].dtype, input[0].shape)
+    helper.append_op(type="sum", inputs={"X": input},
+                     outputs={"Out": [out.name]})
     return out
 
 

@@ -14,3 +14,5 @@ from . import attention_ops  # noqa: F401
 from . import metric_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
 from . import rnn_ops  # noqa: F401
+from . import ctc_ops  # noqa: F401
+from . import crf_ops  # noqa: F401

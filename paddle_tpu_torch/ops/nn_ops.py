@@ -1,5 +1,5 @@
 """Neural-net ops (``paddle_tpu/ops/nn_ops.py``): ``layer_norm``,
-``conv2d``, ``pool2d`` and ``batch_norm``.
+``conv2d``, ``pool2d``, ``batch_norm``, ``lrn`` and ``row_conv``.
 
 Layout is NCHW at the op, as in the reference.  The convolutions and the
 pools lower to ATen (cuDNN on the card): the JAX package computes them
@@ -187,3 +187,39 @@ def batch_norm(X, Scale, Bias, Mean, Variance, momentum=0.9, epsilon=1e-5,
                    + (1 - momentum) * var).to(Variance.dtype)
     return {"Y": y, "MeanOut": mean_out, "VarianceOut": var_out,
             "SavedMean": mean.detach(), "SavedVariance": var.detach()}
+
+
+@register_op("lrn")
+def lrn(X, n=5, k=2.0, alpha=1e-4, beta=0.75, **_):
+    """Local response norm across channels (NCHW): ``mid = k + alpha *
+    sum of x**2 over the n channels around c`` (zero-padded by ``n // 2``
+    on each side), ``Out = X / mid**beta``, ``MidOut = mid``.  Not
+    ``F.local_response_norm``, which divides ``alpha`` by ``n``.  The
+    square, the window sum, the scale and the power stay in ``X``'s
+    dtype, in the reference's order."""
+    sq = X * X
+    half = n // 2
+    padded = F.pad(sq, (0, 0, 0, 0, half, half))
+    c = X.shape[1]
+    windows = sum(padded[:, i:i + c] for i in range(n))
+    mid = k + alpha * windows
+    return {"Out": X / torch.pow(mid, beta), "MidOut": mid}
+
+
+@register_op("row_conv")
+def row_conv(X, Filter, Length=None, **_):
+    """DeepSpeech2's lookahead convolution: ``X [b, t, d]`` padded on the
+    right by ``future_context`` frames, ``Out[t] = sum_i X[t + i] *
+    Filter[i]``.  Only the output is masked by ``Length``: a valid frame
+    near a row's end reads the padded frames past it, as in the
+    reference."""
+    ctx_len = Filter.shape[0]
+    t = X.shape[1]
+    xp = F.pad(X, (0, 0, 0, ctx_len - 1))
+    out = sum(xp[:, i:i + t, :] * Filter[i][None, None, :]
+              for i in range(ctx_len))
+    if Length is not None:
+        steps = torch.arange(t, device=X.device)
+        mask = (steps[None, :] < Length[:, None])[..., None]
+        out = torch.where(mask, out, torch.zeros_like(out))
+    return {"Out": out}

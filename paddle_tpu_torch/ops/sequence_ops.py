@@ -8,9 +8,9 @@ an empty MAX row, ``sequence_reverse``'s padding left in place).
 Ported: ``time_mask`` and the flat ops ``sequence_pool`` (SUM, AVERAGE,
 SQRT, MAX, LAST, FIRST), ``sequence_softmax``, ``sequence_expand``,
 ``sequence_conv``, ``sequence_concat``, ``sequence_slice``,
-``sequence_reverse``, ``sequence_erase``, ``sequence_reshape`` and
-``sequence_scale``.  ``edit_distance`` and ``ctc_align`` come with CTC,
-the ``nested_*`` ops with ``nested_rnn`` (``ROADMAP.md`` A9)."""
+``sequence_reverse``, ``sequence_erase``, ``sequence_reshape``,
+``sequence_scale``, and CTC's ``ctc_align`` and ``edit_distance``.  The
+``nested_*`` ops come with ``nested_rnn`` (``ROADMAP.md`` A9)."""
 
 import torch
 
@@ -233,3 +233,59 @@ def sequence_scale(X, Scales, Length=None, **_):
     """Each sequence scaled by its own factor."""
     return {"Out": X * Scales.reshape((-1,) + (1,) * (X.dim() - 1))}
 
+
+@register_op("edit_distance", nondiff=True)
+def edit_distance(Hyps, Refs, HypsLength=None, RefsLength=None,
+                  normalized=False, **_):
+    """Levenshtein distance of each row's hypothesis to its reference
+    (``Hyps``/``Refs`` int ``[b, t]``), float32 ``[b, 1]``.
+
+    One step a hypothesis token, the whole batch and every reference
+    prefix at once: the substitution and deletion candidates come from
+    the previous row, and the insertion chain ``row[j] = min(cand[j],
+    row[j - 1] + 1)`` is ``j + cummin(cand[j] - j)``.  Past a row's
+    hypothesis length the previous row is kept, and ``row[rl]`` is read
+    as the reference's DP reads it."""
+    b, th = Hyps.shape
+    tr = Refs.shape[1]
+    dev = Hyps.device
+    hlen = (HypsLength if HypsLength is not None else
+            torch.full((b,), th, dtype=torch.int32, device=dev))
+    rlen = (RefsLength if RefsLength is not None else
+            torch.full((b,), tr, dtype=torch.int32, device=dev))
+    j = torch.arange(tr + 1, dtype=torch.int32, device=dev)
+    row = j.expand(b, tr + 1)
+    for i in range(th):
+        sub = (Hyps[:, i:i + 1] != Refs).to(torch.int32)
+        cand = torch.cat([row[:, :1] + 1,
+                          torch.minimum(row[:, 1:] + 1, row[:, :-1] + sub)],
+                         dim=1)
+        new = torch.cummin(cand - j, dim=1).values + j
+        row = torch.where((i < hlen)[:, None], new, row)
+    dist = torch.gather(row, 1, rlen.long()[:, None]).to(torch.float32)
+    if normalized:
+        dist = dist / torch.clamp_min(rlen.to(torch.float32), 1.0)[:, None]
+    return {"Out": dist,
+            "SequenceNum": torch.full((1,), b, dtype=torch.int32,
+                                      device=dev)}
+
+
+@register_op("ctc_align", nondiff=True)
+def ctc_align(Input, Length=None, blank=0, merge_repeated=True, **_):
+    """CTC's greedy alignment of ``Input`` int ``[b, t]`` (argmax ids):
+    repeats collapsed (with ``merge_repeated``), blanks dropped, what is
+    kept moved to the front in order (``_compact``'s sort on keys unique
+    in a row), zeros past the new length."""
+    b, t = Input.shape
+    x = Input
+    if merge_repeated:
+        prev = torch.cat([torch.full((b, 1), -1, dtype=x.dtype,
+                                     device=x.device), x[:, :-1]], dim=1)
+        keep = x != prev
+    else:
+        keep = torch.ones_like(x, dtype=torch.bool)
+    keep = keep & (x != blank)
+    if Length is not None:
+        keep = keep & time_mask(Length, t, torch.bool)
+    out, new_len = _compact(x, keep, t)
+    return {"Output": out, "OutputLength": new_len}

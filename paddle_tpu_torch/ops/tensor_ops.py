@@ -1,6 +1,6 @@
 """Tensor manipulation & fill ops (``paddle_tpu/ops/tensor_ops.py``):
 ``fill_constant``, ``assign``, ``reshape``, ``concat``, ``increment``,
-``lookup_table``, ``top_k``."""
+``lookup_table``, ``top_k``, ``arg_max``."""
 
 import torch
 
@@ -73,3 +73,11 @@ def top_k(X, k=1, **_):
     comes first (a bf16 softmax over many classes has many ties)."""
     vals, idx = torch.sort(X, dim=-1, descending=True, stable=True)
     return {"Out": vals[..., :k], "Indices": idx[..., :k].to(torch.int32)}
+
+
+@register_op("arg_max", nondiff=True)
+def arg_max(X, axis=-1, **_):
+    """The index of the largest entry along ``axis``, int32 whatever the
+    layer declares (the reference's op); ties go to the first index, as
+    ``jnp.argmax``'s and ``torch.argmax``'s do."""
+    return {"Out": torch.argmax(X, dim=axis).to(torch.int32)}

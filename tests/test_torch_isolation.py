@@ -127,6 +127,13 @@ TRAINING_MODULES = [
     "paddle_tpu_torch.layers.control_flow", "paddle_tpu_torch.nets",
     "paddle_tpu_torch.models.text_classification",
     "paddle_tpu_torch.models.seq2seq",
+    # CTC, the CRF and the image zoo: their ops and the seven models
+    "paddle_tpu_torch.ops.ctc_ops", "paddle_tpu_torch.ops.crf_ops",
+    "paddle_tpu_torch.models.deep_speech2",
+    "paddle_tpu_torch.models.label_semantic_roles",
+    "paddle_tpu_torch.models.lenet", "paddle_tpu_torch.models.smallnet",
+    "paddle_tpu_torch.models.alexnet", "paddle_tpu_torch.models.googlenet",
+    "paddle_tpu_torch.models.vgg",
 ]
 
 
@@ -164,6 +171,22 @@ def test_training_import_leaves_jax_out():
              "    pt.models.text_classification.build(dict_dim=11, "
              "emb_dim=4, hid_dim=4, max_len=3)\n"
              "exe.run(lstart, scope=pt.Scope())\n"
+             "dmain, dstart = pt.Program(), pt.Program()\n"
+             "with pt.program_guard(dmain, dstart):\n"
+             "    pt.models.deep_speech2.build(feat_dim=4, max_audio_len=3, "
+             "max_label_len=2, rnn_size=4, num_rnn_layers=1, vocab_size=3)\n"
+             "exe.run(dstart, scope=pt.Scope())\n"
+             "cmain, cstart = pt.Program(), pt.Program()\n"
+             "with pt.program_guard(cmain, cstart):\n"
+             "    pt.models.label_semantic_roles.build(word_dict_len=11, "
+             "label_dict_len=3, pred_dict_len=5, max_len=3, word_dim=4, "
+             "hidden_dim=4, depth=2)\n"
+             "exe.run(cstart, scope=pt.Scope())\n"
+             "amain, astart = pt.Program(), pt.Program()\n"
+             "with pt.program_guard(amain, astart):\n"
+             "    pt.models.alexnet.build(class_dim=3, image_shape=(3, 67, 67), "
+             "dtype='float32')\n"
+             "exe.run(astart, scope=pt.Scope())\n"
              "bad = [m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')]\n"
              "assert not bad, bad\nprint('clean')", cwd=ROOT)
