@@ -157,7 +157,11 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    on the sm90 family by the family counters, all counts zeroed just
    before the steps); prints
    step wall, tokens/s and peak memory, then where one more step's
-   device time goes (``torch.profiler`` by kernel family, which must
+   device time goes (``torch.profiler``'s CUDA activity over three
+   steps, the middle one counted, by kernel family: it must show as
+   many device events as the steps before and after it, and its
+   hand-written kernels must be the launches the counters count in it,
+   or the profile lost events and the phase fails saying so; then it must
    list ``flash_fwd_sm90_kernel`` and ``flash_bwd_sm90_fused_kernel`` 12
    times each, ``ce_fwd_sm90_kernel``, ``ce_dx_sm90_kernel`` and
    ``ce_dw_sm90_kernel`` once each and no simple CE kernel; CUDA events
@@ -324,13 +328,37 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    port's CPU path (TF32 off): losses and outputs within 2e-4, gradients
    within 1e-3 of their largest entry (``lrn`` in bf16: 2e-2, 5e-2),
    decodes equal or a near-tie within 1e-5 (printed);
-14. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
+14. the seq2seq beam decode and the book's small models (main paths:
+   ``While`` and its ``while`` op, the tensor arrays, ``beam_search``,
+   ``one_hot`` + ``matmul``'s beam regroup; ``cos_sim``, ``sparse_fc``,
+   ``auc``), each through ``Executor.run`` from a startup state made from
+   ``--seed``, no hand-written kernel launched (no TPU kernel lies on
+   these paths): a. ``seq2seq.build_decode`` at ``benchmarks/run.py``'s
+   ``seq2seq`` row (``:44-45``: b=64 ragged sources of 4-32 tokens,
+   dicts 30,000, word 256, hidden 512, f32) with its own beam 4 and
+   ``max_out_len`` 16: the decode wall (device-synced), sentences/s,
+   trips, kernels and host syncs a trip (against a decode whose end_id
+   bias ends it after one trip), the busy share and the peak memory,
+   beside the card's name and power limit; then the card's ids, parents
+   and steps against the port's CPU run of the same program and weights:
+   equal, scores within 2e-4, or at the first trip that differs, in
+   each sample that differs, the k-th and (k+1)-th best totals within
+   1e-5 (a near-tie) and the card's k best within 1e-5 of the CPU's rank
+   by rank (both printed);
+   b. ``fit_a_line``, ``word2vec``, ``recommender``, ``ctr_dnn.build``
+   and ``build_sparse_slots`` at the CPU tests' size, one step card vs
+   CPU (losses and ``auc`` within 2e-4, gradients within 1e-3 of their
+   largest entry), then five steps each at full size on one batch of 256
+   (``build``'s defaults; word2vec at imikolov's 2,000-word dictionary;
+   ``ctr_dnn`` 100,000 x 8 and 1,000,000 x 4 tables): the last loss
+   below the first, step walls, samples/s, peak memory;
+15. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
    launches on its main path (phase 3e, 5, 5b, 7, 8 or 9b), error, times
    and bound; the paged attention, flash forward, fused backward, the
    three CE rows and the sm90 bottleneck add the simple family's time
    (``simple_ms``), and the forward's row its t=16384 entry (``t16384``,
    launches from phase 8);
-15. the last line: ``{"ok": true, "device": {...}}``.
+16. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
 file, it exits non-zero and prints no result.  The weights, the tokens
@@ -2460,12 +2488,12 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
             raise AssertionError(f"parameter {n} is not finite")
     sums = {}
     if profile:
-        sums = profile_training(torch, pt, exe, main, scope, fetch,
-                                make_batch(torch, rng, TRAIN_B, t), steady)
+        sums = profile_step(torch, exe, main, scope, fetch,
+                            make_batch(torch, rng, TRAIN_B, t), steady)
         # the profiled step's kernel list: one launch of each sm90 CE
         # kernel, none of the simple family
         ce_fams = ("CE forward", "CE dx", "CE dW")
-        if sums and fused_head and not (
+        if fused_head and not (
                 all(sums.get(f"{f} (sm90)", (0, 0))[1] == 1 for f in ce_fams)
                 and not any(f"{f} (simple)" in sums for f in ce_fams)):
             raise AssertionError(
@@ -2727,7 +2755,7 @@ def resnet_phase(torch, np, pt, kernels, seed):
             raise AssertionError(f"{n} did not change")
         if not torch.isfinite(new.float()).all():
             raise AssertionError(f"{n} is not finite")
-    profile_training(torch, pt, exe, main, scope, fetch, feeds[0], steady)
+    profile_step(torch, exe, main, scope, fetch, feeds[0], steady)
     del exe, before
     return scope
 
@@ -2819,35 +2847,47 @@ def resnet_inference_phase(torch, pt, bn, kernels, seed, scope):
     return fams["simple"]
 
 
-def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
-    """Where one training step's time goes (measured, not judged): the
-    device's kernel time by kernel family under ``torch.profiler`` (the
-    second of two steps; the first warms the profiler up), then
-    the device time of each forward and optimizer op type by CUDA events
+def profile_step(torch, exe, main, scope, fetch, feed, steady):
+    """Where one step's time goes (measured, not judged): the device's
+    kernel time by kernel family of one step, recorded whole by
+    ``profiler.middle_call_kernels`` (the CUDA activity over three steps
+    with the card idle between them, the middle one counted: a recording
+    can lose the device events at its edges, PERF.md §7), then the
+    device time of each forward and optimizer op type by CUDA events
     around the op implementations (what is left is autograd's backward).
-    Returns ``{family: (ms, calls)}`` of the profiled step ({} when the
-    profiler recorded no device time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    It fails, saying so, when the profile lost events: when the counted
+    step shows fewer device events than the step before or after it
+    (``middle_call_kernels`` raises), or hand-written kernels other than
+    the launches the counters count in it (they are zeroed just before
+    it; each wrapper on these paths launches one kernel a count); and when
+    it recorded no device time.  Returns ``{family: (ms, calls)}`` of the
+    counted step."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.profiler import middle_call_kernels
 
-    # one warm-up step, then the step recorded: events launched just as
-    # the profiler starts can be lost (an H100 run counted 11 of a step's
-    # 12 flash forwards), so none of them is the recorded step's
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
-                    return_numpy=False)
-            torch.cuda.synchronize()
-            prof.step()
-    # device rows only; the schedule's ProfilerStep range spans the whole
-    # step and is no kernel
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0
-            and not e.key.startswith("ProfilerStep")]
+    launched = []
+
+    def run(i):
+        if i == 1:
+            kernels.reset_launches()
+        exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                return_numpy=False)
+        if i == 1:
+            launched.append(sum(kernels.launch_counts().values()))
+
+    agg = {}
+    for _, ns, name in middle_call_kernels(run):
+        us, n = agg.get(name, (0.0, 0))
+        agg[name] = (us + ns / 1e3, n + 1)
+    rows = [(us, n, key) for key, (us, n) in agg.items() if us > 0]
+    if not rows:
+        raise AssertionError("profile: the profiler recorded no device time")
+    own = sum(n for _, n, key in rows if kernels.hand_written(key))
+    if own != launched[0]:
+        raise AssertionError(
+            f"the profiler lost kernel events: the counted step lists "
+            f"{own} hand-written kernels, the launch counters counted "
+            f"{launched[0]} in it ({kernels.launch_counts()})")
     sums = family_sums(rows, steady)
     op_type_times(torch, exe, main, scope, fetch, feed)
     return sums
@@ -2856,59 +2896,56 @@ def profile_training(torch, pt, exe, main, scope, fetch, feed, steady):
 def family_sums(rows, steady):
     """``rows`` of one step's device time ``(us, calls, kernel name)``
     summed by kernel family and logged beside the unprofiled step wall
-    ``steady``: ``{family: (ms, calls)}``, {} for no rows."""
+    ``steady``: ``{family: (ms, calls)}``."""
     sums = {}
-    if not rows:
-        log("profile: the profiler recorded no device time")
-    else:
-        families = (("flash forward (sm90)", ("flash_fwd_sm90_kernel",)),
-                    ("flash forward (simple)", ("flash_fwd_kernel",)),
-                    ("flash backward (fused, sm90)",
-                     ("flash_bwd_sm90_fused_kernel",)),
-                    ("flash backward (fused, simple)", ("flash_bwd_kernel",)),
-                    ("flash backward dq (split, simple)",
-                     ("flash_bwd_dq_kernel",)),
-                    ("flash backward dk/dv (split, simple)",
-                     ("flash_bwd_dkv_kernel",)),
-                    ("flash backward dq (split, sm90)",
-                     ("flash_bwd_sm90_dq_kernel",)),
-                    ("flash backward dk/dv (split, sm90)",
-                     ("flash_bwd_sm90_dkv_kernel",)),
-                    ("flash backward delta pre-pass",
-                     ("flash_bwd_delta_kernel",)),
-                    ("CE forward (sm90)", ("ce_fwd_sm90_kernel",)),
-                    ("CE forward (simple)", ("ce_fwd_kernel",)),
-                    ("CE dx (sm90)", ("ce_dx_sm90_kernel",)),
-                    ("CE dx (simple)", ("ce_dx_kernel",)),
-                    ("CE dW (sm90)", ("ce_dw_sm90_kernel",)),
-                    ("CE dW (simple)", ("ce_dw_kernel",)),
-                    ("paged attention (split)", ("paged_split_kernel",)),
-                    ("paged attention merge", ("paged_merge_kernel",)),
-                    ("paged attention (simple)", ("paged_attention_kernel",)),
-                    ("convolution (cuDNN)", ("conv", "fprop", "dgrad",
-                                             "wgrad", "implicit")),
-                    ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
-                    ("batch norm / reductions", ("reduce", "batch_norm")),
-                    ("pooling", ("pool",)),
-                    ("softmax / log-softmax", ("softmax",)),
-                    ("LayerNorm", ("layer_norm", "LayerNorm")),
-                    ("memcpy / memset", ("Memcpy", "Memset")))
-        total = sum(r[0] for r in rows) / 1e3
-        for us, count, key in rows:
-            fam = next((f for f, pats in families
-                        if any(p_ in key for p_ in pats)),
-                       "elementwise, reductions, other")
-            ms, n = sums.get(fam, (0.0, 0))
-            sums[fam] = (ms + us / 1e3, n + count)
-        log(f"profile: training step wall {steady * 1e3:.1f} ms unprofiled, "
-            f"device kernel time {total:.1f} ms (busy share "
-            f"{total / (steady * 1e3):.3f}), {sum(r[1] for r in rows)} "
-            f"kernels")
-        for fam, (ms, n) in sorted(sums.items(), key=lambda kv: -kv[1][0]):
-            log(f"  {ms:9.3f} ms {100 * ms / total:5.1f}% {n:6d} calls  {fam}")
-        for us, count, key in sorted(rows, reverse=True)[:8]:
-            log(f"    top kernel {us / 1e3:9.3f} ms {count:5d} calls  "
-                f"{key[:80]}")
+    families = (("flash forward (sm90)", ("flash_fwd_sm90_kernel",)),
+                ("flash forward (simple)", ("flash_fwd_kernel",)),
+                ("flash backward (fused, sm90)",
+                 ("flash_bwd_sm90_fused_kernel",)),
+                ("flash backward (fused, simple)", ("flash_bwd_kernel",)),
+                ("flash backward dq (split, simple)",
+                 ("flash_bwd_dq_kernel",)),
+                ("flash backward dk/dv (split, simple)",
+                 ("flash_bwd_dkv_kernel",)),
+                ("flash backward dq (split, sm90)",
+                 ("flash_bwd_sm90_dq_kernel",)),
+                ("flash backward dk/dv (split, sm90)",
+                 ("flash_bwd_sm90_dkv_kernel",)),
+                ("flash backward delta pre-pass",
+                 ("flash_bwd_delta_kernel",)),
+                ("CE forward (sm90)", ("ce_fwd_sm90_kernel",)),
+                ("CE forward (simple)", ("ce_fwd_kernel",)),
+                ("CE dx (sm90)", ("ce_dx_sm90_kernel",)),
+                ("CE dx (simple)", ("ce_dx_kernel",)),
+                ("CE dW (sm90)", ("ce_dw_sm90_kernel",)),
+                ("CE dW (simple)", ("ce_dw_kernel",)),
+                ("paged attention (split)", ("paged_split_kernel",)),
+                ("paged attention merge", ("paged_merge_kernel",)),
+                ("paged attention (simple)", ("paged_attention_kernel",)),
+                ("convolution (cuDNN)", ("conv", "fprop", "dgrad",
+                                         "wgrad", "implicit")),
+                ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+                ("batch norm / reductions", ("reduce", "batch_norm")),
+                ("pooling", ("pool",)),
+                ("softmax / log-softmax", ("softmax",)),
+                ("LayerNorm", ("layer_norm", "LayerNorm")),
+                ("memcpy / memset", ("Memcpy", "Memset")))
+    total = sum(r[0] for r in rows) / 1e3
+    for us, count, key in rows:
+        fam = next((f for f, pats in families
+                    if any(p_ in key for p_ in pats)),
+                   "elementwise, reductions, other")
+        ms, n = sums.get(fam, (0.0, 0))
+        sums[fam] = (ms + us / 1e3, n + count)
+    log(f"profile: step wall {steady * 1e3:.1f} ms unprofiled, "
+        f"device kernel time {total:.1f} ms (busy share "
+        f"{total / (steady * 1e3):.3f}), {sum(r[1] for r in rows)} "
+        f"kernels")
+    for fam, (ms, n) in sorted(sums.items(), key=lambda kv: -kv[1][0]):
+        log(f"  {ms:9.3f} ms {100 * ms / total:5.1f}% {n:6d} calls  {fam}")
+    for us, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"    top kernel {us / 1e3:9.3f} ms {count:5d} calls  "
+            f"{key[:80]}")
     return sums
 
 
@@ -4004,11 +4041,7 @@ def rnn_phase(torch, np, pt, kernels, smi, seed, name, ragged):
         raise AssertionError(f"{what} launched a hand-written kernel: "
                              f"{kernels.launch_counts()}")
     if not ragged:
-        sums = profile_training(torch, pt, exe, main, scope, fetch, feed,
-                                steady)
-        if not sums:
-            raise AssertionError(f"{what}: the profiler recorded no device "
-                                 f"time")
+        sums = profile_step(torch, exe, main, scope, fetch, feed, steady)
         busy_ms = sum(ms for ms, _ in sums.values())
         log(f"{what}: {sum(n for _, n in sums.values())} kernels a step, "
             f"busy share {busy_ms / (steady * 1e3):.3f} ({busy_ms:.1f} ms "
@@ -4201,42 +4234,10 @@ def zoo_log(what, rec, items, unit, smi, flops=True):
         f"max_memory_allocated {rec['peak']} B")
 
 
-def census(torch, exe, main, scope, fetch, feed, steady):
-    """``profile_training`` for steps of ~10^5 launches: the device time
-    by kernel family of one step (the second of two) recorded with the
-    profiler's CUDA activity alone and read from its raw events (the CPU
-    activity and ``key_averages`` took minutes on DeepSpeech2's step),
-    then the device time by op type of one more step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
-                    return_numpy=False)
-            torch.cuda.synchronize()
-            prof.step()
-    agg = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA:
-            continue
-        us, n = agg.get(e.name(), (0.0, 0))
-        agg[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
-    rows = [(us, n, key) for key, (us, n) in agg.items()
-            if us > 0 and not key.startswith("ProfilerStep")]
-    sums = family_sums(rows, steady)
-    op_type_times(torch, exe, main, scope, fetch, feed)
-    return sums
-
-
 def zoo_profile(torch, what, rec):
     """Kernels a step and the busy share of one profiled step."""
-    sums = census(torch, rec["exe"], rec["main"], rec["scope"],
-                  rec["fetch"], rec["feed"], rec["steady"])
-    if not sums:
-        raise AssertionError(f"{what}: the profiler recorded no device time")
+    sums = profile_step(torch, rec["exe"], rec["main"], rec["scope"],
+                        rec["fetch"], rec["feed"], rec["steady"])
     busy_ms = sum(ms for ms, _ in sums.values())
     log(f"{what}: {sum(n for _, n in sums.values())} kernels a step, busy "
         f"share {busy_ms / (rec['steady'] * 1e3):.3f} ({busy_ms:.1f} ms of "
@@ -4696,6 +4697,442 @@ def zoo_check_phase(torch, np, pt, smi, seed):
     zoo_op_check(torch, np, smi, seed)
 
 
+# -- phase 14: the seq2seq beam decode and the book's small models ----------
+
+# 14a: benchmarks/run.py's seq2seq row (:44-45, BASELINE config 3: dicts
+# 30,000, word 256, hidden 512, sources of up to 32 tokens, batch 64),
+# f32, with build_decode's own beam (4) and max_out_len (16)
+DECODE_CFG = dict(src_dict_size=30000, trg_dict_size=30000, word_dim=256,
+                  hidden_dim=512, max_len=32, beam_size=4, max_out_len=16,
+                  end_id=1)
+DECODE_BATCH, DECODE_REPEATS = 64, 3
+# 14b: each model at the CPU tests' size (tests/test_torch_book_models.py)
+# for the card-vs-CPU step, then at full size: build's defaults at the
+# dataset readers' sizes (imikolov's synthetic dictionary of 2,000
+# words, MovieLens-1M's vocabularies, ctr_dnn's 100,000 x 8 and
+# 1,000,000 x 4 tables) and benchmarks/ctr_pserver.py's batch of 256
+BOOK_CHECK = {
+    "fit_a_line": ("fit_a_line", "build", dict(learning_rate=0.05)),
+    "word2vec": ("word2vec", "build", dict(dict_size=50, embed_size=8,
+                                           hidden_size=16,
+                                           learning_rate=0.1)),
+    "recommender": ("recommender", "build",
+                    dict(learning_rate=0.05, max_title_len=4,
+                         max_cat_len=3)),
+    "ctr_dnn": ("ctr_dnn", "build",
+                dict(sparse_feature_dim=100, num_slots=3, embedding_size=4,
+                     dense_dim=5, hidden=(8, 4), learning_rate=0.05)),
+    "ctr_dnn_sparse_slots": ("ctr_dnn", "build_sparse_slots",
+                             dict(sparse_feature_dim=100, num_slots=3,
+                                  embedding_size=4, dense_dim=5,
+                                  hidden=(8, 4), learning_rate=0.05)),
+}
+BOOK_FULL = {
+    "fit_a_line": ("fit_a_line", "build", {}),
+    "word2vec": ("word2vec", "build", dict(dict_size=2000)),
+    "recommender": ("recommender", "build", {}),
+    "ctr_dnn": ("ctr_dnn", "build", dict(sparse_feature_dim=100000,
+                                         num_slots=8, dense_dim=13)),
+    "ctr_dnn_sparse_slots": ("ctr_dnn", "build_sparse_slots",
+                             dict(sparse_feature_dim=1_000_000, num_slots=4,
+                                  dense_dim=13)),
+}
+BOOK_BATCH, BOOK_STEPS, BOOK_BAG = 256, 5, 8
+
+
+def decode_build(pt, seed, **over):
+    pt.core.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = seed
+    with pt.program_guard(main, startup):
+        out = pt.models.seq2seq.build_decode(**dict(DECODE_CFG, **over))
+    return main, startup, out
+
+
+def decode_feed(np, seed, batch, max_len, dict_size):
+    """Ragged sources of 4..max_len ids from ``seed``, padded."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(4, max_len + 1, size=batch)
+    src = np.zeros((batch, max_len), np.int64)
+    for i, n in enumerate(lens):
+        src[i, :n] = rng.integers(2, dict_size, size=n)
+    return {"src_word_id": src, "src_word_id@LENGTH": lens.astype(np.int32)}
+
+
+@contextlib.contextmanager
+def beam_recorder(torch):
+    """``beam_search`` patched to keep, for each call, the k + 1 best
+    candidate totals of every sample (host tensors ``[b, k + 1]``, sorted
+    as the op sorts): a check run's record, never a timed one's."""
+    from paddle_tpu_torch.core.registry import get_op_impl
+    from paddle_tpu_torch.ops.beam_search_ops import beam_totals
+
+    impl = get_op_impl("beam_search")
+    real, calls = impl.fn, []
+
+    def recording(PreIds, PreScores, Scores, end_id=1, **kw):
+        out = real(PreIds=PreIds, PreScores=PreScores, Scores=Scores,
+                   end_id=end_id, **kw)
+        top = torch.sort(beam_totals(PreIds, PreScores, Scores, end_id),
+                         dim=-1, descending=True, stable=True)[0]
+        calls.append(top[:, :Scores.shape[1] + 1].cpu())
+        return out
+
+    impl.fn = recording
+    try:
+        yield calls
+    finally:
+        impl.fn = real
+
+
+def host_syncs(torch, fn):
+    """The synchronizing CUDA calls ``fn`` makes, counted by torch's sync
+    debug mode (a warning each): ``{"file:line": calls}``."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            at = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            sites[at] = sites.get(at, 0) + 1
+    return sites
+
+
+def decode_ties(np, what, card, cpu, card_top, cpu_top, k):
+    """The card's decode against the CPU's: ids, parents and steps equal
+    and the scores within 2e-4 of the largest; or, at the first trip
+    where the ids or parents differ, in every sample that differs there,
+    the CPU's k-th and (k+1)-th best totals within 1e-5 (relative), a
+    near-tie that rounding can flip, and the card's k best totals within
+    1e-5 of the CPU's, rank by rank.  A swap among candidates of equal
+    totals (the k identical beams' ties) fails: both sides order ties
+    alike.  Prints both gaps."""
+    ids_c, par_c, steps_c, sc_c = card
+    ids_p, par_p, steps_p, sc_p = cpu
+    trips = min(int(steps_c[0]), int(steps_p[0]))
+    first = next((s for s in range(trips)
+                  if not (np.array_equal(ids_c[s], ids_p[s])
+                          and np.array_equal(par_c[s], par_p[s]))), None)
+    if first is None:
+        if int(steps_c[0]) != int(steps_p[0]):
+            raise AssertionError(f"{what}: steps {steps_c} vs {steps_p} "
+                                 f"with equal ids")
+        rel = rel_max(np, sc_c, sc_p)
+        log(f"{what}: card vs CPU: ids, parents and steps equal over "
+            f"{trips} trips, scores rel {rel:.2e}")
+        if rel > 2e-4:
+            raise AssertionError(f"{what}: scores rel {rel}")
+        return
+    rows = [r for r in range(ids_c.shape[1])
+            if not (np.array_equal(ids_c[first, r], ids_p[first, r])
+                    and np.array_equal(par_c[first, r], par_p[first, r]))]
+    c = card_top[first][rows].double().numpy()
+    p = cpu_top[first][rows].double().numpy()
+    rank_gap = float((np.abs(c[:, :k] - p[:, :k])
+                      / np.maximum(np.abs(p[:, :k]), 1e-30)).max())
+    kk1 = float((np.abs(p[:, k - 1] - p[:, k])
+                 / np.maximum(np.abs(p[:, k - 1]), 1e-30)).max())
+    log(f"{what}: card vs CPU first differ at trip {first} in {len(rows)} "
+        f"of {ids_c.shape[1]} samples: the CPU's k-th to (k+1)-th gap "
+        f"there {kk1:.2e} at most; their {k} best totals within rel "
+        f"{rank_gap:.2e} rank by rank")
+    if kk1 > 1e-5 or rank_gap > 1e-5:
+        raise AssertionError(f"{what}: the decodes differ at trip {first} "
+                             f"in samples {rows} with no near-tie: k-th to "
+                             f"(k+1)-th gap {kk1}, rank by rank {rank_gap}")
+
+
+def decode_phase(torch, np, pt, kernels, smi, seed):
+    """Phase 14a: ``seq2seq.build_decode`` at run.py's seq2seq row on the
+    card: the decode wall (device-synced), sentences/s, trips, kernels
+    and host syncs a trip (by the difference of a decode of 16 trips and
+    one whose bias for end_id ends it after one), the busy share and the
+    peak memory; then the card's ids, parents and steps against the
+    port's CPU run of the same program with the same weights
+    (``decode_ties``)."""
+    t_phase = time.perf_counter()
+    cfg = DECODE_CFG
+    k = cfg["beam_size"]
+    main, startup, out = decode_build(pt, seed)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    state = {v.name: scope.numpy(v.name).copy()
+             for v in main.persistable_vars()
+             if scope.find_var(v.name) is not None}
+    host_feed = decode_feed(np, seed, DECODE_BATCH, cfg["max_len"],
+                            cfg["src_dict_size"])
+    feed = {n: torch.as_tensor(v, device="cuda")
+            for n, v in host_feed.items()}
+    fetch = [out[n].name for n in ("ids_array", "parents_array", "steps",
+                                   "scores")]
+
+    def decode(sc):
+        return exe.run(main, feed=feed, fetch_list=fetch, scope=sc,
+                       return_numpy=False)
+
+    kernels.reset_launches()
+    decode(scope)                                # the lowering
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(DECODE_REPEATS):
+        t0 = time.perf_counter()
+        res = decode(scope)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    card = [x.cpu().numpy() for x in res]
+    trips = int(card[2][0])
+    flops = exe.last_step_cost["flops"]
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"phase 14a launched a hand-written kernel: "
+                             f"{kernels.launch_counts()}")
+    if not (np.isfinite(card[3]).all() and card[0].shape == (
+            cfg["max_out_len"], DECODE_BATCH, k)):
+        raise AssertionError(f"phase 14a: scores {card[3]}, ids "
+                             f"{card[0].shape}")
+    # the same program, its end_id bias raised so every beam ends on the
+    # first trip: the difference is what the other trips cost
+    early = dict(state)
+    early["decode_out.b"] = state["decode_out.b"].copy()
+    early["decode_out.b"][cfg["end_id"]] += 1e3
+    early_scope = pt.load_numpy_state(pt.Scope(), early)
+    once = [x.cpu().numpy() for x in decode(early_scope)]
+    if int(once[2][0]) != 1 or not (once[0][0] == cfg["end_id"]).all():
+        raise AssertionError(f"phase 14a: the early decode ran "
+                             f"{once[2]} trips")
+    steady = sorted(walls)[len(walls) // 2]
+    once_walls = []
+    for _ in range(DECODE_REPEATS):
+        t0 = time.perf_counter()
+        decode(early_scope)
+        torch.cuda.synchronize()
+        once_walls.append(time.perf_counter() - t0)
+    once_steady = sorted(once_walls)[len(once_walls) // 2]
+    # the first count also holds a one-off sync of torch's own (a call
+    # measured: one in torch/cuda/__init__.py): count the 16-trip decode
+    # again after the one-trip one
+    sites = [host_syncs(torch, lambda: decode(sc))
+             for sc in (scope, early_scope, scope)][1:][::-1]
+    syncs = [sum(s.values()) for s in sites]
+    log("phase 14a host syncs of a decode by site (16 trips | 1 trip): "
+        + "; ".join(f"{at} {sites[0].get(at, 0)} | {sites[1].get(at, 0)}"
+                    for at in sorted(set(sites[0]) | set(sites[1]))))
+    if syncs[0] - syncs[1] != trips - 1:
+        raise AssertionError(f"phase 14a: {syncs} host syncs in decodes of "
+                             f"{trips} and 1 trips: the loop must read only "
+                             f"its condition on the host, once a trip")
+    sums = [profile_step(torch, exe, main, sc, fetch, feed, w)
+            for sc, w in ((scope, steady), (early_scope, once_steady))]
+    n_k = [sum(n for _, n in s.values()) for s in sums]
+    busy_ms = sum(ms for ms, _ in sums[0].values())
+    what = (f"phase 14a seq2seq decode b={DECODE_BATCH} beam {k} "
+            f"max_out_len {cfg['max_out_len']} dicts {cfg['src_dict_size']} "
+            f"hid {cfg['hidden_dim']} f32 ({smi})")
+    log(f"{what}: decode wall (after the lowering) median {steady:.4f} s "
+        f"(of {', '.join(f'{w:.4f}' for w in walls)}) = "
+        f"{DECODE_BATCH / steady:.1f} sentences/s, a one-trip decode "
+        f"{once_steady:.4f} s; {trips} trips; "
+        f"{n_k[0]} kernels a decode, {(n_k[0] - n_k[1]) / (trips - 1):.1f} "
+        f"a trip ({n_k[0] - (trips * (n_k[0] - n_k[1])) / (trips - 1):.0f} "
+        f"outside the loop); {syncs[0]} host syncs a decode, "
+        f"{(syncs[0] - syncs[1]) / (trips - 1):.2f} a trip; busy share "
+        f"{busy_ms / (steady * 1e3):.3f} ({busy_ms:.1f} ms of kernels); "
+        f"{flops / 1e9:.2f} GFLOP by step_flops = "
+        f"{flops / steady / 1e12:.3f} TFLOP/s; max_memory_allocated "
+        f"{peak} B")
+    # the card against the port's CPU run of the same program and weights
+    with beam_recorder(torch) as card_top:
+        decode(scope)
+    cpu_exe = pt.Executor(pt.CPUPlace())
+    t0 = time.perf_counter()
+    with beam_recorder(torch) as cpu_top:
+        cpu = [np.asarray(x) for x in cpu_exe.run(
+            main, feed=host_feed, fetch_list=fetch,
+            scope=pt.load_numpy_state(pt.Scope(), state, device="cpu"))]
+    log(f"phase 14a: the port's CPU decode took "
+        f"{time.perf_counter() - t0:.1f} s")
+    decode_ties(np, what, card, cpu, card_top, cpu_top, k)
+    sent = pt.models.seq2seq.decode_sentences(*card[:3],
+                                              end_id=cfg["end_id"])
+    log(f"phase 14a: sentences {sent.shape}, the first "
+        f"{sent[0, 0].tolist()}; wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def book_build(pt, table, name, seed=None):
+    module, fn, cfg = table[name]
+    pt.core.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    if seed is not None:
+        main.random_seed = startup.random_seed = seed
+    with pt.program_guard(main, startup):
+        out = getattr(getattr(pt.models, module), fn)(**cfg)
+    return main, startup, out
+
+
+def book_feed(np, name, seed, batch, full):
+    """One batch from ``seed``: at the CPU tests' size (``full`` False:
+    their ids, bags and vocabularies) or at full size (the dataset
+    readers' samples, the tables' whole id ranges)."""
+    from paddle_tpu_torch import dataset
+
+    rng = np.random.default_rng(seed)
+
+    def ragged(rows, width):
+        data = np.zeros((len(rows), width), np.int64)
+        for i, r in enumerate(rows):
+            data[i, :len(r)] = r[:width]
+        return data, np.array([min(len(r), width) for r in rows], np.int32)
+
+    if name == "fit_a_line":
+        if full:
+            rows = list(zip(range(batch), dataset.uci_housing.train()()))
+            return {"x": np.stack([r[1][0] for r in rows]),
+                    "y": np.stack([r[1][1] for r in rows])}
+        x = rng.normal(size=(batch, 13)).astype(np.float32)
+        return {"x": x, "y": x @ rng.normal(size=(13, 1)).astype(np.float32)}
+    if name == "word2vec":
+        if full:
+            grams = np.array([g for _, g in zip(range(batch),
+                              dataset.imikolov.train(
+                                  dataset.imikolov.build_dict(), 5)())])
+        else:
+            grams = rng.integers(0, 50, (batch, 5))
+        feed = {f"word_{i}": grams[:, i:i + 1].astype(np.int64)
+                for i in range(4)}
+        feed["next_word"] = grams[:, 4:5].astype(np.int64)
+        return feed
+    if name == "recommender":
+        if full:
+            rows = [r for _, r in zip(range(batch),
+                                      dataset.movielens.train()())]
+            cat, cat_len = ragged([r[5] for r in rows], 8)
+            title, title_len = ragged([r[6] for r in rows], 16)
+            cols = np.array([r[:5] for r in rows], np.int64)
+            score = np.array([[r[7]] for r in rows], np.float32)
+        else:
+            cat, cat_len = ragged([rng.integers(0, 10, rng.integers(2, 4))
+                                   for _ in range(batch)], 3)
+            title, title_len = ragged([rng.integers(0, 50,
+                                                    rng.integers(2, 5))
+                                       for _ in range(batch)], 4)
+            cols = np.stack([rng.integers(0, hi, batch)
+                             for hi in (100, 2, 7, 10, 100)], 1)
+            score = rng.uniform(1, 5, (batch, 1)).astype(np.float32)
+        feed = {n: cols[:, i:i + 1] for i, n in enumerate(
+            ("user_id", "gender_id", "age_id", "job_id", "movie_id"))}
+        feed.update({"category_id": cat, "category_id@LENGTH": cat_len,
+                     "movie_title": title, "movie_title@LENGTH": title_len,
+                     "score": score})
+        return feed
+    cfg = (BOOK_FULL if full else BOOK_CHECK)[name][2]
+    vocab, slots = cfg["sparse_feature_dim"], cfg["num_slots"]
+    feed = {"dense_feature": rng.normal(size=(batch, cfg["dense_dim"])
+                                        ).astype(np.float32),
+        "click": rng.integers(0, 2, (batch, 1)).astype(np.int64)}
+    for i in range(slots):
+        if name == "ctr_dnn":
+            feed[f"slot_{i}"] = rng.integers(0, vocab, (batch, 1))
+            continue
+        # multi-hot bags of 1..BOOK_BAG ids, 0-padded, a duplicate in row 0
+        ids = rng.integers(0, vocab, (batch, BOOK_BAG))
+        vals = rng.uniform(0.5, 2.0, (batch, BOOK_BAG)).astype(np.float32)
+        for r, n in enumerate(rng.integers(1, BOOK_BAG + 1, batch)):
+            ids[r, n:], vals[r, n:] = 0, 0.0
+        ids[0, :2] = ids[0, 0]
+        feed[f"slot_{i}@IDS"], feed[f"slot_{i}@VALS"] = ids, vals
+    return feed
+
+
+def book_check(torch, np, pt, smi, name, seed):
+    """Phase 14b, one model at the CPU tests' size: one step from the
+    port's CPU startup state on the card and on the CPU path: the loss
+    (and ``ctr_dnn``'s ``auc``) within 2e-4, every gradient within 1e-3
+    of its largest entry."""
+    main, startup, out = book_build(pt, BOOK_CHECK, name)
+    cpu_exe, cpu_scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    init = {v.name: cpu_scope.numpy(v.name).copy()
+            for v in main.persistable_vars()
+            if cpu_scope.find_var(v.name) is not None}
+    params = [p.name for p in main.all_parameters()]
+    keys = ["avg_cost"] + (["auc"] if "auc" in out else [])
+    fetch = [out[k].name for k in keys] + [p + "@GRAD" for p in params]
+    feed = book_feed(np, name, seed, 16 if name in ("fit_a_line",
+                                                    "word2vec") else
+                     4 if name == "recommender" else 8, full=False)
+    want = [np.asarray(x) for x in cpu_exe.run(
+        main, feed=feed, fetch_list=fetch,
+        scope=pt.load_numpy_state(pt.Scope(), init, device="cpu"))]
+    got = [np.asarray(x) for x in pt.Executor().run(
+        main, feed=feed, fetch_list=fetch,
+        scope=pt.load_numpy_state(pt.Scope(), init))]
+    outs = {k: rel_max(np, g, w) for k, g, w in zip(keys, got, want)}
+    grads = {p: rel_max(np, g, w) for p, g, w in
+             zip(params, got[len(keys):], want[len(keys):])}
+    worst = max(grads, key=grads.get)
+    log(f"phase 14b {name}: one step card vs CPU ({smi}): "
+        + ", ".join(f"{k} rel {e:.2e}" for k, e in outs.items())
+        + f"; {len(grads)} gradients, worst {worst} rel {grads[worst]:.2e}")
+    if max(outs.values()) > 2e-4 or grads[worst] > 1e-3:
+        raise AssertionError(f"phase 14b {name}: {outs}, {grads}")
+
+
+def book_phase(torch, np, pt, kernels, smi, seed):
+    """Phase 14b: the four book models (``ctr_dnn`` both ways) card vs
+    CPU at the CPU tests' size, then ``BOOK_STEPS`` steps each at full
+    size on one batch: the losses finite and the last below the first,
+    no hand-written kernel launched, the median step wall, samples/s and
+    the peak memory."""
+    t_phase = time.perf_counter()
+    for name in BOOK_CHECK:
+        book_check(torch, np, pt, smi, name, seed)
+    for name in BOOK_FULL:
+        main, startup, out = book_build(pt, BOOK_FULL, name, seed)
+        exe, scope = pt.Executor(), pt.Scope()
+        exe.run(startup, scope=scope)
+        feed = {n: torch.as_tensor(v, device="cuda") for n, v in
+                book_feed(np, name, seed, BOOK_BATCH, full=True).items()}
+        fetch = [out["avg_cost"].name]
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        losses, walls = [], []
+        for _ in range(BOOK_STEPS):
+            t0 = time.perf_counter()
+            loss, = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                            return_numpy=False)
+            losses.append(loss.item())           # ends in a device sync
+            walls.append(time.perf_counter() - t0)
+        steady = sorted(walls[1:])[len(walls[1:]) // 2]
+        tables = sum(scope.get(p.name).numel() * 4
+                     for p in main.all_parameters())
+        what = f"phase 14b {name} b={BOOK_BATCH} full size ({smi})"
+        log(f"{what}: loss " + " -> ".join(f"{x:.4f}" for x in losses)
+            + f"; step wall first {walls[0]:.4f} s, then median "
+            f"{steady:.4f} s = {BOOK_BATCH / steady:.0f} samples/s; "
+            f"{tables} B of parameters; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} B")
+        if not all(np.isfinite(x) for x in losses):
+            raise AssertionError(f"{what}: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{what}: the loss did not fall: {losses}")
+        if any(kernels.launch_counts().values()):
+            raise AssertionError(f"{what} launched a hand-written kernel: "
+                                 f"{kernels.launch_counts()}")
+        del exe, scope, feed
+    log(f"phase 14b wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4816,7 +5253,7 @@ def main():
     fused = training_phase(torch, np, pt, kernels, args.seed,
                            fused_head=True)
     prof = fused["profile"]
-    if prof and not all(prof.get(f, (0, 0))[1] == N_LAYER for f in (
+    if not all(prof.get(f, (0, 0))[1] == N_LAYER for f in (
             "flash forward (sm90)", "flash backward (fused, sm90)")):
         raise AssertionError(f"phase 7's profiled step does not list "
                              f"{N_LAYER} flash_fwd_sm90_kernel and "
@@ -4897,7 +5334,20 @@ def main():
     log(f"phase 13 wall {time.perf_counter() - t0:.1f} s; the script so far "
         f"{time.perf_counter() - t_start:.1f} s")
 
-    # 14. the kernels line, 15. the result
+    # 14. the seq2seq beam decode (while, the tensor arrays, beam_search)
+    #     at run.py's seq2seq row, card vs CPU; 14b. the book's four small
+    #     models card vs CPU, then at full size
+    t0 = time.perf_counter()
+    decode_phase(torch, np, pt, kernels, smi, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    book_phase(torch, np, pt, kernels, smi, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 14 wall {time.perf_counter() - t0:.1f} s; the script so far "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # 15. the kernels line, 16. the result
     row["launches"] = launches["paged_attention"]
     gather_row["launches"] = gathered["launches"]["decode_gather"]
     log(f"paged_attention at the verify shape: kernel {verify_ms[0]:.4f} ms, "

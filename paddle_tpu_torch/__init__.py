@@ -29,11 +29,14 @@ and learning-rate schedules (``learning_rate_decay``), and the memory
 engine's ``offload`` policy; the recurrent path: ``StaticRNN`` /
 ``DynamicRNN`` over the ``scan_block`` op, the LSTM, GRU and sequence
 ops and layers, ``nets``, and the training programs of
-``models.text_classification`` and ``models.seq2seq``.
+``models.text_classification`` and ``models.seq2seq``; CTC, the CRF and
+the image zoo; ``While`` and the tensor arrays with the beam ops, which
+drive ``models.seq2seq.build_decode``; the book's small models and the
+``dataset`` readers they use.
 """
 
 from . import ops as _ops  # noqa: F401  (registers the op lowerings)
-from . import (clip, data_feeder, initializer, io, layers,
+from . import (clip, data_feeder, dataset, initializer, io, layers,
                learning_rate_decay, models, nets, observability, optimizer,
                profiler, reader, regularizer, resilience, trainer)
 from .backward import append_backward
@@ -61,5 +64,5 @@ __all__ = [
     "Trainer", "SGD", "BeginPass", "EndPass", "BeginIteration",
     "EndIteration", "DataFeeder", "MetricsReporter", "io", "reader",
     "profiler", "data_feeder", "observability", "resilience", "trainer",
-    "clip", "regularizer", "learning_rate_decay", "nets",
+    "clip", "regularizer", "learning_rate_decay", "nets", "dataset",
 ]

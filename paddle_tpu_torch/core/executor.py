@@ -94,7 +94,8 @@ CUDA graph (ROADMAP B).
 
 ``last_step_cost`` is the reference's dict for the last ``run`` /
 ``run_steps``: ``compile_seconds`` (the lowering's host time, on the
-cache miss that built it), ``flops`` (:func:`step_flops`),
+cache miss that built it), ``flops`` (:func:`step_flops`, a ``while``
+loop's sub-block counted for the trips it ran),
 ``bytes_accessed`` (None: nothing measures it), ``cache_hit`` and, for
 ``run_steps``, ``steps``.
 """
@@ -148,22 +149,30 @@ def op_reads(program, op):
     return names
 
 
-def step_flops(program, batch=1):
+def step_flops(program, batch=1, trips=None):
     """The FLOPs of one step of ``program``, counted from its static
     shapes with ``batch`` for their -1 dims: the sum of the ``flops``
-    hooks of its ops' registrations (the matrix products of ``mul``, the
-    recurrent ops, the flash ops and the fused CE head), a control-flow
-    op's sub-block counted once for each time the step runs it (its
-    ``trips``).  An op without a hook counts 0, so this is a count of
-    the products, a lower bound of the work."""
+    hooks of its ops' registrations (the matrix products of ``mul`` and
+    ``matmul``, the recurrent ops, the flash ops and the fused CE head),
+    a control-flow op's sub-block counted once for each time the step
+    runs it: its ``trips`` hook (``scan_block``: the time steps), or, for
+    a loop whose count is known only once it has run (``while``), the
+    entry of ``trips`` that the run recorded, ``{id(op): (n, shapes)}``
+    with the shapes its sub-block's values took (a -1 dim inside a loop
+    need not be the batch: the beam decode's are batch x beam); 0
+    without it.  An op without a hook counts 0, so
+    this is a count of the products, a lower bound of the work."""
     gb = program.global_block()
     bw = gb.backward_index
     info = program._backward_info.get(0)
     train = bw is not None and info is not None
     trained = set(info["params"]) if train else set()
+    trips = trips or {}
 
-    def block_flops(block, ops):
+    def block_flops(block, ops, ran=None):
         def shape(name):
+            if ran is not None and name in ran:
+                return list(ran[name])
             return [batch if s == -1 else s
                     for s in block._find_var(name).shape]
 
@@ -182,10 +191,14 @@ def step_flops(program, batch=1):
             if impl.flops is not None:
                 total += impl.flops(op, shape, grad, train)
             sub = op.attrs.get("sub_block")
-            if sub is not None and impl.trips is not None:
+            if sub is None:
+                continue
+            n, ran = trips.get(id(op), (None, None))
+            if n is None and impl.trips is not None:
+                n = impl.trips(op, shape)
+            if n:
                 sub_blk = program.block(sub)
-                total += impl.trips(op, shape) * block_flops(
-                    sub_blk, sub_blk.ops)
+                total += n * block_flops(sub_blk, sub_blk.ops, ran)
         return total
 
     return block_flops(gb, gb.ops[:bw] if train else gb.ops)
@@ -229,14 +242,17 @@ class LoweringCtx:
     control-flow op finds its sub-block).  ``op_type`` is the type of the
     op running now (what a selective-remat policy keys on);
     ``grad_prefix`` whether a control-flow op runs in the differentiated
-    forward (its sub-block then runs the same way)."""
+    forward (its sub-block then runs the same way); ``trips`` where a
+    ``while`` op records the trips it ran and the shapes its sub-block's
+    values took (``{id(op): (n, shapes)}``, for :func:`step_flops`)."""
 
-    def __init__(self, device, gen, program=None):
+    def __init__(self, device, gen, program=None, trips=None):
         self.device = device
         self.gen = gen
         self.program = program
         self.op_type = None
         self.grad_prefix = False
+        self.trips = {} if trips is None else trips
 
 
 def _check_fetches(program, fetch_names):
@@ -834,8 +850,8 @@ class Executor:
         plan = _Plan(program, ops, keep)
         device = self.device
         if bw is None or info is None:
-            def step(state, feeds, gen):
-                ctx = LoweringCtx(device, gen, program)
+            def step(state, feeds, gen, trips=None):
+                ctx = LoweringCtx(device, gen, program, trips)
                 env = dict(state)
                 env.update(feeds)
                 with torch.no_grad():
@@ -851,8 +867,8 @@ class Executor:
         fwd = _Forward(program, plan, aux_names)
         accum = int(getattr(program, "_grad_accum", 1) or 1)
 
-        def step(state, feeds, gen):
-            ctx = LoweringCtx(device, gen, program)
+        def step(state, feeds, gen, trips=None):
+            ctx = LoweringCtx(device, gen, program, trips)
             env = dict(state)
             env.update(feeds)
             param_names = [n for n in info["params"] if n in env]
@@ -912,16 +928,23 @@ class Executor:
         entry = self._cache[key] = (step, cost, {})
         return entry, False
 
-    def _cost(self, program, entry, cache_hit, feeds, steps=None):
+    def _cost(self, program, entry, cache_hit, feeds, steps=None,
+              trips=None):
         """The ``last_step_cost`` of a run: the entry's cost with the
-        flops of this batch (memoized per batch) and the hit flag."""
+        flops of this batch (memoized per batch; a ``while`` loop's
+        sub-block added for the ``trips`` the run recorded, over all its
+        steps) and the hit flag."""
         _, cost, flops_by_batch = entry
         batch = _feed_batch(program.global_block(), feeds)
         if batch not in flops_by_batch:
             flops_by_batch[batch] = step_flops(program, batch)
-        out = dict(cost, flops=flops_by_batch[batch], cache_hit=cache_hit)
+        static = flops_by_batch[batch]
+        flops = static * (1 if steps is None else steps)
+        if trips:
+            flops += step_flops(program, batch, trips) - static
+        out = dict(cost, flops=flops, cache_hit=cache_hit)
         if steps is not None:
-            out.update(flops=out["flops"] * steps, steps=steps)
+            out["steps"] = steps
         return out
 
     def _generator(self, scope):
@@ -931,12 +954,13 @@ class Executor:
         return gen
 
     @staticmethod
-    def _run_lowered(step, scope, state, feeds, gen):
+    def _run_lowered(step, scope, state, feeds, gen, trips=None):
         """Run one lowered step and write what it leaves — the new state,
         the generator's state, the gradient norm — back to ``scope``;
         the fetches.  ``run`` and every step of ``run_steps`` go through
-        here, so both thread the state alike."""
-        new_state, fetches, grad_norm = step(state, feeds, gen)
+        here, so both thread the state alike.  A ``while`` loop adds its
+        trips to ``trips``."""
+        new_state, fetches, grad_norm = step(state, feeds, gen, trips)
         scope.update(new_state)
         scope.set(RNG_VAR, gen.get_state())
         if grad_norm is not None:
@@ -948,9 +972,11 @@ class Executor:
         program, scope, feeds, fetch_names, state_names, state = (
             self._prepare(program, feed, fetch_list, scope))
         entry, cache_hit = self._entry(program, fetch_names, state_names)
-        self.last_step_cost = self._cost(program, entry, cache_hit, feeds)
+        trips = {}
         fetches = self._run_lowered(entry[0], scope, state, feeds,
-                                    self._generator(scope))
+                                    self._generator(scope), trips)
+        self.last_step_cost = self._cost(program, entry, cache_hit, feeds,
+                                         trips=trips)
         if return_numpy:
             return [tensor_to_numpy(f) for f in fetches]
         return fetches
@@ -990,14 +1016,15 @@ class Executor:
         entry, cache_hit = self._entry(program, fetch_names, state_names)
         step_feeds = [{n: v[i] for n, v in feeds.items()}
                       for i in range(steps)]
+        gen = self._generator(scope)
+        outs, trips = [], {}
+        for fs in step_feeds:
+            outs.append(self._run_lowered(entry[0], scope, state, fs, gen,
+                                          trips))
+            state = {n: scope.get(n) for n in state_names}
         self.last_step_cost = self._cost(
             program, entry, cache_hit,
-            step_feeds[0] if step_feeds else {}, steps)
-        gen = self._generator(scope)
-        outs = []
-        for fs in step_feeds:
-            outs.append(self._run_lowered(entry[0], scope, state, fs, gen))
-            state = {n: scope.get(n) for n in state_names}
+            step_feeds[0] if step_feeds else {}, steps, trips)
         fetches = [torch.stack(col) for col in zip(*outs)] if outs else []
         if return_numpy:
             return [tensor_to_numpy(f) for f in fetches]

@@ -5,6 +5,8 @@ CPU tensors and launch the kernel for CUDA tensors, and count their
 launches (``<wrapper>.launches``) and, where a static rule picks among
 kernel families, the calls of each family (``FAMILIES``)."""
 
+import re
+
 from . import _build
 from . import bottleneck as _bn
 from . import decode_gather as _dg
@@ -24,6 +26,28 @@ WRAPPERS = {"paged_attention": _pa.paged_attention,
             "fused_ce_dx": _ce.ce_dx,
             "fused_ce_dw": _ce.ce_dw,
             "bottleneck": _bn.bottleneck}
+
+
+# the ``__global__`` functions of ``csrc/``, as a profiler names them (a
+# kernel's trace name holds its function name as a word)
+KERNEL_NAMES = (
+    "paged_attention_kernel", "paged_split_kernel", "paged_merge_kernel",
+    "decode_gather_kernel",
+    "flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_bwd_kernel",
+    "flash_bwd_sm90_fused_kernel", "flash_bwd_delta_kernel",
+    "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+    "flash_bwd_sm90_dq_kernel", "flash_bwd_sm90_dkv_kernel",
+    "ce_fwd_kernel", "ce_fwd_sm90_kernel", "ce_dx_kernel",
+    "ce_dx_sm90_kernel", "ce_dw_kernel", "ce_dw_sm90_kernel",
+    "bottleneck_kernel", "bottleneck_sm90_kernel")
+_KERNEL_RE = re.compile(r"\b(" + "|".join(KERNEL_NAMES) + r")\b")
+
+
+def hand_written(trace_name):
+    """The ``csrc/`` kernel a profiler's kernel name is, or None (a
+    library's kernel)."""
+    m = _KERNEL_RE.search(trace_name)
+    return m.group(1) if m else None
 
 
 # name -> {family: calls} of the wrappers whose kernels come in families
@@ -67,5 +91,5 @@ def build_all():
     _bn.build()
 
 
-__all__ = ["WRAPPERS", "FAMILIES", "reset_launches", "launch_counts",
-           "family_counts", "build_all"]
+__all__ = ["WRAPPERS", "FAMILIES", "KERNEL_NAMES", "hand_written",
+           "reset_launches", "launch_counts", "family_counts", "build_all"]

@@ -4,16 +4,20 @@
 op that runs it once a time step (``ops/control_flow_ops.py``);
 ``DynamicRNN`` is the same construct, as in the reference, with the
 padded steps of each sample frozen by ``set_sequence_length``.
-``While``, ``ParallelDo``, the tensor arrays and ``max_sequence_len``
-come with the seq2seq beam decode (``ROADMAP.md`` A9) and raise,
+``While`` records a sub-block and a ``while`` op that runs it while its
+condition holds; the tensor arrays are preallocated ``[max_len, ...]``
+tensors that ``array_write`` writes a row of.  ``ParallelDo`` (scatter
+over devices) is multi-GPU work (``ROADMAP.md`` A7) and raises,
 naming it.
 """
 
 import contextlib
 
 from ..core import unique_name
-from .layer_helper import LayerHelper
+from . import tensor as tensor_layers
+from .layer_helper import LayerHelper, seq_length
 from .ops import less_than  # noqa: F401  (re-exported, as the reference)
+from .tensor import increment  # noqa: F401  (re-exported, as the reference)
 
 __all__ = [
     "While",
@@ -23,42 +27,106 @@ __all__ = [
     "array_read",
     "array_length",
     "create_array",
+    "increment",
     "less_than",
     "max_sequence_len",
     "ParallelDo",
 ]
 
-_LATER = ("{} comes with the seq2seq beam decode (while, conditional_block, "
-          "the tensor arrays, beam_search; ROADMAP.md A9), not ported yet")
+
+def create_array(dtype, max_len, shape):
+    """A tensor array: a ``[max_len] + shape`` tensor of zeros (the
+    reference's LoDTensorArray with a static capacity)."""
+    return tensor_layers.fill_constant([max_len] + list(shape), dtype, 0.0)
 
 
-def _not_ported(what):
-    def f(*_args, **_kwargs):
-        raise NotImplementedError(_LATER.format(what))
+def array_write(x, i, array):
+    """Row ``i`` (a one-element int variable) of ``array`` set to ``x``;
+    returns ``array``."""
+    helper = LayerHelper("array_write")
+    helper.append_op(
+        type="array_write",
+        inputs={"X": [x.name], "I": [i.name], "Array": [array.name]},
+        outputs={"Out": [array.name]},
+    )
+    return array
 
-    f.__name__ = what
-    return f
+
+def array_read(array, i):
+    helper = LayerHelper("array_read")
+    out = helper.create_tmp_variable(array.dtype, list(array.shape[1:]))
+    helper.append_op(
+        type="array_read",
+        inputs={"Array": [array.name], "I": [i.name]},
+        outputs={"Out": [out.name]},
+    )
+    return out
 
 
-create_array = _not_ported("create_array")
-array_write = _not_ported("array_write")
-array_read = _not_ported("array_read")
-array_length = _not_ported("array_length")
-max_sequence_len = _not_ported("max_sequence_len")
+def array_length(array):
+    """The array's capacity ``[1]``."""
+    helper = LayerHelper("array_length")
+    out = helper.create_tmp_variable("int64", [1], stop_gradient=True)
+    helper.append_op(
+        type="array_length", inputs={"Array": [array.name]},
+        outputs={"Out": [out.name]},
+    )
+    return out
+
+
+def max_sequence_len(x):
+    """The longest sequence of a padded batch ``[1]`` (its ``@LENGTH``'s
+    max)."""
+    helper = LayerHelper("max_sequence_len")
+    ln = seq_length(x)
+    out = helper.create_tmp_variable("int32", [1], stop_gradient=True)
+    helper.append_op(
+        type="reduce_max", inputs={"X": [ln.name]},
+        outputs={"Out": [out.name]},
+        attrs={"reduce_all": True, "keep_dim": True},
+    )
+    return out
 
 
 class While:
-    """The reference's ``while`` loop construct; not ported yet."""
+    """The while loop (the reference's ``control_flow.py:583``):
+
+        cond = layers.fill_constant([1], "bool", 1.0)
+        w = While(cond)
+        with w.block():
+            ...                              # ops of one trip
+            layers.assign(new_cond, cond)    # update the condition
+
+    The carried state is the condition and every variable the block
+    writes that existed before it; a trip must keep their shapes."""
 
     def __init__(self, cond, name=None):
-        raise NotImplementedError(_LATER.format("While"))
+        self.helper = LayerHelper("while", name=name)
+        self.cond_var = cond
+
+    @contextlib.contextmanager
+    def block(self):
+        prog = self.helper.main_program
+        parent = prog.current_block()
+        sub = prog.create_block()
+        yield
+        prog.rollback()
+        parent.append_op(
+            type="while",
+            inputs={"Condition": [self.cond_var.name]},
+            outputs={},
+            attrs={"sub_block": sub.idx},
+        )
 
 
 class ParallelDo:
-    """The reference's ``parallel_do`` construct; not ported yet."""
+    """The reference's ``parallel_do`` construct (multi-GPU data
+    parallelism); not ported."""
 
     def __init__(self, places=None, name=None):
-        raise NotImplementedError(_LATER.format("ParallelDo"))
+        raise NotImplementedError(
+            "ParallelDo is multi-GPU data parallelism (ROADMAP.md A7), "
+            "not ported yet")
 
 
 class StaticRNN:

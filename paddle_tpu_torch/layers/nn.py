@@ -13,13 +13,18 @@
 ``sequence_softmax``, ``sequence_reverse``, which wire the shadow
 ``@LENGTH`` variables as the reference does; CTC's ``warpctc``,
 ``ctc_greedy_decoder``, ``edit_distance`` and ``row_conv``; the CRF's
-``linear_chain_crf`` and ``crf_decoding``; and ``lrn``.  Each layer creates
+``linear_chain_crf`` and ``crf_decoding``; ``lrn``; the rest of the
+``reduce_*`` family, ``matmul``, ``cos_sim``, ``square_error_cost``,
+``auc``, and the beam decode's ``beam_search`` and
+``beam_search_decode``.  ``fc`` over a sparse slot
+(``layers.sparse_data``) lowers to ``sparse_fc``.  Each layer creates
 parameters through LayerHelper and appends ops; names, shapes, attrs
 and initializers are the reference's, so both packages build the same
 program and weights carry across by name."""
 
 import numpy as np
 
+from ..core.program import IDS_SUFFIX, VALS_SUFFIX
 from ..param_attr import ParamAttr
 from .. import initializer as init_mod
 from .layer_helper import LayerHelper, seq_length
@@ -42,6 +47,16 @@ __all__ = [
     "multi_head_attention",
     "scale",
     "reduce_sum",
+    "reduce_mean",
+    "reduce_max",
+    "reduce_min",
+    "reduce_prod",
+    "matmul",
+    "cos_sim",
+    "square_error_cost",
+    "auc",
+    "beam_search",
+    "beam_search_decode",
     "conv2d",
     "pool2d",
     "batch_norm",
@@ -106,6 +121,24 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
     mul_results = []
     for i, x in enumerate(inputs):
         suffix = "w" if len(inputs) == 1 else f"w_{i}"
+        if getattr(x, "sparse_slot", False):
+            # a sparse input slot: the weighted gather-sum of O(nnz) rows
+            # over its fed ``@IDS`` / ``@VALS`` (layers.sparse_data)
+            w = helper.create_parameter(
+                param_attr, shape=[x.shape[-1], size], dtype=x.dtype,
+                suffix=suffix,
+            )
+            tmp = helper.create_tmp_variable(
+                x.dtype, list(x.shape[:-1]) + [size], lod_level=x.lod_level)
+            helper.append_op(
+                type="sparse_fc",
+                inputs={"Ids": [x.name + IDS_SUFFIX],
+                        "Vals": [x.name + VALS_SUFFIX], "W": [w.name]},
+                outputs={"Out": [tmp.name]},
+            )
+            _link_length(tmp, x)
+            mul_results.append(tmp)
+            continue
         in_dim = int(np.prod(x.shape[num_flatten_dims:]))
         # one weight per input (duplicable W slot); w_0, w_1... when several
         w = helper.create_parameter(
@@ -563,25 +596,88 @@ def scale(x, scale=1.0, bias=0.0, name=None):
     return _link_length(out, x)
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
-    if dim is None:
-        shape = [1]
-    else:
-        dims = dim if isinstance(dim, (list, tuple)) else [dim]
-        dims = [d % len(input.shape) for d in dims]
-        shape = [
-            (1 if i in dims and keep_dim else s)
-            for i, s in enumerate(input.shape)
-            if keep_dim or i not in dims
-        ] or [1]
-    out = helper.create_tmp_variable(input.dtype, shape)
-    attrs = {"keep_dim": keep_dim, "reduce_all": dim is None}
-    if dim is not None:
-        attrs["dim"] = dim
+def _reduce_layer(op_type):
+    def f(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        if dim is None:
+            shape = [1]
+        else:
+            dims = dim if isinstance(dim, (list, tuple)) else [dim]
+            dims = [d % len(input.shape) for d in dims]
+            shape = [
+                (1 if i in dims and keep_dim else s)
+                for i, s in enumerate(input.shape)
+                if keep_dim or i not in dims
+            ] or [1]
+        out = helper.create_tmp_variable(input.dtype, shape)
+        attrs = {"keep_dim": keep_dim, "reduce_all": dim is None}
+        if dim is not None:
+            attrs["dim"] = dim
+        helper.append_op(
+            type=op_type, inputs={"X": [input.name]},
+            outputs={"Out": [out.name]}, attrs=attrs,
+        )
+        return out
+
+    f.__name__ = op_type
+    return f
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
+    helper = LayerHelper("matmul", name=name)
+    xs = list(x.shape)
+    ys = list(y.shape)
+    if transpose_x:
+        xs[-1], xs[-2] = xs[-2], xs[-1]
+    if transpose_y:
+        ys[-1], ys[-2] = ys[-2], ys[-1]
+    out = helper.create_tmp_variable(x.dtype, xs[:-1] + ys[-1:])
     helper.append_op(
-        type="reduce_sum", inputs={"X": [input.name]},
-        outputs={"Out": [out.name]}, attrs=attrs,
+        type="matmul",
+        inputs={"X": [x.name], "Y": [y.name]},
+        outputs={"Out": [out.name]},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y},
+    )
+    return out
+
+
+def cos_sim(X, Y):
+    """Row-wise cosine similarity ``[b, 1]``."""
+    helper = LayerHelper("cos_sim")
+    out = helper.create_tmp_variable(X.dtype, [X.shape[0], 1])
+    xnorm = helper.create_tmp_variable(X.dtype, [X.shape[0], 1],
+                                       stop_gradient=True)
+    ynorm = helper.create_tmp_variable(X.dtype, [Y.shape[0], 1],
+                                       stop_gradient=True)
+    helper.append_op(
+        type="cos_sim",
+        inputs={"X": [X.name], "Y": [Y.name]},
+        outputs={"Out": [out.name], "XNorm": [xnorm.name],
+                 "YNorm": [ynorm.name]},
+    )
+    return out
+
+
+def square_error_cost(input, label):
+    """``(input - label) ** 2`` elementwise."""
+    helper = LayerHelper("square_error_cost")
+    minus_out = helper.create_tmp_variable(input.dtype, list(input.shape))
+    helper.append_op(
+        type="elementwise_sub",
+        inputs={"X": [input.name], "Y": [label.name]},
+        outputs={"Out": [minus_out.name]},
+    )
+    out = helper.create_tmp_variable(input.dtype, list(input.shape))
+    helper.append_op(
+        type="square", inputs={"X": [minus_out.name]},
+        outputs={"Out": [out.name]}
     )
     return out
 
@@ -722,6 +818,19 @@ def accuracy(input, label, k=1, correct=None, total=None):
                  "Total": [total.name]},
     )
     return acc_out
+
+
+def auc(input, label, curve="ROC", num_thresholds=200):
+    """The batch's ROC AUC ``[1]`` (``num_thresholds`` buckets)."""
+    helper = LayerHelper("auc")
+    out = helper.create_tmp_variable("float32", [1], stop_gradient=True)
+    helper.append_op(
+        type="auc",
+        inputs={"Out": [input.name], "Label": [label.name]},
+        outputs={"AUC": [out.name]},
+        attrs={"curve": curve, "num_thresholds": num_thresholds},
+    )
+    return out
 
 
 def softmax(x, name=None):
@@ -1042,3 +1151,53 @@ def lrn(input, n=5, k=2.0, alpha=1e-4, beta=0.75, name=None):
         attrs={"n": n, "k": k, "alpha": alpha, "beta": beta},
     )
     return out
+
+
+def beam_search(pre_ids, pre_scores, scores, beam_size, end_id):
+    """One fixed-width beam expansion: ``(ids, scores, parents)`` ``[b,
+    k]`` from the beams ``pre_ids`` / ``pre_scores`` ``[b, k]`` and the
+    step's log-probs ``scores [b, k, V]``."""
+    helper = LayerHelper("beam_search")
+    b, k = pre_ids.shape[0], beam_size
+    sel_ids = helper.create_tmp_variable("int64", [b, k], stop_gradient=True)
+    sel_scores = helper.create_tmp_variable("float32", [b, k],
+                                            stop_gradient=True)
+    parent = helper.create_tmp_variable("int64", [b, k], stop_gradient=True)
+    helper.append_op(
+        type="beam_search",
+        inputs={
+            "PreIds": [pre_ids.name],
+            "PreScores": [pre_scores.name],
+            "Scores": [scores.name],
+        },
+        outputs={
+            "SelectedIds": [sel_ids.name],
+            "SelectedScores": [sel_scores.name],
+            "ParentIdx": [parent.name],
+        },
+        attrs={"beam_size": beam_size, "end_id": end_id},
+    )
+    return sel_ids, sel_scores, parent
+
+
+def beam_search_decode(ids, parent_idx, scores=None, end_id=1, name=None):
+    """Backtrack stacked per-step beams ``[T, b, k]`` into sentences
+    ``[b, k, T]`` (and the final scores ``[b, k]`` given ``scores``)."""
+    helper = LayerHelper("beam_search_decode", name=name)
+    t, b, k = ids.shape[0], ids.shape[1], ids.shape[2]
+    sent = helper.create_tmp_variable("int64", [b, k, t], stop_gradient=True)
+    outputs = {"SentenceIds": [sent.name]}
+    inputs = {"Ids": [ids.name], "ParentIdx": [parent_idx.name]}
+    out_scores = None
+    if scores is not None:
+        inputs["Scores"] = [scores.name]
+        out_scores = helper.create_tmp_variable("float32", [b, k],
+                                                stop_gradient=True)
+        outputs["SentenceScores"] = [out_scores.name]
+    helper.append_op(
+        type="beam_search_decode",
+        inputs=inputs,
+        outputs=outputs,
+        attrs={"end_id": end_id},
+    )
+    return (sent, out_scores) if scores is not None else sent

@@ -1,19 +1,20 @@
-"""Thin op wrappers (``paddle_tpu/layers/ops.py``): the elementwise and
-compare families, ``gelu``, ``relu``, ``tanh`` and ``sigmoid``.  Each
-wrapper creates an output temp var and appends the op."""
+"""Thin op wrappers (``paddle_tpu/layers/ops.py``): the elementwise,
+compare and logical families, ``gelu``, ``relu``, ``tanh``, ``sigmoid``,
+``log`` and ``square``.  Each wrapper creates an output temp var and
+appends the op."""
 
 from .layer_helper import LayerHelper
 
-_UNARY_OPS = ["sigmoid", "relu", "tanh", "gelu"]
+_UNARY_OPS = ["sigmoid", "relu", "tanh", "gelu", "log", "square"]
 
 _BINARY_OPS = [
     "elementwise_add", "elementwise_sub", "elementwise_mul", "elementwise_div",
     "elementwise_max", "elementwise_min", "elementwise_pow",
     "less_than", "less_equal", "greater_than", "greater_equal", "equal",
-    "not_equal",
+    "not_equal", "logical_and", "logical_or", "logical_xor",
 ]
 
-__all__ = list(_UNARY_OPS) + list(_BINARY_OPS)
+__all__ = list(_UNARY_OPS) + list(_BINARY_OPS) + ["logical_not"]
 
 
 def _make_unary(op_type):
@@ -57,3 +58,13 @@ for _op in _UNARY_OPS:
     globals()[_op] = _make_unary(_op)
 for _op in _BINARY_OPS:
     globals()[_op] = _make_binary(_op)
+
+
+def logical_not(x):
+    helper = LayerHelper("logical_not")
+    out = helper.create_tmp_variable("bool", list(x.shape))
+    helper.append_op(
+        type="logical_not", inputs={"X": [x.name]},
+        outputs={"Out": [out.name]}
+    )
+    return out

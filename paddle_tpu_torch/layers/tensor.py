@@ -1,10 +1,13 @@
 """Tensor layers (``paddle_tpu/layers/tensor.py``): ``create_parameter``,
-``cast``, ``concat``, ``sums``, ``fill_constant``, ``reshape``."""
+``cast``, ``concat``, ``sums``, ``assign``, ``fill_constant``,
+``fill_constant_batch_size_like``, ``ones``, ``zeros``, ``reshape``,
+``expand``, ``increment``, ``one_hot``."""
 
 from .layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "cast", "concat", "sums", "fill_constant",
-           "reshape"]
+__all__ = ["create_parameter", "cast", "concat", "sums", "assign",
+           "fill_constant", "fill_constant_batch_size_like", "ones", "zeros",
+           "reshape", "expand", "increment", "one_hot"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -50,6 +53,19 @@ def sums(input, out=None):
     return out
 
 
+def assign(input, output=None):
+    """A copy of ``input``, into ``output`` when given (a loop's carried
+    variable)."""
+    helper = LayerHelper("assign")
+    if output is None:
+        output = helper.create_tmp_variable(input.dtype, input.shape)
+    helper.append_op(
+        type="assign", inputs={"X": [input.name]},
+        outputs={"Out": [output.name]}
+    )
+    return output
+
+
 def fill_constant(shape, dtype="float32", value=0.0, out=None):
     helper = LayerHelper("fill_constant")
     if out is None:
@@ -60,6 +76,35 @@ def fill_constant(shape, dtype="float32", value=0.0, out=None):
         attrs={"shape": list(shape), "dtype": str(dtype), "value": float(value)},
     )
     return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype="float32", value=0.0,
+                                  input_dim_idx=0, output_dim_idx=0):
+    """``fill_constant`` whose dim ``output_dim_idx`` is the run's size of
+    ``input``'s dim ``input_dim_idx``."""
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_tmp_variable(dtype, shape, stop_gradient=True)
+    helper.append_op(
+        type="fill_constant_batch_size_like",
+        inputs={"Input": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={
+            "shape": list(shape),
+            "dtype": str(dtype),
+            "value": float(value),
+            "input_dim_idx": input_dim_idx,
+            "output_dim_idx": output_dim_idx,
+        },
+    )
+    return out
+
+
+def ones(shape, dtype="float32"):
+    return fill_constant(shape, dtype, 1.0)
+
+
+def zeros(shape, dtype="float32"):
+    return fill_constant(shape, dtype, 0.0)
 
 
 def reshape(x, shape):
@@ -73,5 +118,42 @@ def reshape(x, shape):
     helper.append_op(
         type="reshape", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
         attrs={"shape": list(shape)},
+    )
+    return out
+
+
+def expand(x, expand_times):
+    """``x`` tiled ``expand_times[i]`` times along axis i."""
+    helper = LayerHelper("expand")
+    shape = [(s * t if s >= 0 else -1) for s, t in zip(x.shape, expand_times)]
+    out = helper.create_tmp_variable(x.dtype, shape)
+    helper.append_op(
+        type="expand", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
+        attrs={"expand_times": list(expand_times)},
+    )
+    return out
+
+
+def increment(x, value=1.0, in_place=True):
+    """``x + value``, written back to ``x`` by default (a loop counter)."""
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_tmp_variable(x.dtype, x.shape)
+    helper.append_op(
+        type="increment", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
+        attrs={"step": float(value)},
+    )
+    return out
+
+
+def one_hot(input, depth):
+    """f32 one-hot rows of ``depth``; a trailing dim of 1 is squeezed."""
+    helper = LayerHelper("one_hot")
+    shape = list(input.shape)
+    if shape and shape[-1] == 1:
+        shape = shape[:-1]
+    out = helper.create_tmp_variable("float32", shape + [depth])
+    helper.append_op(
+        type="one_hot", inputs={"X": [input.name]},
+        outputs={"Out": [out.name]}, attrs={"depth": depth},
     )
     return out

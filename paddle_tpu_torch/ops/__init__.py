@@ -16,3 +16,4 @@ from . import sequence_ops  # noqa: F401
 from . import rnn_ops  # noqa: F401
 from . import ctc_ops  # noqa: F401
 from . import crf_ops  # noqa: F401
+from . import beam_search_ops  # noqa: F401

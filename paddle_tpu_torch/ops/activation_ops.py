@@ -3,7 +3,8 @@ exact erf form, as the reference registers it, ``relu``, ``tanh`` and
 ``sigmoid`` (the attention and recurrent layers'), ``softmax`` over the
 last axis, and the elementwise functions the learning-rate schedules
 and the clips use: ``sqrt``, ``floor``, ``exp``, ``reciprocal``,
-``pow``."""
+``pow``; ``log`` (the beam decode's log-probabilities) and ``square``
+(``square_error_cost``)."""
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +55,16 @@ def exp(X, **_):
 @register_op("reciprocal")
 def reciprocal(X, **_):
     return {"Out": 1.0 / X}
+
+
+@register_op("log")
+def log(X, **_):
+    return {"Out": torch.log(X)}
+
+
+@register_op("square")
+def square(X, **_):
+    return {"Out": torch.square(X)}
 
 
 @register_op("pow")

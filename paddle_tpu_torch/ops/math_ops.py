@@ -1,15 +1,17 @@
 """GEMM / elementwise / reduction ops (``paddle_tpu/ops/math_ops.py``):
-``mul``, the ``elementwise_*`` family with the axis broadcast rule,
-``reduce_sum``, ``mean``, ``scale``, ``cast``, and what the clips and
-regularizers append: ``sum``, ``sign``, ``clip``, ``clip_by_norm``,
-``squared_l2_norm``, ``error_clip``.  Matrix products are plain
-``torch.matmul`` (bf16 inputs accumulate in f32 inside the library and
-return bf16, as ``preferred_element_type=float32`` + cast does).
+``mul`` and ``matmul``, the ``elementwise_*`` family with the axis
+broadcast rule, the ``reduce_*`` family, ``mean``, ``scale``, ``cast``,
+``cos_sim``, and what the clips and regularizers append: ``sum``,
+``sign``, ``clip``, ``clip_by_norm``, ``squared_l2_norm``,
+``error_clip``.  Matrix products are plain ``torch.matmul`` (bf16
+inputs accumulate in f32 inside the library and return bf16, as
+``preferred_element_type=float32`` + cast does).
 
 The reference keeps its scalar results ``[1]``-shaped, and so does the
 port: PyTorch lets a 0-d tensor's dtype drop out of type promotion (it
 counts as a Python scalar), where JAX promotes it like any array."""
 
+import contextlib
 import math
 
 import numpy as np
@@ -73,6 +75,53 @@ def mul(X, Y, x_num_col_dims=1, y_num_col_dims=1, **_):
     out_shape = tuple(X.shape[:x_num_col_dims]) + tuple(
         Y.shape[y_num_col_dims:])
     return {"Out": out.reshape(out_shape)}
+
+
+def _matmul_flops(op, shape, grad, train):
+    """2·(batch)·m·n·k, and the backward's product for each operand that
+    takes a gradient."""
+    x, y = op.inputs["X"][0], op.inputs["Y"][0]
+    xs, ys = shape(x), shape(y)
+    if op.attrs.get("transpose_X"):
+        xs = xs[:-2] + xs[-2:][::-1]
+    if op.attrs.get("transpose_Y") and len(ys) >= 2:
+        ys = ys[:-2] + ys[-2:][::-1]
+    batch = math.prod(xs[:-2]) if len(xs) > len(ys) else math.prod(ys[:-2])
+    m = xs[-2] if len(xs) >= 2 else 1
+    n = ys[-1] if len(ys) >= 2 else 1
+    one = 2 * batch * m * n * xs[-1]
+    return one * (1 + grad(y) + grad(x))
+
+
+@contextlib.contextmanager
+def _exact_f32(t):
+    """No TF32 for an f32 product on the card: the reference's f32
+    matmul is an f32 product, and a one-hot product (the beam decode's
+    regroup of its carried state) must give the rows back exactly."""
+    if t.dtype != torch.float32 or t.device.type != "cuda":
+        yield
+        return
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+@register_op("matmul", flops=_matmul_flops)
+def matmul(X, Y, transpose_X=False, transpose_Y=False, alpha=1.0, **_):
+    """``jnp.matmul`` with each operand's last two axes swapped when its
+    flag is set, then scaled by ``alpha`` in the output dtype."""
+    x = X.transpose(-1, -2) if transpose_X and X.dim() >= 2 else X
+    y = Y.transpose(-1, -2) if transpose_Y and Y.dim() >= 2 else Y
+    with _exact_f32(x):
+        out = torch.matmul(x, y)
+    if out.dtype != X.dtype:
+        out = out.to(X.dtype)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": out}
 
 
 @register_op("scale")
@@ -150,16 +199,59 @@ def cast(X, out_dtype="float32", **_):
     return {"Out": X.to(torch_dtype(out_dtype))}
 
 
-@register_op("reduce_sum")
-def reduce_sum(X, dim=None, keep_dim=False, reduce_all=False, **_):
-    if reduce_all or dim is None:
-        out = torch.sum(X)
-        return {"Out": out.reshape([1] * X.dim()) if keep_dim else out}
-    axis = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
-    return {"Out": torch.sum(X, dim=axis, keepdim=keep_dim)}
+def _register_reduce(name, fn):
+    """``reduce_<name>`` over ``dim`` (an int or a list), or over every
+    axis with ``reduce_all`` or no ``dim`` (a 0-d result, ``[1] * ndim``
+    with ``keep_dim``), as ``jnp.<name>(X, axis, keepdims)``."""
+
+    @register_op("reduce_" + name)
+    def _op(X, dim=None, keep_dim=False, reduce_all=False, **_):
+        if reduce_all or dim is None:
+            axis = tuple(range(X.dim()))
+        else:
+            axis = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
+        out = fn(X, axis, keep_dim)
+        if name in ("sum", "prod") and not X.is_floating_point():
+            # jnp keeps an int sum in its dtype (a bool one in int32);
+            # torch widens to int64
+            out = out.to(torch.int32 if X.dtype == torch.bool else X.dtype)
+        return {"Out": out}
+
+    _op.__name__ = "reduce_" + name
+    return _op
+
+
+def _prod(X, axis, keepdim):
+    # torch.prod takes one dim at a time
+    for a in sorted((a % max(X.dim(), 1) for a in axis), reverse=True):
+        X = torch.prod(X, dim=a, keepdim=keepdim)
+    return X
+
+
+_register_reduce("sum", lambda X, a, k: torch.sum(X, dim=a, keepdim=k))
+_register_reduce("mean", lambda X, a, k: torch.mean(
+    X if X.is_floating_point() else X.float(), dim=a, keepdim=k))
+_register_reduce("max", lambda X, a, k: torch.amax(X, dim=a, keepdim=k))
+_register_reduce("min", lambda X, a, k: torch.amin(X, dim=a, keepdim=k))
+_register_reduce("prod", _prod)
 
 
 @register_op("mean")
 def mean(X, **_):
     """The mean of every element, shape ``[1]``."""
     return {"Out": torch.mean(X).reshape(1)}
+
+
+@register_op("cos_sim")
+def cos_sim(X, Y, **_):
+    """Row-wise cosine similarity ``[b, 1]`` of ``X`` and ``Y`` ``[b, d]``;
+    a ``Y`` of batch 1 is held against every row of ``X``.  ``XNorm`` and
+    ``YNorm`` are the rows' L2 norms; the denominator is at least
+    1e-12."""
+    if Y.shape[0] == 1 and X.shape[0] != 1:
+        Y = Y.expand(X.shape)
+    xn = torch.sqrt(torch.sum(torch.square(X), dim=1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(Y), dim=1, keepdim=True))
+    out = torch.sum(X * Y, dim=1, keepdim=True) / torch.clamp(xn * yn,
+                                                             min=1e-12)
+    return {"Out": out, "XNorm": xn, "YNorm": yn}

@@ -49,9 +49,10 @@ def sequence_pool(X, Length=None, pooltype="SUM", **_):
     elif pt == "SQRT":
         out = torch.sum(X * m, dim=1) / torch.sqrt(torch.clamp_min(lens, 1.0))
     elif pt == "MAX":
-        # amax shares the gradient among ties, as JAX's max does
-        neg = torch.tensor(-1e38, dtype=X.dtype, device=X.device)
-        out = torch.amax(torch.where(m > 0, X, neg), dim=1)
+        # amax shares the gradient among ties, as JAX's max does; the
+        # fill is a Python scalar (a device scalar made from the host
+        # would cost a synchronizing copy)
+        out = torch.amax(torch.where(m > 0, X, -1e38), dim=1)
     elif pt == "LAST":
         idx = torch.clamp_min(Length - 1, 0).long()
         idx = idx.reshape((b, 1) + _tail(X)).expand((b, 1) + X.shape[2:])
@@ -70,8 +71,7 @@ def sequence_softmax(X, Length=None, **_):
     if Length is None:
         return {"Out": torch.softmax(X, dim=1)}
     m = time_mask(Length, X.shape[1], torch.bool)
-    neg = torch.tensor(-1e38, dtype=X.dtype, device=X.device)
-    sm = torch.softmax(torch.where(m, X, neg), dim=1)
+    sm = torch.softmax(torch.where(m, X, -1e38), dim=1)
     return {"Out": torch.where(m, sm, torch.zeros_like(sm))}
 
 

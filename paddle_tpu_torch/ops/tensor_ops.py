@@ -1,6 +1,7 @@
 """Tensor manipulation & fill ops (``paddle_tpu/ops/tensor_ops.py``):
-``fill_constant``, ``assign``, ``reshape``, ``concat``, ``increment``,
-``lookup_table``, ``top_k``, ``arg_max``."""
+``fill_constant``, ``fill_constant_batch_size_like``, ``assign``,
+``reshape``, ``concat``, ``expand``, ``increment``, ``one_hot``,
+``lookup_table``, ``sparse_fc``, ``top_k``, ``arg_max``."""
 
 import torch
 
@@ -15,6 +16,20 @@ def fill_constant(shape=(), dtype="float32", value=0.0, _ctx=None, **_):
         value = int(value)
     return {"Out": torch.full(tuple(shape), value, dtype=dt,
                               device=_ctx.device)}
+
+
+@register_op("fill_constant_batch_size_like")
+def fill_constant_batch_size_like(Input, shape=(), dtype="float32", value=0.0,
+                                  input_dim_idx=0, output_dim_idx=0, **_):
+    """``fill_constant`` whose dim ``output_dim_idx`` is ``Input``'s dim
+    ``input_dim_idx`` (the run's batch), on ``Input``'s device."""
+    shape = list(shape)
+    shape[output_dim_idx] = Input.shape[input_dim_idx]
+    dt = torch_dtype(dtype)
+    if not dt.is_floating_point and dt != torch.bool:
+        value = int(value)
+    return {"Out": torch.full(tuple(shape), value, dtype=dt,
+                              device=Input.device)}
 
 
 @register_op("assign")
@@ -40,6 +55,12 @@ def concat(X, axis=0, **_):
     return {"Out": torch.cat(xs, dim=axis)}
 
 
+@register_op("expand")
+def expand(X, expand_times=(), **_):
+    """``X`` tiled ``expand_times[i]`` times along axis i (``jnp.tile``)."""
+    return {"Out": X.repeat(tuple(int(t) for t in expand_times))}
+
+
 @register_op("increment")
 def increment(X, step=1.0, **_):
     """``X + step`` in ``X``'s dtype (the step cast first, as the
@@ -62,6 +83,28 @@ def lookup_table(W, Ids, padding_idx=-1, is_sparse=False, **_):
         mask = (ids != padding_idx)[..., None]
         out = torch.where(mask, out, torch.zeros_like(out))
     return {"Out": out}
+
+
+@register_op("one_hot", nondiff=True)
+def one_hot(X, depth=0, **_):
+    """f32 one-hot rows of ``depth`` (``jax.nn.one_hot``): a trailing dim
+    of 1 is squeezed first, and an id outside ``[0, depth)`` gives a row
+    of zeros (``F.one_hot`` would raise)."""
+    ids = X.reshape(X.shape[:-1]) if X.dim() and X.shape[-1] == 1 else X
+    cols = torch.arange(int(depth), device=X.device)
+    return {"Out": (ids.long()[..., None] == cols).to(torch.float32)}
+
+
+@register_op("sparse_fc")
+def sparse_fc(Ids, Vals, W, **_):
+    """The fc over a sparse input slot: ``Out[..., :] = sum_n Vals[..., n]
+    * W[Ids[..., n], :]``, a weighted gather-sum of O(nnz) rows.  Ids are
+    0-padded and Vals 0.0-padded, so padding adds exactly zero, and a
+    duplicate id adds its row twice; the gradient of ``W`` is the
+    scatter-add of the rows' cotangents (autograd's ``index`` backward,
+    which accumulates duplicates)."""
+    rows = W[Ids.long()]                               # [..., n, size]
+    return {"Out": torch.sum(rows * Vals[..., None].to(W.dtype), dim=-2)}
 
 
 @register_op("top_k")

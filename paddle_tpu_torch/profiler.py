@@ -8,7 +8,8 @@ FLAGS_check_nan_inf per-op scan (executor.cc:131).
 
 The equivalents here: (1) ``torch.profiler`` writing a Chrome trace of
 the host and the card (``profiler('dir')``, ``start_trace`` /
-``stop_trace``), (2) named host-side timers for the train loop
+``stop_trace``), and ``middle_call_kernels``, the card's kernels of one
+call recorded whole; (2) named host-side timers for the train loop
 (``timer`` / ``print_profiler``), and (3) ``nan_guard``, a check that
 raises on a non-finite loss or gradient norm.
 
@@ -118,6 +119,62 @@ def stop_trace(capture):
     path = os.path.join(capture.log_dir, f"{prefix}{n}.json")
     capture.prof.export_chrome_trace(path)
     return path
+
+
+# The card's idle time between the calls ``middle_call_kernels`` records:
+# long beside any one kernel, so the recording's two widest gaps are these
+# pauses, and short beside a step.
+_PAUSE_S = 0.1
+
+
+def middle_call_kernels(run):
+    """The card's kernels of one call of ``run`` as ``[(start_ns,
+    duration_ns, name)]`` in time order, recorded by ``torch.profiler``'s
+    CUDA activity.
+
+    A recording can lose the device events at its edges: on an H100 a
+    recorded training step of 5,331 kernels lost its first events in
+    about one recording in ten and at times its last ones too, under the
+    CPU and CUDA activities and the CUDA one alone alike
+    (``benchmarks/profiler_loss.py``).  So this records three calls,
+    ``run(0)``, ``run(1)``, ``run(2)``, which must launch the same
+    kernels, the card idle for ``_PAUSE_S`` between them, and returns the
+    middle one's events: those between the two widest gaps of the
+    recording.  It raises when the recording holds no device events,
+    when either gap is under half the pause, and when the middle call
+    shows fewer events than the first or the third: a loss at the edges
+    shortens only those, so a short middle call lost events of its own."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            run(i)
+            torch.cuda.synchronize()
+            if i < 2:
+                time.sleep(_PAUSE_S)
+    events = sorted((e.start_ns(), e.duration_ns(), e.name())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA)
+    if len(events) < 3:
+        raise RuntimeError(f"middle_call_kernels: the recording holds "
+                           f"{len(events)} device events")
+    gaps = sorted(range(1, len(events)), key=lambda i: events[i][0] - (
+        events[i - 1][0] + events[i - 1][1]))[-2:]
+    lo, hi = sorted(gaps)
+    for i in (lo, hi):
+        if events[i][0] - events[i - 1][0] - events[i - 1][1] < (
+                _PAUSE_S / 2e-9):
+            raise RuntimeError("middle_call_kernels: the recording shows no "
+                               "pause between the calls")
+    first, third = lo, len(events) - hi
+    if hi - lo < max(first, third):
+        raise RuntimeError(
+            f"middle_call_kernels: the profiler lost device events of the "
+            f"counted call: it shows {hi - lo}, the first call {first}, "
+            f"the third {third}")
+    return events[lo:hi]
 
 
 @contextlib.contextmanager

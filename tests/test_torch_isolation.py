@@ -134,6 +134,14 @@ TRAINING_MODULES = [
     "paddle_tpu_torch.models.lenet", "paddle_tpu_torch.models.smallnet",
     "paddle_tpu_torch.models.alexnet", "paddle_tpu_torch.models.googlenet",
     "paddle_tpu_torch.models.vgg",
+    # the beam decode and the book's small models: the beam ops, the
+    # dataset readers, the four models
+    "paddle_tpu_torch.ops.beam_search_ops", "paddle_tpu_torch.dataset",
+    "paddle_tpu_torch.dataset.common", "paddle_tpu_torch.dataset.movielens",
+    "paddle_tpu_torch.dataset.uci_housing",
+    "paddle_tpu_torch.dataset.imikolov", "paddle_tpu_torch.dataset.wmt14",
+    "paddle_tpu_torch.models.fit_a_line", "paddle_tpu_torch.models.word2vec",
+    "paddle_tpu_torch.models.recommender", "paddle_tpu_torch.models.ctr_dnn",
 ]
 
 
@@ -187,6 +195,16 @@ def test_training_import_leaves_jax_out():
              "    pt.models.alexnet.build(class_dim=3, image_shape=(3, 67, 67), "
              "dtype='float32')\n"
              "exe.run(astart, scope=pt.Scope())\n"
+             "for build, kw in ((pt.models.seq2seq.build_decode, dict("
+             "src_dict_size=11, trg_dict_size=11, word_dim=4, hidden_dim=4, "
+             "max_len=3, beam_size=2, max_out_len=3)), "
+             "(pt.models.recommender.build, dict(max_title_len=3, "
+             "max_cat_len=2)), (pt.models.ctr_dnn.build_sparse_slots, dict("
+             "sparse_feature_dim=50, num_slots=2))):\n"
+             "    m, s = pt.Program(), pt.Program()\n"
+             "    with pt.program_guard(m, s):\n"
+             "        build(**kw)\n"
+             "    exe.run(s, scope=pt.Scope())\n"
              "bad = [m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')]\n"
              "assert not bad, bad\nprint('clean')", cwd=ROOT)
@@ -227,6 +245,25 @@ def test_kernel_wrappers_and_counters_are_registered():
         fn.launches += 3
     kernels.reset_launches()
     assert all(fn.launches == 0 for fn in kernels.WRAPPERS.values())
+
+
+def test_kernel_names_are_the_global_functions_of_the_sources():
+    import re
+
+    from paddle_tpu_torch import kernels
+
+    found = set()
+    for src in (PORT / "csrc").glob("*.cu"):
+        text = re.sub(r"__launch_bounds__\((?:[^()]|\([^()]*\))*\)", "",
+                      src.read_text())
+        found |= set(re.findall(r"__global__\s+void\s+(\w+)", text))
+    assert found == set(kernels.KERNEL_NAMES)
+    assert kernels.hand_written(
+        "void flash_bwd_sm90_fused_kernel<true>(CUtensorMap)") == \
+        "flash_bwd_sm90_fused_kernel"
+    assert kernels.hand_written("flash_bwd_kernel(float const*)") == \
+        "flash_bwd_kernel"
+    assert kernels.hand_written("sm90_xmma_gemm_bf16bf16_bf16f32") is None
 
 
 def test_kernel_sources_and_build_flags():

@@ -177,10 +177,3 @@ def test_the_book_check_through_the_data_feeder(name):
     assert np.isfinite(losses).all(), losses
     assert losses[-1] < losses[0], losses
     assert exe.last_step_cost["flops"] > 0
-
-
-def test_decode_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
-        tpt.models.seq2seq.build_decode()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
-        tpt.models.seq2seq.decode_sentences(None, None, 1)
