@@ -352,13 +352,31 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    (``build``'s defaults; word2vec at imikolov's 2,000-word dictionary;
    ``ctr_dnn`` 100,000 x 8 and 1,000,000 x 4 tables): the last loss
    below the first, step walls, samples/s, peak memory;
-15. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
+15. the SSD detector and the op long tail (a main path: ``prior_box``,
+   ``multibox_loss``, ``detection_output`` and the tensor ops; no TPU
+   kernel lies on it, so no hand-written kernel launches): a.
+   ``ssd.build`` at SSD300's 300x300 input and VOC's 21 classes (27,976
+   priors), batch 32 of ``synthetic_batch``, f32: ten Momentum steps
+   (losses finite and falling), the step's wall, device time, kernels
+   and busy share by a profiled step, the peak memory; the ``is_test``
+   program's detections on the trained weights (``[32, 20, 6]``): the
+   inference wall, a profiled inference, the NMS loop's launches and
+   device time; the host syncs of a step and of an inference by site,
+   none inside the detection ops; each number beside the card's name and
+   power limit; b. ``ssd.build``'s defaults at the reference test's
+   batch 16, one step card vs CPU from one state: the loss within 2e-4,
+   gradients within 1e-3 of their largest entry, the detections' labels
+   equal (or a swap of scores within 1e-5, printed) and their values
+   within 2e-4; c. the slice's 41 op types alone card vs CPU (the
+   detection ops at 15a's shapes, each activation with its kinks):
+   outputs within 2e-4, gradients within 1e-3;
+16. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
    launches on its main path (phase 3e, 5, 5b, 7, 8 or 9b), error, times
    and bound; the paged attention, flash forward, fused backward, the
    three CE rows and the sm90 bottleneck add the simple family's time
    (``simple_ms``), and the forward's row its t=16384 entry (``t16384``,
    launches from phase 8);
-16. the last line: ``{"ok": true, "device": {...}}``.
+17. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
 file, it exits non-zero and prints no result.  The weights, the tokens
@@ -5133,6 +5151,406 @@ def book_phase(torch, np, pt, kernels, smi, seed):
     log(f"phase 14b wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 15: the SSD detector, its ops and the op long tail ---------------
+
+# 15a: SSD300's input and VOC's 21 classes (Liu et al. 2016); the rest
+# the model's own defaults (max_gt 8, Momentum 0.9 at 1e-3, nms_top_k
+# 400): P = 4 x (75^2 + 37^2) = 27,976 priors; batch 32, f32
+SSD_CFG = dict(num_classes=21, image_shape=(3, 300, 300), max_gt=8)
+SSD_BATCH, SSD_STEPS, SSD_REPEATS = 32, 10, 3
+# 15b: build's defaults at the reference test's batch
+# (tests/test_book.py:215-245)
+SSD_CHECK_CFG = dict(num_classes=4, image_shape=(3, 64, 64), max_gt=8)
+SSD_CHECK_BATCH = 16
+
+
+def ssd_build(pt, cfg, seed, is_test=False):
+    pt.core.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = seed
+    with pt.program_guard(main, startup):
+        out = pt.models.ssd.build(is_test=is_test, **cfg)
+    return main, startup, out
+
+
+def ssd_feed(pt, cfg, batch, seed):
+    imgs, gt_box, gt_label = pt.models.ssd.synthetic_batch(
+        batch, cfg["image_shape"], cfg["max_gt"], cfg["num_classes"], seed)
+    return {"img": imgs, "gt_box": gt_box, "gt_label": gt_label}
+
+
+def ssd_phase(torch, np, pt, kernels, smi, seed):
+    """Phase 15a: SSD at 300x300 with 21 classes and batch 32 on the
+    card: ``SSD_STEPS`` Momentum steps (losses finite and falling, no
+    hand-written kernel), the step's wall, kernels and busy share by a
+    profiled step, the peak memory; then the ``is_test`` program's
+    detections on the trained weights: their wall, a profiled inference,
+    and the NMS loop's launches; the host syncs of a step and of an
+    inference by site, none inside the detection ops."""
+    import paddle_tpu_torch.ops.detection_ops as det
+    from paddle_tpu_torch.profiler import middle_call_kernels
+
+    t_phase = time.perf_counter()
+    main, startup, out = ssd_build(pt, SSD_CFG, seed)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = {n: torch.as_tensor(v, device="cuda") for n, v in
+            ssd_feed(pt, SSD_CFG, SSD_BATCH, seed).items()}
+    fetch = [out["avg_cost"].name]
+    n_priors = out["priors"].shape[1]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, walls = [], []
+    for _ in range(SSD_STEPS):
+        t0 = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                        return_numpy=False)
+        losses.append(loss.item())               # ends in a device sync
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    what = (f"phase 15a ssd b={SSD_BATCH} {SSD_CFG['image_shape']} "
+            f"{SSD_CFG['num_classes']} classes, {n_priors} priors, f32 "
+            f"({smi})")
+    if not all(np.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss did not fall: {losses}")
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"{what} launched a hand-written kernel: "
+                             f"{kernels.launch_counts()}")
+    sums = profile_step(torch, exe, main, scope, fetch, feed, steady)
+    busy_ms = sum(ms for ms, _ in sums.values())
+    log(f"{what}: loss " + " -> ".join(f"{x:.4f}" for x in losses)
+        + f"; step wall first {walls[0]:.3f} s, then median "
+        f"{steady * 1e3:.2f} ms = {SSD_BATCH / steady:.1f} images/s; "
+        f"device time {busy_ms:.2f} ms a step in "
+        f"{sum(n for _, n in sums.values())} kernels, busy share "
+        f"{busy_ms / (steady * 1e3):.3f}; max_memory_allocated {peak} B")
+
+    # the inference on the trained weights: the is_test program
+    imain, _, iout = ssd_build(pt, SSD_CFG, seed, is_test=True)
+    ifeed = {"img": feed["img"]}
+    ifetch = [iout["detections"].name]
+
+    def infer():
+        return exe.run(imain, feed=ifeed, fetch_list=ifetch, scope=scope,
+                       return_numpy=False)[0]
+
+    captured = []
+    real_nms = det.nms_keep
+
+    def capturing(over, valid):
+        captured.append((over.clone(), valid.clone()))
+        return real_nms(over, valid)
+
+    det.nms_keep = capturing
+    try:
+        dets = infer()                           # the lowering
+    finally:
+        det.nms_keep = real_nms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iwalls = []
+    for _ in range(SSD_REPEATS):
+        t0 = time.perf_counter()
+        dets = infer()
+        torch.cuda.synchronize()
+        iwalls.append(time.perf_counter() - t0)
+    ipeak = torch.cuda.max_memory_allocated()
+    isteady = sorted(iwalls)[len(iwalls) // 2]
+    dets = dets.cpu().numpy()
+    keep_top_k = iout["detections"].shape[1]
+    if dets.shape != (SSD_BATCH, keep_top_k, 6) or not np.isfinite(
+            dets).all():
+        raise AssertionError(f"phase 15a: detections {dets.shape}")
+    kept = dets[..., 0] >= 0
+    isums = profile_step(torch, exe, imain, scope, ifetch, ifeed, isteady)
+    ibusy = sum(ms for ms, _ in isums.values())
+    over, valid = captured[0]
+    nms = middle_call_kernels(lambda i: real_nms(over, valid))
+    nms_dev = sum(ns for _, ns, _ in nms) / 1e6
+    nms_walls = []
+    for _ in range(SSD_REPEATS):
+        t0 = time.perf_counter()
+        real_nms(over, valid)
+        torch.cuda.synchronize()
+        nms_walls.append(time.perf_counter() - t0)
+    nms_wall = sorted(nms_walls)[len(nms_walls) // 2]
+    log(f"phase 15a inference b={SSD_BATCH} ({smi}): wall median "
+        f"{isteady * 1e3:.2f} ms (of "
+        f"{', '.join(f'{w * 1e3:.2f}' for w in iwalls)}) = "
+        f"{SSD_BATCH / isteady:.1f} images/s; device time {ibusy:.2f} ms "
+        f"in {sum(n for _, n in isums.values())} kernels, busy share "
+        f"{ibusy / (isteady * 1e3):.3f}; max_memory_allocated {ipeak} B; "
+        f"{int(kept.sum())} of {kept.size} slots kept, labels "
+        f"{sorted(set(dets[..., 0][kept].astype(int).tolist()))}")
+    log(f"phase 15a NMS loop over {tuple(over.shape[:-1])} "
+        f"({over.shape[-1]} trips, {smi}): {len(nms)} kernel launches, "
+        f"{len(nms) / over.shape[-1]:.1f} a trip, {nms_dev:.3f} ms of "
+        f"device time, wall median {nms_wall * 1e3:.2f} ms (alone, of "
+        f"{', '.join(f'{w * 1e3:.2f}' for w in nms_walls)}) = "
+        f"{nms_wall / isteady:.3f} of the inference wall; "
+        f"{int(valid.sum())} of {valid.numel()} candidates past the "
+        f"score threshold")
+    del captured, over, valid
+
+    # host syncs of a training step and an inference, by site
+    for label, fn in (("training step", lambda: exe.run(
+            main, feed=feed, fetch_list=fetch, scope=scope,
+            return_numpy=False)), ("inference", infer)):
+        sites = host_syncs(torch, fn)
+        log(f"phase 15a host syncs of a {label} by site: "
+            + ("; ".join(f"{at} {n}" for at, n in sorted(sites.items()))
+               or "none"))
+        inside = {at: n for at, n in sites.items()
+                  if "ops/detection_ops.py" in at}
+        if inside:
+            raise AssertionError(f"phase 15a: host syncs inside the "
+                                 f"detection ops ({label}): {inside}")
+    log(f"phase 15a wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def detections_agree(np, what, got, want):
+    """The card's detections against the CPU's: labels (the empty slots
+    and the order) equal and the scores and boxes within 2e-4 of the
+    largest; where a slot's label differs, the two scores there within
+    1e-5 (a near-tie rounding can flip), the gap printed."""
+    diff = got[..., 0] != want[..., 0]
+    same = ~diff
+    err = (float(np.abs(got[same][:, 1:] - want[same][:, 1:]).max()
+                 / np.abs(want[same][:, 1:]).max()) if same.any() else 0.0)
+    gap = (float(np.abs(got[diff][:, 1] - want[diff][:, 1]).max())
+           if diff.any() else 0.0)
+    log(f"{what}: detections card vs CPU: {int(diff.sum())} of "
+        f"{diff.size} slots differ in label (score gap there {gap:.2e}), "
+        f"the rest rel {err:.2e}")
+    if err > 2e-4 or gap > 1e-5:
+        raise AssertionError(f"{what}: detections differ: rel {err}, "
+                             f"label swaps with a score gap of {gap}")
+
+
+def ssd_check_phase(torch, np, pt, smi, seed):
+    """Phase 15b: SSD at build's defaults and the reference test's batch,
+    one step from the port's CPU startup state on the card and on the
+    CPU path, TF32 off: the loss within 2e-4, every gradient within 1e-3
+    of its largest entry, the detections fetched in the same run
+    agreeing (``detections_agree``)."""
+    main, startup, out = ssd_build(pt, SSD_CHECK_CFG, seed)
+    cpu_exe, cpu_scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    init = {v.name: cpu_scope.numpy(v.name).copy()
+            for v in main.persistable_vars()
+            if cpu_scope.find_var(v.name) is not None}
+    params = [p.name for p in main.all_parameters()]
+    fetch = ([out["avg_cost"].name, out["detections"].name]
+             + [p + "@GRAD" for p in params])
+    feed = ssd_feed(pt, SSD_CHECK_CFG, SSD_CHECK_BATCH, seed)
+    want = [np.asarray(x) for x in cpu_exe.run(
+        main, feed=feed, fetch_list=fetch,
+        scope=pt.load_numpy_state(pt.Scope(), init, device="cpu"))]
+    got = [np.asarray(x) for x in pt.Executor().run(
+        main, feed=feed, fetch_list=fetch,
+        scope=pt.load_numpy_state(pt.Scope(), init))]
+    what = (f"phase 15b ssd b={SSD_CHECK_BATCH} "
+            f"{SSD_CHECK_CFG['image_shape']} ({smi})")
+    loss_err = rel_max(np, got[0], want[0])
+    grads = {p: rel_max(np, g, w) for p, g, w in
+             zip(params, got[2:], want[2:])}
+    worst = max(grads, key=grads.get)
+    log(f"{what}: one step card vs CPU: loss "
+        f"{float(np.ravel(got[0])[0]):.6f} vs "
+        f"{float(np.ravel(want[0])[0]):.6f} (rel {loss_err:.2e}); "
+        f"{len(grads)} gradients, worst {worst} rel {grads[worst]:.2e}")
+    if loss_err > 2e-4 or grads[worst] > 1e-3:
+        raise AssertionError(f"{what}: loss {loss_err}, gradients {grads}")
+    detections_agree(np, what, got[1], want[1])
+
+
+def op_tail_cases(np, rng):
+    """Phase 15c's cases: ``(label, op, float inputs, fixed inputs, attrs,
+    outputs)``; a float input may be a list.  The detection ops at the
+    15a path's shapes, the tensor ops and activations at [256, 1024]
+    or near."""
+    def f(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    def boxes(*lead):
+        xy = rng.uniform(0.0, 0.7, lead + (2,))
+        wh = rng.uniform(0.05, 0.3, lead + (2,))
+        return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+    b, c, p, g = SSD_BATCH, SSD_CFG["num_classes"], 27976, SSD_CFG["max_gt"]
+    prior = boxes(p)
+    pb = np.stack([prior, np.tile(np.float32([0.1, 0.1, 0.2, 0.2]),
+                                  (p, 1))])
+    logits = f(b, p, c)
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    gt_label = rng.integers(1, c, (b, g)).astype(np.int32)
+    gt_label[:, 3:] = -1
+    cases = [
+        ("prior_box 75x75 in 300x300", "prior_box", {},
+         {"Input": np.zeros((1, 1, 75, 75), np.float32),
+          "Image": np.zeros((1, 1, 300, 300), np.float32)},
+         dict(min_sizes=[45.0], max_sizes=[105.0], aspect_ratios=[2.0],
+              flip=True, clip=True), ("Boxes", "Variances")),
+        ("iou_similarity [400] x [400]", "iou_similarity",
+         {"X": boxes(400), "Y": boxes(400)}, {}, {}, ("Out",)),
+        ("bipartite_match [8, 27976]", "bipartite_match", {},
+         {"DistMat": np.round(rng.uniform(-0.2, 1.0, (8, p)), 2).astype(
+             np.float32)}, {}, ("ColToRowMatchIndices", "ColToRowMatchDist")),
+        ("roi_pool [2, 64, 38, 38], 16 ROIs 7x7", "roi_pool",
+         {"X": np.round(f(2, 64, 38, 38), 1)},
+         {"ROIs": np.concatenate([rng.integers(0, 2, (16, 1)),
+                                  boxes(16) * 40], 1).astype(np.float32)},
+         dict(pooled_height=7, pooled_width=7, spatial_scale=0.95),
+         ("Out", "Argmax")),
+        (f"detection_output [{b}, {p}, {c}]", "detection_output", {},
+         {"Loc": f(b, p, 4, scale=0.5), "Conf": (e / e.sum(
+             -1, keepdims=True)).astype(np.float32), "PriorBox": pb},
+         dict(keep_top_k=20, score_threshold=0.05), ("Out",)),
+        (f"multibox_loss [{b}, {p}, {c}]", "multibox_loss",
+         {"Loc": f(b, p, 4, scale=0.5), "Conf": logits},
+         {"PriorBox": pb, "GtBox": boxes(b, g), "GtLabel": gt_label}, {},
+         ("Loss",)),
+    ]
+    x = f(256, 1024, scale=3.0)
+    for name, attrs, kinks in (
+            ("abs", {}, [0.0]), ("brelu", {"t_min": 1.0, "t_max": 5.0},
+                                 [1.0, 5.0]),
+            ("ceil", {}, [1.0]), ("elu", {"alpha": 0.7}, [0.0]),
+            ("hard_shrink", {}, [0.5, -0.5]), ("hard_sigmoid", {},
+                                               [-2.5, 2.5]),
+            ("leaky_relu", {"alpha": 0.1}, [0.0]), ("log_softmax", {}, []),
+            ("logsigmoid", {}, [0.0]), ("relu6", {}, [0.0, 6.0]),
+            ("round", {}, [0.5, 1.5, 2.5]), ("soft_relu", {"threshold": 4.0},
+                                             [4.0, -4.0]),
+            ("softplus", {}, [0.0, 30.0]), ("softshrink", {"lambda": 0.25},
+                                            [0.25, -0.25]),
+            ("softsign", {}, [0.0]), ("stanh", {}, [0.0]),
+            ("swish", {"beta": 1.5}, [0.0]), ("tanh_shrink", {}, [0.0]),
+            ("thresholded_relu", {}, [1.0])):
+        xk = x.copy()
+        xk.reshape(-1)[:len(kinks)] = kinks
+        cases.append((f"{name} [256, 1024]", name, {"X": xk}, {}, attrs,
+                      ("Out",)))
+    cases += [
+        ("prelu [256, 1024]", "prelu", {"X": x, "Alpha": f(1)}, {}, {},
+         ("Out",)),
+        ("fill_zeros_like", "fill_zeros_like", {"X": x}, {}, {}, ("Out",)),
+        ("assign_value [2, 3]", "assign_value", {}, {},
+         dict(shape=[2, 3], dtype="float32",
+              values=[1.5, -2.0, 3.25, 0.0, 7.0, -1.0]), ("Out",)),
+        ("shape", "shape", {}, {"Input": x}, {}, ("Out",)),
+        ("transpose [64, 32, 128]", "transpose", {"X": f(64, 32, 128)}, {},
+         {"axis": [2, 0, 1]}, ("Out",)),
+        ("split [256, 1024] in [100, 524, 400]", "split", {"X": x}, {},
+         {"sections": [100, 524, 400], "axis": 1}, ("Out",)),
+        ("gather 512 of 1024 rows", "gather", {"X": f(1024, 256)},
+         {"Index": rng.integers(0, 1024, 512).astype(np.int32)}, {},
+         ("Out",)),
+        ("scatter, duplicate ids", "scatter",
+         {"X": f(1024, 256), "Updates": f(512, 256)},
+         {"Ids": rng.integers(0, 300, 512).astype(np.int32)}, {},
+         ("Out",)),
+        ("scatter add, duplicate ids", "scatter",
+         {"X": f(1024, 256), "Updates": f(512, 256)},
+         {"Ids": rng.integers(0, 300, 512).astype(np.int32)},
+         {"overwrite": False}, ("Out",)),
+        ("pad [256, 1024]", "pad", {"X": x}, {},
+         {"paddings": [1, 2, 3, 4], "pad_value": 0.5}, ("Out",)),
+        ("crop [256, 1024]", "crop", {"X": x}, {},
+         {"offsets": [3, 5], "shape": [-1, 512]}, ("Out",)),
+        ("multiplex 3 x [256, 1024]", "multiplex",
+         {"X": [x, f(256, 1024), f(256, 1024)]},
+         {"Ids": rng.integers(0, 3, (256, 1)).astype(np.int32)}, {},
+         ("Out",)),
+        ("embedding_grad_rows", "embedding_grad_rows", {"Grad": f(512, 64)},
+         {"Ids": rng.integers(0, 100, (512, 1)).astype(np.int32)},
+         {"table_height": 100}, ("Out",)),
+        ("arg_min [256, 1024]", "arg_min", {}, {"X": np.round(x)},
+         {"axis": 1}, ("Out",)),
+        ("is_empty", "is_empty", {}, {"X": x}, {}, ("Out",)),
+        ("isfinite", "isfinite", {}, {"X": [x, np.float32([1.0, np.inf])]},
+         {}, ("Out",)),
+        ("scale_sub_region [32, 64, 38, 38]", "scale_sub_region",
+         {"X": f(32, 64, 38, 38)},
+         {"Indices": np.tile(np.int32([3, 40, 5, 30, 2, 38]), (32, 1))},
+         {"value": 2.5}, ("Out",)),
+    ]
+    return cases
+
+
+def op_tail_phase(torch, np, smi, seed):
+    """Phase 15c: the 41 op types this slice adds, each alone card
+    against CPU on seeded inputs: float outputs within 2e-4 of the
+    largest (infinities equal), ints and bools equal, the float inputs'
+    gradients under one seeded cotangent within 1e-3."""
+    from paddle_tpu_torch.core.executor import LoweringCtx
+    from paddle_tpu_torch.core.registry import get_op_impl
+
+    t_phase = time.perf_counter()
+    cases = op_tail_cases(np, np.random.default_rng(seed))
+    seen = set()
+    for label, op, floats, fixed, attrs, outs in cases:
+        seen.add(op)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            def put(v, grad):
+                if isinstance(v, list):
+                    return [put(a, grad) for a in v]
+                t = torch.tensor(v, device=dev)
+                return t.requires_grad_() if grad else t
+
+            ts = {k: put(v, True) for k, v in floats.items()}
+            leaves = [t for v in ts.values()
+                      for t in (v if isinstance(v, list) else [v])]
+            impl = get_op_impl(op)
+            extra = ({"_ctx": LoweringCtx(torch.device(dev), None)}
+                     if impl.wants_ctx else {})
+            r = impl.fn(**ts, **{k: put(v, False) for k, v in fixed.items()},
+                        **attrs, **extra)
+            vals = [x for o in outs for x in (
+                r[o] if isinstance(r[o], list) else [r[o]])]
+            grads = []
+            diff = [x for x in vals if x.requires_grad]
+            if diff:
+                gen = torch.Generator().manual_seed(seed)
+                total = sum((x * torch.randn(x.shape, generator=gen).to(
+                    dev)).sum() for x in diff)
+                grads = [torch.zeros_like(t) if g is None else g
+                         for t, g in zip(leaves, torch.autograd.grad(
+                             total, leaves, allow_unused=True))]
+            res[dev] = ([x.detach().cpu().numpy() for x in vals],
+                        [g.cpu().numpy() for g in grads])
+        fwd, grad = 0.0, 0.0
+        for g, w in zip(res["cuda"][0], res["cpu"][0]):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"phase 15c {label}: {g.shape} "
+                                     f"{g.dtype} vs {w.shape} {w.dtype}")
+            if g.dtype.kind != "f":
+                if not np.array_equal(g, w):
+                    raise AssertionError(f"phase 15c {label}: differ")
+                continue
+            fin = np.isfinite(w)
+            if not np.array_equal(g[~fin], w[~fin]):
+                raise AssertionError(f"phase 15c {label}: infinities differ")
+            if fin.any():
+                fwd = max(fwd, rel_max(np, g[fin], w[fin]))
+        for g, w in zip(res["cuda"][1], res["cpu"][1]):
+            grad = max(grad, rel_max(np, g, w))
+        log(f"phase 15c {label} card vs CPU ({smi}): outputs rel "
+            f"{fwd:.2e}, gradients rel {grad:.2e}")
+        if fwd > 2e-4 or grad > 1e-3:
+            raise AssertionError(f"phase 15c {label}: {fwd} / {grad}")
+    log(f"phase 15c: {len(seen)} op types in {len(cases)} cases, "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if len(seen) != 41:
+        raise AssertionError(f"phase 15c covers {len(seen)} op types")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5347,7 +5765,21 @@ def main():
     log(f"phase 14 wall {time.perf_counter() - t0:.1f} s; the script so far "
         f"{time.perf_counter() - t_start:.1f} s")
 
-    # 15. the kernels line, 16. the result
+    # 15. the SSD detector at 300x300, 21 classes, batch 32 (training,
+    #     inference, host syncs); 15b. card vs CPU at build's defaults;
+    #     15c. the slice's 41 op types alone, card vs CPU
+    t0 = time.perf_counter()
+    ssd_phase(torch, np, pt, kernels, smi, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssd_check_phase(torch, np, pt, smi, args.seed)
+    op_tail_phase(torch, np, smi, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 15 wall {time.perf_counter() - t0:.1f} s; the script so far "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # 16. the kernels line, 17. the result
     row["launches"] = launches["paged_attention"]
     gather_row["launches"] = gathered["launches"]["decode_gather"]
     log(f"paged_attention at the verify shape: kernel {verify_ms[0]:.4f} ms, "

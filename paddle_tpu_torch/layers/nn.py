@@ -13,10 +13,10 @@
 ``sequence_softmax``, ``sequence_reverse``, which wire the shadow
 ``@LENGTH`` variables as the reference does; CTC's ``warpctc``,
 ``ctc_greedy_decoder``, ``edit_distance`` and ``row_conv``; the CRF's
-``linear_chain_crf`` and ``crf_decoding``; ``lrn``; the rest of the
-``reduce_*`` family, ``matmul``, ``cos_sim``, ``square_error_cost``,
-``auc``, and the beam decode's ``beam_search`` and
-``beam_search_decode``.  ``fc`` over a sparse slot
+``linear_chain_crf`` and ``crf_decoding``; ``lrn``; ``prelu``; the
+rest of the ``reduce_*`` family, ``matmul``, ``cos_sim``,
+``square_error_cost``, ``auc``, and the beam decode's ``beam_search``
+and ``beam_search_decode``.  ``fc`` over a sparse slot
 (``layers.sparse_data``) lowers to ``sparse_fc``.  Each layer creates
 parameters through LayerHelper and appends ops; names, shapes, attrs
 and initializers are the reference's, so both packages build the same
@@ -80,6 +80,7 @@ __all__ = [
     "linear_chain_crf",
     "crf_decoding",
     "lrn",
+    "prelu",
 ]
 
 
@@ -1149,6 +1150,22 @@ def lrn(input, n=5, k=2.0, alpha=1e-4, beta=0.75, name=None):
         type="lrn", inputs={"X": [input.name]},
         outputs={"Out": [out.name], "MidOut": [mid.name]},
         attrs={"n": n, "k": k, "alpha": alpha, "beta": beta},
+    )
+    return out
+
+
+def prelu(x, param_attr=None, name=None):
+    """Parametric ReLU with a learnable scalar alpha (initialized to
+    0.25)."""
+    helper = LayerHelper("prelu", name=name)
+    alpha = helper.create_parameter(
+        param_attr, shape=[1], dtype=x.dtype, suffix="alpha",
+        default_initializer=init_mod.Constant(0.25),
+    )
+    out = helper.create_tmp_variable(x.dtype, list(x.shape))
+    helper.append_op(
+        type="prelu", inputs={"X": [x.name], "Alpha": [alpha.name]},
+        outputs={"Out": [out.name]},
     )
     return out
 

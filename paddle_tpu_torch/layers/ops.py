@@ -1,11 +1,18 @@
-"""Thin op wrappers (``paddle_tpu/layers/ops.py``): the elementwise,
-compare and logical families, ``gelu``, ``relu``, ``tanh``, ``sigmoid``,
-``log`` and ``square``.  Each wrapper creates an output temp var and
+"""Thin op wrappers (``paddle_tpu/layers/ops.py``): the reference's
+unary list (the activations, ``sign``, ``assign_value``) with ``gelu``,
+the elementwise, compare and logical families, ``uniform_random`` and
+``gaussian_random``.  Each wrapper creates an output temp var and
 appends the op."""
 
 from .layer_helper import LayerHelper
 
-_UNARY_OPS = ["sigmoid", "relu", "tanh", "gelu", "log", "square"]
+_UNARY_OPS = [
+    "sigmoid", "logsigmoid", "exp", "relu", "tanh", "tanh_shrink", "sqrt",
+    "abs", "ceil", "floor", "round", "reciprocal", "log", "square",
+    "softplus", "softsign", "brelu", "leaky_relu", "soft_relu", "elu",
+    "relu6", "pow", "stanh", "hard_shrink", "softshrink", "thresholded_relu",
+    "hard_sigmoid", "swish", "sign", "assign_value", "gelu",
+]
 
 _BINARY_OPS = [
     "elementwise_add", "elementwise_sub", "elementwise_mul", "elementwise_div",
@@ -14,7 +21,9 @@ _BINARY_OPS = [
     "not_equal", "logical_and", "logical_or", "logical_xor",
 ]
 
-__all__ = list(_UNARY_OPS) + list(_BINARY_OPS) + ["logical_not"]
+__all__ = list(_UNARY_OPS) + list(_BINARY_OPS) + ["logical_not",
+                                                  "uniform_random",
+                                                  "gaussian_random"]
 
 
 def _make_unary(op_type):
@@ -66,5 +75,27 @@ def logical_not(x):
     helper.append_op(
         type="logical_not", inputs={"X": [x.name]},
         outputs={"Out": [out.name]}
+    )
+    return out
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random")
+    out = helper.create_tmp_variable(dtype, list(shape), stop_gradient=True)
+    helper.append_op(
+        type="uniform_random", outputs={"Out": [out.name]},
+        attrs={"shape": list(shape), "dtype": str(dtype), "min": min,
+               "max": max, "seed": seed},
+    )
+    return out
+
+
+def gaussian_random(shape, dtype="float32", mean=0.0, std=1.0, seed=0):
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_tmp_variable(dtype, list(shape), stop_gradient=True)
+    helper.append_op(
+        type="gaussian_random", outputs={"Out": [out.name]},
+        attrs={"shape": list(shape), "dtype": str(dtype), "mean": mean,
+               "std": std, "seed": seed},
     )
     return out

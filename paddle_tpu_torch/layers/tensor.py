@@ -1,13 +1,18 @@
 """Tensor layers (``paddle_tpu/layers/tensor.py``): ``create_parameter``,
 ``cast``, ``concat``, ``sums``, ``assign``, ``fill_constant``,
 ``fill_constant_batch_size_like``, ``ones``, ``zeros``, ``reshape``,
-``expand``, ``increment``, ``one_hot``."""
+``transpose``, ``split``, ``expand``, ``gather``, ``scatter``, ``pad``,
+``crop``, ``argmax``, ``argmin``, ``shape``, ``increment``,
+``one_hot``.  Each sets its output's shape at build time as the
+reference does (a model reads it while it builds)."""
 
 from .layer_helper import LayerHelper
 
 __all__ = ["create_parameter", "cast", "concat", "sums", "assign",
            "fill_constant", "fill_constant_batch_size_like", "ones", "zeros",
-           "reshape", "expand", "increment", "one_hot"]
+           "reshape", "transpose", "split", "expand", "gather", "scatter",
+           "pad", "crop", "argmax", "argmin", "shape", "increment",
+           "one_hot"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -122,6 +127,40 @@ def reshape(x, shape):
     return out
 
 
+def transpose(x, perm):
+    helper = LayerHelper("transpose")
+    out = helper.create_tmp_variable(x.dtype, [x.shape[i] for i in perm])
+    helper.append_op(
+        type="transpose", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
+        attrs={"axis": list(perm)},
+    )
+    return out
+
+
+def split(input, num_or_sections, dim=0):
+    """``input`` cut along ``dim`` into ``num_or_sections`` equal pieces,
+    or pieces of the given sizes: a list of variables."""
+    helper = LayerHelper("split")
+    if isinstance(num_or_sections, int):
+        num, sections = num_or_sections, []
+        sizes = ([input.shape[dim] // num] * num if input.shape[dim] >= 0
+                 else [-1] * num)
+    else:
+        num, sections = 0, list(num_or_sections)
+        sizes = sections
+    outs = []
+    for s in sizes:
+        shape = list(input.shape)
+        shape[dim] = s
+        outs.append(helper.create_tmp_variable(input.dtype, shape))
+    helper.append_op(
+        type="split", inputs={"X": [input.name]}, outputs={"Out": outs},
+        attrs={"num": num if not sections else 0, "sections": sections,
+               "axis": dim},
+    )
+    return outs
+
+
 def expand(x, expand_times):
     """``x`` tiled ``expand_times[i]`` times along axis i."""
     helper = LayerHelper("expand")
@@ -130,6 +169,93 @@ def expand(x, expand_times):
     helper.append_op(
         type="expand", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
         attrs={"expand_times": list(expand_times)},
+    )
+    return out
+
+
+def gather(input, index):
+    """Rows ``index`` of ``input``."""
+    helper = LayerHelper("gather")
+    shape = list(index.shape[:1]) + list(input.shape[1:])
+    out = helper.create_tmp_variable(input.dtype, shape)
+    helper.append_op(
+        type="gather", inputs={"X": [input.name], "Index": [index.name]},
+        outputs={"Out": [out.name]},
+    )
+    return out
+
+
+def scatter(input, index, updates, overwrite=True):
+    """``input`` with rows ``index`` set to (or, without ``overwrite``,
+    added to) ``updates``."""
+    helper = LayerHelper("scatter")
+    out = helper.create_tmp_variable(input.dtype, input.shape)
+    helper.append_op(
+        type="scatter",
+        inputs={"X": [input.name], "Ids": [index.name],
+                "Updates": [updates.name]},
+        outputs={"Out": [out.name]}, attrs={"overwrite": overwrite},
+    )
+    return out
+
+
+def pad(x, paddings, pad_value=0.0):
+    """``x`` padded by ``paddings`` (before, after) pairs, one per dim."""
+    helper = LayerHelper("pad")
+    shape = [(s + paddings[2 * i] + paddings[2 * i + 1]) if s >= 0 else -1
+             for i, s in enumerate(x.shape)]
+    out = helper.create_tmp_variable(x.dtype, shape)
+    helper.append_op(
+        type="pad", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
+        attrs={"paddings": list(paddings), "pad_value": float(pad_value)},
+    )
+    return out
+
+
+def crop(x, shape=None, offsets=None, y=None):
+    """The window of ``x`` at ``offsets`` of ``y``'s shape or ``shape``."""
+    helper = LayerHelper("crop")
+    tgt = list(y.shape) if y is not None else list(shape)
+    out = helper.create_tmp_variable(x.dtype, tgt)
+    inputs = {"X": [x.name]}
+    if y is not None:
+        inputs["Y"] = [y.name]
+    helper.append_op(
+        type="crop", inputs=inputs, outputs={"Out": [out.name]},
+        attrs={"offsets": list(offsets or []), "shape": list(shape or [])},
+    )
+    return out
+
+
+def _arg_layer(op_type):
+    def f(x, axis=-1):
+        helper = LayerHelper(op_type)
+        shape = [s for i, s in enumerate(x.shape)
+                 if i != (axis % len(x.shape))]
+        out = helper.create_tmp_variable("int64", shape, stop_gradient=True)
+        helper.append_op(
+            type=op_type, inputs={"X": [x.name]},
+            outputs={"Out": [out.name]}, attrs={"axis": axis},
+        )
+        return out
+
+    return f
+
+
+argmax = _arg_layer("arg_max")
+argmax.__name__ = "argmax"
+argmin = _arg_layer("arg_min")
+argmin.__name__ = "argmin"
+
+
+def shape(input):
+    """``input``'s run-time shape, an int vector."""
+    helper = LayerHelper("shape")
+    out = helper.create_tmp_variable("int64", [len(input.shape)],
+                                     stop_gradient=True)
+    helper.append_op(
+        type="shape", inputs={"Input": [input.name]},
+        outputs={"Out": [out.name]}
     )
     return out
 

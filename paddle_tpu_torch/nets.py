@@ -1,11 +1,10 @@
 """Composite networks (``paddle_tpu/nets.py``): ``simple_attention``
 (seq2seq's decoder), ``sequence_conv_pool``, ``bidirectional_lstm`` /
-``bidirectional_gru``, and the image helpers ``simple_img_conv_pool``,
-``img_conv_group``, ``img_conv_bn_pool``, ``img_separable_conv``.
-``scaled_dot_product_attention`` takes its fused path (the flash op);
-its composed path, ``glu`` and ``dot_product_attention`` need
-``transpose``, ``matmul`` and ``split``, which the op long tail brings
-(``ROADMAP.md`` A9), and raise, naming it."""
+``bidirectional_gru``, the image helpers ``simple_img_conv_pool``,
+``img_conv_group``, ``img_conv_bn_pool``, ``img_separable_conv``,
+``glu``, and the attentions: ``scaled_dot_product_attention`` (the
+flash op, or with dropout or ``use_fused=False`` the composed
+softmax(QK^T)V) and ``dot_product_attention``."""
 
 from . import layers
 
@@ -22,10 +21,6 @@ __all__ = [
     "bidirectional_lstm",
     "bidirectional_gru",
 ]
-
-_LATER = ("nets.{} needs the {} op, which the op long tail brings "
-          "(ROADMAP.md A9); not ported yet")
-
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
                          pool_stride, act, pool_type="max", param_attr=None):
@@ -78,26 +73,40 @@ def sequence_conv_pool(input, num_filters, filter_size, act="sigmoid",
 
 
 def glu(input, dim=-1):
-    raise NotImplementedError(_LATER.format("glu", "split"))
+    """The gated linear unit: ``a * sigmoid(b)`` of ``input``'s two halves
+    along ``dim``."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(a, layers.sigmoid(b))
 
 
 def scaled_dot_product_attention(queries, keys, values, num_heads=1,
                                  dropout_rate=0.0, use_fused=True):
     """Multi-head scaled dot-product attention over dense ``[b, t, d]``
-    tensors through the flash op (``use_fused`` and no dropout)."""
+    tensors: the flash op (``use_fused`` and no dropout), or the
+    composed softmax(QK^T)V with the same per-head scale ``hd ** -0.5``
+    and dropout on the attention weights."""
     d = queries.shape[-1]
     if d % num_heads != 0:
         raise ValueError(f"hidden size {d} not divisible by num_heads "
                          f"{num_heads}")
-    if not use_fused or dropout_rate:
-        raise NotImplementedError(_LATER.format(
-            "scaled_dot_product_attention's composed path", "matmul"))
     tq, tk = queries.shape[1], keys.shape[1]
     hd = d // num_heads
     q4 = layers.reshape(queries, [0, tq, num_heads, hd])
     k4 = layers.reshape(keys, [0, tk, num_heads, hd])
     v4 = layers.reshape(values, [0, tk, num_heads, hd])
-    out = layers.flash_attention(q4, k4, v4)
+    if use_fused and not dropout_rate:
+        out = layers.flash_attention(q4, k4, v4)
+        return layers.reshape(out, [0, tq, d])
+    qh = layers.transpose(q4, [0, 2, 1, 3])  # [b, h, tq, hd]
+    kh = layers.transpose(k4, [0, 2, 1, 3])
+    vh = layers.transpose(v4, [0, 2, 1, 3])
+    scaled_q = layers.scale(qh, scale=float(hd) ** -0.5)
+    product = layers.matmul(scaled_q, kh, transpose_y=True)  # [b, h, tq, tk]
+    weights = layers.softmax(product)
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_prob=dropout_rate)
+    out = layers.matmul(weights, vh)  # [b, h, tq, hd]
+    out = layers.transpose(out, [0, 2, 1, 3])
     return layers.reshape(out, [0, tq, d])
 
 
@@ -191,5 +200,7 @@ def bidirectional_gru(input, size, return_concat=True):
 
 
 def dot_product_attention(queries, keys, values):
-    raise NotImplementedError(_LATER.format("dot_product_attention",
-                                            "matmul"))
+    """Unscaled single-head dot-product attention: softmax(Q K^T) V."""
+    product = layers.matmul(queries, keys, transpose_y=True)
+    weights = layers.softmax(product)
+    return layers.matmul(weights, values)

@@ -17,3 +17,4 @@ from . import rnn_ops  # noqa: F401
 from . import ctc_ops  # noqa: F401
 from . import crf_ops  # noqa: F401
 from . import beam_search_ops  # noqa: F401
+from . import detection_ops  # noqa: F401

@@ -142,6 +142,9 @@ TRAINING_MODULES = [
     "paddle_tpu_torch.dataset.imikolov", "paddle_tpu_torch.dataset.wmt14",
     "paddle_tpu_torch.models.fit_a_line", "paddle_tpu_torch.models.word2vec",
     "paddle_tpu_torch.models.recommender", "paddle_tpu_torch.models.ctr_dnn",
+    # the SSD detector: the detection ops and layers, the model
+    "paddle_tpu_torch.ops.detection_ops", "paddle_tpu_torch.layers.detection",
+    "paddle_tpu_torch.models.ssd",
 ]
 
 
@@ -200,7 +203,8 @@ def test_training_import_leaves_jax_out():
              "max_len=3, beam_size=2, max_out_len=3)), "
              "(pt.models.recommender.build, dict(max_title_len=3, "
              "max_cat_len=2)), (pt.models.ctr_dnn.build_sparse_slots, dict("
-             "sparse_feature_dim=50, num_slots=2))):\n"
+             "sparse_feature_dim=50, num_slots=2)), (pt.models.ssd.build, "
+             "dict(num_classes=3, image_shape=(3, 16, 16), max_gt=2))):\n"
              "    m, s = pt.Program(), pt.Program()\n"
              "    with pt.program_guard(m, s):\n"
              "        build(**kw)\n"
