@@ -370,13 +370,34 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    within 2e-4; c. the slice's 41 op types alone card vs CPU (the
    detection ops at 15a's shapes, each activation with its kinks):
    outputs within 2e-4, gradients within 1e-3;
-16. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
+16. BASELINE config 5, CTR-DNN over the parameter servers (a main path:
+   ``distributed``'s RPC, servers and transpiler, ``native``'s recordio,
+   the master, ``cloud_reader`` and ``python -m paddle_tpu_torch``; no TPU
+   kernel lies on it, so no hand-written kernel launches), at
+   ``benchmarks/ctr_pserver.py:28``'s size (tables 4 x 100,000 x 16,
+   ``ctr_dnn.build``'s tower, Adam 1e-3), batch 256 of seeded rows, the
+   tables on the sparse path: a. 20 steps through four in-process
+   loopback servers, serial, then through four ``pserver`` subprocesses
+   over TCP found through a FileStore, pipelined: step wall p50 and
+   spread, samples/s, bytes a step, kernels a step and the busy share (a
+   profiled step), host syncs a step by site, beside the card's name and
+   power limit; the losses finite and falling, every table and parameter
+   kept in its storage, every scope tensor on the card, syncs only at the
+   gradient fetch and the row and parameter installs; b. the loopback run
+   against the same run with the trainer on the CPU: losses within 2e-4,
+   every parameter within 1e-3 of its largest entry (TF32 off); c. 2,048
+   seeded rows to recordio through ``dataset.common.convert``, served by
+   a ``master`` subprocess; ``train`` on the card from ``cloud_reader``
+   (one pass: exit 0, finite costs, every record once), ``train
+   --job=checkgrad`` on a small config (PASSED), ``version`` (the card,
+   ``native: available``);
+17. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
    launches on its main path (phase 3e, 5, 5b, 7, 8 or 9b), error, times
    and bound; the paged attention, flash forward, fused backward, the
    three CE rows and the sm90 bottleneck add the simple family's time
    (``simple_ms``), and the forward's row its t=16384 entry (``t16384``,
    launches from phase 8);
-17. the last line: ``{"ok": true, "device": {...}}``.
+18. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
 file, it exits non-zero and prints no result.  The weights, the tokens
@@ -5551,6 +5572,419 @@ def op_tail_phase(torch, np, smi, seed):
         raise AssertionError(f"phase 15c covers {len(seen)} op types")
 
 
+# -- phase 16: BASELINE config 5 over the parameter servers, the elastic
+#    data path and the command line -----------------------------------------
+
+# benchmarks/ctr_pserver.py:28's size: 100,000-row tables, 4 slots,
+# embedding 16; ctr_dnn.build's own dense_dim 13, hidden (64, 32), Adam
+# 1e-3; batch 256, one id a slot; four servers
+PS_CFG = dict(sparse_feature_dim=100_000, num_slots=4, embedding_size=16)
+PS_BATCH, PS_STEPS, PS_SERVERS, PS_FEEDS = 256, 20, 4, 8
+# 16c: the dataset the master serves and the checkgrad config
+PS_RECORDS, PS_CHUNK = 2048, 256
+
+PS_TRAIN_CONFIG = '''
+import os
+import paddle_tpu_torch as pt
+from paddle_tpu_torch.distributed.store import FileStore, discover_services
+
+def build():
+    return pt.models.ctr_dnn.build(sparse_feature_dim=100_000, num_slots=4,
+                                   embedding_size=16)
+
+def train_reader():
+    master, = discover_services(FileStore(os.environ["CTR_STORE"]), "master")
+    with open(os.environ["CTR_SEEN"], "a") as seen:
+        for rec in pt.reader.creator.cloud_reader(
+                [], etcd_endpoints=master)():
+            seen.write(f"{rec[0]}\\n")
+            yield rec[1:]
+'''
+
+PS_CHECKGRAD_CONFIG = '''
+import numpy as np
+import paddle_tpu_torch as pt
+
+def build():
+    return pt.models.ctr_dnn.build(sparse_feature_dim=50, num_slots=2,
+        embedding_size=4, dense_dim=3, hidden=(8,), learning_rate=1e-2)
+
+def train_reader():
+    rng = np.random.default_rng(0)
+    for _ in range(16):
+        dense = rng.normal(size=3).astype(np.float32)
+        yield (dense, [int(rng.integers(0, 50))], [int(rng.integers(0, 50))],
+               [int(dense[0] > 0)])
+'''
+
+
+def ps_samples(np, seed, n):
+    """``n`` CTR rows from ``seed``: 13 dense features, one id a slot
+    (uniform over the table), a click that follows the first dense
+    feature and the first slot's id (so the loss can fall)."""
+    rng = np.random.default_rng(seed)
+    dense = rng.normal(size=(n, 13)).astype(np.float32)
+    ids = rng.integers(0, PS_CFG["sparse_feature_dim"],
+                       (n, PS_CFG["num_slots"]))
+    click = ((dense[:, 0] + (ids[:, 0] % 2 - 0.5)) > 0).astype(np.int64)
+    return dense, ids, click
+
+
+def ps_feeds(np, seed):
+    dense, ids, click = ps_samples(np, seed, PS_BATCH * PS_FEEDS)
+    feeds = []
+    for b in range(PS_FEEDS):
+        sl = slice(b * PS_BATCH, (b + 1) * PS_BATCH)
+        feed = {"dense_feature": dense[sl], "click": click[sl, None]}
+        for s in range(PS_CFG["num_slots"]):
+            feed[f"slot_{s}"] = ids[sl, s:s + 1]
+        feeds.append(feed)
+    return feeds
+
+
+def ps_build(pt, seed):
+    pt.core.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = seed
+    with pt.program_guard(main, startup):
+        out = pt.models.ctr_dnn.build(**PS_CFG)
+    return main, startup, out
+
+
+def ps_cli(args, **env):
+    """``python -m paddle_tpu_torch <args>`` from the repo's root, its
+    output piped."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    full = dict(os.environ, **env)
+    full["PYTHONPATH"] = root + os.pathsep + full.get("PYTHONPATH", "")
+    return subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch"] + [str(a) for a in args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=full,
+        cwd=root)
+
+
+def ps_discover(procs, store, kind, n, timeout=180):
+    """The ``n`` endpoints of ``kind`` registered in the FileStore at
+    ``store`` (polled: each process registers once it serves); raises
+    when a process exits first or the deadline passes."""
+    from paddle_tpu_torch.distributed.store import FileStore, \
+        discover_services
+
+    fs, deadline = FileStore(store), time.time() + timeout
+    while True:
+        found = discover_services(fs, kind)
+        if len(found) == n:
+            return sorted(found)
+        dead = [p for p in procs if p.poll() is not None]
+        if dead or time.time() > deadline:
+            raise AssertionError(
+                f"phase 16: {len(found)} of {n} {kind} processes registered"
+                + "".join(f"\n{p.args}: rc {p.returncode} "
+                          f"{p.stderr.read()[-2000:]}" for p in dead))
+        time.sleep(0.1)
+
+
+def ps_reap(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=20)
+
+
+def ps_train(torch, np, pt, main, out, state, feeds, servers, mode, device,
+             steps=PS_STEPS):
+    """``steps`` steps of config 5 through ``DistributedTrainer`` on
+    ``device`` from ``state``, the four embedding tables on the sparse
+    path.  Returns the trainer (open, in its own scope) and the run's
+    record: losses, step walls, fetched dense bytes, the parameters on the
+    servers after the steps."""
+    from paddle_tpu_torch.distributed import (DistributedTrainer,
+                                              DistributeTranspiler)
+
+    scope = pt.load_numpy_state(pt.Scope(), state, device=device)
+    tables = [p.name for p in main.all_parameters()
+              if tuple(p.shape) == (PS_CFG["sparse_feature_dim"],
+                                    PS_CFG["embedding_size"])]
+    with pt.scope_guard(scope):
+        t = DistributeTranspiler().transpile(main, pservers=len(servers))
+        dt = DistributedTrainer(
+            t, pt.Executor(device), servers, learning_rate=1e-3, mode=mode,
+            sparse_params={p: f"slot_{i}" for i, p in enumerate(tables)})
+        dt.init_params_on_pservers()
+        ptrs = {n: scope.get(n).data_ptr() for n in dt.param_names}
+        losses, walls, parts = [], [], []
+        fetched0 = dt.total_fetch_bytes
+        for i in range(steps):
+            t0 = time.perf_counter()
+            loss, = dt.train_step(feeds[i % len(feeds)],
+                                  extra_fetch=[out["avg_cost"]])
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(np.asarray(loss).ravel()[0]))
+            parts.append(dict(dt.last_step_seconds))
+        dt.flush()
+        fetched = (dt.total_fetch_bytes - fetched0) / steps
+        moved = [n for n in dt.param_names
+                 if scope.get(n).data_ptr() != ptrs[n]]
+        params = dt.client.get_params(dt.param_names)
+    return dt, scope, {"losses": losses, "walls": walls, "fetched": fetched,
+                       "params": params, "moved": moved, "tables": tables,
+                       "parts": parts}
+
+
+def ps_step_bytes(np, dt, feeds, emb):
+    """Bytes a step sends (dense grads, sparse rows with their int64 ids)
+    and fetches beside the dense delta (the prefetched rows), as the
+    mean over ``feeds``."""
+    block = dt.trainer_program.global_block()
+    dense = sum(int(np.prod(block.var(n).shape)) * 4 for n in dt.dense_names)
+    rows = np.mean([sum(np.unique(f[s]).size for s in dt.sparse.values())
+                    for f in feeds])
+    return dense + rows * (emb * 4 + 8), rows * emb * 4
+
+
+def ps_report(torch, np, pt, smi, kernels, what, dt, scope, rec, feeds):
+    """Phase 16a's numbers and checks for one trainer: step wall p50 and
+    spread, samples/s, bytes a step, kernels a step and the busy share
+    (a profiled step), host syncs a step by site; the losses finite and
+    falling, the tables (and every parameter) kept in place, every scope
+    tensor on the card, syncs only at the planned sites, no hand-written
+    kernel launched."""
+    from paddle_tpu_torch.core.scope import RNG_VAR
+    from paddle_tpu_torch.profiler import middle_call_kernels
+
+    losses, walls = rec["losses"], rec["walls"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: non-finite loss {losses}")
+    head, tail = np.mean(losses[:3]), np.mean(losses[-3:])
+    if not tail < head:
+        raise AssertionError(f"{what}: the loss did not fall: {losses}")
+    if rec["moved"]:
+        raise AssertionError(f"{what}: {rec['moved']} left their storage")
+    off = [n for n in scope.var_names() if n != RNG_VAR
+           and isinstance(scope.get(n), torch.Tensor)
+           and scope.get(n).device.type != "cuda"]
+    if off:
+        raise AssertionError(f"{what}: scope tensors off the card: {off}")
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"{what} launched a hand-written kernel: "
+                             f"{kernels.launch_counts()}")
+    with pt.scope_guard(scope):
+        taken = [0]
+
+        def run(_):
+            taken[0] += 1
+            dt.train_step(feeds[taken[0] % len(feeds)])
+
+        dt.train_step(feeds[0])          # a warm step before the counts
+        # the first count may hold a one-off sync of torch's own (14a and
+        # 15a saw one in torch/cuda/__init__.py): the second is the step's
+        sites = [host_syncs(torch, lambda: run(0)) for _ in range(2)][1]
+        events = middle_call_kernels(run)
+        dt.flush()
+    planned = ps_planned_sites()
+    stray = {at: n for at, n in sites.items() if at not in planned}
+    if stray:
+        raise AssertionError(f"{what}: host syncs outside the grad fetch "
+                             f"and the installs: {stray} (planned: "
+                             f"{sorted(planned)})")
+    copies = [e for e in events if e[2].startswith(("Memcpy", "Memset"))]
+    busy_ms = sum(ns for _, ns, _ in events) / 1e6
+    steady = sorted(walls[2:])
+    p50 = steady[len(steady) // 2]
+    sent, rows = ps_step_bytes(np, dt, feeds, PS_CFG["embedding_size"])
+    parts = {k: sorted(p[k] for p in rec["parts"][2:])
+             for k in rec["parts"][0]}
+    parts = {k: v[len(v) // 2] for k, v in parts.items()}
+    log(f"{what} ({smi}): loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(first three {head:.4f}, last three {tail:.4f}); step wall p50 "
+        f"{p50 * 1e3:.2f} ms (min {steady[0] * 1e3:.2f}, max "
+        f"{steady[-1] * 1e3:.2f}; first {walls[0] * 1e3:.1f}) = "
+        f"{PS_BATCH / p50:.0f} samples/s (medians: " + ", ".join(
+            f"{k} {v * 1e3:.2f} ms" for k, v in parts.items())
+        + f"); a step sends {sent / 1e3:.1f} kB "
+        f"and fetches {(rec['fetched'] + rows) / 1e3:.1f} kB (dense delta "
+        f"{rec['fetched'] / 1e3:.1f} kB, rows {rows / 1e3:.1f} kB); "
+        f"{len(events) - len(copies)} kernels and {len(copies)} copies a "
+        f"step, {busy_ms:.3f} ms of device time, busy share "
+        f"{busy_ms / (p50 * 1e3):.3f}; host syncs a step "
+        f"{sum(sites.values())}: " + ", ".join(
+            f"{at} {n}" for at, n in sorted(sites.items())))
+    return p50
+
+
+def ps_planned_sites():
+    """The ``file:line``s where a config-5 step may wait for the card:
+    the gradient fetch (``tensor_to_numpy``'s copy to the host) and the
+    row and parameter installs of the transpiler."""
+    import inspect
+
+    from paddle_tpu_torch.core import scope as scope_mod
+    from paddle_tpu_torch.distributed import transpiler
+
+    sites = set()
+    for mod, marks in ((scope_mod, ("t.cpu().numpy()",)),
+                       (transpiler, (".index_copy_(", ".to(table.device",
+                                     "table.device, table.dtype",
+                                     ".copy_(tensor_from_numpy"))):
+        path = os.path.relpath(inspect.getsourcefile(mod))
+        for i, line in enumerate(inspect.getsource(mod).splitlines(), 1):
+            if any(m in line for m in marks):
+                sites.add(f"{path}:{i}")
+    return sites
+
+
+def ps_check(np, smi, card, cpu):
+    """16b: the card's run against the CPU's from the same state and
+    feeds: the losses within 2e-4, every parameter within 1e-3 of its
+    largest entry."""
+    losses = max(abs(a - b) / max(abs(b), 1e-6)
+                 for a, b in zip(card["losses"], cpu["losses"]))
+    errs = {n: rel_max(np, card["params"][n], cpu["params"][n])
+            for n in cpu["params"]}
+    worst = max(errs, key=errs.get)
+    log(f"phase 16b config 5, {PS_STEPS} serial steps card vs CPU ({smi}): "
+        f"losses rel {losses:.2e}; {len(errs)} parameters, worst {worst} "
+        f"rel {errs[worst]:.2e}")
+    if losses > 2e-4 or errs[worst] > 1e-3:
+        raise AssertionError(f"phase 16b: losses {losses:.3e}, "
+                             f"parameters {errs}")
+
+
+def ps_cli_phase(np, pt, smi, root):
+    """16c: a synthetic CTR dataset written to recordio through
+    ``dataset.common.convert`` and served by ``python -m paddle_tpu_torch
+    master``; ``train`` on the card from ``cloud_reader`` for one pass
+    (exit 0, finite costs, every record once), ``train --job=checkgrad``
+    on a small config (PASSED), ``version`` (the card, the native
+    library available)."""
+    dense, ids, click = ps_samples(np, 1, PS_RECORDS)
+    rows = [(i, dense[i], *[[int(x)] for x in ids[i]], [int(click[i])])
+            for i in range(PS_RECORDS)]
+    data = os.path.join(root, "data")
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    paths = pt.dataset.common.convert(data, lambda: iter(rows), PS_CHUNK,
+                                      "ctr")
+    convert_s = time.perf_counter() - t0
+    store, seen = os.path.join(root, "store16c"), os.path.join(root, "seen")
+    for name, text in (("ctr.py", PS_TRAIN_CONFIG),
+                       ("grad.py", PS_CHECKGRAD_CONFIG)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write(text)
+    procs = [ps_cli(["master", "--dataset", *paths, "--store", store])]
+    try:
+        ps_discover(procs, store, "master", 1)
+        t0 = time.perf_counter()
+        jobs = {
+            "train": ps_cli(["train", os.path.join(root, "ctr.py"),
+                             "--num-passes", 1, "--batch-size", PS_BATCH,
+                             "--log-period", 1],
+                            CTR_STORE=store, CTR_SEEN=seen),
+            "checkgrad": ps_cli(["train", "--job=checkgrad",
+                                 os.path.join(root, "grad.py"),
+                                 "--batch-size", 8]),
+            "version": ps_cli(["version"]),
+        }
+        procs += list(jobs.values())
+        res = {k: p.communicate(timeout=300) + (p.returncode,)
+               for k, p in jobs.items()}
+        wall = time.perf_counter() - t0
+    finally:
+        ps_reap(procs)
+    for k, (out, err, rc) in res.items():
+        if rc != 0:
+            raise AssertionError(f"phase 16c {k}: rc {rc}\n{out[-3000:]}\n"
+                                 f"{err[-3000:]}")
+    costs = [float(c) for c in re.findall(r"cost (\S+)", res["train"][0])]
+    with open(seen) as f:
+        got = sorted(int(x) for x in f.read().split())
+    if not (len(costs) == PS_RECORDS // PS_BATCH
+            and all(np.isfinite(costs))):
+        raise AssertionError(f"phase 16c train: costs {costs}")
+    if got != list(range(PS_RECORDS)):
+        raise AssertionError(f"phase 16c: {len(got)} records read, "
+                             f"{len(set(got))} distinct, of {PS_RECORDS}")
+    if "checkgrad PASSED" not in res["checkgrad"][0]:
+        raise AssertionError(f"phase 16c checkgrad: {res['checkgrad'][0]}")
+    version = res["version"][0]
+    import torch
+
+    if (f"card: {torch.cuda.get_device_name(0)}" not in version
+            or "native: available" not in version):
+        raise AssertionError(f"phase 16c version: {version}")
+    log(f"phase 16c ({smi}): {PS_RECORDS} records in {len(paths)} recordio "
+        f"files ({convert_s:.2f} s to convert); the master subprocess, "
+        f"then train (one pass, {len(costs)} batches of {PS_BATCH}, cost "
+        f"{costs[0]:.4f} -> {costs[-1]:.4f}, every record once), "
+        f"checkgrad (PASSED) and version together in {wall:.1f} s; "
+        + " | ".join(line for line in version.splitlines()[1:]))
+
+
+def pserver_phase(torch, np, pt, kernels, smi, seed):
+    """Phase 16: BASELINE config 5 (CTR-DNN over the parameter servers) on
+    the card — 16a (i) four in-process loopback servers, serial, and (ii)
+    four ``python -m paddle_tpu_torch pserver`` subprocesses over TCP,
+    found through a FileStore, pipelined; 16b (i) card vs CPU; 16c the
+    elastic data path and the command line.  Every subprocess is stopped
+    before it returns."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed import ParameterServer
+
+    t_phase = time.perf_counter()
+    main, startup, out = ps_build(pt, seed)
+    init = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=init)
+    state = {v.name: init.numpy(v.name).copy()
+             for v in main.persistable_vars()
+             if init.find_var(v.name) is not None}
+    feeds = ps_feeds(np, seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pserver_") as root:
+        store = os.path.join(root, "store")
+        # the TCP servers start now and come up while (i) runs
+        procs = [ps_cli(["pserver", "--index", i, "--store", store])
+                 for i in range(PS_SERVERS)]
+        try:
+            kernels.reset_launches()
+            what = (f"phase 16a config 5 (tables {PS_CFG['num_slots']} x "
+                    f"{PS_CFG['sparse_feature_dim']} x "
+                    f"{PS_CFG['embedding_size']}, b={PS_BATCH}, Adam 1e-3)")
+            dt, scope, card = ps_train(
+                torch, np, pt, main, out, state, feeds,
+                [ParameterServer(index=i) for i in range(PS_SERVERS)],
+                "serial", "cuda")
+            ps_report(torch, np, pt, smi, kernels,
+                      f"{what} (i) {PS_SERVERS} loopback servers, serial",
+                      dt, scope, card, feeds)
+            dt.close()
+            endpoints = ps_discover(procs, store, "pserver", PS_SERVERS)
+            log(f"phase 16a: {PS_SERVERS} pserver subprocesses registered "
+                f"{time.perf_counter() - t_phase:.1f} s into the phase")
+            dt, scope, tcp = ps_train(torch, np, pt, main, out, state,
+                                      feeds, endpoints, "pipelined", "cuda")
+            ps_report(torch, np, pt, smi, kernels,
+                      f"{what} (ii) {PS_SERVERS} pserver subprocesses over "
+                      f"TCP, pipelined", dt, scope, tcp, feeds)
+            dt.close()
+        finally:
+            ps_reap(procs)
+        t0 = time.perf_counter()
+        dt, _, cpu = ps_train(
+            torch, np, pt, main, out, state, feeds,
+            [ParameterServer(index=i) for i in range(PS_SERVERS)],
+            "serial", "cpu")
+        dt.close()
+        log(f"phase 16b: the CPU run took {time.perf_counter() - t0:.1f} s")
+        ps_check(np, smi, card, cpu)
+        ps_cli_phase(np, pt, smi, root)
+    log(f"phase 16 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5779,7 +6213,15 @@ def main():
     log(f"phase 15 wall {time.perf_counter() - t0:.1f} s; the script so far "
         f"{time.perf_counter() - t_start:.1f} s")
 
-    # 16. the kernels line, 17. the result
+    # 16. BASELINE config 5: CTR-DNN over four parameter servers, in
+    #     process and as TCP subprocesses; 16b card vs CPU; 16c the
+    #     elastic data path (recordio, master, cloud_reader) and the CLI
+    pserver_phase(torch, np, pt, kernels, smi, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"the script so far {time.perf_counter() - t_start:.1f} s")
+
+    # 17. the kernels line, 18. the result
     row["launches"] = launches["paged_attention"]
     gather_row["launches"] = gathered["launches"]["decode_gather"]
     log(f"paged_attention at the verify shape: kernel {verify_ms[0]:.4f} ms, "

@@ -32,14 +32,22 @@ ops and layers, ``nets``, and the training programs of
 ``models.text_classification`` and ``models.seq2seq``; CTC, the CRF and
 the image zoo; ``While`` and the tensor arrays with the beam ops, which
 drive ``models.seq2seq.build_decode``; the book's small models and the
-``dataset`` readers they use.
+``dataset`` readers they use; the parameter-server generation:
+``distributed`` (RPC, discovery store, sharded pserver, elastic master,
+the send/recv transpiler and its trainer), the recordio format with its
+native loader (``native``, built with g++ at first use),
+``reader.creator.recordio`` / ``cloud_reader``, ``flags``,
+``check_gradients`` and the command line (``python -m paddle_tpu_torch
+train | pserver | master | version``).
 """
 
 from . import ops as _ops  # noqa: F401  (registers the op lowerings)
-from . import (clip, data_feeder, dataset, initializer, io, layers,
-               learning_rate_decay, models, nets, observability, optimizer,
-               profiler, reader, regularizer, resilience, trainer)
+from . import (clip, data_feeder, dataset, distributed, flags, initializer,
+               io, layers, learning_rate_decay, models, native, nets,
+               observability, optimizer, profiler, reader, regularizer,
+               resilience, trainer)
 from .backward import append_backward
+from .checkgrad import check_gradients
 from .core.executor import Executor
 from .core.place import CPUPlace, CUDAPlace, resolve_device
 from .core.program import (Block, OpDesc, Parameter, Program, Variable,
@@ -65,4 +73,5 @@ __all__ = [
     "EndIteration", "DataFeeder", "MetricsReporter", "io", "reader",
     "profiler", "data_feeder", "observability", "resilience", "trainer",
     "clip", "regularizer", "learning_rate_decay", "nets", "dataset",
+    "distributed", "native", "flags", "check_gradients",
 ]

@@ -111,6 +111,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     set_checkpoint_early_stop)
 
+from ..flags import FLAGS
 from ..observability import metrics as _obs
 from .dtypes import torch_dtype
 from .ir import sub_block_names
@@ -215,9 +216,9 @@ def _feed_batch(block, feeds):
     return 1
 
 
-def _raise_if_not_finite(values):
-    """``nan_guard``'s check: record and raise on the first non-finite
-    value of ``{name: tensor}``."""
+def _raise_if_not_finite(values, when="before the optimizer ops"):
+    """``nan_guard``'s and ``FLAGS.check_nan_inf``'s check: record and
+    raise on the first non-finite value of ``{name: tensor}``."""
     for name, val in values.items():
         if val is None or bool(torch.isfinite(val).all()):
             continue
@@ -231,7 +232,7 @@ def _raise_if_not_finite(values):
                                     var=name)
         _flight.dump("nan_trip", var=name)
         err = FloatingPointError(
-            f"NaN/Inf detected in {name!r} before the optimizer ops")
+            f"NaN/Inf detected in {name!r} {when}")
         err._pt_nan_counted = True   # recorded here; do not count twice
         raise err
 
@@ -954,13 +955,31 @@ class Executor:
         return gen
 
     @staticmethod
-    def _run_lowered(step, scope, state, feeds, gen, trips=None):
+    def _run_lowered(step, scope, state, feeds, gen, trips=None,
+                     fetch_names=()):
         """Run one lowered step and write what it leaves — the new state,
         the generator's state, the gradient norm — back to ``scope``;
         the fetches.  ``run`` and every step of ``run_steps`` go through
         here, so both thread the state alike.  A ``while`` loop adds its
-        trips to ``trips``."""
+        trips to ``trips``.  Under ``FLAGS.check_nan_inf`` every float the
+        step wrote or fetched (``fetch_names``) is checked; under
+        ``FLAGS.do_memory_benchmark`` the state's bytes are printed."""
         new_state, fetches, grad_norm = step(state, feeds, gen, trips)
+        if FLAGS.check_nan_inf:
+            # FLAGS_check_nan_inf (reference executor.cc:131): everything
+            # the step wrote or fetched; a host sync a tensor, so only
+            # when the flag is set
+            _raise_if_not_finite(
+                {n: t for n, t in list(new_state.items())
+                 + list(zip(fetch_names, fetches))
+                 if isinstance(t, torch.Tensor) and t.is_floating_point()},
+                when="after the step")
+        if FLAGS.do_memory_benchmark:
+            total = sum(t.numel() * t.element_size()
+                        for t in new_state.values()
+                        if isinstance(t, torch.Tensor))
+            print(f"[memory] live state: {total / 1e6:.2f} MB "
+                  f"({len(new_state)} vars)")
         scope.update(new_state)
         scope.set(RNG_VAR, gen.get_state())
         if grad_norm is not None:
@@ -974,7 +993,8 @@ class Executor:
         entry, cache_hit = self._entry(program, fetch_names, state_names)
         trips = {}
         fetches = self._run_lowered(entry[0], scope, state, feeds,
-                                    self._generator(scope), trips)
+                                    self._generator(scope), trips,
+                                    fetch_names)
         self.last_step_cost = self._cost(program, entry, cache_hit, feeds,
                                          trips=trips)
         if return_numpy:
@@ -1020,7 +1040,7 @@ class Executor:
         outs, trips = [], {}
         for fs in step_feeds:
             outs.append(self._run_lowered(entry[0], scope, state, fs, gen,
-                                          trips))
+                                          trips, fetch_names))
             state = {n: scope.get(n) for n in state_names}
         self.last_step_cost = self._cost(
             program, entry, cache_hit,

@@ -1,8 +1,10 @@
 """CTR-DNN with large sparse embeddings (``paddle_tpu/models/ctr_dnn.py``;
-``BASELINE.json`` config 5's model, here its single-device program: the
-pserver path stays with ``distributed/``, ``ROADMAP.md`` A9).  Dense
-features beside one embedding per id slot, a ReLU tower, a two-way
-softmax, the cross entropy, the batch's ``auc``, Adam."""
+``BASELINE.json`` config 5's model).  Dense features beside one
+embedding per id slot, a ReLU tower, a two-way softmax, the cross
+entropy, the batch's ``auc``, Adam.  ``build``'s program trains on one
+device as it is, or over parameter servers through
+``distributed.DistributeTranspiler`` / ``DistributedTrainer`` with the
+tables on the sparse path (config 5 itself)."""
 
 from .. import layers, optimizer as opt
 

@@ -3,9 +3,11 @@
 python/paddle/v2/reader/creator.py — np_array, text_file, recordio,
 cloud_reader via Go master).
 
-``recordio`` and ``cloud_reader`` need the native recordio loader and the
-distributed master, which the port does not have yet (ROADMAP A9): they
-raise ``NotImplementedError``."""
+``recordio`` reads the files ``dataset.common.convert`` writes, through
+the port's native codec or its multithreaded ``native.Loader``;
+``cloud_reader`` pulls task chunks from the distributed master
+(``distributed.master.MasterClient``).  Samples are host values; nothing
+here touches the card."""
 
 import numpy as np
 
@@ -30,16 +32,53 @@ def text_file(path):
 
 
 def recordio(paths, buf_size=100, num_threads=0, shuffle_seed=-1):
-    """Not ported yet: the recordio format and its native multithreaded
-    loader (``paddle_tpu/native``) are ROADMAP A9."""
-    raise NotImplementedError(
-        "reader.creator.recordio needs the native recordio loader, which "
-        "the port does not have yet (ROADMAP.md A9)")
+    """Read recordio files written by ``dataset.common.convert``
+    (reference creator.py:60).  With ``num_threads > 0`` the native
+    multithreaded prefetching ``Loader`` decodes chunks off the main
+    thread (PyDataProvider2's background-feed pattern, in C++)."""
+    import pickle
+
+    from .. import native
+    from ..native import recordio as rio
+
+    if isinstance(paths, str):
+        paths = paths.split(",")
+
+    if num_threads > 0 and native.available():
+        def reader():
+            with native.Loader(paths, num_threads=num_threads,
+                               queue_cap=max(buf_size, 16),
+                               shuffle_seed=shuffle_seed) as loader:
+                for rec in loader:
+                    yield pickle.loads(rec)
+
+        return reader
+
+    def reader():
+        for p in paths:
+            for rec in rio.reader(p):
+                yield pickle.loads(rec)
+
+    return reader
 
 
 def cloud_reader(paths, etcd_endpoints=None, timeout_sec=5, buf_size=64):
-    """Not ported yet: the elastic reader pulls task chunks from the
-    distributed master service (``paddle_tpu/distributed``), ROADMAP A9."""
-    raise NotImplementedError(
-        "reader.creator.cloud_reader needs the distributed master service, "
-        "which the port does not have yet (ROADMAP.md A9)")
+    """Elastic dataset reader backed by the distributed master service
+    (reference creator.py:91 cloud_reader -> Go master): each pass pulls
+    task chunks from ``distributed.master.MasterClient`` at
+    ``etcd_endpoints`` (the master's endpoint; an in-process master when
+    None) and yields every record of the pass once."""
+    import pickle
+
+    from ..distributed.master import MasterClient
+
+    def reader():
+        client = MasterClient(etcd_endpoints, timeout_sec=timeout_sec)
+        client.set_dataset(paths)
+        while True:
+            rec = client.next_record()
+            if rec is None:
+                break
+            yield pickle.loads(rec)
+
+    return reader

@@ -216,6 +216,74 @@ def test_training_import_leaves_jax_out():
     assert r.stdout.strip() == "clean"
 
 
+DISTRIBUTED_MODULES = [
+    "paddle_tpu_torch.distributed", "paddle_tpu_torch.distributed.rpc",
+    "paddle_tpu_torch.distributed.store",
+    "paddle_tpu_torch.distributed.pserver",
+    "paddle_tpu_torch.distributed.master",
+    "paddle_tpu_torch.distributed.transpiler",
+    "paddle_tpu_torch.native", "paddle_tpu_torch.native.build",
+    "paddle_tpu_torch.native.recordio", "paddle_tpu_torch.flags",
+    "paddle_tpu_torch.checkgrad", "paddle_tpu_torch.__main__",
+]
+
+
+def test_every_distributed_module_is_a_file_the_import_scan_covers():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in DISTRIBUTED_MODULES:
+        rel = mod.replace(".", "/")
+        assert (rel + ".py" in scanned
+                or rel + "/__init__.py" in scanned), mod
+
+
+def test_distributed_trainer_and_cli_import_leave_jax_out(tmp_path):
+    """The parameter-server path end to end without jax: the CLI module,
+    a DistributedTrainer over an in-process server taking one step, a
+    recordio file through the native codec."""
+    r = _run("import sys\n"
+             + "".join(f"import {m}\n" for m in DISTRIBUTED_MODULES)
+             + "import numpy as np\n"
+             "import paddle_tpu_torch as pt\n"
+             "from paddle_tpu_torch.distributed import (ParameterServer, "
+             "DistributeTranspiler, DistributedTrainer)\n"
+             "main, startup = pt.Program(), pt.Program()\n"
+             "with pt.program_guard(main, startup):\n"
+             "    out = pt.models.ctr_dnn.build(sparse_feature_dim=20, "
+             "num_slots=1, embedding_size=2, dense_dim=2, hidden=(4,))\n"
+             "exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()\n"
+             "exe.run(startup, scope=scope)\n"
+             "with pt.scope_guard(scope):\n"
+             "    t = DistributeTranspiler().transpile(main, pservers=1)\n"
+             "    dt = DistributedTrainer(t, exe, [ParameterServer()], "
+             "sparse_params={'embedding_0.w': 'slot_0'})\n"
+             "    dt.init_params_on_pservers()\n"
+             "    dt.train_step({'dense_feature': np.ones((3, 2), "
+             "np.float32), 'slot_0': np.array([[1], [4], [1]]), "
+             "'click': np.array([[0], [1], [1]])})\n"
+             "    dt.close()\n"
+             f"p = {str(tmp_path / 'x.rio')!r}\n"
+             "with pt.native.recordio.Writer(p, use_native=True) as w:\n"
+             "    w.write(b'abc')\n"
+             "assert list(pt.native.recordio.reader(p)) == [b'abc']\n"
+             "bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')]\n"
+             "assert not bad, bad\nprint('clean')", cwd=ROOT)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "clean"
+
+
+def test_native_sources_include_nothing_of_the_jax_package():
+    import re
+
+    sources = sorted((PORT / "native" / "src").glob("*.cc"))
+    assert [p.name for p in sources] == ["loader.cc", "recordio.cc"]
+    for src in sources:
+        for inc in re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]',
+                              src.read_text(), flags=re.M):
+            assert "paddle_tpu" not in inc and ".." not in inc, (src, inc)
+            assert not inc.endswith(".h") or inc == "zlib.h", (src, inc)
+
+
 def test_training_entry_points_raise_without_a_card():
     import torch
 
