@@ -263,8 +263,9 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    on every parameter, Momentum with Nesterov, L1Decay and
    GradientClipByNorm, Adagrad, Adamax, DecayedAdagrad, Adadelta,
    RMSProp with momentum, Ftrl with l1 and l2): its update op on the
-   card against the same op on the CPU over the flagship's 197 parameter
-   shapes (bf16 parameters and a gradient from ``--seed``, f32 state),
+   card against the same op on the CPU over the 8 distinct shapes of the
+   flagship's 197 parameters (bf16 parameters and a gradient from
+   ``--seed``, f32 state),
    max-relative within ORACLE_TOL bf16, then 2 ``Trainer.train`` steps of
    phase 7's program with it, the losses finite;
    b. phase 9's ResNet-50 for 4 steps with ``Momentum(0.9,
@@ -391,13 +392,42 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    (one pass: exit 0, finite costs, every record once), ``train
    --job=checkgrad`` on a small config (PASSED), ``version`` (the card,
    ``native: available``);
-17. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
+17. sharded training over a device mesh (a main path: ``parallel``, the
+   Executor's mesh path, ``Trainer(mesh=...)``, ``distributed.launch``,
+   the sharded checkpoints' layout and the comm contracts), as four
+   processes that share the card, joined by gloo through a file store
+   (NCCL refuses two ranks on one device): a. the flagship at full width
+   and depth (12 layers, d768, 6 heads of 128, vocab 32,768, t=4096,
+   global batch 8, the fused head, bf16, Adam) through ``Trainer(mesh=
+   ...)`` with prefetch on dp2 x tp2 (ZeRO-1 over dp; the flash kernels
+   on 3 of 6 heads a rank, the CE kernels on 16,384-column vocab shards)
+   and on dp2 x fsdp2 (FSDP, ZeRO-3's reduce-scatter), three steps from
+   one imported state against the single-process unsharded Trainer on
+   the card: losses within ORACLE_TOL bf16 ``fwd`` (2e-2), each
+   parameter's update within MESH_UPDATE_TOL of the norm of the
+   unsharded run's update (Adam turns bf16-rounding-level gradients into
+   ±lr steps of either sign, so entries are not held one by one), with
+   three controls that must fail that limit (no update, the last step
+   missing, the last step on half the rows); every rank that holds a
+   block of a parameter holds it bit for bit alike; every rank's
+   ``training_step_contract`` holds on its collective log; the flash
+   forward, fused backward and three CE kernels launch on every rank
+   (the tp run on the sm90 family); step walls, comm bytes a step by
+   kind as they ran, peak memory per rank, beside the card's name and
+   power limit; b. two layers of the same widths in
+   f32 (TF32 off, the simple kernel families) on dp4, dp2 x tp2 and dp2
+   x fsdp2: losses within 2e-4, parameters within 1e-3 of their largest
+   entry (a tensor that starts at zero, of the model's); c. phase 10's
+   flagship through ``Trainer(mesh=make_mesh({"dp": 1}))`` on a one-rank
+   NCCL group equals the mesh-less Trainer bit for bit (deterministic
+   algorithms), both step walls printed;
+18. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
    launches on its main path (phase 3e, 5, 5b, 7, 8 or 9b), error, times
    and bound; the paged attention, flash forward, fused backward, the
    three CE rows and the sm90 bottleneck add the simple family's time
    (``simple_ms``), and the forward's row its t=16384 entry (``t16384``,
    launches from phase 8);
-18. the last line: ``{"ok": true, "device": {...}}``.
+19. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
 file, it exits non-zero and prints no result.  The weights, the tokens
@@ -409,6 +439,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -3770,11 +3801,14 @@ def op_card_vs_cpu(torch, op, shapes, gen):
 
 def other_optimizers_phase(torch, np, pt, seed):
     """Phase 11a+: each other optimizer's update op on the card against
-    the CPU over the flagship's parameter shapes, then two full-width
+    the CPU over each distinct parameter shape of the flagship (its layers
+    repeat one set of shapes, so one of each is checked: the CPU's share
+    of the phase scales with the elements), then two full-width
     ``Trainer.train`` steps with it."""
     t_phase = time.perf_counter()
     main, _, _ = build_training(pt, seed, TRAIN_T, "bfloat16", True)
-    shapes = [tuple(p.shape) for p in main.all_parameters()]
+    n_params = len(main.all_parameters())
+    shapes = sorted({tuple(p.shape) for p in main.all_parameters()})
     del main
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for label, (op, make, clip) in OTHER_RECIPES.items():
@@ -3791,9 +3825,9 @@ def other_optimizers_phase(torch, np, pt, seed):
 
         main, startup, model = recipe_training(pt, seed, recipe)
         types = [op_.type for op_ in main.global_block().ops]
-        if types.count(op) != len(shapes):
+        if types.count(op) != n_params:
             raise AssertionError(f"phase 11a+ {label}: {types.count(op)} "
-                                 f"{op} ops for {len(shapes)} parameters")
+                                 f"{op} ops for {n_params} parameters")
         scope, losses = pt.Scope(), []
         with pt.scope_guard(scope):
             tr = pt.Trainer(model["avg_cost"], model["feed"],
@@ -3804,8 +3838,9 @@ def other_optimizers_phase(torch, np, pt, seed):
                      if isinstance(e, pt.EndIteration) else None)
         if len(losses) != OTHER_STEPS or not all(np.isfinite(losses)):
             raise AssertionError(f"phase 11a+ {label} losses {losses}")
-        log(f"phase 11a+ {label}: {op} on the card vs the CPU over "
-            f"{len(shapes)} parameter shapes (bf16 parameters, f32 state) "
+        log(f"phase 11a+ {label}: {op} on the card vs the CPU over the "
+            f"{len(shapes)} distinct shapes of {n_params} parameters (bf16 "
+            f"parameters, f32 state) "
             f"max-relative {err:.3e} (card {ms:.2f} ms for all); "
             f"{OTHER_STEPS} Trainer steps, loss "
             + " -> ".join(f"{x:.4f}" for x in losses))
@@ -5985,6 +6020,462 @@ def pserver_phase(torch, np, pt, kernels, smi, seed):
     log(f"phase 16 wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 17: sharded training over a mesh ---------------------------------
+MESH_RANKS, MESH_STEPS = 4, 3
+# 17a (bf16): each tensor's update within this share of the norm of the
+# unsharded run's update (mesh_updates_agree).  Set between the sound runs'
+# worst tensor (0.068, dp2 x tp2) and the controls' least (0.176, the last
+# step on half the rows); PERF.md's Findings give the readings
+MESH_UPDATE_TOL = 0.1
+# (phase, label, mesh axes, layers, dtype, FSDP) — 17a the flagship at full
+# width and depth in bf16, 17b two layers of the same widths in f32
+MESH_CONFIGS = (
+    ("17a", "dp2xtp2", {"dp": 2, "tp": 2}, N_LAYER, "bfloat16", False),
+    ("17a", "dp2xfsdp2", {"dp": 2, "fsdp": 2}, N_LAYER, "bfloat16", True),
+    ("17b", "dp4", {"dp": 4}, 2, "float32", False),
+    ("17b", "dp2xtp2", {"dp": 2, "tp": 2}, 2, "float32", False),
+    ("17b", "dp2xfsdp2", {"dp": 2, "fsdp": 2}, 2, "float32", True),
+)
+# the flash forward, the fused backward and the three CE kernels (rows 4,
+# 5 and 8-10 of PERF.md's table)
+MESH_ROWS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd",
+             "fused_ce_dx", "fused_ce_dw")
+
+
+def mesh_program(pt, seed, n_layer, dtype, axes=None, fsdp=False):
+    """The flagship program with ``n_layer`` layers (fused head, Adam),
+    annotated for ``axes`` as the reference annotates it: the tp rules,
+    data parallelism over dp, and with FSDP the selective remat (its layer
+    groups) and ``shard_fsdp``'s tags."""
+    pt.core.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = seed
+    with pt.program_guard(main, startup):
+        model = pt.models.transformer.build(
+            vocab_size=VOCAB, n_layer=n_layer, n_head=N_HEAD,
+            d_model=D_MODEL, max_len=TRAIN_T, dropout_rate=0.0, dtype=dtype,
+            fused_head=True, learning_rate=TRAIN_LR)
+    if fsdp:
+        pt.memory_optimize(main, policy="selective")
+    if axes:
+        par = pt.parallel
+        if axes.get("tp", 1) > 1:
+            for prog in (main, startup):
+                par.shard_parameters_by_rule(
+                    prog, pt.models.transformer.tp_rules())
+        par.data_parallel(main, "dp", programs=(startup,))
+        if fsdp:
+            par.shard_fsdp(main, programs=(startup,))
+    return main, startup, model
+
+
+def mesh_train(torch, np, pt, seed, n_layer, dtype, state, axes=None,
+               fsdp=False, before_last=False):
+    """``MESH_STEPS`` steps through ``Trainer`` (with ``mesh=`` when
+    ``axes`` is given: prefetch lands this rank's rows) from ``state``
+    (``{name: CPU tensor}``, copied into the started scope): the losses,
+    the step walls, the whole parameters, the launches and kernel
+    families, the peak memory, and on a mesh the last step's comm summary
+    (what ran), the contract violations and a digest of each parameter
+    block this rank holds.  ``before_last`` (unsharded): also the
+    parameters before the last step (a copy on the card, taken in the
+    event handler)."""
+    import hashlib
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.parallel.api import spec_axes
+    from paddle_tpu_torch.parallel.contracts import training_step_contract
+
+    main, startup, model = mesh_program(pt, seed, n_layer, dtype, axes,
+                                        fsdp)
+    mesh = pt.parallel.make_mesh(axes) if axes else None
+    scope = pt.Scope()
+    losses, stamps, snap = [], [], {}
+    pnames = [p.name for p in main.all_parameters()]
+
+    def on_event(e):
+        if isinstance(e, pt.EndIteration):
+            losses.append(float(np.asarray(e.cost).reshape(-1)[0]))
+            stamps.append(time.perf_counter())
+            if before_last and len(losses) == MESH_STEPS - 1:
+                snap.update({n: scope.get(n).detach().clone()
+                             for n in pnames})
+
+    reader = pt.reader.batch(trainer_samples(np, seed, MESH_STEPS), TRAIN_B)
+    with pt.scope_guard(scope):
+        tr = pt.Trainer(model["avg_cost"], model["feed"],
+                        place=pt.CUDAPlace(0), main_program=main,
+                        startup_program=startup, mesh=mesh)
+        tr.init_params()
+        for n, t in state.items():
+            scope.get(n).copy_(t)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.train(reader, num_passes=1, event_handler=on_event,
+                 prefetch=2 if mesh else 0)
+        torch.cuda.synchronize()
+        out = {"losses": losses,
+               "walls": [b - a for a, b in zip([t0] + stamps, stamps)],
+               "launches": kernels.launch_counts(),
+               "families": kernels.family_counts(),
+               "peak": torch.cuda.max_memory_allocated()}
+        if mesh is not None:
+            cost = tr.exe.last_step_cost
+            out["comm"] = cost["comm_plan"]
+            out["viol"] = [
+                v["message"] for c in training_step_contract(
+                    mesh, fsdp=fsdp, grad_rs=True)
+                for v in c.check(tr.exe.last_comm_plan)]
+            # the block a rank holds, keyed by its place on the axes the
+            # parameter is cut over: every rank of a key holds a replica
+            coords = tr.exe.comm.coords
+            out["blocks"] = {}
+            for n in pnames:
+                cut = sorted(a for a in spec_axes(tr.exe.shard_spec(main, n))
+                             if mesh.shape.get(a, 1) > 1)
+                t = scope.get(n).detach().contiguous().reshape(-1)
+                out["blocks"][(n, tuple((a, coords[a]) for a in cut))] = (
+                    hashlib.sha256(t.view(torch.uint8).cpu().numpy())
+                    .hexdigest())
+        out["params"] = {n: t.detach().cpu() for n, t in
+                         tr.exe.gather_state(main, scope, pnames).items()}
+        if snap:
+            out["before_last"] = {n: t.cpu() for n, t in snap.items()}
+    return out
+
+
+def mesh_state(torch, pt, seed, n_layer, dtype):
+    """The seeded startup state of the ``n_layer`` program on the card,
+    as CPU tensors — the one state every run of a configuration
+    imports."""
+    main, startup, _ = mesh_program(pt, seed, n_layer, dtype)
+    scope = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=scope)
+    torch.cuda.synchronize()
+    return {v.name: scope.get(v.name).detach().cpu()
+            for v in main.persistable_vars()}
+
+
+def mesh_rank(rank, store, seed, state_paths, q):
+    """One rank of phase 17 (a process of its own on the one card): joins
+    the gloo group (``distributed.launch``, a file store; NCCL refuses two
+    ranks on one device), runs every mesh configuration, and reports."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import launch
+
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        launch.init_multihost(f"file://{store}", MESH_RANKS, rank,
+                              backend="gloo")
+        states = {k: torch.load(p) for k, p in state_paths.items()}
+        res = {}
+        for ph, label, axes, n_layer, dtype, fsdp in MESH_CONFIGS:
+            r = mesh_train(torch, np, pt, seed, n_layer, dtype,
+                           states[(n_layer, dtype)], axes, fsdp)
+            params = r.pop("params")
+            if rank == 0:
+                # tensors through the queue would be shared by file
+                # descriptor with a process about to exit: a file
+                torch.save(params, os.path.join(os.path.dirname(store),
+                                                f"{ph}{label}.pt"))
+            del params
+            res[(ph, label)] = r
+            gc.collect()
+            torch.cuda.empty_cache()
+        q.put((rank, res, None))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+
+        q.put((rank, None, traceback.format_exc()))
+
+
+def mesh_params_agree(got, want, tol, what, zero_start=()):
+    """Every parameter within ``tol`` of its largest entry; returns the
+    worst tensor.  A tensor that starts at zero (``zero_start``: the
+    biases) is held to the model's largest entry: after a few Adam steps
+    its entries are only the ±lr steps, whose sign rounding decides
+    wherever the gradient is small (the key biases, zero-gradient
+    analytically, are one such case)."""
+    biggest = max(float(t.float().abs().max()) for t in want.values())
+    worst, bad = ("", 0.0), []  # worst: of the tensors held to their own
+    for n, w in want.items():
+        err = float((got[n].float() - w.float()).abs().max())
+        own = err / float(w.float().abs().max())
+        plain = "_att_k.b" not in n and n not in zero_start
+        if plain:
+            worst = max(worst, (n, own), key=lambda x: x[1])
+        held = own if plain else err / biggest
+        if held > tol:
+            bad.append((n, held))
+    if bad:
+        raise AssertionError(f"{what}: {bad[:4]} off by more than {tol} of "
+                             f"the largest entry")
+    return worst
+
+
+def mesh_updates_agree(got, ref, start, lr, what):
+    """17a's parameter check (bf16): each tensor's update within
+    ``MESH_UPDATE_TOL`` of the reference's — ||got - want|| / ||want -
+    start||, where a state never updated reads 1 and a tensor the
+    reference left unchanged reads 0 where the run left it unchanged too,
+    else inf.  The key biases stand apart: their gradient is zero
+    analytically, so both runs move them by Adam's steps on rounding
+    noise; they are held to ``MESH_STEPS`` such steps.  Three controls,
+    read on the same tensors, must fail the limit: the state before any
+    step (a rank whose optimizer never ran), the reference's parameters
+    before its last step (a rank that missed the last update) and the
+    same with only the first half of each tensor's rows updated (a rank
+    that skipped the last ZeRO-1 gather).  Logs every reading before it
+    judges; returns the worst tensor's name and ratio."""
+    keyb = {n for n in ref["params"] if "_att_k.b" in n}
+    want = {n: t.float() for n, t in ref["params"].items() if n not in keyb}
+    moved = {n: float((w - start[n].float()).norm())
+             for n, w in want.items()}
+
+    def reading(run):
+        """Per-tensor ratios and the whole model's."""
+        err = {n: float((run[n].float() - w).norm())
+               for n, w in want.items()}
+        per = {n: e / moved[n] if moved[n] else
+               (0.0 if e == 0 else math.inf) for n, e in err.items()}
+        whole = math.sqrt(sum(e * e for e in err.values())
+                          / sum(m * m for m in moved.values()))
+        return per, whole
+
+    before = ref["before_last"]
+    half = {}
+    for n in want:
+        h = ref["params"][n].clone()
+        h[h.shape[0] // 2:] = before[n][h.shape[0] // 2:]
+        half[n] = h
+    ratios, whole = reading(got)
+    controls = {c: reading(r) for c, r in (
+        ("unchanged", start), ("before_last", before), ("half_rows", half))}
+    worst = max(ratios.items(), key=lambda kv: kv[1])
+    srt = sorted(ratios.values())
+    keymove = max(float((got[n].float() - start[n].float()).abs().max())
+                  for n in keyb)
+
+    def least_median(per):
+        v = sorted(x for x in per.values() if 0 < x < math.inf)
+        return f"{v[0]:.3e} / {v[len(v) // 2]:.3e}"
+
+    log(f"{what}: update ratio ||mesh - unsharded|| / ||unsharded - start|| "
+        f"per tensor ({len(ratios)} tensors): worst {worst[0]} "
+        f"{worst[1]:.3e}, median {srt[len(srt) // 2]:.3e}, whole model "
+        f"{whole:.3e}; controls, whole model / per-tensor least / median: "
+        + "; ".join(f"{c} {w:.3e} / {least_median(per)}"
+                    for c, (per, w) in controls.items())
+        + f"; tensors the reference left unchanged "
+        f"{sum(1 for m in moved.values() if not m)}; key biases moved "
+        f"{keymove:.3e} at most (limit {2 * MESH_STEPS * lr:.1e})")
+    bad = sorted(((r, n) for n, r in ratios.items()
+                  if not r <= MESH_UPDATE_TOL), reverse=True)
+    if bad:
+        raise AssertionError(f"{what}: updates off the reference's by more "
+                             f"than {MESH_UPDATE_TOL} of their norm: "
+                             f"{bad[:4]}")
+    for c, (_, w) in controls.items():
+        if not w > MESH_UPDATE_TOL:
+            raise AssertionError(f"{what}: control {c} reads {w:.3e}, "
+                                 f"within the limit {MESH_UPDATE_TOL}")
+    if not keymove <= 2 * MESH_STEPS * lr:
+        raise AssertionError(f"{what}: a key bias moved {keymove:.3e}, more "
+                             f"than {MESH_STEPS} Adam steps of {lr}")
+    return worst
+
+
+def mesh_nccl_phase(torch, np, pt, smi, seed):
+    """17c: phase 10's flagship through ``Trainer(mesh=make_mesh({"dp":
+    1}))`` on a one-rank NCCL group against the mesh-less Trainer, bit for
+    bit (deterministic algorithms on), both step walls in the same call.
+    Returns the imported state and the mesh-less run (17a's unsharded
+    reference)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import launch
+
+    with tempfile.TemporaryDirectory() as d:
+        launch.init_multihost(f"file://{d}/store", 1, 0, backend="nccl")
+        try:
+            t = torch.ones(1, device="cuda")
+            dist.all_reduce(t)
+            assert dist.get_backend() == "nccl" and float(t[0]) == 1.0
+            state = mesh_state(torch, pt, seed, N_LAYER, "bfloat16")
+            with deterministic(torch):
+                plain = mesh_train(torch, np, pt, seed, N_LAYER, "bfloat16",
+                                   state, before_last=True)
+                meshed = mesh_train(torch, np, pt, seed, N_LAYER,
+                                    "bfloat16", state, {"dp": 1})
+        finally:
+            dist.destroy_process_group()
+    if plain["losses"] != meshed["losses"]:
+        raise AssertionError(f"17c: losses {meshed['losses']} != "
+                             f"{plain['losses']}")
+    for n, w in plain["params"].items():
+        if not torch.equal(meshed["params"][n], w):
+            raise AssertionError(f"17c: {n} differs from the mesh-less run")
+    log(f"17c one rank over NCCL, dp1: losses {meshed['losses']} equal the "
+        f"mesh-less Trainer's bit for bit, every parameter too; step walls "
+        f"mesh {[round(w, 4) for w in meshed['walls']]} s, mesh-less "
+        f"{[round(w, 4) for w in plain['walls']]} s ({smi})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return state, plain
+
+
+def mesh_phase(torch, np, pt, smi, seed):
+    """Phase 17: sharded training over a device mesh, as four processes
+    on the one card (gloo with CUDA tensors), against the single-process
+    unsharded Trainer on the card (17a, 17b), and one rank over NCCL
+    (17c)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    flagship = mesh_nccl_phase(torch, np, pt, smi, seed)
+    t_17c = time.perf_counter() - t_phase
+    keys = sorted({(c[3], c[4]) for c in MESH_CONFIGS})
+    with tempfile.TemporaryDirectory() as d:
+        paths, refs, zero_start, starts = {}, {}, {}, {}
+        for n_layer, dtype in keys:
+            if (n_layer, dtype) == (N_LAYER, "bfloat16"):
+                # 17c's mesh-less run is 17a's unsharded reference
+                state, refs[(n_layer, dtype)] = flagship
+            else:
+                state = mesh_state(torch, pt, seed, n_layer, dtype)
+                refs[(n_layer, dtype)] = mesh_train(
+                    torch, np, pt, seed, n_layer, dtype, state)
+            zero_start[(n_layer, dtype)] = {
+                n for n, t in state.items() if not bool(t.any())}
+            starts[(n_layer, dtype)] = {
+                n: state[n] for n in refs[(n_layer, dtype)]["params"]}
+            paths[(n_layer, dtype)] = os.path.join(d, f"{n_layer}{dtype}.pt")
+            torch.save(state, paths[(n_layer, dtype)])
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+        del flagship
+        t_refs = time.perf_counter() - t_phase - t_17c
+        ctx = mp.get_context("spawn")
+        q = ctx.Queue()
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, os.path.join(d, "store"), seed, paths,
+                                   q)) for r in range(MESH_RANKS)]
+        try:
+            for p in procs:
+                p.start()
+            ranks = {}
+            for _ in procs:
+                rank, res, err = q.get(timeout=900)
+                if err:
+                    raise AssertionError(f"phase 17 rank {rank} failed:\n"
+                                         f"{err}")
+                ranks[rank] = res
+        finally:
+            for p in procs:
+                p.join(timeout=10)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        for ph, label, *_ in MESH_CONFIGS:
+            ranks[0][(ph, label)]["params"] = torch.load(
+                os.path.join(d, f"{ph}{label}.pt"))
+    t_ranks = time.perf_counter() - t_phase - t_17c - t_refs
+    for ph, label, axes, n_layer, dtype, fsdp in MESH_CONFIGS:
+        ref = refs[(n_layer, dtype)]
+        loss_tol = (fa.oracle_tol("bfloat16", "fwd") if dtype == "bfloat16"
+                    else 2e-4)
+        rel = [abs(a - b) / abs(b) for a, b in
+               zip(ranks[0][(ph, label)]["losses"], ref["losses"])]
+        if max(rel) > loss_tol:
+            raise AssertionError(
+                f"{ph} {label}: losses {ranks[0][(ph, label)]['losses']} "
+                f"vs unsharded {ref['losses']}")
+        # bf16: each tensor's update against the unsharded run's (Adam
+        # turns bf16-rounding-level gradients into ±lr steps of either
+        # sign, so entries are not held one by one); f32: each tensor
+        # within 1e-3 of its largest entry
+        if dtype == "bfloat16":
+            worst = mesh_updates_agree(
+                ranks[0][(ph, label)]["params"], ref,
+                starts[(n_layer, dtype)], TRAIN_LR, f"{ph} {label}")
+            unit = "of the unsharded run's update"
+        else:
+            worst = mesh_params_agree(
+                ranks[0][(ph, label)]["params"], ref["params"], 1e-3,
+                f"{ph} {label}", zero_start[(n_layer, dtype)])
+            unit = "of its own largest entry"
+        del ranks[0][(ph, label)]["params"]
+        # every rank that holds the same block of a parameter holds it
+        # bit for bit (replicas over dp, tp and fsdp)
+        held = {}
+        for rank in range(MESH_RANKS):
+            for key, digest in ranks[rank][(ph, label)]["blocks"].items():
+                held.setdefault(key, []).append((rank, digest))
+        split = {k: v for k, v in held.items()
+                 if len({d for _, d in v}) > 1}
+        if split:
+            raise AssertionError(f"{ph} {label}: replicas differ: "
+                                 f"{sorted(split)[:4]}")
+        n_rep = sum(1 for v in held.values() if len(v) > 1)
+        for rank in range(MESH_RANKS):
+            r = ranks[rank][(ph, label)]
+            # ranks that compute the same rows (fsdp peers) sum the
+            # card's atomics in their own orders: equal within the bound
+            if max(abs(a - b) / abs(b) for a, b in zip(
+                    r["losses"], ranks[0][(ph, label)]["losses"])) > loss_tol:
+                raise AssertionError(f"{ph} {label}: rank {rank}'s losses "
+                                     f"{r['losses']} off rank 0's")
+            if r["viol"]:
+                raise AssertionError(f"{ph} {label} rank {rank}: contract "
+                                     f"violations {r['viol']}")
+            missing = [k for k in MESH_ROWS if not r["launches"][k]]
+            if missing:
+                raise AssertionError(f"{ph} {label} rank {rank}: no launch "
+                                     f"of {missing}")
+            if ph == "17a" and axes.get("tp", 1) > 1:
+                fam = r["families"]
+                off = [k for k in ("flash_attention_fwd",
+                                   "flash_attention_bwd", "fused_ce_fwd",
+                                   "fused_ce_dx", "fused_ce_dw")
+                       if not fam[k].get("sm90")]
+                if off:
+                    raise AssertionError(f"17a tp rank {rank}: {off} did "
+                                         f"not run the sm90 family: {fam}")
+        r0 = ranks[0][(ph, label)]
+        by_kind = {}
+        for row in r0["comm"]:
+            by_kind[row["kind"]] = by_kind.get(row["kind"], 0) + row["bytes"]
+        log(f"{ph} {label} ({n_layer} layers, {dtype}, global batch "
+            f"{TRAIN_B}, t={TRAIN_T}): losses {r0['losses']} vs unsharded "
+            f"{ref['losses']} (worst rel {max(rel):.2e}); worst parameter "
+            f"{worst[0]} {worst[1]:.2e} {unit}; step walls "
+            f"{[round(w, 3) for w in r0['walls']]} s (unsharded "
+            f"{[round(w, 3) for w in ref['walls']]} s); comm bytes a step "
+            f"{by_kind}; {n_rep} parameter blocks held by several ranks, "
+            f"each bit for bit alike; peak memory per rank "
+            f"{[ranks[k][(ph, label)]['peak'] for k in range(MESH_RANKS)]} B "
+            f"(unsharded {ref['peak']} B); launches on rank 0 "
+            f"{ {k: r0['launches'][k] for k in MESH_ROWS} }; contracts hold "
+            f"on every rank ({smi})")
+    log(f"phase 17 wall {time.perf_counter() - t_phase:.1f} s (17c "
+        f"{t_17c:.1f} s, unsharded references {t_refs:.1f} s, the four "
+        f"ranks {t_ranks:.1f} s)")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6221,7 +6712,15 @@ def main():
     torch.cuda.empty_cache()
     log(f"the script so far {time.perf_counter() - t_start:.1f} s")
 
-    # 17. the kernels line, 18. the result
+    # 17. sharded training over a mesh: 17a the flagship on dp2 x tp2 and
+    #     dp2 x fsdp2, 17b two layers in f32 on dp4, dp2 x tp2, dp2 x fsdp2
+    #     (four ranks on the card), 17c one rank over NCCL
+    mesh_phase(torch, np, pt, smi, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"the script so far {time.perf_counter() - t_start:.1f} s")
+
+    # 18. the kernels line, 19. the result
     row["launches"] = launches["paged_attention"]
     gather_row["launches"] = gathered["launches"]["decode_gather"]
     log(f"paged_attention at the verify shape: kernel {verify_ms[0]:.4f} ms, "

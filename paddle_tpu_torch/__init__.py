@@ -38,14 +38,18 @@ the send/recv transpiler and its trainer), the recordio format with its
 native loader (``native``, built with g++ at first use),
 ``reader.creator.recordio`` / ``cloud_reader``, ``flags``,
 ``check_gradients`` and the command line (``python -m paddle_tpu_torch
-train | pserver | master | version``).
+train | pserver | master | version``); sharded training over a device
+mesh (``parallel``: dp, ZeRO-1, FSDP / ZeRO-3, tp) through
+``Executor(place, mesh=...)`` and ``Trainer(mesh=...)``, one process per
+rank (``distributed.launch``), with each step's collective log checked
+by ``analysis.comm`` contracts.
 """
 
 from . import ops as _ops  # noqa: F401  (registers the op lowerings)
-from . import (clip, data_feeder, dataset, distributed, flags, initializer,
-               io, layers, learning_rate_decay, models, native, nets,
-               observability, optimizer, profiler, reader, regularizer,
-               resilience, trainer)
+from . import (analysis, clip, data_feeder, dataset, distributed, flags,
+               initializer, io, layers, learning_rate_decay, models, native,
+               nets, observability, optimizer, parallel, profiler, reader,
+               regularizer, resilience, trainer)
 from .backward import append_backward
 from .checkgrad import check_gradients
 from .core.executor import Executor
@@ -73,5 +77,6 @@ __all__ = [
     "EndIteration", "DataFeeder", "MetricsReporter", "io", "reader",
     "profiler", "data_feeder", "observability", "resilience", "trainer",
     "clip", "regularizer", "learning_rate_decay", "nets", "dataset",
-    "distributed", "native", "flags", "check_gradients",
+    "distributed", "native", "flags", "check_gradients", "parallel",
+    "analysis",
 ]

@@ -243,17 +243,20 @@ class LoweringCtx:
     control-flow op finds its sub-block).  ``op_type`` is the type of the
     op running now (what a selective-remat policy keys on);
     ``grad_prefix`` whether a control-flow op runs in the differentiated
-    forward (its sub-block then runs the same way); ``trips`` where a
+    forward (its sub-block then runs the same way); ``spmd`` the mesh
+    path's view of this rank (None off a mesh); ``trips`` where a
     ``while`` op records the trips it ran and the shapes its sub-block's
     values took (``{id(op): (n, shapes)}``, for :func:`step_flops`)."""
 
-    def __init__(self, device, gen, program=None, trips=None):
+    def __init__(self, device, gen, program=None, trips=None, spmd=None):
         self.device = device
         self.gen = gen
         self.program = program
         self.op_type = None
         self.grad_prefix = False
         self.trips = {} if trips is None else trips
+        # the mesh path's rank view (``parallel/spmd.py``), None off-mesh
+        self.spmd = spmd
 
 
 def _check_fetches(program, fetch_names):
@@ -301,15 +304,25 @@ def run_block_ops(ctx, block, ops, env, inside_grad_prefix=False, plan=None,
     over the name -> tensor environment ``env``.  A control-flow op
     (``raw``) is called as ``fn(ctx, block, op, env)`` and writes its
     outputs itself."""
+    sp = ctx.spmd
     for i, op in enumerate(ops, start=first):
         impl = get_op_impl(op.type)
         if impl.raw:
             ctx.op_type = op.type
             ctx.grad_prefix = inside_grad_prefix
+            subs = {}
+            if sp is not None:
+                # a sub-block runs replicated: what it reads, gathered
+                subs = sp.replicate_reads(op_reads(ctx.program, op), env)
+                saved = {n: env[n] for n in subs}
+                env.update(subs)
             try:
                 impl.fn(ctx, block, op, env)
             except Exception as e:
                 raise RuntimeError(f"error running {op}: {e}") from e
+            for n, v in subs.items():
+                if env.get(n) is v:
+                    env[n] = saved[n]
             if plan is not None:
                 for n in plan.drop[i]:
                     env.pop(n, None)
@@ -334,9 +347,19 @@ def run_block_ops(ctx, block, ops, env, inside_grad_prefix=False, plan=None,
         if impl.stateful_rng and "_gen" not in attrs:
             attrs["_gen"] = ctx.gen
         ctx.op_type = op.type
+        live = None if plan is None else plan.live[i]
         try:
-            outs = impl.call(ins, attrs, ctx,
-                             live=None if plan is None else plan.live[i])
+            if sp is None:
+                outs = impl.call(ins, attrs, ctx, live=live)
+            else:
+                def run(ins_, attrs_, _impl=impl, _live=live):
+                    return _impl.call(ins_, attrs_, ctx, live=_live)
+
+                if op.role == "optimize":
+                    outs = sp.optimizer_op(op, ins, attrs, run, env)
+                else:
+                    outs = sp.call(op, ins, attrs, run,
+                                   block.idx != 0 or i in sp.loop_ops)
         except Exception as e:
             raise RuntimeError(f"error running {op}: {e}") from e
         outs = outs or {}
@@ -777,13 +800,24 @@ def _reassemble(block, bw, ys, full_b):
 
 
 class Executor:
-    """``Executor(place)`` — ``place`` is ``CUDAPlace()``, ``CPUPlace()``, a
-    device string, or None for the card.  With no place and no usable
-    card it raises; the CPU must be asked for.  On the card every kernel
-    library (flash attention, the fused CE head, ...) is built here,
-    outside any timed step."""
+    """``Executor(place, mesh=None)`` — ``place`` is ``CUDAPlace()``,
+    ``CPUPlace()``, a device string, or None for the card.  With no place
+    and no usable card it raises; the CPU must be asked for.  On the card
+    every kernel library (flash attention, the fused CE head, ...) is built
+    here, outside any timed step.
 
-    def __init__(self, place=None):
+    ``mesh`` (``parallel.make_mesh``) runs this process as one rank of a
+    mesh step (``parallel/spmd.py``): ``torch.distributed`` must be
+    initialised with the mesh's size (``distributed.launch``), except for
+    a mesh of one rank.  Persistables rest as this rank's blocks under
+    their resolved specs, feeds are cut to this rank's rows (a tensor
+    from ``parallel.local_shard`` is taken as already cut), fetches come
+    back whole, the comm fields of ``last_step_cost`` count the last
+    step's collectives as they ran, and ``last_comm_plan`` is the same log
+    as a ``CommPlan`` in the reference's names
+    (``analysis.comm.plan_from_log``), which its contracts read."""
+
+    def __init__(self, place=None, mesh=None):
         self.place = place
         self.device = resolve_device(place)
         self._cache = {}
@@ -791,6 +825,9 @@ class Executor:
         # the last training step's remat plan (``_Forward.plan_log``):
         # policy, offload mode and bytes, layer groups; None without remat
         self.last_remat_plan = None
+        self.mesh = mesh
+        self.comm = None
+        self.last_comm_plan = None
         if self.device.type == "cuda":
             if self.device.index is None:  # "cuda" -> the current card
                 self.device = torch.device(
@@ -798,9 +835,110 @@ class Executor:
             from ..kernels import build_all
 
             build_all()
+        if mesh is not None:
+            import torch.distributed as dist
+
+            from ..parallel.collectives import MeshComm
+
+            if dist.is_available() and dist.is_initialized():
+                rank = dist.get_rank()
+                mesh.bind(rank)
+            elif mesh.size == 1:
+                rank = 0
+            else:
+                raise RuntimeError(
+                    f"Executor(mesh={mesh}) needs torch.distributed "
+                    f"initialised with {mesh.size} ranks "
+                    f"(distributed.launch.init_multihost)")
+            self.comm = MeshComm(mesh, rank)
+
+    def shard_spec(self, program, name):
+        """The resolved spec a persistable of ``program`` rests under on
+        this executor's mesh (None off a mesh)."""
+        if self.mesh is None:
+            return None
+        from ..parallel.api import compile_shardings
+
+        return compile_shardings(self.mesh, program, [name])[name]
+
+    def gather_state(self, program, scope=None, names=None):
+        """``{name: whole tensor}`` of ``program``'s persistables the scope
+        holds (``names`` to choose), each sharded one all-gathered from
+        the ranks' blocks — a collective call: every rank calls it.  Off
+        a mesh, the scope's tensors."""
+        scope = scope or global_scope()
+        names = names or [v.name for v in program.persistable_vars()
+                          if scope.find_var(v.name) is not None]
+        if self.mesh is None:
+            return {n: scope.get(n) for n in names}
+        specs = self._specs(program)
+        block = program.global_block()
+        out, saved = {}, self.comm.take_log()
+        for n in names:
+            t = scope.get(n)
+            full = tuple(int(d) for d in block._find_var(n).shape)
+            spec = tuple(specs.get(n) or ())
+            if tuple(t.shape) != full:
+                for d, e in enumerate(spec):
+                    axes = e if isinstance(e, tuple) else ((e,) if e else ())
+                    for ax in reversed(axes):
+                        t = self.comm.all_gather(t, ax, d, n)
+            out[n] = t
+        self.comm.log = saved
+        return out
+
+    def _specs(self, program):
+        """``{persistable: resolved spec}`` of ``program`` on the mesh,
+        memoized per program version."""
+        key = (program._serial, program._version)
+        memo = getattr(self, "_spec_memo", None)
+        if memo is None or memo[0] != key:
+            from ..parallel.api import compile_shardings
+
+            names = [v.name for v in program.persistable_vars()]
+            self._spec_memo = memo = (key, compile_shardings(
+                self.mesh, program, names))
+        return memo[1]
+
+    def feed_slicer(self, program):
+        """``fn(name, tensor) -> this rank's rows`` of ``program``'s feeds,
+        marked as cut (``parallel.local_shard``) — what a prefetcher
+        applies before it copies a batch to the card."""
+        from ..parallel import local_shard
+
+        block = program.global_block()
+
+        def cut(name, val):
+            if block._find_var(name) is None or not val.dim():
+                return val
+            return local_shard(self._local_feed(block, name, val, 0)
+                               .contiguous())
+
+        return cut
+
+    def _local_feed(self, block, name, val, dim):
+        """This rank's rows of a feed (dim ``dim`` is the batch), by the
+        feed's spec."""
+        if getattr(val, "_pt_local_shard", False):
+            return val
+        var = block._find_var(name)
+        spec = tuple(getattr(var, "partition_spec", None) or ())
+        if not spec or spec[0] is None:
+            return val
+        axes = spec[0] if isinstance(spec[0], tuple) else (spec[0],)
+        if axes != ("dp",) or any(e is not None for e in spec[1:]):
+            raise NotImplementedError(
+                f"feed {name!r} spec {spec}: the mesh path cuts feeds "
+                f"along their batch dim over dp only")
+        n = self.comm.size("dp")
+        b = val.shape[dim]
+        if b % n:
+            raise ValueError(f"feed {name!r} batch {b} not divisible by "
+                             f"dp={n}")
+        return val.narrow(dim, self.comm.index("dp") * (b // n), b // n)
 
     # ------------------------------------------------------------------
-    def _prepare(self, program, feed, fetch_list, scope):
+    def _prepare(self, program, feed, fetch_list, scope, stacked=False):
         program = program or default_main_program()
         feed = feed or {}
         fetch_list = fetch_list or []
@@ -818,11 +956,15 @@ class Executor:
             val = feed[n]
             if not isinstance(val, torch.Tensor):
                 val = tensor_from_numpy(np.asarray(val))
+            if self.mesh is not None and val.dim() > int(stacked):
+                val = self._local_feed(block, n, val, int(stacked))
             # a tensor already on the device makes no host round trip
             feeds[n] = val.to(device=self.device, dtype=dtype)
         state_names = tuple(sorted(
             v.name for v in program.persistable_vars()
             if scope.find_var(v.name) is not None))
+        if self.mesh is not None:
+            self._shard_state(program, scope, state_names)
         state = {n: scope.get(n) for n in state_names}
         for n, t in state.items():
             if t.device != self.device:
@@ -830,6 +972,25 @@ class Executor:
                     f"scope variable {n!r} lies on {t.device}, this "
                     f"Executor runs on {self.device}")
         return program, scope, feeds, fetch_names, state_names, state
+
+    def _shard_state(self, program, scope, state_names):
+        """Cut every whole persistable the scope holds to this rank's block
+        (a fresh startup state, a loaded checkpoint); blocks stay."""
+        from ..parallel.api import spec_axes
+        from ..parallel.spmd import local_block
+
+        specs = self._specs(program)
+        block = program.global_block()
+        for n in state_names:
+            spec = specs.get(n)
+            if not spec or not any(self.comm.size(a) > 1
+                                   for a in spec_axes(spec)):
+                continue
+            t = scope.get(n)
+            full = tuple(int(d) for d in block._find_var(n).shape)
+            if tuple(t.shape) == full:
+                scope.set(n, local_block(t, spec, self.mesh,
+                                         self.comm.coords))
 
     def lower(self, program, fetch_names, state_names):
         """Build ``step(state, feeds, gen) -> (new_state, fetches,
@@ -850,15 +1011,21 @@ class Executor:
             keep.add(info["loss"])
         plan = _Plan(program, ops, keep)
         device = self.device
+        sp = self._spmd(program) if self.mesh is not None else None
         if bw is None or info is None:
             def step(state, feeds, gen, trips=None):
-                ctx = LoweringCtx(device, gen, program, trips)
+                ctx = LoweringCtx(device, gen, program, trips, sp)
                 env = dict(state)
                 env.update(feeds)
+                if sp is not None:
+                    sp.reset()
                 with torch.no_grad():
                     run_block_ops(ctx, block, ops, env, plan=plan)
-                return ({n: env[n] for n in persist_out},
-                        [env[n].detach() for n in fetch_names], None)
+                fetches = [env[n].detach() for n in fetch_names]
+                if sp is not None:
+                    fetches = self._mesh_fetches(sp, block, len(ops),
+                                                 fetch_names, fetches, feeds)
+                return ({n: env[n] for n in persist_out}, fetches, None)
             return step
 
         # what the forward hands the optimizer ops and the caller
@@ -869,29 +1036,43 @@ class Executor:
         accum = int(getattr(program, "_grad_accum", 1) or 1)
 
         def step(state, feeds, gen, trips=None):
-            ctx = LoweringCtx(device, gen, program, trips)
+            ctx = LoweringCtx(device, gen, program, trips, sp)
             env = dict(state)
             env.update(feeds)
             param_names = [n for n in info["params"] if n in env]
             params = [env[n] for n in param_names]
             for p in params:
                 p.requires_grad_(True)
+            hooks = contextlib.nullcontext()
+            if sp is not None:
+                sp.reset()
+                sp.micro = accum > 1
+                if sp.extra:
+                    hooks = sp.saved_hooks()
             try:
-                if accum <= 1:
-                    grads = fwd.grads(ctx, env, params, info["loss"])
-                else:
-                    grads = _accum_grads(fwd, ctx, env, params, feeds,
-                                         persist_out, accum, info["loss"])
+                with hooks:
+                    if accum <= 1:
+                        grads = fwd.grads(ctx, env, params, info["loss"])
+                    else:
+                        grads = _accum_grads(fwd, ctx, env, params, feeds,
+                                             persist_out, accum,
+                                             info["loss"])
             finally:
                 for p in params:
                     p.requires_grad_(False)
             with torch.no_grad():
-                # the step's global gradient norm: one f32 sum of squares
-                # per parameter and one sqrt, a pure extra output that
-                # nothing in the update reads
-                grad_norm = (torch.linalg.vector_norm(torch.stack(
-                    [torch.linalg.vector_norm(g.float()) for g in grads]))
-                    if grads else torch.zeros((), device=device))
+                if sp is not None:
+                    sp.micro = False
+                    grads = sp.boundary_grads(param_names, grads, accum)
+                    grad_norm = sp.grad_norm(param_names, grads, device)
+                else:
+                    # the step's global gradient norm: one f32 sum of
+                    # squares per parameter and one sqrt, a pure extra
+                    # output that nothing in the update reads
+                    grad_norm = (torch.linalg.vector_norm(torch.stack(
+                        [torch.linalg.vector_norm(g.float())
+                         for g in grads]))
+                        if grads else torch.zeros((), device=device))
                 if NAN_GUARD[0]:
                     _raise_if_not_finite({info["loss"]: env[info["loss"]],
                                           GRAD_NORM_VAR: grad_norm})
@@ -899,12 +1080,78 @@ class Executor:
                     env[n + GRAD_SUFFIX] = g
                 del grads
                 run_block_ops(ctx, block, ops[bw:], env, plan=plan, first=bw)
+                if sp is not None:
+                    sp.flush_zero()
             self.last_remat_plan = fwd.plan_log(device)
             new_state = {n: env[n] for n in persist_out}
             fetches = [env[n].detach() for n in fetch_names]
+            if sp is not None:
+                fetches = self._mesh_fetches(sp, block, bw, fetch_names,
+                                             fetches, feeds)
             return new_state, fetches, grad_norm
 
         return step
+
+    def _spmd(self, program):
+        """This rank's :class:`~paddle_tpu_torch.parallel.spmd.Spmd` view
+        of ``program``: the resolved specs, and the ops of the layer
+        groups a memory-optimized program repeats (the loops of its
+        step)."""
+        from ..parallel.api import _zero3_rs_enabled, scan_groups
+        from ..parallel.spmd import Spmd
+
+        loop_ops = set()
+        segments = list(getattr(program, "_remat_segments", None) or ())
+        if segments:
+            for g in scan_groups(program, segments):
+                first = segments[g["start"]][0]
+                last = segments[g["start"] + g["count"] * g["period"] - 1][1]
+                loop_ops.update(range(first, last))
+        return Spmd(self.comm, program, self._specs(program), loop_ops,
+                    rs=_zero3_rs_enabled())
+
+    def _mesh_fetches(self, sp, block, bw, fetch_names, fetches, feeds):
+        """Fetches whole: a tp-sharded value gathered, and over dp every
+        rank's value reassembled as gradient accumulation reassembles
+        microbatches (batch-leading values concatenate, batch sums add,
+        other float values average)."""
+        comm = self.comm
+        ndp = comm.size("dp")
+        out = []
+        with comm.where("boundary", False):
+            for n, v in zip(fetch_names, fetches):
+                v = sp.fetch(n, v)
+                if ndp > 1 and n not in sp.specs:
+                    vals = comm.gather_objects(v, "dp")
+                    full_b = _feed_batch(block, feeds) * ndp
+                    v = _reassemble(block, bw, {n: vals}, full_b)[n]
+                out.append(v)
+        return out
+
+    def _log_comm(self, cost):
+        """Fold the step's collective log into the cost dict's comm fields
+        (what ran) and ``last_comm_plan`` (the reference's names for it,
+        which its contracts read)."""
+        from ..analysis.comm import plan_from_log
+
+        log = self.comm.take_log()
+        self.last_comm_plan = plan_from_log(
+            log, self.mesh.shape, cost.get("label"), reference=True)
+        plan = plan_from_log(log, self.mesh.shape, cost.get("label"))
+        rep = plan.comm_report()
+        cost.update(
+            comm_plan=plan.summary(),
+            collective_count=rep["collective_count"],
+            collective_bytes=rep["collective_bytes"],
+            collective_op_kinds=dict(rep["collective_ops"]),
+            reduce_ops=rep["reduce_ops"], reduce_bytes=rep["reduce_bytes"],
+            reduce_ops_in_loop=rep["reduce_ops_in_loop"],
+            collectives_in_loop=rep["collectives_in_loop"])
+        reg = _obs.get_registry()
+        reg.counter("executor.collective_bytes",
+                    help="bytes of the mesh steps' collectives").inc(
+            rep["collective_bytes"])
+        return cost
 
     def _entry(self, program, fetch_names, state_names):
         """``(step, cost)`` for this signature, lowered (and counted) on
@@ -997,6 +1244,8 @@ class Executor:
                                     fetch_names)
         self.last_step_cost = self._cost(program, entry, cache_hit, feeds,
                                          trips=trips)
+        if self.comm is not None:
+            self._log_comm(self.last_step_cost)
         if return_numpy:
             return [tensor_to_numpy(f) for f in fetches]
         return fetches
@@ -1010,7 +1259,7 @@ class Executor:
         through the steps exactly as across ``steps`` separate ``run``
         calls, so the results are those calls' bits."""
         program, scope, feeds, fetch_names, state_names, state = (
-            self._prepare(program, feed, fetch_list, scope))
+            self._prepare(program, feed, fetch_list, scope, stacked=True))
         if steps is None:
             if not feeds:
                 raise ValueError("steps is required when there is no feed")
@@ -1045,6 +1294,8 @@ class Executor:
         self.last_step_cost = self._cost(
             program, entry, cache_hit,
             step_feeds[0] if step_feeds else {}, steps, trips)
+        if self.comm is not None:
+            self._log_comm(self.last_step_cost)
         fetches = [torch.stack(col) for col in zip(*outs)] if outs else []
         if return_numpy:
             return [tensor_to_numpy(f) for f in fetches]

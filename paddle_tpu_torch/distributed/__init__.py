@@ -14,17 +14,17 @@ send/recv transpiler (the port's counterpart of
 Transport is a small length-prefixed-pickle TCP RPC (``rpc``), the JAX
 package's wire format byte for byte.  The servers and the master are host
 code (numpy) in both packages; only the trainer's Executor runs on the
-card.  Multi-host launching (``launch.py`` of the JAX package) is not
-ported.
+card.  ``launch`` joins the processes of a mesh job into one
+``torch.distributed`` process group (``init_multihost``, ``global_mesh``).
 """
 
-from . import rpc
+from . import launch, rpc
 from . import store
 from .master import MasterClient, MasterService
 from .pserver import ParameterServer, PServerClient
 from .transpiler import DistributedTrainer, DistributeTranspiler
 
 __all__ = [
-    "rpc", "store", "MasterService", "MasterClient", "ParameterServer",
+    "launch", "rpc", "store", "MasterService", "MasterClient", "ParameterServer",
     "PServerClient", "DistributeTranspiler", "DistributedTrainer",
 ]

@@ -29,10 +29,17 @@ every persistable — into pinned host buffers, on a side stream, behind an
 event the step stream waits on — before it returns; a queued reference
 to a live tensor would write a later step's weights.
 
-Checkpoints the JAX package wrote from several processes (``.shard<p>.npz``
-files, CRC sidecars ``__shards<p>__.pkl``) are assembled densely on load.
-The port writes single-process checkpoints only; writing shards and
-loading into sharded tensors wait for multi-GPU training (ROADMAP A7).
+Sharded checkpoints (the JAX package's layout, ``paddle_tpu/io.py:56-160``):
+on an Executor with a mesh, ``save_vars`` writes each variable that rests
+sharded as one ``<name>.shard<p>.npz`` a process — the blocks that
+process is the lowest rank to hold, each with its index — with a CRC
+sidecar ``__shards<p>__.pkl``; process 0 writes the replicated variables'
+``.npy`` files and the manifest, and every process its ``__done<p>__``
+marker last, then all wait for each other.  ``load_vars`` assembles the
+shards densely, whoever wrote them; the mesh Executor cuts what it loads
+to its own blocks at the next run, so a checkpoint loads into a mesh of
+another size, or into one process.  ``AsyncCheckpointer`` writes
+single-process checkpoints only.
 
 ``__model__`` (``save_inference_model``) is the pickled ``Program`` of the
 package that wrote it: a port-written ``__model__`` loads into the port,
@@ -151,7 +158,54 @@ def _tensor(arr, dtype, device):
     return t.to(device)
 
 
-def _write_snapshot(dirname, snap, extra_state=None):
+def _mesh_shards(executor, program, snap):
+    """Split ``snap`` on a mesh Executor: ``(dense, shards, proc,
+    nprocs)`` — ``shards`` maps each sharded variable to ``(key, arr,
+    dtype, shape)`` (``key`` None where a lower rank holds the same
+    block)."""
+    from .parallel.api import spec_axes
+    from .parallel.spmd import shard_index
+
+    mesh, comm = executor.mesh, executor.comm
+    dense, shards = {}, {}
+    block = program.global_block()
+    for name, (arr, dtype) in snap.items():
+        spec = executor.shard_spec(program, name)
+        if not spec or not any(comm.size(a) > 1 for a in spec_axes(spec)):
+            dense[name] = (arr, dtype)
+            continue
+        shape = tuple(int(d) for d in block._find_var(name).shape)
+        key = shard_index(shape, spec, mesh, comm.coords)
+        owner = min(r for r in range(mesh.size) if shard_index(
+            shape, spec, mesh, mesh.coords(r)) == key)
+        shards[name] = (key if owner == comm.rank else None, arr, dtype,
+                        shape)
+    return dense, shards, comm.rank, mesh.size
+
+
+def _write_shards(dirname, shards, proc, nprocs, manifest):
+    """This process's ``.shard<p>.npz`` files and CRC sidecar; the
+    manifest entries of the sharded variables."""
+    sidecar = {}
+    for name, (key, arr, dtype, shape) in shards.items():
+        fname = name.replace("/", "__")
+        sfile = f"{fname}.shard{proc}.npz"
+        payload = {}
+        if key is not None:
+            payload = {"data0": arr, "index0": np.asarray(key, np.int64)}
+        np.savez(os.path.join(dirname, sfile), **payload)
+        with open(os.path.join(dirname, sfile), "rb") as f:
+            sidecar[name] = {"file": sfile, "crc32": zlib.crc32(f.read())}
+        manifest[name] = {"sharded": True,
+                          "file_pattern": fname + ".shard{p}.npz",
+                          "nprocs": nprocs, "shape": list(shape),
+                          "dtype": dtype}
+    with open(os.path.join(dirname, f"__shards{proc}__.pkl"), "wb") as f:
+        pickle.dump(sidecar, f)
+
+
+def _write_snapshot(dirname, snap, extra_state=None, shards=None, proc=0,
+                    nprocs=1):
     """Write a ``{name: (ndarray, dtype)}`` snapshot as one .npy per
     tensor with a CRC manifest — THE on-disk checkpoint format (shared by
     ``save_vars`` and ``AsyncCheckpointer``).  ``extra_state`` (a dict)
@@ -162,22 +216,25 @@ def _write_snapshot(dirname, snap, extra_state=None):
     first): ``load_vars`` refuses a directory without it, so a crash
     mid-overwrite is never read as a valid torn state."""
     os.makedirs(dirname, exist_ok=True)
-    marker = os.path.join(dirname, "__done0__")
+    marker = os.path.join(dirname, f"__done{proc}__")
     if os.path.exists(marker):
         os.remove(marker)
-    if extra_state is not None:
+    if extra_state is not None and proc == 0:
         from .resilience import checkpoint as _resil_ckpt
 
         _resil_ckpt.save_train_state(dirname, extra_state)
-    manifest = {"__nprocs__": 1}
-    for name, (arr, dtype) in snap.items():
-        fname = name.replace("/", "__") + ".npy"
-        path = os.path.join(dirname, fname)
-        crc = _save_npy(path, arr, dtype)
-        manifest[name] = {"file": fname, "crc32": crc,
-                          "shape": list(arr.shape), "dtype": dtype}
-    with open(os.path.join(dirname, "__manifest__.pkl"), "wb") as f:
-        pickle.dump(manifest, f)
+    manifest = {"__nprocs__": nprocs}
+    if shards:
+        _write_shards(dirname, shards, proc, nprocs, manifest)
+    if proc == 0:
+        for name, (arr, dtype) in snap.items():
+            fname = name.replace("/", "__") + ".npy"
+            path = os.path.join(dirname, fname)
+            crc = _save_npy(path, arr, dtype)
+            manifest[name] = {"file": fname, "crc32": crc,
+                              "shape": list(arr.shape), "dtype": dtype}
+        with open(os.path.join(dirname, "__manifest__.pkl"), "wb") as f:
+            pickle.dump(manifest, f)
     with open(marker, "w") as f:
         f.write("ok")
 
@@ -274,7 +331,15 @@ def save_vars(executor, dirname, main_program=None, vars=None, predicate=None,
         vars = [v for v in program.global_block().vars.values() if predicate(v)]
     snap = _snapshot(scope, vars)
     t0 = time.perf_counter()
-    _write_snapshot(dirname, snap, extra_state=extra_state)
+    if getattr(executor, "mesh", None) is None:
+        _write_snapshot(dirname, snap, extra_state=extra_state)
+    else:
+        import torch.distributed as dist
+
+        dense, shards, proc, nprocs = _mesh_shards(executor, program, snap)
+        _write_snapshot(dirname, dense, extra_state, shards, proc, nprocs)
+        if nprocs > 1:
+            dist.barrier()
     _record_ckpt_telemetry(dirname, t0)
 
 

@@ -451,6 +451,63 @@ class FusedCEFunction(torch.autograd.Function):
         return dx, dw, None
 
 
+class FusedCELseFunction(torch.autograd.Function):
+    """``(loss [N], lse [N])`` with gradients through both — the
+    reference's ``_ce_core_lse``, the building block of the vocab-sharded
+    head.  ``loss = lse - s[y]``, so with an lse cotangent ``glse`` the
+    logits' cotangent is ``(g + glse)(p - onehot) + glse·onehot``: the
+    first term is the dx and dW kernels run with ``g + glse``, the second
+    a rank-1 correction per row in plain torch (``dx += glse·W[:, y]``,
+    ``dW[:, y] += glse·x``) where the label is in range (out of range the
+    kernels pick nothing and nothing is corrected)."""
+
+    @staticmethod
+    def forward(ctx, x, w, y):
+        x, w = x.contiguous(), w.contiguous()
+        loss, lse = ce_fwd(x, w, y)
+        ctx.save_for_backward(x, w, y, lse)
+        ctx.set_materialize_grads(False)
+        return loss, lse
+
+    @staticmethod
+    def backward(ctx, g, glse):
+        x, w, y, lse = ctx.saved_tensors
+        if g is None:
+            g = torch.zeros_like(lse)
+        g = g.to(lse.dtype)
+        if glse is None:
+            glse = torch.zeros_like(lse)
+        glse = glse.to(lse.dtype)
+        gt = (g + glse).contiguous()
+        dx = ce_dx(x, w, y, lse, gt) if ctx.needs_input_grad[0] else None
+        dw = ce_dw(x, w, y, lse, gt) if ctx.needs_input_grad[1] else None
+        ok = _in_range(y.long(), w.shape[1])
+        yi = torch.where(ok, y.long(), torch.zeros_like(y.long()))
+        c = torch.where(ok, glse, torch.zeros_like(glse))
+        if dx is not None:
+            dx = (dx.to(lse.dtype)
+                  + c[:, None] * w.to(lse.dtype).t()[yi]).to(x.dtype)
+        if dw is not None:
+            corr = torch.zeros(w.shape, dtype=lse.dtype, device=w.device)
+            corr.index_add_(1, yi, x.to(lse.dtype).t() * c[None, :])
+            dw = (dw.to(lse.dtype) + corr).to(w.dtype)
+        return dx, dw, None
+
+
+def fused_softmax_ce_head_with_lse(x, w, labels):
+    """:func:`fused_softmax_ce_head` that also returns the per-position
+    ``lse`` (both ``[...]``, f32), differentiable through both — what the
+    vocab-sharded head merges across shards by a logsumexp."""
+    lead = x.shape[:-1]
+    d = x.shape[-1]
+    n = 1
+    for s in lead:
+        n *= int(s)
+    y = labels.reshape(n).to(torch.int32)
+    loss, lse = FusedCELseFunction.apply(x.reshape(n, d), w, y)
+    return loss.reshape(lead), lse.reshape(lead)
+
+
 def fused_softmax_ce_head(x, w, labels, block_n=512, block_v=1024,
                           block_v_fwd=2048):
     """Fused projection + softmax cross-entropy: ``x [..., d]``,

@@ -13,9 +13,11 @@ from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
 from .detection import *  # noqa: F401,F403
+from .device import get_places  # noqa: F401
 from . import io
 from . import tensor
 from . import nn
 from . import ops
 from . import control_flow
 from . import detection
+from . import device

@@ -6,9 +6,10 @@ op that runs it once a time step (``ops/control_flow_ops.py``);
 padded steps of each sample frozen by ``set_sequence_length``.
 ``While`` records a sub-block and a ``while`` op that runs it while its
 condition holds; the tensor arrays are preallocated ``[max_len, ...]``
-tensors that ``array_write`` writes a row of.  ``ParallelDo`` (scatter
-over devices) is multi-GPU work (``ROADMAP.md`` A7) and raises,
-naming it.
+tensors that ``array_write`` writes a row of.  ``ParallelDo`` records
+its block and a ``parallel_do`` op that runs it inline: on a mesh the
+batch's sharding (``parallel.data_parallel``) does the parallel part, as
+in the reference.
 """
 
 import contextlib
@@ -120,13 +121,37 @@ class While:
 
 
 class ParallelDo:
-    """The reference's ``parallel_do`` construct (multi-GPU data
-    parallelism); not ported."""
+    """The reference's ``parallel_do`` (scatter over places, run the block
+    per place, gather).  The same program runs on every rank of a mesh,
+    so this records its block and a ``parallel_do`` op that runs it
+    inline; pair it with ``parallel.data_parallel`` for the ranks to
+    take their rows of the batch."""
 
     def __init__(self, places=None, name=None):
-        raise NotImplementedError(
-            "ParallelDo is multi-GPU data parallelism (ROADMAP.md A7), "
-            "not ported yet")
+        self.helper = LayerHelper("parallel_do", name=name)
+        self.places = places
+        self._inputs = []
+
+    @contextlib.contextmanager
+    def do(self):
+        prog = self.helper.main_program
+        parent = prog.current_block()
+        sub = prog.create_block()
+        yield
+        prog.rollback()
+        parent.append_op(
+            type="parallel_do",
+            inputs={"X": self._inputs},
+            outputs={},
+            attrs={"sub_block": sub.idx},
+        )
+
+    def read_input(self, x):
+        self._inputs.append(x.name)
+        return x
+
+    def write_output(self, o):
+        return o
 
 
 class StaticRNN:

@@ -261,6 +261,28 @@ def gpt(tokens, vocab_size, n_layer=4, n_head=8, d_model=256, d_ff=None,
     return ltensor.cast(logits, "float32")
 
 
+def tp_rules():
+    """Tensor-parallel sharding rules for the flagship transformer (the
+    reference's ``tp_rules``; apply with
+    ``parallel.shard_parameters_by_rule`` on a mesh with a 'tp' axis;
+    requires n_head % tp == 0 and vocab % tp == 0): the q/k/v projections
+    and FFN1 column-shard (whole heads per rank: the flash kernels run on
+    local heads), the attention out-projection and FFN2 row-shard (one
+    all-reduce each), the LM head vocab-shards (the fused CE head merges
+    the shards by logsumexp); everything else replicates."""
+    from ..parallel.api import P
+
+    return [
+        (r"_att_(q|k|v)\.w$", P(None, "tp")),
+        (r"_att_(q|k|v)\.b$", P("tp")),
+        (r"_att_out\.w$", P("tp", None)),
+        (r"_ffn1\.w$", P(None, "tp")),
+        (r"_ffn1\.b$", P("tp")),
+        (r"_ffn2\.w$", P("tp", None)),
+        (r"^lm_head\.w$", P(None, "tp")),
+    ]
+
+
 def extract_params(scope=None, program=None):
     """Pull the model weights (not optimizer state) out of a scope as the
     name->array dict ``generate`` and the serving engine consume (numpy;

@@ -15,9 +15,11 @@ Events are duck-typed by class name (BeginPass/EndPass/BeginIteration/
 EndIteration) so this module never imports the trainer.
 
 The JSONL ``step`` record has the reference's keys, so one reader parses
-rows of either package.  The keys the port does not measure yet — the
-compiled executable's memory analysis, collective accounting, lints and
-the per-op attribution (ROADMAP A5, A7) — are written as null.
+rows of either package.  The collective accounting comes from a mesh
+step's collective log (``Executor.last_step_cost``; null off a mesh).
+The keys the port does not measure yet — the compiled executable's
+memory analysis, lints and the per-op attribution (ROADMAP A5) — are
+written as null.
 """
 
 import collections
@@ -35,11 +37,13 @@ __all__ = ["MetricsReporter"]
 # the reference's row-identity schema (observability/bench_history.py)
 _STAMP_SCHEMA_VERSION = 1
 
+# the collective accounting a mesh step's cost carries (null off a mesh)
+_COMM_KEYS = ("collective_count", "collective_bytes", "reduce_ops_in_loop",
+              "comm_plan")
 # step-record keys of the reference that the port leaves null
 _NOT_MEASURED = (
     "compiled_hbm_high_water_bytes", "compiled_temp_bytes",
-    "collective_count", "collective_bytes", "reduce_ops_in_loop",
-    "comm_plan", "lint_findings", "lint_errors", "lint_checks",
+    "lint_findings", "lint_errors", "lint_checks",
     "attr_top", "attr_est_ms", "attr_coverage", "attr_workload",
     "attr_model_err_pct", "attr_classes", "costmodel", "kernel_backends")
 
@@ -160,6 +164,7 @@ class MetricsReporter:
                 # same stream
                 grad_norm=grad_norm,
                 loss_zscore=loss_z,
+                **{k: sc.get(k) for k in _COMM_KEYS},
                 **dict.fromkeys(_NOT_MEASURED),
             )
         if self.log_every_n and ev.batch_id % self.log_every_n == 0:

@@ -6,10 +6,12 @@ The TPU tile attrs ``block_q`` and ``block_k`` (default 1024, as in the
 reference) pass through: the CUDA kernels tile by their own fixed sizes,
 but the backward's route — fused or split — is the reference's rule over
 ``block_k``.  The kernel-registry ``backend`` attr is accepted and
-unused.  The head-sharded ``tp`` branch waits for the multi-GPU slice."""
+unused.  On a mesh with a ``tp`` axis, :func:`_flash_tp` is the
+head-sharded branch (``pallas_attention.py:1187-1241``)."""
 
 from ..core.registry import register_op
 from ..kernels import flash_attention as _fa
+from ..parallel.spmd import tp_rule
 
 
 def _flash_flops(op, shape, grad, train):
@@ -49,3 +51,25 @@ def flash_attention_packed_op(Q, K, V, n_head=None, causal=False,
     return {"Out": _fa.flash_attention_packed(
         Q, K, V, int(n_head), causal=causal, sm_scale=scale,
         block_q=int(block_q), block_k=int(block_k))}
+
+
+@tp_rule("flash_attention", "flash_attention_packed")
+def _flash_tp(sp, op, ins, pls, attrs, run):
+    """Head-sharded tensor parallelism: the q/k/v projections are
+    column-sharded, so a rank's block of ``[b, t, h*d]`` (or of the 4-D
+    ``[b, t, h, d]`` on its head dim) holds ``h/tp`` whole heads and
+    attention needs no communication — each rank runs the flash kernels
+    on its local heads (the packed op with ``n_head/tp``), and the output
+    stays sharded on the same dim.  Any other placement (or ``n_head``
+    not divisible by tp) takes the gathered path."""
+    head_dim = 2
+    if any(pls.get(k) != head_dim for k in ("Q", "K", "V")):
+        return None
+    if op.type == "flash_attention_packed":
+        n_head = int(attrs.get("n_head") or 0)
+        if ins["Q"].dim() != 3 or not n_head or n_head % sp.tp:
+            return None
+        attrs = dict(attrs, n_head=n_head // sp.tp)
+    elif ins["Q"].dim() != 4:
+        return None
+    return run(ins, attrs), {"Out": head_dim}

@@ -10,8 +10,9 @@ lowers it to ``lax.while_loop``, the port runs its sub-block in a Python
 loop while the condition holds, reading the condition on the host once
 a trip.  A tensor array is, as in the reference, a preallocated
 ``[max_len, ...]`` tensor (``layers.create_array``) that ``array_write``
-writes a row of.  ``conditional_block`` and ``parallel_do`` are not
-ported (``ROADMAP.md`` A9, A7).
+writes a row of.  ``parallel_do`` runs its sub-block inline, as the
+reference does: on a mesh the batch's sharding does the parallel part.
+``conditional_block`` is not ported (``ROADMAP.md`` A9).
 """
 
 import torch
@@ -216,3 +217,17 @@ def scan_block(ctx, block, op, env):
         env[name] = torch.stack(seq[::-1] if reverse else seq, dim=1)
     for name, sname in zip(op.outputs.get("FinalStates", []), state_names):
         env[name] = carry[sname]
+
+
+@register_op("parallel_do", raw=True)
+def parallel_do(ctx, block, op, env):
+    """The reference's ``parallel_do`` scattered its inputs over places and
+    summed the gradients; here, as in the JAX package, the sub-block runs
+    inline on the step's tensors (in the environment, so its outputs are
+    the program's), and a mesh's batch sharding
+    (``parallel.data_parallel``) is what makes it parallel."""
+    from ..core.executor import run_block_ops
+
+    sub = ctx.program.block(op.attrs["sub_block"])
+    run_block_ops(ctx, sub, sub.ops, env,
+                  inside_grad_prefix=ctx.grad_prefix)

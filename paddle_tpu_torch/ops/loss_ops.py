@@ -2,7 +2,8 @@
 probabilities, ResNet's loss), ``softmax_with_cross_entropy`` (the
 unfused LM head's loss) and
 ``fused_softmax_ce_head`` (the fused head's, registered at the foot of
-``paddle_tpu/ops/pallas_ce.py``)."""
+``paddle_tpu/ops/pallas_ce.py``), with its vocab-sharded tensor-parallel
+branch for the mesh path."""
 
 import math
 
@@ -10,6 +11,7 @@ import torch
 
 from ..core.registry import register_op
 from ..kernels import fused_ce as _ce
+from ..parallel.spmd import tp_rule
 
 
 def _squeeze_label(Label):
@@ -68,9 +70,43 @@ def fused_softmax_ce_head(X, W, Label, **_):
     ``[..., 1]`` -> ``Loss [..., 1]`` f32.  The single-device branch of the
     reference; its attrs (``block_n``, ``block_v``, ``block_v_fwd``, the
     kernel-registry ``backend``) are accepted and unused: the CUDA kernels
-    tile by their own sizes.  Its vocab-sharded ``tp`` branch waits for
-    the multi-GPU slice."""
+    tile by their own sizes.  The vocab-sharded branch is
+    :func:`_fused_ce_tp`."""
     lbl = Label
     if lbl.dim() == X.dim() and lbl.shape[-1] == 1:
         lbl = lbl.reshape(lbl.shape[:-1])
     return {"Loss": _ce.fused_softmax_ce_head(X, W, lbl)[..., None]}
+
+
+@tp_rule("fused_softmax_ce_head")
+def _fused_ce_tp(sp, op, ins, pls, attrs, run):
+    """The vocab-sharded head (the reference's ``tp`` branch of
+    ``fused_softmax_ce_head_op``, ``pallas_ce.py:433-482``): ``W`` rests
+    as this rank's ``V/tp`` columns, ``X`` is replicated.  Each rank runs
+    the fused kernels on its columns with the labels made local (a label
+    in another rank's columns becomes -1: the kernels pick nothing for
+    it), and the shards' ``(loss_s, lse_s)`` merge by a logsumexp over
+    tp: ``lse = log Σ exp(lse_s)``, ``loss = lse - Σ (lse_s - loss_s)``
+    (the picked logit, nonzero on the label's shard only).  The max
+    shift is detached (it cancels); ``X`` enters through
+    :func:`reduce_grad`, so its gradient sums the shards'."""
+    if pls.get("W") != 1 or pls.get("X") is not None \
+            or pls.get("Label") is not None:
+        return None
+    x, w, lbl = ins["X"], ins["W"], ins["Label"]
+    if lbl.dim() == x.dim() and lbl.shape[-1] == 1:
+        lbl = lbl.reshape(lbl.shape[:-1])
+    vs = w.shape[1]
+    off = sp.comm.index("tp") * vs
+    y = lbl.long()
+    in_s = (y >= off) & (y < off + vs)
+    y_loc = torch.where(in_s, y - off, torch.full_like(y, -1))
+    x = sp.f(x, op.inputs["X"][0])
+    loss_s, lse_s = _ce.fused_softmax_ce_head_with_lse(x, w, y_loc)
+    picked = torch.where(in_s, lse_s - loss_s, torch.zeros_like(lse_s))
+    name = op.outputs["Loss"][0]
+    m = sp.comm.all_reduce(lse_s.detach().clone(), "tp", name, op="max")
+    lse = torch.log(sp.g(torch.exp(lse_s - m), name)) + m
+    loss = lse - sp.g(picked, name)
+    return {"Loss": loss[..., None]}, {"Loss": None}
+

@@ -121,9 +121,8 @@ def stop_trace(capture):
     return path
 
 
-# The card's idle time between the calls ``middle_call_kernels`` records:
-# long beside any one kernel, so the recording's two widest gaps are these
-# pauses, and short beside a step.
+# The card's least idle time between the calls ``middle_call_kernels``
+# records: long beside any one kernel, and short beside a step.
 _PAUSE_S = 0.1
 
 
@@ -138,9 +137,11 @@ def middle_call_kernels(run):
     CPU and CUDA activities and the CUDA one alone alike
     (``benchmarks/profiler_loss.py``).  So this records three calls,
     ``run(0)``, ``run(1)``, ``run(2)``, which must launch the same
-    kernels, the card idle for ``_PAUSE_S`` between them, and returns the
-    middle one's events: those between the two widest gaps of the
-    recording.  It raises when the recording holds no device events,
+    kernels, the card idle between them for ``_PAUSE_S`` or the wall of
+    the call before, whichever is longer (a gap inside a call is shorter
+    than the call: a host-bound step can leave the card idle for longer
+    than ``_PAUSE_S``), and returns the middle one's events: those between
+    the two widest gaps of the recording.  It raises when the recording holds no device events,
     when either gap is under half the pause, and when the middle call
     shows fewer events than the first or the third: a loss at the edges
     shortens only those, so a short middle call lost events of its own."""
@@ -150,10 +151,11 @@ def middle_call_kernels(run):
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(3):
+            t0 = time.perf_counter()
             run(i)
             torch.cuda.synchronize()
             if i < 2:
-                time.sleep(_PAUSE_S)
+                time.sleep(max(_PAUSE_S, time.perf_counter() - t0))
     events = sorted((e.start_ns(), e.duration_ns(), e.name())
                     for e in prof.profiler.kineto_results.events()
                     if e.device_type() == DeviceType.CUDA)

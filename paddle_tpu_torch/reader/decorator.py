@@ -302,7 +302,8 @@ def batch(reader, batch_size, drop_last=True):
     return batch_reader
 
 
-def prefetch_to_device(reader, size=2, feed_converter=None, device=None):
+def prefetch_to_device(reader, size=2, feed_converter=None, device=None,
+                       sharding=None):
     """Overlap host->device transfer with compute: batches are converted
     (optionally via ``feed_converter``, e.g. ``DataFeeder.feed``) and
     copied to the card AHEAD of consumption on a daemon thread, so the
@@ -318,6 +319,10 @@ def prefetch_to_device(reader, size=2, feed_converter=None, device=None):
     wait a step could read a half-copied batch.  With ``device="cpu"``
     the batches are handed over as CPU tensors.  With no card and no
     ``device="cpu"`` it raises.
+
+    ``sharding`` (``fn(name, tensor)``, e.g. ``Executor.feed_slicer``)
+    cuts each value of a dict batch to this rank's rows before the copy,
+    so a mesh rank moves only its part of the batch to the card.
 
         feeder = pt.DataFeeder(model["feed"])
         for feed in prefetch_to_device(batched_reader, 2, feeder.feed)():
@@ -354,7 +359,16 @@ def prefetch_to_device(reader, size=2, feed_converter=None, device=None):
         def put_on_device(item):
             if feed_converter is not None:
                 item = feed_converter(item)
-            if isinstance(item, dict):
+            if isinstance(item, dict) and sharding is not None:
+                out = {}
+                for k, v in item.items():
+                    t = v if isinstance(v, torch.Tensor) else \
+                        tensor_from_numpy(np.asarray(v))
+                    cut = sharding(k, t)
+                    out[k] = put(cut)
+                    if getattr(cut, "_pt_local_shard", False):
+                        out[k]._pt_local_shard = True
+            elif isinstance(item, dict):
                 out = {k: put(v) for k, v in item.items()}
             elif isinstance(item, tuple) and hasattr(item, "_fields"):
                 out = type(item)(*(put(v) for v in item))

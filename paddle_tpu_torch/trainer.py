@@ -8,8 +8,12 @@ pattern is preserved exactly; the body of a step is one ``Executor.run``
 (``run_steps`` for a fused group).
 
 On the card, ``Trainer(place=None)`` runs there and raises where there
-is none; the CPU is ``CPUPlace()``.  One device: ``mesh=`` raises (the
-multi-GPU Trainer is ROADMAP A7).
+is none; the CPU is ``CPUPlace()``.  ``mesh=`` (``parallel.make_mesh``)
+trains this process as one rank of the mesh (``Executor(place,
+mesh=...)``, ``parallel/spmd.py``): each rank reads the same batches and
+steps on its rows of them (``prefetch`` lands only those rows), events
+carry the global batch's loss, and checkpoints are sharded (``io``;
+synchronous: ``async_checkpoint`` raises on a mesh).
 
 Bit-exact resume needs bit-exact steps.  Two sums on the GPT path are
 atomics in a run-dependent order on the card: the fused flash
@@ -127,15 +131,12 @@ class Trainer:
 
     def __init__(self, cost, feed_list, place=None, extra_fetch=None,
                  main_program=None, startup_program=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): the port trains on one device; the "
-                "multi-GPU Trainer is ROADMAP.md A7")
+        self.mesh = mesh
         self.cost = cost
         self.feed_list = feed_list
         self.main_program = main_program or default_main_program()
         self.startup_program = startup_program or default_startup_program()
-        self.exe = Executor(place)
+        self.exe = Executor(place, mesh=mesh)
         self.feeder = DataFeeder(feed_list, place)
         self.extra_fetch = extra_fetch or []
         self._initialized = False
@@ -205,6 +206,10 @@ class Trainer:
             self.init_params()
         event_handler = event_handler or (lambda e: None)
         fetch = [self.cost] + list(self.extra_fetch)
+        if self.mesh is not None and async_checkpoint:
+            raise NotImplementedError(
+                "async_checkpoint on a mesh: sharded checkpoints are "
+                "written synchronously (io.save_vars)")
         if steps_per_call != 1 and prefetch:
             raise ValueError("steps_per_call and prefetch are mutually "
                              "exclusive (prefetch already hides host time)")
@@ -238,7 +243,9 @@ class Trainer:
             def batches():
                 return iter(prefetch_to_device(
                     reader, prefetch, self.feeder.feed,
-                    device=self.exe.device)())
+                    device=self.exe.device,
+                    sharding=(self.exe.feed_slicer(self.main_program)
+                              if self.mesh is not None else None))())
         else:
             # keep feeder.feed inside the per-batch timer: raw batches
             # here, converted in the loop below

@@ -1,6 +1,8 @@
-"""The port stands on its own: nothing under paddle_tpu_torch/, and
+"""The port stands on its own: nothing under paddle_tpu_torch/ (its
+``parallel/``, ``analysis/`` and ``distributed/launch.py`` included), and
 nothing in chip_smoke.py, imports jax or the JAX package; importing the
-port's serving and training stacks leaves jax out of ``sys.modules``;
+port's serving, training and mesh stacks leaves jax out of
+``sys.modules``;
 every entry point raises without a card unless the CPU is asked for; and
 chip_smoke.py refuses to run (non-zero exit, no result line) without a
 card or without the rest of the repository."""
@@ -265,6 +267,62 @@ def test_distributed_trainer_and_cli_import_leave_jax_out(tmp_path):
              "with pt.native.recordio.Writer(p, use_native=True) as w:\n"
              "    w.write(b'abc')\n"
              "assert list(pt.native.recordio.reader(p)) == [b'abc']\n"
+             "bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')]\n"
+             "assert not bad, bad\nprint('clean')", cwd=ROOT)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "clean"
+
+
+PARALLEL_MODULES = [
+    "paddle_tpu_torch.parallel", "paddle_tpu_torch.parallel.mesh",
+    "paddle_tpu_torch.parallel.api", "paddle_tpu_torch.parallel.contracts",
+    "paddle_tpu_torch.parallel.sparse",
+    "paddle_tpu_torch.parallel.collectives",
+    "paddle_tpu_torch.parallel.spmd", "paddle_tpu_torch.analysis",
+    "paddle_tpu_torch.analysis.comm", "paddle_tpu_torch.analysis.comm.plan",
+    "paddle_tpu_torch.analysis.comm.contract",
+    "paddle_tpu_torch.distributed.launch",
+    "paddle_tpu_torch.layers.device",
+]
+
+
+def test_every_parallel_module_is_a_file_the_import_scan_covers():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in PARALLEL_MODULES:
+        rel = mod.replace(".", "/")
+        assert (rel + ".py" in scanned
+                or rel + "/__init__.py" in scanned), mod
+
+
+def test_mesh_stack_import_leaves_jax_out():
+    """The spec rules, a mesh step's plan and its contracts without jax:
+    a mesh with no process group, the specs of an annotated GPT, a
+    one-rank mesh step on the CPU and its (empty) collective log."""
+    r = _run("import sys\n"
+             + "".join(f"import {m}\n" for m in PARALLEL_MODULES)
+             + "import numpy as np\n"
+             "import paddle_tpu_torch as pt\n"
+             "from paddle_tpu_torch import parallel\n"
+             "main, startup = pt.Program(), pt.Program()\n"
+             "with pt.program_guard(main, startup):\n"
+             "    out = pt.models.transformer.build(vocab_size=32, "
+             "n_layer=1, n_head=2, d_model=16, max_len=8, "
+             "dropout_rate=0.0, dtype='float32', fused_head=True)\n"
+             "parallel.data_parallel(main, 'dp', programs=(startup,))\n"
+             "rep = parallel.sharding_report(main, parallel.make_mesh("
+             "{'dp': 4, 'tp': 2}))\n"
+             "assert rep['opt_state']['sharded_vars'] > 0\n"
+             "exe = pt.Executor(pt.CPUPlace(), "
+             "mesh=parallel.make_mesh({'dp': 1}))\n"
+             "scope = pt.Scope()\n"
+             "exe.run(startup, scope=scope)\n"
+             "feed = {'tokens': np.zeros((2, 8), np.int64), "
+             "'labels': np.zeros((2, 8), np.int64)}\n"
+             "exe.run(main, feed=feed, fetch_list=[out['avg_cost']], "
+             "scope=scope)\n"
+             "assert len(exe.last_comm_plan) == 0\n"
+             "assert exe.last_step_cost['collective_count'] == 0\n"
              "bad = [m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')]\n"
              "assert not bad, bad\nprint('clean')", cwd=ROOT)

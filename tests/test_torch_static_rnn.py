@@ -199,8 +199,26 @@ def test_memory_optimize_keeps_the_steps_bits(policy):
 @pytest.mark.parametrize("make", [lambda L: L.ParallelDo()],
                          ids=["ParallelDo"])
 def test_unported_control_flow_raises_naming_its_item(make):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        make(tpt.layers)
+    """``ParallelDo`` records its block and a ``parallel_do`` op that runs
+    the block inline (the reference's lowering): it builds and runs, and
+    gives the JAX package's output on the same feed."""
+    feed = {"x": np.random.default_rng(3).standard_normal(
+        (2, 3)).astype(np.float32)}
+    outs = []
+    for pkg in (pt, tpt):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup):
+            x = pkg.layers.data("x", shape=[3], dtype="float32")
+            pd = make(pkg.layers)
+            with pd.do():
+                y = pkg.layers.scale(pd.read_input(x), scale=3.0)
+        assert [op.type for op in main.global_block().ops] == [
+            "parallel_do"]
+        got, = pkg.Executor(pkg.CPUPlace()).run(main, feed=feed,
+                                                fetch_list=[y])
+        outs.append(np.asarray(got))
+    np.testing.assert_array_equal(outs[1], outs[0])
+    np.testing.assert_array_equal(outs[1], 3.0 * feed["x"])
 
 
 def test_dynamic_rnn_is_static_rnn():
