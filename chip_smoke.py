@@ -420,7 +420,27 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    entry (a tensor that starts at zero, of the model's); c. phase 10's
    flagship through ``Trainer(mesh=make_mesh({"dp": 1}))`` on a one-rank
    NCCL group equals the mesh-less Trainer bit for bit (deterministic
-   algorithms), both step walls printed;
+   algorithms), both step walls printed; b+. 17b's dp4 run with
+   ``PADDLE_TPU_COMM_OVERLAP`` on and ``0``, both under deterministic
+   algorithms: every parameter block and loss bit for bit alike, and
+   the overlapped run started its boundary reductions during the
+   backward; d. ``ring_attention(impl=
+   "flash")`` on sp=4 at the flagship's attention and the long sequence
+   (b=2, t=16384: 4096 a rank, 6 heads of 128, bf16, causal), forward
+   and backward: rank r launches the flash forward r + 1 times (the
+   future steps skipped), the output and dq, dk, dv held against one
+   ``flash_attention`` over the whole sequence on rank 0 within
+   ORACLE_TOL bf16, and a small f32 ring against ``impl="dense"``; e.
+   ``pipeline_lm`` on pp=4: the flagship's 12 blocks at full width (3 a
+   stage, each a pre-LN block on the flash kernels) with its embedding
+   and the fused CE head, t=4096, batch 8 in 8 microbatches, bf16, one
+   step: the loss and every gradient against the same functions run in
+   order on rank 0, and the interleaved schedule (``virtual_stages=3``,
+   one block a stage) against GPipe; f. ``moe_ffn`` on ep=4 (8 experts,
+   d 768, hidden 3072, 4096 tokens a rank, bf16) forward and backward at
+   ``capacity_factor=2.0`` (finite, ``aux`` equal on every rank) and at a
+   capacity that drops no token against a dense top-2 on each rank's
+   shard;
 18. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
    launches on its main path (phase 3e, 5, 5b, 7, 8 or 9b), error, times
    and bound; the paged attention, flash forward, fused backward, the
@@ -6124,6 +6144,7 @@ def mesh_train(torch, np, pt, seed, n_layer, dtype, state, axes=None,
         if mesh is not None:
             cost = tr.exe.last_step_cost
             out["comm"] = cost["comm_plan"]
+            out["overlapped"] = cost["overlapped_reductions"]
             out["viol"] = [
                 v["message"] for c in training_step_contract(
                     mesh, fsdp=fsdp, grad_rs=True)
@@ -6189,6 +6210,28 @@ def mesh_rank(rank, store, seed, state_paths, q):
             res[(ph, label)] = r
             gc.collect()
             torch.cuda.empty_cache()
+        # 17b+: 17b's dp4 run with the boundary's overlap on and off,
+        # both under deterministic algorithms (the fused flash backward's
+        # dq atomics alone change the bits from run to run)
+        with deterministic(torch):
+            for knob in ("1", "0"):
+                os.environ["PADDLE_TPU_COMM_OVERLAP"] = knob
+                try:
+                    r = mesh_train(torch, np, pt, seed, 2, "float32",
+                                   states[(2, "float32")],
+                                   {"dp": MESH_RANKS})
+                finally:
+                    del os.environ["PADDLE_TPU_COMM_OVERLAP"]
+                del r["params"]
+                res["overlap_" + ("on" if knob == "1" else "off")] = r
+        # 17d-f: sequence, pipeline and expert parallelism
+        for name, fn in (("17d", ring_phase), ("17e", pipeline_phase),
+                         ("17f", moe_phase)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            res[name] = fn(torch, pt, rank, seed)
+            res[name]["phase_wall"] = time.perf_counter() - t0
         q.put((rank, res, None))
     except BaseException:  # noqa: BLE001 — reported to the parent
         import traceback
@@ -6290,6 +6333,398 @@ def mesh_updates_agree(got, ref, start, lr, what):
         raise AssertionError(f"{what}: a key bias moved {keymove:.3e}, more "
                              f"than {MESH_STEPS} Adam steps of {lr}")
     return worst
+
+
+# 17d: the flagship's attention at bench.py's long sequence, cut over sp
+RING_B, RING_T = 2, 16384
+# 17e: the flagship's 12 blocks over pp=4, 8 microbatches of one row
+PIPE_MICRO, PIPE_V = 8, 3
+D_FF = 4 * D_MODEL
+# 17f: 8 experts, the flagship's d and FFN width, 4096 tokens a rank
+MOE_E, MOE_TOKENS = 8, 4096
+
+
+def _parallel_module(name):
+    import importlib
+
+    # the package re-exports functions under these modules' names
+    return importlib.import_module(f"paddle_tpu_torch.parallel.{name}")
+
+
+def ring_phase(torch, pt, rank, seed):
+    """17d on this rank: ``ring_attention(impl="flash")`` on sp=4 at
+    b=2, t=16384, 6 heads of 128, bf16, causal, forward and backward —
+    its launches (counted from zero, after one warm call), its wall and
+    backward route, the output and gradients against one whole-sequence
+    ``flash_attention`` on rank 0; and a small f32 ring, flash against
+    dense."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel.collectives import mesh_comm
+
+    ra = _parallel_module("ring_attention")
+    mesh = pt.parallel.make_mesh({"sp": MESH_RANKS})
+    comm = mesh_comm(mesh)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    q, k, v, do = (torch.randn(RING_B, RING_T, N_HEAD, D_HEAD,
+                               generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+
+    def ring():
+        loc = [comm.block(x, "sp", 1).contiguous().requires_grad_(True)
+               for x in (q, k, v)]
+        o = ra.ring_attention(*loc, mesh, causal=True, impl="flash")
+        o.backward(comm.block(do, "sp", 1).contiguous())
+        return o.detach(), [x.grad for x in loc]
+
+    ring()                                   # warm: load, allocate
+    torch.cuda.synchronize()
+    comm.take_log()
+    routes = dict(fa.BWD_ROUTE_CALLS)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    o, grads = ring()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    route = {r: fa.BWD_ROUTE_CALLS[r] - routes[r] for r in routes}
+    shifts = sum(e["kind"] == "collective-permute" for e in comm.take_log())
+    if launches["flash_attention_fwd"] != rank + 1:
+        raise AssertionError(f"17d rank {rank}: {launches['flash_attention_fwd']}"
+                             f" flash forwards, expected {rank + 1}")
+    got = [comm.all_gather(t, "sp", 1) for t in [o] + grads]
+    out = {"wall": wall, "route": route, "shifts": shifts,
+           "launches": {n: c for n, c in launches.items() if c}}
+    if rank == 0:
+        whole = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        ow = fa.flash_attention(*whole, causal=True)
+        ow.backward(do)
+        errs = {}
+        for name, a, want, kind in zip(
+                ("o", "dq", "dk", "dv"), got, [ow.detach()] +
+                [x.grad for x in whole], ("fwd", "grad", "grad", "grad")):
+            errs[name] = rel_err(torch, a, want)[1]
+            if not errs[name] <= fa.oracle_tol("bfloat16", kind):
+                raise AssertionError(f"17d {name}: {errs[name]:.3e} off the "
+                                     f"whole-sequence flash_attention")
+        out["errs"] = errs
+        del whole, ow
+    # a small f32 ring (TF32 off), the flash impl against the dense one
+    g2 = torch.Generator(device="cuda").manual_seed(seed + 18)
+    small = [torch.randn(1, MESH_RANKS * 256, 2, 64, generator=g2,
+                         device="cuda") for _ in range(4)]
+    res = {}
+    for impl in ("flash", "dense"):
+        loc = [comm.block(x, "sp", 1).contiguous().requires_grad_(True)
+               for x in small[:3]]
+        o2 = ra.ring_attention(*loc, mesh, causal=True, impl=impl)
+        o2.backward(comm.block(small[3], "sp", 1).contiguous())
+        res[impl] = [o2.detach()] + [x.grad for x in loc]
+    out["f32_errs"] = {}
+    for name, a, want, kind in zip(("o", "dq", "dk", "dv"), res["flash"],
+                                   res["dense"], ("fwd",) + ("grad",) * 3):
+        e = rel_err(torch, a, want)[1]
+        out["f32_errs"][name] = e
+        if not e <= fa.oracle_tol("float32", kind):
+            raise AssertionError(f"17d f32 {name}: flash ring {e:.3e} off "
+                                 f"the dense ring")
+    return out
+
+
+def lm_blocks(torch, seed):
+    """The flagship's 12 pre-LN blocks (bf16), each a dict, from a seeded
+    generator on the card — the same on every rank."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    dm = D_MODEL
+
+    def w(*shape, std=0.02):
+        return (torch.randn(shape, generator=gen, device="cuda") * std
+                ).to(torch.bfloat16)
+
+    def zeros(n):
+        return torch.zeros(n, device="cuda", dtype=torch.bfloat16)
+
+    def ones(n):
+        return torch.ones(n, device="cuda", dtype=torch.bfloat16)
+
+    return [{"ln1_g": ones(dm), "ln1_b": zeros(dm),
+             "w_qkv": w(dm, 3 * dm), "b_qkv": zeros(3 * dm),
+             "w_o": w(dm, dm), "b_o": zeros(dm),
+             "ln2_g": ones(dm), "ln2_b": zeros(dm),
+             "w_1": w(dm, D_FF), "b_1": zeros(D_FF),
+             "w_2": w(D_FF, dm), "b_2": zeros(dm)} for _ in range(N_LAYER)]
+
+
+def lm_block(torch, fa, p, h):
+    """One pre-LN transformer block on the flash kernels (what
+    ``models/transformer.py`` builds a layer of): attention over 6 heads
+    of 128, causal, and a GELU FFN, each residual."""
+    F = torch.nn.functional
+    dm = D_MODEL
+    x = F.layer_norm(h, (dm,), p["ln1_g"], p["ln1_b"])
+    q, k, v = (x @ p["w_qkv"] + p["b_qkv"]).split(dm, dim=-1)
+    a = fa.flash_attention_packed(q, k, v, N_HEAD, causal=True)
+    h = h + a @ p["w_o"] + p["b_o"]
+    x = F.layer_norm(h, (dm,), p["ln2_g"], p["ln2_b"])
+    return h + F.gelu(x @ p["w_1"] + p["b_1"]) @ p["w_2"] + p["b_2"]
+
+
+def pipeline_phase(torch, pt, rank, seed):
+    """17e on this rank: ``pipeline_lm`` over pp=4 with the flagship's
+    blocks (3 a stage, then the interleaved schedule, one a stage), its
+    embedding and the fused CE head, one step each; rank 0 runs the same
+    functions in order and holds the loss and every gradient."""
+    import torch.distributed as dist
+    import torch.utils._pytree as pytree
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_ce as ce
+    from paddle_tpu_torch.parallel.collectives import mesh_comm
+
+    P = _parallel_module("pipeline")
+    F = torch.nn.functional
+    mesh = pt.parallel.make_mesh({"pp": MESH_RANKS})
+    comm = mesh_comm(mesh)
+    blocks = lm_blocks(torch, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    emb = {"tok": (torch.randn(VOCAB, D_MODEL, generator=gen, device="cuda")
+                   * 0.02).to(torch.bfloat16),
+           "pos": (torch.randn(TRAIN_T, D_MODEL, generator=gen,
+                               device="cuda") * 0.01).to(torch.bfloat16)}
+    head = {"lnf_g": torch.ones(D_MODEL, device="cuda", dtype=torch.bfloat16),
+            "lnf_b": torch.zeros(D_MODEL, device="cuda",
+                                 dtype=torch.bfloat16),
+            "w": (torch.randn(D_MODEL, VOCAB, generator=gen, device="cuda")
+                  * 0.02).to(torch.bfloat16)}
+    tok = torch.randint(0, VOCAB, (TRAIN_B, TRAIN_T), generator=gen,
+                        device="cuda")
+    tgt = torch.roll(tok, -1, dims=1)
+
+    def embed_fn(p, t):
+        return p["tok"][t] + p["pos"][:t.shape[-1]]
+
+    def stage_fn(p, h):
+        for i in range(p["w_qkv"].shape[0]):
+            h = lm_block(torch, fa, {n: x[i] for n, x in p.items()}, h)
+        return h
+
+    def head_loss_fn(p, h, t):
+        x = F.layer_norm(h, (D_MODEL,), p["lnf_g"], p["lnf_b"])
+        return ce.fused_softmax_ce_head(x, p["w"], t).mean()
+
+    def leaf(tree):
+        return pytree.tree_map(
+            lambda x: x.detach().clone().requires_grad_(True), tree)
+
+    def run(v):
+        per = N_LAYER // (MESH_RANKS * v)     # blocks a stage
+        stages = [pytree.tree_map(lambda *xs: torch.stack(xs),
+                                  *blocks[s * per:(s + 1) * per])
+                  for s in range(MESH_RANKS * v)]
+        loc = leaf(P.stage_block(P.stack_stage_params(stages), mesh,
+                                 virtual_stages=v))
+        e, h = leaf(emb), leaf(head)
+        t0 = time.perf_counter()
+        loss = P.pipeline_lm(embed_fn, stage_fn, head_loss_fn, e, loc, h,
+                             tok, tgt, mesh, num_microbatches=PIPE_MICRO,
+                             virtual_stages=v)
+        loss.backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # this rank's block gradients by block index, gathered over pp
+        idx = comm.index("pp")
+        mine = []
+        for r in range(v):
+            s = r * MESH_RANKS + idx
+            for i in range(per):
+                mine.append((s * per + i, {n: g.grad[r, i] for n, g in
+                                           loc.items()}))
+        names = sorted(blocks[0])
+        flat = torch.cat([d[n].reshape(-1) for _, d in mine for n in names])
+        parts = comm.all_gather(flat, "pp", 0).view(MESH_RANKS, -1)
+        grads = {}
+        for r in range(MESH_RANKS):
+            off = 0
+            for rr in range(v):
+                s = rr * MESH_RANKS + r
+                for i in range(per):
+                    g = {}
+                    for n in names:
+                        k = blocks[0][n].numel()
+                        g[n] = parts[r, off:off + k].view(blocks[0][n].shape)
+                        off += k
+                    grads[s * per + i] = g
+        return {"loss": float(loss.detach()), "wall": wall, "grads": grads,
+                "embed": e["tok"].grad, "head": h["w"].grad}
+
+    run(1)                                   # warm
+    torch.cuda.synchronize()
+    comm.take_log()
+    kernels.reset_launches()
+    gp = run(1)
+    launches = {n: c for n, c in kernels.launch_counts().items() if c}
+    shifts = sum(e["kind"] == "collective-permute" for e in comm.take_log())
+    il = run(PIPE_V)
+    out = {"walls": (gp["wall"], il["wall"]), "loss": gp["loss"],
+           "loss_il": il["loss"], "launches": launches, "shifts": shifts}
+    if rank == 0:
+        seq = {"blocks": leaf(blocks), "e": leaf(emb), "h": leaf(head)}
+        mb = TRAIN_B // PIPE_MICRO
+        total = 0.0
+        for j in range(PIPE_MICRO):
+            x = embed_fn(seq["e"], tok[j * mb:(j + 1) * mb])
+            for p in seq["blocks"]:
+                x = lm_block(torch, fa, p, x)
+            lj = head_loss_fn(seq["h"], x, tgt[j * mb:(j + 1) * mb]).float()
+            (lj / PIPE_MICRO).backward()
+            total += float(lj.detach()) / PIPE_MICRO
+        tol_f = fa.oracle_tol("bfloat16", "fwd")
+        tol_g = fa.oracle_tol("bfloat16", "grad")
+        errs = {"loss": abs(gp["loss"] - total) / abs(total),
+                "loss_il": abs(il["loss"] - gp["loss"]) / abs(gp["loss"])}
+        worst = ("", 0.0)
+        for key, run_ in (("gpipe", gp), ("interleaved", il)):
+            for b, p in enumerate(seq["blocks"]):
+                for n, t in p.items():
+                    e = rel_err(torch, run_["grads"][b][n], t.grad)[1]
+                    worst = max(worst, (f"{key} block{b}.{n}", e),
+                                key=lambda x: x[1])
+            for n, a, want in (("embed", run_["embed"], seq["e"]["tok"].grad),
+                               ("head", run_["head"], seq["h"]["w"].grad)):
+                e = rel_err(torch, a, want)[1]
+                worst = max(worst, (f"{key} {n}", e), key=lambda x: x[1])
+        errs["worst_grad"] = worst
+        if not (errs["loss"] <= tol_f and errs["loss_il"] <= tol_f
+                and worst[1] <= tol_g):
+            raise AssertionError(f"17e: pipeline_lm off the blocks run in "
+                                 f"order: {errs} (loss {gp['loss']}, "
+                                 f"interleaved {il['loss']}, in order "
+                                 f"{total})")
+        out["errs"] = errs
+        out["loss_seq"] = total
+        del seq
+    dist.barrier()
+    return out
+
+
+def dense_moe(torch, M, params, x, cf, e):
+    """A dense top-2 over all ``e`` experts on this rank's tokens, with
+    moe_ffn's capacity rule (tests/test_parallel_pipeline_moe.py's)."""
+    n = x.shape[0]
+    cap = int(max(1, cf * n / e))
+    disp, comb, aux = M._top2_dispatch(x @ params["gate"].to(x.dtype), cap)
+    ein = torch.einsum("nec,nd->ecd", disp.to(x.dtype), x)
+    h = torch.relu(torch.einsum("end,edf->enf", ein, params["w1"])
+                   + params["b1"][:, None, :])
+    y = torch.einsum("enf,efd->end", h, params["w2"]) + params["b2"][:, None]
+    return torch.einsum("nec,ecd->nd", comb.to(y.dtype), y), aux
+
+
+def moe_phase(torch, pt, rank, seed):
+    """17f on this rank: ``moe_ffn`` on ep=4, 8 experts, d 768, hidden
+    3072, 4096 tokens a rank, bf16, forward and backward at capacity 2.0
+    and at one that drops no token (held against a dense top-2)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel.collectives import mesh_comm
+
+    M = _parallel_module("moe")
+    mesh = pt.parallel.make_mesh({"ep": MESH_RANKS})
+    comm = mesh_comm(mesh)
+    gen = torch.Generator().manual_seed(seed + 21)
+    whole = M.init_moe_params(gen, MOE_E, D_MODEL, D_FF,
+                              dtype=torch.bfloat16)
+    gx = torch.Generator(device="cuda").manual_seed(seed + 22)
+    x_all = torch.randn(MESH_RANKS * MOE_TOKENS, D_MODEL, generator=gx,
+                        device="cuda").to(torch.bfloat16)
+    x = comm.block(x_all, "ep", 0).contiguous()
+    out = {}
+    for key, cf in (("cf2", 2.0), ("nodrop", float(MOE_E))):
+        p = {n: (comm.block(t, "ep", 0) if n != "gate" else t)
+             .contiguous().clone().requires_grad_(True)
+             for n, t in whole.items()}
+        xl = x.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = M.moe_ffn(p, xl, mesh, capacity_factor=cf)
+        (y.float().square().sum() + 0.01 * aux).backward()
+        torch.cuda.synchronize()
+        r = {"wall": time.perf_counter() - t0, "aux": float(aux.detach())}
+        auxes = comm.all_gather(aux.detach().reshape(1).float(), "ep", 0)
+        ok = all(bool(torch.isfinite(t).all()) for t in
+                 [y, xl.grad] + [q.grad for q in p.values()])
+        if not ok or len(set(auxes.tolist())) != 1:
+            raise AssertionError(f"17f {key} rank {rank}: finite {ok}, aux "
+                                 f"{auxes.tolist()}")
+        r["dropped"] = int((y.detach() == 0).all(dim=1).sum())
+        if key == "nodrop":
+            dense = {n: t.clone().requires_grad_(True)
+                     for n, t in whole.items()}
+            xd = x.clone().requires_grad_(True)
+            yd, auxd = dense_moe(torch, M, dense, xd, cf, MOE_E)
+            (yd.float().square().sum() + 0.01 * auxd / MESH_RANKS).backward()
+            r["errs"] = {"y": rel_err(torch, y.detach(), yd.detach())[1],
+                         "dx": rel_err(torch, xl.grad, xd.grad)[1]}
+            if not (r["errs"]["y"] <= fa.oracle_tol("bfloat16", "fwd")
+                    and r["errs"]["dx"] <= fa.oracle_tol("bfloat16", "grad")
+                    and r["dropped"] == 0):
+                raise AssertionError(f"17f rank {rank}: no-drop moe_ffn off "
+                                     f"the dense top-2: {r}")
+        out[key] = r
+    return out
+
+
+def parallel_report(ranks, smi):
+    """17b+ and 17d-f: hold what the ranks returned and log it."""
+    on = [ranks[r]["overlap_on"] for r in range(MESH_RANKS)]
+    off = [ranks[r]["overlap_off"] for r in range(MESH_RANKS)]
+    for r in range(MESH_RANKS):
+        if (on[r]["losses"] != off[r]["losses"]
+                or on[r]["blocks"] != off[r]["blocks"]):
+            raise AssertionError(f"17b+ rank {r}: overlap on and off differ:"
+                                 f" losses {on[r]['losses']} vs "
+                                 f"{off[r]['losses']}")
+        if not (on[r]["overlapped"] > 0 and off[r]["overlapped"] == 0):
+            raise AssertionError(f"17b+ rank {r}: overlapped reductions "
+                                 f"{on[r]['overlapped']} on, "
+                                 f"{off[r]['overlapped']} off")
+    log(f"17b+ dp4 f32 under deterministic algorithms, "
+        f"PADDLE_TPU_COMM_OVERLAP on vs 0: losses and every "
+        f"parameter block bit for bit equal on all {MESH_RANKS} ranks; "
+        f"{on[0]['overlapped']} boundary reductions started during the "
+        f"backward; step walls on {[round(w, 4) for w in on[0]['walls']]} "
+        f"s, off {[round(w, 4) for w in off[0]['walls']]} s ({smi})")
+    d = [ranks[r]["17d"] for r in range(MESH_RANKS)]
+    log(f"17d ring_attention(impl='flash') sp={MESH_RANKS}, b={RING_B}, "
+        f"t={RING_T} ({RING_T // MESH_RANKS} a rank), {N_HEAD} heads of "
+        f"{D_HEAD}, bf16, causal, forward + backward: launches by rank "
+        f"{[x['launches'] for x in d]}; backward routes "
+        f"{[x['route'] for x in d]}; shifts a rank {d[0]['shifts']}; wall "
+        f"by rank {[round(x['wall'], 4) for x in d]} s; vs the whole-"
+        f"sequence flash_attention {d[0]['errs']}; small f32 ring flash vs "
+        f"dense {d[0]['f32_errs']}; phase wall "
+        f"{max(x['phase_wall'] for x in d):.1f} s ({smi})")
+    e = [ranks[r]["17e"] for r in range(MESH_RANKS)]
+    log(f"17e pipeline_lm pp={MESH_RANKS}, {N_LAYER} blocks d{D_MODEL} "
+        f"(3 a stage; interleaved {PIPE_V} laps, one a stage), vocab {VOCAB}"
+        f", t={TRAIN_T}, batch {TRAIN_B} in {PIPE_MICRO} microbatches, bf16,"
+        f" one step: loss GPipe {e[0]['loss']:.6f}, interleaved "
+        f"{e[0]['loss_il']:.6f}, in order {e[0]['loss_seq']:.6f}; errors "
+        f"{e[0]['errs']}; launches by rank (GPipe) "
+        f"{[x['launches'] for x in e]}; shifts a rank {e[0]['shifts']}; "
+        f"walls GPipe / interleaved by rank "
+        f"{[tuple(round(w, 3) for w in x['walls']) for x in e]} s; phase "
+        f"wall {max(x['phase_wall'] for x in e):.1f} s ({smi})")
+    f = [ranks[r]["17f"] for r in range(MESH_RANKS)]
+    log(f"17f moe_ffn ep={MESH_RANKS}, {MOE_E} experts, d {D_MODEL}, hidden "
+        f"{D_FF}, {MOE_TOKENS} tokens a rank, bf16, forward + backward: "
+        f"capacity 2.0 aux {f[0]['cf2']['aux']:.6f} on every rank, tokens "
+        f"dropped by rank {[x['cf2']['dropped'] for x in f]}, wall by rank "
+        f"{[round(x['cf2']['wall'], 4) for x in f]} s; capacity "
+        f"{float(MOE_E)} (none dropped) vs a dense top-2 by rank "
+        f"{[x['nodrop']['errs'] for x in f]}, wall by rank "
+        f"{[round(x['nodrop']['wall'], 4) for x in f]} s; phase wall "
+        f"{max(x['phase_wall'] for x in f):.1f} s ({smi})")
 
 
 def mesh_nccl_phase(torch, np, pt, smi, seed):
@@ -6471,6 +6906,7 @@ def mesh_phase(torch, np, pt, smi, seed):
             f"(unsharded {ref['peak']} B); launches on rank 0 "
             f"{ {k: r0['launches'][k] for k in MESH_ROWS} }; contracts hold "
             f"on every rank ({smi})")
+    parallel_report(ranks, smi)
     log(f"phase 17 wall {time.perf_counter() - t_phase:.1f} s (17c "
         f"{t_17c:.1f} s, unsharded references {t_refs:.1f} s, the four "
         f"ranks {t_ranks:.1f} s)")

@@ -1044,13 +1044,16 @@ class Executor:
             for p in params:
                 p.requires_grad_(True)
             hooks = contextlib.nullcontext()
+            overlap = contextlib.nullcontext()
             if sp is not None:
                 sp.reset()
                 sp.micro = accum > 1
                 if sp.extra:
                     hooks = sp.saved_hooks()
+                if accum <= 1:
+                    overlap = sp.overlap_hooks(param_names, params)
             try:
-                with hooks:
+                with hooks, overlap:
                     if accum <= 1:
                         grads = fwd.grads(ctx, env, params, info["loss"])
                     else:
@@ -1146,7 +1149,8 @@ class Executor:
             collective_op_kinds=dict(rep["collective_ops"]),
             reduce_ops=rep["reduce_ops"], reduce_bytes=rep["reduce_bytes"],
             reduce_ops_in_loop=rep["reduce_ops_in_loop"],
-            collectives_in_loop=rep["collectives_in_loop"])
+            collectives_in_loop=rep["collectives_in_loop"],
+            overlapped_reductions=self.comm.overlapped)
         reg = _obs.get_registry()
         reg.counter("executor.collective_bytes",
                     help="bytes of the mesh steps' collectives").inc(

@@ -153,10 +153,13 @@ def clip(X, min=-1.0, max=1.0, **_):
 
 
 @register_op("clip_by_norm")
-def clip_by_norm(X, max_norm=1.0, **_):
+def clip_by_norm(X, max_norm=1.0, norm=None, **_):
     """``X`` scaled to L2 norm ``max_norm`` where it is longer: the norm
-    in f32, the factor cast to ``X``'s dtype before the product."""
-    norm = torch.sqrt(torch.sum(torch.square(X.float())))
+    in f32, the factor cast to ``X``'s dtype before the product.
+    ``norm``: the f32 norm of the whole value where ``X`` is one block of
+    it (the mesh path's)."""
+    if norm is None:
+        norm = torch.sqrt(torch.sum(torch.square(X.float())))
     factor = torch.where(norm > max_norm,
                          max_norm / torch.clamp(norm, min=1e-12),
                          torch.ones_like(norm))

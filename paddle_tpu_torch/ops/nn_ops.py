@@ -102,17 +102,30 @@ def _bshape(X, axes):
     return [1 if i in axes else X.shape[i] for i in range(X.dim())]
 
 
-def _bn_stats(X, axes):
+def _bn_stats(X, axes, comm=None):
     """Per-channel mean and biased variance (``/ n``) with f32
     accumulation over the input dtype, in the centred two-pass form
-    (reference ``_bn_stats``)."""
+    (reference ``_bn_stats``).  ``comm`` (the mesh path's, dp > 1): each
+    sum is all-reduced over ``dp`` — the whole batch's statistics, as the
+    reference's jitted step computes them."""
+    n = _count(X, axes, comm)
+    s = torch.sum(X, dim=axes, dtype=torch.float32)
+    if comm is not None:
+        comm.all_reduce(s, "dp", "batch_norm.sum")
+    mean = s / n
+    centered = X.float() - mean.reshape(_bshape(X, axes))
+    sq = torch.sum(centered * centered, dim=axes)
+    if comm is not None:
+        comm.all_reduce(sq, "dp", "batch_norm.sq")
+    var = sq / n
+    return mean, var
+
+
+def _count(X, axes, comm):
     n = 1
     for a in axes:
         n *= X.shape[a]
-    mean = torch.sum(X, dim=axes, dtype=torch.float32) / n
-    centered = X.float() - mean.reshape(_bshape(X, axes))
-    var = torch.sum(centered * centered, dim=axes) / n
-    return mean, var
+    return n * (comm.size("dp") if comm is not None else 1)
 
 
 class _BatchNormTrain(torch.autograd.Function):
@@ -121,45 +134,56 @@ class _BatchNormTrain(torch.autograd.Function):
     ONE multiply-add in ``X.dtype`` from per-channel f32 coefficients and
     saves ``(X, Scale, mean, inv)``; the backward is the textbook form,
     f32 per-channel reductions and ``X.dtype`` elementwise work.  The batch
-    statistics come out beside ``Y`` without a gradient."""
+    statistics come out beside ``Y`` without a gradient.
+
+    ``comm`` (dp > 1): the statistics are the whole batch's, and so are
+    the backward's two row reductions where ``dX`` reads them (summed
+    over ``dp``); ``dScale`` and ``dBias`` stay this rank's sums, which
+    the optimizer boundary's mean over ``dp`` turns into the whole
+    batch's gradient (each rank's loss is the mean over its rows)."""
 
     @staticmethod
-    def forward(ctx, X, Scale, Bias, axes, epsilon):
-        mean, var = _bn_stats(X, axes)
+    def forward(ctx, X, Scale, Bias, axes, epsilon, comm=None):
+        mean, var = _bn_stats(X, axes, comm)
         inv = torch.rsqrt(var + epsilon)
         a = Scale.float() * inv
         b = Bias.float() - mean * a
         bs = _bshape(X, axes)
         y = X * a.reshape(bs).to(X.dtype) + b.reshape(bs).to(X.dtype)
         ctx.save_for_backward(X, Scale, mean, inv)
-        ctx.axes = axes
+        ctx.axes, ctx.comm = axes, comm
+        ctx.loop = comm.in_loop if comm is not None else False
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dY, _dmean, _dvar):
         X, Scale, mean, inv = ctx.saved_tensors
-        axes = ctx.axes
+        axes, comm = ctx.axes, ctx.comm
         bs = _bshape(X, axes)
-        n = 1
-        for a in axes:
-            n *= X.shape[a]
+        n = _count(X, axes, comm)
         xhat = ((X - mean.reshape(bs).to(X.dtype))
                 * inv.reshape(bs).to(X.dtype))
         sum_dy = torch.sum(dY, dim=axes, dtype=torch.float32)
         sum_dy_xhat = torch.sum((dY * xhat).float(), dim=axes)
+        dscale, dbias = sum_dy_xhat, sum_dy
+        if comm is not None:
+            sum_dy, sum_dy_xhat = sum_dy.clone(), sum_dy_xhat.clone()
+            with comm.where("backward", ctx.loop):
+                comm.all_reduce(sum_dy, "dp", "batch_norm.sum_dy")
+                comm.all_reduce(sum_dy_xhat, "dp", "batch_norm.sum_dy_xhat")
         coef = (Scale.float() * inv).reshape(bs)
         dX = coef.to(X.dtype) * (
             dY
             - (sum_dy / n).reshape(bs).to(X.dtype)
             - xhat * (sum_dy_xhat / n).reshape(bs).to(X.dtype))
-        return (dX, sum_dy_xhat.to(Scale.dtype), sum_dy.to(Scale.dtype),
-                None, None)
+        return (dX, dscale.to(Scale.dtype), dbias.to(Scale.dtype),
+                None, None, None)
 
 
 @register_op("batch_norm")
 def batch_norm(X, Scale, Bias, Mean, Variance, momentum=0.9, epsilon=1e-5,
-               is_test=False, data_layout="NCHW", **_):
+               is_test=False, data_layout="NCHW", _ctx=None, **_):
     """Batch norm over every axis but the channel's (axis 1 in NCHW).
 
     Training: batch statistics by :func:`_bn_stats`; ``MeanOut`` and
@@ -167,7 +191,9 @@ def batch_norm(X, Scale, Bias, Mean, Variance, momentum=0.9, epsilon=1e-5,
     ``momentum``, detached (no step's graph outlives it), as new tensors:
     the running statistics are never updated in place, so a checkpoint
     recompute of this op cannot apply the blend twice.  ``is_test``:
-    normalise by the running statistics, which pass through."""
+    normalise by the running statistics, which pass through.  On a mesh
+    with dp > 1 the statistics are the whole batch's (summed over
+    ``dp``), so every rank holds the same running statistics."""
     ch = 1 if data_layout == "NCHW" else X.dim() - 1
     axes = tuple(i for i in range(X.dim()) if i != ch)
     bs = _bshape(X, axes)
@@ -178,8 +204,10 @@ def batch_norm(X, Scale, Bias, Mean, Variance, momentum=0.9, epsilon=1e-5,
         y = X * a.reshape(bs).to(X.dtype) + b.reshape(bs).to(X.dtype)
         return {"Y": y, "MeanOut": Mean, "VarianceOut": Variance,
                 "SavedMean": Mean, "SavedVariance": Variance}
+    sp = getattr(_ctx, "spmd", None)
+    comm = sp.comm if sp is not None and sp.comm.size("dp") > 1 else None
     y, mean, var = _BatchNormTrain.apply(X, Scale, Bias, axes,
-                                         float(epsilon))
+                                         float(epsilon), comm)
     with torch.no_grad():
         mean_out = (momentum * Mean.float()
                     + (1 - momentum) * mean).to(Mean.dtype)

@@ -1,17 +1,23 @@
 """Multi-device parallelism (``paddle_tpu/parallel``): meshes, the spec
-rules that say what each rank holds, and the canned communication
-contracts of a training step.
+rules that say what each rank holds, the canned communication contracts
+of a training step, and sequence, pipeline and expert parallelism.
 
 The port runs one process per rank (``distributed.launch``); the
 Executor's mesh path (``spmd.py``) gives each rank its blocks of the
 annotated variables and issues the collectives itself
 (``collectives.py``), each recorded in the step's collective log.
+``ring_attention``, ``pipeline`` / ``pipeline_lm`` and ``moe_ffn`` take
+this rank's blocks where the reference's ``shard_map`` takes global
+arrays (``spmd.local_block``, ``pipeline.stage_block`` /
+``local_batch`` and ``moe.moe_params_from_numpy`` cut them), and issue
+their ring shifts and all-to-alls through the same collectives.
+``comm_overlap_flags`` / ``enable_comm_overlap`` name the mesh path's
+overlap of the boundary reductions with the backward
+(``PADDLE_TPU_COMM_OVERLAP``).  The reference's ``_compat.py`` (its
+``shard_map`` import shim) has no counterpart.
 
 Mesh axis conventions: dp (data) · fsdp (parameter sharding) · tp
-(tensor) · sp (sequence) · pp (pipeline) · ep (expert).  Sequence,
-pipeline and expert parallelism (the reference's ``ring_attention``,
-``pipeline`` and ``moe``) and ``comm_overlap_flags`` /
-``enable_comm_overlap`` are not ported yet.
+(tensor) · sp (sequence) · pp (pipeline) · ep (expert).
 """
 
 from .mesh import make_mesh, single_host_mesh, axis_size
@@ -29,7 +35,12 @@ from .api import (
     shard_fsdp,
     optimizer_state_report,
     sharding_report,
+    comm_overlap_flags,
+    enable_comm_overlap,
 )
+from .ring_attention import ring_attention, blockwise_attention
+from .pipeline import pipeline, pipeline_lm, stack_stage_params
+from .moe import init_moe_params, moe_ffn
 from . import contracts, sparse
 
 __all__ = [
@@ -37,7 +48,10 @@ __all__ = [
     "data_parallel", "shard_parameter", "shard_parameters_by_rule",
     "shard_activation", "replicate", "P", "zero_spec_for", "fsdp_spec_for",
     "grad_rs_spec_for", "shard_fsdp", "optimizer_state_report",
-    "sharding_report", "sparse", "contracts", "local_shard",
+    "sharding_report", "comm_overlap_flags", "enable_comm_overlap",
+    "ring_attention", "blockwise_attention", "pipeline", "pipeline_lm",
+    "stack_stage_params", "init_moe_params", "moe_ffn", "sparse",
+    "contracts", "local_shard",
 ]
 
 

@@ -26,7 +26,8 @@ recorded on the block and counted in ``parallel.shard_fallbacks`` —
 never silently.
 
 The kill switches are the reference's: ``PADDLE_TPU_ZERO``,
-``PADDLE_TPU_FSDP`` and ``PADDLE_TPU_ZERO3_RS`` (``0`` turns each off).
+``PADDLE_TPU_FSDP``, ``PADDLE_TPU_ZERO3_RS`` and
+``PADDLE_TPU_COMM_OVERLAP`` (``0`` turns each off).
 """
 
 import os
@@ -40,7 +41,8 @@ __all__ = ["compile_shardings", "data_parallel", "shard_parameter",
            "shard_parameters_by_rule", "shard_activation", "replicate", "P",
            "zero_spec_for", "fsdp_spec_for", "grad_rs_spec_for",
            "shard_fsdp", "optimizer_state_report", "sharding_report",
-           "scan_groups", "spec_axes"]
+           "scan_groups", "spec_axes", "comm_overlap_flags",
+           "enable_comm_overlap"]
 
 
 class P(tuple):
@@ -629,3 +631,45 @@ def sharding_report(program, mesh):
         for s in ("params", "opt_state", "grads"))
     out["replicated_per_device_bytes"] = out["total_bytes"]
     return out
+
+
+# The reference threads XLA's latency-hiding-scheduler flags into
+# XLA_FLAGS so the gradient reduction overlaps the backward.  The port has
+# no XLA: its mesh path does the same itself — each boundary bucket's
+# all-reduce starts (``async_op=True``) as soon as the backward has
+# produced the bucket's gradients, and the step waits on all of them
+# before the optimizer ops (``spmd.Spmd.boundary_grads``).  The buckets,
+# their f32 sums and their log entries are the synchronous path's, so the
+# bits do not move.  torch.distributed starts such a reduction on gloo
+# (CPU and CUDA tensors) and on NCCL alike.
+_OVERLAP = ("boundary_all_reduce_async",)
+
+
+def _comm_overlap_enabled():
+    """The ``PADDLE_TPU_COMM_OVERLAP`` knob (default on; ``0`` off)."""
+    return os.environ.get("PADDLE_TPU_COMM_OVERLAP", "1").lower() not in (
+        "0", "", "false")
+
+
+def comm_overlap_flags(platform):
+    """The overlap the mesh path applies on ``platform`` ("gpu" / "cuda"
+    / "cpu"), as a tuple of names: ``("boundary_all_reduce_async",)`` on
+    each, () on any other (the reference's "tpu" flags have no
+    counterpart here)."""
+    return _OVERLAP if platform in ("gpu", "cuda", "cpu") else ()
+
+
+def enable_comm_overlap(platform=None):
+    """What the mesh path overlaps, as :func:`comm_overlap_flags` names it
+    (idempotent).  Honors ``PADDLE_TPU_COMM_OVERLAP`` (default on; ``0``
+    disables, and then returns ()): the knob itself is what the mesh path
+    reads at each step, so this call changes nothing and may come at any
+    time.  ``platform`` defaults to "gpu" where a card is visible, else
+    "cpu"."""
+    if not _comm_overlap_enabled():
+        return ()
+    if platform is None:
+        import torch
+
+        platform = "gpu" if torch.cuda.is_available() else "cpu"
+    return comm_overlap_flags(platform)

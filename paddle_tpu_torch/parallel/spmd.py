@@ -42,18 +42,37 @@ is reduced and then cut).  Under ZeRO-1 each rank updates its rows of a
 parameter against its rows of the moments and all-gathers the parameter
 over ``dp``.
 
+The reference's jitted step sees whole values where the port's rank sees
+blocks, so three ops that reduce over a whole value reduce over the
+blocks' axes too: the global-norm clip's ``squared_l2_norm`` and
+``clip_by_norm`` of a tp- or FSDP-cut gradient sum their squares over
+the axes the block is cut over (at the boundary, like
+:meth:`Spmd.grad_norm`), and ``batch_norm`` sums its statistics over
+``dp`` (``ops/nn_ops.py``: the whole batch's, as GSPMD computes them).
+
+Overlap (``PADDLE_TPU_COMM_OVERLAP``, default on; ``api.
+enable_comm_overlap``): in a step without accumulation, each boundary
+reduction starts as soon as the backward has produced its gradients —
+a FSDP block's at once, a bucket's when its last gradient arrives
+(:meth:`Spmd.overlap_hooks`, tensor hooks on the parameters) — and
+:meth:`Spmd.boundary_grads` waits on them before the optimizer ops.
+The buckets, their f32 sums and their log entries are the synchronous
+path's.
+
 Loops: a collective runs in a loop when it runs once per microbatch of
 gradient accumulation, or inside a repeat of a uniform layer group of a
 memory-optimized program (the layers the reference runs as a scan) — the
 ``in_loop`` the contracts read.
 """
 
+import contextlib
 import math
 import weakref
 
 import torch
 
-from .api import spec_axes
+from ..core.program import GRAD_SUFFIX
+from .api import _comm_overlap_enabled, spec_axes
 from .collectives import gather_fwd, reduce_fwd, reduce_grad
 
 __all__ = ["Spmd", "tp_rule", "TP_RULES", "local_block", "shard_index"]
@@ -127,6 +146,8 @@ class Spmd:
         self.loop_ops = frozenset(loop_ops)
         self.rs = rs
         self.tp = comm.size("tp")
+        self.overlap = False
+        self._started = {}
         self.pl = {}
         self.micro = False
         self.stash = {}
@@ -164,6 +185,9 @@ class Spmd:
 
     # -- step state -----------------------------------------------------
     def reset(self):
+        self.overlap = _comm_overlap_enabled()
+        self._started = {}
+        self.comm.overlapped = 0
         self._zero_pending = []
         self.pl = {}
         self.stash = {}
@@ -314,34 +338,102 @@ class Spmd:
         return tuple(a for a in self.comm.mesh.axis_names
                      if self.comm.size(a) > 1 and a not in cut)
 
+    def _boundary_plan(self, names):
+        """``(blocks, buckets)``: the FSDP parameters reduced one by one
+        (index -> (axes, block axes); ``block`` None with ZeRO-3's
+        reduce-scatter off) and the buckets of the rest (replica axes ->
+        indices), in the order the boundary reduces them."""
+        blocks, buckets = {}, {}
+        for i, n in enumerate(names):
+            axes = self.replicas(n)
+            if n in self.extra:
+                block = (tuple(a for _, ax in self.extra[n] for a in ax)
+                         if self.rs else None)
+                blocks[i] = (axes, block)
+            elif axes:
+                buckets.setdefault(axes, []).append(i)
+        return blocks, buckets
+
+    def overlap_hooks(self, names, params):
+        """With the overlap on: tensor hooks on ``params`` that start each
+        boundary reduction (:meth:`boundary_grads`'s own) as soon as the
+        backward has produced its gradients — a FSDP block's (ZeRO-3's
+        reduce-scatter on) when it arrives, a bucket's when its last
+        gradient does.  A context manager; what started is waited on by
+        :meth:`boundary_grads`."""
+        self._started = {}
+        if not self.overlap or self.comm.mesh.size <= 1:
+            return contextlib.nullcontext()
+        comm = self.comm
+        blocks, buckets = self._boundary_plan(names)
+        member = {i: axes for axes, idx in buckets.items() for i in idx}
+        got = {}
+
+        def arrive(i, g):
+            with torch.no_grad(), comm.where("boundary", False):
+                if i in blocks:
+                    axes, block = blocks[i]
+                    if axes and block is not None and g.is_contiguous():
+                        work = comm.all_reduce(g, axes, names[i],
+                                               block=block, async_op=True)
+                        self._started[i] = (g, work)
+                    return
+                axes = member[i]
+                got[i] = g
+                idx = buckets[axes]
+                if all(k in got for k in idx):
+                    flat = torch.cat([got[k].reshape(-1).float()
+                                      for k in idx])
+                    work = comm.all_reduce(
+                        flat, axes, ",".join(names[k] for k in idx),
+                        async_op=True)
+                    self._started[axes] = (flat, work)
+
+        hooks = contextlib.ExitStack()
+        for i, p in enumerate(params):
+            if i in member or (i in blocks and blocks[i][0]
+                               and blocks[i][1] is not None):
+                hooks.callback(
+                    p.register_hook(lambda g, i=i: arrive(i, g)).remove)
+        return hooks
+
     def boundary_grads(self, names, grads, accum=1):
         """Each parameter's gradient as its optimizer op reads it: the mean
         over the axes that hold the parameter's replicas (one f32 bucket
         per set of axes for the gradients at their full volume; one
         all-reduce per FSDP block, at the block's volume), FSDP gradients
-        cut to this rank's block."""
+        cut to this rank's block.  A reduction :meth:`overlap_hooks`
+        started is waited on; the rest run here."""
         comm = self.comm
         out = list(grads)
-        buckets = {}
+        started, self._started = self._started, {}
+        comm.overlapped = len(started)
+        blocks, buckets = self._boundary_plan(names)
         with comm.where("boundary", False):
-            for i, (n, g) in enumerate(zip(names, grads)):
-                axes = self.replicas(n)
-                if n in self.extra:
-                    block = tuple(a for _, ax in self.extra[n] for a in ax)
-                    if not self.rs:
-                        g = self.stash.pop(n) / accum
-                        block = None
-                    if axes:
-                        comm.all_reduce(g, axes, n, block=block)
-                        g.div_(comm.size(axes))
-                    if not self.rs:
-                        out[i] = self._cut(n, g).to(grads[i].dtype)
+            for i, (axes, block) in blocks.items():
+                n, g = names[i], grads[i]
+                if i in started:
+                    g, work = started[i]
+                    work.wait()
+                    g.div_(comm.size(axes))
+                    out[i] = g
                     continue
+                if not self.rs:
+                    g = self.stash.pop(n) / accum
                 if axes:
-                    buckets.setdefault(axes, []).append(i)
+                    comm.all_reduce(g, axes, n, block=block)
+                    g.div_(comm.size(axes))
+                if not self.rs:
+                    out[i] = self._cut(n, g).to(grads[i].dtype)
             for axes, idx in buckets.items():
-                flat = torch.cat([out[i].reshape(-1).float() for i in idx])
-                comm.all_reduce(flat, axes, ",".join(names[i] for i in idx))
+                if axes in started:
+                    flat, work = started[axes]
+                    work.wait()
+                else:
+                    flat = torch.cat([out[i].reshape(-1).float()
+                                      for i in idx])
+                    comm.all_reduce(flat, axes,
+                                    ",".join(names[i] for i in idx))
                 flat.div_(comm.size(axes))
                 off = 0
                 for i in idx:
@@ -362,13 +454,18 @@ class Spmd:
             full = full.narrow(d, idx * k, k)
         return full.contiguous()
 
+    def block_axes(self, name):
+        """The mesh axes (of size > 1, dp aside) over which a parameter's
+        gradient block is one block of the whole gradient, sorted."""
+        return tuple(sorted(a for a in self.sharded_over(name)
+                            if a != "dp" and self.comm.size(a) > 1))
+
     def grad_norm(self, names, grads, device):
         """The global gradient norm from the blocks: squares summed per set
         of axes the blocks are cut over, each set all-reduced over them."""
         parts = {}
         for n, g in zip(names, grads):
-            axes = tuple(sorted(a for a in self.sharded_over(n)
-                                if a != "dp" and self.comm.size(a) > 1))
+            axes = self.block_axes(n)
             sq = torch.linalg.vector_norm(g.float()).square().reshape(1)
             parts[axes] = parts[axes] + sq if axes in parts else sq
         total = torch.zeros(1, device=device)
@@ -378,6 +475,35 @@ class Spmd:
                     self.comm.all_reduce(s, a, "@GRAD_NORM@")
                 total = total + s
         return torch.sqrt(total[0])
+
+    def _norm_op(self, op, ins, attrs, run):
+        """``squared_l2_norm`` / ``clip_by_norm`` of a gradient whose block
+        is cut over mesh axes (tp, fsdp): the squares summed over the
+        block's axes, so the norm is the whole gradient's.  None where the
+        op reads no such block."""
+        names = op.inputs.get("X") or ()
+        if len(names) != 1 or not names[0].endswith(GRAD_SUFFIX):
+            return None
+        p = names[0][:-len(GRAD_SUFFIX)]
+        if p not in self.specs:
+            return None
+        axes = self.block_axes(p)
+        if not axes:
+            return None
+        with self.comm.where("boundary", False):
+            if op.type == "squared_l2_norm":
+                out = dict(run(ins, attrs))
+                sq = out["Out"].contiguous()
+                self.comm.all_reduce(sq, axes, names[0])
+                out["Out"] = sq
+                return out
+            from ..ops.math_ops import clip_by_norm
+
+            x = ins["X"]
+            sq = torch.sum(torch.square(x.float())).reshape(1)
+            self.comm.all_reduce(sq, axes, names[0])
+            return clip_by_norm(x, float(attrs.get("max_norm", 1.0)),
+                                norm=torch.sqrt(sq[0]))
 
     def zero_param(self, op):
         """The parameter name an optimizer op updates under ZeRO-1 (its
@@ -457,7 +583,12 @@ class Spmd:
         the parameter and its gradient — the other ranks' rows arrive in
         :meth:`flush_zero`'s one all-gather after the last optimizer op.
         A whole accumulator of a sharded parameter is updated on the
-        parameter's block and all-gathered back."""
+        parameter's block and all-gathered back.  The norm ops of the
+        clips reduce over a cut gradient's axes (:meth:`_norm_op`)."""
+        if op.type in ("squared_l2_norm", "clip_by_norm"):
+            outs = self._norm_op(op, ins, attrs, run)
+            if outs is not None:
+                return outs
         p = self.zero_param(op)
         if p is None:
             ins = dict(ins)

@@ -279,7 +279,10 @@ PARALLEL_MODULES = [
     "paddle_tpu_torch.parallel.api", "paddle_tpu_torch.parallel.contracts",
     "paddle_tpu_torch.parallel.sparse",
     "paddle_tpu_torch.parallel.collectives",
-    "paddle_tpu_torch.parallel.spmd", "paddle_tpu_torch.analysis",
+    "paddle_tpu_torch.parallel.spmd",
+    "paddle_tpu_torch.parallel.ring_attention",
+    "paddle_tpu_torch.parallel.pipeline", "paddle_tpu_torch.parallel.moe",
+    "paddle_tpu_torch.analysis",
     "paddle_tpu_torch.analysis.comm", "paddle_tpu_torch.analysis.comm.plan",
     "paddle_tpu_torch.analysis.comm.contract",
     "paddle_tpu_torch.distributed.launch",
@@ -323,6 +326,36 @@ def test_mesh_stack_import_leaves_jax_out():
              "scope=scope)\n"
              "assert len(exe.last_comm_plan) == 0\n"
              "assert exe.last_step_cost['collective_count'] == 0\n"
+             "bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')]\n"
+             "assert not bad, bad\nprint('clean')", cwd=ROOT)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "clean"
+
+
+def test_sequence_pipeline_and_expert_parallelism_leave_jax_out():
+    """A one-rank ``ring_attention`` (both impls), ``moe_ffn`` and
+    ``pipeline`` on the CPU without jax, and the overlap's names."""
+    r = _run("import sys, importlib, torch\n"
+             "from paddle_tpu_torch import parallel\n"
+             "g = torch.Generator().manual_seed(0)\n"
+             "q, k, v = (torch.randn(2, 8, 2, 4, generator=g) "
+             "for _ in range(3))\n"
+             "mesh = parallel.make_mesh({'sp': 1})\n"
+             "o1 = parallel.ring_attention(q, k, v, mesh, causal=True)\n"
+             "o2 = parallel.ring_attention(q, k, v, mesh, causal=True, "
+             "impl='flash')\n"
+             "assert torch.allclose(o1, o2, atol=1e-5)\n"
+             "p = parallel.init_moe_params(g, 4, 8, 16, device='cpu')\n"
+             "y, aux = parallel.moe_ffn(p, torch.randn(16, 8, generator=g), "
+             "parallel.make_mesh({'ep': 1}))\n"
+             "assert y.shape == (16, 8) and bool(torch.isfinite(aux))\n"
+             "st = parallel.stack_stage_params([{'w': torch.eye(8)}])\n"
+             "out = parallel.pipeline(lambda p, h: h @ p['w'], st, "
+             "torch.ones(4, 8), parallel.make_mesh({'pp': 1}))\n"
+             "assert torch.equal(out, torch.ones(4, 8))\n"
+             "assert parallel.enable_comm_overlap('cpu') == "
+             "parallel.comm_overlap_flags('gpu')\n"
              "bad = [m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')]\n"
              "assert not bad, bad\nprint('clean')", cwd=ROOT)
