@@ -441,13 +441,41 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    ``capacity_factor=2.0`` (finite, ``aux`` equal on every rank) and at a
    capacity that drops no token against a dense top-2 on each rank's
    shard;
-18. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
+18. the autotuner on the card (``paddle_tpu_torch.tune``), every cache
+   write under a temporary ``PADDLE_TPU_TUNE_CACHE``, never the default
+   path: a. ``tune_paged_attention`` at phase 5's decode shape (S=32,
+   W=1, h=6, dh=128, B=32, NB=16) in bf16 and in f32, search mode: each
+   candidate split count (1, the powers of two up to NB, the rule's)
+   held against ``paged_attention_split_ref`` at that count within
+   ORACLE_TOL and timed with CUDA events over 50 queued calls (median of
+   7), the winner
+   persisted under the call's (slots, window, block_tokens); then phase
+   4's f32 engine in cached mode takes the f32 winner (``tune.cache_hits``
+   > 0, its decode call launched at that count alone, its prefill at the
+   rule's) and its tokens on phase 4's eight requests equal an untuned
+   engine's, or differ only where ``generate``'s top-2 logit gap is below
+   1e-5 (printed); a speculative engine at k=8 with the entry present
+   serves two of them (its draft chunk at the winner, its 9-token verify
+   window on the simple family) with the tuned engine's tokens; b. ``tune_gpt_step`` at the flagship (t=4096,
+   b=8, fused head, bf16) over policies none / selective / compact / full
+   x ``block_k`` 1024 (fused backward) and 256 (split), at most 6
+   measured, 2 steps x 3 repeats after a warm-up: each candidate's median,
+   verdict, route and ``max_memory_allocated`` beside
+   ``estimate_gpt_step_hbm``; a winner from at least two measured; c.
+   cached mode: ``memory_optimize(policy="auto")`` on a fresh flagship
+   applies the winner's policy and blocks, and one ``Trainer`` step
+   equals the same program's with the policy spelled out, bit for bit
+   under deterministic algorithms; ``PADDLE_TPU_TUNE=0`` resolves ``auto``
+   to ``selective``; d. ``python -m paddle_tpu_torch --tune-selftest``
+   and ``--spec-selftest`` on the card, side by side, exit 0; the walls
+   of the phase and its parts;
+19. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
    launches on its main path (phase 3e, 5, 5b, 7, 8 or 9b), error, times
    and bound; the paged attention, flash forward, fused backward, the
    three CE rows and the sm90 bottleneck add the simple family's time
    (``simple_ms``), and the forward's row its t=16384 entry (``t16384``,
    launches from phase 8);
-19. the last line: ``{"ok": true, "device": {...}}``.
+20. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
 file, it exits non-zero and prints no result.  The weights, the tokens
@@ -6912,6 +6940,329 @@ def mesh_phase(torch, np, pt, smi, seed):
         f"ranks {t_ranks:.1f} s)")
 
 
+# -- phase 18: the autotuner on the card ------------------------------------
+
+# 18b's candidates: the flagship's step under four policies, each on the
+# fused (block_k 1024) and the split (block_k 256) backward route
+TUNE_POLICIES = ("none", "selective", "compact", "full")
+TUNE_BLOCK_CAPS, TUNE_MEASURE = (1024, 256), 6
+
+
+@contextlib.contextmanager
+def tune_env(mode, cache):
+    """``PADDLE_TPU_TUNE=mode`` and ``PADDLE_TPU_TUNE_CACHE=cache`` inside
+    the block (the cache singleton re-read on entry and exit)."""
+    from paddle_tpu_torch import tune
+
+    old = {k: os.environ.get(k)
+           for k in ("PADDLE_TPU_TUNE", "PADDLE_TPU_TUNE_CACHE")}
+    os.environ["PADDLE_TPU_TUNE"] = mode
+    os.environ["PADDLE_TPU_TUNE_CACHE"] = cache
+    tune.reset_cache()
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tune.reset_cache()
+
+
+def tune_paged_phase(torch, np, pa, kernels, smi, seed, cache):
+    """18a: ``tune_paged_attention`` at phase 5's decode shape (bf16, where
+    row 1 is timed) and in f32 (phase 4's engine dtype), each count held
+    against ``paged_attention_split_ref`` at that count inside the search;
+    then phase 4's f32 engine in cached mode takes the f32 winner for its
+    decode call and its tokens are held to an untuned engine's on phase
+    4's eight requests, and a speculative engine at k=8 with the entry
+    present serves two of them (draft chunk at the winner, verify window
+    on the simple family) with the tuned engine's tokens."""
+    from paddle_tpu_torch import tune
+    from paddle_tpu_torch.observability import metrics as obs
+
+    nb = MAX_LEN // BLOCK_TOKENS
+    rule = pa.paged_splits(SLOTS, N_HEAD, nb)[0]
+    winners = {}
+    with tune_env("search", cache):
+        for dt in ("bfloat16", "float32"):
+            rep = tune.tune_paged_attention(
+                N_HEAD, D_HEAD, MAX_LEN, BLOCK_TOKENS, dtype=dt,
+                slots=SLOTS, repeats=7, seed=seed, device="cuda")
+            if rep["source"] != "search":
+                raise AssertionError(f"18a {dt}: the search did not run: "
+                                     f"{rep['source']}")
+            for m in rep["measured"]:
+                log(f"18a {dt} S={SLOTS} W=1 h={N_HEAD} dh={D_HEAD} "
+                    f"B={BLOCK_TOKENS} NB={nb}: splits {m['splits']:2d}"
+                    f"{' (the rule)' if m['splits'] == rule else '':11s} "
+                    f"{m['median_s'] * 1e3:.4f} ms (CUDA events over 50 "
+                    f"queued calls, median of 7), rel err vs the split plain version "
+                    f"{m['rel_err']:.3e} (tol {pa.oracle_tol(dt)}) [{smi}]")
+            winners[dt] = rep["entry"]["config"]["splits"]
+            by = {m["splits"]: m["median_s"] for m in rep["measured"]}
+            log(f"18a {dt}: the winner splits {winners[dt]} at "
+                f"{by[winners[dt]] * 1e3:.4f} ms beside the rule's "
+                f"{rule} at {by[rule] * 1e3:.4f} ms [{smi}]")
+    rng = np.random.default_rng(seed)
+    params = make_params(rng)
+    work = make_workload(rng, REQUESTS, CLASSES, VOCAB, PREFIX_LEN)[:8]
+    reg = obs.get_registry()
+    win = winners["float32"]
+
+    def rule(S):
+        return pa.paged_splits(S, N_HEAD, nb)[0]
+
+    def split_counts(what, tuned):
+        """The split launches since the last reset, ``{(S, W, splits):
+        n}``: the decode-shaped call (SLOTS rows, one token) at ``tuned``
+        (the rule's count when None), every other call at the rule's."""
+        counts = dict(pa.PAGED_SPLIT_CALLS)
+        bad = {at: n for at, n in counts.items()
+               if at[2] != (tuned if tuned and at[:2] == (SLOTS, 1)
+                            else rule(at[0]))}
+        if bad or not any(at[:2] == (SLOTS, 1) for at in counts):
+            raise AssertionError(
+                f"18a {what}: split launches {counts}; tuned count "
+                f"{tuned} for the ({SLOTS}, 1) call, the rule elsewhere")
+        return counts
+
+    def tied(outs, base, sel, what):
+        """``outs`` equal ``base`` on the requests ``sel``, or differ only
+        where ``generate``'s top-2 logit gap is below 1e-5; returns how
+        many are equal."""
+        same = [k for k, a, b in zip(sel, outs, base) if np.array_equal(a, b)]
+        rest = [k for k in sel if k not in same]
+        if rest:
+            refs = generate_refs(torch, params, [work[k] for k in rest],
+                                 N_LAYER, N_HEAD, D_MODEL)
+            for k, (_, logits) in zip(rest, refs):
+                a, b = outs[sel.index(k)], base[sel.index(k)]
+                i = int(np.nonzero(a != b)[0][0])
+                top = torch.topk(logits[i - 1], 2).values
+                gap = (top[0] - top[1]).item()
+                log(f"18a {what} request {k}: differs at position {i}; top-2 "
+                    f"logit gap there {gap:.3e} (limit 1e-5)")
+                if not gap < 1e-5:
+                    raise AssertionError(f"18a {what} request {k}: tokens "
+                                         f"differ where the gap is {gap:.3e}")
+        return len(same)
+
+    with tune_env("cached", cache):
+        h0 = reg.value("tune.cache_hits")
+        kernels.reset_launches()
+        tuned, eng = serve_f32(params, work)
+        hits = reg.value("tune.cache_hits") - h0
+        if not (hits > 0 and eng.attn_splits == win):
+            raise AssertionError(f"18a: the cached engine did not take the "
+                                 f"winner {win}: hits {hits}, attn_splits "
+                                 f"{eng.attn_splits}")
+        counts = split_counts("tuned engine", win)
+        del eng
+        # a speculative engine at k=8 with the entry present: its draft
+        # chunk makes the decode call (the tuned count), its verify window
+        # (9 tokens) the simple family, its prefill the rule
+        from paddle_tpu_torch.serving import speculative
+
+        sel = [k for k, (_, m) in enumerate(work) if m == CLASSES[0][1]]
+        kernels.reset_launches()
+        spec_outs, eng = serve_f32(
+            params, [work[k] for k in sel], spec_k=8,
+            draft_params=speculative.depth_draft(params, CHECK_DRAFT_LAYERS))
+        spec_counts = split_counts("spec engine k=8", win)
+        simple = kernels.family_counts()["paged_attention"]["simple"]
+        if not (eng.attn_splits == win and eng._spec.proposed > 0
+                and simple > 0):
+            raise AssertionError(
+                f"18a spec engine k=8: attn_splits {eng.attn_splits}, "
+                f"proposed {eng._spec.proposed}, simple launches {simple}")
+        spec_same = tied(spec_outs, [tuned[k] for k in sel], sel,
+                         "spec k=8 vs tuned")
+        del eng
+    with tune_env("0", cache):
+        kernels.reset_launches()
+        plain, eng = serve_f32(params, work)
+        if eng.attn_splits is not None:
+            raise AssertionError(f"18a: the untuned engine took splits "
+                                 f"{eng.attn_splits}")
+        untuned = split_counts("untuned engine", None)
+    del eng
+    same = tied(tuned, plain, list(range(len(work))), "tuned vs untuned")
+    log(f"18a f32 engine at phase 4's configuration: cached mode took "
+        f"splits {win} for the ({SLOTS}, 1) decode call (tune.cache_hits "
+        f"+{int(hits)}; split launches by (S, W, splits) {counts}); untuned "
+        f"ran the rule's {untuned}; {same}/{len(work)} requests "
+        f"token-identical")
+    log(f"18a speculative f32 engine, k=8, the entry present: split "
+        f"launches {spec_counts}, {simple} simple-family (verify, W=9); "
+        f"{spec_same}/{len(sel)} requests token-identical to the tuned "
+        f"engine's")
+    return winners
+
+
+def tune_step_phase(torch, np, pt, smi, cache):
+    """18b: ``tune_gpt_step`` at the flagship (12L, d768, 6x128, vocab
+    32768, t=4096, b=8, fused head, bf16) over ``TUNE_POLICIES`` x the two
+    backward routes, at most ``TUNE_MEASURE`` measured."""
+    from paddle_tpu_torch import tune
+
+    with tune_env("search", cache):
+        rep = tune.tune_gpt_step(
+            TRAIN_T, N_LAYER, D_MODEL, N_HEAD, VOCAB, TRAIN_B,
+            dtype="bfloat16", fused_head=True, steps=2, warmup=1,
+            repeats=3, block_caps=TUNE_BLOCK_CAPS, block_q_caps=(1024,),
+            policies=TUNE_POLICIES, accums=(1,), max_measure=TUNE_MEASURE,
+            learning_rate=TRAIN_LR, device="cuda")
+    timed = [m for m in rep["measured"] if m["verdict"] == "measured"]
+    for m in rep["measured"]:
+        if m["verdict"] != "measured":
+            log(f"18b {m['policy']:9s} block_k {m['block_k']:4d}: "
+                f"{m['verdict']} ({m['reason']})")
+            continue
+        base = m.get("hbm_baseline_bytes", 0)
+        ratio = (m["hbm_high_water_bytes"] - base) / m["hbm_est_bytes"]
+        log(f"18b {m['policy']:9s} block_k {m['block_k']:4d} "
+            f"({m['route']} backward): median {m['median_s']:.4f} s for 2 "
+            f"steps, {m['tok_s']:.0f} tok/s; max_memory_allocated "
+            f"{m['hbm_high_water_bytes'] / 1e9:.3f} GB (of it "
+            f"{base / 1e9:.3f} GB held before the candidate) beside "
+            f"estimate_gpt_step_hbm {m['hbm_est_bytes'] / 1e9:.3f} GB: "
+            f"measured / estimate {ratio:.3f} [{smi}]")
+    if rep["source"] != "search" or len(timed) < 2:
+        raise AssertionError(f"18b: no winner from two measured candidates "
+                             f"({rep['source']}, {len(timed)} measured)")
+    win = rep["entry"]["config"]
+    log(f"18b winner {win} of {len(timed)} measured, "
+        f"{rep['pruned_preflight']} rejected by the preflight, "
+        f"{rep['candidates']} candidates ({rep.get('truncated_to')} after "
+        f"the cap) [{smi}]")
+    return win
+
+
+def tune_resolve_phase(torch, np, pt, seed, win, cache):
+    """18c: in cached mode ``memory_optimize(policy="auto")`` on a fresh
+    flagship applies the winner's policy, and one ``Trainer`` step equals
+    a step of the same program with that policy spelled out, bit for bit
+    under deterministic algorithms; under ``PADDLE_TPU_TUNE=0`` ``auto``
+    resolves to ``selective``."""
+    policy = win["policy"]
+
+    def one_step(spelled):
+        main, startup, model = build_training(pt, seed, TRAIN_T, "bfloat16",
+                                              True)
+        if spelled is None:
+            pt.memory_optimize(main, policy="auto")
+        elif spelled != "none":
+            pt.memory_optimize(main, policy=spelled)
+        label = getattr(main, "_remat_policy", None) or "none"
+        losses = []
+
+        def on_event(e):
+            if isinstance(e, pt.EndIteration):
+                losses.append(e.cost)
+
+        scope = pt.Scope()
+        with pt.scope_guard(scope), deterministic(torch):
+            tr = pt.Trainer(model["avg_cost"], model["feed"],
+                            main_program=main, startup_program=startup)
+            tr.train(pt.reader.batch(trainer_samples(np, seed, 1), TRAIN_B),
+                     num_passes=1, event_handler=on_event)
+            torch.cuda.synchronize()
+            params = {p.name: scope.get(p.name).clone()
+                      for p in main.all_parameters()}
+        attrs = next(op.attrs for op in main.global_block().ops
+                     if op.type.startswith("flash_attention"))
+        return label, losses, params, (attrs.get("block_q"),
+                                       attrs.get("block_k"))
+
+    with tune_env("cached", cache):
+        auto = one_step(None)
+        spelled = one_step(policy)
+    if auto[0] != policy:
+        raise AssertionError(f"18c: auto resolved to {auto[0]}, the winner "
+                             f"is {policy}")
+    if auto[3] != (win["block_q"], win["block_k"]):
+        raise AssertionError(f"18c: the flash op's blocks {auto[3]} are not "
+                             f"the winner's")
+    bad = [n for n in auto[2] if not torch.equal(auto[2][n], spelled[2][n])]
+    if auto[1] != spelled[1] or bad:
+        raise AssertionError(f"18c: auto's step {auto[1]} vs the spelled-out "
+                             f"{spelled[1]}; parameters differing: {bad[:5]}")
+    with tune_env("0", cache):
+        main = build_training(pt, seed, TRAIN_T, "bfloat16", True)[0]
+        pt.memory_optimize(main, policy="auto")
+        if main._remat_policy != "selective":
+            raise AssertionError(f"18c: PADDLE_TPU_TUNE=0 resolved auto to "
+                                 f"{main._remat_policy}")
+    log(f"18c: cached auto -> {auto[0]} with blocks {auto[3]}; one Trainer "
+        f"step loss {auto[1][0]!r} equals the spelled-out {policy}'s "
+        f"{spelled[1][0]!r} and all {len(auto[2])} parameters bit for bit "
+        f"(deterministic algorithms); PADDLE_TPU_TUNE=0 -> selective")
+
+
+def tune_selftests_phase(cache):
+    """18d: ``python -m paddle_tpu_torch --tune-selftest`` and
+    ``--spec-selftest`` on the card, side by side (two small toys), each
+    exit 0."""
+    env = dict(os.environ, PADDLE_TPU_TUNE_CACHE=cache)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = {flag: subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch", flag], cwd=here, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for flag in ("--tune-selftest", "--spec-selftest")}
+    try:
+        outs = {flag: p.communicate(timeout=300) + (p.returncode,)
+                for flag, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for flag, (out, err, rc) in outs.items():
+        if rc != 0:
+            raise AssertionError(f"18d {flag} exited {rc}:\n{out[-3000:]}"
+                                 f"{err[-3000:]}")
+        log(f"18d {flag} on the card: exit 0 "
+            f"({out.strip().splitlines()[-1]})")
+    log(f"18d both selftests side by side: {time.perf_counter() - t0:.1f} s")
+
+
+def tune_phase(torch, np, pt, pa, kernels, smi, seed):
+    """Phase 18, every cache write under a temporary directory."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    cache = os.path.join(root, "tuned.json")
+    walls = {}
+    try:
+        t = time.perf_counter()
+        tune_paged_phase(torch, np, pa, kernels, smi, seed, cache)
+        walls["18a"] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        win = tune_step_phase(torch, np, pt, smi, cache)
+        walls["18b"] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        tune_resolve_phase(torch, np, pt, seed, win, cache)
+        walls["18c"] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        tune_selftests_phase(cache)
+        walls["18d"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 18 wall {time.perf_counter() - t0:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()) + f") [{smi}]")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7156,7 +7507,15 @@ def main():
     torch.cuda.empty_cache()
     log(f"the script so far {time.perf_counter() - t_start:.1f} s")
 
-    # 18. the kernels line, 19. the result
+    # 18. the autotuner on the card: 18a the paged split count, 18b the
+    #     flagship's step schedule, 18c memory_optimize(policy="auto"),
+    #     18d the tune and spec selftests
+    tune_phase(torch, np, pt, pa, kernels, smi, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"the script so far {time.perf_counter() - t_start:.1f} s")
+
+    # 19. the kernels line, 20. the result
     row["launches"] = launches["paged_attention"]
     gather_row["launches"] = gathered["launches"]["decode_gather"]
     log(f"paged_attention at the verify shape: kernel {verify_ms[0]:.4f} ms, "

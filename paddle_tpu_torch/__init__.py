@@ -42,14 +42,18 @@ train | pserver | master | version``); sharded training over a device
 mesh (``parallel``: dp, ZeRO-1, FSDP / ZeRO-3, tp) through
 ``Executor(place, mesh=...)`` and ``Trainer(mesh=...)``, one process per
 rank (``distributed.launch``), with each step's collective log checked
-by ``analysis.comm`` contracts.
+by ``analysis.comm`` contracts; the autotuner (``tune``: the measured
+search, its cache and cost model, and the lookups of
+``layers.multi_head_attention``, ``memory_optimize(policy="auto")``,
+``ServingEngine`` and the paged-attention split count) and the selftest
+flags of the command line.
 """
 
 from . import ops as _ops  # noqa: F401  (registers the op lowerings)
 from . import (analysis, clip, data_feeder, dataset, distributed, flags,
                initializer, io, layers, learning_rate_decay, models, native,
                nets, observability, optimizer, parallel, profiler, reader,
-               regularizer, resilience, trainer)
+               regularizer, resilience, trainer, tune)
 from .backward import append_backward
 from .checkgrad import check_gradients
 from .core.executor import Executor
@@ -59,6 +63,7 @@ from .core.program import (Block, OpDesc, Parameter, Program, Variable,
                            name_scope, program_guard)
 from .core.scope import Scope, global_scope, load_numpy_state, scope_guard
 from .data_feeder import DataFeeder
+from .flags import FLAGS
 from .memory_optimization_transpiler import (gradient_accumulation,
                                              memory_optimize, release_memory)
 from .observability.reporter import MetricsReporter
@@ -77,6 +82,6 @@ __all__ = [
     "EndIteration", "DataFeeder", "MetricsReporter", "io", "reader",
     "profiler", "data_feeder", "observability", "resilience", "trainer",
     "clip", "regularizer", "learning_rate_decay", "nets", "dataset",
-    "distributed", "native", "flags", "check_gradients", "parallel",
-    "analysis",
+    "distributed", "native", "flags", "FLAGS", "check_gradients",
+    "parallel", "analysis", "tune",
 ]

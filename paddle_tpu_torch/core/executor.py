@@ -216,6 +216,15 @@ def _feed_batch(block, feeds):
     return 1
 
 
+def _grad_norm_enabled():
+    """``PADDLE_TPU_GRADNORM=0`` (the JAX package's kill switch) drops the
+    global gradient norm from the step: nothing computes it and the scope
+    gets no ``@GRAD_NORM@``.  Read when a step is lowered (a setting
+    change lowers the step anew)."""
+    return os.environ.get("PADDLE_TPU_GRADNORM", "1").lower() not in (
+        "0", "", "false", "off", "no")
+
+
 def _raise_if_not_finite(values, when="before the optimizer ops"):
     """``nan_guard``'s and ``FLAGS.check_nan_inf``'s check: record and
     raise on the first non-finite value of ``{name: tensor}``."""
@@ -800,11 +809,14 @@ def _reassemble(block, bw, ys, full_b):
 
 
 class Executor:
-    """``Executor(place, mesh=None)`` — ``place`` is ``CUDAPlace()``,
-    ``CPUPlace()``, a device string, or None for the card.  With no place
-    and no usable card it raises; the CPU must be asked for.  On the card
-    every kernel library (flash attention, the fused CE head, ...) is built
-    here, outside any timed step.
+    """``Executor(place, mesh=None, donate_state=True)`` — ``place`` is
+    ``CUDAPlace()``, ``CPUPlace()``, a device string, or None for the
+    card.  With no place and no usable card it raises; the CPU must be
+    asked for.  On the card every kernel library (flash attention, the
+    fused CE head, ...) is built here, outside any timed step.
+    ``donate_state`` is the JAX package's buffer-donation switch; it is
+    accepted and does nothing in eager PyTorch, where the optimizer ops
+    update the scope's tensors in place.
 
     ``mesh`` (``parallel.make_mesh``) runs this process as one rank of a
     mesh step (``parallel/spmd.py``): ``torch.distributed`` must be
@@ -817,8 +829,12 @@ class Executor:
     as a ``CommPlan`` in the reference's names
     (``analysis.comm.plan_from_log``), which its contracts read."""
 
-    def __init__(self, place=None, mesh=None):
+    def __init__(self, place=None, mesh=None, donate_state=True):
         self.place = place
+        # accepted for the JAX package's signature: eager PyTorch has no
+        # buffers to donate (the optimizer ops update the scope's tensors
+        # in place whatever this says), so it changes nothing
+        self.donate_state = donate_state
         self.device = resolve_device(place)
         self._cache = {}
         self.last_step_cost = None
@@ -1034,6 +1050,7 @@ class Executor:
             aux_names.update(op.input_names())
         fwd = _Forward(program, plan, aux_names)
         accum = int(getattr(program, "_grad_accum", 1) or 1)
+        emit_norm = _grad_norm_enabled()
 
         def step(state, feeds, gen, trips=None):
             ctx = LoweringCtx(device, gen, program, trips, sp)
@@ -1067,6 +1084,9 @@ class Executor:
                 if sp is not None:
                     sp.micro = False
                     grads = sp.boundary_grads(param_names, grads, accum)
+                if not emit_norm:
+                    grad_norm = None
+                elif sp is not None:
                     grad_norm = sp.grad_norm(param_names, grads, device)
                 else:
                     # the step's global gradient norm: one f32 sum of
@@ -1161,7 +1181,7 @@ class Executor:
         """``(step, cost)`` for this signature, lowered (and counted) on
         a miss; and whether it was a cache hit."""
         key = (program._serial, program._version, tuple(fetch_names),
-               state_names)
+               state_names, _grad_norm_enabled())
         reg = _obs.get_registry()
         entry = self._cache.get(key)
         if entry is not None:
@@ -1197,6 +1217,11 @@ class Executor:
         out = dict(cost, flops=flops, cache_hit=cache_hit)
         if steps is not None:
             out["steps"] = steps
+        from ..tune import tune_stats
+
+        ts = tune_stats()
+        if ts:
+            out["tune"] = ts
         return out
 
     def _generator(self, scope):

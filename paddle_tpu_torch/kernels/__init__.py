@@ -68,6 +68,7 @@ def reset_launches():
     for calls in FAMILIES.values():
         for fam in calls:
             calls[fam] = 0
+    _pa.PAGED_SPLIT_CALLS.clear()
 
 
 def family_counts():

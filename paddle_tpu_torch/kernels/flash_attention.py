@@ -183,6 +183,32 @@ def bwd_route(q_shape, t_k, itemsize, block_k=1024):
     return "fused" if part_bytes <= FUSED_BWD_PARTIAL_BYTES else "split"
 
 
+# the sm90 forward's tiles, compile-time constants of its source
+# (csrc/sm90.cuh kRows, csrc/flash_fwd_sm90.cu kFwdKT), which
+# tests/test_torch_tune.py reads back from the sources
+SM90_Q_ROWS = 64    # query rows of one sm90 warpgroup (two a 128-row block)
+SM90_K_TILE = 128   # keys of one streamed sm90 K / V tile
+
+
+def causal_flash_flops(t_q, t_k, d):
+    """``(scheduled, useful)`` flops of the causal forward for one (batch,
+    head), in the reference's units (4 * d a score entry, the two
+    products).  ``scheduled`` counts what the sm90 kernels compute: each
+    64-row warpgroup of a 128-row block runs the 128-key tiles up to its
+    last row, so tiles wholly above the diagonal are skipped and the
+    diagonal tiles are computed whole.  ``useful`` counts the unmasked
+    (q_pos >= k_pos) entries.  The reference's version simulates its own
+    block and ``DIAG_W`` sub-tile skips; the port's tiles are compile-time
+    constants, so the count does not depend on ``block_q`` / ``block_k``."""
+    scheduled = 0
+    for r0 in range(0, t_q, SM90_Q_ROWS):
+        last = min(r0 + SM90_Q_ROWS, t_q) - 1
+        tiles = min(last // SM90_K_TILE + 1, -(-t_k // SM90_K_TILE))
+        scheduled += min(SM90_Q_ROWS, t_q - r0) * tiles * SM90_K_TILE
+    useful = sum(min(r + 1, t_k) for r in range(t_q))
+    return 4 * d * scheduled, 4 * d * useful
+
+
 def bwd_family(dtype, d, strides, ptrs):
     """``"sm90"`` or ``"simple"``: the kernel family (forward, fused
     backward, split pair) for inputs of ``dtype`` with head dim ``d``,

@@ -53,9 +53,10 @@ import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "ORACLE_TOL", "PAGED_FAMILY_CALLS", "paged_attention",
-           "paged_attention_ref", "paged_attention_split_ref", "paged_family",
-           "paged_splits", "oracle_tol"]
+__all__ = ["NEG_INF", "ORACLE_TOL", "PAGED_FAMILY_CALLS", "PAGED_SPLIT_CALLS",
+           "paged_attention", "paged_attention_ref",
+           "paged_attention_split_ref", "paged_family", "paged_splits",
+           "split_entries", "oracle_tol"]
 
 NEG_INF = -1e30
 
@@ -73,6 +74,10 @@ _SMS = 132         # streaming multiprocessors of an H100 SXM
 
 # paged_attention calls on the card, by kernel family
 PAGED_FAMILY_CALLS = {"split": 0, "simple": 0}
+
+# split-family launches on the card, by the call's (slots, query window)
+# and the split count it ran at: {(S, W, splits): launches}
+PAGED_SPLIT_CALLS = {}
 
 
 def paged_family(dtype, S, W, h, dh, B, ptrs):
@@ -100,8 +105,15 @@ def paged_splits(S, h, NB):
     about half of a serving chain is live, and an SM holds some 8 of these
     blocks, so the live blocks fill the card about once.  A pure function
     of the shapes."""
-    want = min(NB, max(1, -(-16 * _SMS // (S * h))))
-    entries = -(-NB // want)
+    return split_entries(NB, min(NB, max(1, -(-16 * _SMS // (S * h)))))
+
+
+def split_entries(NB, splits):
+    """``(splits, entries)`` for a requested count: runs of ``entries =
+    ceil(NB / splits)`` chain entries, and the runs that takes, ``ceil(NB /
+    entries)`` (at most ``splits``; a count whose last runs would be empty
+    launches the runs that hold entries, which computes the same sums)."""
+    entries = -(-NB // splits)
     return -(-NB // entries), entries
 
 
@@ -268,27 +280,46 @@ def build():
     _kernel()
 
 
-def paged_attention(q, pool_k, pool_v, table, pos):
+def paged_attention(q, pool_k, pool_v, table, pos, splits=None):
     """Attention of ``q`` over each slot's block chain (module
     docstring).  CPU tensors take :func:`paged_attention_ref`; CUDA
     tensors launch the family :func:`paged_family` picks on the current
-    stream of the calling thread, or raise."""
+    stream of the calling thread, or raise.
+
+    ``splits`` (``1 <= splits <= NB``; the tuner's ``op=paged_attention``
+    knob) sets the split family's count in place of :func:`paged_splits`'
+    rule: CPU tensors then take :func:`paged_attention_split_ref` at that
+    count, CUDA tensors the split kernel at that count, and a call the
+    split family does not take raises."""
     _check(q, pool_k, pool_v, table, pos)
+    NB = table.shape[1]
+    if splits is not None and not 1 <= int(splits) <= NB:
+        raise ValueError(
+            f"paged_attention: splits {splits} must lie in [1, NB={NB}]")
     if q.device.type == "cpu":
+        if splits is not None:
+            return paged_attention_split_ref(q, pool_k, pool_v, table, pos,
+                                             int(splits))
         return paged_attention_ref(q, pool_k, pool_v, table, pos)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     fn, split, errstr = _kernel()
     S, W, h, dh = q.shape
-    B, NB = pool_k.shape[1], table.shape[1]
+    B = pool_k.shape[1]
     family = paged_family(q.dtype, S, W, h, dh, B,
                           (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr()))
+    if splits is not None and family != "split":
+        raise ValueError(
+            f"paged_attention: splits={splits} asks for the split kernel, "
+            f"which does not take this call (q {tuple(q.shape)} "
+            f"{q.dtype}, block_tokens {B})")
     out = torch.empty_like(q)
     scale = 1.0 / float(dh) ** 0.5
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if family == "split":
-            splits, entries = paged_splits(S, h, NB)
+            splits, entries = (paged_splits(S, h, NB) if splits is None
+                               else split_entries(NB, int(splits)))
             part = torch.empty((S, W, h, splits, dh + 2), dtype=torch.float32,
                                device=q.device)
             err = split(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
@@ -304,6 +335,9 @@ def paged_attention(q, pool_k, pool_v, table, pos):
             f"paged_attention {family} kernel launch failed: cudaError {err} "
             f"({errstr(err).decode()})")
     PAGED_FAMILY_CALLS[family] += 1
+    if family == "split":
+        at = (S, W, splits)
+        PAGED_SPLIT_CALLS[at] = PAGED_SPLIT_CALLS.get(at, 0) + 1
     paged_attention.launches += 1
     return out
 

@@ -52,6 +52,11 @@ __all__ = [
     "reduce_min",
     "reduce_prod",
     "matmul",
+    "mul",
+    "clip",
+    "clip_by_norm",
+    "multiplex",
+    "l2_normalize",
     "cos_sim",
     "square_error_cost",
     "auc",
@@ -528,9 +533,13 @@ def multi_head_attention(queries, keys, values, d_model, n_head,
     ``packed`` forces the head routing: True = the packed op (geometry
     permitting), False = the 4-D op, None = by geometry, with the
     reference's rule (``packed_sub_heads``), so both packages emit the
-    same op.  The reference also consults its autotune cache here when no
-    geometry is given; that lookup is not ported, and its miss path (keep
-    the defaults) is what this does.
+    same op.
+
+    The geometry is TUNABLE (``tune.attention_config``): when the caller
+    passes no ``block_q`` / ``block_k`` / ``backend`` for a causal
+    self-attention, the tune cache's measured winner for this shape is
+    used (its ``block_k`` picks the backward route); a miss or
+    ``PADDLE_TPU_TUNE=0`` keeps the defaults.  Explicit arguments win.
     """
     if d_model % n_head:
         raise ValueError(f"d_model {d_model} not divisible by n_head {n_head}")
@@ -552,6 +561,17 @@ def multi_head_attention(queries, keys, values, d_model, n_head,
     b, tq = queries.shape[0], queries.shape[1]
     tk = keys.shape[1]
     dh = d_model // n_head
+    if (block_q is None and block_k is None and backend is None
+            and causal and tq == tk):
+        from ..tune import attention_config
+
+        tuned = attention_config(tq, dh, n_head, queries.dtype,
+                                 causal=causal)
+        if tuned:
+            block_q = tuned.get("block_q")
+            block_k = tuned.get("block_k")
+            if packed is None:
+                packed = tuned.get("packed")
     q = fc(queries, d_model, num_flatten_dims=2, param_attr=_proj_attr("q"),
            name=None if name is None else name + "_q")
     k = fc(keys, d_model, num_flatten_dims=2, param_attr=_proj_attr("k"),
@@ -645,6 +665,90 @@ def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
         inputs={"X": [x.name], "Y": [y.name]},
         outputs={"Out": [out.name]},
         attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y},
+    )
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1):
+    """The ``mul`` op: ``x`` flattened to 2-D at ``x_num_col_dims`` times
+    ``y`` flattened at ``y_num_col_dims`` (the reference's
+    ``layers.mul``)."""
+    helper = LayerHelper("mul")
+    out_shape = list(x.shape[:x_num_col_dims]) + list(y.shape[y_num_col_dims:])
+    out = helper.create_tmp_variable(x.dtype, out_shape)
+    helper.append_op(
+        type="mul",
+        inputs={"X": [x.name], "Y": [y.name]},
+        outputs={"Out": [out.name]},
+        attrs={"x_num_col_dims": x_num_col_dims,
+               "y_num_col_dims": y_num_col_dims},
+    )
+    return out
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_tmp_variable(x.dtype, list(x.shape))
+    helper.append_op(
+        type="clip", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
+        attrs={"min": float(min), "max": float(max)},
+    )
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_tmp_variable(x.dtype, list(x.shape))
+    helper.append_op(
+        type="clip_by_norm", inputs={"X": [x.name]},
+        outputs={"Out": [out.name]}, attrs={"max_norm": float(max_norm)},
+    )
+    return out
+
+
+def multiplex(inputs, index):
+    """Row ``i`` of the output is row ``i`` of ``inputs[index[i]]``."""
+    helper = LayerHelper("multiplex")
+    out = helper.create_tmp_variable(inputs[0].dtype, list(inputs[0].shape))
+    helper.append_op(
+        type="multiplex",
+        inputs={"X": [v.name for v in inputs], "Ids": [index.name]},
+        outputs={"Out": [out.name]},
+    )
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """``x / sqrt(max(sum(x**2, axis), epsilon))``, composed of registered
+    ops as the reference composes it."""
+    helper = LayerHelper("l2_normalize", name=name)
+    square = helper.create_tmp_variable(x.dtype, list(x.shape))
+    helper.append_op(type="square", inputs={"X": [x.name]},
+                     outputs={"Out": [square.name]})
+    ssum = helper.create_tmp_variable(
+        x.dtype, [s if i != axis % len(x.shape) else 1
+                  for i, s in enumerate(x.shape)])
+    helper.append_op(
+        type="reduce_sum", inputs={"X": [square.name]},
+        outputs={"Out": [ssum.name]}, attrs={"dim": axis, "keep_dim": True},
+    )
+    eps = helper.create_tmp_variable(x.dtype, [1])
+    helper.append_op(
+        type="fill_constant", outputs={"Out": [eps.name]},
+        attrs={"shape": [1], "dtype": str(x.dtype), "value": float(epsilon)},
+    )
+    maxed = helper.create_tmp_variable(x.dtype, ssum.shape)
+    helper.append_op(
+        type="elementwise_max", inputs={"X": [ssum.name], "Y": [eps.name]},
+        outputs={"Out": [maxed.name]},
+    )
+    rsq = helper.create_tmp_variable(x.dtype, ssum.shape)
+    helper.append_op(type="sqrt", inputs={"X": [maxed.name]},
+                     outputs={"Out": [rsq.name]})
+    out = helper.create_tmp_variable(x.dtype, list(x.shape))
+    helper.append_op(
+        type="elementwise_div", inputs={"X": [x.name], "Y": [rsq.name]},
+        outputs={"Out": [out.name]}, attrs={"axis": 0},
     )
     return out
 

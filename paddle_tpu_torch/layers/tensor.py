@@ -1,4 +1,5 @@
-"""Tensor layers (``paddle_tpu/layers/tensor.py``): ``create_parameter``,
+"""Tensor layers (``paddle_tpu/layers/tensor.py``): ``create_tensor``,
+``create_parameter``,
 ``cast``, ``concat``, ``sums``, ``assign``, ``fill_constant``,
 ``fill_constant_batch_size_like``, ``ones``, ``zeros``, ``reshape``,
 ``transpose``, ``split``, ``expand``, ``gather``, ``scatter``, ``pad``,
@@ -6,13 +7,25 @@
 ``one_hot``.  Each sets its output's shape at build time as the
 reference does (a model reads it while it builds)."""
 
+from ..core import unique_name
 from .layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "cast", "concat", "sums", "assign",
+__all__ = ["create_tensor", "create_parameter", "cast", "concat", "sums", "assign",
            "fill_constant", "fill_constant_batch_size_like", "ones", "zeros",
            "reshape", "transpose", "split", "expand", "gather", "scatter",
            "pad", "crop", "argmax", "argmin", "shape", "increment",
            "one_hot"]
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    """A variable of ``dtype`` with no producer (an ``assign`` or a feed
+    fills it)."""
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.main_block.create_var(
+        name=name or unique_name.generate("create_tensor"),
+        dtype=dtype,
+        persistable=persistable,
+    )
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,

@@ -17,8 +17,8 @@ reference.  ``offload`` is ``selective``'s segmentation with each
 transformer block's input streamed to pinned host memory during the
 forward and brought back one layer ahead during the backward (the
 Executor's ``_Offload``; kill switch ``PADDLE_TPU_OFFLOAD=0``).  ``auto``
-(the tune cache) raises ``NotImplementedError`` until ROADMAP.md A5
-brings the tune cache.
+applies the tune cache's measured policy (``tune``), ``selective`` on a
+miss.
 
 ``ControlFlowGraph`` is also exposed directly (defs/uses/live-in/live-out
 and a peak-live-bytes estimate) for inspection parity with the reference.
@@ -123,12 +123,6 @@ EXPENSIVE_OPS = ("flash_attention", "flash_attention_packed",
 MXU_OPS = ("mul", "matmul", "conv2d", "conv3d", "depthwise_conv2d",
            "conv2d_transpose", "conv3d_transpose")
 
-_NOT_PORTED = {
-    "auto": "ROADMAP.md A5: the tune cache (paddle_tpu.tune) is not "
-            "ported",
-}
-
-
 def memory_optimize(input_program=None, num_segments=None, min_segment=2,
                     level=0, print_log=False, policy="selective",
                     expensive_ops=None):
@@ -158,16 +152,27 @@ def memory_optimize(input_program=None, num_segments=None, min_segment=2,
     runs plain ``selective``.  ``Executor.last_remat_plan`` records the
     mode that ran.
 
-    ``policy="auto"`` raises ``NotImplementedError`` (see
-    ``_NOT_PORTED``).
+    ``policy="auto"``: consult the tune cache (``tune.
+    program_schedule_config``) for this program's flash workload key and
+    apply the measured winner's policy; a miss, or ``PADDLE_TPU_TUNE=0``,
+    gives ``selective``.  A tuned ``"none"`` leaves the program unmarked,
+    and a tuned ``"fsdp"`` is set as ``program._fsdp``.
 
     Returns the segment list ``[(start, end, wrapped), ...]`` tiling the
     forward prefix, and stores it as ``program._remat_segments``."""
     program = input_program or default_main_program()
-    if policy in _NOT_PORTED:
-        raise NotImplementedError(
-            f"memory_optimize(policy={policy!r}) is not ported yet: "
-            f"{_NOT_PORTED[policy]}")
+    if policy == "auto":
+        from .tune import program_schedule_config
+
+        cfg = program_schedule_config(program) or {}
+        policy = cfg.get("policy") or "selective"
+        if "fsdp" in cfg:
+            program._fsdp = bool(cfg["fsdp"])
+        if policy == "none":
+            program._offload = False
+            program._remat_segments = []
+            program._remat_policy = "none"
+            return []
     block = program.global_block()
     if policy not in ("selective", "compact", "full", "offload"):
         raise ValueError(

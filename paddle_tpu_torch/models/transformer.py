@@ -118,7 +118,7 @@ def logits_f32(x, w):
 
 
 def generate(params, prompt, max_len, n_layer, n_head, d_model,
-             temperature=0.0, eps=1e-5, compute_dtype=None,
+             temperature=0.0, key=None, eps=1e-5, compute_dtype=None,
              return_logits=True, device=None):
     """Single-stream greedy decoding with a dense KV cache — the
     reference the serving engine is held against.
@@ -128,6 +128,8 @@ def generate(params, prompt, max_len, n_layer, n_head, d_model,
              embeddings included.
     prompt   [batch, p_len] int tokens (p_len >= 1).
     max_len  total sequence length to produce (>= p_len).
+    key      the sampling key of the JAX package's signature; greedy
+             decoding draws nothing, so it is accepted and ignored.
     device   default the card; ``"cpu"`` must be asked for.
 
     Returns ``(tokens [batch, max_len] int32, logits [batch, max_len,

@@ -494,9 +494,11 @@ def shard_activation(var, spec):
     """Annotate a non-persistable INTERMEDIATE with a PartitionSpec —
     e.g. sequence-sharding a long activation (the reference pins the
     produced value to ``spec``).  The port records the annotation only:
-    its mesh path places activations by the tp rules, and sequence
-    parallelism is not ported (``ROADMAP.md`` A7).  Parameters take
-    ``shard_parameter``; data feeds take ``data_parallel``."""
+    its Program mesh path places activations by the tp rules and has no
+    sequence sharding.  Sequence parallelism runs when called as a
+    function: the ring attention of ``parallel.ring_attention`` over an
+    ``sp`` axis.  Parameters take ``shard_parameter``; data feeds take
+    ``data_parallel``."""
     if getattr(var, "persistable", False) or getattr(var, "is_data",
                                                      False):
         raise ValueError(

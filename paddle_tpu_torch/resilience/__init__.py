@@ -14,9 +14,9 @@ counterpart of ``paddle_tpu.resilience``:
 
 ``Trainer.train(..., checkpoint_every_n_steps=N, resume=True)`` is the
 consumer: kill-and-resume reproduces the uninterrupted loss trajectory
-bit-exactly.  The reference's ``--resilience-selftest`` CLI
-(``selftest.py``) is not ported yet (ROADMAP A8); its checks live in
-``tests/test_torch_trainer.py``.
+bit-exactly.  ``selftest.py`` is the kill-and-resume gate
+(``python -m paddle_tpu_torch --resilience-selftest``): SIGKILL mid-pass,
+a bit-exact resume, and a checkpoint torn between its renames.
 """
 
 from . import checkpoint, faults, retry, watchdog

@@ -32,7 +32,11 @@ callable's ``paged`` attribute records which.
 
 Three factories: the decode chunk, the prefill per suffix bucket, and
 the speculative VERIFY window (``make_verify_window``): one
-teacher-forced forward over a ``k + 1``-token window per slot.
+teacher-forced forward over a ``k + 1``-token window per slot.  The
+decode chunk takes ``splits``, the paged kernel's split count, which the
+engine looks up in the tune cache once for that call
+(``tune.paged_attention_config``; the JAX package looks it up once per
+trace), None for the kernel's own rule; the other two keep the rule.
 
 Correctness discipline (the JAX module's): every op is row-wise per
 slot, each step writes position ``t`` BEFORE attending with mask
@@ -90,15 +94,16 @@ def _dense_attention(qh, pool_k, pool_v, table, P):
     return torch.einsum("swhT,sThd->swhd", a, cv)
 
 
-def _attend(paged, qh, pool_k, pool_v, table, P):
-    """One layer's attention in the callable's spelling."""
+def _attend(paged, qh, pool_k, pool_v, table, P, splits=None):
+    """One layer's attention in the callable's spelling (``splits``: the
+    paged kernel's tuned split count, None for its own rule)."""
     if paged:
-        return paged_attention(qh, pool_k, pool_v, table, P)
+        return paged_attention(qh, pool_k, pool_v, table, P, splits=splits)
     return _dense_attention(qh, pool_k, pool_v, table, P)
 
 
 def paged_step_logits(p, tok, t, pool_k, pool_v, table, n_layer, n_head,
-                      d_model, eps=1e-5, paged=None):
+                      d_model, eps=1e-5, paged=None, splits=None):
     """One decode step for S independent slots through the block table.
 
     tok [S] int32 current tokens, t [S] int32 per-slot positions,
@@ -110,7 +115,8 @@ def paged_step_logits(p, tok, t, pool_k, pool_v, table, n_layer, n_head,
     position), attends over the chain masked ``<= t_s``, and returns
     ``logits [S, vocab]`` in f32.  ``paged`` picks the spelling (True:
     the paged-attention kernel; False: gather + dense softmax; None:
-    ``PADDLE_TPU_PAGED_ATTN`` now)."""
+    ``PADDLE_TPU_PAGED_ATTN`` now); ``splits`` the paged kernel's split
+    count (None: ``paged_splits``' rule)."""
     if paged is None:
         paged = _paged_attn_on()
     S = tok.shape[0]
@@ -137,7 +143,7 @@ def paged_step_logits(p, tok, t, pool_k, pool_v, table, n_layer, n_head,
         pool_v[i][blk, off] = torch.addmm(
             w("att_v.b"), h, w("att_v.w")).reshape(S, n_head, dh)
         ctx = _attend(paged, qh, pool_k[i], pool_v[i], table,
-                      pos).reshape(S, d_model)
+                      pos, splits).reshape(S, d_model)
         x = x + torch.addmm(w("att_out.b"), ctx, w("att_out.w"))
         h2 = layer_norm(x, w("ln2.scale"), w("ln2.bias"), eps)
         # exact erf gelu, matching transformer.generate and the gelu op
@@ -148,7 +154,8 @@ def paged_step_logits(p, tok, t, pool_k, pool_v, table, n_layer, n_head,
     return logits_f32(x, p["lm_head.w"])
 
 
-def make_decode_chunk(n_layer, n_head, d_model, chunk, eps=1e-5):
+def make_decode_chunk(n_layer, n_head, d_model, chunk, eps=1e-5,
+                      splits=None):
     """Build the batched decode step: ``chunk`` greedy steps for every
     slot per call.
 
@@ -166,7 +173,7 @@ def make_decode_chunk(n_layer, n_head, d_model, chunk, eps=1e-5):
         for j in range(chunk):
             logits = paged_step_logits(p, last_tok, pos, pool_k, pool_v,
                                        table, n_layer, n_head, d_model, eps,
-                                       paged)
+                                       paged, splits)
             toks[j] = torch.argmax(logits, dim=-1)
             last_tok.copy_(toks[j])
             pos.add_(1)

@@ -49,10 +49,18 @@ What differs from the JAX engine: PyTorch runs eagerly, so there is no
 ahead-of-time compile — the pools and slot state are updated in place
 instead of donated, and the CUDA kernels build when the engine is
 constructed (set-up, outside every timed window the TTFT predictor
-reads).  Temperature sampling and the tune-cache lookups are not ported:
-with no ``decode_chunk`` / ``min_bucket`` / ``spec_k`` given the engine
-uses the JAX engine's tune-miss defaults, 4, 8 and
-``speculative.DEFAULT_SPEC_K``.
+reads).  Temperature sampling is not ported (ROADMAP.md A4).
+
+Tuned geometry (``tune``): with no ``decode_chunk`` / ``min_bucket``
+given the engine takes the tune cache's ``op=serving_decode`` winner for
+its shape, with a draft and no ``spec_k`` the ``op=spec_decode`` winner,
+and for the paged kernel the ``op=paged_attention`` split count of the
+decode chunk's kernel call (``max_slots`` rows of one query token; the
+draft chunk makes the same call) — each looked up once, at construction.
+Prefill (one row) and the verify window (``k + 1`` tokens) make other
+calls and keep ``paged_splits``' rule.  A miss, or
+``PADDLE_TPU_TUNE=0``, keeps the JAX engine's defaults: 4, 8,
+``speculative.DEFAULT_SPEC_K`` and ``paged_splits``' rule.
 """
 
 import collections
@@ -62,6 +70,7 @@ import time
 import numpy as np
 import torch
 
+from .. import tune as _tune
 from ..core.place import resolve_device
 from ..kernels import decode_gather as _dg
 from ..kernels import paged_attention as _pa
@@ -204,10 +213,12 @@ class ServingEngine:
              (default: inferred depth / the target's ``n_head``; a
              differing head count is rejected — the draft shares the
              target's pool tensors).
-    spec_k   draft tokens proposed per round (default
-             ``speculative.DEFAULT_SPEC_K``).
+    spec_k   draft tokens proposed per round (default: the tuned window,
+             else ``speculative.DEFAULT_SPEC_K``).
     device   default the card (``cuda``); ``"cpu"`` must be asked for,
              and with no card and no request construction raises.
+    registry the metrics registry ``serving.*`` goes to (default the
+             process-wide one, ``observability.metrics.get_registry()``).
 
     Drive it synchronously (``generate_many`` / ``step`` + ``results``)
     or from a background thread (``start``/``stop``) with producers
@@ -220,7 +231,8 @@ class ServingEngine:
                  ttft_slo_s=None, e2e_slo_s=None,
                  block_tokens=16, cache_blocks=None, prefix_reuse=True,
                  scheduler="slo", draft_params=None, draft_n_layer=None,
-                 draft_n_head=None, spec_k=None, device=None):
+                 draft_n_head=None, spec_k=None, device=None,
+                 registry=None):
         self.device = resolve_device(device)
         if d_model % n_head:
             raise ValueError(f"d_model {d_model} % n_head {n_head} != 0")
@@ -243,10 +255,12 @@ class ServingEngine:
         if compute_dtype is None:
             compute_dtype = infer_compute_dtype(params)
         self.compute_dtype = as_torch_dtype(compute_dtype)
-        if decode_chunk is None:
-            decode_chunk = DEFAULT_DECODE_CHUNK
-        if min_bucket is None:
-            min_bucket = DEFAULT_MIN_BUCKET
+        if decode_chunk is None or min_bucket is None:
+            cfg = self._tuned(_tune.serving_decode_config)
+            if decode_chunk is None:
+                decode_chunk = int(cfg.get("chunk", DEFAULT_DECODE_CHUNK))
+            if min_bucket is None:
+                min_bucket = int(cfg.get("min_bucket", DEFAULT_MIN_BUCKET))
         if decode_chunk < 1 or min_bucket < 1:
             raise ValueError("decode_chunk and min_bucket must be >= 1")
         self.decode_chunk = int(decode_chunk)
@@ -274,12 +288,21 @@ class ServingEngine:
                 self.max_len, draft_n_layer=draft_n_layer,
                 draft_n_head=draft_n_head)
             if spec_k is None:
-                spec_k = _spec.DEFAULT_SPEC_K
+                spec_k = int(self._tuned(_tune.spec_decode_config).get(
+                    "k", _spec.DEFAULT_SPEC_K))
         self.spec_k = int(spec_k) if spec_on else None
 
         # -- paged KV state (kvcache.py): pool tensors + host accounting
         self.block_tokens = int(block_tokens)
         self.blocks_per_slot = -(-self.max_len // self.block_tokens)
+        # the paged kernel's tuned split count for the decode chunk's call
+        # (max_slots rows, one query token), the only call it is given
+        # to (None: the kernel's own rule)
+        cfg = _tune.paged_attention_config(
+            self.blocks_per_slot * self.block_tokens, d_model // n_head,
+            n_head, self.compute_dtype, self.max_slots, self.block_tokens,
+            device=self.device) or {}
+        self.attn_splits = int(cfg["splits"]) if "splits" in cfg else None
         if cache_blocks is None:
             cache_blocks = 2 * self.blocks_per_slot if prefix_reuse else 0
         if cache_blocks < 0:
@@ -339,7 +362,7 @@ class ServingEngine:
         self._hit_tokens = 0
         self._prompt_tokens = 0
 
-        self._reg = _obs.get_registry()
+        self._reg = registry or _obs.get_registry()
         self._reg.gauge("serving.slots_total").set(self.max_slots)
         self._reg.gauge("serving.slots_active").set(0)
         self._reg.gauge("serving.queue_depth").set(0)
@@ -350,6 +373,13 @@ class ServingEngine:
         self._reg.gauge("serving.blocks_in_use").set(0)
         self._spec = (_spec.SpecState(self, draft_params, draft_n_layer,
                                       spec_k) if spec_on else None)
+
+    def _tuned(self, lookup):
+        """The tune cache's config for this engine's shape through
+        ``lookup`` (``tune.serving_decode_config`` or
+        ``tune.spec_decode_config``), or {} on a miss."""
+        return lookup(self.max_len, self.d_model // self.n_head, self.n_head,
+                      self.compute_dtype, device=self.device) or {}
 
     @property
     def _tracer(self):
@@ -607,7 +637,7 @@ class ServingEngine:
         if self._decode_fn is None:
             self._decode_fn = _bd.make_decode_chunk(
                 self.n_layer, self.n_head, self.d_model, self.decode_chunk,
-                eps=self._eps)
+                eps=self._eps, splits=self.attn_splits)
             self._record_spelling(self._decode_fn, "decode")
         # fault injection point (PADDLE_TPU_FAULT=slot_death:n): the n-th
         # decode chunk kills one active request mid-decode — its slot and

@@ -45,8 +45,8 @@ __all__ = ["DEFAULT_SPEC_K", "spec_enabled", "draft_depth",
            "depth_draft", "validate_draft", "accept_greedy",
            "SpecState"]
 
-# the draft window when the caller gives none (the tune cache the JAX
-# engine consults first is not ported)
+# the draft window when the caller gives none and the tune cache has no
+# op=spec_decode entry for the engine's shape
 DEFAULT_SPEC_K = 4
 
 
@@ -200,7 +200,7 @@ class SpecState:
         if self._chunk_fn is None:
             self._chunk_fn = self._built(engine, _bd.make_decode_chunk(
                 self.n_layer, engine.n_head, engine.d_model, self.k + 1,
-                eps=engine._eps), "spec_draft")
+                eps=engine._eps, splits=engine.attn_splits), "spec_draft")
         return self._chunk_fn
 
     def verify_fn(self, engine):

@@ -35,6 +35,7 @@ import paddle_tpu_torch as tpt
 from paddle_tpu.core.registry import get_op_impl as jax_op
 from paddle_tpu.kernels.xla_ref import ORACLE_TOL
 from paddle_tpu_torch.core.registry import get_op_impl as torch_op
+from torch_ref_gauges import restore_reference_gauges  # noqa: F401
 
 FWD_TOL = ORACLE_TOL[("flash_attention", "float32")]["fwd"]     # 2e-4
 GRAD_TOL = ORACLE_TOL[("flash_attention", "float32")]["grad"]   # 1e-3

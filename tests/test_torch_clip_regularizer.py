@@ -39,6 +39,7 @@ from paddle_tpu.core.registry import get_op_impl as ref_op
 from paddle_tpu_torch.core.registry import get_op_impl as port_op
 
 import torch_recipes as R
+from torch_ref_gauges import restore_reference_gauges  # noqa: F401
 
 CLIP_VALUE, L1, L2, LR = 2e-3, 1e-2, 5e-2, 0.5
 

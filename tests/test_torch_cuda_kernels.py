@@ -1178,6 +1178,59 @@ def test_spec_engine_on_the_card_matches_the_cpu(monkeypatch, switch):
         np.testing.assert_array_equal(g, w)
 
 
+def test_tuned_split_count_on_the_card_reaches_only_its_call(tmp_path,
+                                                             monkeypatch):
+    """A tune-cache entry for the decode chunk's call (2 slots, one query
+    token, 4-token blocks): a speculative engine at k=8 serves the CPU's
+    tokens, its decode-shaped split launches all at the tuned count, its
+    verify window (9 tokens, past the split family's 8) on the simple
+    family and its prefill at the rule; an engine at 16-token blocks of
+    the same capacity misses the entry and launches no tuned count."""
+    _need_card()
+    from paddle_tpu_torch import kernels, tune
+    from paddle_tpu_torch.serving import ServingEngine, depth_draft
+
+    monkeypatch.setenv("PADDLE_TPU_TUNE_CACHE", str(tmp_path / "t.json"))
+    monkeypatch.setenv("PADDLE_TPU_TUNE", "cached")
+    monkeypatch.setenv("PADDLE_TPU_PAGED_ATTN", "1")
+    rng = np.random.default_rng(1)
+    V, L, H, D, T = 64, 2, 2, 64, 48
+    p = _tiny_model(rng)
+    prompts = [rng.integers(1, V, n) for n in (5, 9, 3)]
+    key = tune.WorkloadKey("paged_attention", T, D // H, H, "float32",
+                           tune.device_platform(torch.device("cuda")),
+                           remat="-", call=(2, 1, 4))
+    c = tune.TuneCache(str(tmp_path / "t.json"))
+    c.put(key.s, {"splits": 5})
+    c.save()
+    tune.reset_cache()
+    try:
+        geom = dict(max_len=T, max_slots=2, decode_chunk=4, min_bucket=4,
+                    draft_params=depth_draft(p, 1), spec_k=8)
+        want = ServingEngine(p, L, H, D, device="cpu", block_tokens=4,
+                             **geom).generate_many(prompts, max_new_tokens=12)
+        for B, tuned in ((4, 5), (16, None)):
+            kernels.reset_launches()
+            eng = ServingEngine(p, L, H, D, block_tokens=B, **geom)
+            assert eng.attn_splits == tuned
+            got = eng.generate_many(prompts, max_new_tokens=12)
+            assert eng._spec.proposed > 0
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+            calls = dict(tpa.PAGED_SPLIT_CALLS)
+            nb = T // B
+            for (S, W, n) in calls:
+                # the count launched: split_entries' runs (5 of 12 -> 4)
+                count = (tpa.split_entries(nb, tuned)[0]
+                         if tuned and (S, W) == (2, 1)
+                         else tpa.paged_splits(S, H, nb)[0])
+                assert n == count
+            assert any((S, W) == (2, 1) for S, W, _ in calls)
+            assert tpa.PAGED_FAMILY_CALLS["simple"] > 0  # the W=9 verify
+    finally:
+        tune.reset_cache()
+
+
 # -- the fused bottleneck (kernels/bottleneck.py) -----------------------------
 
 from paddle_tpu_torch.kernels import bottleneck as tbn  # noqa: E402

@@ -35,6 +35,7 @@ from paddle_tpu_torch.core.scope import tensor_from_numpy
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import fused_ce as tce
 from paddle_tpu_torch.models import transformer as ttr
+from torch_ref_gauges import restore_reference_gauges  # noqa: F401
 
 
 def _rel(got, ref):

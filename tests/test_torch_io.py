@@ -41,6 +41,7 @@ from paddle_tpu.models import transformer as jtr
 from paddle_tpu_torch import io as tio
 from paddle_tpu_torch.models import transformer as ttr
 from paddle_tpu_torch.resilience import checkpoint as tckpt
+from torch_ref_gauges import restore_reference_gauges  # noqa: F401
 
 VOCAB, T, BATCH = 256, 64, 2
 

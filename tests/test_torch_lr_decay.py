@@ -30,6 +30,7 @@ import paddle_tpu as pt
 import paddle_tpu_torch as tpt
 
 import torch_recipes as R
+from torch_ref_gauges import restore_reference_gauges  # noqa: F401
 
 STEPS, LR0 = 5, 0.05
 SCHEDULES = {

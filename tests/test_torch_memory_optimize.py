@@ -12,7 +12,8 @@ package's, on the CPU.
   step-1 gradients 1e-3 of the largest entry of each parameter).
 * With ``dropout_rate=0.1`` remat still equals no remat exactly: a
   wrapped segment's recompute draws the forward's dropout mask.
-* ``offload`` and ``auto`` raise with the ROADMAP item that brings them.
+* ``offload`` and ``auto``, which raised until the port brought them,
+  mark the program: ``auto`` on a tune-cache miss as ``selective``.
 * The bytes of forward activations alive when the backward starts order
   the policies as the reference's saved sets do: ``compact`` below
   ``selective`` below no remat.
@@ -33,15 +34,16 @@ from paddle_tpu_torch import memory_optimization_transpiler as tmo
 from paddle_tpu_torch.core import ir as tir
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.models import transformer as ttr
+from torch_ref_gauges import restore_reference_gauges  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")
 def _no_tune_cache(tmp_path_factory):
     """The reference reads tuned attention and serving geometry from its
     tune cache (``PADDLE_TPU_TUNE_CACHE``, else ``~/.cache/paddle_tpu``);
-    the port reads none.  A cache path in a fresh directory holds no
-    entry, so both packages build with their defaults whatever cache the
-    host has."""
+    the port reads its own (``~/.cache/paddle_tpu_torch``) under the same
+    variable.  A cache path in a fresh directory holds no entry, so both
+    packages build with their defaults whatever cache the host has."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("PADDLE_TPU_TUNE_CACHE",
                   str(tmp_path_factory.mktemp("tune") / "tuned.json"))
@@ -265,13 +267,17 @@ def test_remat_with_dropout_equals_no_remat(reference_runs):
 
 @pytest.mark.parametrize("policy", ["offload", "auto"])
 def test_unported_policies_raise_with_their_roadmap_item(policy):
-    """``auto`` raises, naming its ROADMAP.md item (A5, the tune cache).
-    ``offload`` raised until the port brought it: it now marks the
+    """Both policies raised until the port brought them.  ``auto`` now
+    resolves through the tune cache: on a miss (this file's cache is
+    empty) it is ``selective``, segments and label alike
+    (tests/test_torch_tune.py holds the hits).  ``offload`` marks the
     program and cuts selective's segments (tests/test_torch_offload.py)."""
     main = _build(tpt, ttr, _cfg())[0]
     if policy == "auto":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-            tpt.memory_optimize(main, policy=policy)
+        segs = tpt.memory_optimize(main, policy=policy)
+        assert main._remat_policy == "selective" and segs
+        assert segs == tpt.memory_optimize(
+            _build(tpt, ttr, _cfg())[0], policy="selective")
     else:
         segs = tpt.memory_optimize(main, policy=policy)
         assert main._offload and segs == tpt.memory_optimize(

@@ -30,6 +30,7 @@ from paddle_tpu_torch.models import transformer as ttr
 
 import torch_mesh_workers as W
 from test_torch_mesh_training import _feeds, _port_unsharded, _reference
+from torch_ref_gauges import restore_reference_gauges  # noqa: F401
 
 
 @contextlib.contextmanager

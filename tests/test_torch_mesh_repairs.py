@@ -32,6 +32,7 @@ from paddle_tpu.models import transformer as jtr
 
 import torch_mesh_workers as W
 import torch_parallel_workers as PW
+from torch_ref_gauges import restore_reference_gauges  # noqa: F401
 
 STEPS = 3
 

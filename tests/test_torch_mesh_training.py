@@ -45,6 +45,7 @@ from paddle_tpu.models import transformer as jtr
 from paddle_tpu_torch.models import transformer as ttr
 
 import torch_mesh_workers as W
+from torch_ref_gauges import restore_reference_gauges  # noqa: F401
 
 STEPS = 3
 

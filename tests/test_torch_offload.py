@@ -25,6 +25,7 @@ import paddle_tpu as pt
 import paddle_tpu_torch as tpt
 
 import torch_recipes as R
+from torch_ref_gauges import restore_reference_gauges  # noqa: F401
 
 STEPS = 3
 
@@ -125,10 +126,16 @@ def test_offload_segments_as_selective():
     assert segs["offload"] == segs["selective"] and segs["offload"]
 
 
-def test_auto_raises_naming_the_tune_cache():
+def test_auto_raises_naming_the_tune_cache(monkeypatch, tmp_path):
+    """``auto`` raised, naming the tune cache, until the port brought the
+    cache: on a miss (an empty cache file) it now resolves to
+    ``selective`` (no offload)."""
+    monkeypatch.setenv("PADDLE_TPU_TUNE_CACHE", str(tmp_path / "t.json"))
     main, _, _ = R.build(tpt, _adam)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tpt.memory_optimize(main, policy="auto")
+    segs = tpt.memory_optimize(main, policy="auto")
+    assert main._remat_policy == "selective" and not main._offload
+    assert segs == tpt.memory_optimize(R.build(tpt, _adam)[0],
+                                       policy="selective")
 
 
 def test_offload_matches_the_reference_offload(init):

@@ -32,6 +32,7 @@ from paddle_tpu.core.registry import get_op_impl as ref_op
 from paddle_tpu_torch.core.registry import get_op_impl as port_op
 
 import torch_recipes as R
+from torch_ref_gauges import restore_reference_gauges  # noqa: F401
 
 OPTIMIZERS = {
     "sgd": lambda o: o.SGD(learning_rate=5e-2),

@@ -25,6 +25,7 @@ import paddle_tpu_torch as tpt
 from paddle_tpu.kernels.xla_ref import ORACLE_TOL
 from paddle_tpu.models import ssd as jssd
 from paddle_tpu_torch.core.registry import get_op_impl as torch_op
+from torch_ref_gauges import restore_reference_gauges  # noqa: F401
 
 FWD_TOL = ORACLE_TOL[("flash_attention", "float32")]["fwd"]     # 2e-4
 GRAD_TOL = ORACLE_TOL[("flash_attention", "float32")]["grad"]   # 1e-3
@@ -67,23 +68,6 @@ def _hold_detections(got, want):
     assert got.shape == want.shape == (BATCH, 20, 6)
     np.testing.assert_array_equal(got[..., 0], want[..., 0])
     assert _rel(got[..., 1:], want[..., 1:]) <= FWD_TOL
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _restore_the_reference_gauges():
-    """The reference's Executor keeps process-wide high-water gauges
-    (``set_max``); SSD's programs raise them past what a later test file
-    in the same process compares its own step against.  Put them back as
-    this file found them."""
-    from paddle_tpu.observability.metrics import get_registry
-
-    names = ("executor.temp_bytes", "executor.hbm_high_water_bytes",
-             "executor.compiled_peak_bytes")
-    reg = get_registry()
-    before = {n: reg.value(n) for n in names}
-    yield
-    for n, v in before.items():
-        reg.gauge(n).set(v)
 
 
 @pytest.fixture(scope="module")

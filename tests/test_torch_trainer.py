@@ -47,6 +47,7 @@ from paddle_tpu_torch.core import executor as texec
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.models import transformer as ttr
 from paddle_tpu_torch.resilience import checkpoint as tckpt
+from torch_ref_gauges import restore_reference_gauges  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 VOCAB, N_LAYER, N_HEAD, D_MODEL, T, BATCH = 256, 2, 2, 64, 64, 2

@@ -12,6 +12,7 @@ import torch
 import paddle_tpu as pt
 from paddle_tpu.models import transformer as jtr
 from paddle_tpu_torch.models import transformer as ttr
+from torch_ref_gauges import restore_reference_gauges  # noqa: F401
 
 VOCAB, NL, NH, DM, T = 50, 2, 2, 32, 32
 

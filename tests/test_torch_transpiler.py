@@ -30,6 +30,7 @@ from paddle_tpu.distributed import transpiler as jtr
 from paddle_tpu.kernels.xla_ref import ORACLE_TOL
 from paddle_tpu_torch.distributed import pserver as tps
 from paddle_tpu_torch.distributed import transpiler as ttr
+from torch_ref_gauges import restore_reference_gauges  # noqa: F401
 
 FWD_TOL = ORACLE_TOL[("flash_attention", "float32")]["fwd"]     # 2e-4
 GRAD_TOL = ORACLE_TOL[("flash_attention", "float32")]["grad"]   # 1e-3
