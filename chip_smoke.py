@@ -303,7 +303,8 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    CRF recursions, ``row_conv``, ``lrn``, the decoders, the BiGRU and LSTM
    ops, cuDNN convolutions), each through ``DataFeeder`` and
    ``Executor.run`` from a fresh startup state, 6 steps on one batch made
-   from ``--seed``: the losses finite, no hand-written kernel launched
+   from ``--seed`` (DeepSpeech2 4): the losses finite, no hand-written
+   kernel launched
    (no TPU kernel lies on these paths), the median step wall, items/s,
    ``step_flops``' TFLOP/s and the peak memory, then the kernels and busy
    share of a profiled step, each beside the card's name and power
@@ -459,7 +460,7 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    window on the simple family) with the tuned engine's tokens; b. ``tune_gpt_step`` at the flagship (t=4096,
    b=8, fused head, bf16) over policies none / selective / compact / full
    x ``block_k`` 1024 (fused backward) and 256 (split), at most 6
-   measured, 2 steps x 3 repeats after a warm-up: each candidate's median,
+   measured, 2 steps x 2 repeats after a warm-up: each candidate's median,
    verdict, route and ``max_memory_allocated`` beside
    ``estimate_gpt_step_hbm``; a winner from at least two measured; c.
    cached mode: ``memory_optimize(policy="auto")`` on a fresh flagship
@@ -467,15 +468,35 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    equals the same program's with the policy spelled out, bit for bit
    under deterministic algorithms; ``PADDLE_TPU_TUNE=0`` resolves ``auto``
    to ``selective``; d. ``python -m paddle_tpu_torch --tune-selftest``
-   and ``--spec-selftest`` on the card, side by side, exit 0; the walls
-   of the phase and its parts;
-19. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
+   and ``--spec-selftest`` on the card, exit 0 (run beside 19d's, at the
+   end of phase 19); the walls of the phase and its parts;
+19. the analysis and attribution layer at the flagship's full width
+   (``tune/search.py: flagship_dims``, t=4096, b=8, fused head, bf16):
+   a. every run inside ``timed_run()``: the attribution table and the
+   lints the Executor folds into the step's first run (zero findings,
+   both kernel ops on sm90; the hook's share of that run) beside
+   ``attribute_profile`` of a middle step, class by class (ms and
+   share): the table's product flops within 1% of ``step_flops``, the
+   classes accounting for >= 95% of the profiled step's kernel time,
+   each hand-written kernel the steps launched under its own pallas
+   family, ``reconcile``'s error against the measured step wall; b.
+   ``analysis.lint`` under none / selective / compact / offload, every
+   level (the hlo level runs one step for ``max_memory_allocated``):
+   zero findings; a budget below the measured peak makes
+   ``hlo.hbm-preflight`` fire and strict mode raise; c. a corpus of
+   19a's measured steps and phase 18b's tune cache fitted by
+   ``tune.fit_and_save``: the card's coefficients, ``hbm_scale`` and
+   holdout error; a step lowered after the fit reports the fitted cost
+   model; d. ``python -m paddle_tpu_torch --attribution-selftest`` and
+   ``--memory-selftest`` on the card, side by side with 18d's two, each
+   exit 0;
+20. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
    launches on its main path (phase 3e, 5, 5b, 7, 8 or 9b), error, times
    and bound; the paged attention, flash forward, fused backward, the
    three CE rows and the sm90 bottleneck add the simple family's time
    (``simple_ms``), and the forward's row its t=16384 entry (``t16384``,
    launches from phase 8);
-20. the last line: ``{"ok": true, "device": {...}}``.
+21. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
 file, it exits non-zero and prints no result.  The weights, the tokens
@@ -3013,46 +3034,15 @@ def profile_step(torch, exe, main, scope, fetch, feed, steady):
 
 def family_sums(rows, steady):
     """``rows`` of one step's device time ``(us, calls, kernel name)``
-    summed by kernel family and logged beside the unprofiled step wall
-    ``steady``: ``{family: (ms, calls)}``."""
+    summed by kernel family (``observability.attribution.kernel_family``,
+    the classifier the package's ``attribute_profile`` shares) and logged
+    beside the unprofiled step wall ``steady``: ``{family: (ms, calls)}``."""
+    from paddle_tpu_torch.observability.attribution import kernel_family
+
     sums = {}
-    families = (("flash forward (sm90)", ("flash_fwd_sm90_kernel",)),
-                ("flash forward (simple)", ("flash_fwd_kernel",)),
-                ("flash backward (fused, sm90)",
-                 ("flash_bwd_sm90_fused_kernel",)),
-                ("flash backward (fused, simple)", ("flash_bwd_kernel",)),
-                ("flash backward dq (split, simple)",
-                 ("flash_bwd_dq_kernel",)),
-                ("flash backward dk/dv (split, simple)",
-                 ("flash_bwd_dkv_kernel",)),
-                ("flash backward dq (split, sm90)",
-                 ("flash_bwd_sm90_dq_kernel",)),
-                ("flash backward dk/dv (split, sm90)",
-                 ("flash_bwd_sm90_dkv_kernel",)),
-                ("flash backward delta pre-pass",
-                 ("flash_bwd_delta_kernel",)),
-                ("CE forward (sm90)", ("ce_fwd_sm90_kernel",)),
-                ("CE forward (simple)", ("ce_fwd_kernel",)),
-                ("CE dx (sm90)", ("ce_dx_sm90_kernel",)),
-                ("CE dx (simple)", ("ce_dx_kernel",)),
-                ("CE dW (sm90)", ("ce_dw_sm90_kernel",)),
-                ("CE dW (simple)", ("ce_dw_kernel",)),
-                ("paged attention (split)", ("paged_split_kernel",)),
-                ("paged attention merge", ("paged_merge_kernel",)),
-                ("paged attention (simple)", ("paged_attention_kernel",)),
-                ("convolution (cuDNN)", ("conv", "fprop", "dgrad",
-                                         "wgrad", "implicit")),
-                ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
-                ("batch norm / reductions", ("reduce", "batch_norm")),
-                ("pooling", ("pool",)),
-                ("softmax / log-softmax", ("softmax",)),
-                ("LayerNorm", ("layer_norm", "LayerNorm")),
-                ("memcpy / memset", ("Memcpy", "Memset")))
     total = sum(r[0] for r in rows) / 1e3
     for us, count, key in rows:
-        fam = next((f for f, pats in families
-                    if any(p_ in key for p_ in pats)),
-                   "elementwise, reductions, other")
+        fam = kernel_family(key) or "elementwise, reductions, other"
         ms, n = sums.get(fam, (0.0, 0))
         sums[fam] = (ms + us / 1e3, n + count)
     log(f"profile: step wall {steady * 1e3:.1f} ms unprofiled, "
@@ -4228,6 +4218,9 @@ def rnn_check_phase(torch, np, pt, smi, seed, name):
 DS2_CFG = dict(feat_dim=161, max_audio_len=256, max_label_len=64,
                rnn_size=256, num_rnn_layers=3, vocab_size=29)
 DS2_BATCH, ZOO_STEPS = 32, 6
+# 13a's steps a run (2.6 s each on the card; the image rows keep
+# ZOO_STEPS)
+DS2_STEPS = 4
 # run.py's image rows (:30-37) at its dtype (bf16; BENCH_DTYPE's default)
 # and their builds' Momentum 0.9, and BASELINE config 1: the MNIST LeNet
 # at its build's f32 and Adam, batch 64: name -> (build kwargs, batch)
@@ -4380,7 +4373,7 @@ def ds2_phase(torch, np, pt, kernels, smi, seed):
         what = (f"phase 13a deep_speech2 b={DS2_BATCH} "
                 f"{'ragged' if ragged else 'full length'}")
         rec = zoo_steps(torch, np, pt, kernels, what, "deep_speech2",
-                        DS2_CFG, rows)
+                        DS2_CFG, rows, steps=DS2_STEPS)
         frames = int(rec["feed"]["audio@LENGTH"].sum())
         zoo_log(what, rec, frames, "frames", smi)
         log(f"{what}: {DS2_BATCH / rec['steady']:.2f} utterances/s")
@@ -6945,7 +6938,7 @@ def mesh_phase(torch, np, pt, smi, seed):
 # 18b's candidates: the flagship's step under four policies, each on the
 # fused (block_k 1024) and the split (block_k 256) backward route
 TUNE_POLICIES = ("none", "selective", "compact", "full")
-TUNE_BLOCK_CAPS, TUNE_MEASURE = (1024, 256), 6
+TUNE_BLOCK_CAPS, TUNE_MEASURE, TUNE_REPEATS = (1024, 256), 6, 2
 
 
 @contextlib.contextmanager
@@ -7111,7 +7104,8 @@ def tune_step_phase(torch, np, pt, smi, cache):
         rep = tune.tune_gpt_step(
             TRAIN_T, N_LAYER, D_MODEL, N_HEAD, VOCAB, TRAIN_B,
             dtype="bfloat16", fused_head=True, steps=2, warmup=1,
-            repeats=3, block_caps=TUNE_BLOCK_CAPS, block_q_caps=(1024,),
+            repeats=TUNE_REPEATS, block_caps=TUNE_BLOCK_CAPS,
+            block_q_caps=(1024,),
             policies=TUNE_POLICIES, accums=(1,), max_measure=TUNE_MEASURE,
             learning_rate=TRAIN_LR, device="cuda")
     timed = [m for m in rep["measured"] if m["verdict"] == "measured"]
@@ -7201,65 +7195,297 @@ def tune_resolve_phase(torch, np, pt, seed, win, cache):
         f"(deterministic algorithms); PADDLE_TPU_TUNE=0 -> selective")
 
 
-def tune_selftests_phase(cache):
-    """18d: ``python -m paddle_tpu_torch --tune-selftest`` and
-    ``--spec-selftest`` on the card, side by side (two small toys), each
-    exit 0."""
+# the selftests phases 18d and 19d run on the card, all four side by side
+# at the end of phase 19 (each a process of its own, host-bound)
+SELFTESTS = (("18d", "--tune-selftest"), ("18d", "--spec-selftest"),
+             ("19d", "--attribution-selftest"), ("19d", "--memory-selftest"))
+
+
+def selftests_phase(cache):
+    """18d and 19d: ``python -m paddle_tpu_torch <flag>`` for each of
+    ``SELFTESTS`` on the card, side by side, each exit 0."""
     env = dict(os.environ, PADDLE_TPU_TUNE_CACHE=cache)
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    procs = {flag: subprocess.Popen(
+    procs = {(ph, flag): subprocess.Popen(
         [sys.executable, "-m", "paddle_tpu_torch", flag], cwd=here, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for flag in ("--tune-selftest", "--spec-selftest")}
+        for ph, flag in SELFTESTS}
     try:
-        outs = {flag: p.communicate(timeout=300) + (p.returncode,)
-                for flag, p in procs.items()}
+        outs = {key: p.communicate(timeout=300) + (p.returncode,)
+                for key, p in procs.items()}
     finally:
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for flag, (out, err, rc) in outs.items():
+    for (ph, flag), (out, err, rc) in outs.items():
         if rc != 0:
-            raise AssertionError(f"18d {flag} exited {rc}:\n{out[-3000:]}"
+            raise AssertionError(f"{ph} {flag} exited {rc}:\n{out[-3000:]}"
                                  f"{err[-3000:]}")
-        log(f"18d {flag} on the card: exit 0 "
+        for line in out.splitlines():
+            if "profiled step" in line or "memory figure" in line:
+                log(f"{ph} {flag}: {line.strip()[:200]}")
+        log(f"{ph} {flag} on the card: exit 0 "
             f"({out.strip().splitlines()[-1]})")
-    log(f"18d both selftests side by side: {time.perf_counter() - t0:.1f} s")
+    log(f"18d and 19d: {len(SELFTESTS)} selftests side by side: "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
-def tune_phase(torch, np, pt, pa, kernels, smi, seed):
-    """Phase 18, every cache write under a temporary directory."""
-    import shutil
-    import tempfile
-
+def tune_phase(torch, np, pt, pa, kernels, smi, seed, cache):
+    """Phase 18a-c, every cache write to ``cache`` (phase 19 reads it;
+    18d runs with 19d, ``selftests_phase``)."""
     t0 = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="chip_smoke_tune_")
-    cache = os.path.join(root, "tuned.json")
     walls = {}
-    try:
-        t = time.perf_counter()
-        tune_paged_phase(torch, np, pa, kernels, smi, seed, cache)
-        walls["18a"] = time.perf_counter() - t
-        gc.collect()
-        torch.cuda.empty_cache()
-        t = time.perf_counter()
-        win = tune_step_phase(torch, np, pt, smi, cache)
-        walls["18b"] = time.perf_counter() - t
-        gc.collect()
-        torch.cuda.empty_cache()
-        t = time.perf_counter()
-        tune_resolve_phase(torch, np, pt, seed, win, cache)
-        walls["18c"] = time.perf_counter() - t
-        gc.collect()
-        torch.cuda.empty_cache()
-        t = time.perf_counter()
-        tune_selftests_phase(cache)
-        walls["18d"] = time.perf_counter() - t
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    t = time.perf_counter()
+    tune_paged_phase(torch, np, pa, kernels, smi, seed, cache)
+    walls["18a"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    win = tune_step_phase(torch, np, pt, smi, cache)
+    walls["18b"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    tune_resolve_phase(torch, np, pt, seed, win, cache)
+    walls["18c"] = time.perf_counter() - t
     log(f"phase 18 wall {time.perf_counter() - t0:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()) + f") [{smi}]")
+
+
+# -- phase 19: the analysis and attribution layer on the card ---------------
+
+# 19a's measured steps (each a corpus row) after the first run
+ATTR_STEPS = 5
+# 19b's policies, each linted at every level
+LINT_POLICIES = ("none", "selective", "compact", "offload")
+
+
+def attribution_step_phase(torch, np, pt, smi, seed):
+    """19a: the flagship's step (t=4096, b=8, fused head, bf16), every
+    run inside a declared timed run (``analysis.jaxpr_checks.timed_run``,
+    so the fold-in's ``jaxpr.kernel-backend`` holds each kernel op to its
+    sm90 family): the attribution table and the lints its first run
+    folds in (``exe.last_attribution``, zero findings), what the fold-in
+    hook cost that run (``executor.fold_in_seconds``), ``ATTR_STEPS``
+    measured steps (host clock around a step ending in a host read of the
+    loss), and ``attribute_profile`` of a middle step, printed class by
+    class beside the table; every hand-written kernel the profiled steps
+    launched must show under its own family.  Returns ``(table, walls,
+    main, scope, feed, fetch)``."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.analysis.jaxpr_checks import timed_run
+    from paddle_tpu_torch.core.executor import step_flops
+    from paddle_tpu_torch.observability import attribution as attr
+    from paddle_tpu_torch.observability import get_registry
+
+    main, startup, model = build_training(pt, seed, TRAIN_T, "bfloat16",
+                                          True)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = make_batch(torch, np.random.default_rng(seed), TRAIN_B, TRAIN_T)
+    fetch = [model["avg_cost"].name]
+    hook = get_registry().histogram("executor.fold_in_seconds")
+    with timed_run():
+        h0 = hook.total
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                        return_numpy=False)
+        loss.item()
+        first = time.perf_counter() - t0
+        hook_s = hook.total - h0
+        cost = dict(exe.last_step_cost)
+        att = exe.last_attribution
+        flops = step_flops(main, TRAIN_B)
+        cov = att["product_flops"] / flops
+        if abs(cov - 1.0) > 0.01:
+            raise AssertionError(f"19a: the table's product flops "
+                                 f"{att['product_flops']} are not within "
+                                 f"1% of step_flops {flops}")
+        backends = cost.get("kernel_backends")
+        if cost.get("lint_findings") != 0 or backends != {
+                "flash_attention": "sm90", "fused_ce": "sm90"}:
+            raise AssertionError(
+                f"19a: the first run's fold-in in a timed run: "
+                f"{cost.get('lint_findings')} lint findings "
+                f"{cost.get('lint_checks')}, kernels {backends}")
+        walls = []
+        for _ in range(ATTR_STEPS):
+            t0 = time.perf_counter()
+            loss, = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                            return_numpy=False)
+            loss.item()
+            walls.append(time.perf_counter() - t0)
+        wall = sorted(walls)[len(walls) // 2]
+
+        def run(_i):
+            exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                    return_numpy=False)
+
+        l0, f0 = kernels.launch_counts(), kernels.family_counts()
+        prof = attr.attribute_profile(run, step_s=wall)
+        l1, f1 = kernels.launch_counts(), kernels.family_counts()
+    want = attr.launched_families(
+        {w: l1[w] - l0[w] for w in l1},
+        {c: {f: n - f0[c].get(f, 0) for f, n in calls.items()}
+         for c, calls in f1.items()})
+    rec = attr.reconcile(att, wall)
+    log(f"19a flagship step (t={TRAIN_T}, b={TRAIN_B}, fused head, bf16): "
+        f"product flops {att['product_flops']:.6e} = step_flops x "
+        f"{cov:.6f}; bytes at op boundaries {att['bytes_total']:.6e}; "
+        f"workload {att['workload']} [{smi}]")
+    log(f"19a first run in a timed run: {first * 1e3:.1f} ms, of which the "
+        f"fold-in hook {hook_s * 1e3:.2f} ms ({hook_s / first:.2%}); "
+        f"lint findings {cost['lint_findings']}, kernels {backends}")
+    log(f"19a step wall median {wall * 1e3:.2f} ms of {ATTR_STEPS} "
+        f"({', '.join(f'{w * 1e3:.2f}' for w in walls)}); the table's "
+        f"roofline estimate {att['est_ms_total']:.3f} ms: reconcile err "
+        f"{rec['err_pct']:+.2f}%; profiled kernel time "
+        f"{prof['total_ms']:.3f} ms (busy share {prof['busy_share']})")
+    log(f"19a {'class':24s} {'est ms':>10s} {'est share':>9s} {'bound':>8s}"
+        f" {'meas ms':>10s} {'meas share':>10s} {'calls':>6s}")
+    for cls in sorted(set(att["classes"]) | set(prof["classes"]),
+                      key=lambda c: -prof["classes"].get(c, {}).get(
+                          "ms", 0.0)):
+        est = att["classes"].get(cls, {})
+        meas = prof["classes"].get(cls, {})
+        log(f"19a {cls:24s} {est.get('est_ms', 0.0):10.3f} "
+            f"{est.get('share', 0.0):9.4f} {est.get('bound', '-'):>8s} "
+            f"{meas.get('ms', 0.0):10.3f} {meas.get('share', 0.0):10.4f} "
+            f"{meas.get('calls', 0):6d}")
+    log(f"19a the classes account for {prof['accounted_ms']:.3f} of "
+        f"{prof['total_ms']:.3f} ms ({prof['accounted_share']:.4f}); "
+        f"unmatched {[(n[:60], ms) for n, ms in prof['unmatched']]}")
+    for fam in want:
+        ms = prof["families"].get(fam, 0.0)
+        log(f"19a   pallas: {fam:36s} {ms:9.3f} ms, "
+            f"{ms / prof['total_ms']:.4f} of the step's kernel time")
+    missing = [f for f in want if prof["families"].get(f, 0.0) <= 0.0]
+    if not want or missing:
+        raise AssertionError(f"19a: hand-written kernels launched but not "
+                             f"under their families in the profile: "
+                             f"{missing} of {want}")
+    if prof["accounted_share"] < 0.95:
+        raise AssertionError(f"19a: the classes account for "
+                             f"{prof['accounted_share']} of the kernel "
+                             f"time: {prof['unmatched']}")
+    return att, walls, main, scope, feed, fetch
+
+
+def lint_phase(torch, pt, smi, seed, feed):
+    """19b: ``analysis.lint`` of the flagship under ``LINT_POLICIES``,
+    every level, on 19a's batch (``feed``; zero state of the declared
+    shapes; the hlo level's memory figure is one step's
+    ``max_memory_allocated``): zero findings each.  Then the ``none`` step
+    at a budget one byte below its measured peak: ``hlo.hbm-preflight``
+    fires, and strict mode raises."""
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.analysis.framework import CheckContext
+
+    peak = None
+    for policy in LINT_POLICIES:
+        main, _startup, model = build_training(pt, seed, TRAIN_T,
+                                               "bfloat16", True)
+        if policy != "none":
+            pt.memory_optimize(main, policy=policy)
+        ctx = CheckContext(main, feed=feed, fetch_list=[model["avg_cost"]])
+        specs = analysis.registered_checks()
+        rep = analysis.framework._run_checks(ctx, specs,
+                                             analysis.AnalysisReport())
+        mem = ctx.memstats
+        log(f"19b lint {policy:9s}: {rep.summary()} {rep.ids()}; memory "
+            f"figure {mem['hbm_high_water_bytes']} B "
+            f"({mem['source']}), state written in place "
+            f"{mem.get('alias_bytes')} of {mem.get('argument_bytes')} B "
+            f"[{smi}]")
+        if len(rep):
+            raise AssertionError(f"19b {policy}: {[repr(f) for f in rep]}")
+        if policy == "none":
+            peak = mem["hbm_high_water_bytes"]
+            ctx.hbm_budget = peak - 1
+            fired = analysis.registered_checks("hlo")
+            over = analysis.framework._run_checks(
+                ctx, fired, analysis.AnalysisReport())
+            try:
+                over.raise_for_errors()
+                raise AssertionError("19b: strict mode did not raise")
+            except analysis.AnalysisError as e:
+                log(f"19b budget {peak - 1} B: {over.ids()}; strict "
+                    f"raises: {str(e).splitlines()[1].strip()[:160]}")
+        del ctx, main
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def costmodel_fit_phase(torch, pt, smi, cache, att, walls, main, scope,
+                        feed, fetch):
+    """19c: a corpus of 19a's measured steps (``ingest_attribution``) and
+    phase 18b's tune cache (``ingest_tune_cache``), fitted by
+    ``fit_and_save`` into a cost model next to the cache; a step of the
+    19a program lowered after the fit reports ``costmodel`` fitted."""
+    from paddle_tpu_torch import tune
+    from paddle_tpu_torch.observability.corpus import Corpus
+    from paddle_tpu_torch.tune import costmodel as cm
+
+    co = Corpus()
+    for i, w in enumerate(walls):
+        co.ingest_attribution(att, w, run_id="chip_smoke-19a", step=i)
+    with tune_env("cached", cache):
+        co.ingest_tune_cache(tune.get_cache())
+        cm.reset_model()
+        try:
+            model = cm.fit_and_save(co)
+            entry = model.entry(tune.device_platform())
+            log(f"19c corpus {co.summary()}")
+            if entry is None:
+                raise AssertionError("19c: the fit left the card analytic")
+            log(f"19c fitted on the card: total (ms per Gflop, ms per GB, "
+                f"ms a step) {entry['total']}; classes {entry['classes']}; "
+                f"hbm_scale {entry['hbm_scale']}; holdout err "
+                f"{entry['holdout_err_pct']}% against the analytic "
+                f"{entry['analytic_err_pct']}% over {entry['holdout_rows']} "
+                f"held-out of {entry['train_rows'] + entry['holdout_rows']} "
+                f"rows [{smi}]")
+            exe = pt.Executor()
+            exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                    return_numpy=False)
+            status = exe.last_step_cost["costmodel"]
+            if status.get("mode") != "fitted":
+                raise AssertionError(f"19c: a step after the fit reports "
+                                     f"{status}")
+            log(f"19c a step lowered after the fit: costmodel {status}; "
+                f"its table's estimate {exe.last_attribution['est_ms_total']}"
+                f" ms against 19a's median wall "
+                f"{sorted(walls)[len(walls) // 2] * 1e3:.2f} ms")
+        finally:
+            cm.reset_model()
+
+
+def analysis_phase(torch, np, pt, smi, seed, cache):
+    """Phase 19 (reads phase 18's tune cache ``cache``), with 18d's
+    selftests beside 19d's."""
+    t0 = time.perf_counter()
+    walls = {}
+    t = time.perf_counter()
+    att, steps, main, scope, feed, fetch = attribution_step_phase(
+        torch, np, pt, smi, seed)
+    walls["19a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    lint_phase(torch, pt, smi, seed, feed)
+    walls["19b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    costmodel_fit_phase(torch, pt, smi, cache, att, steps, main, scope,
+                        feed, fetch)
+    walls["19c"] = time.perf_counter() - t
+    del main, scope, feed
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    selftests_phase(cache)
+    walls["18d, 19d"] = time.perf_counter() - t
+    log(f"phase 19 wall {time.perf_counter() - t0:.1f} s (" + ", ".join(
         f"{k} {v:.1f} s" for k, v in walls.items()) + f") [{smi}]")
 
 
@@ -7509,13 +7735,26 @@ def main():
 
     # 18. the autotuner on the card: 18a the paged split count, 18b the
     #     flagship's step schedule, 18c memory_optimize(policy="auto"),
-    #     18d the tune and spec selftests
-    tune_phase(torch, np, pt, pa, kernels, smi, args.seed)
+    #     18d the tune and spec selftests; 19. the analysis and
+    #     attribution layer at the flagship (19c fits phase 18b's cache)
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    try:
+        cache = os.path.join(root, "tuned.json")
+        tune_phase(torch, np, pt, pa, kernels, smi, args.seed, cache)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"the script so far {time.perf_counter() - t_start:.1f} s")
+        analysis_phase(torch, np, pt, smi, args.seed, cache)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"the script so far {time.perf_counter() - t_start:.1f} s")
 
-    # 19. the kernels line, 20. the result
+    # 20. the kernels line, 21. the result
     row["launches"] = launches["paged_attention"]
     gather_row["launches"] = gathered["launches"]["decode_gather"]
     log(f"paged_attention at the verify shape: kernel {verify_ms[0]:.4f} ms, "

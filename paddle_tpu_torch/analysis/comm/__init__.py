@@ -13,6 +13,10 @@ step's plan; ``comm_diff`` explains which collective moved between two.
 from .plan import CommOp, CommPlan, comm_diff, plan_from_log
 from .contract import CommContract, attach_comm_contract, comm_contracts
 
+# importing the check module registers the comm checks with the
+# analysis framework's registry
+from . import checks  # noqa: F401
+
 __all__ = [
     "CommOp", "CommPlan", "plan_from_log", "comm_diff",
     "CommContract", "attach_comm_contract", "comm_contracts",

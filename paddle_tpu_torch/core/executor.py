@@ -524,29 +524,42 @@ class _Offload:
         return t
 
 
-def _layer_regions(program, segments, cut_types):
-    """``selective``'s regions ``[(start, end, wrapped), ...]``: each
-    repeat of a uniform group of ``segments`` is one wrapped region, cut
-    at the ops of ``cut_types`` (each runs unwrapped on its own); segments
-    outside every group keep their own wrap flag.  Also the groups
-    (``start``, ``period``, ``count`` and the canonical names of the
-    ``carry``: inputs each repeat reads from the one before, the
-    reference's scan carry) and the block inputs, every repeat's carry
-    names."""
+def _uniform_groups(program, segments):
+    """The uniform layer groups among ``segments`` (``core.ir.
+    find_uniform_groups``), each with the canonical names of its
+    ``carry`` (inputs each repeat reads from the one before, the
+    reference's scan carry) and its repeats' carry names (the block
+    inputs)."""
     from .ir import find_uniform_groups
 
-    ops = program.global_block().ops
-    out, i = [], 0
-    groups, block_inputs = [], []
+    out = []
     for g in find_uniform_groups(program, segments):
         ext, outs, count = g["ext_maps"], g["out_maps"], g["count"]
         carry = sorted(
             n for n in ext[0]
             if ext[1][n] in outs[0] and all(
                 ext[k][n] == outs[k - 1][ext[1][n]] for k in range(1, count)))
-        groups.append({"start": g["start"], "period": g["period"],
-                       "count": count, "carry": carry})
-        block_inputs += [ext[k][n] for k in range(count) for n in carry]
+        out.append({"start": g["start"], "period": g["period"],
+                    "count": count, "carry": carry,
+                    "inputs": [ext[k][n] for k in range(count)
+                               for n in carry]})
+    return out
+
+
+def _layer_regions(program, segments, cut_types):
+    """``selective``'s regions ``[(start, end, wrapped), ...]``: each
+    repeat of a uniform group of ``segments`` is one wrapped region, cut
+    at the ops of ``cut_types`` (each runs unwrapped on its own); segments
+    outside every group keep their own wrap flag.  Also the groups
+    (``start``, ``period``, ``count`` and the ``carry``) and the block
+    inputs, every repeat's carry names."""
+    ops = program.global_block().ops
+    out, i = [], 0
+    groups, block_inputs = [], []
+    for g in _uniform_groups(program, segments):
+        groups.append({k: g[k] for k in ("start", "period", "count",
+                                         "carry")})
+        block_inputs += g["inputs"]
         out += segments[i:g["start"]]
         for k in range(g["count"]):
             first = g["start"] + k * g["period"]
@@ -563,13 +576,58 @@ def _layer_regions(program, segments, cut_types):
     return out + segments[i:], groups, block_inputs
 
 
+def _remat_layout(program):
+    """``(regions, groups, block_inputs, saved_types)`` of a program's
+    ``memory_optimize`` marking, as the step runs it: ``selective`` and
+    ``offload`` merge each layer's segments into one region
+    (:func:`_layer_regions`) that saves the outputs of ``saved_types``;
+    the other policies run the marked segments as they are (groups None:
+    not computed)."""
+    from ..memory_optimization_transpiler import EXPENSIVE_OPS, MXU_OPS
+
+    segments = list(getattr(program, "_remat_segments", None) or [])
+    if segments and getattr(program, "_remat_policy", None) in (
+            "selective", "offload"):
+        regions, groups, block_inputs = _layer_regions(
+            program, segments, EXPENSIVE_OPS)
+        return (regions, groups, frozenset(block_inputs),
+                frozenset(MXU_OPS + EXPENSIVE_OPS))
+    return segments, None, frozenset(), ()
+
+
+def remat_plan(program, device):
+    """The remat plan of ``program``'s step on ``device``, read without
+    running it: ``{"policy", "offload"`` (the mode, ``_offload_mode``),
+    ``"groups"`` (the uniform layer groups, each with its ``op_start`` /
+    ``op_end`` range of ops), ``"regions"`` (``[(start, end, wrapped)]``:
+    a wrapped region runs under ``torch.utils.checkpoint``),
+    ``"saved_types"`` (op types whose outputs a wrapped region keeps),
+    ``"block_inputs"`` (the names ``offload`` sends to the host)``}``;
+    None without a ``memory_optimize`` marking.  The static half of
+    ``Executor.last_remat_plan``, which the analysis checks read."""
+    segments = list(getattr(program, "_remat_segments", None) or [])
+    if not segments:
+        return None
+    regions, groups, block_inputs, saved = _remat_layout(program)
+    if groups is None:
+        groups = [{k: g[k] for k in ("start", "period", "count", "carry")}
+                  for g in _uniform_groups(program, segments)]
+    for g in groups:
+        g["op_start"] = segments[g["start"]][0]
+        g["op_end"] = segments[g["start"] + g["count"] * g["period"] - 1][1]
+    return {"policy": getattr(program, "_remat_policy", None),
+            "offload": _offload_mode(program, device),
+            "groups": groups, "regions": [tuple(r) for r in regions],
+            "saved_types": sorted(saved),
+            "block_inputs": sorted(block_inputs)}
+
+
 class _Forward:
     """The differentiated forward prefix ``block.ops[:bw]`` of a training
     program, with its remat regions when ``memory_optimize`` marked
     them."""
 
     def __init__(self, program, plan, aux_names):
-        from ..memory_optimization_transpiler import EXPENSIVE_OPS, MXU_OPS
         from .registry import get_op_impl
 
         self.block = block = program.global_block()
@@ -578,15 +636,9 @@ class _Forward:
         self.aux_names = aux_names
         ops = block.ops
         self.program = program
-        segments = getattr(program, "_remat_segments", None) or []
-        saved_types = ()
-        self.groups, self.block_inputs = [], frozenset()
-        if segments and getattr(program, "_remat_policy", None) in (
-                "selective", "offload"):
-            saved_types = frozenset(MXU_OPS + EXPENSIVE_OPS)
-            segments, self.groups, block_inputs = _layer_regions(
-                program, segments, EXPENSIVE_OPS)
-            self.block_inputs = frozenset(block_inputs)
+        segments, groups, self.block_inputs, saved_types = _remat_layout(
+            program)
+        self.groups = groups or []
         self.remat = bool(segments)
         self.saved_types = saved_types
         self.offloaded = []      # this step's _Offload of each forward
@@ -844,6 +896,9 @@ class Executor:
         self.mesh = mesh
         self.comm = None
         self.last_comm_plan = None
+        # the attribution table of the last step folded in
+        # (``_fold_in``); None until one is, or under PADDLE_TPU_ATTR=0
+        self.last_attribution = None
         if self.device.type == "cuda":
             if self.device.index is None:  # "cuda" -> the current card
                 self.device = torch.device(
@@ -1113,6 +1168,12 @@ class Executor:
                                              fetches, feeds)
             return new_state, fetches, grad_norm
 
+        if fwd.remat:
+            # what the fold-in's op records read: which ops run inside a
+            # checkpointed region, and the op types such a region saves
+            step.layout = {"regions": [(s_, t_, w is not None)
+                                       for s_, t_, w in fwd.segments],
+                           "saved_types": sorted(fwd.saved_types)}
         return step
 
     def _spmd(self, program):
@@ -1197,7 +1258,7 @@ class Executor:
         reg.histogram("executor.compile_seconds").observe(dt)
         cost = {"label": f"run:{program._serial}v{program._version}",
                 "compile_seconds": dt, "bytes_accessed": None}
-        entry = self._cache[key] = (step, cost, {})
+        entry = self._cache[key] = (step, cost, {}, {})
         return entry, False
 
     def _cost(self, program, entry, cache_hit, feeds, steps=None,
@@ -1206,7 +1267,7 @@ class Executor:
         flops of this batch (memoized per batch; a ``while`` loop's
         sub-block added for the ``trips`` the run recorded, over all its
         steps) and the hit flag."""
-        _, cost, flops_by_batch = entry
+        _, cost, flops_by_batch, folds = entry
         batch = _feed_batch(program.global_block(), feeds)
         if batch not in flops_by_batch:
             flops_by_batch[batch] = step_flops(program, batch)
@@ -1215,6 +1276,7 @@ class Executor:
         if trips:
             flops += step_flops(program, batch, trips) - static
         out = dict(cost, flops=flops, cache_hit=cache_hit)
+        out.update(folds.get(batch, {}))
         if steps is not None:
             out["steps"] = steps
         from ..tune import tune_stats
@@ -1223,6 +1285,128 @@ class Executor:
         if ts:
             out["tune"] = ts
         return out
+
+    def _fold_probe(self, program, entry, feeds, state):
+        """What the fold-in needs from before the first run of a lowered
+        step at a batch (None on every later run, or with both kill
+        switches set): the batch, the updated state's tensors and the
+        kernel family counters."""
+        from ..analysis import lint_enabled
+        from ..observability.attribution import attribution_enabled
+
+        t0 = time.perf_counter()
+        batch = _feed_batch(program.global_block(), feeds)
+        if batch in entry[3] or not (attribution_enabled()
+                                     or lint_enabled()):
+            return None
+        from .. import kernels
+        from ..analysis.hlo_tools import updated_state
+
+        probe = {"batch": batch,
+                 "before": {n: state[n] for n in updated_state(program)
+                            if n in state},
+                 "families": kernels.family_counts()}
+        probe["seconds"] = time.perf_counter() - t0
+        return probe
+
+    def _fold_in(self, program, entry, probe, scope, trips, fetch_names,
+                 steps=None):
+        """The reference's compile-time fold-in, over the run just made.
+        At the first run of a lowered step at a batch: the attribution
+        table of the step (``last_attribution``; ``attribution``,
+        ``bytes_accessed``), the cost model's status (``costmodel``) and
+        what the kernel ops ran (``kernel_backends``), kept for the step
+        and batch.  At the step's first run only: the program- and
+        run-level lint findings (``lint_findings`` / ``lint_errors`` /
+        ``lint_checks``), kept for the step, since the Program they read
+        does not change with the batch.  Every later run's
+        ``last_step_cost`` carries both.  ``PADDLE_TPU_ATTR=0`` and
+        ``PADDLE_TPU_LINT=0`` leave their keys out; neither ever blocks a
+        run.  The hook's own seconds go to ``executor.fold_in_seconds``
+        (from before the run: the probe included)."""
+        from .. import kernels
+        from ..analysis import compile_findings, lint_enabled
+        from ..analysis import hlo_tools
+        from ..analysis.jaxpr_tools import step_records
+        from ..observability import attribution as _attr
+        from ..tune.cache import device_platform
+        from ..tune.costmodel import model_status
+
+        t1 = time.perf_counter()
+        reg = _obs.get_registry()
+
+        def failed():
+            # telemetry never blocks a run; each failure is counted
+            reg.counter("executor.fold_in_errors",
+                        help="fold-in parts that raised (attribution, "
+                             "lint, cost model)").inc()
+
+        batch = probe["batch"]
+        first = not entry[3]     # the lowered step's first fold
+        fold = {}
+        records = None
+        try:
+            records = step_records(program, batch, trips,
+                                   plan=getattr(entry[0], "layout", None))
+        except Exception:  # noqa: BLE001 — telemetry must never block
+            failed()
+        comm_plan = self.last_comm_plan if self.comm is not None else None
+        if records is not None and _attr.attribution_enabled():
+            try:
+                flops = self.last_step_cost["flops"] // (steps or 1)
+                att = _attr.attribute_step(
+                    program, batch, flops=flops, comm_plan=comm_plan,
+                    device=self.device, records=records)
+                self.last_attribution = att
+                fold["attribution"] = _attr.summarize(att)
+                fold["bytes_accessed"] = att["bytes_total"]
+            except Exception:  # noqa: BLE001 — telemetry must never block
+                failed()
+        try:
+            fold["costmodel"] = model_status(device_platform(self.device))
+        except Exception:  # noqa: BLE001 — telemetry must never block
+            failed()
+        kb = {}
+        if records is not None:
+            try:
+                kb = hlo_tools.kernel_backends(
+                    records, probe["families"], kernels.family_counts(),
+                    self.device)
+            except Exception:  # noqa: BLE001 — telemetry must never block
+                failed()
+            if kb:
+                fold["kernel_backends"] = kb
+        entry[3][batch] = fold
+        if first and lint_enabled():
+            try:
+                mem = {"hbm_high_water_bytes": None, "source": None}
+                if self.device.type == "cuda":
+                    mem = hlo_tools.static_memstats(program, batch)
+                names = list(probe["before"])
+                mem.update(hlo_tools.inplace_record(
+                    probe["before"], {n: scope.get(n) for n in names}))
+                findings = compile_findings(
+                    program=program, fetch_names=fetch_names, memstats=mem,
+                    comm=comm_plan.comm_report() if comm_plan else {},
+                    donate=self.donate_state, kernel_backends=kb,
+                    mesh=self.mesh, comm_plan=comm_plan,
+                    label=self.last_step_cost.get("label"),
+                    device=self.device)
+            except Exception:  # noqa: BLE001 — lint must never block a run
+                failed()
+                findings = []
+            lint = {"lint_findings": len(findings),
+                    "lint_errors": sum(1 for f in findings
+                                       if f.severity == "error")}
+            if findings:
+                lint["lint_checks"] = sorted({f.check
+                                              for f in findings})[:8]
+            entry[1].update(lint)     # the step's: every batch carries it
+            fold.update(lint)
+        self.last_step_cost.update(fold)
+        # the hook's time: the probe before the run and the fold after it
+        reg.histogram("executor.fold_in_seconds").observe(
+            time.perf_counter() - t1 + probe["seconds"])
 
     def _generator(self, scope):
         """The step's generator, at the state the scope carries."""
@@ -1267,6 +1451,7 @@ class Executor:
         program, scope, feeds, fetch_names, state_names, state = (
             self._prepare(program, feed, fetch_list, scope))
         entry, cache_hit = self._entry(program, fetch_names, state_names)
+        probe = self._fold_probe(program, entry, feeds, state)
         trips = {}
         fetches = self._run_lowered(entry[0], scope, state, feeds,
                                     self._generator(scope), trips,
@@ -1275,6 +1460,8 @@ class Executor:
                                          trips=trips)
         if self.comm is not None:
             self._log_comm(self.last_step_cost)
+        if probe is not None:
+            self._fold_in(program, entry, probe, scope, trips, fetch_names)
         if return_numpy:
             return [tensor_to_numpy(f) for f in fetches]
         return fetches
@@ -1314,6 +1501,8 @@ class Executor:
         entry, cache_hit = self._entry(program, fetch_names, state_names)
         step_feeds = [{n: v[i] for n, v in feeds.items()}
                       for i in range(steps)]
+        probe = (self._fold_probe(program, entry, step_feeds[0], state)
+                 if step_feeds else None)
         gen = self._generator(scope)
         outs, trips = [], {}
         for fs in step_feeds:
@@ -1325,6 +1514,9 @@ class Executor:
             step_feeds[0] if step_feeds else {}, steps, trips)
         if self.comm is not None:
             self._log_comm(self.last_step_cost)
+        if probe is not None:
+            self._fold_in(program, entry, probe, scope, trips, fetch_names,
+                          steps)
         fetches = [torch.stack(col) for col in zip(*outs)] if outs else []
         if return_numpy:
             return [tensor_to_numpy(f) for f in fetches]

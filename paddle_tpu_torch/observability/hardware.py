@@ -8,7 +8,12 @@ is keyed by the name ``torch.cuda.get_device_name`` reports for that
 part.  A card the table does not name has no peak, so its ``mfu`` is
 None: nothing falls back to another chip's figure.  The CPU has a
 nominal 1e12 FLOP/s so MFU stays defined in CPU dev loops; against it
-only step-to-step deltas mean anything.
+only step-to-step deltas mean anything.  ``HBM_BW`` is the same card's
+memory rate from the same data sheet (3.35 TB/s), the memory side of the
+attribution roofline (``observability/attribution.py``), keyed like the
+peak; the CPU has a nominal 50 GB/s.  ``device_hbm_bytes`` is the card's
+``total_memory`` (None on the CPU), the ceiling the ``hlo.hbm-preflight``
+check holds a step's memory figure to.
 
 ``device_memory_stats`` reads ``torch.cuda.memory_stats`` and
 ``torch.cuda.mem_get_info`` ({} on the CPU); ``sample_memory`` publishes
@@ -22,7 +27,8 @@ from ..core.place import resolve_device
 from . import metrics as _metrics
 
 __all__ = [
-    "PEAK_BF16", "device_peak_flops", "mfu", "device_memory_stats", "sample_memory",
+    "PEAK_BF16", "HBM_BW", "device_peak_flops", "device_hbm_bandwidth",
+    "device_hbm_bytes", "mfu", "device_memory_stats", "sample_memory",
 ]
 
 # bf16 dense peak FLOP/s by device-name substring (NVIDIA H100 data
@@ -30,8 +36,16 @@ __all__ = [
 # otherwise, so they match no row)
 PEAK_BF16 = (("H100 80GB HBM3", 989e12),)
 
+# HBM bytes/s by the same device-name substring (NVIDIA H100 data
+# sheet, SXM part)
+HBM_BW = (("H100 80GB HBM3", 3.35e12),)
+
 # Nominal CPU figure so MFU stays defined on CPU runs (dev loops, CI)
 _CPU_NOMINAL_PEAK = 1e12
+
+# Nominal CPU memory rate (the reference's; only relative figures mean
+# anything against it)
+_CPU_NOMINAL_BW = 50e9
 
 
 def _device(device):
@@ -43,9 +57,9 @@ def _device(device):
     return dev
 
 
-def _lookup(device):
+def _lookup(device, table=PEAK_BF16):
     name = torch.cuda.get_device_name(device)
-    for sub, value in PEAK_BF16:
+    for sub, value in table:
         if sub in name:
             return value
     return None
@@ -59,6 +73,25 @@ def device_peak_flops(device=None):
     if dev.type == "cpu":
         return _CPU_NOMINAL_PEAK
     return _lookup(dev)
+
+
+def device_hbm_bandwidth(device=None):
+    """Memory rate in bytes/s of one device (default: the current card),
+    None for a card the table does not name; the nominal CPU constant for
+    ``cpu``."""
+    dev = _device(device)
+    if dev.type == "cpu":
+        return _CPU_NOMINAL_BW
+    return _lookup(dev, HBM_BW)
+
+
+def device_hbm_bytes(device=None):
+    """The card's memory capacity in bytes (``total_memory``), or None on
+    the CPU, which reports none."""
+    dev = _device(device)
+    if dev.type == "cpu":
+        return None
+    return int(torch.cuda.get_device_properties(dev).total_memory)
 
 
 def mfu(flops_per_step, step_seconds, peak_flops):

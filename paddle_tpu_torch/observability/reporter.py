@@ -16,17 +16,22 @@ EndIteration) so this module never imports the trainer.
 
 The JSONL ``step`` record has the reference's keys, so one reader parses
 rows of either package.  The collective accounting comes from a mesh
-step's collective log (``Executor.last_step_cost``; null off a mesh).
-The keys the port does not measure yet — the compiled executable's
-memory analysis, lints and the per-op attribution (ROADMAP A5) — are
-written as null.
+step's collective log (``Executor.last_step_cost``; null off a mesh);
+the lint counts, the per-op attribution summary (``attr_*``, with
+``attr_model_err_pct`` from ``attribution.reconcile`` against the step's
+measured wall), the cost model's status and what the kernel ops ran come
+from the Executor's fold-in (``core/executor.py: _fold_in``; null under
+its kill switches).  The compiled executable's memory analysis
+(``compiled_hbm_high_water_bytes``, ``compiled_temp_bytes``) has no
+counterpart in an eager step and is written as null.  The ``run_meta``
+record carries the bench stamp (``bench_history.run_stamp``:
+``schema_version``, ``run_id``, ``git_sha``) the corpus joins on.
 """
 
 import collections
 import math
 import sys
 import time
-import uuid
 
 from . import hardware as _hardware
 from . import metrics as _metrics
@@ -34,18 +39,14 @@ from .runlog import RunLog
 
 __all__ = ["MetricsReporter"]
 
-# the reference's row-identity schema (observability/bench_history.py)
-_STAMP_SCHEMA_VERSION = 1
-
 # the collective accounting a mesh step's cost carries (null off a mesh)
 _COMM_KEYS = ("collective_count", "collective_bytes", "reduce_ops_in_loop",
               "comm_plan")
-# step-record keys of the reference that the port leaves null
-_NOT_MEASURED = (
-    "compiled_hbm_high_water_bytes", "compiled_temp_bytes",
-    "lint_findings", "lint_errors", "lint_checks",
-    "attr_top", "attr_est_ms", "attr_coverage", "attr_workload",
-    "attr_model_err_pct", "attr_classes", "costmodel", "kernel_backends")
+# the fold-in's keys, as the step cost carries them
+_FOLD_KEYS = ("lint_findings", "lint_errors", "lint_checks", "costmodel",
+              "kernel_backends")
+# step-record keys of the reference that an eager step has no figure for
+_NOT_MEASURED = ("compiled_hbm_high_water_bytes", "compiled_temp_bytes")
 
 
 class MetricsReporter:
@@ -74,12 +75,13 @@ class MetricsReporter:
         # training-dynamics window: recent losses for the spike z-score
         self._loss_window = collections.deque(maxlen=64)
         if self.runlog is not None:
-            # the run identity stamp rides the run_meta record so a
-            # measurement corpus can dedup and attribute this file's
-            # step rows; caller meta wins on clash
-            self.runlog.log("run_meta", **{
-                "schema_version": _STAMP_SCHEMA_VERSION,
-                "run_id": uuid.uuid4().hex[:12], **(run_meta or {})})
+            # the run identity stamp rides the run_meta record so the
+            # measurement corpus (observability/corpus.py) can dedup and
+            # attribute this file's step rows; caller meta wins on clash
+            from .bench_history import run_stamp
+
+            self.runlog.log("run_meta", **{**run_stamp(),
+                                           **(run_meta or {})})
 
     # -- composition -------------------------------------------------------
     def chain(self, handler):
@@ -138,6 +140,13 @@ class MetricsReporter:
             _metrics.get_registry().value("executor.compile_count"))
         if self.runlog is not None:
             sc = getattr(ev, "step_cost", None) or {}
+            att = sc.get("attribution") or {}
+            # the roofline estimate's error against this step's measured
+            # wall: one formula (attribution.reconcile) for the JSONL and
+            # the corpus
+            from . import attribution as _attr
+
+            rec = _attr.reconcile(att, wall) if att else None
             self.runlog.log(
                 "step",
                 pass_id=ev.pass_id, batch_id=ev.batch_id,
@@ -164,7 +173,18 @@ class MetricsReporter:
                 # same stream
                 grad_norm=grad_norm,
                 loss_zscore=loss_z,
-                **{k: sc.get(k) for k in _COMM_KEYS},
+                **{k: sc.get(k) for k in _COMM_KEYS + _FOLD_KEYS},
+                # the per-op attribution summary of the step: top classes
+                # by estimated time, the estimate, coverage against
+                # step_flops, the workload key, the estimate's error, and
+                # the compact per-class [flops, bytes, ops, est_ms] table
+                # a corpus row fits on
+                attr_top=att.get("top"),
+                attr_est_ms=att.get("est_ms_total"),
+                attr_coverage=att.get("coverage"),
+                attr_workload=att.get("workload"),
+                attr_model_err_pct=rec["err_pct"] if rec else None,
+                attr_classes=att.get("classes"),
                 **dict.fromkeys(_NOT_MEASURED),
             )
         if self.log_every_n and ev.batch_id % self.log_every_n == 0:

@@ -29,7 +29,6 @@ and a stale fingerprint each give an EMPTY cache and count
 import hashlib
 import json
 import os
-import subprocess
 import tempfile
 import time
 
@@ -111,17 +110,15 @@ def geometry_fingerprint():
 
 
 def _git_sha():
-    """The checkout's ``git rev-parse --short=12 HEAD``, or None (the
-    JAX package's bench stamp, copied)."""
+    """The checkout's git sha as the bench stamp gives it
+    (``observability.bench_history.run_stamp``), or None — one stamp for
+    the tune cache, the cost model and the corpus rows."""
     try:
-        out = subprocess.run(
-            ["git", "rev-parse", "--short=12", "HEAD"],
-            cwd=os.path.dirname(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__)))),
-            capture_output=True, text=True, timeout=10)
-    except (OSError, subprocess.SubprocessError):
+        from ..observability.bench_history import run_stamp
+
+        return run_stamp().get("git_sha")
+    except Exception:  # noqa: BLE001 — identity must never block caching
         return None
-    return (out.stdout.strip() or None) if out.returncode == 0 else None
 
 
 class TuneCache:

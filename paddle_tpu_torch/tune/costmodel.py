@@ -22,11 +22,14 @@ Persistence follows the tune cache (``tune/cache.py``): schema-versioned
 JSON next to it (``PADDLE_TPU_COSTMODEL_PATH`` overrides), atomic
 writes, and a corrupt / truncated / schema-mismatched file degrades to
 the analytic defaults, counting ``tune.costmodel_errors``.
-``PADDLE_TPU_COSTMODEL=0`` is the kill switch.  With no model file (the
-port writes none yet: the corpus that feeds ``fit_and_save`` is ROADMAP.md
-A5's next slice) every consult takes the analytic path.  The platform a
-consult fits under is the default device's (``tune.cache.
-device_platform``: ``"gpu"`` on the card, ``"cpu"`` on the CPU).
+``PADDLE_TPU_COSTMODEL=0`` is the kill switch.  With no model file every
+consult takes the analytic path.  The rows ``fit_and_save`` fits on come
+from the measurement corpus (``observability/corpus.py``: trainer JSONL,
+bench artifacts, the tune cache, attribution tables with their measured
+step times); ``python -m paddle_tpu_torch --costmodel-selftest`` closes
+the loop.  The platform a consult fits under is the default device's
+(``tune.cache.device_platform``: ``"gpu"`` on the card, ``"cpu"`` on the
+CPU).
 """
 
 import json

@@ -147,6 +147,21 @@ TRAINING_MODULES = [
     # the SSD detector: the detection ops and layers, the model
     "paddle_tpu_torch.ops.detection_ops", "paddle_tpu_torch.layers.detection",
     "paddle_tpu_torch.models.ssd",
+    # the analysis and attribution layer the Executor folds in: the lints,
+    # the attribution table, the corpus, the bench history, the cost
+    # model's selftest
+    "paddle_tpu_torch.analysis", "paddle_tpu_torch.analysis.framework",
+    "paddle_tpu_torch.analysis.program_checks",
+    "paddle_tpu_torch.analysis.jaxpr_tools",
+    "paddle_tpu_torch.analysis.jaxpr_checks",
+    "paddle_tpu_torch.analysis.hlo_tools",
+    "paddle_tpu_torch.analysis.hlo_checks",
+    "paddle_tpu_torch.analysis.comm.checks",
+    "paddle_tpu_torch.observability.attribution",
+    "paddle_tpu_torch.observability.corpus",
+    "paddle_tpu_torch.observability.bench_history",
+    "paddle_tpu_torch.tune.costmodel_selftest",
+    "paddle_tpu_torch.benchmarks.fold_in_cost",
 ]
 
 

@@ -1,9 +1,15 @@
 """The port's selftest flags and the two subcommands added beside them, on
 the CPU, through ``paddle_tpu_torch.__main__.main``.
 
-* ``--metrics-selftest``, ``--trace-selftest``, ``--resilience-selftest``,
-  ``--tune-selftest`` and ``--spec-selftest`` with ``--device=cpu`` each
-  exit 0 (each prints its own checks);
+* ``--metrics-selftest``, ``--memory-selftest``, ``--lint-selftest``,
+  ``--trace-selftest``, ``--resilience-selftest``, ``--tune-selftest``,
+  ``--costmodel-selftest``, ``--attribution-selftest`` and
+  ``--spec-selftest`` with ``--device=cpu`` each exit 0 (each prints its
+  own checks);
+* ``--bench-history`` exits 0 on clean artifacts and 1 on an
+  unacknowledged failure, one JSON summary line on stdout; ``--lint``
+  returns the reference's codes: 0 clean, 1 on error findings, 2 under
+  ``--strict``;
 * a JAX-package flag that is not ported exits 2 naming its ROADMAP.md
   item, and is not ignored;
 * ``dump_config`` prints what the JAX package's prints for the same
@@ -19,8 +25,12 @@ from paddle_tpu_torch import tune
 from paddle_tpu_torch.__main__ import (SELFTESTS, _UNPORTED, _take_device,
                                        main)
 
-PORTED = ("--metrics-selftest", "--trace-selftest", "--resilience-selftest",
-          "--tune-selftest", "--spec-selftest")
+PORTED = ("--metrics-selftest", "--memory-selftest", "--lint-selftest",
+          "--trace-selftest", "--resilience-selftest", "--tune-selftest",
+          "--costmodel-selftest", "--attribution-selftest",
+          "--spec-selftest")
+# the flags that take their own arguments
+ARGV_FLAGS = ("--bench-history", "--lint")
 
 
 @pytest.fixture(autouse=True)
@@ -46,8 +56,10 @@ def test_dispatch_order_is_the_references():
                          "--multichip-selftest"]
     assert flags.index("--resilience-selftest") < flags.index(
         "--tune-selftest") < flags.index("--spec-selftest")
-    assert {f for f, fn in SELFTESTS if fn is None} == set(_UNPORTED)
-    assert set(PORTED) == {f for f, fn in SELFTESTS if fn is not None}
+    assert {f for f, fn in SELFTESTS if fn is None} == set(_UNPORTED) == {
+        "--multichip-selftest", "--sharding-selftest", "--kernels-selftest"}
+    assert set(PORTED) | set(ARGV_FLAGS) == {
+        f for f, fn in SELFTESTS if fn is not None}
     assert _take_device(["--tune-selftest"]) is None          # the card
     assert _take_device(["--device=cpu", "--spec-selftest"]) == "cpu"
     assert _take_device(["--spec-selftest", "--device", "cuda:0"]) == "cuda:0"
@@ -57,6 +69,65 @@ def test_dispatch_order_is_the_references():
 def test_unported_flag_exits_nonzero_naming_its_item(flag, capsys):
     assert main([flag, "--device=cpu"]) == 2
     assert "ROADMAP.md A" in capsys.readouterr().err
+
+
+def test_bench_history_flag(tmp_path, capsys):
+    """Clean artifacts: rc 0; an unacknowledged failed one: rc 1; one
+    parseable JSON summary line on stdout either way."""
+    import json
+
+    for n, value in ((1, 100.0), (2, 101.0)):
+        (tmp_path / f"BENCH_r0{n}.json").write_text(json.dumps(
+            {"n": n, "rc": 0, "parsed": {"metric": "m", "value": value}}))
+    assert main(["--bench-history", "--dir", str(tmp_path),
+                 "--device=cpu"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1 and json.loads(out[0])["ok"] is True
+    (tmp_path / "BENCH_r03.json").write_text(json.dumps(
+        {"n": 3, "rc": 1, "parsed": None}))
+    assert main(["--bench-history", "--dir", str(tmp_path)]) == 1
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["failed"] == ["BENCH_r03.json"] and not summary["ok"]
+
+
+_PLANTED_CONFIG = '''
+import paddle_tpu_torch as pt
+
+
+def build():
+    x = pt.layers.data("x", shape=[4], dtype="float32")
+    y = pt.layers.fc(x, size=2)
+    blk = pt.default_main_program().global_block()
+    a = blk.create_var(name="a", shape=(-1, 4), dtype="float32")
+    blk.append_op("relu", {"X": [a.name]}, {"Out": [y.name]})
+    return {"feed": [x], "avg_cost": pt.layers.mean(y)}
+'''
+
+
+def test_lint_flag_return_codes(tmp_path, capsys):
+    """A config whose op reads an undefined var: rc 1 (the finding
+    printed), rc 2 under --strict; --json gives the reference's schema;
+    a clean config: rc 0."""
+    import json
+
+    from paddle_tpu_torch import analysis
+
+    bad = tmp_path / "bad.py"
+    bad.write_text(_PLANTED_CONFIG)
+    assert main(["--lint", str(bad), "--levels", "program"]) == 1
+    assert "program.read-before-write" in capsys.readouterr().out
+    assert main(["--lint", str(bad), "--strict", "--levels",
+                 "program"]) == 2
+    assert "lint found" in capsys.readouterr().out
+    assert main(["--lint", str(bad), "--json", "--levels", "program"]) == 1
+    obj = json.loads(capsys.readouterr().out)
+    assert obj["schema_version"] == 1 and not obj["ok"]
+    assert "program.read-before-write" in analysis.report_from_json(
+        obj).ids()
+    good = tmp_path / "good.py"
+    good.write_text(_CONFIG.format(pkg="paddle_tpu_torch"))
+    assert main(["--lint", str(good), "--device=cpu"]) == 0
+    assert "0 finding(s)" in capsys.readouterr().out
 
 
 _CONFIG = '''

@@ -354,7 +354,8 @@ def test_reporter_jsonl_flight_and_trace(port_init, tmp_path):
     flops = texec.step_flops(main, BATCH)
     for s in steps:
         assert s["flops"] == flops and s["mfu"] > 0 and s["grad_norm"] > 0
-        assert s["attr_top"] is None and s["compile_count"] >= 1
+        assert s["attr_top"] and s["attr_coverage"] == 1.0
+        assert s["compile_count"] >= 1
     assert [r["loss"] for r in rec.steps()] == [s["cost"] for s in steps]
     trace, = os.listdir(tmp_path / "tr")
     with open(tmp_path / "tr" / trace) as f:
