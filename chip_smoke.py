@@ -121,10 +121,13 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    zeroed just before the pass); then a few steady decode chunks traced
    with ``torch.profiler``;
    b. the same pass on an engine built under ``PADDLE_TPU_PAGED_ATTN=0``
-   (a main path: the kill switch): every request served in full,
+   (a main path: the kill switch), its timed load the first 16 of the 64
+   requests (``GATHER_LOAD``): every request served in full,
    ``decode_gather`` launched 2 x layers x (decode steps + prefill steps)
    times and ``paged_attention`` never; tok/s, decode-chunk p50 and peak
-   memory beside phase 5's, and its decode chunks profiled as phase 5's;
+   memory beside phase 5's pass over the same 16 requests (run just
+   before it, held as phase 5's, not profiled), and its decode chunks
+   profiled as phase 5's;
    c. speculative decoding at the reference's own speculative
    configuration (``benchmarks/serving.py:421-423``: vocab 2048, 10
    layers, 8 heads, d_model 256, f32, deep layers softened x0.005; the
@@ -398,8 +401,9 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    the sharded checkpoints' layout and the comm contracts), as four
    processes that share the card, joined by gloo through a file store
    (NCCL refuses two ranks on one device): a. the flagship at full width
-   and depth (12 layers, d768, 6 heads of 128, vocab 32,768, t=4096,
-   global batch 8, the fused head, bf16, Adam) through ``Trainer(mesh=
+   and 4 of its 12 layers (``MESH_17A_LAYERS``; d768, 6 heads of 128,
+   vocab 32,768, t=4096, global batch 8, the fused head, bf16, Adam)
+   through ``Trainer(mesh=
    ...)`` with prefetch on dp2 x tp2 (ZeRO-1 over dp; the flash kernels
    on 3 of 6 heads a rank, the CE kernels on 16,384-column vocab shards)
    and on dp2 x fsdp2 (FSDP, ZeRO-3's reduce-scatter), three steps from
@@ -490,13 +494,43 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    model; d. ``python -m paddle_tpu_torch --attribution-selftest`` and
    ``--memory-selftest`` on the card, side by side with 18d's two, each
    exit 0;
-20. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
+20. the v1 layer DSL (``paddle_tpu_torch.compat.v1``) and temperature
+   sampling: a. run.py's smallnet (b64, 3x32x32, 10 classes, Momentum
+   with L2) and lstm rows (b64, t=100, hidden 512, dict 10000, 2
+   classes, Adam) written in v1 names, 5 steps each on the card in f32
+   (TF32 off) from the card's startup state: the first step's loss
+   within 2e-4 and each parameter's update (its norm of the difference)
+   within 2e-4 of the port's CPU step from the same state and batch, the
+   losses falling, no hand-written kernel launched; then
+   ``v1_ext.vgg_16_network`` at run.py's vgg row (b64, 3x224x224, 1000
+   classes, bf16), 3 steps: finite losses, the last below the first, its
+   ms a step beside phase 13b's VGG-19 row; b. ``v1_ext.
+   multi_head_attention`` at the flagship's attention (b=8, t=4096,
+   d_model 768, 6 heads, bf16), forward and backward: the flash forward
+   and fused backward (rows 4 and 5) launched on the sm90 family, by the
+   counters and in a profiled step, and the output and every parameter
+   gradient within ORACLE_TOL bf16 of ``layers.multi_head_attention``
+   on the same weights; c. the 27 op types the DSL added, each alone on
+   the card against the CPU at mid sizes (ints equal, floats within
+   2e-4, gradients within 1e-3; ``nce`` on the card's negatives, which
+   must also be uniform; ``sampling_id``'s 4096 draws against the row's
+   distribution; ``print`` through a Program), one line an op; the
+   evaluators ``Accuracy``, ``ChunkEvaluator``, ``EditDistance``,
+   ``Auc`` and ``DetectionMAP`` over 10 batches, card against CPU; d.
+   ``models.transformer.generate`` at the flagship's width (the LM head
+   x6), 8 x 16 prompts, 64 new tokens at temperature 0.8: the same seed
+   twice the same tokens; 4096 draws of the first sampled token within
+   total variation 0.08 (and a six-sigma chi-square bound) of
+   ``softmax(logits / 0.8)`` over its 31 likeliest tokens and the rest;
+   temperature 1e-4 the greedy tokens but at near-ties; the walls of
+   the phase and its parts;
+21. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
    launches on its main path (phase 3e, 5, 5b, 7, 8 or 9b), error, times
    and bound; the paged attention, flash forward, fused backward, the
    three CE rows and the sm90 bottleneck add the simple family's time
    (``simple_ms``), and the forward's row its t=16384 entry (``t16384``,
    launches from phase 8);
-21. the last line: ``{"ok": true, "device": {...}}``.
+22. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
 file, it exits non-zero and prints no result.  The weights, the tokens
@@ -520,6 +554,9 @@ VOCAB, N_LAYER, N_HEAD, D_MODEL, MAX_LEN = 32768, 12, 6, 768, 512
 SLOTS, CHUNK, MIN_BUCKET, BLOCK_TOKENS, PREFIX_LEN = 32, 16, 16, 32, 64
 CLASSES = [(16, 96), (32, 192), (64, 256), (24, 320)]
 REQUESTS = 64
+# 5b's timed load: the first 16 of the 64 requests (4 of each class); the
+# kill switch's decode is ~2x phase 5's, so the whole load cost ~2 min
+GATHER_LOAD = 16
 D_HEAD = D_MODEL // N_HEAD
 # phase 5c: the reference's own speculative configuration
 # (benchmarks/serving.py:421-423): the same engine geometry and load on a
@@ -2099,17 +2136,21 @@ def correctness_spelling_phase(torch, np, params, work, refs, kernels):
 
 # -- phase 5: full-width bf16 serving ----------------------------------------
 
-def serving_phase(torch, np, params, work, kernels, switch="1"):
-    """Phase 5 (``switch`` "1", the paged-attention kernel, profiled) or
-    5b (``PADDLE_TPU_PAGED_ATTN=0``: the decode_gather kernel and a dense
+def serving_phase(torch, np, params, work, kernels, switch="1", load=None,
+                  profile=True):
+    """Phase 5 (``switch`` "1", the paged-attention kernel) or 5b
+    (``PADDLE_TPU_PAGED_ATTN=0``: the decode_gather kernel and a dense
     softmax).  The switch holds for the whole pass: the engine makes its
-    step callables, which read it, at first use.  Returns the pass's
-    launch counts and its numbers."""
+    step callables, which read it, at first use.  The timed load is the
+    first ``load`` requests of ``work`` (all by default); the warm-up
+    and the profile (unless ``profile`` is false) take theirs from the
+    whole ``work``.  Returns the pass's launch counts and its numbers."""
     with paged_switch(switch):
-        return _serving_pass(torch, np, params, work, kernels, switch)
+        return _serving_pass(torch, np, params, work, kernels, switch,
+                             load or len(work), profile)
 
 
-def _serving_pass(torch, np, params, work, kernels, switch):
+def _serving_pass(torch, np, params, work, kernels, switch, load, profile):
     from paddle_tpu_torch.observability import metrics as obs
     from paddle_tpu_torch.serving import ServingEngine
 
@@ -2138,13 +2179,13 @@ def _serving_pass(torch, np, params, work, kernels, switch):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()                     # counts start at 0 here
     t0 = time.perf_counter()
-    reqs = [eng.submit(p, m) for p, m in work]
+    reqs = [eng.submit(p, m) for p, m in work[:load]]
     eng.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     st = eng.stats()
-    for r, (prompt, max_new) in zip(reqs, work):
+    for r, (prompt, max_new) in zip(reqs, work[:load]):
         out = r.result(timeout=0)
         gen = out[len(prompt):]
         if len(gen) != max_new or gen.min() < 0 or gen.max() >= VOCAB:
@@ -2173,7 +2214,8 @@ def _serving_pass(torch, np, params, work, kernels, switch):
                 f"kill-switch pass: {launches['decode_gather']} gathers "
                 f"(expected {2 * expect}) and "
                 f"{launches['paged_attention']} paged launches (expected 0)")
-        profile_decode(torch, eng, work)
+        if profile:
+            profile_decode(torch, eng, work)
         del eng
         return out
     log(f"bf16 full width: {len(reqs)} requests, {emitted} tokens in "
@@ -2194,7 +2236,8 @@ def _serving_pass(torch, np, params, work, kernels, switch):
             f"{expect}: some attention did not go through the kernel")
     if paged_on_split(kernels, "phase 5") != expect:
         raise AssertionError("phase 5: family counts disagree with launches")
-    profile_decode(torch, eng, work)
+    if profile:
+        profile_decode(torch, eng, work)
     del eng
     return out
 
@@ -4478,7 +4521,9 @@ def ctc_library_phase(torch, np, seed):
 def image_phase(torch, np, pt, kernels, smi, seed):
     """Phase 13b: run.py's four image rows and LeNet, each ``ZOO_STEPS``
     steps on one batch with the models' own dropout: the last loss below
-    the first, then a profiled step."""
+    the first, then a profiled step.  Returns each row's steady step wall
+    in ms."""
+    steady = {}
     for name, (cfg, batch) in IMAGE_ROWS.items():
         what = (f"phase 13b {name} b={batch} "
                 f"{cfg.get('dtype', 'float32')}")
@@ -4491,9 +4536,11 @@ def image_phase(torch, np, pt, kernels, smi, seed):
             raise AssertionError(f"{what}: the loss did not fall: "
                                  f"{rec['losses']}")
         zoo_profile(torch, what, rec)
+        steady[name] = 1e3 * rec["steady"]
         del rec
         gc.collect()
         torch.cuda.empty_cache()
+    return steady
 
 
 def srl_phase(torch, np, pt, kernels, smi, seed):
@@ -6070,9 +6117,15 @@ MESH_RANKS, MESH_STEPS = 4, 3
 MESH_UPDATE_TOL = 0.1
 # (phase, label, mesh axes, layers, dtype, FSDP) — 17a the flagship at full
 # width and depth in bf16, 17b two layers of the same widths in f32
+# 17a's depth: the flagship's widths at 4 of its 12 layers (its gloo
+# round trips dominate the phase; MESH_UPDATE_TOL was set on 12 layers,
+# where the bf16 roundoff is larger)
+MESH_17A_LAYERS = 4
 MESH_CONFIGS = (
-    ("17a", "dp2xtp2", {"dp": 2, "tp": 2}, N_LAYER, "bfloat16", False),
-    ("17a", "dp2xfsdp2", {"dp": 2, "fsdp": 2}, N_LAYER, "bfloat16", True),
+    ("17a", "dp2xtp2", {"dp": 2, "tp": 2}, MESH_17A_LAYERS, "bfloat16",
+     False),
+    ("17a", "dp2xfsdp2", {"dp": 2, "fsdp": 2}, MESH_17A_LAYERS, "bfloat16",
+     True),
     ("17b", "dp4", {"dp": 4}, 2, "float32", False),
     ("17b", "dp2xtp2", {"dp": 2, "tp": 2}, 2, "float32", False),
     ("17b", "dp2xfsdp2", {"dp": 2, "fsdp": 2}, 2, "float32", True),
@@ -6751,9 +6804,7 @@ def parallel_report(ranks, smi):
 def mesh_nccl_phase(torch, np, pt, smi, seed):
     """17c: phase 10's flagship through ``Trainer(mesh=make_mesh({"dp":
     1}))`` on a one-rank NCCL group against the mesh-less Trainer, bit for
-    bit (deterministic algorithms on), both step walls in the same call.
-    Returns the imported state and the mesh-less run (17a's unsharded
-    reference)."""
+    bit (deterministic algorithms on), both step walls in the same call."""
     import tempfile
 
     import torch.distributed as dist
@@ -6784,9 +6835,9 @@ def mesh_nccl_phase(torch, np, pt, smi, seed):
         f"mesh-less Trainer's bit for bit, every parameter too; step walls "
         f"mesh {[round(w, 4) for w in meshed['walls']]} s, mesh-less "
         f"{[round(w, 4) for w in plain['walls']]} s ({smi})")
+    del state, plain, meshed
     gc.collect()
     torch.cuda.empty_cache()
-    return state, plain
 
 
 def mesh_phase(torch, np, pt, smi, seed):
@@ -6801,19 +6852,18 @@ def mesh_phase(torch, np, pt, smi, seed):
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     t_phase = time.perf_counter()
-    flagship = mesh_nccl_phase(torch, np, pt, smi, seed)
+    mesh_nccl_phase(torch, np, pt, smi, seed)
     t_17c = time.perf_counter() - t_phase
     keys = sorted({(c[3], c[4]) for c in MESH_CONFIGS})
     with tempfile.TemporaryDirectory() as d:
         paths, refs, zero_start, starts = {}, {}, {}, {}
         for n_layer, dtype in keys:
-            if (n_layer, dtype) == (N_LAYER, "bfloat16"):
-                # 17c's mesh-less run is 17a's unsharded reference
-                state, refs[(n_layer, dtype)] = flagship
-            else:
-                state = mesh_state(torch, pt, seed, n_layer, dtype)
-                refs[(n_layer, dtype)] = mesh_train(
-                    torch, np, pt, seed, n_layer, dtype, state)
+            state = mesh_state(torch, pt, seed, n_layer, dtype)
+            # bf16 keeps the state before the last step for the controls
+            # of mesh_updates_agree
+            refs[(n_layer, dtype)] = mesh_train(
+                torch, np, pt, seed, n_layer, dtype, state,
+                before_last=dtype == "bfloat16")
             zero_start[(n_layer, dtype)] = {
                 n for n, t in state.items() if not bool(t.any())}
             starts[(n_layer, dtype)] = {
@@ -6823,7 +6873,6 @@ def mesh_phase(torch, np, pt, smi, seed):
             del state
             gc.collect()
             torch.cuda.empty_cache()
-        del flagship
         t_refs = time.perf_counter() - t_phase - t_17c
         ctx = mp.get_context("spawn")
         q = ctx.Queue()
@@ -7489,6 +7538,747 @@ def analysis_phase(torch, np, pt, smi, seed, cache):
         f"{k} {v:.1f} s" for k, v in walls.items()) + f") [{smi}]")
 
 
+# -- phase 20: the v1 layer DSL (compat/) on the card ------------------------
+
+# run.py's smallnet and lstm rows (:30-44) as v1 configs; the lstm row's
+# embedding is text_classification's 128 (phase 12a)
+V1_SMALLNET_B, V1_LSTM = 64, dict(batch=64, seq_len=100, hid=512,
+                                  dict_dim=10000, classes=2, emb=128)
+V1_STEPS, V1_VGG_STEPS, V1_VGG_B, V1_VGG_HW = 5, 3, 64, 224
+# 20a's update bound a parameter: the norm of the card's first-step update
+# minus the CPU's, over the CPU's norm (ORACLE_TOL f32's forward bound)
+V1_UPDATE_TOL = 2e-4
+# 20d: the flagship's LM head scaled x6 so softmax(logits / 0.8) over the
+# 32,768 tokens is far from uniform (its top probabilities ~0.1); the
+# draws' histogram over the 31 likeliest tokens and the rest pooled
+GEN_PROMPT, GEN_NEW, GEN_DRAWS, GEN_T, GEN_HEAD = 16, 64, 4096, 0.8, 6.0
+GEN_TOP, GEN_TV_BOUND = 31, 0.08
+# a temperature-1e-4 token may differ from the greedy one only at a
+# near-tie: the greedy run's top-2 logit gap there below this
+GEN_TIE = 2e-3
+
+
+def v1_smallnet(pt, v1):
+    """benchmark/paddle/image/smallnet_mnist_cifar.py in v1 names: b64,
+    3x32x32, 10 classes, Momentum 0.9 with L2 1e-4 at 0.002, f32."""
+    net = v1.data_layer("data", size=3 * 32 * 32, height=32, width=32)
+    label = v1.data_layer("label", size=1, is_label=True)
+    net = v1.img_conv_layer(input=net, filter_size=5, num_filters=32,
+                            stride=1, padding=2, act=v1.ReluActivation())
+    net = v1.img_pool_layer(input=net, pool_size=3, stride=2, padding=1)
+    net = v1.img_conv_layer(input=net, filter_size=5, num_filters=32,
+                            stride=1, padding=2, act=v1.ReluActivation())
+    net = v1.img_pool_layer(input=net, pool_size=3, stride=2, padding=1,
+                            pool_type=v1.AvgPooling())
+    net = v1.fc_layer(input=net, size=64, act=v1.ReluActivation())
+    out = v1.fc_layer(input=net, size=10, act=v1.SoftmaxActivation())
+    cost = v1.classification_cost(input=out, label=label)
+    v1.settings(batch_size=V1_SMALLNET_B, learning_rate=0.002,
+                learning_method=v1.MomentumOptimizer(0.9),
+                regularization=v1.L2Regularization(1e-4)).minimize(cost)
+    return cost
+
+
+def v1_lstm(pt, v1):
+    """benchmark/paddle/rnn/rnn.py in v1 names: embedding -> simple_lstm
+    -> max pooling -> fc, b64, t=100, hidden 512, dict 10000, 2 classes,
+    Adam, f32."""
+    c = V1_LSTM
+    words = v1.data_layer("words", size=c["dict_dim"], dtype="int64",
+                          seq_len=c["seq_len"])
+    label = v1.data_layer("label", size=1, is_label=True)
+    emb = v1.embedding_layer(input=words, size=c["emb"])
+    lstm = v1.simple_lstm(input=emb, size=c["hid"])
+    pooled = v1.pooling_layer(input=lstm, pooling_type=v1.MaxPooling())
+    out = v1.fc_layer(input=pooled, size=c["classes"],
+                      act=v1.SoftmaxActivation())
+    cost = v1.classification_cost(input=out, label=label)
+    v1.settings(learning_rate=2e-3,
+                learning_method=v1.AdamOptimizer()).minimize(cost)
+    return cost
+
+
+def v1_vgg(pt, v1):
+    """``v1_ext.vgg_16_network`` at run.py's vgg row: b64, 3x224x224,
+    1000 classes, bf16, Momentum 0.9."""
+    hw = V1_VGG_HW
+    img = v1.data_layer("image", size=3 * hw * hw, height=hw, width=hw,
+                        dtype="bfloat16")
+    label = v1.data_layer("label", size=1, is_label=True)
+    out = v1.vgg_16_network(img, num_channels=3, num_classes=1000)
+    cost = v1.classification_cost(input=out, label=label)
+    v1.settings(learning_rate=0.01,
+                learning_method=v1.MomentumOptimizer(0.9)).minimize(cost)
+    return cost
+
+
+def v1_program(pt, build):
+    pt.core.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        cost = build(pt, pt.compat.v1)
+    return main, startup, cost
+
+
+def v1_feed(np, name, seed):
+    rng = np.random.default_rng(seed)
+    if name == "smallnet":
+        return {"data": rng.standard_normal(
+            (V1_SMALLNET_B, 3, 32, 32)).astype(np.float32),
+                "label": rng.integers(0, 10, (V1_SMALLNET_B, 1))}
+    c = V1_LSTM
+    return {"words": rng.integers(0, c["dict_dim"],
+                                  (c["batch"], c["seq_len"])),
+            "words@LENGTH": rng.integers(c["seq_len"] // 5, c["seq_len"] + 1,
+                                         c["batch"]).astype(np.int32),
+            "label": rng.integers(0, c["classes"], (c["batch"], 1))}
+
+
+def v1_train_phase(torch, np, pt, smi, seed):
+    """20a: the smallnet and lstm rows as v1 configs, 5 steps on the card
+    (f32, TF32 off) from the startup state the card made; the first
+    step's loss within 2e-4 and each parameter's update within
+    ``V1_UPDATE_TOL`` of the port's CPU step from the same state and
+    batch; the losses falling; no hand-written kernel on these paths.
+    Returns each config's step walls."""
+    from paddle_tpu_torch import kernels
+
+    out = {}
+    for name, build in (("smallnet", v1_smallnet), ("lstm", v1_lstm)):
+        main, startup, cost = v1_program(pt, build)
+        exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+        exe.run(startup, scope=scope)
+        params = [p.name for p in main.all_parameters()]
+        state = {v.name: scope.get(v.name).detach().cpu().clone()
+                 for v in main.persistable_vars()
+                 if scope.find_var(v.name) is not None}
+        feed = v1_feed(np, name, seed)
+        cscope = pt.load_numpy_state(
+            pt.Scope(), {k: v.clone() for k, v in state.items()},
+            device="cpu")
+        t0 = time.perf_counter()
+        (cpu_loss,) = pt.Executor(pt.CPUPlace()).run(
+            main, feed=feed, fetch_list=[cost], scope=cscope)
+        cpu_wall = time.perf_counter() - t0
+        kernels.reset_launches()
+        losses, walls, first = [], [], None
+        for i in range(V1_STEPS):
+            t0 = time.perf_counter()
+            (loss,) = exe.run(main, feed=feed, fetch_list=[cost],
+                              scope=scope, return_numpy=False)
+            losses.append(loss.item())           # ends in a device sync
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                first = {n: scope.get(n).detach().cpu().clone()
+                         for n in params}
+        worst = (params[0], 0.0)
+        for n in params:
+            want = cscope.get(n) - state[n]
+            got = first[n] - state[n]
+            err = float((got - want).norm() / max(float(want.norm()), 1e-30))
+            if err > worst[1]:
+                worst = (n, err)
+        rel = abs(losses[0] - float(cpu_loss.ravel()[0])) / abs(
+            float(cpu_loss.ravel()[0]))
+        log(f"20a {name} v1 config (f32, TF32 off, {smi}): losses "
+            + " -> ".join(f"{x:.4f}" for x in losses) + f"; step 1 loss "
+            f"{losses[0]:.6f} vs the CPU's {float(cpu_loss.ravel()[0]):.6f} "
+            f"(rel {rel:.2e}); worst parameter update {worst[0]} rel "
+            f"{worst[1]:.2e} of the CPU's ({len(params)} parameters); step "
+            f"wall first {walls[0]:.3f} s, then median "
+            f"{sorted(walls[1:])[len(walls[1:]) // 2]:.4f} s; CPU step "
+            f"{cpu_wall:.2f} s")
+        if rel > 2e-4 or worst[1] > V1_UPDATE_TOL:
+            raise AssertionError(f"20a {name}: card vs CPU {rel} / {worst}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"20a {name}: losses {losses}")
+        if any(kernels.launch_counts().values()):
+            raise AssertionError(f"20a {name} launched a hand-written "
+                                 f"kernel: {kernels.launch_counts()}")
+        out[name] = walls
+    return out
+
+
+def v1_vgg_phase(torch, np, pt, smi, seed, vgg19_ms):
+    """20a at full width: ``vgg_16_network`` at run.py's vgg row in bf16,
+    3 steps on one device-resident batch: finite, falling losses; the ms
+    a step beside phase 13b's VGG-19 row."""
+    main, startup, cost = v1_program(pt, v1_vgg)
+    exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+    exe.run(startup, scope=scope)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    feed = {"image": torch.randn((V1_VGG_B, 3, V1_VGG_HW, V1_VGG_HW),
+                                 generator=gen,
+                                 device="cuda").to(torch.bfloat16),
+            "label": torch.randint(0, 1000, (V1_VGG_B, 1), generator=gen,
+                                   device="cuda")}
+    losses, walls = [], []
+    for _ in range(V1_VGG_STEPS):
+        t0 = time.perf_counter()
+        (loss,) = exe.run(main, feed=feed, fetch_list=[cost], scope=scope,
+                          return_numpy=False)
+        losses.append(loss.item())
+        walls.append(time.perf_counter() - t0)
+    ms = 1e3 * sorted(walls[1:])[len(walls[1:]) // 2]
+    log(f"20a vgg_16_network v1 b={V1_VGG_B} {V1_VGG_HW}x{V1_VGG_HW} 1000 "
+        f"classes bf16 "
+        f"({smi}): losses " + " -> ".join(f"{x:.4f}" for x in losses)
+        + f"; step wall first {walls[0]:.3f} s, then median {ms:.1f} ms = "
+        f"{V1_VGG_B / ms * 1e3:.1f} img/s; phase 13b's VGG-19 (models.vgg) "
+        + (f"{vgg19_ms:.1f} ms" if vgg19_ms else "not run")
+        + f"; max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"20a vgg_16_network: losses {losses}")
+
+
+def v1_attention_phase(torch, np, pt, smi, seed):
+    """20b: ``v1_ext.multi_head_attention`` at the flagship's attention
+    (b=8, t=4096, d_model 768, 6 heads, bf16), forward and backward: the
+    launch counters and one profiled step show the flash forward and the
+    fused backward (rows 4 and 5 of PERF.md's table) on the sm90 family;
+    the output and every parameter's gradient within ORACLE_TOL bf16 of
+    ``layers.multi_head_attention`` on the same weights and input."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.profiler import middle_call_kernels
+
+    b, t, d, h = TRAIN_B, TRAIN_T, D_MODEL, N_HEAD
+
+    def build(spelling):
+        pt.core.unique_name.reset()
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            x = pt.layers.data("x", shape=[t, d], dtype="bfloat16")
+            c = pt.layers.data("c", shape=[t, d], dtype="bfloat16")
+            if spelling == "v1":
+                out = pt.compat.v1.multi_head_attention(x, x, x, head_num=h)
+            else:
+                out = pt.layers.multi_head_attention(x, x, x, d_model=d,
+                                                     n_head=h)
+            loss = pt.layers.mean(pt.layers.elementwise_mul(out, c))
+            pt.append_backward(loss)
+        return main, startup, out
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    feed = {k: torch.randn((b, t, d), generator=gen, device="cuda").to(
+        torch.bfloat16) for k in ("x", "c")}
+    res = {}
+    for spelling in ("v1", "layers"):
+        main, startup, out = build(spelling)
+        params = [p.name for p in main.all_parameters()]
+        exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+        if spelling == "v1":
+            exe.run(startup, scope=scope)
+            state = {n: scope.get(n).detach().clone() for n in params}
+        else:
+            pt.load_numpy_state(scope, state, device="cuda")
+        fetch = [out.name] + [n + "@GRAD" for n in params]
+        kernels.reset_launches()
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        torch.cuda.synchronize()
+        res[spelling] = (dict(zip(fetch, got)), kernels.launch_counts(),
+                         kernels.family_counts())
+        if spelling == "v1":
+            names = []
+
+            def run(_i):
+                exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                        return_numpy=False)
+
+            for _, ns, name in middle_call_kernels(run):
+                names.append(name)
+    v1_out, launched, fams = res["v1"]
+    ref_out = res["layers"][0]
+    worst = {}
+    for k, w in ref_out.items():
+        kind = "fwd" if k == fetch[0] else "grad"
+        e = rel_max(np, v1_out[k].float().cpu().numpy(),
+                    w.float().cpu().numpy())
+        worst[kind] = max(worst.get(kind, 0.0), e)
+        if e > fa.oracle_tol("bfloat16", kind):
+            raise AssertionError(f"20b {k}: {e} off layers."
+                                 f"multi_head_attention")
+    rows = {k: sum(1 for n in names if k in n) for k in (
+        "flash_fwd_sm90_kernel", "flash_bwd_sm90_fused_kernel")}
+    log(f"20b v1 multi_head_attention b={b} t={t} d_model {d} {h} heads "
+        f"bf16 ({smi}): launches flash_attention_fwd "
+        f"{launched['flash_attention_fwd']}, flash_attention_bwd "
+        f"{launched['flash_attention_bwd']} (families "
+        f"{fams['flash_attention_fwd']}, {fams['flash_attention_bwd']}); "
+        f"profiled step: {rows}; output rel {worst['fwd']:.2e}, gradients "
+        f"rel {worst['grad']:.2e} of layers.multi_head_attention's "
+        f"(ORACLE_TOL bf16 {fa.oracle_tol('bfloat16', 'fwd')} / "
+        f"{fa.oracle_tol('bfloat16', 'grad')})")
+    if not (launched["flash_attention_fwd"] and launched[
+            "flash_attention_bwd"] and all(rows.values())
+            and fams["flash_attention_fwd"].get("sm90")
+            and fams["flash_attention_bwd"].get("sm90")):
+        raise AssertionError(f"20b: rows 4 and 5 not launched on sm90: "
+                             f"{launched} {fams} {rows}")
+    return launched
+
+
+def v1_op_cases(np, rng):
+    """20c's cases at mid sizes: ``(op, float inputs, fixed inputs,
+    attrs, outputs)``, one for each op type the v1 DSL added but
+    ``nce``, ``sampling_id`` and ``print`` (held on their own)."""
+    def f(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    def ints(hi, *shape):
+        return rng.integers(0, hi, shape).astype(np.int64)
+
+    b, s, t = 32, 8, 16
+    length = rng.integers(1, s + 1, b).astype(np.int32)
+    sub = rng.integers(0, t + 1, (b, s)).astype(np.int32)
+    lens = rng.integers(1, 101, 64).astype(np.int32)
+    inf = ints(9, 64, 100)
+    lab = inf.copy()
+    lab[rng.random(lab.shape) < 0.2] = 8
+    sel = ints(5000, 256, 32)
+    sel[:, ::7] = -1
+    shapes = [(1, 40, 4), (4, 40, 4), (16, 40, 4)]
+    beam = [[], [], []]
+    for e, (r, ln, k) in enumerate(shapes):
+        beam[0].append(f(64, r, ln))
+        ids = np.stack([np.stack([rng.permutation(ln)[:k] for _ in range(r)])
+                        for _ in range(64)]).astype(np.int64)
+        beam[1].append(ids)
+        g = ids[:, 0, 0].copy()
+        g[::3] = ln - 1 - e                       # some fall off the beam
+        beam[2].append(g)
+    return [
+        ("conv3d", {"Input": f(4, 16, 8, 16, 16), "Filter": f(32, 16, 3, 3,
+                                                             3)},
+         {}, dict(strides=[1, 1, 1], paddings=[1, 1, 1]), ("Output",)),
+        ("conv_shift", {"X": f(64, 256), "Y": f(64, 9)}, {}, {}, ("Out",)),
+        # ceil_mode pads W's high side: its last window half in the pad
+        ("pool3d", {"X": f(4, 16, 8, 17, 15)}, {},
+         dict(ksize=[2, 3, 2], strides=[2, 2, 2], paddings=[1, 1, 0],
+              pooling_type="avg", ceil_mode=True), ("Out",)),
+        ("spp", {"X": f(8, 32, 13, 13)}, {},
+         dict(pyramid_height=3, pooling_type="max"), ("Out",)),
+        ("im2sequence", {"X": f(8, 16, 32, 32)}, {},
+         dict(kernels=[3, 3], strides=[2, 2], paddings=[1, 1, 1, 1]),
+         ("Out",)),
+        ("bilinear_interp", {"X": f(8, 16, 15, 17)}, {},
+         dict(out_h=31, out_w=33), ("Out",)),
+        ("sigmoid_cross_entropy_with_logits", {"X": f(256, 1024, scale=3)},
+         {"Label": rng.random((256, 1024)).astype(np.float32)}, {},
+         ("Out",)),
+        ("smooth_l1_loss", {"X": f(256, 512), "Y": f(256, 512)},
+         {"InsideWeight": np.abs(f(256, 512)),
+          "OutsideWeight": np.abs(f(256, 512))}, dict(sigma=1.5),
+         ("Out", "Diff")),
+        ("huber_loss", {"X": f(4096, 1), "Y": f(4096, 1)}, {},
+         dict(delta=0.8), ("Out", "Residual")),
+        ("modified_huber_loss", {"X": f(4096, 1, scale=2)},
+         {"Y": ints(2, 4096, 1).astype(np.float32)}, {},
+         ("Out", "IntermediateVal")),
+        ("hierarchical_sigmoid", {"X": f(256, 128), "W": f(999, 128),
+                                  "Bias": f(999)},
+         {"Label": ints(1000, 256, 1)}, dict(num_classes=1000),
+         ("Out", "PreOut")),
+        ("bilinear_tensor_product", {"X": f(128, 64), "Y": f(128, 96),
+                                     "Weight": f(32, 64, 96), "Bias": f(32)},
+         {}, {}, ("Out",)),
+        ("dot", {"X": f(512, 256), "Y": f(512, 256)}, {}, {}, ("Out",)),
+        ("maxout", {"X": f(16, 64, 16, 16)}, {}, dict(groups=4), ("Out",)),
+        ("selective_fc", {"X": f(256, 128), "W": f(5000, 128),
+                          "Bias": f(5000)}, {"Select": sel}, {}, ("Out",)),
+        ("precision_recall", {}, {"Indices": ints(10, 4096, 1),
+                                  "Labels": ints(10, 4096, 1),
+                                  "Weights": ints(3, 4096, 1).astype(
+                                      np.float32),
+                                  "StatesInfo": ints(50, 10, 4).astype(
+                                      np.float32)},
+         dict(class_number=10),
+         ("BatchMetrics", "AccumMetrics", "AccumStatesInfo")),
+        ("positive_negative_pair", {}, {
+            "Score": np.round(f(1024, 1), 1),
+            "Label": ints(3, 1024, 1).astype(np.float32),
+            "QueryID": ints(16, 1024, 1)}, {},
+         ("PositivePair", "NegativePair", "NeutralPair")),
+        ("chunk_eval", {}, {"Inference": inf, "Label": lab, "Length": lens},
+         dict(num_chunk_types=2, chunk_scheme="IOBES",
+              excluded_chunk_types=(1,)),
+         ("Precision", "Recall", "F1-Score", "NumInferChunks",
+          "NumLabelChunks", "NumCorrectChunks")),
+        ("cross_entropy_over_beam", {"Scores": beam[0]},
+         {"Ids": beam[1], "Gold": beam[2]}, {}, ("Out",)),
+        ("nested_sequence_pool", {"X": f(b, s, t, 64)},
+         {"Length": length, "SubLength": sub}, dict(pooltype="MAX"),
+         ("Out",)),
+        ("nested_sequence_expand", {"X": f(b, s, 64)},
+         {"Y": f(b, s, t, 64), "Length": length, "SubLength": sub}, {},
+         ("Out",)),
+        ("nested_sequence_slice", {"X": f(b, s, t, 64)},
+         {"Offset": ints(4, b), "Size": ints(6, b), "Length": length,
+          "SubLength": sub}, {}, ("Out", "OutLength", "OutSubLength")),
+        ("sub_nested_seq", {"X": f(b, s, t, 64)},
+         {"Indices": rng.integers(-1, s + 2, (b, 5)), "Length": length,
+          "SubLength": sub}, {}, ("Out", "OutLength", "OutSubLength")),
+        ("nested_rnn", {"Input": f(16, 4, 12, 384, scale=0.5),
+                        "Weight": f(128, 384, scale=0.1),
+                        "Bias": f(1, 384), "H0": f(16, 128)},
+         {"Length": rng.integers(1, 5, 16).astype(np.int32),
+          "SubLength": rng.integers(0, 13, (16, 4)).astype(np.int32)}, {},
+         ("Hidden", "OuterHidden")),
+    ]
+
+
+def _op_on(torch, op, floats, fixed, attrs, outs, dev, seed, gen=None):
+    """``op`` on ``dev``: its outputs and the float inputs' gradients
+    under one seeded cotangent, as numpy."""
+    from paddle_tpu_torch.core.registry import get_op_impl
+
+    def put(v, grad):
+        if isinstance(v, list):
+            return [put(a, grad) for a in v]
+        x = torch.tensor(v, device=dev)
+        return x.requires_grad_() if grad else x
+
+    ts = {k: put(v, True) for k, v in floats.items()}
+    leaves = [x for v in ts.values() for x in (v if isinstance(v, list)
+                                                else [v])]
+    extra = {"_gen": gen} if gen is not None else {}
+    r = get_op_impl(op).fn(**ts, **{k: put(v, False) for k, v in
+                                    fixed.items()}, **attrs, **extra)
+    vals = [r[o] for o in outs]
+    diff = [x for x in vals if x.requires_grad]
+    grads = []
+    if diff:
+        g = torch.Generator().manual_seed(seed)
+        total = sum((x * torch.randn(x.shape, generator=g).to(dev)).sum()
+                    for x in diff)
+        grads = [torch.zeros_like(x) if d is None else d for x, d in zip(
+            leaves, torch.autograd.grad(total, leaves, allow_unused=True))]
+    return ([x.detach().cpu().numpy() for x in vals],
+            [d.cpu().numpy() for d in grads], r)
+
+
+def _agree(np, label, card, cpu):
+    """Ints and bools equal, floats within 2e-4 (infinities equal), the
+    gradients within 1e-3: ``(outputs rel, gradients rel)``."""
+    fwd = grad = 0.0
+    for g, w in zip(card[0], cpu[0]):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"20c {label}: {g.shape} {g.dtype} vs "
+                                 f"{w.shape} {w.dtype}")
+        if g.dtype.kind != "f":
+            if not np.array_equal(g, w):
+                raise AssertionError(f"20c {label}: integer outputs differ")
+            continue
+        fin = np.isfinite(w)
+        if not np.array_equal(g[~fin], w[~fin]):
+            raise AssertionError(f"20c {label}: infinities differ")
+        if fin.any():
+            fwd = max(fwd, rel_max(np, g[fin], w[fin]))
+    for g, w in zip(card[1], cpu[1]):
+        grad = max(grad, rel_max(np, g, w))
+    if fwd > 2e-4 or grad > 1e-3:
+        raise AssertionError(f"20c {label}: outputs {fwd}, gradients {grad}")
+    return fwd, grad
+
+
+def _tv_and_chi2(np, draws, p, top):
+    """Total variation and Pearson's chi-square of ``draws`` against
+    ``p`` over the ``top`` likeliest categories, the rest pooled, and
+    chi-square's six-sigma bound ``df + 6 sqrt(2 df)``."""
+    order = np.argsort(-p)[:top]
+    n = draws.size
+    q = np.bincount(draws.reshape(-1), minlength=p.size) / n
+    qs = np.append(q[order], 1.0 - q[order].sum())
+    ps = np.append(p[order], 1.0 - p[order].sum())
+    tv = 0.5 * np.abs(qs - ps).sum()
+    keep = ps * n >= 5
+    pooled_q = np.append(qs[keep], qs[~keep].sum())
+    pooled_p = np.append(ps[keep], ps[~keep].sum())
+    pooled_q, pooled_p = pooled_q[pooled_p > 0], pooled_p[pooled_p > 0]
+    chi2 = n * np.sum((pooled_q - pooled_p) ** 2 / pooled_p)
+    df = len(pooled_p) - 1
+    return tv, chi2, df + 6 * np.sqrt(2 * df)
+
+
+def v1_ops_phase(torch, np, pt, smi, seed):
+    """20c: each of the 27 op types the v1 DSL added, alone on the card
+    against the port's CPU run on seeded inputs at mid sizes, one line
+    an op (``nce``'s cost and logits as a function of the card's drawn
+    negatives; ``sampling_id``'s 4096 draws against the row's
+    distribution; ``print`` through a Program on the card); then the five
+    evaluator classes over 10 batches on the card against the CPU."""
+    import io
+    from unittest import mock
+
+    rng = np.random.default_rng(seed)
+    seen = set()
+    for op, floats, fixed, attrs, outs in v1_op_cases(np, rng):
+        card = _op_on(torch, op, floats, fixed, attrs, outs, "cuda", seed)
+        cpu = _op_on(torch, op, floats, fixed, attrs, outs, "cpu", seed)
+        fwd, grad = _agree(np, op, card, cpu)
+        seen.add(op)
+        log(f"20c {op} card vs CPU ({smi}): outputs rel {fwd:.2e}, "
+            f"gradients rel {grad:.2e}")
+    # nce: the CPU op on the card's negatives
+    floats = {"Input": rng.standard_normal((512, 128)).astype(np.float32),
+              "Weight": rng.standard_normal((10000, 128)).astype(
+                  np.float32) * 0.1,
+              "Bias": rng.standard_normal(10000).astype(np.float32)}
+    fixed = {"Label": rng.integers(0, 10000, (512, 1))}
+    attrs = dict(num_neg_samples=32, num_total_classes=10000)
+    outs = ("Cost", "SampleLogits", "SampleLabels")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    card = _op_on(torch, "nce", floats, fixed, attrs, outs, "cuda", seed,
+                  gen)
+    neg = torch.tensor(card[0][2][:, 1:], dtype=torch.int64)
+    with mock.patch.object(torch, "randint", return_value=neg):
+        cpu = _op_on(torch, "nce", floats, fixed, attrs, outs, "cpu", seed,
+                     torch.Generator())
+    fwd, grad = _agree(np, "nce", card, cpu)
+    # uniform over the 10000 classes: over 40 equal bins of 250 ids
+    tv, chi2, bound = _tv_and_chi2(np, card[0][2][:, 1:].astype(np.int64)
+                                   // 250, np.full(40, 1 / 40), 40)
+    seen.add("nce")
+    log(f"20c nce card vs CPU on the card's negatives ({smi}): outputs rel "
+        f"{fwd:.2e}, gradients rel {grad:.2e}; the 16384 negatives in 40 "
+        f"bins against uniform: TV {tv:.4f} (bound {GEN_TV_BOUND}), chi2 "
+        f"{chi2:.1f} (bound {bound:.1f})")
+    if tv > GEN_TV_BOUND or chi2 > bound:
+        raise AssertionError(f"20c nce negatives: TV {tv}, chi2 {chi2}")
+    # sampling_id: 4096 draws of one row against its distribution
+    row = np.abs(rng.standard_normal(50)).astype(np.float32) ** 3
+    ids = pt.core.registry.get_op_impl("sampling_id").fn(
+        X=torch.tensor(np.tile(row, (GEN_DRAWS, 1)), device="cuda"),
+        _gen=torch.Generator(device="cuda").manual_seed(seed))["Out"]
+    p = row.astype(np.float64) / row.sum()
+    tv, chi2, bound = _tv_and_chi2(np, ids.cpu().numpy().astype(np.int64),
+                                   p, GEN_TOP)
+    seen.add("sampling_id")
+    log(f"20c sampling_id {GEN_DRAWS} draws on the card ({smi}): TV {tv:.4f}"
+        f" (bound {GEN_TV_BOUND}), chi2 {chi2:.1f} (bound {bound:.1f})")
+    if ids.dtype != torch.int32 or tv > GEN_TV_BOUND or chi2 > bound:
+        raise AssertionError(f"20c sampling_id: TV {tv}, chi2 {chi2}")
+    # print, through a Program on the card (not timed)
+    pt.core.unique_name.reset()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = pt.layers.data("x", shape=[3])
+        printed = main.global_block().create_var(
+            name="x_printed", shape=[-1, 3], dtype="float32")
+        main.global_block().append_op(
+            type="print", inputs={"In": [x.name]},
+            outputs={"Out": [printed.name]}, attrs={"message": "20c probe"})
+        y = pt.layers.scale(printed, scale=2.0)
+    buf = io.StringIO()
+    xv = np.arange(6, dtype=np.float32).reshape(2, 3)
+    with contextlib.redirect_stdout(buf):
+        (got,) = pt.Executor(pt.CUDAPlace(0)).run(main, feed={"x": xv},
+                                       fetch_list=[y])
+    if "20c probe x =" not in buf.getvalue() or not np.array_equal(
+            got, 2 * xv):
+        raise AssertionError(f"20c print: {buf.getvalue()!r} {got}")
+    seen.add("print")
+    log(f"20c print on the card: {buf.getvalue().strip()!r}; Out is its "
+        f"input")
+    if len(seen) != 27:
+        raise AssertionError(f"20c covers {len(seen)} op types: "
+                             f"{sorted(seen)}")
+    v1_evaluator_phase(torch, np, pt, smi, seed)
+
+
+def v1_evaluator_phase(torch, np, pt, smi, seed):
+    """20c's evaluators: ``Accuracy``, ``ChunkEvaluator`` and
+    ``EditDistance`` (states in the program) over 10 batches on the card
+    and on the CPU from one startup state, ``eval()`` equal after every
+    batch; ``Auc`` over the two runs' fetched scores; ``DetectionMAP``
+    over 10 batches of detections as card tensors and as numpy."""
+    rng = np.random.default_rng(seed)
+
+    def build():
+        pt.core.unique_name.reset()
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            x = pt.layers.data("x", shape=[64])
+            lbl = pt.layers.data("lbl", shape=[1], dtype="int64")
+            prob = pt.layers.fc(x, 10, act="softmax")
+            inf = pt.layers.data("inf", shape=[50], dtype="int64",
+                                 lod_level=1)
+            lab = pt.layers.data("lab", shape=[50], dtype="int64",
+                                 lod_level=1)
+            evs = [pt.evaluator.Accuracy(input=prob, label=lbl, k=3),
+                   pt.evaluator.ChunkEvaluator(inf, lab, chunk_scheme="IOE",
+                                               num_chunk_types=4),
+                   pt.evaluator.EditDistance(inf, lab)]
+        return main, startup, prob, evs
+
+    batches = []
+    for _ in range(10):
+        lens = rng.integers(1, 51, 128).astype(np.int32)
+        inf = rng.integers(0, 9, (128, 50))
+        lab = inf.copy()
+        lab[rng.random(lab.shape) < 0.2] = 8
+        batches.append({"x": rng.standard_normal((128, 64)).astype(
+            np.float32), "lbl": rng.integers(0, 10, (128, 1)), "inf": inf,
+            "inf@LENGTH": lens, "lab": lab, "lab@LENGTH": lens})
+    evals, aucs = {}, {}
+    state = None
+    for dev in ("cuda", "cpu"):
+        main, startup, prob, evs = build()
+        exe = pt.Executor(pt.CUDAPlace(0) if dev == "cuda"
+                          else pt.CPUPlace())
+        scope = pt.Scope()
+        with pt.scope_guard(scope):
+            if state is None:
+                exe.run(startup)
+                state = {v.name: scope.get(v.name).detach().cpu().clone()
+                         for v in main.persistable_vars()}
+            else:
+                pt.load_numpy_state(scope, state, device="cpu")
+            for ev in evs:
+                ev.reset(exe)
+            auc = pt.evaluator.Auc()
+            evals[dev] = []
+            for feed in batches:
+                (scores,) = exe.run(main, feed=feed, fetch_list=[prob],
+                                    return_numpy=False)
+                auc.update(scores[:, 1], feed["lbl"] == 1)
+                evals[dev].append([ev.eval() for ev in evs])
+            aucs[dev] = auc.eval()
+    for got, want in zip(evals["cuda"], evals["cpu"]):
+        # Accuracy's top-3 may part at a near-tie of the card's and the
+        # CPU's fc outputs: one row a batch at most; the rest exact
+        if abs(got[0] - want[0]) > 1.0 / 128 or got[1:] != want[1:]:
+            raise AssertionError(f"20c evaluators: {got} vs {want}")
+    maps = []
+    for wrap in (lambda a: torch.tensor(a, device="cuda"), np.asarray):
+        m = pt.evaluator.DetectionMAP(overlap_threshold=0.5)
+        drng = np.random.default_rng(seed)
+        for _ in range(10):
+            gt = drng.uniform(0, 50, (4, 2))
+            gt = np.concatenate([gt, gt + drng.uniform(5, 20, (4, 2))], 1)
+            dets = np.concatenate([
+                drng.integers(0, 3, (12, 1)), drng.random((12, 1)),
+                np.repeat(gt, 3, 0) + drng.normal(0, 2, (12, 4))], 1)
+            m.update(wrap(dets.astype(np.float32)),
+                     wrap(gt.astype(np.float32)),
+                     wrap(drng.integers(0, 3, 4)))
+        maps.append(m.eval())
+    last = evals["cuda"][-1]
+    log(f"20c evaluators over 10 batches on the card, equal to the CPU's "
+        f"after each ({smi}): Accuracy {last[0]:.4f}, ChunkEvaluator "
+        f"(P, R, F1) {tuple(round(v, 4) for v in last[1])}, EditDistance "
+        f"(avg, error rate) {tuple(round(v, 4) for v in last[2])}; Auc card "
+        f"{aucs['cuda']:.6f} vs CPU {aucs['cpu']:.6f}; DetectionMAP from "
+        f"card tensors {maps[0]:.6f} vs numpy {maps[1]:.6f}")
+    # a score pair of different rows may swap ranks by roundoff
+    if abs(aucs["cuda"] - aucs["cpu"]) > 1e-4 or maps[0] != maps[1]:
+        raise AssertionError(f"20c Auc / DetectionMAP: {aucs} {maps}")
+
+
+def v1_generate_phase(torch, np, pt, smi, seed):
+    """20d: ``models.transformer.generate`` at the flagship's width (12
+    layers, d768, 6 heads, vocab 32768; the LM head x6), prompt batch 8,
+    64 new tokens at temperature 0.8: the same seed twice gives the same
+    tokens; 4096 rows of one prompt give a first sampled token whose
+    histogram is within ``GEN_TV_BOUND`` of ``softmax(logits / 0.8)``
+    (the greedy run's logits there); temperature 1e-4 gives the greedy
+    tokens but at near-ties."""
+    from paddle_tpu_torch.models import transformer
+
+    rng = np.random.default_rng(seed + 20)
+    params = make_params(rng, VOCAB, N_LAYER, D_MODEL)
+    params["lm_head.w"] = params["lm_head.w"] * GEN_HEAD
+    params = transformer.params_from_numpy(params, "cuda")
+    prompt = rng.integers(1, VOCAB, (8, GEN_PROMPT)).astype(np.int32)
+    kw = dict(max_len=GEN_PROMPT + GEN_NEW, n_layer=N_LAYER, n_head=N_HEAD,
+              d_model=D_MODEL, device="cuda")
+    t0 = time.perf_counter()
+    a, _ = transformer.generate(params, prompt, temperature=GEN_T,
+                                key=seed, return_logits=False, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b, _ = transformer.generate(params, prompt, temperature=GEN_T, key=seed,
+                                return_logits=False, **kw)
+    greedy, logits = transformer.generate(params, prompt, **kw)
+    cold, _ = transformer.generate(params, prompt, temperature=1e-4,
+                                   key=seed, return_logits=False, **kw)
+    if not torch.equal(a, b):
+        raise AssertionError("20d: the same seed gave other tokens")
+    if not torch.equal(a[:, :GEN_PROMPT].cpu(), torch.tensor(prompt)):
+        raise AssertionError("20d: the prompt was not kept")
+    ties = 0
+    for r in range(8):
+        diff = (cold[r] != greedy[r]).nonzero()
+        if len(diff):
+            pos = int(diff[0])
+            top2 = torch.topk(logits[r, pos - 1], 2).values
+            if float(top2[0] - top2[1]) >= GEN_TIE:
+                raise AssertionError(f"20d: temperature 1e-4 row {r} left "
+                                     f"the greedy tokens at {pos} (gap "
+                                     f"{float(top2[0] - top2[1])})")
+            ties += 1
+    p = torch.softmax(logits[0, GEN_PROMPT - 1].double() / GEN_T,
+                      0).cpu().numpy()
+    rows = np.repeat(prompt[:1], GEN_DRAWS, axis=0)
+    t1 = time.perf_counter()
+    many, _ = transformer.generate(
+        params, rows, max_len=GEN_PROMPT + 1, n_layer=N_LAYER,
+        n_head=N_HEAD, d_model=D_MODEL, temperature=GEN_T, key=seed + 1,
+        return_logits=False, device="cuda")
+    draws = many[:, GEN_PROMPT].long().cpu().numpy()
+    many_wall = time.perf_counter() - t1
+    tv, chi2, bound = _tv_and_chi2(np, draws, p, GEN_TOP)
+    hot = torch.softmax(logits[0, GEN_PROMPT - 1].double() / (2 * GEN_T),
+                        0).cpu().numpy()
+    order = np.argsort(-p)[:GEN_TOP]
+    tv_hot = 0.5 * (np.abs(hot[order] - p[order]).sum()
+                    + abs(hot[order].sum() - p[order].sum()))
+    log(f"20d generate at full width (8 x {GEN_PROMPT} prompt, {GEN_NEW} new "
+        f"tokens, T={GEN_T}, f32, {smi}): the same seed twice the same "
+        f"tokens ({wall:.2f} s a call); temperature 1e-4 equals greedy on "
+        f"{8 - ties} of 8 rows (the rest from a near-tie under {GEN_TIE}); "
+        f"{GEN_DRAWS} draws of the first sampled token ({many_wall:.2f} s): "
+        f"TV {tv:.4f} over the {GEN_TOP} likeliest tokens and the rest "
+        f"(bound {GEN_TV_BOUND}; T={2 * GEN_T}'s distribution is "
+        f"{tv_hot:.4f} away), chi2 {chi2:.1f} (bound {bound:.1f}); top "
+        f"probabilities {np.round(np.sort(p)[::-1][:4], 4).tolist()}")
+    if tv > GEN_TV_BOUND or chi2 > bound:
+        raise AssertionError(f"20d: TV {tv}, chi2 {chi2} over {bound}")
+
+
+def v1_phase(torch, np, pt, smi, seed, vgg19_ms):
+    """Phase 20: the v1 layer DSL and temperature sampling on the card."""
+    t_phase = time.perf_counter()
+    parts = {}
+    t0 = time.perf_counter()
+    v1_train_phase(torch, np, pt, smi, seed)
+    torch.cuda.reset_peak_memory_stats()
+    v1_vgg_phase(torch, np, pt, smi, seed, vgg19_ms)
+    parts["20a"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launched = v1_attention_phase(torch, np, pt, smi, seed)
+    parts["20b"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    v1_ops_phase(torch, np, pt, smi, seed)
+    parts["20c"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    v1_generate_phase(torch, np, pt, smi, seed)
+    parts["20d"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 20 wall {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+        + f") [{smi}]")
+    return launched
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7579,13 +8369,23 @@ def main():
     #    under PADDLE_TPU_PAGED_ATTN=0 (the decode_gather path)
     served = serving_phase(torch, np, params, work, kernels)
     launches = served["launches"]
+    # 5b's load on phase 5's engine, so that the two compare like with
+    # like (phase 5's profile stands for it)
     t0 = time.perf_counter()
-    gathered = serving_phase(torch, np, params, work, kernels, switch="0")
+    paged = serving_phase(torch, np, params, work, kernels, load=GATHER_LOAD,
+                          profile=False)
+    walls[f"5 at {GATHER_LOAD}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gathered = serving_phase(torch, np, params, work, kernels, switch="0",
+                             load=GATHER_LOAD)
     walls["5b"] = time.perf_counter() - t0
-    log(f"5b beside 5: tok/s {gathered['tok_s']:.1f} vs {served['tok_s']:.1f}"
-        f"; decode_chunk p50 {gathered['chunk_p50'] * 1e3:.2f} vs "
-        f"{served['chunk_p50'] * 1e3:.2f} ms; peak memory {gathered['peak']} "
-        f"vs {served['peak']} B")
+    log(f"5b beside 5, both over the first {GATHER_LOAD} of the {REQUESTS} "
+        f"requests: tok/s {gathered['tok_s']:.1f} vs {paged['tok_s']:.1f}; "
+        f"decode_chunk p50 {gathered['chunk_p50'] * 1e3:.2f} vs "
+        f"{paged['chunk_p50'] * 1e3:.2f} ms; peak memory {gathered['peak']} "
+        f"vs {paged['peak']} B (phase 5 over all {REQUESTS}: tok/s "
+        f"{served['tok_s']:.1f}, decode_chunk p50 "
+        f"{served['chunk_p50'] * 1e3:.2f} ms)")
     del params, work
     gc.collect()
     torch.cuda.empty_cache()
@@ -7684,7 +8484,7 @@ def main():
     #     tagger, 13d each model and the new ops card vs CPU
     t0 = time.perf_counter()
     ds2_phase(torch, np, pt, kernels, smi, args.seed)
-    image_phase(torch, np, pt, kernels, smi, args.seed)
+    image_ms = image_phase(torch, np, pt, kernels, smi, args.seed)
     srl_phase(torch, np, pt, kernels, smi, args.seed)
     zoo_check_phase(torch, np, pt, smi, args.seed)
     log(f"phase 13 wall {time.perf_counter() - t0:.1f} s; the script so far "
@@ -7725,9 +8525,10 @@ def main():
     torch.cuda.empty_cache()
     log(f"the script so far {time.perf_counter() - t_start:.1f} s")
 
-    # 17. sharded training over a mesh: 17a the flagship on dp2 x tp2 and
-    #     dp2 x fsdp2, 17b two layers in f32 on dp4, dp2 x tp2, dp2 x fsdp2
-    #     (four ranks on the card), 17c one rank over NCCL
+    # 17. sharded training over a mesh: 17a the flagship's widths at 4
+    #     layers on dp2 x tp2 and dp2 x fsdp2, 17b two layers in f32 on
+    #     dp4, dp2 x tp2, dp2 x fsdp2 (four ranks on the card), 17c one
+    #     rank over NCCL
     mesh_phase(torch, np, pt, smi, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7754,7 +8555,13 @@ def main():
     torch.cuda.empty_cache()
     log(f"the script so far {time.perf_counter() - t_start:.1f} s")
 
-    # 20. the kernels line, 21. the result
+    # 20. the v1 layer DSL (compat/): 20a the v1 benchmark configs,
+    #     20b its multi_head_attention on the flash kernels, 20c the ops
+    #     and evaluators it reaches card vs CPU, 20d temperature sampling
+    v1_phase(torch, np, pt, smi, args.seed, image_ms.get("vgg"))
+    log(f"the script so far {time.perf_counter() - t_start:.1f} s")
+
+    # 21. the kernels line, 22. the result
     row["launches"] = launches["paged_attention"]
     gather_row["launches"] = gathered["launches"]["decode_gather"]
     log(f"paged_attention at the verify shape: kernel {verify_ms[0]:.4f} ms, "

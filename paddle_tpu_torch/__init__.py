@@ -46,14 +46,16 @@ by ``analysis.comm`` contracts; the autotuner (``tune``: the measured
 search, its cache and cost model, and the lookups of
 ``layers.multi_head_attention``, ``memory_optimize(policy="auto")``,
 ``ServingEngine`` and the paged-attention split count) and the selftest
-flags of the command line.
+flags of the command line; the v1 layer DSL (``compat.v1``) with the
+in-program ``evaluator`` classes and the host-side ``metrics``.
 """
 
 from . import ops as _ops  # noqa: F401  (registers the op lowerings)
-from . import (analysis, clip, data_feeder, dataset, distributed, flags,
-               initializer, io, layers, learning_rate_decay, models, native,
-               nets, observability, optimizer, parallel, profiler, reader,
-               regularizer, resilience, trainer, tune)
+from . import (analysis, clip, compat, data_feeder, dataset, distributed,
+               evaluator, flags, initializer, io, layers, learning_rate_decay,
+               metrics, models, native, nets, observability, optimizer,
+               parallel, profiler, reader, regularizer, resilience, trainer,
+               tune)
 from .backward import append_backward
 from .checkgrad import check_gradients
 from .core.executor import Executor
@@ -83,5 +85,5 @@ __all__ = [
     "profiler", "data_feeder", "observability", "resilience", "trainer",
     "clip", "regularizer", "learning_rate_decay", "nets", "dataset",
     "distributed", "native", "flags", "FLAGS", "check_gradients",
-    "parallel", "analysis", "tune",
+    "parallel", "analysis", "tune", "compat", "evaluator", "metrics",
 ]

@@ -15,8 +15,13 @@
 ``ctc_greedy_decoder``, ``edit_distance`` and ``row_conv``; the CRF's
 ``linear_chain_crf`` and ``crf_decoding``; ``lrn``; ``prelu``; the
 rest of the ``reduce_*`` family, ``matmul``, ``cos_sim``,
-``square_error_cost``, ``auc``, and the beam decode's ``beam_search``
-and ``beam_search_decode``.  ``fc`` over a sparse slot
+``square_error_cost``, ``auc``, the beam decode's ``beam_search``
+and ``beam_search_decode``; and what the v1 DSL (``compat/``) reaches:
+``conv3d``, ``pool3d``, ``spp``, ``maxout``, ``im2sequence``, the losses
+``sigmoid_cross_entropy_with_logits``, ``smooth_l1``, ``nce``,
+``hsigmoid``, ``bilinear_tensor_product``, ``selective_fc``,
+``chunk_eval`` and the nested-sequence layers (``nested_sequence_pool``,
+``_expand``, ``_slice``, ``sub_nested_seq``, ``nested_rnn``).  ``fc`` over a sparse slot
 (``layers.sparse_data``) lowers to ``sparse_fc``.  Each layer creates
 parameters through LayerHelper and appends ops; names, shapes, attrs
 and initializers are the reference's, so both packages build the same
@@ -86,6 +91,23 @@ __all__ = [
     "crf_decoding",
     "lrn",
     "prelu",
+    "conv3d",
+    "pool3d",
+    "sigmoid_cross_entropy_with_logits",
+    "smooth_l1",
+    "chunk_eval",
+    "bilinear_tensor_product",
+    "im2sequence",
+    "hsigmoid",
+    "selective_fc",
+    "nce",
+    "maxout",
+    "spp",
+    "nested_sequence_pool",
+    "nested_sequence_expand",
+    "nested_sequence_slice",
+    "sub_nested_seq",
+    "nested_rnn",
 ]
 
 
@@ -1322,3 +1344,409 @@ def beam_search_decode(ids, parent_idx, scores=None, end_id=1, name=None):
         attrs={"end_id": end_id},
     )
     return (sent, out_scores) if scores is not None else sent
+
+
+# -- the v1 DSL's layers ------------------------------------------------------
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None):
+    """5-D (NCDHW) convolution (reference conv_op.cc conv3d)."""
+    helper = LayerHelper("conv3d", bias_attr=bias_attr, act=act, name=name)
+    filter_size = _ntuple(filter_size, 3)
+    stride, padding = _ntuple(stride, 3), _ntuple(padding, 3)
+    dilation = _ntuple(dilation, 3)
+    cin = input.shape[1]
+    w = helper.create_parameter(
+        param_attr,
+        shape=[num_filters, cin // groups, *filter_size],
+        dtype=input.dtype,
+        default_initializer=init_mod.MSRA(uniform=False),
+    )
+    spatial = [
+        _conv_osize(input.shape[2 + i], filter_size[i], stride[i],
+                    padding[i], dilation[i])
+        for i in range(3)
+    ]
+    pre_bias = helper.create_tmp_variable(
+        input.dtype, [input.shape[0], num_filters, *spatial]
+    )
+    helper.append_op(
+        type="conv3d",
+        inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Output": [pre_bias.name]},
+        attrs={
+            "strides": list(stride),
+            "paddings": list(padding),
+            "dilations": list(dilation),
+            "groups": groups,
+        },
+    )
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool3d(input, pool_size=2, pool_type="max", pool_stride=1, pool_padding=0,
+           global_pooling=False, ceil_mode=False, name=None):
+    """5-D (NCDHW) pooling (reference pool_op.cc pool3d)."""
+    helper = LayerHelper("pool3d", name=name)
+    k = _ntuple(pool_size, 3)
+    s, p = _ntuple(pool_stride, 3), _ntuple(pool_padding, 3)
+    spatial = [
+        _pool_osize(input.shape[2 + i], k[i], s[i], p[i], ceil_mode,
+                    global_pooling)
+        for i in range(3)
+    ]
+    out = helper.create_tmp_variable(
+        input.dtype, [input.shape[0], input.shape[1], *spatial]
+    )
+    helper.append_op(
+        type="pool3d",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={"ksize": list(k), "strides": list(s), "paddings": list(p),
+               "pooling_type": pool_type, "global_pooling": global_pooling,
+               "ceil_mode": ceil_mode},
+    )
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits")
+    out = helper.create_tmp_variable(x.dtype, list(x.shape))
+    helper.append_op(
+        type="sigmoid_cross_entropy_with_logits",
+        inputs={"X": [x.name], "Label": [label.name]},
+        outputs={"Out": [out.name]},
+    )
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=1.0):
+    helper = LayerHelper("smooth_l1")
+    out = helper.create_tmp_variable(x.dtype, [x.shape[0], 1])
+    diff = helper.create_tmp_variable(x.dtype, list(x.shape), stop_gradient=True)
+    inputs = {"X": [x.name], "Y": [y.name]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight.name]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight.name]
+    helper.append_op(
+        type="smooth_l1_loss",
+        inputs=inputs,
+        outputs={"Out": [out.name], "Diff": [diff.name]},
+        attrs={"sigma": sigma},
+    )
+    return out
+
+
+def chunk_eval(input, label, chunk_scheme="IOB", num_chunk_types=1,
+               excluded_chunk_types=None):
+    helper = LayerHelper("chunk_eval")
+    outs = {
+        n: helper.create_tmp_variable(
+            "float32" if i < 3 else "int64", [1], stop_gradient=True
+        )
+        for i, n in enumerate(
+            ["Precision", "Recall", "F1-Score", "NumInferChunks",
+             "NumLabelChunks", "NumCorrectChunks"]
+        )
+    }
+    inputs = {"Inference": [input.name], "Label": [label.name]}
+    _seq_inputs(inputs, input)
+    helper.append_op(
+        type="chunk_eval",
+        inputs=inputs,
+        outputs={k: [v.name] for k, v in outs.items()},
+        attrs={"chunk_scheme": chunk_scheme, "num_chunk_types": num_chunk_types,
+               "excluded_chunk_types": tuple(excluded_chunk_types or ())},
+    )
+    return (
+        outs["Precision"], outs["Recall"], outs["F1-Score"],
+        outs["NumInferChunks"], outs["NumLabelChunks"], outs["NumCorrectChunks"],
+    )
+
+
+def bilinear_tensor_product(x, y, size, param_attr=None, bias_attr=None,
+                            act=None, name=None):
+    """out[b,i] = x[b] @ W[i] @ y[b] + bias[i] (reference
+    bilinear_tensor_product_op.h:30)."""
+    helper = LayerHelper("bilinear_tensor_product", bias_attr=bias_attr,
+                         act=act, name=name)
+    w = helper.create_parameter(
+        param_attr, shape=[size, x.shape[-1], y.shape[-1]], dtype=x.dtype,
+    )
+    out = helper.create_tmp_variable(x.dtype, [x.shape[0], size])
+    inputs = {"X": [x.name], "Y": [y.name], "Weight": [w.name]}
+    if bias_attr is not False:
+        b = helper.create_parameter(
+            ParamAttr.to_attr(bias_attr) or ParamAttr(), shape=[size],
+            dtype=x.dtype, suffix="b",
+            default_initializer=init_mod.Constant(0.0),
+        )
+        inputs["Bias"] = [b.name]
+    helper.append_op(
+        type="bilinear_tensor_product",
+        inputs=inputs,
+        outputs={"Out": [out.name]},
+    )
+    return helper.append_activation(out)
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    helper = LayerHelper("im2sequence", name=name)
+    k = (filter_size, filter_size) if isinstance(filter_size, int) else tuple(filter_size)
+    s = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    p = (padding,) * 4 if isinstance(padding, int) else tuple(padding)
+    n, c, h, w = input.shape
+    oh = (h + p[0] + p[2] - k[0]) // s[0] + 1 if h >= 0 else -1
+    ow = (w + p[1] + p[3] - k[1]) // s[1] + 1 if w >= 0 else -1
+    t = oh * ow if oh >= 0 and ow >= 0 else -1
+    out = helper.create_tmp_variable(input.dtype, [n, t, c * k[0] * k[1]], lod_level=1)
+    helper.append_op(
+        type="im2sequence",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={"kernels": list(k), "strides": list(s), "paddings": list(p)},
+    )
+    return out
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid over a complete binary tree — large-vocab
+    classification at O(log C) cost (reference
+    ``paddle/gserver/layers/HierarchicalSigmoidLayer.cpp:1``, config
+    helper ``hsigmoid`` in trainer_config_helpers/layers.py)."""
+    helper = LayerHelper("hsigmoid", name=name)
+    dim = input.shape[1]
+    w = helper.create_parameter(
+        param_attr, shape=[num_classes - 1, dim], dtype=input.dtype)
+    inputs = {"X": [input.name], "W": [w.name], "Label": [label.name]}
+    if bias_attr is not False:
+        b = helper.create_parameter(
+            ParamAttr.to_attr(bias_attr) or ParamAttr(),
+            shape=[num_classes - 1], dtype=input.dtype, suffix="b",
+            default_initializer=init_mod.Constant(0.0),
+        )
+        inputs["Bias"] = [b.name]
+    max_len = max(1, (2 * num_classes - 1).bit_length() - 1)
+    cost = helper.create_tmp_variable(input.dtype, [input.shape[0], 1])
+    pre_out = helper.create_tmp_variable(
+        input.dtype, [input.shape[0], max_len], stop_gradient=True)
+    helper.append_op(
+        type="hierarchical_sigmoid",
+        inputs=inputs,
+        outputs={"Out": [cost.name], "PreOut": [pre_out.name]},
+        attrs={"num_classes": num_classes},
+    )
+    return cost
+
+
+def selective_fc(input, size, select=None, param_attr=None, bias_attr=None,
+                 act=None, name=None):
+    """Fully-connected layer that evaluates only the selected output
+    columns per sample (reference
+    ``paddle/gserver/layers/SelectiveFcLayer.cpp:1``; weight stored one
+    row per output neuron, as there).  ``select`` is an int tensor
+    [batch, s] of column ids (entries < 0 are padding); omit it for a
+    plain full fc pass."""
+    helper = LayerHelper("selective_fc", bias_attr=bias_attr, act=act,
+                         name=name)
+    dim = input.shape[1]
+    w = helper.create_parameter(param_attr, shape=[size, dim],
+                                dtype=input.dtype)
+    inputs = {"X": [input.name], "W": [w.name]}
+    if bias_attr is not False:
+        b = helper.create_parameter(
+            ParamAttr.to_attr(bias_attr) or ParamAttr(), shape=[size],
+            dtype=input.dtype, suffix="b",
+            default_initializer=init_mod.Constant(0.0),
+        )
+        inputs["Bias"] = [b.name]
+    out_cols = select.shape[1] if select is not None else size
+    if select is not None:
+        inputs["Select"] = [select.name]
+    out = helper.create_tmp_variable(input.dtype, [input.shape[0], out_cols])
+    helper.append_op(
+        type="selective_fc", inputs=inputs, outputs={"Out": [out.name]},
+    )
+    return helper.append_activation(out)
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=10, name=None):
+    helper = LayerHelper("nce", name=name)
+    dim = input.shape[1]
+    w = helper.create_parameter(param_attr, shape=[num_total_classes, dim], dtype=input.dtype)
+    b = helper.create_parameter(
+        ParamAttr.to_attr(bias_attr) or ParamAttr(), shape=[num_total_classes],
+        dtype=input.dtype, suffix="b", default_initializer=init_mod.Constant(0.0),
+    )
+    cost = helper.create_tmp_variable(input.dtype, [input.shape[0], 1])
+    sample_logits = helper.create_tmp_variable(input.dtype, [input.shape[0], num_neg_samples + 1], stop_gradient=True)
+    sample_labels = helper.create_tmp_variable("int64", [input.shape[0], num_neg_samples + 1], stop_gradient=True)
+    inputs = {"Input": [input.name], "Label": [label.name], "Weight": [w.name], "Bias": [b.name]}
+    if sample_weight is not None:
+        inputs["SampleWeight"] = [sample_weight.name]
+    helper.append_op(
+        type="nce",
+        inputs=inputs,
+        outputs={
+            "Cost": [cost.name],
+            "SampleLogits": [sample_logits.name],
+            "SampleLabels": [sample_labels.name],
+        },
+        attrs={
+            "num_neg_samples": num_neg_samples,
+            "num_total_classes": num_total_classes,
+        },
+    )
+    return cost
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper("maxout", name=name)
+    n, c, h, w = x.shape
+    out = helper.create_tmp_variable(x.dtype, [n, c // groups, h, w])
+    helper.append_op(
+        type="maxout", inputs={"X": [x.name]}, outputs={"Out": [out.name]},
+        attrs={"groups": groups},
+    )
+    return out
+
+
+def spp(input, pyramid_height=3, pool_type="max", name=None):
+    helper = LayerHelper("spp", name=name)
+    c = input.shape[1]
+    total = sum((2 ** l) ** 2 for l in range(pyramid_height))
+    out = helper.create_tmp_variable(input.dtype, [input.shape[0], c * total])
+    helper.append_op(
+        type="spp", inputs={"X": [input.name]}, outputs={"Out": [out.name]},
+        attrs={"pyramid_height": pyramid_height, "pooling_type": pool_type},
+    )
+    return out
+
+
+def _nested_inputs(inputs, x):
+    """Wire Length + SubLength for a nested (lod_level 2) input."""
+    if getattr(x, "lod_level", 0) > 0:
+        inputs["Length"] = [x.length_var().name]
+    if getattr(x, "lod_level", 0) > 1:
+        inputs["SubLength"] = [x.sub_length_var().name]
+
+
+def _link_nested(out, length_var, sub_length_var):
+    """Mark ``out`` as a nested sequence carrying the given shadows."""
+    out.lod_level = 2
+    out.block.vars[out.name + "@LENGTH"] = length_var
+    out.block.vars[out.name + "@SUBLENGTH"] = sub_length_var
+    return out
+
+
+def nested_sequence_pool(input, pool_type):
+    """Pool the INNER level of a [b, s, t, ...] nested batch ->
+    [b, s, ...] 1-level sequence (lengths = the outer level's)."""
+    helper = LayerHelper("nested_sequence_pool")
+    out = helper.create_tmp_variable(
+        input.dtype, [input.shape[0], input.shape[1]] + list(input.shape[3:]))
+    inputs = {"X": [input.name]}
+    _nested_inputs(inputs, input)
+    helper.append_op(
+        type="nested_sequence_pool", inputs=inputs,
+        outputs={"Out": [out.name]},
+        attrs={"pooltype": pool_type.upper()},
+    )
+    out.lod_level = 1
+    out.block.vars[out.name + "@LENGTH"] = input.length_var()
+    return out
+
+
+def nested_sequence_expand(x, y):
+    """Expand per-sub-seq values x [b, s, ...] over nested y's inner
+    level -> [b, s, t, ...] (masked broadcast)."""
+    helper = LayerHelper("nested_sequence_expand")
+    t = y.shape[2]
+    out = helper.create_tmp_variable(
+        x.dtype, list(x.shape[:2]) + [t] + list(x.shape[2:]))
+    inputs = {"X": [x.name], "Y": [y.name]}
+    _nested_inputs(inputs, y)
+    helper.append_op(type="nested_sequence_expand", inputs=inputs,
+                     outputs={"Out": [out.name]})
+    return _link_nested(out, y.length_var(), y.sub_length_var())
+
+
+def nested_sequence_slice(input, offset, size):
+    """Keep sub-sequences [offset, offset+size) of each sample."""
+    helper = LayerHelper("nested_sequence_slice")
+    out = helper.create_tmp_variable(input.dtype, list(input.shape))
+    out_len = helper.create_tmp_variable("int32", [input.shape[0]],
+                                         stop_gradient=True)
+    out_sub = helper.create_tmp_variable(
+        "int32", [input.shape[0], input.shape[1]], stop_gradient=True)
+    inputs = {"X": [input.name], "Offset": [offset.name],
+              "Size": [size.name]}
+    _nested_inputs(inputs, input)
+    helper.append_op(
+        type="nested_sequence_slice", inputs=inputs,
+        outputs={"Out": [out.name], "OutLength": [out_len.name],
+                 "OutSubLength": [out_sub.name]})
+    return _link_nested(out, out_len, out_sub)
+
+
+def sub_nested_seq(input, selected_indices):
+    """Select sub-sequences by per-sample indices (reference
+    SubNestedSequenceLayer.cpp); negative indices = padding."""
+    helper = LayerHelper("sub_nested_seq")
+    k = selected_indices.shape[1]
+    out = helper.create_tmp_variable(
+        input.dtype, [input.shape[0], k] + list(input.shape[2:]))
+    out_len = helper.create_tmp_variable("int32", [input.shape[0]],
+                                         stop_gradient=True)
+    out_sub = helper.create_tmp_variable("int32", [input.shape[0], k],
+                                         stop_gradient=True)
+    inputs = {"X": [input.name], "Indices": [selected_indices.name]}
+    _nested_inputs(inputs, input)
+    helper.append_op(
+        type="sub_nested_seq", inputs=inputs,
+        outputs={"Out": [out.name], "OutLength": [out_len.name],
+                 "OutSubLength": [out_sub.name]})
+    return _link_nested(out, out_len, out_sub)
+
+
+def nested_rnn(input, size, param_attr=None, bias_attr=None, h_0=None,
+               gate_activation="sigmoid", candidate_activation="tanh",
+               name=None):
+    """Hierarchical GRU over a nested batch [b, s, t, 3d] (input
+    pre-projected to gates, the dynamic_gru convention): the inner RNN
+    runs each sub-sequence booted from the outer state; the outer state
+    advances to the last valid inner hidden.  Returns
+    (inner_hiddens [b, s, t, d], outer_states [b, s, d]); outer_states
+    is a 1-level sequence over the outer lengths."""
+    helper = LayerHelper("nested_rnn", name=name)
+    d = size
+    weight = helper.create_parameter(param_attr, shape=[d, 3 * d],
+                                     dtype=input.dtype)
+    bias = helper.create_parameter(
+        ParamAttr.to_attr(bias_attr) or ParamAttr(), shape=[1, 3 * d],
+        dtype=input.dtype, suffix="b",
+        default_initializer=init_mod.Constant(0.0),
+    )
+    hidden = helper.create_tmp_variable(
+        input.dtype, list(input.shape[:3]) + [d])
+    outer = helper.create_tmp_variable(
+        input.dtype, list(input.shape[:2]) + [d])
+    inputs = {"Input": [input.name], "Weight": [weight.name],
+              "Bias": [bias.name]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0.name]
+    _nested_inputs(inputs, input)
+    helper.append_op(
+        type="nested_rnn", inputs=inputs,
+        outputs={"Hidden": [hidden.name], "OuterHidden": [outer.name]},
+        attrs={"gate_activation": gate_activation,
+               "activation": candidate_activation},
+    )
+    if getattr(input, "lod_level", 0) > 1:
+        _link_nested(hidden, input.length_var(), input.sub_length_var())
+        outer.lod_level = 1
+        outer.block.vars[outer.name + "@LENGTH"] = input.length_var()
+    return hidden, outer

@@ -29,6 +29,7 @@ from .. import layers, optimizer as opt
 from ..core.place import resolve_device
 from ..core.scope import tensor_from_numpy as _to_tensor
 from ..layers import tensor as ltensor
+from ..ops.random_ops import categorical
 
 __all__ = ["transformer_block", "gpt_trunk", "gpt", "build",
            "extract_params", "infer_compute_dtype", "generate",
@@ -120,30 +121,43 @@ def logits_f32(x, w):
 def generate(params, prompt, max_len, n_layer, n_head, d_model,
              temperature=0.0, key=None, eps=1e-5, compute_dtype=None,
              return_logits=True, device=None):
-    """Single-stream greedy decoding with a dense KV cache — the
-    reference the serving engine is held against.
+    """Single-stream decoding with a dense KV cache — the reference the
+    serving engine is held against.
 
     params   name->array dict (numpy, or tensors); cast once to
              ``compute_dtype`` (default :func:`infer_compute_dtype`),
              embeddings included.
     prompt   [batch, p_len] int tokens (p_len >= 1).
     max_len  total sequence length to produce (>= p_len).
-    key      the sampling key of the JAX package's signature; greedy
-             decoding draws nothing, so it is accepted and ignored.
+    temperature  0 = greedy argmax; otherwise each new token is drawn
+             from ``softmax(logits / temperature)``
+             (``ops.random_ops.categorical``).
+    key      the draws' generator, required when ``temperature > 0``
+             (``ValueError`` without it, as in the JAX package): a
+             ``torch.Generator`` on ``device``, advanced by the call, or
+             an int that seeds a fresh one there, so the same int gives
+             the same tokens.  The JAX package draws from a threefry
+             key: the same seed gives other tokens from the same
+             distribution.  Greedy decoding draws nothing and ignores it.
     device   default the card; ``"cpu"`` must be asked for.
 
     Returns ``(tokens [batch, max_len] int32, logits [batch, max_len,
     vocab] f32 or None)`` on ``device``: position ``t``'s logits are the
-    next-token distribution after ``tokens[:, :t+1]``.  Only greedy
-    decoding is ported (``temperature`` must be 0)."""
-    if temperature:
-        raise NotImplementedError(
-            "temperature sampling is not ported yet; greedy only")
+    next-token distribution after ``tokens[:, :t+1]``; positions inside
+    the prompt keep the prompt."""
+    if temperature and key is None:
+        raise ValueError("temperature > 0 sampling requires a PRNG `key`")
     dev = resolve_device(device)
     if compute_dtype is None:
         compute_dtype = infer_compute_dtype(params)
     dt = as_torch_dtype(compute_dtype)
     p = params_from_numpy(params, dev, dt)
+    gen = None
+    if temperature:
+        gen = key
+        if not isinstance(key, torch.Generator):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(key))
     prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64)
     b, p_len = prompt.shape
     dh = d_model // n_head
@@ -196,7 +210,10 @@ def generate(params, prompt, max_len, n_layer, n_head, d_model,
                 logits_all[:, t] = logits
             # positions < p_len keep the prompt; after that, append
             if p_len <= t + 1 < max_len:
-                tokens[:, t + 1] = torch.argmax(logits, dim=-1)
+                if temperature:
+                    tokens[:, t + 1] = categorical(logits / temperature, gen)
+                else:
+                    tokens[:, t + 1] = torch.argmax(logits, dim=-1)
     return tokens.to(torch.int32), logits_all
 
 

@@ -17,4 +17,5 @@ from . import rnn_ops  # noqa: F401
 from . import ctc_ops  # noqa: F401
 from . import crf_ops  # noqa: F401
 from . import beam_search_ops  # noqa: F401
+from . import beam_ce_ops  # noqa: F401
 from . import detection_ops  # noqa: F401

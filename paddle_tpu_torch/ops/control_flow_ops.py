@@ -12,6 +12,7 @@ a trip.  A tensor array is, as in the reference, a preallocated
 ``[max_len, ...]`` tensor (``layers.create_array``) that ``array_write``
 writes a row of.  ``parallel_do`` runs its sub-block inline, as the
 reference does: on a mesh the batch's sharding does the parallel part.
+``print`` writes a tensor to standard output as the step runs.
 ``conditional_block`` is not ported (``ROADMAP.md`` A9).
 """
 
@@ -231,3 +232,17 @@ def parallel_do(ctx, block, op, env):
     sub = ctx.program.block(op.attrs["sub_block"])
     run_block_ops(ctx, sub, sub.ops, env,
                   inside_grad_prefix=ctx.grad_prefix)
+
+
+@register_op("print", raw=True)
+def print_op(ctx, block, op, env):
+    """``message name = value`` on standard output each time the step
+    runs (``print_op.cc``; the reference's ``jax.debug.print``); ``Out``,
+    when named, is the input itself.  Reading a CUDA tensor's values
+    synchronises the host with the card, so a timed loop leaves it out."""
+    name = op.inputs["In"][0]
+    x = env[name]
+    print(f"{op.attrs.get('message', '')} {name} = {x.detach().cpu()}",
+          flush=True)
+    if "Out" in op.outputs:
+        env[op.outputs["Out"][0]] = x

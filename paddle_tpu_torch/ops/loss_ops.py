@@ -3,11 +3,14 @@ probabilities, ResNet's loss), ``softmax_with_cross_entropy`` (the
 unfused LM head's loss) and
 ``fused_softmax_ce_head`` (the fused head's, registered at the foot of
 ``paddle_tpu/ops/pallas_ce.py``), with its vocab-sharded tensor-parallel
-branch for the mesh path."""
+branch for the mesh path; the v1 DSL's ``sigmoid_cross_entropy_with_logits``,
+``smooth_l1_loss``, ``huber_loss``, ``modified_huber_loss``, ``nce`` and
+``hierarchical_sigmoid``."""
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import register_op
 from ..kernels import fused_ce as _ce
@@ -110,3 +113,107 @@ def _fused_ce_tp(sp, op, ins, pls, attrs, run):
     loss = lse - sp.g(picked, name)
     return {"Loss": loss[..., None]}, {"Loss": None}
 
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def sigmoid_cross_entropy_with_logits(X, Label, **_):
+    """``max(x, 0) - x * z + log1p(exp(-|x|))`` in f32, cast back to
+    ``X.dtype``."""
+    x, z = X.float(), Label.float()
+    loss = torch.clamp_min(x, 0) - x * z + torch.log1p(torch.exp(-x.abs()))
+    return {"Out": loss.to(X.dtype)}
+
+
+@register_op("smooth_l1_loss")
+def smooth_l1_loss(X, Y, InsideWeight=None, OutsideWeight=None, sigma=1.0,
+                   **_):
+    """``d = (X - Y) * InsideWeight``; ``0.5 s2 d**2`` where
+    ``|d| < 1 / s2`` (``s2 = sigma**2``), else ``|d| - 0.5 / s2``; times
+    ``OutsideWeight``, summed over each row -> ``[b, 1]``; ``Diff = d``."""
+    s2 = sigma * sigma
+    d = X - Y
+    if InsideWeight is not None:
+        d = d * InsideWeight
+    ad = d.abs()
+    loss = torch.where(ad < 1.0 / s2, 0.5 * s2 * d * d, ad - 0.5 / s2)
+    if OutsideWeight is not None:
+        loss = loss * OutsideWeight
+    return {"Out": loss.reshape(X.shape[0], -1).sum(dim=1, keepdim=True),
+            "Diff": d}
+
+
+@register_op("huber_loss")
+def huber_loss(X, Y, delta=1.0, **_):
+    r = Y - X
+    ar = r.abs()
+    loss = torch.where(ar <= delta, 0.5 * r * r, delta * (ar - 0.5 * delta))
+    return {"Out": loss, "Residual": r}
+
+
+@register_op("modified_huber_loss")
+def modified_huber_loss(X, Y, **_):
+    """Labels ``{0, 1}`` -> ``{-1, 1}``, ``z = X * y``: ``-4 z`` below -1,
+    else ``max(1 - z, 0)**2`` (``modified_huber_loss_op.cc``)."""
+    z = X * (Y.to(X.dtype) * 2.0 - 1.0)
+    loss = torch.where(z < -1.0, -4.0 * z,
+                       torch.square(torch.clamp_min(1.0 - z, 0.0)))
+    return {"Out": loss, "IntermediateVal": z}
+
+
+@register_op("nce", stateful_rng=True)
+def nce(Input, Label, Weight, Bias=None, SampleWeight=None,
+        num_neg_samples=10, num_total_classes=None, _gen=None, **_):
+    """Noise-contrastive estimation with uniform negatives
+    (``nce_op.cc``): ``num_neg_samples`` ids a row drawn uniformly from
+    ``[0, num_total_classes)`` with the step's generator (the reference
+    draws them with threefry, so the ids differ across packages; the
+    cost is the same function of them).  Each logit is ``w[id] . x +
+    b[id]``, its probability ``sigmoid(logit - log(k / total))``; the
+    cost is ``-log p(label) - sum log(1 - p(neg))`` (each clamped at
+    1e-20), times ``SampleWeight``.  ``SampleLabels`` int32 ``[b, 1 + k]``
+    is the label then the negatives; ``SampleLogits`` their logits."""
+    b = Input.shape[0]
+    total = int(num_total_classes or Weight.shape[0])
+    lbl = _squeeze_label(Label).long()
+    neg = torch.randint(0, total, (b, int(num_neg_samples)), generator=_gen,
+                        device=Input.device)
+    ids = torch.cat([lbl[:, None], neg], dim=1)
+    logits = torch.einsum("bkd,bd->bk", Weight[ids], Input)
+    if Bias is not None:
+        logits = logits + Bias[ids]
+    p = torch.sigmoid(logits - math.log(num_neg_samples / total))
+    loss = (-torch.log(torch.clamp_min(p[:, 0], 1e-20))
+            - torch.log(torch.clamp_min(1 - p[:, 1:], 1e-20)).sum(dim=1))
+    if SampleWeight is not None:
+        loss = loss * SampleWeight.reshape(-1)
+    return {"Cost": loss[:, None], "SampleLogits": logits,
+            "SampleLabels": ids.to(torch.int32)}
+
+
+@register_op("hierarchical_sigmoid")
+def hierarchical_sigmoid(X, W, Label, Bias=None, num_classes=2, **_):
+    """Tree softmax over a complete binary tree
+    (``HierarchicalSigmoidLayer.cpp``; the reference's SimpleCode): class
+    ``c`` has ``code = c + num_classes``; path node ``d`` reads row
+    ``(code >> (d + 1)) - 1`` of ``W`` and targets bit ``(code >> d) & 1``,
+    for ``d`` below ``floor(log2(code))``.  ``pre`` is clipped to
+    [-40, 40] in value only (the backward stays ``sigmoid(pre) - bit``);
+    ``Out [b, 1]`` sums ``softplus(pre) - bit * pre`` over the path,
+    ``PreOut [b, max_len]`` holds ``pre`` on it and 0 off it."""
+    lbl = _squeeze_label(Label).long()
+    code = lbl + num_classes
+    max_len = max(1, (2 * num_classes - 1).bit_length() - 1)
+    d = torch.arange(max_len, device=X.device)
+    shifted = torch.bitwise_right_shift(code[:, None], d[None, :] + 1)
+    active = shifted > 0
+    idx = torch.clamp_min(shifted - 1, 0)
+    bits = (torch.bitwise_right_shift(code[:, None], d[None, :]) & 1).to(
+        X.dtype)
+    pre = torch.einsum("bld,bd->bl", W[idx], X)
+    if Bias is not None:
+        pre = pre + Bias.reshape(-1)[idx]
+    pre = pre + (torch.clamp(pre, -40.0, 40.0) - pre).detach()
+    terms = torch.where(active, F.softplus(pre) - bits * pre,
+                        torch.zeros_like(pre))
+    return {"Out": terms.sum(dim=1, keepdim=True),
+            "PreOut": torch.where(active, pre, torch.zeros_like(pre))}

@@ -3,7 +3,8 @@
 broadcast rule, the ``reduce_*`` family, ``mean``, ``scale``, ``cast``,
 ``cos_sim``, and what the clips and regularizers append: ``sum``,
 ``sign``, ``clip``, ``clip_by_norm``, ``squared_l2_norm``,
-``error_clip``.  Matrix products are plain ``torch.matmul`` (bf16
+``error_clip``; the v1 DSL's ``bilinear_tensor_product``, ``dot``,
+``maxout`` and ``selective_fc``.  Matrix products are plain ``torch.matmul`` (bf16
 inputs accumulate in f32 inside the library and return bf16, as
 ``preferred_element_type=float32`` + cast does).
 
@@ -258,3 +259,46 @@ def cos_sim(X, Y, **_):
     out = torch.sum(X * Y, dim=1, keepdim=True) / torch.clamp(xn * yn,
                                                              min=1e-12)
     return {"Out": out, "XNorm": xn, "YNorm": yn}
+
+
+@register_op("bilinear_tensor_product")
+def bilinear_tensor_product(X, Y, Weight, Bias=None, **_):
+    """``Out[b, i] = X[b] @ Weight[i] @ Y[b] (+ Bias[i])``
+    (``bilinear_tensor_product_op.h``)."""
+    out = torch.einsum("bj,ijk,bk->bi", X, Weight.to(X.dtype), Y)
+    if Bias is not None:
+        out = out + Bias.to(X.dtype)
+    return {"Out": out}
+
+
+@register_op("dot")
+def dot(X, Y, **_):
+    return {"Out": torch.sum(X * Y, dim=-1, keepdim=True)}
+
+
+@register_op("maxout")
+def maxout(X, groups=2, **_):
+    """The max over each run of ``groups`` channels: ``[n, c, h, w] ->
+    [n, c // groups, h, w]``."""
+    n, c, h, w = X.shape
+    return {"Out": X.reshape(n, c // groups, groups, h, w).amax(dim=2)}
+
+
+@register_op("selective_fc")
+def selective_fc(X, W, Bias=None, Select=None, **_):
+    """Only the selected output columns (``SelectiveFcLayer.cpp``):
+    ``W [k, d]`` one row an output neuron; ``Select [b, s]`` int ids, a
+    negative id is padding and gives 0.  Without ``Select``, the full
+    ``X @ W.T (+ Bias)``."""
+    if Select is None:
+        out = X @ W.T
+        if Bias is not None:
+            out = out + Bias.reshape(1, -1)
+        return {"Out": out}
+    sel = Select.long()
+    valid = sel >= 0
+    idx = torch.clamp_min(sel, 0)
+    out = torch.einsum("bsd,bd->bs", W[idx], X)
+    if Bias is not None:
+        out = out + Bias.reshape(-1)[idx]
+    return {"Out": torch.where(valid, out, torch.zeros_like(out))}

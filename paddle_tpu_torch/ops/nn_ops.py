@@ -1,9 +1,13 @@
 """Neural-net ops (``paddle_tpu/ops/nn_ops.py``): ``layer_norm``,
-``conv2d``, ``pool2d``, ``batch_norm``, ``lrn`` and ``row_conv``.
+``conv2d``, ``conv3d``, ``conv_shift``, ``pool2d``, ``pool3d``, ``spp``,
+``batch_norm``, ``lrn``, ``im2sequence``, ``row_conv`` and
+``bilinear_interp``.
 
-Layout is NCHW at the op, as in the reference.  The convolutions and the
-pools lower to ATen (cuDNN on the card): the JAX package computes them
-outside any Pallas kernel too."""
+Layout is NCHW (NCDHW) at the op, as in the reference.  The convolutions
+and the pools lower to ATen (cuDNN on the card): the JAX package computes
+them outside any Pallas kernel too."""
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -51,51 +55,118 @@ def conv2d(Input, Filter, strides=(1, 1), paddings=(0, 0), dilations=(1, 1),
                                groups=int(groups))}
 
 
+@register_op("conv3d")
+def conv3d(Input, Filter, strides=(1, 1, 1), paddings=(0, 0, 0),
+           dilations=(1, 1, 1), groups=1, **_):
+    """NCDHW convolution, the filter cast to the input's dtype (reference
+    ``conv_op.cc`` conv3d)."""
+    return {"Output": F.conv3d(Input, Filter.to(Input.dtype),
+                               stride=_pair(strides, 3),
+                               padding=_pair(paddings, 3),
+                               dilation=_pair(dilations, 3),
+                               groups=int(groups))}
+
+
+@register_op("conv_shift")
+def conv_shift(X, Y, **_):
+    """Circular correlation (``conv_shift_op.cc``): ``Out[i, j] = sum_k
+    X[i, (j + k - M // 2) % W] * Y[i, k]`` for ``X [b, W]``,
+    ``Y [b, M]``."""
+    w, m = X.shape[1], Y.shape[1]
+    dev = X.device
+    idx = (torch.arange(w, device=dev)[:, None]
+           + torch.arange(m, device=dev)[None, :] - m // 2) % w
+    return {"Out": torch.einsum("bwm,bm->bw", X[:, idx], Y)}
+
+
 def _ceil_pads(X, k, s, p):
     """The extra high-side padding of ``ceil_mode`` (reference
     ``_pool_nd``): enough that the last window that starts inside the
     padded extent is whole.  The low side keeps ``p``."""
     hi = []
-    for i in range(2):
+    for i in range(len(k)):
         rem = (X.shape[2 + i] + 2 * p[i] - k[i]) % s[i]
         hi.append((s[i] - rem) % s[i] if rem else 0)
     return hi
+
+
+_MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _pool_nd(X, k, s, p, pooling_type, global_pooling, ceil_mode=False,
+             exclusive=True):
+    """The reference's ``_pool_nd`` over the 2 or 3 spatial dims of an
+    NC... tensor (``reduce_window`` semantics): padding is ``-inf`` for
+    max and zero for the average, whose divisor counts only the window's
+    elements inside the input when ``exclusive``
+    (``count_include_pad=False``); ``ceil_mode`` pads the high side only,
+    so a window that starts in that padding is computed over the padding
+    (torch's own ``ceil_mode`` would drop it).  Any type but ``"max"``
+    averages, as there."""
+    nd = X.dim() - 2
+    if global_pooling:
+        k, p = tuple(X.shape[2:]), (0,) * nd
+    hi = _ceil_pads(X, k, s, p) if ceil_mode else [0] * nd
+    plain = not any(hi) and all(2 * pi <= ki for pi, ki in zip(p, k))
+    pads = []
+    for i in reversed(range(nd)):        # F.pad: the last dim first
+        pads += [p[i], p[i] + hi[i]]
+    if pooling_type == "max":
+        if plain:
+            return _MAX_POOL[nd](X, k, s, padding=p)
+        return _MAX_POOL[nd](F.pad(X, pads, value=float("-inf")), k, s)
+    if plain:
+        return _AVG_POOL[nd](X, k, s, padding=p,
+                             count_include_pad=not exclusive)
+    summed = _AVG_POOL[nd](F.pad(X, pads), k, s, divisor_override=1)
+    if exclusive:
+        ones = F.pad(torch.ones_like(X[:1, :1]), pads)
+        counts = _AVG_POOL[nd](ones, k, s, divisor_override=1)
+    else:
+        counts = float(math.prod(k))
+    return summed / counts
 
 
 @register_op("pool2d")
 def pool2d(X, ksize=(2, 2), strides=(1, 1), paddings=(0, 0),
            pooling_type="max", global_pooling=False, ceil_mode=False,
            exclusive=True, **_):
-    """Max or average pooling over NCHW, the reference's ``reduce_window``
-    semantics: padding is ``-inf`` for max and zero for the average, whose
-    divisor counts only the window's elements inside the input when
-    ``exclusive`` (``count_include_pad=False``); ``ceil_mode`` pads the
-    high side only, so a window that starts in that padding is computed
-    over the padding (torch's own ``ceil_mode`` would drop it)."""
-    k, s, p = _pair(ksize), _pair(strides), _pair(paddings)
-    if global_pooling:
-        k, p = tuple(X.shape[2:]), (0, 0)
-    hi = _ceil_pads(X, k, s, p) if ceil_mode else [0, 0]
-    if pooling_type == "max":
-        if not any(hi) and all(2 * pi <= ki for pi, ki in zip(p, k)):
-            return {"Out": F.max_pool2d(X, k, s, padding=p)}
-        xp = F.pad(X, (p[1], p[1] + hi[1], p[0], p[0] + hi[0]),
-                   value=float("-inf"))
-        return {"Out": F.max_pool2d(xp, k, s)}
-    if pooling_type != "avg":
+    """Max or average pooling over NCHW (:func:`_pool_nd`)."""
+    if pooling_type not in ("max", "avg"):
         raise ValueError(f"pool2d: pooling_type must be 'max' or 'avg', "
                          f"got {pooling_type!r}")
-    if not any(hi) and all(2 * pi <= ki for pi, ki in zip(p, k)):
-        return {"Out": F.avg_pool2d(X, k, s, padding=p,
-                                    count_include_pad=not exclusive)}
-    pads = (p[1], p[1] + hi[1], p[0], p[0] + hi[0])
-    summed = F.avg_pool2d(F.pad(X, pads), k, s, divisor_override=1)
-    if exclusive:
-        ones = F.pad(torch.ones_like(X[:1, :1]), pads)
-        counts = F.avg_pool2d(ones, k, s, divisor_override=1)
-    else:
-        counts = float(k[0] * k[1])
-    return {"Out": summed / counts}
+    return {"Out": _pool_nd(X, _pair(ksize), _pair(strides),
+                            _pair(paddings), pooling_type, global_pooling,
+                            ceil_mode, exclusive)}
+
+
+@register_op("pool3d")
+def pool3d(X, ksize=(2, 2, 2), strides=(1, 1, 1), paddings=(0, 0, 0),
+           pooling_type="max", global_pooling=False, ceil_mode=False,
+           exclusive=True, **_):
+    """Pooling over NCDHW (reference ``pool_op.cc`` pool3d)."""
+    return {"Out": _pool_nd(X, _pair(ksize, 3), _pair(strides, 3),
+                            _pair(paddings, 3), pooling_type,
+                            global_pooling, ceil_mode, exclusive)}
+
+
+@register_op("spp")
+def spp(X, pyramid_height=3, pooling_type="max", **_):
+    """Spatial pyramid pooling (``spp_op.cc``): level ``l`` pools with
+    ``2**l`` bins a side, window and stride ``ceil(h / bins)``, padding
+    ``(k * bins - h + 1) // 2`` and the padding counted in an average's
+    divisor; the levels' ``[n, c * bins**2]`` rows concatenated."""
+    n, _c, h, w = X.shape
+    outs = []
+    for lvl in range(pyramid_height):
+        bins = 2 ** lvl
+        kh, kw = -(-h // bins), -(-w // bins)
+        ph, pw = (kh * bins - h + 1) // 2, (kw * bins - w + 1) // 2
+        o = _pool_nd(X, (kh, kw), (kh, kw), (ph, pw), pooling_type, False,
+                     False, False)
+        outs.append(o.reshape(n, -1))
+    return {"Out": torch.cat(outs, dim=1)}
 
 
 def _bshape(X, axes):
@@ -251,3 +322,53 @@ def row_conv(X, Filter, Length=None, **_):
         mask = (steps[None, :] < Length[:, None])[..., None]
         out = torch.where(mask, out, torch.zeros_like(out))
     return {"Out": out}
+
+
+@register_op("im2sequence")
+def im2sequence(X, kernels=(1, 1), strides=(1, 1), paddings=(0, 0, 0, 0),
+                **_):
+    """Sliding-window patches as a sequence (``im2sequence_op.cc``):
+    ``X [N, C, H, W]`` padded by ``paddings`` (up, left, down, right; two
+    values mean (up, left) on both sides) -> ``[N, oh * ow, C * kh * kw]``,
+    windows in row-major order, each one's features channel-major."""
+    kh, kw = _pair(kernels)
+    sh, sw = _pair(strides)
+    if len(paddings) == 4:
+        pu, pl, pd, pr = paddings
+    else:
+        pu, pl, pd, pr = paddings[0], paddings[1], paddings[0], paddings[1]
+    xp = F.pad(X, (pl, pr, pu, pd))
+    patches = F.unfold(xp, (kh, kw), stride=(sh, sw))   # [N, C*kh*kw, L]
+    return {"Out": patches.transpose(1, 2)}
+
+
+def _interp_axis(in_dim, out_dim, device):
+    """Source weights and the two neighbours of each output coordinate,
+    align-corners (``ratio = (in - 1) / (out - 1)``); a size of 1 on
+    either side reads index 0 with weight 0."""
+    if out_dim == 1 or in_dim == 1:
+        z = torch.zeros(out_dim, dtype=torch.long, device=device)
+        return torch.zeros(out_dim, device=device), z, z
+    ratio = (in_dim - 1.0) / (out_dim - 1.0)
+    src = torch.arange(out_dim, dtype=torch.float32, device=device) * ratio
+    lo = torch.clamp(torch.floor(src).long(), 0, in_dim - 1)
+    hi = torch.clamp(lo + 1, 0, in_dim - 1)
+    return src - lo.float(), lo, hi
+
+
+@register_op("bilinear_interp")
+def bilinear_interp(X, out_h=0, out_w=0, **_):
+    """Bilinear resize ``[N, C, H, W] -> [N, C, out_h, out_w]`` with the
+    reference's align-corners ratio (``BilinearInterpLayer.cpp``); not
+    ``F.interpolate``, whose size-1 and odd-size conventions differ."""
+    n, c, h, w = X.shape
+    oh, ow = int(out_h), int(out_w)
+    fy, y0, y1 = _interp_axis(h, oh, X.device)
+    fx, x0, x1 = _interp_axis(w, ow, X.device)
+    top, bot = X[:, :, y0], X[:, :, y1]
+    tl, tr, bl, br = top[..., x0], top[..., x1], bot[..., x0], bot[..., x1]
+    fy = fy.reshape(1, 1, oh, 1).to(X.dtype)
+    fx = fx.reshape(1, 1, 1, ow).to(X.dtype)
+    top = tl * (1 - fx) + tr * fx
+    bot = bl * (1 - fx) + br * fx
+    return {"Out": top * (1 - fy) + bot * fy}

@@ -1,5 +1,7 @@
 """Random ops (``paddle_tpu/ops/random_ops.py``): ``uniform_random``,
-``gaussian_random``, ``dropout``.
+``gaussian_random``, ``dropout``, ``sampling_id``; and
+:func:`categorical`, the one categorical draw that ``sampling_id`` and
+``models.transformer.generate``'s temperature sampling share.
 
 Randomness is explicit: a startup-program initializer seeds its own
 ``torch.Generator`` from its ``seed`` attr (reproducible run to run), and
@@ -63,3 +65,26 @@ def dropout(X, dropout_prob=0.5, is_test=False, seed=0, fix_seed=False,
     mask = (torch.rand(X.shape, generator=_gen, device=X.device)
             < keep).to(X.dtype)
     return {"Out": X * mask, "Mask": mask}
+
+
+def categorical(logits, generator=None):
+    """One index a row of ``logits [..., k]``, drawn from
+    ``softmax(logits)`` by the Gumbel-max trick: ``argmax(logits + g)``
+    with ``g = -log(-log(u))``, ``u`` uniform in f32 from ``generator``
+    (on the logits' device).  ``jax.random.categorical`` is the same
+    construction over threefry bits, so the two packages draw from the
+    same distribution but not the same ids.  Returns int64 ``[...]``."""
+    u = torch.rand(logits.shape, generator=generator, dtype=torch.float32,
+                   device=logits.device)
+    tiny = torch.finfo(torch.float32).tiny
+    g = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+    return torch.argmax(logits.float() + g, dim=-1)
+
+
+@register_op("sampling_id", stateful_rng=True, nondiff=True)
+def sampling_id(X, _gen=None, **_):
+    """One id a row of ``X [b, k]``, a row of probabilities (need not sum
+    to 1): :func:`categorical` over ``log(max(X, 1e-20))`` with the step's
+    generator (``SamplingIdLayer.cpp``).  int32 ``[b]``."""
+    logits = torch.log(torch.clamp_min(X.float(), 1e-20))
+    return {"Out": categorical(logits, _gen).to(torch.int32)}

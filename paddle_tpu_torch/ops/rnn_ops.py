@@ -12,8 +12,8 @@ layout and peepholes differ and they take no other activations.
 
 Ported: ``lstm_cell``, ``gru_cell``, ``lstm`` (peepholes, the three
 activations), ``lstmp``, ``gru`` (``H0``, ``is_reverse``, lengths),
-``lstm_unit`` and ``gru_unit``.  ``nested_rnn`` waits for the nested
-sequences (``ROADMAP.md`` A9).
+``lstm_unit``, ``gru_unit`` and ``nested_rnn`` (the two-level GRU over
+a nested batch).
 """
 
 import torch
@@ -223,3 +223,39 @@ def gru_unit(Input, HiddenPrev, Weight, Bias=None,
     """One GRU step."""
     return {"Hidden": gru_cell(Input, HiddenPrev, Weight, Bias,
                                gate_activation, activation)}
+
+
+@register_op("nested_rnn")
+def nested_rnn(Input, Weight, Bias=None, H0=None, Length=None,
+               SubLength=None, gate_activation="sigmoid", activation="tanh",
+               **_):
+    """Hierarchical GRU over a nested batch ``Input [b, s, t, 3d]``
+    (pre-projected gates), ``Weight [d, 3d]``: an inner GRU runs each
+    sub-sequence's items booted from the outer state, and the outer state
+    moves to the inner state after the sub-sequence's last item (a slot
+    past ``Length`` holds it).  So a nested run over a split sequence
+    equals a flat GRU over its concatenation.  ``Hidden [b, s, t, d]``
+    (padded items hold the carried state), ``OuterHidden [b, s, d]``."""
+    b, s, t, d3 = Input.shape
+    h = H0 if H0 is not None else Input.new_zeros((b, d3 // 3))
+    bias = Bias.reshape(-1) if Bias is not None else None
+    dev = Input.device
+    if Length is None:
+        Length = torch.full((b,), s, dtype=torch.int32, device=dev)
+    if SubLength is None:
+        SubLength = torch.full((b, s), t, dtype=torch.int32, device=dev)
+    outer = torch.arange(s, device=dev)[None, :] < Length[:, None]
+    sub = torch.where(outer, SubLength, torch.zeros_like(SubLength))
+    inner_hs, outer_hs = [], []
+    for j in range(s):
+        m = time_mask(sub[:, j], t, Input.dtype)[..., None]
+        hs = []
+        for i in range(t):
+            h_new = gru_cell(Input[:, j, i], h, Weight, bias,
+                             gate_activation, activation)
+            h = m[:, i] * h_new + (1 - m[:, i]) * h
+            hs.append(h)
+        inner_hs.append(torch.stack(hs, dim=1))
+        outer_hs.append(h)
+    return {"Hidden": torch.stack(inner_hs, dim=1),
+            "OuterHidden": torch.stack(outer_hs, dim=1)}

@@ -9,8 +9,11 @@ Ported: ``time_mask`` and the flat ops ``sequence_pool`` (SUM, AVERAGE,
 SQRT, MAX, LAST, FIRST), ``sequence_softmax``, ``sequence_expand``,
 ``sequence_conv``, ``sequence_concat``, ``sequence_slice``,
 ``sequence_reverse``, ``sequence_erase``, ``sequence_reshape``,
-``sequence_scale``, and CTC's ``ctc_align`` and ``edit_distance``.  The
-``nested_*`` ops come with ``nested_rnn`` (``ROADMAP.md`` A9)."""
+``sequence_scale``, and CTC's ``ctc_align`` and ``edit_distance``; the
+two-level (nested) ops ``nested_sequence_pool``, ``nested_sequence_expand``,
+``nested_sequence_slice`` and ``sub_nested_seq`` over the reference's
+layout: ``[b, s, t, ...]`` padded dense, ``Length [b]`` sub-sequences a
+sample and ``SubLength [b, s]`` items a sub-sequence."""
 
 import torch
 
@@ -289,3 +292,115 @@ def ctc_align(Input, Length=None, blank=0, merge_repeated=True, **_):
         keep = keep & time_mask(Length, t, torch.bool)
     out, new_len = _compact(x, keep, t)
     return {"Output": out, "OutputLength": new_len}
+
+
+# -- two-level (nested) sequences -------------------------------------------
+
+def _nested_masks(X, Length, SubLength):
+    """Defaults (every slot full) and the ``[b, s]`` outer and ``[b, s, t]``
+    inner masks of a nested batch."""
+    b, s, t = X.shape[:3]
+    dev = X.device
+    if Length is None:
+        Length = torch.full((b,), s, dtype=torch.int32, device=dev)
+    if SubLength is None:
+        SubLength = torch.full((b, s), t, dtype=torch.int32, device=dev)
+    outer = torch.arange(s, device=dev)[None, :] < Length[:, None]
+    inner = torch.arange(t, device=dev)[None, None, :] < SubLength[:, :, None]
+    return Length, SubLength, outer, inner & outer[:, :, None]
+
+
+@register_op("nested_sequence_pool")
+def nested_sequence_pool(X, Length=None, SubLength=None, pooltype="SUM",
+                         **_):
+    """Pool the inner level: ``[b, s, t, ...] -> [b, s, ...]``, a sequence
+    over the outer lengths, each sub-sequence pooled as ``sequence_pool``
+    pools a row.  A slot past ``Length`` is an empty sub-sequence."""
+    Length, SubLength, outer, inner = _nested_masks(X, Length, SubLength)
+    b, s = X.shape[:2]
+    feat = (1,) * (X.dim() - 3)
+    m = inner.to(X.dtype).reshape(inner.shape + feat)
+    SubLength = torch.where(outer, SubLength, torch.zeros_like(SubLength))
+    lens = SubLength.float().reshape((b, s) + feat)
+    outer_m = outer.to(X.dtype).reshape((b, s) + feat)
+    pt = pooltype.upper()
+    if pt == "SUM":
+        out = torch.sum(X * m, dim=2)
+    elif pt == "AVERAGE":
+        out = torch.sum(X * m, dim=2) / torch.clamp_min(lens, 1.0)
+    elif pt == "SQRT":
+        out = torch.sum(X * m, dim=2) / torch.sqrt(torch.clamp_min(lens, 1.0))
+    elif pt == "MAX":
+        floor = torch.full((), -1e38, dtype=X.dtype, device=X.device)
+        out = torch.where(m > 0, X, floor).amax(dim=2)
+        out = torch.where(lens > 0, out, torch.zeros_like(out))
+    elif pt == "LAST":
+        idx = torch.clamp_min(SubLength - 1, 0).long()
+        idx = idx.reshape((b, s, 1) + feat).expand(
+            (b, s, 1) + tuple(X.shape[3:]))
+        out = torch.gather(X, 2, idx).squeeze(2) * outer_m
+    elif pt == "FIRST":
+        out = X[:, :, 0] * outer_m
+    else:
+        raise ValueError(f"unknown pooltype {pooltype}")
+    return {"Out": out}
+
+
+@register_op("nested_sequence_expand")
+def nested_sequence_expand(X, Y, Length=None, SubLength=None, **_):
+    """``Out[b, s, t] = X[b, s]`` where ``t < SubLength[b, s]`` (and the
+    slot is inside ``Length``), else 0: ``X [b, s, ...]`` over ``Y``'s
+    inner level."""
+    _, _, _, inner = _nested_masks(Y, Length, SubLength)
+    t = Y.shape[2]
+    out = X[:, :, None].expand(X.shape[:2] + (t,) + X.shape[2:])
+    m = inner.to(X.dtype).reshape(inner.shape + (1,) * (X.dim() - 2))
+    return {"Out": out * m}
+
+
+def _take_subseqs(X, pos, valid, Length, SubLength):
+    """Sub-sequences ``pos [b, k]`` of each sample (0 where not
+    ``valid``), with their sub-lengths: the nested slice's and
+    ``sub_nested_seq``'s gather."""
+    b, k = pos.shape
+    feat = (1,) * (X.dim() - 2)
+    idx = pos.long().reshape((b, k) + feat).expand((b, k) + X.shape[2:])
+    vm = valid.reshape((b, k) + feat).to(X.dtype)
+    out = torch.gather(X, 1, idx) * vm
+    _, SubLength, _, _ = _nested_masks(X, Length, SubLength)
+    sub = torch.gather(SubLength, 1, pos.long()) * valid
+    return {"Out": out, "OutLength": valid.sum(dim=1).to(torch.int32),
+            "OutSubLength": sub.to(torch.int32)}
+
+
+@register_op("nested_sequence_slice")
+def nested_sequence_slice(X, Offset, Size, Length=None, SubLength=None, **_):
+    """Sample ``b`` keeps sub-sequences ``[Offset[b], Offset[b] + Size[b])``
+    that lie inside its ``Length`` (fewer when the range runs past it):
+    ``Out`` stays ``[b, s, t, ...]`` with ``OutLength`` and the gathered
+    ``OutSubLength``."""
+    b, s = X.shape[:2]
+    offset = Offset.reshape(b).long()
+    size = Size.reshape(b).long()
+    slots = torch.arange(s, device=X.device)[None, :]
+    pos = slots + offset[:, None]
+    if Length is None:
+        Length = torch.full((b,), s, dtype=torch.int32, device=X.device)
+    valid = (slots < size[:, None]) & (pos < Length[:, None])
+    pos = torch.where(valid, pos, torch.zeros_like(pos))
+    return _take_subseqs(X, pos, valid, Length, SubLength)
+
+
+@register_op("sub_nested_seq")
+def sub_nested_seq(X, Indices, Length=None, SubLength=None, **_):
+    """Sub-sequences picked by ``Indices [b, k]``
+    (``SubNestedSequenceLayer.cpp``); a negative index, or one past the
+    sample's ``Length``, is padding and gives an empty sub-sequence.
+    ``Out [b, k, t, ...]``, ``OutLength [b]``, ``OutSubLength [b, k]``."""
+    b, s = X.shape[:2]
+    idx = Indices.long()
+    if Length is None:
+        Length = torch.full((b,), s, dtype=torch.int32, device=X.device)
+    valid = (idx >= 0) & (idx < Length[:, None])
+    safe = torch.where(valid, idx, torch.zeros_like(idx))
+    return _take_subseqs(X, safe, valid, Length, SubLength)

@@ -49,7 +49,8 @@ What differs from the JAX engine: PyTorch runs eagerly, so there is no
 ahead-of-time compile — the pools and slot state are updated in place
 instead of donated, and the CUDA kernels build when the engine is
 constructed (set-up, outside every timed window the TTFT predictor
-reads).  Temperature sampling is not ported (ROADMAP.md A4).
+reads).  The engine decodes greedily, as the JAX engine does;
+temperature sampling is ``models.transformer.generate``'s.
 
 Tuned geometry (``tune``): with no ``decode_chunk`` / ``min_bucket``
 given the engine takes the tune cache's ``op=serving_decode`` winner for

@@ -211,5 +211,9 @@ def test_generate_accepts_a_key_and_ignores_it_when_greedy(params):
     b, _ = transformer.generate(params, prompt, key=np.uint32([0, 42]),
                                 **kw)
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
-        transformer.generate(params, prompt, temperature=0.7, key=1, **kw)
+    # with a temperature the key drives the draws: the same seed, the same
+    # tokens, the prompt kept
+    c, _ = transformer.generate(params, prompt, temperature=0.7, key=1, **kw)
+    d, _ = transformer.generate(params, prompt, temperature=0.7, key=1, **kw)
+    assert torch.equal(c, d)
+    np.testing.assert_array_equal(c.numpy()[:, :3], prompt)

@@ -66,8 +66,10 @@ def test_generate_without_logits(params):
 
 
 def test_generate_rejects_what_is_not_ported(params):
+    """Sampling without a generator raises as the reference does
+    (``ValueError``), and so does a length past the position table."""
     prompt = np.array([[1, 2]], np.int32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="key"):
         ttr.generate(params, prompt, max_len=8, n_layer=NL, n_head=NH,
                      d_model=DM, temperature=0.7, device="cpu")
     with pytest.raises(ValueError):
