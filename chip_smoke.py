@@ -524,13 +524,37 @@ non-zero (no phase is wrapped in a ``try`` that carries on):
    ``softmax(logits / 0.8)`` over its 31 likeliest tokens and the rest;
    temperature 1e-4 the greedy tokens but at near-ties; the walls of
    the phase and its parts;
-21. one JSON line ``{"kernels": [...]}`` with each of the twelve kernels'
-   launches on its main path (phase 3e, 5, 5b, 7, 8 or 9b), error, times
-   and bound; the paged attention, flash forward, fused backward, the
-   three CE rows and the sm90 bottleneck add the simple family's time
-   (``simple_ms``), and the forward's row its t=16384 entry (``t16384``,
-   launches from phase 8);
-22. the last line: ``{"ok": true, "device": {...}}``.
+21. the kernel registry on the card (``kernels/registry.py``) and its
+   ``triton`` backend (``kernels/triton_attention.py``): a. auto resolves
+   ``cuda`` for all four op classes on CUDA tensors, and the precedence
+   and strictness checks pass (``kernels.selftest.check_registry``); b.
+   the four Triton kernels alone: the flash forward, dq and dk/dv at the
+   training path's shape (b=8, t=4096, h=6, d=128, bf16, causal) against
+   the plain versions, and paged attention at phase 5's decode shape
+   (bf16) and 5c's verify window (f32) against the plain block scan, all
+   within ORACLE_TOL; each timed (CUDA events, median of queued calls
+   after a warm-up) beside the cuda backend's kernel for the same work,
+   the plain version and SDPA, with rows 1, 4, 6 and 7's bounds; c. three
+   flagship steps with ``PADDLE_TPU_KERNEL_BACKEND_FLASH_ATTENTION=
+   triton`` from the state and batches of three steps on auto: losses
+   within ORACLE_TOL bf16, the step's ``kernel_backends`` naming triton,
+   12 launches a step of each Triton flash kernel (counts zeroed before);
+   d. (run right after 4b) phase 4's f32 engine with
+   ``PADDLE_TPU_KERNEL_BACKEND_PAGED_ATTENTION=triton`` on its eight
+   requests: every paged call on the Triton kernel (counts zeroed
+   before), the tokens of phase 4's cuda engine or a difference only where
+   ``generate``'s top-2 gap is below 1e-5 (printed); e. ``python -m
+   paddle_tpu_torch --kernels-selftest`` on the card (a subprocess beside
+   4b and 21d), exit 0;
+22. one JSON line ``{"kernels": [...]}`` with each of the sixteen kernels'
+   launches on its main path (phase 3e, 5, 5b, 7, 8, 9b, 21c or 21d),
+   error, times and bound; the paged attention, flash forward, fused
+   backward, the three CE rows and the sm90 bottleneck add the simple
+   family's time (``simple_ms``), the forward's row its t=16384 entry
+   (``t16384``, launches from phase 8), the four Triton rows the cuda
+   backend's time at the same shape (``cuda_ms``) and the paged one its
+   verify-window entry (``verify``);
+23. the last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run from a directory that holds only this
 file, it exits non-zero and prints no result.  The weights, the tokens
@@ -2081,6 +2105,8 @@ def paged_on_split(kernels, what):
 
 
 def correctness_phase(torch, np, params, work, kernels):
+    """Phase 4; returns the ``generate`` references and the served
+    outputs."""
     kernels.reset_launches()
     outs, eng = serve_f32(params, work)
     split = paged_on_split(kernels, "phase 4")
@@ -2091,7 +2117,7 @@ def correctness_phase(torch, np, params, work, kernels):
     log(f"f32 full width: {full}/{len(work)} requests token-identical to "
         f"generate, the rest diverge only at near-ties "
         f"(prefix hit rate {hit:.3f}); {split} paged calls, all split")
-    return refs
+    return refs, outs
 
 
 # -- phase 4b: the kill switch and speculative decoding, f32, full width ----
@@ -2647,6 +2673,7 @@ def training_phase(torch, np, pt, kernels, seed, fused_head, t=TRAIN_T,
               "flash_attention_bwd_dkv": want if route == "split" else 0,
               "fused_ce_fwd": ce_want, "fused_ce_dx": ce_want,
               "fused_ce_dw": ce_want, "bottleneck": 0}
+    expect = dict(dict.fromkeys(launches, 0), **expect)   # the rest: none
     if launches != expect:
         raise AssertionError(
             f"launches {launches}, expected {expect}: some attention or "
@@ -3457,6 +3484,7 @@ def _trainer_phase(torch, np, pt, kernels, fa, seed, exe_wall, root):
               "flash_attention_bwd_delta": want, "flash_attention_bwd_dq": 0,
               "flash_attention_bwd_dkv": 0, "fused_ce_fwd": steps,
               "fused_ce_dx": steps, "fused_ce_dw": steps, "bottleneck": 0}
+    expect = dict(dict.fromkeys(launches, 0), **expect)   # the rest: none
     if launches != expect:
         raise AssertionError(f"phase 10 launches {launches}, expected "
                              f"{expect}")
@@ -3689,6 +3717,7 @@ def recipe_phase(torch, np, pt, kernels, seed, adam_wall):
               "flash_attention_bwd_delta": want, "flash_attention_bwd_dq": 0,
               "flash_attention_bwd_dkv": 0, "fused_ce_fwd": steps,
               "fused_ce_dx": steps, "fused_ce_dw": steps, "bottleneck": 0}
+    expect = dict(dict.fromkeys(launches, 0), **expect)   # the rest: none
     if launches != expect:
         raise AssertionError(f"phase 11a launches {launches}, expected "
                              f"{expect}")
@@ -7353,9 +7382,11 @@ def attribution_step_phase(torch, np, pt, smi, seed):
             raise AssertionError(f"19a: the table's product flops "
                                  f"{att['product_flops']} are not within "
                                  f"1% of step_flops {flops}")
-        backends = cost.get("kernel_backends")
-        if cost.get("lint_findings") != 0 or backends != {
-                "flash_attention": "sm90", "fused_ce": "sm90"}:
+        backends = (cost.get("kernel_families"),
+                    cost.get("kernel_backends"))
+        if cost.get("lint_findings") != 0 or backends != (
+                {"flash_attention": "sm90", "fused_ce": "sm90"},
+                {"flash_attention": "cuda", "fused_ce": "cuda"}):
             raise AssertionError(
                 f"19a: the first run's fold-in in a timed run: "
                 f"{cost.get('lint_findings')} lint findings "
@@ -8279,6 +8310,390 @@ def v1_phase(torch, np, pt, smi, seed, vgg19_ms):
     return launched
 
 
+# -- phase 21: the kernel registry on the card --------------------------------
+
+@contextlib.contextmanager
+def env_var(name, value):
+    """The environment variable ``name`` set to ``value`` inside."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def registry_resolution_phase(torch):
+    """21a: auto resolves ``cuda`` for every op class on CUDA tensors, and
+    the registry's precedence and strictness hold on the card
+    (``kernels.selftest.check_registry``)."""
+    from paddle_tpu_torch.kernels import registry, selftest
+
+    got = {op: registry.resolve_name(op, platform="cuda")
+           for op in registry.registered_op_classes()}
+    if set(got.values()) != {"cuda"} or len(got) != 4:
+        raise AssertionError(f"21a: auto on the card resolved {got}")
+    failures = []
+
+    def check(cond, what):
+        if not cond:
+            failures.append(what)
+
+    selftest.check_registry(check, torch.device("cuda"))
+    if failures:
+        raise AssertionError(f"21a: registry checks failed: {failures}")
+    avail = {op: [b for b, ok, _ in registry.available_backends(op) if ok]
+             for op in got}
+    log(f"21a: auto on the card {got}; available {avail}; precedence and "
+        f"strictness checks passed")
+
+
+def triton_flash_phase(torch, fa, tr):
+    """21b, flash: the Triton forward, dq and dk/dv kernels alone at the
+    training path's shape (b=8, t=4096, h=6, d=128, bf16, causal) against
+    the plain versions on the same inputs (two batch rows at a time),
+    within ORACLE_TOL bf16; each timed over queued calls beside the cuda
+    backend's kernel for the same work, the plain version and SDPA, with
+    rows 4, 6 and 7's operation counts as the bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2424)
+    b, t, h, d = TRAIN_B, TRAIN_T, N_HEAD, D_HEAD
+    q, k, v, do = flash_inputs(torch, gen, b, t, h, d, torch.bfloat16)
+    o, lse = tr.flash_fwd_triton(q, k, v, True)
+    dq = tr.flash_bwd_dq_triton(q, k, v, o, lse, do, None, True)
+    dk, dv = tr.flash_bwd_dkv_triton(q, k, v, o, lse, do, None, True)
+    ro, rlse = _chunked(lambda a, b_, c: fa.flash_attention_ref(a, b_, c, True),
+                        (q, k, v))
+    rdq, rdk, rdv = plain_bwd(fa, q, k, v, o, lse, do, None, True)
+    torch.cuda.synchronize()
+    errs = {"o": rel_err(torch, o, ro), "lse": rel_err(torch, lse, rlse),
+            "dq": rel_err(torch, dq, rdq), "dk": rel_err(torch, dk, rdk),
+            "dv": rel_err(torch, dv, rdv)}
+    del ro, rlse, rdq, rdk, rdv
+    for name, (_, rel) in errs.items():
+        tol = fa.oracle_tol(torch.bfloat16,
+                            "fwd" if name in ("o", "lse") else "grad")
+        if not rel <= tol:
+            raise AssertionError(f"21b: Triton flash {name} rel err "
+                                 f"{rel:.3e} > {tol}")
+    n = 10
+    ms = {"fwd": device_ms(torch, lambda i: tr.flash_fwd_triton(
+              q, k, v, True), n),
+          "dq": device_ms(torch, lambda i: tr.flash_bwd_dq_triton(
+              q, k, v, o, lse, do, None, True), n),
+          "dkv": device_ms(torch, lambda i: tr.flash_bwd_dkv_triton(
+              q, k, v, o, lse, do, None, True), n)}
+    cuda_ms = {"fwd": device_ms(torch, lambda i: fa.flash_fwd(
+                   q, k, v, True), n),
+               "dq": device_ms(torch, lambda i: fa.flash_bwd_dq(
+                   q, k, v, o, lse, do, None, True), n),
+               "dkv": device_ms(torch, lambda i: fa.flash_bwd_dkv(
+                   q, k, v, o, lse, do, None, True), n),
+               "fused": device_ms(torch, lambda i: fa.flash_bwd(
+                   q, k, v, o, lse, do, None, True), n)}
+    plain_fwd_ms = device_ms(torch, lambda i: _chunked(
+        lambda a, b_, c: fa.flash_attention_ref(a, b_, c, True),
+        (q, k, v)), 1)
+    plain_bwd_ms = device_ms(torch, lambda i: plain_bwd(
+        fa, q, k, v, o, lse, do, None, True), 1)
+    q4, k4, v4 = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    do4 = do.transpose(1, 2)
+
+    def lib_fwd(i):
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+    def lib_both(i):
+        out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        torch.autograd.grad(out, (q4, k4, v4), do4)
+
+    lib_fwd_ms = device_ms(torch, lib_fwd, 4)
+    lib_bwd_ms = device_ms(torch, lib_both, 4) - lib_fwd_ms
+    # the bounds of rows 4, 6 and 7: t (t + 1) / 2 causal entries a head,
+    # 2 d flops an entry a product (forward two, dq three, dk/dv four);
+    # each input read once, each output written once (these kernels read
+    # o for delta, where the sm90 ones read the pre-pass's delta)
+    entries = b * h * t * (t + 1) // 2
+    nel, es, stat = q.numel(), q.element_size(), 4 * b * h * t
+    rows = []
+    for kind, line, flops, nbytes, err, plain, lib in (
+            ("fwd", 114, 4 * d * entries, 4 * nel * es + stat,
+             max(errs["o"][0], errs["lse"][0]), plain_fwd_ms, lib_fwd_ms),
+            ("dq", 257, 6 * d * entries, 6 * nel * es + stat,
+             errs["dq"][0], plain_bwd_ms, lib_bwd_ms),
+            ("dkv", 276, 8 * d * entries, 7 * nel * es + stat,
+             max(errs["dk"][0], errs["dv"][0]), plain_bwd_ms, lib_bwd_ms)):
+        ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        log(f"21b flash_attention_triton_{kind} bf16 causal (b={b} t={t} "
+            f"h={h} d={d}, {flops / 1e12:.4f} TFLOP, {nbytes} bytes): "
+            f"kernel {ms[kind]:.4f} ms ({flops / ms[kind] / 1e9:.1f} "
+            f"TFLOP/s, {bound_ms / ms[kind]:.3f} of the bound), cuda "
+            f"backend {cuda_ms[kind]:.4f} ms ({ms[kind] / cuda_ms[kind]:.2f}x"
+            f"), plain {plain:.4f} ms, library (sdpa"
+            f"{'' if kind == 'fwd' else ' backward, for the pair'}) "
+            f"{lib:.4f} ms ({ms[kind] / lib:.2f}x), bound {bound_ms:.4f} ms "
+            f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+        rows.append({"name": f"flash_attention_triton_{kind}",
+                     "route": "triton",
+                     "source": "paddle_tpu_torch/kernels/triton_attention.py",
+                     "replaces": f"paddle_tpu/kernels/triton_attention.py:"
+                                 f"{line}",
+                     "max_abs_err": err, "ms": ms[kind], "plain_ms": plain,
+                     "bound_ms": bound_ms,
+                     "bound_by": ("operations" if ops_ms >= bytes_ms
+                                  else "bytes"),
+                     "library_ms": lib, "cuda_ms": cuda_ms[kind]})
+    log(f"21b: errors against the plain versions (rel): " + ", ".join(
+        f"{k} {v[1]:.3e}" for k, v in errs.items()) + f"; the cuda "
+        f"backend's fused backward {cuda_ms['fused']:.4f} ms against the "
+        f"Triton pair's {ms['dq'] + ms['dkv']:.4f} ms")
+    del q, k, v, do, o, lse, dq, dk, dv, q4, k4, v4, do4
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _gathered_sdpa(torch, q, table, pos, layers, B):
+    """SDPA over each slot's gathered ``[S, T, h, dh]`` view with the
+    ``j <= pos`` mask (the gather is set-up, not timed): the call and its
+    output on ``layers[0]``."""
+    import torch.nn.functional as F
+
+    S, W, h, dh = q.shape
+    T = table.shape[1] * B
+    idx = table.long()
+    gathered = [(pk[idx].reshape(S, T, h, dh).transpose(1, 2),
+                 pv[idx].reshape(S, T, h, dh).transpose(1, 2))
+                for pk, pv in layers]
+    mask = (torch.arange(T, device="cuda")[None, None, :]
+            <= pos.long()[:, :, None])[:, None]                  # [S,1,W,T]
+    q4 = q.transpose(1, 2)
+
+    def call(i):
+        return F.scaled_dot_product_attention(
+            q4, *gathered[i % len(layers)], attn_mask=mask)
+
+    return call, call(0).transpose(1, 2)
+
+
+def triton_paged_phase(torch, pa):
+    """21b, paged: the Triton paged-attention kernel alone at phase 5's
+    decode shape (S=32, W=1, h=6, dh=128, B=32, NB=16, bf16) and at 5c's
+    verify window (S=32, W=6, h=8, dh=32, f32), against the plain block
+    scan within ORACLE_TOL, then timed over queued calls (one pool pair a
+    layer) beside the cuda backend's split kernels, the plain version and
+    SDPA on the gathered view, with row 1's bound."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4242)
+    out = {}
+    for label, S, W, h, dh, dtype, n_layer in (
+            ("decode", 32, 1, N_HEAD, D_HEAD, torch.bfloat16, N_LAYER),
+            ("verify", SLOTS, SPEC_K + 1, SPEC_HEADS, SPEC_D // SPEC_HEADS,
+             torch.float32, SPEC_LAYERS)):
+        q, _, _, table, pos = paged_case(torch, gen, S, W, dtype, h=h,
+                                         dh=dh)
+        layers = [paged_case(torch, gen, S, W, dtype, h=h, dh=dh)[1:3]
+                  for _ in range(n_layer)]
+        got = pa.paged_attention_triton(q, *layers[0], table, pos)
+        want = pa.paged_attention_ref(q, *layers[0], table, pos)
+        err, rel = rel_err(torch, got, want)
+        if not (torch.isfinite(got).all() and rel <= pa.oracle_tol(dtype)):
+            raise AssertionError(f"21b: Triton paged attention ({label}) "
+                                 f"rel err {rel:.3e}")
+        if not torch.equal(got, pa.paged_attention_triton(
+                q, *layers[0], table, pos)):
+            raise AssertionError(f"21b: Triton paged attention ({label}) "
+                                 f"not the same bits twice")
+        n = 8 * n_layer
+        ms = device_ms(torch, lambda i: pa.paged_attention_triton(
+            q, *layers[i % n_layer], table, pos), n)
+        cuda_ms = device_ms(torch, lambda i: pa.paged_attention(
+            q, *layers[i % n_layer], table, pos), n)
+        plain_ms = device_ms(torch, lambda i: pa.paged_attention_ref(
+            q, *layers[i % n_layer], table, pos), n_layer)
+        lib, lib_out = _gathered_sdpa(torch, q, table, pos, layers,
+                                      BLOCK_TOKENS)
+        _, lib_rel = rel_err(torch, lib_out, want)
+        library_ms = device_ms(torch, lib, n)
+        # row 1's bound: each slot's keys 0..max(pos) read once (the W
+        # rows share them), q read and ctx written once, the live chain
+        # entries and the positions read once; 4 flops a live element
+        es = q.element_size()
+        keys = int((pos.long().max(dim=1).values + 1).sum().item())
+        entries = int((pos.max(dim=1).values // BLOCK_TOKENS + 1).sum()
+                      .item())
+        nbytes = (2 * keys * h * dh * es + 2 * q.numel() * es + 4 * entries
+                  + 4 * pos.numel())
+        flops = 4 * int((pos.long() + 1).sum().item()) * h * dh
+        dname = str(dtype).replace("torch.", "")
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        ops_ms = flops / PEAK_FLOPS[dname] * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        log(f"21b paged_attention_triton {label} {dname} (S={S} W={W} h={h} "
+            f"dh={dh} B={BLOCK_TOKENS}, {nbytes} bytes): kernel {ms:.4f} ms "
+            f"({bound_ms / ms:.3f} of the bound), cuda backend (split) "
+            f"{cuda_ms:.4f} ms ({ms / cuda_ms:.2f}x), plain {plain_ms:.4f} "
+            f"ms, library (sdpa on the gathered view, rel err {lib_rel:.2e})"
+            f" {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
+            f"{bound_ms:.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'}"
+            f"); rel err {rel:.3e}")
+        out[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms,
+                      "bound_by": "bytes" if bytes_ms >= ops_ms
+                      else "operations",
+                      "library_ms": library_ms, "cuda_ms": cuda_ms}
+    row = {"name": "paged_attention_triton", "route": "triton",
+           "source": "paddle_tpu_torch/kernels/triton_attention.py",
+           "replaces": "paddle_tpu/kernels/paged_attention.py:311"}
+    row.update(out["decode"])
+    row["verify"] = out["verify"]
+    return row
+
+
+def triton_training_phase(torch, np, pt, kernels, seed):
+    """21c: three flagship steps (t=4096, b=8, fused head, bf16) with
+    ``PADDLE_TPU_KERNEL_BACKEND_FLASH_ATTENTION=triton``, from the same
+    startup state and batches as three steps on auto: the losses within
+    ORACLE_TOL bf16 of each other, the step's ``kernel_backends`` naming
+    triton for flash (cuda for the CE head), and 12 launches a step of
+    each Triton flash kernel (counts zeroed just before the steps).
+    Returns the Triton launches."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    main, startup, model = build_training(pt, seed, TRAIN_T, "bfloat16",
+                                          True)
+    base = pt.Scope()
+    pt.Executor().run(startup, scope=base)
+    rng = np.random.default_rng(seed)
+    feeds = [make_batch(torch, rng, TRAIN_B, TRAIN_T) for _ in range(3)]
+    fetch = [model["avg_cost"].name]
+    runs = {}
+    for label in ("auto", "triton"):
+        scope = pt.Scope()
+        for name in base.var_names():
+            scope.set(name, base.get(name).clone())
+        exe = pt.Executor()
+        stack = contextlib.ExitStack()
+        if label == "triton":
+            stack.enter_context(env_var(
+                "PADDLE_TPU_KERNEL_BACKEND_FLASH_ATTENTION", "triton"))
+        with stack:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            losses = [exe.run(main, feed=f, fetch_list=fetch, scope=scope,
+                              return_numpy=False)[0].item() for f in feeds]
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+        runs[label] = (losses, launches, wall,
+                       dict(exe.last_step_cost["kernel_backends"]))
+        del scope, exe
+    steps = len(feeds) * N_LAYER
+    lt, launches, wall, kb = runs["triton"]
+    la, auto_launches, auto_wall, auto_kb = runs["auto"]
+    want = {"flash_attention_triton_fwd": steps,
+            "flash_attention_triton_dq": steps,
+            "flash_attention_triton_dkv": steps, "flash_attention_fwd": 0,
+            "flash_attention_bwd": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"21c: the Triton-routed steps launched "
+                             f"{launches}, expected {want}")
+    if auto_launches["flash_attention_triton_fwd"] or \
+            auto_launches["flash_attention_fwd"] != steps:
+        raise AssertionError(f"21c: the auto steps launched {auto_launches}")
+    if kb != {"flash_attention": "triton", "fused_ce": "cuda"} or \
+            auto_kb != {"flash_attention": "cuda", "fused_ce": "cuda"}:
+        raise AssertionError(f"21c: kernel_backends {kb} (triton) and "
+                             f"{auto_kb} (auto)")
+    tol = fa.oracle_tol(torch.bfloat16, "fwd")
+    for i, (a, b_) in enumerate(zip(lt, la)):
+        if not (math.isfinite(a) and abs(a - b_) <= tol * abs(b_)):
+            raise AssertionError(f"21c: step {i + 1} loss {a} (triton) vs "
+                                 f"{b_} (auto), limit {tol} relative")
+    log(f"21c: three flagship steps from one state, losses "
+        f"{[round(x, 6) for x in lt]} (flash on triton) vs "
+        f"{[round(x, 6) for x in la]} (auto: cuda), limit {tol} relative; "
+        f"kernel_backends {kb}; Triton launches "
+        f"{ {k: launches[k] for k in want if 'triton' in k} }; walls "
+        f"{wall:.3f} vs {auto_wall:.3f} s (first steps included)")
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def triton_serving_phase(torch, np, params, work, refs, cuda_outs, kernels):
+    """21d: phase 4's f32 engine on its eight requests with
+    ``PADDLE_TPU_KERNEL_BACKEND_PAGED_ATTENTION=triton``: every paged call
+    on the Triton kernel (counts zeroed before), every step callable's
+    ``kernel_backends`` naming it, and the tokens of phase 4's cuda engine,
+    or a difference only where ``generate``'s top-2 logit gap is below
+    1e-5 (printed).  Returns the Triton launches."""
+    kernels.reset_launches()
+    with env_var("PADDLE_TPU_KERNEL_BACKEND_PAGED_ATTENTION", "triton"):
+        outs, eng = serve_f32(params, work)
+    launches = kernels.launch_counts()
+    if launches["paged_attention"] or not launches["paged_attention_triton"]:
+        raise AssertionError(f"21d: the Triton-routed engine launched "
+                             f"{launches}")
+    sel = set(map(str, eng.kernel_backends.values()))
+    if sel != {str({"paged_attention": "triton"})}:
+        raise AssertionError(f"21d: kernel_backends {eng.kernel_backends}")
+    same = 0
+    for k, (a, b_, (_, logits)) in enumerate(zip(outs, cuda_outs, refs)):
+        if np.array_equal(a, b_):
+            same += 1
+            continue
+        i = int(np.nonzero(a != b_)[0][0])
+        top = torch.topk(logits[i - 1], 2).values
+        gap = (top[0] - top[1]).item()
+        log(f"21d request {k}: Triton and cuda engines differ at position "
+            f"{i}; generate's top-2 logit gap there {gap:.3e} (limit 1e-5)")
+        if not gap < 1e-5:
+            raise AssertionError(f"21d request {k}: tokens differ where the "
+                                 f"gap is {gap:.3e}")
+    log(f"21d: the Triton-routed f32 engine, {same}/{len(work)} requests "
+        f"token-identical to phase 4's cuda engine; "
+        f"{launches['paged_attention_triton']} Triton paged launches, 0 "
+        f"cuda; kernel_backends {sorted(eng.kernel_backends)} all triton")
+    del eng
+    return launches["paged_attention_triton"]
+
+
+def kernels_selftest_start():
+    """21e: ``python -m paddle_tpu_torch --kernels-selftest`` on the card,
+    started in the background (it shares the card with 4b and 21d, no
+    timed phase); :func:`kernels_selftest_wait` collects it."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch", "--kernels-selftest"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def kernels_selftest_wait(proc, t0):
+    try:
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = out.strip().splitlines()
+    fails = [ln for ln in lines if ln.startswith("FAIL")]
+    log(f"21e: --kernels-selftest exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s, {len(lines)} lines, "
+        f"{sum(ln.startswith('ok') for ln in lines)} checks ok: "
+        f"{lines[-1] if lines else ''}")
+    if proc.returncode != 0:
+        raise AssertionError("21e: --kernels-selftest failed:\n"
+                             + "\n".join(fails or lines[-40:]))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8358,11 +8773,24 @@ def main():
 
     # 4. correctness at full width, f32; 4b. the kill switch and
     #    speculative decoding held to the same references
-    refs = correctness_phase(torch, np, params, work[:8], kernels)
+    refs, cuda_outs = correctness_phase(torch, np, params, work[:8], kernels)
+    # 21e. the registry's selftest in a subprocess, beside 4b and 21d (no
+    #      timed phase runs while it does)
     t0 = time.perf_counter()
-    correctness_spelling_phase(torch, np, params, work[:8], refs, kernels)
-    walls["4b"] = time.perf_counter() - t0
-    del refs
+    selftest = kernels_selftest_start()
+    try:
+        correctness_spelling_phase(torch, np, params, work[:8], refs,
+                                   kernels)
+        walls["4b"] = time.perf_counter() - t0
+        # 21d. phase 4's engine with paged attention on the Triton kernel
+        t1 = time.perf_counter()
+        triton_paged_launches = triton_serving_phase(
+            torch, np, params, work[:8], refs, cuda_outs, kernels)
+        walls["21d"] = time.perf_counter() - t1
+    finally:
+        kernels_selftest_wait(selftest, t0)
+    walls["4b+21d+21e"] = time.perf_counter() - t0
+    del refs, cuda_outs
     torch.cuda.empty_cache()
 
     # 5. the main path: serving at full width, bf16; 5b. the same pass
@@ -8561,7 +8989,26 @@ def main():
     v1_phase(torch, np, pt, smi, args.seed, image_ms.get("vgg"))
     log(f"the script so far {time.perf_counter() - t_start:.1f} s")
 
-    # 21. the kernels line, 22. the result
+    # 21. the kernel registry on the card: 21a resolution, 21b the Triton
+    #     kernels alone and timed, 21c the flagship's flash on Triton (21d
+    #     and 21e ran beside 4b)
+    t0 = time.perf_counter()
+    registry_resolution_phase(torch)
+    from paddle_tpu_torch.kernels import triton_attention as tr
+
+    triton_rows = triton_flash_phase(torch, fa, tr)
+    triton_paged_row = triton_paged_phase(torch, pa)
+    triton_launches = triton_training_phase(torch, np, pt, kernels,
+                                            args.seed)
+    for r in triton_rows:
+        r["launches"] = triton_launches[r["name"]]
+    triton_paged_row["launches"] = triton_paged_launches
+    log(f"phase 21 wall {time.perf_counter() - t0:.1f} s, and 4b with 21d "
+        f"and 21e beside it {walls['4b+21d+21e']:.1f} s (4b "
+        f"{walls['4b']:.1f} s, 21d {walls['21d']:.1f} s); the script so far "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # 22. the kernels line, 23. the result
     row["launches"] = launches["paged_attention"]
     gather_row["launches"] = gathered["launches"]["decode_gather"]
     log(f"paged_attention at the verify shape: kernel {verify_ms[0]:.4f} ms, "
@@ -8574,7 +9021,8 @@ def main():
     fwd16k["launches"] = long_launches["flash_attention_fwd"]
     flash_rows[0]["t16384"] = fwd16k
     print(json.dumps({"kernels": [row, gather_row] + flash_rows + split_rows
-                      + ce_rows + [bn_row, bn_sm90_row]}), flush=True)
+                      + ce_rows + [bn_row, bn_sm90_row, triton_paged_row]
+                      + triton_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,14 +20,15 @@ Selftest flags, taken before any command, in the JAX package's order;
 each runs on the card unless ``--device=cpu`` is given and exits 0 when
 every check passes: ``--metrics-selftest``, ``--memory-selftest``,
 ``--lint-selftest``, ``--trace-selftest``, ``--resilience-selftest``,
-``--tune-selftest``, ``--costmodel-selftest``,
+``--tune-selftest``, ``--kernels-selftest``, ``--costmodel-selftest``,
 ``--attribution-selftest``, ``--spec-selftest``.  Two more take their
 own arguments: ``--bench-history [--dir D] [--threshold T]
 [--known-failures F]`` (the artifact trajectory gate; rc 1 on an
 unacknowledged failure or regression) and ``--lint <config.py>
 [--strict] [--json] [--levels ...] [--hbm-budget B] [--device D]`` (rc 1
-on error findings, 2 under ``--strict``).  The JAX package's other flags
-(``_UNPORTED``) exit 2 naming the ROADMAP.md item that ports them.
+on error findings, 2 under ``--strict``).  The JAX package's other two
+flags, ``--multichip-selftest`` and ``--sharding-selftest``
+(``_UNPORTED``), exit 2 naming the ROADMAP.md item that ports them.
 
 A model-config script is a Python file defining ``build() -> dict`` (with
 "feed" and "avg_cost" entries, like ``paddle_tpu_torch.models.*.build``)
@@ -766,7 +767,7 @@ def cmd_lint_selftest(device=None):
     with timed_run():
         got = step_ids(mp, [loss])
         snap = analysis.compile_findings(
-            kernel_backends={"flash_attention": "simple-forced"})
+            kernel_families={"flash_attention": "simple-forced"})
     check("jaxpr.kernel-backend" in got
           or (pt.resolve_device(device).type == "cuda"
               and [f.check for f in snap] == ["jaxpr.kernel-backend"]),
@@ -1118,6 +1119,12 @@ def cmd_tune_selftest(device=None):
     return run_selftest(device)
 
 
+def cmd_kernels_selftest(device=None):
+    from .kernels.selftest import run_selftest
+
+    return run_selftest(device)
+
+
 def cmd_spec_selftest(device=None):
     from .serving.spec_selftest import run_selftest
 
@@ -1135,7 +1142,7 @@ SELFTESTS = (
     ("--trace-selftest", cmd_trace_selftest),
     ("--resilience-selftest", cmd_resilience_selftest),
     ("--tune-selftest", cmd_tune_selftest),
-    ("--kernels-selftest", None),
+    ("--kernels-selftest", cmd_kernels_selftest),
     ("--costmodel-selftest", cmd_costmodel_selftest),
     ("--attribution-selftest", cmd_attribution_selftest),
     ("--spec-selftest", cmd_spec_selftest),
@@ -1149,7 +1156,6 @@ _TAKE_ARGV = ("--bench-history", "--lint")
 _UNPORTED = {
     "--multichip-selftest": "ROADMAP.md A7 (analysis/comm/selftest.py)",
     "--sharding-selftest": "ROADMAP.md A7 (analysis/comm/selftest.py)",
-    "--kernels-selftest": "ROADMAP.md A6 (the kernel registry)",
 }
 
 

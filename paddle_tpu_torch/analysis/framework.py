@@ -462,16 +462,19 @@ def lint(program=None, feed=None, fetch_list=None, scope=None,
 def compile_findings(program=None, fetch_names=(), memstats=None,
                      comm=None, in_loop_expected=False, donate=True,
                      hbm_budget=None, kernel_backends=None, mesh=None,
-                     comm_plan=None, label=None, device=None):
+                     comm_plan=None, label=None, device=None,
+                     kernel_families=None):
     """The Executor's fold-in at a cache miss: run the program-level
     checks plus the hlo-level checks over what the run already produced
     (no extra step).  Returns a list of Findings — the Executor
     summarizes them into ``last_step_cost``.
 
-    ``kernel_backends`` is what the step's kernel calls took
-    (``hlo_tools.kernel_backends``: ``"plain"`` for the plain PyTorch
-    versions, else the kernel family), the snapshot the timed-run form of
-    ``jaxpr.kernel-backend`` reads."""
+    ``kernel_backends`` is the kernel registry's record of the step
+    (``{op class: "cuda" | "triton" | "torch_ref"}``) and
+    ``kernel_families`` the families its kernel calls took
+    (``hlo_tools.kernel_families``: ``"plain"`` on the CPU, else
+    ``"sm90"``, ``"simple"`` or ``"simple-forced"``): the snapshots the
+    timed-run form of ``jaxpr.kernel-backend`` reads."""
     ctx = CheckContext(
         program, fetch_list=list(fetch_names), donate=donate,
         hbm_budget=hbm_budget, in_loop_expected=in_loop_expected,
@@ -493,34 +496,41 @@ def compile_findings(program=None, fetch_names=(), memstats=None,
     # artifact-skip notes are lint() UX; the fold-in only wants real
     # findings
     findings = [f for f in report if f.check != "analysis.artifact"]
-    findings += _timed_run_backend_findings(kernel_backends)
+    findings += _timed_run_backend_findings(kernel_backends,
+                                            kernel_families)
     return findings
 
 
-def _timed_run_backend_findings(kernel_backends):
+def _timed_run_backend_findings(kernel_backends, kernel_families=None):
     """The snapshot form of ``jaxpr.kernel-backend``: inside a timed-run
-    region, a kernel op class that ran its plain PyTorch version (the
-    CPU) or the simple family where its rule picks sm90 is an error —
-    the timed row would ship a stand-in, not the kernel's measurement."""
-    if not kernel_backends:
-        return []
+    region, a kernel op class that the registry resolved to its plain
+    PyTorch version (``torch_ref``: asked for by name on a card, or any
+    CPU run) or that ran the simple family where its rule picks sm90
+    (``simple-forced`` in the family record) is an error — the timed row
+    would ship a stand-in, not the kernel's measurement."""
     from .jaxpr_checks import timed_run_active
 
     if not timed_run_active():
         return []
-    bad = sorted(op for op, b in kernel_backends.items()
-                 if b in ("plain", "simple-forced"))
+    kernel_backends = kernel_backends or {}
+    kernel_families = kernel_families or {}
+    bad = {op: b for op, b in kernel_backends.items() if b == "torch_ref"}
+    bad.update({op: f for op, f in kernel_families.items()
+                if f == "simple-forced"})
     if not bad:
         return []
+    ops = sorted(bad)
     return [Finding(
         "jaxpr.kernel-backend", "error", "jaxpr", "kernel launches",
-        f"kernel op class(es) {', '.join(bad)} ran "
-        f"{'/'.join(sorted({kernel_backends[o] for o in bad}))} versions "
-        f"inside a timed-run region — the timing measures a stand-in, "
-        f"not the hand-written sm90 kernels",
-        hint="time on the card, with inputs the sm90 family takes "
-             "(bf16, the widths its rule admits)",
-        data={"kernel_backends": dict(kernel_backends)})]
+        f"kernel op class(es) {', '.join(ops)} ran "
+        f"{'/'.join(sorted(set(bad.values())))} versions inside a "
+        f"timed-run region — the timing measures a stand-in, not the "
+        f"hand-written kernels",
+        hint="time on the card with the registry's auto choice (no "
+             "torch_ref request) and inputs the sm90 family takes (bf16, "
+             "the widths its rule admits)",
+        data={"kernel_backends": dict(kernel_backends),
+              "kernel_families": dict(kernel_families)})]
 
 
 def preflight_hbm(high_water_bytes, budget_bytes, context=""):

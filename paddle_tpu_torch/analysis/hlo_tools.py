@@ -23,7 +23,7 @@ has no executable, so the figures come from the step itself:
 """
 
 __all__ = ["gpt_dims", "static_memstats", "measured_memstats",
-           "updated_state", "inplace_record", "kernel_backends",
+           "updated_state", "inplace_record", "kernel_families",
            "shape_hits"]
 
 
@@ -140,9 +140,11 @@ def _expected_family(call):
     return fa.bwd_family(dtype, call["d"], (), ())
 
 
-def kernel_backends(records, before, after, device):
-    """What each kernel op class of a step ran, from its op records and
-    the family counters before and after it (``kernels.family_counts``):
+def kernel_families(records, before, after, device):
+    """The kernel family each kernel op class of a step ran (the
+    Executor's ``last_step_cost["kernel_families"]``), from its op records
+    and the family counters before and after it
+    (``kernels.family_counts``):
     ``"plain"`` on the CPU, else ``"sm90"``, ``"simple"`` where the op's
     static rule gives simple (its dtype or widths), or ``"simple-forced"``
     where the rule gives sm90 and the step launched the simple family.

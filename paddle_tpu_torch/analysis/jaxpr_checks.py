@@ -11,9 +11,9 @@ Where the reference reads a traced jaxpr, these read:
 * ``jaxpr.kernel-residual`` — under ``offload``, the plan sends the block
   inputs to the host (else the policy silently degraded to
   ``selective``), and the kernels keep their residuals;
-* ``jaxpr.kernel-backend`` — inside a timed-run region no kernel op runs
-  its plain PyTorch version (a CPU step) or the simple family where its
-  rule takes sm90;
+* ``jaxpr.kernel-backend`` — inside a timed-run region no kernel op
+  resolves (kernel registry: its ``backend`` attr, the env, auto on the
+  lint's device) to its plain PyTorch version, ``torch_ref``;
 * ``jaxpr.constraint-placement`` — ``shard_activation``'s specs; silent,
   see its docstring;
 * ``jaxpr.bf16-accum`` — a carried accumulator or a long reduction kept
@@ -21,8 +21,7 @@ Where the reference reads a traced jaxpr, these read:
 * ``jaxpr.tanh-gelu`` — tanh activations inside a checkpointed region.
 """
 
-import contextlib
-
+from ..kernels.registry import timed_run, timed_run_active
 from .framework import register_check
 from .jaxpr_tools import BLOCK_INPUT_TAG, KERNEL_RESIDUAL_TAG
 
@@ -34,24 +33,10 @@ __all__ = ["timed_run", "timed_run_active"]
 # O(L) ungrouped layers, not O(1)
 PALLAS_OUTSIDE_SCAN_TOLERANCE = 1
 
-_TIMED_DEPTH = [0]
-
-
-@contextlib.contextmanager
-def timed_run():
-    """Declare a timed-run region: inside it the ``jaxpr.kernel-backend``
-    check holds every kernel op to its hand-written kernel (the
-    reference's ``kernels.timed_run``)."""
-    _TIMED_DEPTH[0] += 1
-    try:
-        yield
-    finally:
-        _TIMED_DEPTH[0] -= 1
-
-
-def timed_run_active():
-    """Inside :func:`timed_run`."""
-    return _TIMED_DEPTH[0] > 0
+# the kernel registry's op class of each kernel op type
+_OP_CLASS = {"flash_attention": "flash_attention",
+             "flash_attention_packed": "flash_attention",
+             "fused_softmax_ce_head": "fused_ce"}
 
 
 def _has_remat(program):
@@ -150,26 +135,42 @@ def kernel_residual(ctx):
 @register_check("jaxpr.kernel-backend", level="jaxpr")
 def kernel_backend(ctx):
     """Stand-in kernels in a TIMED run: inside a declared timed-run
-    region (:func:`timed_run`) a kernel op
-    lowered for the CPU runs its plain PyTorch version, and a bf16 op
-    whose widths the sm90 rule takes must not be forced onto the simple
-    family — either way the "measurement" times a stand-in.  Outside
+    region (:func:`timed_run`) a kernel op whose op class the kernel
+    registry resolves — from the op's ``backend`` attr, the env, then
+    auto on the lint's device, looked ahead without recording — to the
+    plain PyTorch version (``torch_ref``: every CPU step, or a card step
+    that asks for it by name) is an error: the "measurement" times a
+    stand-in.  (A forced simple family shows only in a run's record,
+    ``kernel_families``, which the Executor's fold-in checks.)  Outside
     timed regions the plain versions are the desired CPU test path and
     this check stays silent."""
     if not timed_run_active():
         return []
+    from ..kernels import registry
+
     calls = ctx.walk["kernel_calls"]
-    if not calls:
+    platform = ctx.torch_device.type
+    plain = []
+    for c in calls:
+        try:
+            name = registry.resolve(_OP_CLASS[c["type"]], c["backend"],
+                                    platform, record=False).backend
+        except (ValueError, registry.KernelUnavailable) as e:
+            plain.append((c, f"unresolvable: {e}"))
+            continue
+        if name == "torch_ref":
+            plain.append((c, name))
+    if not plain:
         return []
-    if ctx.torch_device.type == "cpu":
-        return [ctx.finding(
-            "jaxpr.kernel-backend", "error", "jaxpr", "kernel call",
-            f"{len(calls)} kernel call(s) lowered for the CPU run their "
-            f"plain PyTorch versions inside a timed-run region — not a "
-            f"measurement of the kernels",
-            hint="time on the card",
-            data={"kernel_calls": len(calls), "device": "cpu"})]
-    return []
+    return [ctx.finding(
+        "jaxpr.kernel-backend", "error", "jaxpr", "kernel call",
+        f"{len(plain)} kernel call(s) on {platform} resolve to their "
+        f"plain PyTorch versions (torch_ref) inside a timed-run region — "
+        f"not a measurement of the kernels",
+        hint="time on the card, with no torch_ref request in the ops' "
+             "backend attrs or PADDLE_TPU_KERNEL_BACKEND[_<OP>]",
+        data={"kernel_calls": len(plain), "device": platform,
+              "backends": sorted({why for _c, why in plain})})]
 
 
 @register_check("jaxpr.constraint-placement", level="jaxpr")

@@ -224,14 +224,16 @@ def _carry_accumulations(program, rec):
 def kernel_call(rec):
     """A kernel op's record as the checks read it: type, place, trips,
     whether the backward recomputes it, its dtype, its values' shapes
-    (inputs first) and the width its family rule reads (``d``: the head
+    (inputs first), the width its family rule reads (``d``: the head
     dim of a flash op, the model width of the CE head; ``v``: the CE
-    head's vocabulary)."""
+    head's vocabulary) and its ``backend`` attr (None: env and auto
+    decide)."""
     shapes = [s for _n, s, _d in rec.ins + rec.outs if s]
     call = {"type": rec.type, "index": rec.index, "block": rec.block,
             "times": rec.times, "recompute": rec.recompute,
             "dtype": rec.ins[0][2].name if rec.ins and rec.ins[0][2]
-            else None, "shapes": shapes, "d": None, "v": None}
+            else None, "shapes": shapes, "d": None, "v": None,
+            "backend": rec.op.attrs.get("backend") or None}
     if shapes:
         d = shapes[0][-1]
         if rec.type == "flash_attention_packed":

@@ -1286,6 +1286,26 @@ class Executor:
             out["tune"] = ts
         return out
 
+    @staticmethod
+    @contextlib.contextmanager
+    def _backend_record(entry, cache_hit):
+        """Around a lowered step's first run: the kernel registry's record
+        reset before it and snapshotted after it into the step's cost
+        (``kernel_backends``: ``{op class: "cuda" | "triton" |
+        "torch_ref"}``, what each kernel op class resolved to), which every
+        later run's ``last_step_cost`` carries — the reference's
+        per-compile snapshot (``paddle_tpu/core/executor.py:600-640``)."""
+        if cache_hit:
+            yield
+            return
+        from ..kernels import registry as _kreg
+
+        _kreg.reset_selected()
+        yield
+        kb = _kreg.selected_backends()
+        if kb:
+            entry[1]["kernel_backends"] = kb
+
     def _fold_probe(self, program, entry, feeds, state):
         """What the fold-in needs from before the first run of a lowered
         step at a batch (None on every later run, or with both kill
@@ -1315,8 +1335,8 @@ class Executor:
         At the first run of a lowered step at a batch: the attribution
         table of the step (``last_attribution``; ``attribution``,
         ``bytes_accessed``), the cost model's status (``costmodel``) and
-        what the kernel ops ran (``kernel_backends``), kept for the step
-        and batch.  At the step's first run only: the program- and
+        the kernel families the kernel ops ran (``kernel_families``), kept
+        for the step and batch.  At the step's first run only: the program- and
         run-level lint findings (``lint_findings`` / ``lint_errors`` /
         ``lint_checks``), kept for the step, since the Program they read
         does not change with the batch.  Every later run's
@@ -1366,16 +1386,16 @@ class Executor:
             fold["costmodel"] = model_status(device_platform(self.device))
         except Exception:  # noqa: BLE001 — telemetry must never block
             failed()
-        kb = {}
+        kf = {}
         if records is not None:
             try:
-                kb = hlo_tools.kernel_backends(
+                kf = hlo_tools.kernel_families(
                     records, probe["families"], kernels.family_counts(),
                     self.device)
             except Exception:  # noqa: BLE001 — telemetry must never block
                 failed()
-            if kb:
-                fold["kernel_backends"] = kb
+            if kf:
+                fold["kernel_families"] = kf
         entry[3][batch] = fold
         if first and lint_enabled():
             try:
@@ -1388,7 +1408,9 @@ class Executor:
                 findings = compile_findings(
                     program=program, fetch_names=fetch_names, memstats=mem,
                     comm=comm_plan.comm_report() if comm_plan else {},
-                    donate=self.donate_state, kernel_backends=kb,
+                    donate=self.donate_state,
+                    kernel_backends=entry[1].get("kernel_backends"),
+                    kernel_families=kf,
                     mesh=self.mesh, comm_plan=comm_plan,
                     label=self.last_step_cost.get("label"),
                     device=self.device)
@@ -1453,9 +1475,10 @@ class Executor:
         entry, cache_hit = self._entry(program, fetch_names, state_names)
         probe = self._fold_probe(program, entry, feeds, state)
         trips = {}
-        fetches = self._run_lowered(entry[0], scope, state, feeds,
-                                    self._generator(scope), trips,
-                                    fetch_names)
+        with self._backend_record(entry, cache_hit):
+            fetches = self._run_lowered(entry[0], scope, state, feeds,
+                                        self._generator(scope), trips,
+                                        fetch_names)
         self.last_step_cost = self._cost(program, entry, cache_hit, feeds,
                                          trips=trips)
         if self.comm is not None:
@@ -1505,10 +1528,11 @@ class Executor:
                  if step_feeds else None)
         gen = self._generator(scope)
         outs, trips = [], {}
-        for fs in step_feeds:
-            outs.append(self._run_lowered(entry[0], scope, state, fs, gen,
-                                          trips, fetch_names))
-            state = {n: scope.get(n) for n in state_names}
+        with self._backend_record(entry, cache_hit):
+            for fs in step_feeds:
+                outs.append(self._run_lowered(entry[0], scope, state, fs,
+                                              gen, trips, fetch_names))
+                state = {n: scope.get(n) for n in state_names}
         self.last_step_cost = self._cost(
             program, entry, cache_hit,
             step_feeds[0] if step_feeds else {}, steps, trips)

@@ -1,18 +1,40 @@
 """The port's kernels: each op class keeps a plain PyTorch version beside
 a hand-written CUDA kernel for Hopper (``paddle_tpu_torch/csrc/``),
-built at first use by ``_build``.  Wrappers take the plain version for
-CPU tensors and launch the kernel for CUDA tensors, and count their
-launches (``<wrapper>.launches``) and, where a static rule picks among
-kernel families, the calls of each family (``FAMILIES``)."""
+built at first use by ``_build``, and, for ``flash_attention`` and
+``paged_attention``, Triton kernels (``triton_attention``).  Wrappers
+take the plain version for CPU tensors and launch the kernel for CUDA
+tensors, and count their launches (``<wrapper>.launches``) and, where a
+static rule picks among kernel families, the calls of each family
+(``FAMILIES``).
 
+Every op class resolves its backend (``cuda``, ``triton`` or
+``torch_ref``) through :mod:`.registry`: an explicit ``backend=``, a
+forced backend, ``PADDLE_TPU_KERNEL_BACKEND_<OP>``,
+``PADDLE_TPU_KERNEL_BACKEND``, then auto (``cuda`` on a card, the plain
+versions on the CPU).  Triton writes its compiled kernels under
+``paddle_tpu_torch/_build/triton/`` unless ``TRITON_CACHE_DIR`` is set.
+``python -m paddle_tpu_torch --kernels-selftest`` checks the whole
+surface."""
+
+import os
 import re
 
+from . import registry  # first: the kernel modules register into it
+from .registry import (
+    AUTO_ORDER, BACKENDS, GLOBAL_ENV, TIMED_RUN_ENV, KernelUnavailable,
+    available_backends, forced_backend, get_kernel, registered_op_classes,
+    reset_selected, resolve, resolve_name, selected_backends, timed_run,
+    timed_run_active)
 from . import _build
 from . import bottleneck as _bn
 from . import decode_gather as _dg
 from . import flash_attention as _fa
 from . import fused_ce as _ce
 from . import paged_attention as _pa
+from . import triton_attention as _tr
+
+os.environ.setdefault("TRITON_CACHE_DIR",
+                      os.path.join(_build.BUILD_DIR, "triton"))
 
 # name -> wrapper, for callers that reset or read every launch count
 WRAPPERS = {"paged_attention": _pa.paged_attention,
@@ -25,12 +47,17 @@ WRAPPERS = {"paged_attention": _pa.paged_attention,
             "fused_ce_fwd": _ce.ce_fwd,
             "fused_ce_dx": _ce.ce_dx,
             "fused_ce_dw": _ce.ce_dw,
-            "bottleneck": _bn.bottleneck}
+            "bottleneck": _bn.bottleneck,
+            "paged_attention_triton": _pa.paged_attention_triton,
+            "flash_attention_triton_fwd": _tr.flash_fwd_triton,
+            "flash_attention_triton_dq": _tr.flash_bwd_dq_triton,
+            "flash_attention_triton_dkv": _tr.flash_bwd_dkv_triton}
 
 
-# the ``__global__`` functions of ``csrc/``, as a profiler names them (a
-# kernel's trace name holds its function name as a word)
-KERNEL_NAMES = (
+# the ``__global__`` functions of ``csrc/`` and the ``@triton.jit``
+# functions, as a profiler names them (a kernel's trace name holds its
+# function name as a word)
+KERNEL_NAMES = _tr.KERNEL_NAMES + (
     "paged_attention_kernel", "paged_split_kernel", "paged_merge_kernel",
     "decode_gather_kernel",
     "flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_bwd_kernel",
@@ -93,4 +120,9 @@ def build_all():
 
 
 __all__ = ["WRAPPERS", "FAMILIES", "KERNEL_NAMES", "hand_written",
-           "reset_launches", "launch_counts", "family_counts", "build_all"]
+           "reset_launches", "launch_counts", "family_counts", "build_all",
+           "registry", "AUTO_ORDER", "BACKENDS", "GLOBAL_ENV",
+           "TIMED_RUN_ENV", "KernelUnavailable", "available_backends",
+           "forced_backend", "get_kernel", "registered_op_classes",
+           "reset_selected", "resolve", "resolve_name",
+           "selected_backends", "timed_run", "timed_run_active"]

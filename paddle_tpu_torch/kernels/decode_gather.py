@@ -26,8 +26,10 @@ Two spellings of the one function live here:
 A gather moves bits and computes nothing, so the kernel is BIT-EXACT
 against the plain version in every dtype (``ORACLE_TOL`` 0.0).
 
-:func:`decode_gather` is the wrapper.  CPU tensors take the plain
-version, CUDA tensors launch the kernel or raise — there is no fallback.
+:func:`decode_gather` is the wrapper, the ``decode_gather`` op class's
+``cuda`` backend in the kernel registry (:func:`decode_gather_ref` is its
+``torch_ref``).  CPU tensors take the plain version, CUDA tensors launch
+the kernel or raise — there is no fallback.
 Every launch adds one to ``decode_gather.launches``.  Table entries are
 data: they must name blocks of the pool and are not range-checked (that
 would need a device sync).
@@ -38,6 +40,7 @@ import ctypes
 import torch
 
 from . import _build
+from .registry import cuda_availability, register_kernel
 
 __all__ = ["ORACLE_TOL", "decode_gather", "decode_gather_ref", "oracle_tol"]
 
@@ -143,3 +146,16 @@ def decode_gather(pool, table):
 
 
 decode_gather.launches = 0
+
+
+class _GatherCuda:
+    call = staticmethod(decode_gather)
+
+
+class _GatherTorchRef:
+    call = staticmethod(decode_gather_ref)
+
+
+register_kernel("decode_gather", "cuda", _GatherCuda,
+                available=cuda_availability)
+register_kernel("decode_gather", "torch_ref", _GatherTorchRef)

@@ -85,6 +85,14 @@ Gradients flow through :class:`FlashAttentionFunction`, whose forward
 saves exactly ``FLASH_BWD_RESIDUALS = (q, k, v, o, lse)`` and whose
 backward is one :func:`flash_bwd` call — the forward is never recomputed.
 
+Kernel registry (``kernels/registry.py``): :func:`flash_attention`,
+:func:`flash_attention_with_lse` and :func:`flash_attention_packed` are
+the ``flash_attention`` op class's ``cuda`` backend; its ``torch_ref``
+backend is the same three entry points (:func:`entry_points`) over the
+plain versions (:class:`RefKernels`), and its ``triton`` backend
+(``kernels/triton_attention.py``) over the Triton kernels — one autograd
+Function, one residual contract, whichever backend resolves.
+
 Kernel limits (checked here, before the launch): bf16 or f32, one dtype
 and one device for all tensors, contiguous ``[b, t, h, d]``, ``d <= 256``
 (the simple family's limit; the sm90 family takes ``d <= 128``, as its
@@ -96,6 +104,7 @@ import ctypes
 import torch
 
 from . import _build
+from .registry import cuda_availability, register_kernel
 
 __all__ = ["NEG_INF", "ORACLE_TOL", "FLASH_BWD_RESIDUALS",
            "FUSED_BWD_PARTIAL_BYTES", "BWD_ROUTE_CALLS", "oracle_tol",
@@ -104,7 +113,8 @@ __all__ = ["NEG_INF", "ORACLE_TOL", "FLASH_BWD_RESIDUALS",
            "flash_attention_ref", "flash_attention_bwd_ref",
            "flash_bwd_delta_ref", "flash_fwd", "flash_bwd",
            "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkv",
-           "FlashAttentionFunction", "flash_attention",
+           "FlashAttentionFunction", "CudaKernels", "RefKernels",
+           "entry_points", "flash_attention",
            "flash_attention_with_lse", "flash_attention_packed",
            "packed_sub_heads", "build"]
 
@@ -676,18 +686,54 @@ def flash_bwd_dkv(q, k, v, o, lse, do, dlse=None, causal=False,
 flash_bwd_dkv.launches = 0
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """``(o, lse [b*h, t_q])`` with gradients.  Saves exactly
-    ``FLASH_BWD_RESIDUALS``; the backward is one :func:`flash_bwd` call
-    (on the route its block sizes give) and never re-runs the forward."""
+class CudaKernels:
+    """The ``cuda`` backend's kernel pair, as :class:`FlashAttentionFunction`
+    calls it: :func:`flash_fwd` and :func:`flash_bwd` (looked up by name at
+    each call).  ``block_q`` / ``block_k`` pick the backward route."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, block_q=1024, block_k=1024):
+    def fwd(q, k, v, causal, sm_scale, block_q, block_k):
+        return flash_fwd(q, k, v, causal, sm_scale)
+
+    @staticmethod
+    def bwd(q, k, v, o, lse, do, dlse, causal, sm_scale, block_q, block_k):
+        return flash_bwd(q, k, v, o, lse, do, dlse, causal, sm_scale,
+                         block_q=block_q, block_k=block_k)
+
+
+class RefKernels:
+    """The ``torch_ref`` backend's pair: the plain versions, on any device
+    (on a CUDA tensor they run only when the backend is asked for by
+    name)."""
+
+    @staticmethod
+    def fwd(q, k, v, causal, sm_scale, block_q, block_k):
+        return flash_attention_ref(q, k, v, causal, sm_scale)
+
+    @staticmethod
+    def bwd(q, k, v, o, lse, do, dlse, causal, sm_scale, block_q, block_k):
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, dlse, causal,
+                                       sm_scale)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``(o, lse [b*h, t_q])`` with gradients.  Saves exactly
+    ``FLASH_BWD_RESIDUALS``; the backward is one ``kernels.bwd`` call (for
+    the cuda backend, :func:`flash_bwd` on the route its block sizes give)
+    and never re-runs the forward.  ``kernels`` is a backend's pair
+    (:class:`CudaKernels` by default, :class:`RefKernels`, or the Triton
+    backend's), so every backend shares one residual contract."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, block_q=1024, block_k=1024,
+                kernels=None):
+        kernels = kernels or CudaKernels
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_fwd(q, k, v, causal, sm_scale)
+        o, lse = kernels.fwd(q, k, v, causal, sm_scale, block_q, block_k)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         ctx.blocks = (block_q, block_k)
+        ctx.kernels = kernels
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -699,10 +745,48 @@ class FlashAttentionFunction(torch.autograd.Function):
         if dlse is not None:
             dlse = dlse.to(lse.dtype).contiguous()
         block_q, block_k = ctx.blocks
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), dlse,
-                               ctx.causal, ctx.sm_scale, block_q=block_q,
-                               block_k=block_k)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = ctx.kernels.bwd(q, k, v, o, lse, do.contiguous(), dlse,
+                                     ctx.causal, ctx.sm_scale, block_q,
+                                     block_k)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def entry_points(kernels):
+    """``(with_lse, plain, packed)``: the three public attention functions
+    of a backend whose kernel pair is ``kernels``, each through
+    :class:`FlashAttentionFunction` — the registry's ``call_with_lse``,
+    ``call`` and ``call_packed``."""
+
+    def with_lse(q, k, v, causal=False, sm_scale=None, block_q=1024,
+                 block_k=1024):
+        b, t_q, h, d = q.shape
+        sm_scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+        o, lse = FlashAttentionFunction.apply(
+            q, k, v, bool(causal), sm_scale, int(block_q), int(block_k),
+            kernels)
+        return o, lse.reshape(b, h, t_q)
+
+    def plain(q, k, v, causal=False, sm_scale=None, block_q=1024,
+              block_k=1024):
+        return with_lse(q, k, v, causal, sm_scale, block_q, block_k)[0]
+
+    def packed(q, k, v, n_head, causal=False, sm_scale=None, block_q=1024,
+               block_k=1024):
+        b, t_q, hd = q.shape
+        if hd % n_head:
+            raise ValueError(
+                f"feature dim {hd} not divisible by n_head {n_head}")
+        d = hd // n_head
+        t_k = k.shape[1]
+        o = plain(q.reshape(b, t_q, n_head, d), k.reshape(b, t_k, n_head, d),
+                  v.reshape(b, t_k, n_head, d), causal, sm_scale, block_q,
+                  block_k)
+        return o.reshape(b, t_q, hd)
+
+    return with_lse, plain, packed
+
+
+_cuda_with_lse, _cuda_plain, _cuda_packed = entry_points(CudaKernels)
 
 
 def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None,
@@ -710,20 +794,17 @@ def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None,
     """``(o [b, t_q, h, d], lse [b, h, t_q])``, differentiable through
     both outputs — the building block for merging partial attentions.
     ``block_q``/``block_k`` are the reference's tile attrs; the backward
-    route reads ``block_k`` as the reference does."""
-    b, t_q, h, d = q.shape
-    sm_scale = d ** -0.5 if sm_scale is None else float(sm_scale)
-    o, lse = FlashAttentionFunction.apply(q, k, v, bool(causal), sm_scale,
-                                          int(block_q), int(block_k))
-    return o, lse.reshape(b, h, t_q)
+    route reads ``block_k`` as the reference does.  The ``cuda`` backend's
+    ``call_with_lse``."""
+    return _cuda_with_lse(q, k, v, causal, sm_scale, block_q, block_k)
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None, block_q=1024,
                     block_k=1024):
     """Fused attention: q ``[b, t_q, h, d]``, k/v ``[b, t_k, h, d]`` ->
-    ``[b, t_q, h, d]``.  Differentiable."""
-    return flash_attention_with_lse(q, k, v, causal, sm_scale, block_q,
-                                    block_k)[0]
+    ``[b, t_q, h, d]``.  Differentiable.  The ``cuda`` backend's
+    ``call``."""
+    return _cuda_plain(q, k, v, causal, sm_scale, block_q, block_k)
 
 
 def flash_attention_packed(q, k, v, n_head, causal=False, sm_scale=None,
@@ -731,14 +812,21 @@ def flash_attention_packed(q, k, v, n_head, causal=False, sm_scale=None,
     """Fused attention on the raw projection layout: q/k/v ``[b, t, h*d]``
     -> ``[b, t, h*d]``.  The 4-D view is free (heads are contiguous
     slices of the feature dim), so this is :func:`flash_attention` on the
-    same memory."""
-    b, t_q, hd = q.shape
-    if hd % n_head:
-        raise ValueError(f"feature dim {hd} not divisible by n_head {n_head}")
-    d = hd // n_head
-    t_k = k.shape[1]
-    o = flash_attention(q.reshape(b, t_q, n_head, d),
-                        k.reshape(b, t_k, n_head, d),
-                        v.reshape(b, t_k, n_head, d), causal, sm_scale,
-                        block_q, block_k)
-    return o.reshape(b, t_q, hd)
+    same memory.  The ``cuda`` backend's ``call_packed``."""
+    return _cuda_packed(q, k, v, n_head, causal, sm_scale, block_q, block_k)
+
+
+class _FlashCuda:
+    call = staticmethod(flash_attention)
+    call_with_lse = staticmethod(flash_attention_with_lse)
+    call_packed = staticmethod(flash_attention_packed)
+
+
+class _FlashTorchRef:
+    call_with_lse, call, call_packed = (
+        staticmethod(f) for f in entry_points(RefKernels))
+
+
+register_kernel("flash_attention", "cuda", _FlashCuda,
+                available=cuda_availability)
+register_kernel("flash_attention", "torch_ref", _FlashTorchRef)

@@ -43,7 +43,10 @@ adds one to ``<wrapper>.launches`` and to its family's count in
 Gradients flow through :class:`FusedCEFunction`, whose forward saves
 exactly ``FUSED_CE_RESIDUALS = (x, w, y, lse)`` — nothing ``[N, V]`` —
 and whose backward launches the dx and dW kernels; the forward is never
-re-run.
+re-run.  In the kernel registry (``kernels/registry.py``)
+:func:`fused_softmax_ce_head` and :func:`fused_softmax_ce_head_with_lse`
+are the ``fused_ce`` op class's ``cuda`` backend, and the same entry
+points (:func:`entry_points`) over the plain versions its ``torch_ref``.
 
 Kernel limits (checked here, before the launch): x and w bf16 or f32 in
 one dtype, y int32, all contiguous on one card.  Any ``d >= 1``: the
@@ -58,6 +61,7 @@ import math
 import torch
 
 from . import _build
+from .registry import cuda_availability, register_kernel
 
 __all__ = ["ORACLE_TOL", "FUSED_CE_RESIDUALS", "CE_FWD_FAMILY_CALLS",
            "CE_DX_FAMILY_CALLS", "CE_DW_FAMILY_CALLS", "oracle_tol",
@@ -65,7 +69,9 @@ __all__ = ["ORACLE_TOL", "FUSED_CE_RESIDUALS", "CE_FWD_FAMILY_CALLS",
            "fused_ce_dw_ref", "fused_ce_fwd_tiled_ref",
            "fused_ce_dx_split_ref", "fused_ce_dw_split_ref", "dx_d_half",
            "SM90_MAX_D", "ce_family", "ce_fwd", "ce_dx", "ce_dw",
-           "FusedCEFunction", "fused_softmax_ce_head", "build"]
+           "FusedCEFunction", "FusedCELseFunction", "CudaKernels",
+           "RefKernels", "entry_points", "fused_softmax_ce_head",
+           "fused_softmax_ce_head_with_lse", "build"]
 
 # what the backward is computed from, and all the forward saves
 # (pallas_ce.py: _ce_core_fwd)
@@ -430,25 +436,63 @@ def ce_dw(x, w, y, lse, g):
 ce_dw.launches = 0
 
 
-class FusedCEFunction(torch.autograd.Function):
-    """``loss [N]`` with gradients in ``x`` and ``w``.  Saves exactly
-    ``FUSED_CE_RESIDUALS``; the backward is one :func:`ce_dx` and one
-    :func:`ce_dw` call and never re-runs the forward."""
+class CudaKernels:
+    """The ``cuda`` backend's three kernels as the autograd functions call
+    them: :func:`ce_fwd`, :func:`ce_dx`, :func:`ce_dw` (looked up by name
+    at each call)."""
 
     @staticmethod
-    def forward(ctx, x, w, y):
+    def fwd(x, w, y):
+        return ce_fwd(x, w, y)
+
+    @staticmethod
+    def dx(x, w, y, lse, g):
+        return ce_dx(x, w, y, lse, g)
+
+    @staticmethod
+    def dw(x, w, y, lse, g):
+        return ce_dw(x, w, y, lse, g)
+
+
+class RefKernels:
+    """The ``torch_ref`` backend's: the plain versions, on any device."""
+
+    @staticmethod
+    def fwd(x, w, y):
+        return fused_ce_ref(x, w, y)
+
+    @staticmethod
+    def dx(x, w, y, lse, g):
+        return fused_ce_dx_ref(x, w, y, lse, g)
+
+    @staticmethod
+    def dw(x, w, y, lse, g):
+        return fused_ce_dw_ref(x, w, y, lse, g)
+
+
+class FusedCEFunction(torch.autograd.Function):
+    """``loss [N]`` with gradients in ``x`` and ``w``.  Saves exactly
+    ``FUSED_CE_RESIDUALS``; the backward is one dx and one dW call of the
+    backend's ``kernels`` (:class:`CudaKernels` by default) and never
+    re-runs the forward."""
+
+    @staticmethod
+    def forward(ctx, x, w, y, kernels=None):
+        kernels = kernels or CudaKernels
         x, w = x.contiguous(), w.contiguous()
-        loss, lse = ce_fwd(x, w, y)
+        loss, lse = kernels.fwd(x, w, y)
         ctx.save_for_backward(x, w, y, lse)
+        ctx.kernels = kernels
         return loss
 
     @staticmethod
     def backward(ctx, g):
         x, w, y, lse = ctx.saved_tensors
         g = g.to(lse.dtype).contiguous()
-        dx = ce_dx(x, w, y, lse, g) if ctx.needs_input_grad[0] else None
-        dw = ce_dw(x, w, y, lse, g) if ctx.needs_input_grad[1] else None
-        return dx, dw, None
+        k = ctx.kernels
+        dx = k.dx(x, w, y, lse, g) if ctx.needs_input_grad[0] else None
+        dw = k.dw(x, w, y, lse, g) if ctx.needs_input_grad[1] else None
+        return dx, dw, None, None
 
 
 class FusedCELseFunction(torch.autograd.Function):
@@ -462,10 +506,12 @@ class FusedCELseFunction(torch.autograd.Function):
     kernels pick nothing and nothing is corrected)."""
 
     @staticmethod
-    def forward(ctx, x, w, y):
+    def forward(ctx, x, w, y, kernels=None):
+        kernels = kernels or CudaKernels
         x, w = x.contiguous(), w.contiguous()
-        loss, lse = ce_fwd(x, w, y)
+        loss, lse = kernels.fwd(x, w, y)
         ctx.save_for_backward(x, w, y, lse)
+        ctx.kernels = kernels
         ctx.set_materialize_grads(False)
         return loss, lse
 
@@ -479,8 +525,9 @@ class FusedCELseFunction(torch.autograd.Function):
             glse = torch.zeros_like(lse)
         glse = glse.to(lse.dtype)
         gt = (g + glse).contiguous()
-        dx = ce_dx(x, w, y, lse, gt) if ctx.needs_input_grad[0] else None
-        dw = ce_dw(x, w, y, lse, gt) if ctx.needs_input_grad[1] else None
+        k = ctx.kernels
+        dx = k.dx(x, w, y, lse, gt) if ctx.needs_input_grad[0] else None
+        dw = k.dw(x, w, y, lse, gt) if ctx.needs_input_grad[1] else None
         ok = _in_range(y.long(), w.shape[1])
         yi = torch.where(ok, y.long(), torch.zeros_like(y.long()))
         c = torch.where(ok, glse, torch.zeros_like(glse))
@@ -491,21 +538,49 @@ class FusedCELseFunction(torch.autograd.Function):
             corr = torch.zeros(w.shape, dtype=lse.dtype, device=w.device)
             corr.index_add_(1, yi, x.to(lse.dtype).t() * c[None, :])
             dw = (dw.to(lse.dtype) + corr).to(w.dtype)
-        return dx, dw, None
+        return dx, dw, None, None
+
+
+def _rows(x, labels):
+    """``x`` as ``[N, d]`` and the labels as int32 ``[N]``, with the
+    leading dims to restore."""
+    lead = x.shape[:-1]
+    n = 1
+    for s in lead:
+        n *= int(s)
+    return lead, x.reshape(n, x.shape[-1]), labels.reshape(n).to(torch.int32)
+
+
+def entry_points(kernels):
+    """``(call, call_with_lse)``: the two public head functions of a
+    backend whose kernels are ``kernels`` — the registry's ``call`` and
+    ``call_with_lse``.  ``block_n``, ``block_v`` and ``block_v_fwd`` are
+    accepted for the reference's signature and not used: the kernels tile
+    by their own sizes (the reference's VMEM block chooser has no
+    counterpart)."""
+
+    def call(x, w, labels, block_n=512, block_v=1024, block_v_fwd=2048):
+        lead, x2, y = _rows(x, labels)
+        return FusedCEFunction.apply(x2, w, y, kernels).reshape(lead)
+
+    def call_with_lse(x, w, labels, block_n=512, block_v=1024,
+                      block_v_fwd=2048):
+        lead, x2, y = _rows(x, labels)
+        loss, lse = FusedCELseFunction.apply(x2, w, y, kernels)
+        return loss.reshape(lead), lse.reshape(lead)
+
+    return call, call_with_lse
+
+
+_cuda_call, _cuda_with_lse = entry_points(CudaKernels)
 
 
 def fused_softmax_ce_head_with_lse(x, w, labels):
     """:func:`fused_softmax_ce_head` that also returns the per-position
     ``lse`` (both ``[...]``, f32), differentiable through both — what the
-    vocab-sharded head merges across shards by a logsumexp."""
-    lead = x.shape[:-1]
-    d = x.shape[-1]
-    n = 1
-    for s in lead:
-        n *= int(s)
-    y = labels.reshape(n).to(torch.int32)
-    loss, lse = FusedCELseFunction.apply(x.reshape(n, d), w, y)
-    return loss.reshape(lead), lse.reshape(lead)
+    vocab-sharded head merges across shards by a logsumexp.  The ``cuda``
+    backend's ``call_with_lse``."""
+    return _cuda_with_lse(x, w, labels)
 
 
 def fused_softmax_ce_head(x, w, labels, block_n=512, block_v=1024,
@@ -514,15 +589,19 @@ def fused_softmax_ce_head(x, w, labels, block_n=512, block_v=1024,
     ``w [d, V]``, ``labels [...]`` int -> per-position NLL ``[...]`` in f32
     (f64 for f64 inputs), differentiable in ``x`` and ``w``.  The leading
     dimensions are flattened to ``N`` rows and the labels cast to int32
-    once.  ``block_n``, ``block_v`` and ``block_v_fwd`` are accepted for the
-    reference's signature and not used: the CUDA kernels tile by their own
-    sizes (the reference's VMEM block chooser has no counterpart)."""
-    del block_n, block_v, block_v_fwd
-    lead = x.shape[:-1]
-    d = x.shape[-1]
-    n = 1
-    for s in lead:
-        n *= int(s)
-    y = labels.reshape(n).to(torch.int32)
-    loss = FusedCEFunction.apply(x.reshape(n, d), w, y)
-    return loss.reshape(lead)
+    once.  The ``cuda`` backend's ``call`` (:func:`entry_points` on the
+    block arguments)."""
+    return _cuda_call(x, w, labels, block_n, block_v, block_v_fwd)
+
+
+class _CECuda:
+    call = staticmethod(fused_softmax_ce_head)
+    call_with_lse = staticmethod(fused_softmax_ce_head_with_lse)
+
+
+class _CETorchRef:
+    call, call_with_lse = (staticmethod(f) for f in entry_points(RefKernels))
+
+
+register_kernel("fused_ce", "cuda", _CECuda, available=cuda_availability)
+register_kernel("fused_ce", "torch_ref", _CETorchRef)

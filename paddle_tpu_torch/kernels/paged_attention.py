@@ -31,9 +31,12 @@ Spellings of the one function here:
   call of the serving paths) and ``"simple"`` (a block a query row
   walking the whole chain; what the split family does not take).
 
-:func:`paged_attention` is the wrapper.  It dispatches on the tensors'
-device: CPU tensors take the plain version, CUDA tensors launch the
-kernels or raise — there is no fallback from one to the other.  Every
+:func:`paged_attention` is the wrapper, the ``paged_attention`` op
+class's ``cuda`` backend in the kernel registry (``kernels/registry.py``;
+:func:`paged_attention_triton` is its ``triton`` backend and
+:func:`paged_attention_plain` its ``torch_ref``).  It dispatches on the
+tensors' device: CPU tensors take the plain version, CUDA tensors launch
+the kernels or raise — there is no fallback from one to the other.  Every
 successful call on the card adds one to ``paged_attention.launches``
 and to ``PAGED_FAMILY_CALLS[family]``.
 
@@ -52,11 +55,14 @@ import ctypes
 import torch
 
 from . import _build
+from .registry import (cuda_availability, register_kernel,
+                       triton_availability)
 
 __all__ = ["NEG_INF", "ORACLE_TOL", "PAGED_FAMILY_CALLS", "PAGED_SPLIT_CALLS",
            "paged_attention", "paged_attention_ref",
            "paged_attention_split_ref", "paged_family", "paged_splits",
-           "split_entries", "oracle_tol"]
+           "split_entries", "oracle_tol", "paged_attention_triton",
+           "paged_attention_plain"]
 
 NEG_INF = -1e30
 
@@ -343,3 +349,79 @@ def paged_attention(q, pool_k, pool_v, table, pos, splits=None):
 
 
 paged_attention.launches = 0
+
+
+def paged_attention_plain(q, pool_k, pool_v, table, pos, splits=None):
+    """The ``torch_ref`` backend's call, on any device: the plain block
+    scan, or at a given split count (the tuner's knob) the plain
+    split-and-merge spelling — what :func:`paged_attention` computes for
+    CPU tensors."""
+    if splits is not None:
+        return paged_attention_split_ref(q, pool_k, pool_v, table, pos,
+                                         int(splits))
+    return paged_attention_ref(q, pool_k, pool_v, table, pos)
+
+
+def paged_attention_triton(q, pool_k, pool_v, table, pos, block_step=None,
+                           splits=None):
+    """The ``triton`` backend: the reference's ``paged_attention_triton``
+    (``paddle_tpu/kernels/paged_attention.py:261``) as one ``@triton.jit``
+    kernel, ``triton_paged_attention_kernel``
+    (``kernels/triton_attention.py``).  Its grid is ``(S,)``: a program a
+    slot (slots share nothing) loops over the slot's heads and, for each,
+    over the table entries that hold a token ``<= max(pos[s])``, loading
+    the physical block the entry names; scores are a broadcast product
+    summed over ``dh`` (``W`` may be 1: no ``tl.dot`` of width 1), the
+    online softmax in f32, a masked key weighted by 0, so a row with no
+    live key (``pos < 0``) is zeros, as in the cuda kernels.  Bound:
+    the bytes of ``q``, the live blocks and the output over the card's
+    3.35 TB/s.  ``block_step`` (the reference's) and ``splits`` (the cuda
+    split kernel's) are accepted and ignored: the loop takes one physical
+    block an iteration.  CPU tensors take :func:`paged_attention_ref`;
+    CUDA tensors launch the kernel, or raise.  Each launch adds one to
+    ``paged_attention_triton.launches``."""
+    del block_step, splits
+    _check(q, pool_k, pool_v, table, pos)
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, pool_k, pool_v, table, pos)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    from .triton_attention import _jit
+
+    S, W, h, dh = q.shape
+    B = pool_k.shape[1]
+    NB = table.shape[1]
+    out = torch.empty_like(q)
+    p2 = lambda n: 1 << (max(2, n) - 1).bit_length()  # noqa: E731
+    jit = _jit()
+    with torch.cuda.device(q.device):
+        jit.paged[(S,)](
+            q, pool_k, pool_v, table, pos, out, 1.0 / float(dh) ** 0.5,
+            W, h, dh, B, NB, q.stride(0), q.stride(1), q.stride(2),
+            pool_k.stride(0), pool_k.stride(1), pool_k.stride(2),
+            table.stride(0), pos.stride(0), WP=p2(W), BP=p2(B), DP=p2(dh),
+            num_warps=4, num_stages=1)
+    paged_attention_triton.launches += 1
+    return out
+
+
+paged_attention_triton.launches = 0
+
+
+class _PagedCuda:
+    call = staticmethod(paged_attention)
+
+
+class _PagedTriton:
+    call = staticmethod(paged_attention_triton)
+
+
+class _PagedTorchRef:
+    call = staticmethod(paged_attention_plain)
+
+
+register_kernel("paged_attention", "cuda", _PagedCuda,
+                available=cuda_availability)
+register_kernel("paged_attention", "triton", _PagedTriton,
+                available=triton_availability)
+register_kernel("paged_attention", "torch_ref", _PagedTorchRef)

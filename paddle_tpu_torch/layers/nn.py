@@ -472,7 +472,9 @@ def fused_softmax_ce_head(input, label, size, param_attr=None, name=None,
     Returns the per-position loss ``[..., 1]`` float32; rows with
     out-of-range labels must be masked by the caller, as on the composed
     path.  The block sizes and ``backend`` are recorded as attrs, as the
-    reference records them; the CUDA kernels tile by their own sizes."""
+    reference records them; the CUDA kernels tile by their own sizes, and
+    the op resolves ``backend`` (``cuda``, ``triton`` or ``torch_ref``) as
+    a strict request through the kernel registry."""
     helper = LayerHelper("fused_softmax_ce_head", name=name)
     in_dim = int(input.shape[-1])
     w = helper.create_parameter(
@@ -500,7 +502,9 @@ def flash_attention_packed(q, k, v, n_head, causal=False, sm_scale=None,
     consumes).  No [b,t,h,d]<->[bh,t,d] pack/unpack transposes exist: the
     kernels address heads through strides (kernels/flash_attention.py).
     ``block_q``/``block_k``/``backend`` are recorded as attrs, as the
-    reference records them; the CUDA kernels tile by their own sizes."""
+    reference records them; the CUDA kernels tile by their own sizes, and
+    the op resolves ``backend`` as a strict request through the kernel
+    registry."""
     helper = LayerHelper("flash_attention_packed", name=name)
     out = helper.create_tmp_variable(q.dtype, q.shape)
     attrs = {"n_head": int(n_head), "causal": bool(causal),
@@ -524,7 +528,9 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, block_q=None,
                     block_k=None, backend=None, name=None):
     """Fused blockwise attention (kernels/flash_attention.py).
     q [b, t_q, h, d], k/v [b, t_k, h, d] -> [b, t_q, h, d].
-    ``block_q``/``block_k``/``backend`` are recorded as attrs only."""
+    ``block_q``/``block_k``/``backend`` are recorded as attrs; the op
+    resolves ``backend`` as a strict request through the kernel
+    registry."""
     helper = LayerHelper("flash_attention", name=name)
     out = helper.create_tmp_variable(q.dtype, q.shape)
     attrs = {"causal": bool(causal),
@@ -560,8 +566,9 @@ def multi_head_attention(queries, keys, values, d_model, n_head,
     The geometry is TUNABLE (``tune.attention_config``): when the caller
     passes no ``block_q`` / ``block_k`` / ``backend`` for a causal
     self-attention, the tune cache's measured winner for this shape is
-    used (its ``block_k`` picks the backward route); a miss or
-    ``PADDLE_TPU_TUNE=0`` keeps the defaults.  Explicit arguments win.
+    used (its ``block_k`` picks the backward route, and a persisted
+    ``backend`` becomes the op's attr); a miss or ``PADDLE_TPU_TUNE=0``
+    keeps the defaults.  Explicit arguments win.
     """
     if d_model % n_head:
         raise ValueError(f"d_model {d_model} not divisible by n_head {n_head}")
@@ -592,6 +599,7 @@ def multi_head_attention(queries, keys, values, d_model, n_head,
         if tuned:
             block_q = tuned.get("block_q")
             block_k = tuned.get("block_k")
+            backend = tuned.get("backend")
             if packed is None:
                 packed = tuned.get("packed")
     q = fc(queries, d_model, num_flatten_dims=2, param_attr=_proj_attr("q"),

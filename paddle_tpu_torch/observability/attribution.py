@@ -435,10 +435,11 @@ def program_workload_key(program, remat=None, device=None):
     ``tune.program_schedule_config`` locates the schedule key, so an
     attribution corpus row and a tuner measurement of the same workload
     share one join key.  The platform is the device's (``gpu`` / ``cpu``,
-    ``tune.cache.device_platform``); the key carries no ``|kb=`` kernel
-    backend token until the port has a kernel registry (ROADMAP.md A6),
-    so ``normalize_workload_key`` reads it as ``kb=unknown``.  None when
-    the program has no flash op."""
+    ``tune.cache.device_platform``); the ``|kb=`` token is the backend
+    the kernel registry last resolved ``flash_attention`` to (the step's
+    own, when the Executor folds the table in after its first run), and
+    absent when nothing resolved it (``normalize_workload_key`` then
+    reads ``kb=unknown``).  None when the program has no flash op."""
     if program is None:
         return None
     try:
@@ -466,8 +467,12 @@ def program_workload_key(program, remat=None, device=None):
             n_head, d_head = int(var.shape[2]), int(var.shape[3])
         pol = remat if remat is not None else (
             getattr(program, "_remat_policy", None) or "-")
+        from ..kernels.registry import selected_backends
+
         return WorkloadKey("step", t, d_head, n_head, var.dtype,
-                           device_platform(device), remat=pol).s
+                           device_platform(device), remat=pol,
+                           backend=selected_backends().get(
+                               "flash_attention")).s
     return None
 
 
@@ -546,6 +551,14 @@ def reconcile(att, measured_step_s):
 # reports a profile in, first match wins; the hand-written kernels by
 # their ``csrc/`` function names
 KERNEL_FAMILIES = (
+    # the Triton kernels first: their names hold the csrc/ kernels' names
+    ("flash forward (triton)", ("triton_flash_fwd_kernel",), "pallas"),
+    ("flash backward dq (triton)", ("triton_flash_bwd_dq_kernel",),
+     "pallas"),
+    ("flash backward dk/dv (triton)", ("triton_flash_bwd_dkv_kernel",),
+     "pallas"),
+    ("paged attention (triton)", ("triton_paged_attention_kernel",),
+     "pallas"),
     ("flash forward (sm90)", ("flash_fwd_sm90_kernel",), "pallas"),
     ("flash forward (simple)", ("flash_fwd_kernel",), "pallas"),
     ("flash backward (fused, sm90)", ("flash_bwd_sm90_fused_kernel",),
@@ -634,6 +647,12 @@ _WRAPPER_FAMILIES = {
     "decode_gather": (None, {None: ("decode gather",)}),
     "bottleneck": ("bottleneck", {"sm90": ("bottleneck",),
                                   "simple": ("bottleneck",)}),
+    "flash_attention_triton_fwd": (None, {None: ("flash forward (triton)",)}),
+    "flash_attention_triton_dq": (None, {
+        None: ("flash backward dq (triton)",)}),
+    "flash_attention_triton_dkv": (None, {
+        None: ("flash backward dk/dv (triton)",)}),
+    "paged_attention_triton": (None, {None: ("paged attention (triton)",)}),
 }
 
 

@@ -22,8 +22,8 @@ non-object artifact JSON — each is CLASSIFIED into ``corpus.skipped``
 (source, reason) and never crashes the ingest.  Duplicate ``(run_id,
 step, workload)`` rows dedup (re-ingesting a file is idempotent).
 Workload keys are normalized via ``attribution.normalize_workload_key``
-(the port's keys carry no ``|kb=`` token yet, so they join as
-``kb=unknown``).  The rows feed ``tune.fit_and_save``.
+(a key without a ``|kb=`` token, as the tune cache's schedule keys,
+joins as ``kb=unknown``).  The rows feed ``tune.fit_and_save``.
 """
 
 import json

@@ -44,7 +44,7 @@ _COMM_KEYS = ("collective_count", "collective_bytes", "reduce_ops_in_loop",
               "comm_plan")
 # the fold-in's keys, as the step cost carries them
 _FOLD_KEYS = ("lint_findings", "lint_errors", "lint_checks", "costmodel",
-              "kernel_backends")
+              "kernel_backends", "kernel_families")
 # step-record keys of the reference that an eager step has no figure for
 _NOT_MEASURED = ("compiled_hbm_high_water_bytes", "compiled_temp_bytes")
 

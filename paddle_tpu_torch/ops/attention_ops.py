@@ -1,16 +1,19 @@
 """The ``flash_attention`` and ``flash_attention_packed`` ops — the op
 registrations at the foot of ``paddle_tpu/ops/pallas_attention.py``,
-single-device branch.  Both go to ``kernels/flash_attention.py``: the
-hand-written CUDA kernels on the card, the plain versions on the CPU.
-The TPU tile attrs ``block_q`` and ``block_k`` (default 1024, as in the
+single-device branch.  Both resolve the ``flash_attention`` op class
+through the kernel registry (``kernels/registry.py``), as the reference's
+``_resolve_backend`` does: the op's ``backend`` attr is a strict request,
+and without one the per-op env, the global env, then auto decide (on a
+card the hand-written CUDA kernels, on the CPU the plain versions).  The
+TPU tile attrs ``block_q`` and ``block_k`` (default 1024, as in the
 reference) pass through: the CUDA kernels tile by their own fixed sizes,
 but the backward's route — fused or split — is the reference's rule over
-``block_k``.  The kernel-registry ``backend`` attr is accepted and
-unused.  On a mesh with a ``tp`` axis, :func:`_flash_tp` is the
-head-sharded branch (``pallas_attention.py:1187-1241``)."""
+``block_k``; the Triton kernels take them as caps of their tiles.  On a
+mesh with a ``tp`` axis, :func:`_flash_tp` is the head-sharded branch
+(``pallas_attention.py:1187-1241``), on whichever backend resolves."""
 
 from ..core.registry import register_op
-from ..kernels import flash_attention as _fa
+from ..kernels import registry as _kreg
 from ..parallel.spmd import tp_rule
 
 
@@ -31,24 +34,32 @@ def _flash_flops(op, shape, grad, train):
     return 2 * b * h * pairs * d * (2 + (4 if train else 0))
 
 
+def _impl(backend, q):
+    """The resolved ``flash_attention`` backend for a call on ``q``'s
+    device (``backend``: the op's attr, or None)."""
+    return _kreg.resolve("flash_attention", backend or None,
+                         q.device.type).impl
+
+
 @register_op("flash_attention", flops=_flash_flops)
 def flash_attention_op(Q, K, V, causal=False, sm_scale=0.0, block_q=1024,
-                       block_k=1024, **_):
+                       block_k=1024, backend=None, **_):
     scale = None if not sm_scale else float(sm_scale)
-    return {"Out": _fa.flash_attention(Q, K, V, causal=causal,
-                                       sm_scale=scale, block_q=int(block_q),
-                                       block_k=int(block_k))}
+    return {"Out": _impl(backend, Q).call(
+        Q, K, V, causal=causal, sm_scale=scale, block_q=int(block_q),
+        block_k=int(block_k))}
 
 
 @register_op("flash_attention_packed", flops=_flash_flops)
 def flash_attention_packed_op(Q, K, V, n_head=None, causal=False,
-                              sm_scale=0.0, block_q=1024, block_k=1024, **_):
+                              sm_scale=0.0, block_q=1024, block_k=1024,
+                              backend=None, **_):
     if n_head is None:
         # no safe default: 1 would silently softmax across the whole
         # concatenated h*d feature dim as a single head
         raise ValueError("flash_attention_packed op requires the n_head attr")
     scale = None if not sm_scale else float(sm_scale)
-    return {"Out": _fa.flash_attention_packed(
+    return {"Out": _impl(backend, Q).call_packed(
         Q, K, V, int(n_head), causal=causal, sm_scale=scale,
         block_q=int(block_q), block_k=int(block_k))}
 

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.registry import register_op
-from ..kernels import fused_ce as _ce
+from ..kernels import registry as _kreg
 from ..parallel.spmd import tp_rule
 
 
@@ -65,20 +65,27 @@ def _ce_head_flops(op, shape, grad, train):
     return one * (1 + grad(op.inputs["W"][0]) + grad(op.inputs["X"][0]))
 
 
+def _ce_impl(backend, x):
+    """The resolved ``fused_ce`` backend for a call on ``x``'s device
+    (``backend``: the op's attr, a strict request, or None)."""
+    return _kreg.resolve("fused_ce", backend or None, x.device.type).impl
+
+
 @register_op("fused_softmax_ce_head", flops=_ce_head_flops)
-def fused_softmax_ce_head(X, W, Label, **_):
-    """Projection + softmax cross-entropy in one pass
-    (``kernels/fused_ce.py``: the CUDA kernels on the card, the plain
-    versions on the CPU): ``X [..., d]``, ``W [d, V]``, ``Label [...]`` or
-    ``[..., 1]`` -> ``Loss [..., 1]`` f32.  The single-device branch of the
-    reference; its attrs (``block_n``, ``block_v``, ``block_v_fwd``, the
-    kernel-registry ``backend``) are accepted and unused: the CUDA kernels
-    tile by their own sizes.  The vocab-sharded branch is
+def fused_softmax_ce_head(X, W, Label, backend=None, **_):
+    """Projection + softmax cross-entropy in one pass, through the kernel
+    registry's ``fused_ce`` op class (``kernels/fused_ce.py``: on a card
+    the CUDA kernels, on the CPU the plain versions, unless the
+    ``backend`` attr or the env asks otherwise): ``X [..., d]``, ``W [d,
+    V]``, ``Label [...]`` or ``[..., 1]`` -> ``Loss [..., 1]`` f32.  The
+    single-device branch of the reference; its block attrs (``block_n``,
+    ``block_v``, ``block_v_fwd``) are accepted and unused: the CUDA
+    kernels tile by their own sizes.  The vocab-sharded branch is
     :func:`_fused_ce_tp`."""
     lbl = Label
     if lbl.dim() == X.dim() and lbl.shape[-1] == 1:
         lbl = lbl.reshape(lbl.shape[:-1])
-    return {"Loss": _ce.fused_softmax_ce_head(X, W, lbl)[..., None]}
+    return {"Loss": _ce_impl(backend, X).call(X, W, lbl)[..., None]}
 
 
 @tp_rule("fused_softmax_ce_head")
@@ -105,7 +112,8 @@ def _fused_ce_tp(sp, op, ins, pls, attrs, run):
     in_s = (y >= off) & (y < off + vs)
     y_loc = torch.where(in_s, y - off, torch.full_like(y, -1))
     x = sp.f(x, op.inputs["X"][0])
-    loss_s, lse_s = _ce.fused_softmax_ce_head_with_lse(x, w, y_loc)
+    loss_s, lse_s = _ce_impl(attrs.get("backend"), x).call_with_lse(
+        x, w, y_loc)
     picked = torch.where(in_s, lse_s - loss_s, torch.zeros_like(lse_s))
     name = op.outputs["Loss"][0]
     m = sp.comm.all_reduce(lse_s.detach().clone(), "tp", name, op="max")

@@ -107,10 +107,11 @@ def ring_attention(q, k, v, mesh, axis_name="sp", causal=False,
     bound :class:`~.mesh.Mesh` or a :class:`~.collectives.MeshComm`.
     Returns this rank's block of the output.
 
-    impl="flash" runs each step's inner block through the flash kernels
-    (``kernels.flash_attention.flash_attention_with_lse``) and merges the
-    per-step partials by their logsumexp; "dense" (default) is the
-    composed inner block.
+    impl="flash" runs each step's inner block through the flash kernels of
+    the backend the registry resolves for ``q``'s device (its
+    ``call_with_lse``; on a card the CUDA kernels unless the env asks for
+    another) and merges the per-step partials by their logsumexp; "dense"
+    (default) is the composed inner block.
     """
     if impl not in ("dense", "flash"):
         raise ValueError(f"unknown ring_attention impl {impl!r}; "
@@ -163,8 +164,10 @@ def _ring_attention_flash(q, k, v, comm, axis_name, sp, causal, block_q,
     steps causal, past steps full, future steps skipped), and the partial
     outputs merge by logsumexp in f32 — the same online softmax the dense
     path carries as (m, l)."""
-    from ..kernels.flash_attention import flash_attention_with_lse
+    from ..kernels import registry
 
+    flash_attention_with_lse = registry.resolve(
+        "flash_attention", platform=q.device.type).impl.call_with_lse
     b, tl, h, d = q.shape
     my_idx = comm.index(axis_name)
     o = torch.zeros(q.shape, dtype=torch.float32, device=q.device)

@@ -19,16 +19,21 @@ and the slot state IN PLACE (``pool[blk, off] = kh``; ``pool[dst] =
 pool[src]`` for the copy-on-write fork).  Callers keep their
 references; nothing is returned for the pools.
 
-Attention goes THROUGH the table via ``kernels.paged_attention`` (the
-hand-written CUDA kernel on the card, its plain version on the CPU), so
-the ``[S, T, h, dh]`` gathered view never exists.
+Attention goes THROUGH the table via the ``paged_attention`` op class
+(on the card the hand-written CUDA kernel, or the Triton kernel when the
+kernel registry is asked for it; its plain version on the CPU), so the
+``[S, T, h, dh]`` gathered view never exists.
 ``PADDLE_TPU_PAGED_ATTN=0`` selects the reference's kill-switch and
 oracle spelling instead: each slot's view is gathered through the
-``kernels.decode_gather`` kernel and attended with a dense softmax.  The
+``decode_gather`` op class and attended with a dense softmax.  The
 switch is read when a factory (``make_decode_chunk``, ``make_prefill``,
 ``make_verify_window``) makes its callable — the JAX package reads it
 at trace time — so a callable keeps the spelling it was built with; the
-callable's ``paged`` attribute records which.
+callable's ``paged`` attribute records which.  The op class is resolved
+through the kernel registry once a callable (``kernels/registry.py``:
+argument, per-op env, global env, auto), when the factory is given the
+device, else at the callable's first call; its ``attn`` attribute
+(:class:`Attention`) records the op class and the backend.
 
 Three factories: the decode chunk, the prefill per suffix bucket, and
 the speculative VERIFY window (``make_verify_window``): one
@@ -46,18 +51,19 @@ never read — so greedy decode through the engine matches single-stream
 ``transformer.generate``, prefix reuse on or off.
 """
 
+import contextlib
 import math
 import os
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels.decode_gather import decode_gather
-from ..kernels.paged_attention import NEG_INF, paged_attention
+from ..kernels import registry as _kreg
+from ..kernels.paged_attention import NEG_INF
 from ..models.transformer import layer_norm, logits_f32
 
-__all__ = ["paged_step_logits", "make_decode_chunk", "make_prefill",
-           "make_verify_window"]
+__all__ = ["Attention", "paged_step_logits", "make_decode_chunk",
+           "make_prefill", "make_verify_window"]
 
 
 def _paged_attn_on():
@@ -67,14 +73,47 @@ def _paged_attn_on():
         "0", "", "false", "off", "no")
 
 
-def _gather_kv(pool, table):
+class Attention:
+    """The attention op class of one step callable — ``paged_attention``,
+    or ``decode_gather`` for the kill switch's spelling — resolved through
+    the kernel registry once: at construction when ``device`` is known,
+    else at the first call, from the tensors' device.  ``backend`` is a
+    tuned choice, not strict (``forced_backend``: an op it cannot serve
+    takes auto).  ``.backend`` is what resolved; ``.impl`` the backend's
+    namespace, whose ``call`` is looked up at each launch."""
+
+    def __init__(self, paged, device=None, backend=None):
+        self.paged = bool(paged)
+        self.op = "paged_attention" if self.paged else "decode_gather"
+        self._hint = backend
+        self.backend = self.impl = None
+        if device is not None:
+            self._resolve(torch.device(device).type)
+
+    def _resolve(self, platform):
+        ctx = (_kreg.forced_backend(self._hint, self.op) if self._hint
+               else contextlib.nullcontext())
+        with ctx:
+            kernel = _kreg.resolve(self.op, platform=platform)
+        self.backend, self.impl = kernel.backend, kernel.impl
+
+    def kernel(self, t):
+        """The backend's namespace (resolved now from ``t``'s device if
+        the callable was built without one)."""
+        if self.impl is None:
+            self._resolve(t.device.type)
+        return self.impl
+
+
+def _gather_kv(pool, table, gather):
     """The kill-switch spelling's block-table gather: each slot's logical
-    view ``[S, T, h, dh]`` through ``kernels.decode_gather`` (the CUDA
-    kernel on the card, its plain version on the CPU).  Bit-exact."""
-    return decode_gather(pool, table)
+    view ``[S, T, h, dh]`` through the resolved ``decode_gather`` backend
+    (``gather``; on the card the CUDA kernel, on the CPU its plain
+    version).  Bit-exact."""
+    return gather.call(pool, table)
 
 
-def _dense_attention(qh, pool_k, pool_v, table, P):
+def _dense_attention(qh, pool_k, pool_v, table, P, gather):
     """Attention over the gathered view with a dense softmax —
     ``batched_decode.py``'s kill-switch branch of the JAX package:
     ``qh [S, W, h, dh]``, ``P [S, W]`` positions (key ``j`` counts iff
@@ -82,8 +121,8 @@ def _dense_attention(qh, pool_k, pool_v, table, P):
     product, as ``preferred_element_type=f32``), scaled by
     ``1/sqrt(dh)``, masked with ``-1e30``, softmax in f32, the weights
     cast to the pool dtype for the second product."""
-    ck = _gather_kv(pool_k, table)                       # [S, T, h, dh]
-    cv = _gather_kv(pool_v, table)
+    ck = _gather_kv(pool_k, table, gather)               # [S, T, h, dh]
+    cv = _gather_kv(pool_v, table, gather)
     T = ck.shape[1]
     s = torch.einsum("swhd,sThd->swhT", qh.float(), ck.float())
     s = s / math.sqrt(qh.shape[-1])
@@ -94,16 +133,19 @@ def _dense_attention(qh, pool_k, pool_v, table, P):
     return torch.einsum("swhT,sThd->swhd", a, cv)
 
 
-def _attend(paged, qh, pool_k, pool_v, table, P, splits=None):
-    """One layer's attention in the callable's spelling (``splits``: the
-    paged kernel's tuned split count, None for its own rule)."""
-    if paged:
-        return paged_attention(qh, pool_k, pool_v, table, P, splits=splits)
-    return _dense_attention(qh, pool_k, pool_v, table, P)
+def _attend(attn, qh, pool_k, pool_v, table, P, splits=None):
+    """One layer's attention in the callable's spelling (``attn``: its
+    :class:`Attention`; ``splits``: the paged kernel's tuned split count,
+    None for its own rule)."""
+    impl = attn.kernel(qh)
+    if attn.paged:
+        return impl.call(qh, pool_k, pool_v, table, P, splits=splits)
+    return _dense_attention(qh, pool_k, pool_v, table, P, impl)
 
 
 def paged_step_logits(p, tok, t, pool_k, pool_v, table, n_layer, n_head,
-                      d_model, eps=1e-5, paged=None, splits=None):
+                      d_model, eps=1e-5, paged=None, splits=None,
+                      attn=None):
     """One decode step for S independent slots through the block table.
 
     tok [S] int32 current tokens, t [S] int32 per-slot positions,
@@ -116,9 +158,12 @@ def paged_step_logits(p, tok, t, pool_k, pool_v, table, n_layer, n_head,
     ``logits [S, vocab]`` in f32.  ``paged`` picks the spelling (True:
     the paged-attention kernel; False: gather + dense softmax; None:
     ``PADDLE_TPU_PAGED_ATTN`` now); ``splits`` the paged kernel's split
-    count (None: ``paged_splits``' rule)."""
-    if paged is None:
-        paged = _paged_attn_on()
+    count (None: ``paged_splits``' rule); ``attn`` the callable's resolved
+    :class:`Attention` (None: resolved for this call, in ``paged``'s
+    spelling)."""
+    if attn is None:
+        attn = Attention(_paged_attn_on() if paged is None else paged,
+                         tok.device)
     S = tok.shape[0]
     NB = table.shape[1]
     B = pool_k[0].shape[1]
@@ -142,7 +187,7 @@ def paged_step_logits(p, tok, t, pool_k, pool_v, table, n_layer, n_head,
             w("att_k.b"), h, w("att_k.w")).reshape(S, n_head, dh)
         pool_v[i][blk, off] = torch.addmm(
             w("att_v.b"), h, w("att_v.w")).reshape(S, n_head, dh)
-        ctx = _attend(paged, qh, pool_k[i], pool_v[i], table,
+        ctx = _attend(attn, qh, pool_k[i], pool_v[i], table,
                       pos, splits).reshape(S, d_model)
         x = x + torch.addmm(w("att_out.b"), ctx, w("att_out.w"))
         h2 = layer_norm(x, w("ln2.scale"), w("ln2.bias"), eps)
@@ -155,7 +200,7 @@ def paged_step_logits(p, tok, t, pool_k, pool_v, table, n_layer, n_head,
 
 
 def make_decode_chunk(n_layer, n_head, d_model, chunk, eps=1e-5,
-                      splits=None):
+                      splits=None, device=None, backend=None):
     """Build the batched decode step: ``chunk`` greedy steps for every
     slot per call.
 
@@ -163,8 +208,10 @@ def make_decode_chunk(n_layer, n_head, d_model, chunk, eps=1e-5,
     int32`` — ``toks[j]`` is the token each slot emitted at its
     ``pos+j``'th position.  The pools, ``last_tok`` and ``pos`` are
     updated in place (the JAX version donates them); ``table`` is a
-    small host-fed int32 tensor on the pools' device."""
+    small host-fed int32 tensor on the pools' device.  ``device`` and
+    ``backend`` resolve the attention (:class:`Attention`)."""
     paged = _paged_attn_on()
+    attn = Attention(paged, device, backend)
 
     @torch.no_grad()
     def decode_chunk(p, pool_k, pool_v, last_tok, pos, table):
@@ -173,17 +220,19 @@ def make_decode_chunk(n_layer, n_head, d_model, chunk, eps=1e-5,
         for j in range(chunk):
             logits = paged_step_logits(p, last_tok, pos, pool_k, pool_v,
                                        table, n_layer, n_head, d_model, eps,
-                                       paged, splits)
+                                       paged, splits, attn)
             toks[j] = torch.argmax(logits, dim=-1)
             last_tok.copy_(toks[j])
             pos.add_(1)
         return toks
 
     decode_chunk.paged = paged
+    decode_chunk.attn = attn
     return decode_chunk
 
 
-def make_prefill(n_layer, n_head, d_model, bucket, eps=1e-5):
+def make_prefill(n_layer, n_head, d_model, bucket, eps=1e-5, device=None,
+                 backend=None):
     """Build the prefill step for one SUFFIX-length bucket.
 
     ``fn(params, pool_k, pool_v, last_tok, pos, slot, table_row [NB],
@@ -200,8 +249,10 @@ def make_prefill(n_layer, n_head, d_model, bucket, eps=1e-5):
 
     All ``bucket`` steps run, as in the JAX executable: steps past
     ``length`` write garbage at positions ``>= start + length``, which
-    decode overwrites before it ever attends them."""
+    decode overwrites before it ever attends them.  ``device`` and
+    ``backend`` resolve the attention (:class:`Attention`)."""
     paged = _paged_attn_on()
+    attn = Attention(paged, device, backend)
 
     @torch.no_grad()
     def prefill(p, pool_k, pool_v, last_tok, pos, slot, table_row, toks,
@@ -219,7 +270,8 @@ def make_prefill(n_layer, n_head, d_model, bucket, eps=1e-5):
         for i in range(bucket):
             logits = paged_step_logits(p, toks[i:i + 1], steps[i:i + 1],
                                        pool_k, pool_v, tbl, n_layer,
-                                       n_head, d_model, eps, paged)
+                                       n_head, d_model, eps, paged,
+                                       attn=attn)
             if i == length - 1:
                 first = torch.argmax(logits[0]).to(torch.int32)
         last_tok[slot] = first
@@ -227,10 +279,12 @@ def make_prefill(n_layer, n_head, d_model, bucket, eps=1e-5):
         return first
 
     prefill.paged = paged
+    prefill.attn = attn
     return prefill
 
 
-def make_verify_window(n_layer, n_head, d_model, k, eps=1e-5):
+def make_verify_window(n_layer, n_head, d_model, k, eps=1e-5, device=None,
+                       backend=None):
     """Build the speculative VERIFY step: one teacher-forced target
     forward over a ``W = k + 1``-token window for every slot.
 
@@ -251,9 +305,11 @@ def make_verify_window(n_layer, n_head, d_model, k, eps=1e-5):
     live block.  Duplicate indices of one scatter land only there (which
     write wins is arbitrary on the card; block 0 is never attended).
     Greedy outputs past ``limit`` are garbage the caller never commits.
-    The projections run as ``[S * W, d]`` products."""
+    The projections run as ``[S * W, d]`` products.  ``device`` and
+    ``backend`` resolve the attention (:class:`Attention`)."""
     W = k + 1
     paged = _paged_attn_on()
+    attn = Attention(paged, device, backend)
 
     @torch.no_grad()
     def verify(p, pool_k, pool_v, toks, pos, limit, table):
@@ -283,7 +339,7 @@ def make_verify_window(n_layer, n_head, d_model, k, eps=1e-5):
                 w("att_k.b"), h, w("att_k.w")).reshape(S, W, n_head, dh)
             pool_v[i][blk, off] = torch.addmm(
                 w("att_v.b"), h, w("att_v.w")).reshape(S, W, n_head, dh)
-            ctx = _attend(paged, qh, pool_k[i], pool_v[i], table,
+            ctx = _attend(attn, qh, pool_k[i], pool_v[i], table,
                           P).reshape(S * W, d_model)
             x = x + torch.addmm(w("att_out.b"), ctx, w("att_out.w"))
             h2 = layer_norm(x, w("ln2.scale"), w("ln2.bias"), eps)
@@ -295,4 +351,5 @@ def make_verify_window(n_layer, n_head, d_model, k, eps=1e-5):
         return torch.argmax(logits, dim=-1).to(torch.int32).reshape(S, W)
 
     verify.paged = paged
+    verify.attn = attn
     return verify

@@ -39,11 +39,14 @@ An abort dumps the flight recorder (``observability.flight``);
 ``PADDLE_TPU_FAULT=slot_death:n`` kills one request at the n-th decode
 round (``resilience.faults``).
 
-Attention runs through the paged-attention kernel, or, for step
+Attention runs through the ``paged_attention`` op class, or, for step
 callables built under ``PADDLE_TPU_PAGED_ATTN=0``, through the
-``decode_gather`` kernel and a dense softmax; ``kernel_backends`` and
-``serving.paged_attn_compiles`` record which spelling each callable was
-built with.
+``decode_gather`` op class and a dense softmax, each resolved through the
+kernel registry once when a step callable is built (on the card the CUDA
+kernels unless ``PADDLE_TPU_KERNEL_BACKEND[_<OP>]`` asks for ``triton``
+or ``torch_ref``); ``kernel_backends`` (``{label: {op class:
+backend}}``) and ``serving.paged_attn_compiles`` record what each
+callable was built with.
 
 What differs from the JAX engine: PyTorch runs eagerly, so there is no
 ahead-of-time compile — the pools and slot state are updated in place
@@ -304,6 +307,9 @@ class ServingEngine:
             n_head, self.compute_dtype, self.max_slots, self.block_tokens,
             device=self.device) or {}
         self.attn_splits = int(cfg["splits"]) if "splits" in cfg else None
+        # a tuned kernel backend for paged attention (not strict: the
+        # registry falls back to auto where it is unavailable)
+        self.attn_backend = cfg.get("backend")
         if cache_blocks is None:
             cache_blocks = 2 * self.blocks_per_slot if prefix_reuse else 0
         if cache_blocks < 0:
@@ -593,12 +599,11 @@ class ServingEngine:
 
     def _record_spelling(self, fn, label):
         """Record which attention spelling step callable ``fn`` was built
-        with (``kernel_backends[label]``; ``serving.paged_attn_compiles``
-        counts the paged ones) — the JAX engine records the same per
-        compiled executable."""
-        kern = "paged_attention" if fn.paged else "decode_gather"
-        self.kernel_backends[label] = {
-            kern: "cuda" if self.device.type == "cuda" else "torch_ref"}
+        with and the backend its op class resolved to
+        (``kernel_backends[label] = {op class: backend}``;
+        ``serving.paged_attn_compiles`` counts the paged ones) — the JAX
+        engine records the same per compiled executable."""
+        self.kernel_backends[label] = {fn.attn.op: fn.attn.backend}
         if fn.paged:
             self._reg.counter(
                 "serving.paged_attn_compiles",
@@ -606,11 +611,16 @@ class ServingEngine:
                      "paged_attention kernel (vs the "
                      "PADDLE_TPU_PAGED_ATTN=0 gather spelling)").inc()
 
+    def _attn_kw(self):
+        """What a step callable's factory resolves its attention with: the
+        engine's device and the tuned backend."""
+        return {"device": self.device, "backend": self.attn_backend}
+
     def _prefill_fn(self, bucket):
         fn = self._prefill_fns.get(bucket)
         if fn is None:
             fn = _bd.make_prefill(self.n_layer, self.n_head, self.d_model,
-                                  bucket, eps=self._eps)
+                                  bucket, eps=self._eps, **self._attn_kw())
             self._record_spelling(fn, f"prefill_{bucket}")
             self._prefill_fns[bucket] = fn
         return fn
@@ -638,7 +648,7 @@ class ServingEngine:
         if self._decode_fn is None:
             self._decode_fn = _bd.make_decode_chunk(
                 self.n_layer, self.n_head, self.d_model, self.decode_chunk,
-                eps=self._eps, splits=self.attn_splits)
+                eps=self._eps, splits=self.attn_splits, **self._attn_kw())
             self._record_spelling(self._decode_fn, "decode")
         # fault injection point (PADDLE_TPU_FAULT=slot_death:n): the n-th
         # decode chunk kills one active request mid-decode — its slot and

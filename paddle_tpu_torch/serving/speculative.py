@@ -200,14 +200,15 @@ class SpecState:
         if self._chunk_fn is None:
             self._chunk_fn = self._built(engine, _bd.make_decode_chunk(
                 self.n_layer, engine.n_head, engine.d_model, self.k + 1,
-                eps=engine._eps, splits=engine.attn_splits), "spec_draft")
+                eps=engine._eps, splits=engine.attn_splits,
+                **engine._attn_kw()), "spec_draft")
         return self._chunk_fn
 
     def verify_fn(self, engine):
         if self._verify_fn is None:
             self._verify_fn = self._built(engine, _bd.make_verify_window(
                 engine.n_layer, engine.n_head, engine.d_model, self.k,
-                eps=engine._eps), "spec_verify")
+                eps=engine._eps, **engine._attn_kw()), "spec_verify")
         return self._verify_fn
 
     def prefill_fn(self, engine, bucket):
@@ -215,7 +216,8 @@ class SpecState:
         if fn is None:
             fn = self._built(engine, _bd.make_prefill(
                 self.n_layer, engine.n_head, engine.d_model, bucket,
-                eps=engine._eps), f"spec_prefill_{bucket}")
+                eps=engine._eps, **engine._attn_kw()),
+                f"spec_prefill_{bucket}")
             self._prefill_fns[bucket] = fn
         return fn
 

@@ -30,8 +30,9 @@ runs the measured search.  Lookups count ``tune.cache_hits`` /
 ``Executor.last_step_cost["tune"]`` carries them.
 
 The JAX package's TPU-only knobs (``DIAG_W``, the VMEM budget, Mosaic
-compile checks, the kernel-registry ``backend`` dimension) are left out
-(``tune.space``).  CI: ``python -m paddle_tpu_torch --tune-selftest``.
+compile checks) are left out (``tune.space``); the kernel-registry
+``backend`` is a dimension (``backends=``), a candidate measured under
+``kernels.forced_backend``.  CI: ``python -m paddle_tpu_torch --tune-selftest``.
 """
 
 import contextlib

@@ -18,7 +18,9 @@ JAX package's ``~/.cache/paddle_tpu/tuned.json``.
 The ``fingerprint`` hashes the port's kernel geometry: the build key of
 every ``csrc/`` source (``kernels._build``), ``FUSED_BWD_PARTIAL_BYTES``,
 ``SM90_MAX_D``, the static family and split rules sampled over
-representative shapes, and the device's name.  An entry measured on
+representative shapes, the kernel registry's surface (its backends, auto
+orders and registrations, the Triton kernels' tiles), and the device's
+name.  An entry measured on
 another card, under another kernel build, or by the JAX package (whose
 fingerprint hashes its TPU geometry) is stale: the file is ignored and
 the workload re-tunes.  A corrupt or truncated file, a schema mismatch
@@ -75,10 +77,11 @@ def geometry_fingerprint():
     module docstring's list)."""
     import torch
 
-    from ..kernels import _build
+    from ..kernels import _build, registry
     from ..kernels import flash_attention as fa
     from ..kernels import fused_ce as ce
     from ..kernels import paged_attention as pa
+    from ..kernels import triton_attention as tr
 
     bf, f32 = torch.bfloat16, torch.float32
     basis = (
@@ -102,8 +105,16 @@ def geometry_fingerprint():
         tuple(fa._pick_block(t, c)
               for t in (96, 2048, 4096, 16384)
               for c in (128, 256, 512, 1024, 2048)),
+        # the kernel registry's surface: what a cached backend resolves to
+        registry.BACKENDS, tuple(sorted(registry.AUTO_ORDER.items())),
+        tuple((op, tuple(b for b, _ok, _r in registry.available_backends(
+            op))) for op in registry.registered_op_classes()),
+        tuple(tr.tiles(k, t, t, d, dt, bq)
+              for k in ("fwd", "dq", "dkv") for t in (96, 4096)
+              for d in (64, 128) for dt in (bf, f32) for bq in (64, 1024)),
         # the schedule dimensions a persisted gpt_step winner carries
-        ("policy", "accum", "fsdp", "block_q", "block_k", "packed"),
+        ("policy", "accum", "fsdp", "block_q", "block_k", "packed",
+         "backend"),
         _device_name(),
     )
     return hashlib.sha256(repr(basis).encode()).hexdigest()[:12]

@@ -18,7 +18,11 @@ statically (``space.prune_static``), then for each survivor:
    host read of the loss; the median wins.  Each measured record carries
    ``torch.cuda.max_memory_allocated()`` as ``hbm_high_water_bytes`` on
    the card (the estimate on the CPU) beside ``hbm_est_bytes``, and the
-   backward route its ``block_k`` gives.
+   backward route its ``block_k`` gives.  A candidate carrying a kernel
+   ``backend`` runs under ``kernels.forced_backend`` (not strict: an op
+   the backend cannot serve takes auto), and its record carries the
+   backend that ran (``backend_requested`` where that differs) and its
+   workload key with that backend's ``|kb=`` token.
 
 The winner persists in the cache (``tune.cache``) under its workload key
 plus a companion ``op=flash`` entry that ``layers.multi_head_attention``
@@ -35,6 +39,7 @@ Every measured candidate emits a ``tune.search`` span (category
 registry under the JAX package's names.
 """
 
+import contextlib
 import gc
 import os
 import time
@@ -117,6 +122,7 @@ def _measure_candidate(cand, *, seq_len, n_layer, d_model, n_head, vocab,
     ``(median_seconds, cost)``; raises :class:`PreflightRejected` when
     its start-up or warm-up runs out of device memory."""
     import paddle_tpu_torch as pt
+    from ..kernels import forced_backend
     from ..kernels.flash_attention import bwd_route
     from ..models import transformer
 
@@ -156,30 +162,37 @@ def _measure_candidate(cand, *, seq_len, n_layer, d_model, n_head, vocab,
         return exe.run(main_prog, feed=feed, fetch_list=[outs["avg_cost"]],
                        scope=scope, return_numpy=False)
 
+    # the candidate's kernel backend, forced over its whole run: every op
+    # of the step (flash and the CE head) resolves it at each call
+    backend_ctx = (forced_backend(cand["backend"]) if cand.get("backend")
+                   else contextlib.nullcontext())
     try:
         oom = None
-        try:
-            exe.run(startup, scope=scope)
-            for _ in range(max(0, warmup)):
-                run()
-            _sync(device)
-        except torch.cuda.OutOfMemoryError as e:
-            oom = str(e).splitlines()[0][:160]
-        if oom is not None:
-            # raised outside the handler, so no traceback keeps the
-            # candidate's tensors alive while the search goes on
-            raise PreflightRejected(f"oom: {oom}")
-        times = []
-        for _ in range(max(1, repeats)):
-            t0 = time.perf_counter()
-            out = None
-            for _ in range(max(1, steps)):
-                out = run()
-            _sync(device)
-            float(out[0].float().cpu().reshape(-1)[0])  # the host read
-            times.append(time.perf_counter() - t0)
-        cost = {"flops": (exe.last_step_cost or {}).get("flops"),
-                "route": route, "hbm_est_bytes": int(hbm_est)}
+        with backend_ctx:
+            try:
+                exe.run(startup, scope=scope)
+                for _ in range(max(0, warmup)):
+                    run()
+                _sync(device)
+            except torch.cuda.OutOfMemoryError as e:
+                oom = str(e).splitlines()[0][:160]
+            if oom is not None:
+                # raised outside the handler, so no traceback keeps the
+                # candidate's tensors alive while the search goes on
+                raise PreflightRejected(f"oom: {oom}")
+            times = []
+            for _ in range(max(1, repeats)):
+                t0 = time.perf_counter()
+                out = None
+                for _ in range(max(1, steps)):
+                    out = run()
+                _sync(device)
+                float(out[0].float().cpu().reshape(-1)[0])  # the host read
+                times.append(time.perf_counter() - t0)
+        last = exe.last_step_cost or {}
+        cost = {"flops": last.get("flops"), "route": route,
+                "hbm_est_bytes": int(hbm_est),
+                "kernel_backends": dict(last.get("kernel_backends") or {})}
         if on_card:
             cost["hbm_high_water_bytes"] = int(
                 torch.cuda.max_memory_allocated(device))
@@ -194,11 +207,20 @@ def _measure_candidate(cand, *, seq_len, n_layer, d_model, n_head, vocab,
 
 def _truncate_survivors(survivors, max_measure, report):
     """Cap the measured list at ``max_measure`` (the statically best
-    schedules first)."""
+    schedules first) without dropping a whole kernel backend: one
+    best-ranked candidate of each backend the head left out rides along
+    (the budget stretches by at most the number of backends)."""
     if not max_measure or len(survivors) <= max_measure:
         return survivors
-    report["truncated_to"] = max_measure
-    return survivors[:max_measure]
+    keep = survivors[:max_measure]
+    kept = {c.get("backend") for c in keep}
+    for c in survivors[max_measure:]:
+        b = c.get("backend")
+        if b is not None and b not in kept:
+            keep.append(c)
+            kept.add(b)
+    report["truncated_to"] = len(keep)
+    return keep
 
 
 def tune_gpt_step(seq_len, n_layer, d_model, n_head, vocab, batch,
@@ -284,9 +306,19 @@ def tune_gpt_step(seq_len, n_layer, d_model, n_head, vocab, batch,
             _counter("tune.candidates_measured",
                      "schedule candidates built and timed").inc()
             tok_s = batch * seq_len * max(1, steps) / median_s
+            ran = cost.pop("kernel_backends").get("flash_attention")
             rec = dict(cand, verdict="measured",
                        median_s=round(median_s, 6), tok_s=round(tok_s, 1),
                        **cost)
+            # the backend that ran, not the request: forced_backend is not
+            # strict, so an unavailable request measured auto's choice
+            if cand.get("backend") and ran and ran != cand["backend"]:
+                rec["backend"] = ran
+                rec["backend_requested"] = cand["backend"]
+            rec["workload"] = WorkloadKey(
+                "gpt_step", seq_len, d_model // n_head, n_head, dtype,
+                key.platform, remat=cand.get("policy") or "-",
+                backend=ran).s
             measured.append(rec)
             sp.set(verdict="measured", median_s=rec["median_s"])
     report["measured"] = measured
@@ -296,7 +328,7 @@ def tune_gpt_step(seq_len, n_layer, d_model, n_head, vocab, batch,
         return report
     win = min(timed, key=lambda m: m["median_s"])
     config = {k: win[k] for k in ("block_q", "block_k", "packed", "policy",
-                                  "accum", "fsdp")
+                                  "accum", "fsdp", "backend")
               if k in win and win[k] is not None}
     meas = {k: win[k] for k in ("median_s", "tok_s", "flops",
                                 "hbm_high_water_bytes", "hbm_est_bytes",
@@ -307,7 +339,8 @@ def tune_gpt_step(seq_len, n_layer, d_model, n_head, vocab, batch,
     flash_key = WorkloadKey("flash", seq_len, d_model // n_head, n_head,
                             dtype, key.platform, remat="-")
     cache.put(flash_key.s,
-              {k: config[k] for k in ("block_q", "block_k", "packed")
+              {k: config[k] for k in ("block_q", "block_k", "packed",
+                                      "backend")
                if k in config},
               measured={"from": key.s})
     cache.save()
@@ -505,7 +538,7 @@ def _time_call(fn, device, repeats, calls=50):
 def tune_paged_attention(n_head, d_head, max_len, block_tokens,
                          dtype="float32", slots=8, max_measure=8,
                          repeats=3, force=False, mode=None, seed=0,
-                         device=None, inputs=None):
+                         device=None, inputs=None, backends=None):
     """Search (or serve from cache) the split kernel's split count for one
     kernel call (``op=paged_attention``, keyed on the slot capacity ``T =
     NB * block_tokens`` and the call's ``(slots, window, block_tokens)``:
@@ -518,10 +551,17 @@ def tune_paged_attention(n_head, d_head, max_len, block_tokens,
     ``oracle_tol`` — a candidate outside it raises, since it is a kernel
     fault — and timed median-of-``repeats``; the winner's ``{"splits"}``
     persists and ``ServingEngine`` reads it once per engine for the call
-    it was measured at."""
+    it was measured at.  ``backends`` adds the kernel registry's
+    dimension (``space.paged_attention_candidates``): a backend candidate
+    runs that backend's call (held against the plain block scan when it
+    carries no split count), one unavailable here is recorded with the
+    registry's reason and skipped, and the winner's ``backend`` persists
+    beside its count."""
     from ..core.place import resolve_device
-    from ..kernels.paged_attention import (oracle_tol, paged_attention,
-                                           paged_attention_split_ref)
+    from ..kernels import registry
+    from ..kernels.paged_attention import (
+        oracle_tol, paged_attention, paged_attention_ref,
+        paged_attention_split_ref)
     from ..models.transformer import as_torch_dtype
     from . import tune_mode
 
@@ -537,7 +577,7 @@ def tune_paged_attention(n_head, d_head, max_len, block_tokens,
         return report
     if inputs is None:
         inputs = _paged_inputs(n_head, d_head, S, NB, B, tdt, device, seed)
-    cands = paged_attention_candidates(NB, S, n_head)
+    cands = paged_attention_candidates(NB, S, n_head, backends=backends)
     report["candidates"] = len(cands)
     if max_measure and len(cands) > max_measure:
         report["truncated_to"] = max_measure
@@ -547,19 +587,29 @@ def tune_paged_attention(n_head, d_head, max_len, block_tokens,
     measured = []
     for i, cand in enumerate(cands):
         n = cand["splits"]
+        call = paged_attention
+        if cand.get("backend"):
+            try:
+                call = registry.resolve("paged_attention", cand["backend"],
+                                        device.type).impl.call
+            except registry.KernelUnavailable as e:
+                measured.append(dict(cand, verdict="unavailable",
+                                     reason=e.reason))
+                continue
         with tracer.span("tune.search", cat="tune", key=key.s,
                          candidate=i, **cand) as sp:
-            got = paged_attention(*inputs, splits=n)
-            want = paged_attention_split_ref(*inputs, n)
+            got = call(*inputs, splits=n)
+            want = (paged_attention_ref(*inputs) if n is None
+                    else paged_attention_split_ref(*inputs, n))
             err = float((got.float() - want.float()).abs().max()
                         / want.float().abs().max().clamp_min(1e-30))
             if not err <= tol:
                 raise RuntimeError(
-                    f"paged_attention at splits={n}: relative error "
-                    f"{err:.3e} against paged_attention_split_ref exceeds "
-                    f"oracle_tol {tol}")
-            median_s = _time_call(lambda: paged_attention(*inputs, splits=n),
-                                  device, repeats)
+                    f"paged_attention at splits={n} ({cand.get('backend')}"
+                    f"): relative error {err:.3e} against its plain "
+                    f"version exceeds oracle_tol {tol}")
+            median_s = _time_call(lambda: call(*inputs, splits=n), device,
+                                  repeats)
             _counter("tune.candidates_measured",
                      "schedule candidates built and timed").inc()
             rec = dict(cand, verdict="measured", median_s=median_s,
@@ -567,14 +617,19 @@ def tune_paged_attention(n_head, d_head, max_len, block_tokens,
             measured.append(rec)
             sp.set(verdict="measured", median_s=median_s)
     report["measured"] = measured
-    win = min(measured, key=lambda m: m["median_s"])
+    timed = [m for m in measured if m["verdict"] == "measured"]
+    if not timed:
+        report["source"] = "exhausted"
+        return report
+    win = min(timed, key=lambda m: m["median_s"])
     meas = {"median_s": win["median_s"],
-            "worst_median_s": max(m["median_s"] for m in measured),
-            "measured_candidates": len(measured)}
-    entry = cache.put(key.s, {"splits": win["splits"]}, measured=meas)
+            "worst_median_s": max(m["median_s"] for m in timed),
+            "measured_candidates": len(timed)}
+    config = {k: win[k] for k in ("splits", "backend")
+              if win.get(k) is not None}
+    entry = cache.put(key.s, config, measured=meas)
     cache.save()
-    tracer.instant("tune.winner", cat="tune", key=key.s,
-                   splits=win["splits"])
+    tracer.instant("tune.winner", cat="tune", key=key.s, **config)
     report.update(entry=entry, source="search")
     return report
 

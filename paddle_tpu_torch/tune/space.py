@@ -14,11 +14,12 @@ Tunable workload kinds (``op=`` of the workload key):
   split kernel's split count).
 
 Knobs the JAX package tunes that exist only for its TPU kernels are left
-out: the ``DIAG_W`` causal sub-tile width, the scoped-VMEM fit of a
-block pair, and the kernel-registry ``backend`` dimension (the port has
-no registry yet; ``backends=`` raises, naming ROADMAP.md A6).  The sm90
-kernels' tiles are compile-time constants, so the roofline counts the
-same schedule for every block size.
+out: the ``DIAG_W`` causal sub-tile width and the scoped-VMEM fit of a
+block pair.  The kernel-registry ``backend`` is a dimension as in the
+JAX package (``backends=``: ``cuda``, ``triton``, ``torch_ref``); a
+candidate carrying one is measured under ``kernels.forced_backend``.
+The sm90 kernels' tiles are compile-time constants, so the roofline
+counts the same schedule for every block size.
 
 Pruning order (cheapest test first):
 
@@ -58,8 +59,15 @@ _ACT_FLOATS_PER_TOKEN_LAYER = {
 }
 _LIVE_LAYER_FLOATS_PER_TOKEN = 16.0
 
-_NO_BACKENDS = ("the kernel-registry backend dimension waits for the "
-                "registry (ROADMAP.md A6)")
+
+def _check_backends(backends):
+    """The backend dimension takes the kernel registry's names."""
+    from ..kernels.registry import BACKENDS
+
+    bad = [b for b in backends or () if str(b) not in BACKENDS]
+    if bad:
+        raise ValueError(f"unknown kernel backend(s) {bad} (valid: "
+                         f"{', '.join(BACKENDS)})")
 
 
 def _canon_dtype(dtype):
@@ -132,9 +140,16 @@ def attention_candidates(seq_len, d_head, n_head, block_caps=None,
     product without its ``diag_w``.  ``block_q_caps`` (default
     ``block_caps``) narrows ``block_q``, which changes nothing the card
     runs: a search that passes one value measures the ``block_k`` routes
-    alone."""
-    if backends:
-        raise ValueError(f"backends={backends!r}: {_NO_BACKENDS}")
+    alone.
+
+    ``backends`` adds the kernel-registry choice as a dimension, each
+    candidate carrying ``"backend"``: ``cuda`` takes the geometry above;
+    ``triton`` blocks clamped to its ``MAX_BLOCK`` of 128 (deduplicated)
+    and no ``packed`` (a view there, as the reference ignores it); any
+    other backend (``torch_ref``) one candidate with the default blocks.
+    None keeps the list without the key (resolution left to env and
+    auto)."""
+    _check_backends(backends)
     packs = [None]
     if include_packed and packed_sub_heads(n_head, d_head) is not None:
         packs = [True, False]
@@ -143,7 +158,29 @@ def attention_candidates(seq_len, d_head, n_head, block_caps=None,
         for bk in _block_choices(seq_len, block_caps):
             for p in packs:
                 geo.append({"block_q": bq, "block_k": bk, "packed": p})
-    return geo
+    if not backends:
+        return geo
+    out = []
+    for b in backends:
+        b = str(b)
+        if b == "cuda":
+            out.extend(dict(g, backend=b) for g in geo)
+        elif b == "triton":
+            from ..kernels.triton_attention import MAX_BLOCK
+
+            clamp = lambda caps: tuple(  # noqa: E731
+                min(int(c), MAX_BLOCK)
+                for c in (caps or (256, 512, 1024, 2048)))
+            for bq in _block_choices(seq_len,
+                                     clamp(block_q_caps or block_caps)):
+                for bk in _block_choices(seq_len, clamp(block_caps)):
+                    out.append({"block_q": bq, "block_k": bk,
+                                "packed": None, "backend": b})
+        else:
+            out.append({"block_q": _pick_block(seq_len, 1024),
+                        "block_k": _pick_block(seq_len, 1024),
+                        "packed": None, "backend": b})
+    return out
 
 
 def schedule_candidates(seq_len, d_head, n_head, block_caps=None,
@@ -192,10 +229,11 @@ def paged_attention_candidates(num_table_blocks, slots=None, n_head=None,
     1, the powers of two up to ``NB``, and ``paged_splits``' own count
     (given ``slots`` and ``n_head``), each as the count of runs the split
     kernel launches (``split_entries``), deduplicated.  The JAX package's
-    ``block_step`` (its XLA scan) and ``backend`` dimensions have no
-    counterpart here; ``backends=`` raises."""
-    if backends:
-        raise ValueError(f"backends={backends!r}: {_NO_BACKENDS}")
+    ``block_step`` (its XLA scan) has no counterpart here.  ``backends``
+    adds the registry's dimension: ``cuda`` takes the split counts, each
+    other backend one candidate ``{"splits": None, "backend": b}`` (the
+    Triton kernel and the plain scan fix their own iteration)."""
+    _check_backends(backends)
     nb = max(1, int(num_table_blocks))
     want = [1]
     p = 2
@@ -204,8 +242,17 @@ def paged_attention_candidates(num_table_blocks, slots=None, n_head=None,
         p *= 2
     if slots is not None and n_head is not None:
         want.append(paged_splits(int(slots), int(n_head), nb)[0])
-    return [{"splits": n}
-            for n in sorted({split_entries(nb, w)[0] for w in want})]
+    counts = [{"splits": n}
+              for n in sorted({split_entries(nb, w)[0] for w in want})]
+    if not backends:
+        return counts
+    out = []
+    for b in backends:
+        if str(b) == "cuda":
+            out.extend(dict(c, backend="cuda") for c in counts)
+        else:
+            out.append({"splits": None, "backend": str(b)})
+    return out
 
 
 def spec_candidates(max_len, ks=(1, 2, 3, 4, 6, 8)):

@@ -413,7 +413,7 @@ def test_lints_fold_in_once_a_step_and_the_table_once_a_batch(monkeypatch):
     def boom(*_a, **_k):
         raise RuntimeError("planted")
 
-    monkeypatch.setattr(hlo_tools, "kernel_backends", boom)
+    monkeypatch.setattr(hlo_tools, "kernel_families", boom)
     out = run(5)
     assert out[0].shape == (5, 2) and errs.value == e0 + 1
     assert exe.last_step_cost["lint_findings"] == first["lint_findings"]

@@ -95,11 +95,13 @@ def test_product_flops_of_the_recurrent_and_conv_models():
 
 def test_program_workload_key_is_the_references():
     from paddle_tpu.kernels import registry as jreg
+    from paddle_tpu_torch.kernels import registry as treg
 
     for policy in (None, "selective"):
         tmain, _s, _o = _gpt(tpt, ttr, policy)
         jmain, _s, _o = _gpt(pt, jtr, policy)
         jreg.reset_selected()          # no kernel resolved: no |kb= token
+        treg.reset_selected()
         want = jattr.program_workload_key(jmain)
         got = attr.program_workload_key(tmain, device="cpu")
         assert got == want and got.startswith("op=step|t=32|dh=32|h=2")
@@ -292,13 +294,15 @@ def test_reporter_jsonl_carries_the_fold_in(tmp_path):
     for s in runlog.read_jsonl(path, event="step"):
         assert s["attr_coverage"] == 1.0 and s["attr_top"][0][0] in (
             "elementwise", "matmul", "pallas", "reduce")
-        assert s["attr_workload"].endswith("remat=selective")
+        assert s["attr_workload"].endswith("remat=selective|kb=torch_ref")
         assert s["attr_model_err_pct"] == attr.reconcile(
             exe.last_attribution, 0.05)["err_pct"]
         assert s["attr_classes"]["pallas"][0] > 0
         assert s["lint_findings"] == 0 and s["lint_errors"] == 0
         assert s["costmodel"] == {"mode": "analytic"}
-        assert s["kernel_backends"] == {"flash_attention": "plain",
+        assert s["kernel_backends"] == {"flash_attention": "torch_ref",
+                                        "fused_ce": "torch_ref"}
+        assert s["kernel_families"] == {"flash_attention": "plain",
                                         "fused_ce": "plain"}
         assert s["bytes_accessed"] == exe.last_attribution["bytes_total"]
 

@@ -57,8 +57,10 @@ def test_attribute_profile_on_a_real_step():
                 return_numpy=False)
 
     step(0)
-    assert exe.last_step_cost["kernel_backends"] == {
+    assert exe.last_step_cost["kernel_families"] == {
         "flash_attention": "sm90", "fused_ce": "sm90"}
+    assert exe.last_step_cost["kernel_backends"] == {
+        "flash_attention": "cuda", "fused_ce": "cuda"}
     tab = attr.attribute_profile(step, device="cuda")
     assert tab["accounted_share"] >= 0.95, tab["unmatched"]
     assert tab["classes"]["pallas"]["calls"] >= 4

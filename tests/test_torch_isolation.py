@@ -416,7 +416,9 @@ def test_kernel_wrappers_and_counters_are_registered():
         "flash_attention_fwd", "flash_attention_bwd",
         "flash_attention_bwd_delta", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv",
-        "fused_ce_fwd", "fused_ce_dx", "fused_ce_dw", "bottleneck"}
+        "fused_ce_fwd", "fused_ce_dx", "fused_ce_dw", "bottleneck",
+        "paged_attention_triton", "flash_attention_triton_fwd",
+        "flash_attention_triton_dq", "flash_attention_triton_dkv"}
     assert kernels.launch_counts() == {nm: fn.launches
                                        for nm, fn in kernels.WRAPPERS.items()}
     for fn in kernels.WRAPPERS.values():
@@ -435,6 +437,8 @@ def test_kernel_names_are_the_global_functions_of_the_sources():
         text = re.sub(r"__launch_bounds__\((?:[^()]|\([^()]*\))*\)", "",
                       src.read_text())
         found |= set(re.findall(r"__global__\s+void\s+(\w+)", text))
+    triton_src = (PORT / "kernels" / "triton_attention.py").read_text()
+    found |= set(re.findall(r"@triton\.jit\s+def\s+(\w+)", triton_src))
     assert found == set(kernels.KERNEL_NAMES)
     assert kernels.hand_written(
         "void flash_bwd_sm90_fused_kernel<true>(CUtensorMap)") == \

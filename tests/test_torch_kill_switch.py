@@ -18,6 +18,7 @@ from paddle_tpu.models import transformer as jtr
 from paddle_tpu.observability import metrics as jobs
 from paddle_tpu.serving import ServingEngine as JaxServingEngine
 from paddle_tpu.serving import speculative as jspec
+from paddle_tpu_torch import kernels
 from paddle_tpu_torch.observability import flight
 from paddle_tpu_torch.observability import metrics as tobs
 from paddle_tpu_torch.observability import trace
@@ -79,7 +80,10 @@ def fresh_serving_metrics():
 def spies(monkeypatch):
     """Counts of calls into each attention route of the port."""
     calls = {"paged_attention": 0, "gather": 0}
-    paged, gather = batched_decode.paged_attention, batched_decode._gather_kv
+    # the CPU's paged_attention backend (the kernel registry resolves it
+    # once a step callable), and the gather spelling's helper
+    impl = kernels.get_kernel("paged_attention", "torch_ref").impl
+    paged, gather = impl.call, batched_decode._gather_kv
 
     def spy_paged(*a, **kw):
         calls["paged_attention"] += 1
@@ -89,7 +93,7 @@ def spies(monkeypatch):
         calls["gather"] += 1
         return gather(*a)
 
-    monkeypatch.setattr(batched_decode, "paged_attention", spy_paged)
+    monkeypatch.setattr(impl, "call", staticmethod(spy_paged))
     monkeypatch.setattr(batched_decode, "_gather_kv", spy_gather)
     return calls
 

@@ -219,8 +219,9 @@ def test_remat_recomputes_only_what_the_policy_wraps(monkeypatch,
     cfg = _cfg()
     batches = _batches(4)[:1]
     calls = []
-    real = tfa.flash_fwd
-    monkeypatch.setattr(tfa, "flash_fwd",
+    # the CPU's flash backend (torch_ref) runs the plain forward
+    real = tfa.flash_attention_ref
+    monkeypatch.setattr(tfa, "flash_attention_ref",
                         lambda *a, **kw: calls.append(1) or real(*a, **kw))
     init = reference_runs[1][None]["init"]
     counts = {}

@@ -51,12 +51,16 @@ def _trainer_rows():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    # the JAX package's runs on its xla_ref kernels; the port's (which
+    # reads the same variable, naming its own backends) on auto
+    tmp = tmp_path_factory.mktemp("mesh_ckpt")
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("PADDLE_TPU_KERNEL_BACKEND", "xla_ref")
-        return _runs(tmp_path_factory.mktemp("mesh_ckpt"))
+        jax_runs = _jax_runs(tmp)
+    return _runs(tmp, *jax_runs)
 
 
-def _runs(tmp):
+def _jax_runs(tmp):
     refs = {o: _reference(o) for o in ("adam", "momentum")}
     state = {o: r[0] for o, r in refs.items()}
     # the JAX package's checkpoint of its startup state
@@ -67,12 +71,17 @@ def _runs(tmp):
         pt.io.save_persistables(exe, str(tmp / "jax_ckpt"), main)
     jax_state = {v.name: np.asarray(scope.get(v.name))
                  for v in main.persistable_vars()}
+    return refs, jax_state, _jax_trainer(state["adam"])
+
+
+def _runs(tmp, refs, jax_state, jax_trainer):
+    state = {o: r[0] for o, r in refs.items()}
     ranks = W.spawn(4, W.checkpoint_and_trainer, str(tmp / "store"),
                     state, _feeds(), str(tmp / "jax_ckpt"),
                     str(tmp / "port_ckpt"), _trainer_rows(), init=False)
     port = {"momentum": _port_unsharded(state["momentum"], "momentum")}
     return {"refs": refs, "port": port, "ranks": ranks, "tmp": tmp,
-            "jax_state": jax_state, "jax_trainer": _jax_trainer(state["adam"])}
+            "jax_state": jax_state, "jax_trainer": jax_trainer}
 
 
 def _jax_trainer(state):

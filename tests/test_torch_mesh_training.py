@@ -116,13 +116,15 @@ def _tp_inputs():
 
 @pytest.fixture(scope="module")
 def runs():
+    # the JAX package's runs on its xla_ref kernels; the port's (which
+    # reads the same variable, naming its own backends) on auto
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("PADDLE_TPU_KERNEL_BACKEND", "xla_ref")
-        return _runs()
+        refs = {o: _reference(o) for o in ("adam",)}
+    return _runs(refs)
 
 
-def _runs():
-    refs = {o: _reference(o) for o in ("adam",)}
+def _runs(refs):
     state = {o: r[0] for o, r in refs.items()}
     flash, ce = _tp_inputs()
     ranks = W.spawn(8, _both, CONFIGS, state, _feeds(), flash, ce)

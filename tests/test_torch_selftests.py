@@ -11,7 +11,8 @@ the CPU, through ``paddle_tpu_torch.__main__.main``.
   returns the reference's codes: 0 clean, 1 on error findings, 2 under
   ``--strict``;
 * a JAX-package flag that is not ported exits 2 naming its ROADMAP.md
-  item, and is not ignored;
+  item, and is not ignored (``--kernels-selftest`` runs in
+  ``tests/test_torch_kernel_registry.py``);
 * ``dump_config`` prints what the JAX package's prints for the same
   config, and ``merge_model`` writes the same tar members.
 """
@@ -31,6 +32,8 @@ PORTED = ("--metrics-selftest", "--memory-selftest", "--lint-selftest",
           "--spec-selftest")
 # the flags that take their own arguments
 ARGV_FLAGS = ("--bench-history", "--lint")
+# run in a subprocess by tests/test_torch_kernel_registry.py
+ELSEWHERE = ("--kernels-selftest",)
 
 
 @pytest.fixture(autouse=True)
@@ -57,8 +60,8 @@ def test_dispatch_order_is_the_references():
     assert flags.index("--resilience-selftest") < flags.index(
         "--tune-selftest") < flags.index("--spec-selftest")
     assert {f for f, fn in SELFTESTS if fn is None} == set(_UNPORTED) == {
-        "--multichip-selftest", "--sharding-selftest", "--kernels-selftest"}
-    assert set(PORTED) | set(ARGV_FLAGS) == {
+        "--multichip-selftest", "--sharding-selftest"}
+    assert set(PORTED) | set(ARGV_FLAGS) | set(ELSEWHERE) == {
         f for f, fn in SELFTESTS if fn is not None}
     assert _take_device(["--tune-selftest"]) is None          # the card
     assert _take_device(["--device=cpu", "--spec-selftest"]) == "cpu"

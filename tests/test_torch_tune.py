@@ -31,7 +31,7 @@ import paddle_tpu_torch as tpt
 from paddle_tpu import tune as jtune
 from paddle_tpu.models import transformer as jtr
 from paddle_tpu.serving import ServingEngine as JaxServingEngine
-from paddle_tpu_torch import tune
+from paddle_tpu_torch import kernels, tune
 from paddle_tpu_torch.kernels import paged_attention as tpa
 from paddle_tpu_torch.models import transformer as ttr
 from paddle_tpu_torch.observability import get_registry
@@ -167,9 +167,12 @@ def test_serving_and_spec_candidates_are_the_references():
 
 
 def test_backends_dimension_raises_naming_the_registry():
-    with pytest.raises(ValueError, match="A6"):
-        tune.attention_candidates(64, 32, 2, backends=("triton",))
-    with pytest.raises(ValueError, match="A6"):
+    """The backend dimension takes the port's registry names; the JAX
+    package's ``xla_ref`` raises naming them (the dimension itself:
+    ``tests/test_torch_kernel_registry.py``)."""
+    with pytest.raises(ValueError, match="torch_ref"):
+        tune.attention_candidates(64, 32, 2, backends=("xla_ref",))
+    with pytest.raises(ValueError, match="torch_ref"):
         tune.paged_attention_candidates(8, backends=("xla_ref",))
 
 
@@ -449,18 +452,20 @@ def test_tuned_split_count_reaches_only_the_call_it_was_measured_at(
     window (``k + 1`` tokens, past the split family's 8 at k=8) keep the
     rule.  The speculative engine at k=8 serves the plain engine's
     tokens."""
-    from paddle_tpu_torch.serving import batched_decode as tbd
     from paddle_tpu_torch.serving import speculative as tspec
 
     _put(tune, cache_file, {_PAGED_KEY: {"splits": 3}})
     calls = []
-    real = tbd.paged_attention
+    # the CPU's paged_attention backend, which the kernel registry
+    # resolves once a step callable
+    impl = kernels.get_kernel("paged_attention", "torch_ref").impl
+    real = impl.call
 
     def spy(q, pool_k, pool_v, table, pos, splits=None):
         calls.append((tuple(q.shape), pool_k.shape[1], splits))
         return real(q, pool_k, pool_v, table, pos, splits=splits)
 
-    monkeypatch.setattr(tbd, "paged_attention", spy)
+    monkeypatch.setattr(impl, "call", staticmethod(spy))
     if kw:
         kw = dict(kw, draft_params=tspec.depth_draft(params, 1))
     eng = ServingEngine(params, NL, NH, DM, max_len=TS, max_slots=3,

@@ -134,24 +134,25 @@ def ring_cases(rank, world, cases):
     """``ring_attention`` on an sp=world mesh for each case ``(key, q, k,
     v, g, causal, impl)`` (whole numpy inputs, each rank taking its
     block): the rank's output block, its dq/dk/dv blocks, its log's
-    kinds, and its forward-kernel launches by the flash wrapper (the CPU
-    path counts no launch, so the plain version's calls are counted)."""
-    from paddle_tpu_torch import parallel
-    from paddle_tpu_torch.kernels import flash_attention as fa
+    kinds, and its flash forward calls (the CPU path counts no launch, so
+    the calls of the backend the kernel registry resolves on the CPU,
+    ``torch_ref``, are counted)."""
+    from paddle_tpu_torch import kernels, parallel
     from paddle_tpu_torch.parallel.collectives import mesh_comm
 
     ra = _module("ring_attention")
     mesh = parallel.make_mesh({"sp": world})
     comm = mesh_comm(mesh)
     calls = []
-    real = fa.flash_attention_with_lse
+    impl = kernels.get_kernel("flash_attention", "torch_ref").impl
+    real = impl.call_with_lse
 
     def counted(*a, **kw):
         calls.append(kw.get("causal"))
         return real(*a, **kw)
 
     out = {}
-    with mock.patch.object(fa, "flash_attention_with_lse", counted):
+    with mock.patch.object(impl, "call_with_lse", staticmethod(counted)):
         for key, q, k, v, g, causal, impl in cases:
             calls.clear()
             loc = [comm.block(torch.from_numpy(a), "sp", 1).contiguous()
